@@ -1,0 +1,298 @@
+"""Layered runtime configuration.
+
+Reference analog: libs/core/ini (section.key ini model),
+libs/core/runtime_configuration (the merged config object every subsystem
+reads), libs/full/command_line_handling (--hpx:* CLI overlay).
+
+Merge order (later wins), mirroring HPX:
+  1. compiled-in defaults (DEFAULTS below)
+  2. ini files:  ./hpx_tpu_torch.ini, $HPX_TPU_TORCH_INI
+  3. environment variables:  HPX_TPU_TORCH_<SECTION>__<KEY>=value
+     (double underscore separates section path from key; single underscores
+      inside section names map to dots:
+      HPX_TPU_TORCH_CUDA__WATCHER_THREADS -> hpx.cuda.watcher_threads)
+  4. command line:  --hpx:ini=section.key=value plus sugar flags
+     (--hpx:threads=N, --hpx:localities=N, --hpx:locality=N)
+  5. programmatic overrides via Configuration.set()
+
+Counterpart of ``hpx_tpu.core.config``; the file and variable names carry
+this package's name so the two packages never read each other's settings.
+
+Every subsystem reads one resolved `Configuration` object — same discipline
+as HPX's runtime_configuration.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
+
+from . import config_schema
+from .errors import BadParameter, ReservedConfigKey, UndeclaredConfigKey
+
+# Compiled-in defaults (HPX: generated defaults in runtime_configuration.cpp).
+# Sourced from the central key registry — every key, its type, default and
+# doc string live in config_schema.py; hpxlint HPX014 keeps the registry
+# and the tree's cfg.get*() read sites in sync.
+DEFAULTS: Dict[str, str] = config_schema.defaults()
+
+
+def _parse_ini_text(text: str) -> Dict[str, str]:
+    """Parse `[section]\nkey = value` ini text into flat dotted keys."""
+    out: Dict[str, str] = {}
+    section = ""
+    for raw in text.splitlines():
+        line = raw.strip()
+        if not line or line.startswith((";", "#", "//")):
+            continue
+        if line.startswith("[") and line.endswith("]"):
+            section = line[1:-1].strip()
+            continue
+        if "=" not in line:
+            raise BadParameter(f"malformed ini line: {raw!r}", "config")
+        key, _, value = line.partition("=")
+        full = f"{section}.{key.strip()}" if section else key.strip()
+        out[full] = value.strip()
+    return out
+
+
+def _env_overlay(environ: Mapping[str, str]) -> Dict[str, str]:
+    out: Dict[str, str] = {}
+    prefix = "HPX_TPU_TORCH_"
+    for name, value in environ.items():
+        if (not name.startswith(prefix)
+                or name in ("HPX_TPU_TORCH_INI",
+                            "HPX_TPU_TORCH_IGNORE_BATCH_ENV")):
+            continue
+        rest = name[len(prefix):]
+        if "__" in rest:
+            section, _, key = rest.partition("__")
+            dotted = "hpx." + section.lower().replace("_", ".") + "." + key.lower()
+        else:
+            dotted = "hpx." + rest.lower()
+        out[dotted] = value
+    return out
+
+
+def _cli_overlay(argv: Iterable[str]) -> Tuple[Dict[str, str], List[str]]:
+    """Extract --hpx:* flags; return (overrides, remaining argv).
+
+    Sugar flags mirror HPX's CLI (libs/full/command_line_handling), cut
+    to the keys this package declares:
+      --hpx:threads=N       -> hpx.os_threads
+      --hpx:localities=N    -> hpx.localities
+      --hpx:locality=N      -> hpx.locality
+      --hpx:ini=sec.key=v   -> raw override
+      --hpx:ignore-batch-env   skip the batch-environment layer
+    """
+    sugar = {
+        "threads": "hpx.os_threads",
+        "localities": "hpx.localities",
+        "locality": "hpx.locality",
+    }
+    overrides: Dict[str, str] = {}
+    remaining: List[str] = []
+    for arg in argv:
+        if not arg.startswith("--hpx:"):
+            remaining.append(arg)
+            continue
+        body = arg[len("--hpx:"):]
+        key, sep, value = body.partition("=")
+        if key == "ini":
+            k, _, v = value.partition("=")
+            overrides[k.strip()] = v.strip()
+        elif key == "ignore-batch-env":
+            pass                                      # handled at init
+        elif key in sugar:
+            if not sep:
+                raise BadParameter(
+                    f"--hpx:{key} requires a value: --hpx:{key}=VALUE", "config")
+            overrides[sugar[key]] = value
+        else:
+            raise BadParameter(f"unknown --hpx: option: {arg}", "config")
+    return overrides, remaining
+
+
+class Configuration:
+    """The resolved, layered configuration object (thread-safe).
+
+    ``strict=True`` turns the config_schema registry into a runtime
+    contract: reading or setting an undeclared ``hpx.``-prefixed key
+    raises BadParameter instead of silently answering the default, and
+    setting a reserved key raises ReservedConfigKey. Keys outside the
+    ``hpx.`` namespace are never policed (application-private)."""
+
+    def __init__(self,
+                 argv: Optional[Iterable[str]] = None,
+                 overrides: Optional[Mapping[str, Any]] = None,
+                 environ: Optional[Mapping[str, str]] = None,
+                 ini_files: Optional[Iterable[str]] = None,
+                 strict: bool = False):
+        env = os.environ if environ is None else environ
+        if argv is not None:
+            argv = list(argv)     # may be a generator; we scan it twice
+        self._lock = threading.Lock()
+        self._strict = bool(strict)
+        # monotonically bumped by every set(): long-lived readers (a
+        # live ContinuousServer) cache it and re-read their knobs at
+        # the next safe boundary when it moved — cheap change
+        # detection without re-reading every key every step
+        self._gen = 0
+        self._data: Dict[str, str] = dict(DEFAULTS)
+
+        # batch scheduler layer (above compiled defaults, below ini/env/
+        # CLI): srun/mpirun/TPU-pod launches discover localities without
+        # flags, as the reference does (libs/core/batch_environments).
+        # Opt out with --hpx:ignore-batch-env /
+        # HPX_TPU_TORCH_IGNORE_BATCH_ENV.
+        ignore_batch = env.get("HPX_TPU_TORCH_IGNORE_BATCH_ENV",
+                               "") not in ("", "0")
+        if argv is not None and "--hpx:ignore-batch-env" in argv:
+            ignore_batch = True
+        if not ignore_batch:
+            from ..runtime.batch_environments import detect as _batch_detect
+            batch = _batch_detect(env)
+            if batch.found():
+                self._data.update(batch.config_overrides())
+
+        files = list(ini_files) if ini_files is not None else []
+        if ini_files is None:
+            if os.path.exists("hpx_tpu_torch.ini"):
+                files.append("hpx_tpu_torch.ini")
+            extra = env.get("HPX_TPU_TORCH_INI")
+            if extra:
+                if not os.path.exists(extra):
+                    raise BadParameter(
+                        f"HPX_TPU_TORCH_INI points at nonexistent file: {extra}",
+                        "config")
+                files.append(extra)
+        for path in files:
+            with open(path, "r", encoding="utf-8") as fh:
+                self._data.update(_parse_ini_text(fh.read()))
+
+        self._data.update(_env_overlay(env))
+
+        self.remaining_argv: List[str] = []
+        if argv is not None:
+            cli, self.remaining_argv = _cli_overlay(argv)
+            self._data.update(cli)
+
+        if overrides:
+            for k, v in overrides.items():
+                self._data[str(k)] = str(v)
+
+    def _check_declared(self, key: str) -> None:
+        if (self._strict and key.startswith("hpx.")
+                and not config_schema.is_declared(key)):
+            raise UndeclaredConfigKey(
+                f"undeclared config key {key!r} (strict mode): declare it "
+                "in hpx_tpu_torch/core/config_schema.py first", "config")
+
+    def _check_settable(self, key: str) -> None:
+        """Strict mode: a ``set()`` of a declared-but-reserved key
+        fails with a RESERVED-specific type — the key exists only for
+        HPX interface parity (no reader), so the write would be
+        silently ignored; that is a different mistake from a typo'd
+        key and gets a different error. Reserved keys still flow in
+        from ini/CLI layers (reference invocations keep working) —
+        only runtime set() is policed."""
+        if not (self._strict and key.startswith("hpx.")):
+            return
+        entry = config_schema.lookup(key)
+        if entry is not None and entry.reserved:
+            raise ReservedConfigKey(
+                f"config key {key!r} is declared reserved=True (HPX "
+                "parity, no runtime reader): a set() would be silently "
+                "ignored. Wire a reader and drop the reserved flag in "
+                "hpx_tpu_torch/core/config_schema.py to make it settable",
+                "config")
+
+    # -- queries ------------------------------------------------------------
+    def get(self, key: str, default: Optional[str] = None) -> Optional[str]:
+        self._check_declared(key)
+        with self._lock:
+            return self._data.get(key, default)
+
+    def get_int(self, key: str, default: int = 0) -> int:
+        v = self.get(key)
+        if v is None or v == "auto":
+            return default
+        return int(v)
+
+    def get_bool(self, key: str, default: bool = False) -> bool:
+        v = self.get(key)
+        if v is None:
+            return default
+        return v.strip().lower() in ("1", "true", "yes", "on")
+
+    def get_float(self, key: str, default: float = 0.0) -> float:
+        v = self.get(key)
+        if v is None or v == "auto":
+            return default
+        try:
+            return float(v)
+        except ValueError as e:
+            raise BadParameter(f"{key}={v!r} is not a float", "config") from e
+
+    def set(self, key: str, value: Any) -> None:
+        self._check_declared(str(key))
+        self._check_settable(str(key))
+        with self._lock:
+            self._data[str(key)] = str(value)
+            self._gen += 1
+
+    def generation(self) -> int:
+        """Change counter: bumped by every set(). A live server caches
+        this and re-reads its tunable knobs at the next flush boundary
+        when it moved (see ContinuousServer._reload_knobs)."""
+        with self._lock:
+            return self._gen
+
+    def section(self, prefix: str) -> Dict[str, str]:
+        """All keys under `prefix.` with the prefix stripped."""
+        p = prefix.rstrip(".") + "."
+        with self._lock:
+            return {k[len(p):]: v for k, v in self._data.items() if k.startswith(p)}
+
+    def dump(self) -> str:
+        """--hpx:dump-config analog."""
+        with self._lock:
+            return "\n".join(f"{k} = {v}" for k, v in sorted(self._data.items()))
+
+    def os_threads(self) -> int:
+        """Host pool width. Unlike the reference (one OS thread per core
+        running compute), our pool threads ORCHESTRATE — they block on
+        futures/device fences while the GPU does the compute — so
+        'auto' floors at 4: on a 1-core host a single thread would
+        let any blocking task starve the whole control plane."""
+        v = self.get("hpx.os_threads", "auto")
+        if v == "auto":
+            return max(4, os.cpu_count() or 1)
+        return max(1, int(v))
+
+
+# -- process-wide resolved configuration ------------------------------------
+# "Every subsystem reads one resolved config object" (HPX
+# runtime_configuration discipline): subsystems call runtime_config()
+# instead of constructing fresh Configurations (which would re-read ini
+# files/environ and could observe divergent state mid-run).
+_runtime_config: Optional[Configuration] = None
+_runtime_config_lock = threading.Lock()
+
+
+def runtime_config() -> Configuration:
+    global _runtime_config
+    if _runtime_config is None:
+        with _runtime_config_lock:
+            if _runtime_config is None:
+                _runtime_config = Configuration()
+    return _runtime_config
+
+
+def set_runtime_config(cfg: Optional[Configuration]) -> None:
+    """Install (or with None, reset) the process-wide configuration —
+    used by runtime init with CLI argv, and by tests."""
+    global _runtime_config
+    with _runtime_config_lock:
+        _runtime_config = cfg

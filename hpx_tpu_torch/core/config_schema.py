@@ -1,0 +1,84 @@
+"""Central declaration of every ``hpx.*`` configuration key the port reads.
+
+Reference analog: HPX's generated ini default groups in
+runtime_configuration.cpp — every knob the runtime understands is
+declared in one place with its type and default, so a typo'd key is a
+startup error instead of a silently-ignored setting.
+
+Counterpart of ``hpx_tpu.core.config_schema``, cut to the keys this
+package reads. The device keys move from ``hpx.tpu.*`` to ``hpx.cuda.*``.
+``Configuration(strict=True)`` enforces the registry at runtime.
+
+Keys marked ``reserved=True`` are written by a configuration layer (the
+batch-environment detector) but nothing in the package reads them yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+_VALID_TYPES = ("str", "int", "bool", "float")
+
+
+@dataclasses.dataclass(frozen=True)
+class ConfigKey:
+    """One declared configuration knob."""
+
+    key: str
+    type: str                 # "str" | "int" | "bool" | "float"
+    default: Optional[str]    # None = no compiled-in default
+    doc: str
+    reserved: bool = False    # declared but not read (yet)
+
+
+_SCHEMA: Dict[str, ConfigKey] = {}
+
+
+def declare(key: str, type: str, default: Optional[str], doc: str,
+            reserved: bool = False) -> ConfigKey:
+    """Register one knob; duplicate keys and unknown types are errors."""
+    if type not in _VALID_TYPES:
+        raise ValueError(f"config key {key!r}: bad type {type!r} "
+                         f"(expected one of {_VALID_TYPES})")
+    if key in _SCHEMA:
+        raise ValueError(f"config key {key!r} declared twice")
+    entry = ConfigKey(key, type, default, doc, reserved)
+    _SCHEMA[key] = entry
+    return entry
+
+
+def is_declared(key: str) -> bool:
+    return key in _SCHEMA
+
+
+def lookup(key: str) -> Optional[ConfigKey]:
+    return _SCHEMA.get(key)
+
+
+def all_keys() -> Dict[str, ConfigKey]:
+    """Copy of the full registry (key -> ConfigKey)."""
+    return dict(_SCHEMA)
+
+
+def defaults() -> Dict[str, str]:
+    """The compiled-in defaults map consumed by ``config.DEFAULTS`` —
+    exactly the declared keys that carry a non-None default."""
+    return {k: e.default for k, e in _SCHEMA.items()
+            if e.default is not None}
+
+
+# -- core / scheduling ------------------------------------------------------
+declare("hpx.os_threads", "str", "auto", "host worker threads (auto = cores, floor 4)")
+declare("hpx.localities", "int", "1", "number of localities in the launch",
+        reserved=True)
+declare("hpx.locality", "int", "0", "this process's locality id",
+        reserved=True)
+declare("hpx.parcel.address", "str", "127.0.0.1", "parcelport bind address",
+        reserved=True)
+
+# -- CUDA backend -----------------------------------------------------------
+declare("hpx.cuda.watcher_threads", "int", "2",
+        "future-completion watcher pool width")
+declare("hpx.cuda.eager_futures", "bool", "1",
+        "device futures ready at dispatch")

@@ -1,0 +1,118 @@
+"""hpx::dataflow + hpx::unwrapping — DAG construction without blocking.
+
+Reference analog: libs/core/pack_traversal (traverse_pack, unwrapping) and
+the dataflow frame in async_combinators: dataflow(f, a, b)
+traverses its argument pack for futures (including futures nested inside
+lists/tuples/dicts), attaches a callback to each non-ready one, and
+schedules f once the last dependency fires — no thread ever blocks waiting.
+
+This is the host-side DAG engine that keeps the device busy. With
+CudaExecutor's eager device futures, a time-stepped dataflow graph
+(1d_stencil_4 style) degenerates into a straight-line launch loop — the
+host enqueues kernels as fast as it can while the GPU works through them;
+dependencies between in-flight tensors are enforced by stream order, not
+by host synchronization. Counterpart of ``hpx_tpu.futures.dataflow``.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Callable, List
+
+from .async_ import Launch
+from .future import Future, SharedState, is_future
+from ..runtime.threadpool import default_pool
+
+
+def _collect_futures(obj: Any, acc: List[Future]) -> None:
+    """Deep traversal of the argument pack (tuple/list/dict nesting)."""
+    if is_future(obj):
+        acc.append(obj)
+    elif isinstance(obj, (list, tuple)):
+        for x in obj:
+            _collect_futures(x, acc)
+    elif isinstance(obj, dict):
+        for x in obj.values():
+            _collect_futures(x, acc)
+
+
+def _substitute(obj: Any, unwrap: bool) -> Any:
+    """Replace ready futures by their value (unwrapping) or leave them."""
+    if is_future(obj):
+        return obj.get() if unwrap else obj
+    if isinstance(obj, list):
+        return [_substitute(x, unwrap) for x in obj]
+    if isinstance(obj, tuple):
+        return tuple(_substitute(x, unwrap) for x in obj)
+    if isinstance(obj, dict):
+        return {k: _substitute(v, unwrap) for k, v in obj.items()}
+    return obj
+
+
+def dataflow(fn: Callable[..., Any], *args: Any,
+             policy: Launch = Launch.async_, executor: Any = None,
+             unwrap: bool = False, **kwargs: Any) -> Future:
+    """Run fn(*args) once all futures in args are ready; returns Future.
+
+    By default fn receives the *futures themselves* (now ready) — HPX
+    semantics. Use unwrap=True (or wrap fn in `unwrapping`) to receive
+    their values instead. If fn returns a Future it is unwrapped into the
+    result (dataflow returns future<T>, not future<future<T>>).
+    """
+    deps: List[Future] = []
+    _collect_futures(args, deps)
+    _collect_futures(kwargs, deps)
+
+    out: SharedState = SharedState()
+
+    def fire() -> None:
+        try:
+            a = _substitute(args, unwrap)
+            kw = _substitute(kwargs, unwrap)
+            out.set_value(fn(*a, **kw))
+        except BaseException as e:  # noqa: BLE001
+            out.set_exception(e)
+
+    def schedule() -> None:
+        if policy is Launch.sync or policy is Launch.fork:
+            fire()
+        elif executor is not None:
+            executor.post(fire)
+        else:
+            default_pool().submit(fire)
+
+    if not deps:
+        schedule()
+        return Future(out)
+
+    remaining = [len(deps)]
+    lock = threading.Lock()
+
+    def on_dep(_st: SharedState) -> None:
+        with lock:
+            remaining[0] -= 1
+            done = remaining[0] == 0
+        if done:
+            schedule()
+
+    for d in deps:
+        d._state.add_callback(on_dep)
+    return Future(out)
+
+
+class unwrapping:
+    """hpx::unwrapping(f): adapter mapping future arguments to values.
+
+    dataflow(unwrapping(f), futs...) == dataflow(f, futs..., unwrap=True).
+    Also usable standalone: unwrapping(f)(future, 3) == f(future.get(), 3).
+    """
+
+    __slots__ = ("_fn",)
+
+    def __init__(self, fn: Callable[..., Any]) -> None:
+        self._fn = fn
+
+    def __call__(self, *args: Any, **kwargs: Any) -> Any:
+        a = _substitute(args, unwrap=True)
+        kw = _substitute(kwargs, unwrap=True)
+        return self._fn(*a, **kw)

@@ -1,0 +1,104 @@
+"""Build the package's CUDA sources into shared libraries and load them.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (sm_90a) into
+``_build/lib<name>_<hash>.so`` inside the package, at first use, and
+loaded with ``ctypes``. The hash covers the source and the flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is. A
+failed build raises: there is no fallback for a CUDA tensor.
+
+The sources have a plain C interface (no PyTorch headers), which keeps a
+build to seconds; the wrappers in ``ops/`` set each function's
+``argtypes`` and ``restype``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    # no mul+add contraction into FMA: the kernels equal their plain
+    # PyTorch versions bit for bit
+    "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",          # registers, shared memory, spills: into the log
+)
+_BUILD_TIMEOUT_S = 600
+
+# name -> {"path", "seconds", "built", "log"} for each library loaded
+BUILD_INFO: Dict[str, dict] = {}
+_libs: Dict[str, ctypes.CDLL] = {}
+_locks: Dict[str, threading.Lock] = {}   # one per source: builds overlap
+_locks_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            f"nvcc not found (looked in {cand} and on PATH): the CUDA "
+            "kernels of hpx_tpu_torch are built on the machine with the GPU")
+    return found
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def _build(name: str, out: Path) -> str:
+    """Compile csrc/<name>.cu into ``out``; return nvcc's output."""
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=_BUILD_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed building {name}.cu (exit {proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        tmp.unlink(missing_ok=True)
+    return proc.stdout + proc.stderr
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+    Safe to call from several threads; different sources build in
+    parallel."""
+    with _locks_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        path = library_path(name)
+        t0 = time.perf_counter()
+        built = not path.exists()
+        log = _build(name, path) if built else ""
+        lib = ctypes.CDLL(str(path))
+        BUILD_INFO[name] = {"path": str(path), "built": built, "log": log,
+                            "seconds": time.perf_counter() - t0}
+        _libs[name] = lib
+        return lib

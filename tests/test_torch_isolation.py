@@ -1,0 +1,74 @@
+"""hpx_tpu_torch stands alone: it imports neither JAX nor hpx_tpu, and it
+runs on the CPU only when the caller asks for it."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import hpx_tpu_torch
+from hpx_tpu_torch import CudaExecutor, Target
+from hpx_tpu_torch.models import stencil1d
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "hpx_tpu_torch"
+FORBIDDEN = re.compile(
+    r"^\s*(?:import\s+jax\b|from\s+jax\b"
+    r"|import\s+hpx_tpu(?!_torch)\b|from\s+hpx_tpu(?!_torch)\b)",
+    re.MULTILINE)
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import hpx_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    hpx_tpu_torch.__path__, 'hpx_tpu_torch.')]\n"
+        "for name in mods:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'hpx_tpu'))\n"
+        "print(len(mods))\n"
+        "sys.exit('loaded: %s' % bad if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 20     # every module was walked
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_imports_jax_or_the_reference(path):
+    found = FORBIDDEN.findall(path.read_text())
+    assert not found, f"{path}: {found}"
+
+
+def test_forbidden_pattern():
+    for line in ("import jax", "from jax import numpy", "import hpx_tpu",
+                 "from hpx_tpu.ops import stencil", "  from hpx_tpu import x"):
+        assert FORBIDDEN.search(line), line
+    for line in ("import hpx_tpu_torch", "from hpx_tpu_torch.ops import x",
+                 "import jaxtyping", "# hpx_tpu.ops.stencil is the reference"):
+        assert not FORBIDDEN.search(line), line
+
+
+def test_cuda_is_the_default_and_the_cpu_is_asked_for(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    p = stencil1d.StencilParams(nx=8, np_=2, nt=1)
+    for make in (CudaExecutor, Target, lambda: stencil1d.init_domain(p),
+                 lambda: stencil1d.stencil_serial(p),
+                 lambda: stencil1d.stencil_fused(p),
+                 lambda: stencil1d.stencil_dataflow(p),
+                 lambda: CudaExecutor(device="cuda:0")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    ex = CudaExecutor(device="cpu")
+    assert ex.target.device == torch.device("cpu")
+    assert stencil1d.init_domain(p, "cpu").device == torch.device("cpu")
+    assert hpx_tpu_torch.cuda_executor is CudaExecutor
