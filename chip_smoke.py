@@ -11,7 +11,11 @@ It needs one card and takes a few minutes, the kernel build included.
    nvcc's register and shared-memory report, and the card's name and
    power limit (nvidia-smi).
 2. Kernel checks: each kernel against its plain PyTorch version on small
-   and ragged shapes, bitwise (tolerance 0).
+   and ragged shapes. The stencil kernels bitwise (tolerance 0); the
+   paged-attention kernels within rtol = atol = 1e-5 for float32 output
+   and rtol = atol = 1e-2 (about one bfloat16 ulp at the outputs'
+   magnitude) for bfloat16 output, over every pool type; an exact-kernel
+   shape above the shared-memory cap must raise.
 3. The main path, through the entry points a user calls, each path with
    the launch counts set to 0 just before it and read just after:
      fused     stencil_fused -> multistep -> multistep_fused (kernel B),
@@ -21,14 +25,38 @@ It needs one card and takes a few minutes, the kernel build included.
                n = 2^28 and at n = 2^20 + 3;
      dataflow  stencil_dataflow over a CudaExecutor, np = 16 partitions of
                2^20, nt = 32, eager and then watched futures.
-   Each kernel's output must equal its plain version on the same inputs
-   bit for bit; the dataflow result must equal stencil_serial; the fused
-   result must conserve the sum, and a small run must agree with a
-   float64 numpy reference.
+     serving   ContinuousServer(paged=True) on cuda:0 at the full width
+               of the repo's serving model (benchmarks/serving_bench.py
+               at --scale 16: vocab 1024, d_model 1024, 8 heads of 128,
+               4 layers, d_ff 4096; random weights from seed 0), on
+               (a) serving_bench's paged mix: 12 requests sharing a
+                   64-token prefix plus 8-token tails, max_new 16-32,
+                   4 slots, smax 160;
+               (b) a long-context mix: 16 prompts of 256-768 tokens,
+                   max_new 64, 8 slots, smax 1024, block_size 16;
+               each in float32 through paged_kernel fused (kernel
+               paged_attention_exact), fused_online (kernel
+               paged_attention_online) and gather, and the dense server;
+               then (b) in bfloat16 with paged_kernel auto (-> fused)
+               beside a bfloat16 gather run.
+   Each stencil kernel's output must equal its plain version on the same
+   inputs bit for bit; the dataflow result must equal stencil_serial;
+   the fused result must conserve the sum, and a small run must agree
+   with a float64 numpy reference. The float32 serving tokens of both
+   kernels must equal the gather run's and the dense server's, the
+   prefix mix must hit the radix tree, and two requests must equal
+   transformer.generate run alone; the bfloat16 run prints its
+   agreement with the bfloat16 gather run, and both kernels are held to
+   their plain versions on the pools it left.
 4. Timing: each kernel at its main-path shape, CUDA events, median of 7
    after warm-up; its plain version, median of 3; and its bound, the
    larger of bytes moved (input read once, output written once) over
-   3.35 TB/s and FP32 operations over 67 TFLOP/s (H100 SXM data sheet).
+   3.35 TB/s and operations over the peak of their type (H100 SXM data
+   sheet: 67 TFLOP/s FP32, 989 TFLOP/s bf16). The paged kernels are
+   timed at the full-width decode shape (B 8, W 1, 8 heads of 128,
+   block 16, S 1024) with bfloat16 and int8 pools, beside
+   F.scaled_dot_product_attention on K/V gathered beforehand (the
+   gather not counted) as a yardstick the port never calls.
 5. Prints {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 
 Exits non-zero, and prints no result line, if CUDA is absent, if the
@@ -46,7 +74,19 @@ import traceback
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, device memory
 FP32_OPS_PER_S = 67e12        # H100 SXM, FP32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM, bf16 tensor cores, dense
 FLOPS_PER_CELL_STEP = 5       # 2u, one add, one sub, one fma (2 operations)
+
+# benchmarks/serving_bench.py:273-277 at --scale 16 (d = 64 * 16)
+SERVE_MODEL = dict(vocab=1024, d_model=1024, n_heads=8, head_dim=128,
+                   n_layers=4, d_ff=4096)
+# paged-attention wrapper -> the TPU kernel its CUDA kernel replaces
+PAGED_KERNELS = {
+    "fused_paged_attention": "hpx_tpu/ops/attention_pallas.py:908",
+    "fused_paged_online_attention": "hpx_tpu/ops/attention_pallas.py:972",
+}
+# (rtol, atol) of a paged kernel against its plain version, by output type
+PAGED_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}
 
 
 def _nvidia_smi() -> str:
@@ -75,17 +115,19 @@ def _cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def _bound(nbytes: float, ops: float) -> tuple:
+def _bound(nbytes: float, ops: float,
+           ops_per_s: float = FP32_OPS_PER_S) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 class Smoke:
     def __init__(self) -> None:
         self.failures = []
-        self.max_abs_err = {"heat_step_blocked": 0.0, "multistep_fused": 0.0}
-        self.launches = {"heat_step_blocked": 0, "multistep_fused": 0}
+        names = ("heat_step_blocked", "multistep_fused", *PAGED_KERNELS)
+        self.max_abs_err = {k: 0.0 for k in names}
+        self.launches = {k: 0 for k in names}
 
     def phase(self, name, fn) -> bool:
         print(f"== {name}", flush=True)
@@ -108,6 +150,24 @@ class Smoke:
                                  f"version, max abs err {err}")
         print(f"   {what}: equal (tolerance 0)", flush=True)
 
+    def expect_close(self, kernel: str, got, want, what: str,
+                     quiet: bool = False) -> float:
+        import torch
+        torch.cuda.synchronize()
+        rtol, atol = PAGED_TOL[str(want.dtype).split(".")[-1]]
+        g, w = got.float(), want.float()
+        err = (g - w).abs().max().item() if got.numel() else 0.0
+        self.max_abs_err[kernel] = max(self.max_abs_err[kernel], err)
+        if (got.shape != want.shape or got.dtype != want.dtype
+                or not torch.allclose(g, w, rtol=rtol, atol=atol)):
+            raise AssertionError(f"{what}: kernel differs from its plain "
+                                 f"version, max abs err {err} (rtol "
+                                 f"{rtol}, atol {atol})")
+        if not quiet:
+            print(f"   {what}: max abs err {err} (rtol {rtol}, atol "
+                  f"{atol})", flush=True)
+        return err
+
 
 def main() -> int:
     import torch
@@ -118,8 +178,12 @@ def main() -> int:
     try:
         import numpy as np
         from hpx_tpu_torch import CudaExecutor, HighResolutionTimer
+        from hpx_tpu_torch.models import serving
         from hpx_tpu_torch.models import stencil1d as s1
+        from hpx_tpu_torch.models import transformer as tf
         from hpx_tpu_torch.ops import _build
+        from hpx_tpu_torch.ops import attention_cuda as ac
+        from hpx_tpu_torch.ops import paged_attention as pa
         from hpx_tpu_torch.ops import stencil as st
     except ImportError as e:
         print(f"chip_smoke: cannot import hpx_tpu_torch: {e}",
@@ -131,7 +195,13 @@ def main() -> int:
     print(f"device: {name}; nvidia-smi: {smi}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     sm = Smoke()
-    kernels = (st.heat_step_blocked, st.multistep_fused)
+    kernels = (st.heat_step_blocked, st.multistep_fused,
+               ac.fused_paged_attention, ac.fused_paged_online_attention)
+    paged = {"fused_paged_attention": (ac.fused_paged_attention,
+                                       ac.plain_paged_attention_exact),
+             "fused_paged_online_attention": (
+                 ac.fused_paged_online_attention,
+                 ac.plain_paged_attention_online)}
 
     # -- 1. build ---------------------------------------------------------------
     def build():
@@ -172,6 +242,72 @@ def main() -> int:
                                 st.plain_multistep(u, 0.3, steps),
                                 f"kernel B n={n} steps={steps}")
     sm.phase("kernel checks", kernel_checks)
+
+    def paged_state(b, maxb, bs, nkv, g, hd, w, pool_dt, q_dt, seed):
+        """Random pools, a shuffled table (logical != physical, block 0
+        never mapped), ragged positions with one slot at 0 and one
+        whose window ends on the last row; (q, k_pool, v_pool, table,
+        pos0, k_scale, v_scale) on the card."""
+        cpu = torch.Generator().manual_seed(seed)
+        nb = b * maxb + 2
+        kp = torch.randn(nb, bs, nkv, hd, generator=cpu)
+        vp = torch.randn(nb, bs, nkv, hd, generator=cpu)
+        table = (torch.randperm(nb - 1, generator=cpu)[:b * maxb] + 1
+                 ).reshape(b, maxb).int()
+        pos = torch.randint(0, maxb * bs - w + 1, (b,), generator=cpu).int()
+        pos[0], pos[-1] = 0, maxb * bs - w
+        q = torch.randn(b, w, nkv * g, hd, generator=cpu).to(q_dt)
+        ks = vs = None
+        if pool_dt in (torch.int8, torch.float8_e4m3fn):
+            (kp, ks), (vp, vs) = (pa.quantize_blocks(kp, pool_dt),
+                                  pa.quantize_blocks(vp, pool_dt))
+        else:
+            kp, vp = kp.to(pool_dt), vp.to(pool_dt)
+        return [None if t is None else t.cuda()
+                for t in (q, kp, vp, table, pos, ks, vs)]
+
+    pool_types = ((torch.float32, torch.float32),
+                  (torch.bfloat16, torch.bfloat16),
+                  (torch.int8, torch.float32), (torch.int8, torch.bfloat16),
+                  (torch.float8_e4m3fn, torch.float32),
+                  (torch.float8_e4m3fn, torch.bfloat16))
+
+    def paged_kernel_checks():
+        # (slots, max_blocks, block_size, kv heads, group g, head_dim, W)
+        shapes = ((3, 4, 8, 2, 1, 64, 1), (3, 3, 16, 2, 2, 128, 2),
+                  (2, 3, 32, 1, 4, 64, 5), (5, 7, 16, 2, 1, 128, 1),
+                  (4, 2, 8, 3, 4, 128, 2), (1, 5, 32, 2, 2, 64, 5),
+                  (2, 1, 16, 1, 1, 64, 1))
+        n = 0
+        for pool_dt, q_dt in pool_types:
+            worst = {k: 0.0 for k in paged}
+            for i, shape in enumerate(shapes):
+                args = paged_state(*shape, pool_dt, q_dt, seed=i)
+                for k, (fn, plain) in paged.items():
+                    err = sm.expect_close(k, fn(*args), plain(*args),
+                                          f"{k} {shape} {pool_dt} q {q_dt}",
+                                          quiet=True)
+                    worst[k] = max(worst[k], err)
+                    n += 1
+            print(f"   pools {pool_dt}, q {q_dt}: {len(shapes)} shapes "
+                  f"within {PAGED_TOL[str(q_dt).split('.')[-1]]}, max abs "
+                  f"err {worst}", flush=True)
+        # above the shared-memory cap the exact kernel raises
+        args = paged_state(1, 256, 16, 1, 4, 64, 5, torch.float32,
+                           torch.float32, seed=99)
+        try:
+            ac.fused_paged_attention(*args)
+        except ValueError as e:
+            print(f"   W*g*S = 20*4096 raises: {e}", flush=True)
+        else:
+            raise AssertionError("fused_paged_attention took a shape "
+                                 "above its shared-memory cap")
+        sm.expect_close("fused_paged_online_attention",
+                        ac.fused_paged_online_attention(*args),
+                        ac.plain_paged_attention_online(*args),
+                        "fused_paged_online_attention at W*g*S = 20*4096")
+        print(f"   {n} paged-kernel comparisons passed", flush=True)
+    sm.phase("paged kernel checks", paged_kernel_checks)
 
     # -- 3. the main path ---------------------------------------------------------
     def run_path(fn):
@@ -243,16 +379,180 @@ def main() -> int:
                                      "stencil_serial")
             print(f"   dataflow ({mode}) equals stencil_serial")
 
+    # the serving model at full width; mixes (a) and (b) from seeds
+    rng = np.random.default_rng(0)
+    shared = rng.integers(1, 1000, 64).tolist()
+    mix_a = [(shared + rng.integers(1, 1000, 8).tolist(),
+              int(rng.integers(16, 33))) for _ in range(12)]
+    rng = np.random.default_rng(1)
+    mix_b = [(rng.integers(1, 1000, int(rng.integers(256, 769))).tolist(),
+              64) for _ in range(16)]
+    mixes = {"a": (mix_a, dict(slots=4, smax=160)),
+             "b": (mix_b, dict(slots=8, smax=1024))}
+    models = {}
+
+    def model(dtype):
+        if dtype not in models:
+            cfg = tf.TransformerConfig(**SERVE_MODEL, dtype=dtype)
+            models[dtype] = (tf.init_params(cfg, seed=0), cfg)
+        return models[dtype]
+
+    def serve(mix, label, dtype, **kw):
+        reqs, base = mixes[mix]
+        params, cfg = model(dtype)
+        srv = serving.ContinuousServer(params, cfg, **base, **kw)
+        for p, m in reqs:
+            srv.submit(p, max_new=m)
+        torch.cuda.synchronize()
+        t = HighResolutionTimer()
+        out = srv.run()
+        torch.cuda.synchronize()
+        secs = t.elapsed()
+        ntok = sum(len(v) for v in out.values())
+        if sorted(out) != list(range(len(reqs))) or any(
+                len(out[i]) != m or not all(0 <= x < cfg.vocab
+                                            for x in out[i])
+                for i, (_, m) in enumerate(reqs)):
+            raise AssertionError(f"({mix}) {label}: missing, short or "
+                                 "out-of-vocabulary tokens")
+        extra = ""
+        if srv.paged:
+            st_ = srv.cache_stats()
+            extra = (f", kernel {srv._paged_kernel}, radix hit rate "
+                     f"{st_['hit_rate']!r}, prefill tokens saved "
+                     f"{st_['prefill_tokens_saved']}")
+        print(f"   ({mix}) {label}: {ntok} tokens in {secs!r} s = "
+              f"{ntok / secs!r} tokens/s{extra}", flush=True)
+        return out, srv
+
+    def serving_f32():
+        f32 = torch.float32
+        # warm-up: cuBLAS and allocator set-up, kept out of the timings
+        serve("a", "warm-up (dense)", f32)
+        for mix in ("a", "b"):
+            dense, _ = serve(mix, "f32 dense", f32)
+            gather, _ = serve(mix, "f32 paged gather", f32, paged=True,
+                              block_size=16, paged_kernel="gather")
+            fused, srv = serve(mix, "f32 paged fused", f32, paged=True,
+                               block_size=16, paged_kernel="fused")
+            online, _ = serve(mix, "f32 paged fused_online", f32,
+                              paged=True, block_size=16,
+                              paged_kernel="fused_online")
+            if not fused == online == gather == dense:
+                bad = [label for label, o in (("fused", fused),
+                                              ("fused_online", online),
+                                              ("gather", gather))
+                       if o != dense]
+                raise AssertionError(f"({mix}) f32 tokens of {bad} differ "
+                                     "from the dense server's")
+            print(f"   ({mix}) f32 tokens: fused == fused_online == gather "
+                  "== dense", flush=True)
+            if mix == "a":
+                st_ = srv.cache_stats()
+                if st_["tokens_matched"] <= 0:
+                    raise AssertionError("(a) the prefix mix never hit the "
+                                         "radix tree")
+                # the differential contract: a request's tokens are what
+                # transformer.generate emits for its prompt alone
+                params, cfg = model(f32)
+                for rid in (0, 11):
+                    p, m = mix_a[rid]
+                    solo = tf.generate(params, cfg, [p], max_new=m)
+                    if solo[0].tolist() != fused[rid]:
+                        raise AssertionError(f"(a) request {rid} differs "
+                                             "from generate() alone")
+                print("   (a) requests 0 and 11 equal generate() run alone",
+                      flush=True)
+
+    bf16_pools = []
+
+    def serving_bf16():
+        bf16 = torch.bfloat16
+        fused, srv = serve("b", "bf16 paged auto", bf16, paged=True,
+                           block_size=16)
+        if srv._paged_kernel != "fused":
+            raise AssertionError(f"auto resolved to {srv._paged_kernel}")
+        gather, _ = serve("b", "bf16 paged gather", bf16, paged=True,
+                          block_size=16, paged_kernel="gather")
+        same = sum(a == b for r in gather for a, b in zip(fused[r], gather[r]))
+        total = sum(len(v) for v in gather.values())
+        whole = sum(fused[r] == gather[r] for r in gather)
+        print(f"   (b) bf16 auto vs bf16 gather: {same}/{total} tokens and "
+              f"{whole}/{len(gather)} requests equal", flush=True)
+        bf16_pools.extend(srv._pools)
+
     for name_, fn in (("main path: fused", fused),
                       ("main path: unfused", unfused),
-                      ("main path: dataflow", dataflow)):
+                      ("main path: dataflow", dataflow),
+                      ("main path: serving f32", serving_f32),
+                      ("main path: serving bf16", serving_bf16)):
         sm.phase(name_, lambda fn=fn: run_path(fn))
+
+    def bf16_pool_gate():
+        """Both kernels against their plain versions on the pools the
+        bf16 run left, through random tables over its blocks."""
+        cpu = torch.Generator().manual_seed(7)
+        for layer, (kp, vp) in enumerate(bf16_pools):
+            nb, bs = kp.shape[0], kp.shape[1]
+            maxb = 1024 // bs
+            table = torch.randint(0, nb, (8, maxb), generator=cpu).int()
+            pos = torch.randint(0, maxb * bs, (8,), generator=cpu).int()
+            pos[0], pos[-1] = 0, maxb * bs - 1
+            q = torch.randn(8, 1, 8, 128, generator=cpu).to(torch.bfloat16)
+            args = [q.cuda(), kp, vp, table.cuda(), pos.cuda()]
+            for k, (fn, plain) in paged.items():
+                sm.expect_close(k, fn(*args), plain(*args),
+                                f"{k} on the bf16 run's layer-{layer} pools")
+    if bf16_pools:
+        sm.phase("bf16 pools: kernels against plain", bf16_pool_gate)
     print(f"   launches on the main path: {sm.launches}", flush=True)
     for k, v in sm.launches.items():
         if v <= 0:
             sm.failures.append(f"{k} not launched on the main path")
             print(f"FAIL {k} was not launched on the main path")
     torch.cuda.empty_cache()
+
+    def serving_profile():
+        """Where a decode step's time goes: the bf16 (b) run once more
+        under torch.profiler, stepped by hand. Device busy share = the
+        kernels' summed device time over the wall time of the run."""
+        from torch.profiler import ProfilerActivity, profile
+        params, cfg = model(torch.bfloat16)
+        srv = serving.ContinuousServer(params, cfg, **mixes["b"][1],
+                                       paged=True, block_size=16)
+        for p, m in mix_b:
+            srv.submit(p, max_new=m)
+        steps = 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t = HighResolutionTimer()
+            while srv.step():
+                steps += 1
+            torch.cuda.synchronize()
+            wall = t.elapsed()
+        # device events only (kernels, copies): a CPU op's own device
+        # time already holds its kernels', which are listed beside it
+        ev = prof.key_averages()
+        dev = [e for e in ev
+               if e.device_type != torch.autograd.DeviceType.CPU]
+        dev_us = sum(e.self_device_time_total for e in dev)
+        launches = sum(e.count for e in ev if e.key == "cudaLaunchKernel")
+        print(f"   profiled (b) bf16 auto: {steps} steps in {wall!r} s "
+              f"({wall / steps * 1e3!r} ms a step, under the profiler); "
+              f"{launches} cudaLaunchKernel calls "
+              f"({launches / steps!r} a step)", flush=True)
+        if dev_us <= 0:
+            print("   device busy share: not measured (the profiler "
+                  "recorded no device time)", flush=True)
+            return
+        busy = dev_us * 1e-6 / wall
+        print(f"   device busy {dev_us * 1e-6!r} s of {wall!r} s wall: "
+              f"busy share {busy!r}, idle share {1 - busy!r}", flush=True)
+        for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"     {e.key[:70]}: {e.self_device_time_total * 1e-3!r} "
+                  f"ms device, {e.count} calls", flush=True)
+    sm.phase("serving profile", serving_profile)
 
     # -- 4. timing ----------------------------------------------------------------
     timing = {}
@@ -264,7 +564,9 @@ def main() -> int:
         ms = _cuda_ms(lambda: st.heat_step_blocked(u, coef), 7)
         plain = _cuda_ms(lambda: st.plain_heat_step_blocked(u, coef), 3)
         bound, by = _bound(8 * n, FLOPS_PER_CELL_STEP * n)
-        timing["heat_step_blocked"] = (ms, plain, bound, by, f"n=2^28")
+        timing["heat_step_blocked"] = dict(ms=ms, plain=plain, bound=bound,
+                                           by=by, library=None,
+                                           shape="n=2^28")
         del u
         torch.cuda.empty_cache()
         for n, steps in ((1 << 27, 64), (1 << 19, 1024)):
@@ -273,17 +575,55 @@ def main() -> int:
             plain = _cuda_ms(lambda: st.plain_multistep(u, coef, steps), 3)
             bound, by = _bound(8 * n, FLOPS_PER_CELL_STEP * n * steps)
             shape = f"n=2^{n.bit_length() - 1} steps={steps}"
-            if "multistep_fused" not in timing:
-                timing["multistep_fused"] = (ms, plain, bound, by, shape)
-            else:
-                timing[f"multistep_fused {shape}"] = (ms, plain, bound, by,
-                                                      shape)
+            key = ("multistep_fused" if "multistep_fused" not in timing
+                   else f"multistep_fused {shape}")
+            timing[key] = dict(ms=ms, plain=plain, bound=bound, by=by,
+                               library=None, shape=shape)
             del u
             torch.cuda.empty_cache()
-        for k, (ms, plain, bound, by, shape) in timing.items():
-            print(f"   timing {k} [{shape}]: kernel_ms={ms!r} "
-                  f"plain_ms={plain!r} bound_ms={bound!r} ({by}) "
+        time_paged()
+        for k, t in timing.items():
+            print(f"   timing {k} [{t['shape']}]: kernel_ms={t['ms']!r} "
+                  f"plain_ms={t['plain']!r} bound_ms={t['bound']!r} "
+                  f"({t['by']}) library_ms={t['library']!r} "
                   f"launches={sm.launches[k.split()[0]]} on {smi}")
+
+    def time_paged():
+        """Kernels 3 and 4 at the full-width decode shape, bf16 and int8
+        pools (bf16 queries), beside SDPA on K/V gathered beforehand."""
+        import torch.nn.functional as F
+        b, w, nh, hd, bs, seq = 8, 1, 8, 128, 16, 1024
+        maxb = seq // bs
+        for pool_dt in (torch.bfloat16, torch.int8):
+            args = paged_state(b, maxb, bs, nh, 1, hd, w, pool_dt,
+                               torch.bfloat16, seed=3)
+            q, kp, vp, table, pos, ks, vs = args
+            # bytes: every K and V row of the maxb blocks once, q, out,
+            # the table, the positions and the blocks' scales
+            nbytes = (2 * b * maxb * bs * nh * hd * kp.element_size()
+                      + 2 * q.numel() * q.element_size()
+                      + table.numel() * 4 + pos.numel() * 4
+                      + (2 * b * maxb * nh * 4 if ks is not None else 0))
+            bound, by = _bound(nbytes, 4 * b * nh * w * seq * hd,
+                               BF16_OPS_PER_S)
+            # the yardstick: one library call on K/V gathered beforehand
+            kc = pa.gather_block_kv(kp, table, ks, q.dtype).transpose(1, 2)
+            vc = pa.gather_block_kv(vp, table, vs, q.dtype).transpose(1, 2)
+            live = (torch.arange(seq, device="cuda")[None, :]
+                    <= pos.long()[:, None])[:, None, None, :]
+            qs = q.transpose(1, 2)
+            library = _cuda_ms(lambda: F.scaled_dot_product_attention(
+                qs, kc, vc, attn_mask=live), 7)
+            dt = str(pool_dt).split(".")[-1]
+            for k, (fn, plain) in paged.items():
+                t = {"ms": _cuda_ms(lambda: fn(*args), 7),
+                     "plain": _cuda_ms(lambda: plain(*args), 3),
+                     "bound": bound, "by": by, "library": library,
+                     "shape": f"B={b} W={w} nq=nkv={nh} hd={hd} bs={bs} "
+                              f"S={seq} {dt} pools, bf16 q"}
+                timing[k if pool_dt == torch.bfloat16 else f"{k} {dt}"] = t
+            del args, kc, vc
+            torch.cuda.empty_cache()
     sm.phase("timing", time_kernels)
 
     if sm.failures:
@@ -291,16 +631,20 @@ def main() -> int:
         return 1
 
     replaces = {"heat_step_blocked": "hpx_tpu/ops/stencil.py:110",
-                "multistep_fused": "hpx_tpu/ops/stencil.py:44"}
+                "multistep_fused": "hpx_tpu/ops/stencil.py:44",
+                **PAGED_KERNELS}
     rows = []
-    for k in ("heat_step_blocked", "multistep_fused"):
-        ms, plain, bound, by, shape = timing[k]
+    for k, at in replaces.items():
+        t = timing[k]
+        src = "stencil" if k in ("heat_step_blocked", "multistep_fused") \
+            else "paged_attention"
         rows.append({"name": k, "route": "cuda",
-                     "source": "hpx_tpu_torch/csrc/stencil.cu",
-                     "replaces": replaces[k], "launches": sm.launches[k],
-                     "max_abs_err": sm.max_abs_err[k], "ms": ms,
-                     "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                     "library_ms": None, "shape": shape})
+                     "source": f"hpx_tpu_torch/csrc/{src}.cu",
+                     "replaces": at, "launches": sm.launches[k],
+                     "max_abs_err": sm.max_abs_err[k], "ms": t["ms"],
+                     "plain_ms": t["plain"], "bound_ms": t["bound"],
+                     "bound_by": t["by"], "library_ms": t["library"],
+                     "shape": t["shape"]})
     print(f"card: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,202 @@
+"""Fixed-size KV-block allocator: the AGAS move applied to decode memory.
+
+Counterpart of ``hpx_tpu.cache.block_allocator`` (the fault-injection
+site at ``alloc`` comes with the resiliency slice).
+
+Reference analog: `containers/partitioned_vector.py` stores data at
+rest as fixed-size segments behind an address map; this module is the
+same discipline for data in flight — decode-time K/V lives in ONE
+preallocated pool of `[num_blocks, block_size, n_kv, head_dim]` rows
+per layer, and requests hold *block ids*, never rows. The allocator is
+pure host-side bookkeeping (free list + ref counts) so it is testable
+without torch; the device pools it indexes live with their owner
+(`models/serving.ContinuousServer(paged=True)`).
+
+Ref counting is what makes prefix sharing safe: a block chain published
+into the radix tree (`cache/radix.py`) and matched by three live
+requests has refcount 4 (tree + 3 readers); it returns to the free
+list only when the last holder drops it. Copy-on-write (`fork`) covers
+the writer case: a holder that must mutate a block it shares gets a
+fresh exclusive block (and the caller copies the device rows).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+from ..core.errors import CacheOOM
+from ..synchronization import Mutex
+
+__all__ = ["BlockAllocator", "CacheOOM", "block_bytes",
+           "blocks_for_budget"]
+
+# storage bytes per KV element, by `hpx.cache.kv_dtype`. The scale
+# sidecar rides separately: quantized pools (int8 AND fp8 — both
+# 1 byte/elem) carry one f32 scale per (block, kv-head) per pool
+# (K and V each), accounted by block_bytes.
+_KV_ITEMSIZE = {"bf16": 2, "f32": 4, "int8": 1, "fp8": 1}
+_SCALE_BYTES = 4          # f32 per (block, kv-head) sidecar entry
+_QUANTIZED_KV = ("int8", "fp8")   # kv_dtypes that ride a scale sidecar
+
+
+def block_bytes(block_size: int, n_kv: int, head_dim: int,
+                kv_dtype: str = "bf16", layers: int = 1) -> int:
+    """HBM bytes ONE pool block costs across `layers` layers, K and V
+    pools both, INCLUDING the quantized-dtype scale sidecar — the unit
+    for dtype-aware pool sizing and for the bytes/token roofline
+    counters (cache/counters.py). int8 and fp8 (e4m3) both store
+    1 byte/elem — half of bf16, a quarter of an f32 compute dtype; the
+    sidecar adds 4 bytes per (block, kv-head) per pool, amortized to
+    noise for any real block_size * head_dim."""
+    if kv_dtype not in _KV_ITEMSIZE:
+        raise ValueError(f"unknown kv_dtype {kv_dtype!r}; expected one "
+                         f"of {sorted(_KV_ITEMSIZE)}")
+    rows = block_size * n_kv * head_dim * _KV_ITEMSIZE[kv_dtype]
+    sidecar = n_kv * _SCALE_BYTES if kv_dtype in _QUANTIZED_KV else 0
+    return 2 * layers * (rows + sidecar)          # K pool + V pool
+
+
+def blocks_for_budget(budget_bytes: int, block_size: int, n_kv: int,
+                      head_dim: int, kv_dtype: str = "bf16",
+                      layers: int = 1) -> int:
+    """How many pool blocks fit an HBM budget at this geometry/dtype —
+    the dtype-aware inverse of block_bytes (int8 fits ~2x the blocks
+    of bf16). Always at least 1 (the reserved trash block)."""
+    per = block_bytes(block_size, n_kv, head_dim, kv_dtype, layers)
+    return max(1, budget_bytes // per)
+
+
+class BlockAllocator:
+    """Free-list + ref-count accounting for `num_blocks` fixed-size
+    blocks of `block_size` token rows each.
+
+    Allocation order is deterministic (LIFO free list seeded
+    0..num_blocks-1 reversed, so fresh pools hand out 0, 1, 2, ...):
+    paged-vs-dense token equality tests rely on runs being repeatable,
+    and debugging a block-map is far easier when ids are stable.
+    """
+
+    def __init__(self, num_blocks: int, block_size: int,
+                 kv_dtype: str = "bf16") -> None:
+        if num_blocks < 1:
+            raise ValueError(f"num_blocks must be >= 1, got {num_blocks}")
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        if kv_dtype not in _KV_ITEMSIZE:
+            raise ValueError(f"unknown kv_dtype {kv_dtype!r}; expected "
+                             f"one of {sorted(_KV_ITEMSIZE)}")
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        # storage dtype of the pools this allocator's ids index —
+        # quantized pools (int8/fp8) carry a [num_blocks, n_kv] f32
+        # scale sidecar per pool, sized/accounted via
+        # block_bytes/pool_bytes
+        self.kv_dtype = kv_dtype
+        self._free: List[int] = list(range(num_blocks - 1, -1, -1))
+        self._ref: Dict[int, int] = {}
+        self._lock = Mutex()
+        # cumulative counters (cache/counters.py reads these)
+        self.total_allocs = 0
+        self.total_frees = 0
+        self.total_cow_copies = 0
+
+    # -- queries ----------------------------------------------------------
+
+    @property
+    def free_count(self) -> int:
+        with self._lock:
+            return len(self._free)
+
+    @property
+    def in_use(self) -> int:
+        with self._lock:
+            return self.num_blocks - len(self._free)
+
+    def refcount(self, bid: int) -> int:
+        with self._lock:
+            return self._ref.get(bid, 0)
+
+    # -- lifecycle --------------------------------------------------------
+
+    def alloc(self) -> int:
+        """One fresh block at refcount 1, or CacheOOM when the pool is
+        exhausted (callers evict-and-retry; see serving._alloc_block)."""
+        with self._lock:
+            if not self._free:
+                raise CacheOOM(
+                    f"KV pool exhausted: all {self.num_blocks} blocks "
+                    "in use", "BlockAllocator.alloc")
+            bid = self._free.pop()
+            self._ref[bid] = 1
+            self.total_allocs += 1
+            return bid
+
+    def incref(self, bid: int) -> int:
+        with self._lock:
+            n = self._ref.get(bid, 0)
+            if n < 1:
+                raise ValueError(f"incref on unallocated block {bid}")
+            self._ref[bid] = n + 1
+            return n + 1
+
+    def decref(self, bid: int) -> bool:
+        """Drop one reference; returns True when this freed the block
+        (refcount hit zero and it went back on the free list)."""
+        with self._lock:
+            n = self._ref.get(bid, 0)
+            if n < 1:
+                raise ValueError(f"decref on unallocated block {bid}")
+            if n > 1:
+                self._ref[bid] = n - 1
+                return False
+            del self._ref[bid]
+            self._free.append(bid)
+            self.total_frees += 1
+            return True
+
+    def fork(self, bid: int) -> tuple:
+        """Copy-on-write: make `bid` safely writable by THIS holder.
+
+        Exclusive already (refcount 1): returns ``(bid, False)`` — write
+        in place. Shared: drops this holder's ref, allocates a fresh
+        block, and returns ``(new_bid, True)`` — the caller must copy
+        the device rows old→new before writing (the allocator never
+        touches device memory). Raises CacheOOM like alloc()."""
+        with self._lock:
+            n = self._ref.get(bid, 0)
+            if n < 1:
+                raise ValueError(f"fork of unallocated block {bid}")
+            if n == 1:
+                return bid, False
+            if not self._free:
+                raise CacheOOM(
+                    f"KV pool exhausted: cannot copy-on-write shared "
+                    f"block {bid} ({self.num_blocks} blocks in use)",
+                    "BlockAllocator.fork")
+            self._ref[bid] = n - 1
+            new = self._free.pop()
+            self._ref[new] = 1
+            self.total_allocs += 1
+            self.total_cow_copies += 1
+            return new, True
+
+    def pool_bytes(self, n_kv: int, head_dim: int,
+                   layers: int = 1) -> int:
+        """Total HBM footprint of the pools this allocator sizes
+        (scale sidecars included for int8/fp8) — what the HBM-budget
+        counters and `blocks_for_budget` callers reason about."""
+        return self.num_blocks * block_bytes(
+            self.block_size, n_kv, head_dim, self.kv_dtype, layers)
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {
+                "num_blocks": self.num_blocks,
+                "block_size": self.block_size,
+                "kv_dtype": self.kv_dtype,
+                "free": len(self._free),
+                "in_use": self.num_blocks - len(self._free),
+                "total_allocs": self.total_allocs,
+                "total_frees": self.total_frees,
+                "total_cow_copies": self.total_cow_copies,
+            }

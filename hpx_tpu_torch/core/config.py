@@ -208,6 +208,18 @@ class Configuration:
                 "hpx_tpu_torch/core/config_schema.py to make it settable",
                 "config")
 
+    def _check_value(self, key: str, value: str) -> None:
+        """Strict mode: enumerated str knobs (declared with choices=)
+        only accept their valid set."""
+        if not (self._strict and key.startswith("hpx.")):
+            return
+        entry = config_schema.lookup(key)
+        if (entry is not None and entry.choices is not None
+                and value not in entry.choices):
+            raise BadParameter(
+                f"{key}={value!r} is not a valid value (strict mode); "
+                f"expected one of {list(entry.choices)}", "config")
+
     # -- queries ------------------------------------------------------------
     def get(self, key: str, default: Optional[str] = None) -> Optional[str]:
         self._check_declared(key)
@@ -238,6 +250,7 @@ class Configuration:
     def set(self, key: str, value: Any) -> None:
         self._check_declared(str(key))
         self._check_settable(str(key))
+        self._check_value(str(key), str(value))
         with self._lock:
             self._data[str(key)] = str(value)
             self._gen += 1

@@ -16,7 +16,7 @@ batch-environment detector) but nothing in the package reads them yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 _VALID_TYPES = ("str", "int", "bool", "float")
 
@@ -30,20 +30,34 @@ class ConfigKey:
     default: Optional[str]    # None = no compiled-in default
     doc: str
     reserved: bool = False    # declared but not read (yet)
+    # closed value set for enumerated str knobs (None = free-form);
+    # ``Configuration(strict=True)`` rejects a set() outside it
+    choices: Optional[Tuple[str, ...]] = None
 
 
 _SCHEMA: Dict[str, ConfigKey] = {}
 
 
 def declare(key: str, type: str, default: Optional[str], doc: str,
-            reserved: bool = False) -> ConfigKey:
-    """Register one knob; duplicate keys and unknown types are errors."""
+            reserved: bool = False,
+            choices: Optional[Tuple[str, ...]] = None) -> ConfigKey:
+    """Register one knob; duplicate keys and unknown types are errors.
+    ``choices`` declares a closed value set for an enumerated str knob
+    (the declared default must be a member)."""
     if type not in _VALID_TYPES:
         raise ValueError(f"config key {key!r}: bad type {type!r} "
                          f"(expected one of {_VALID_TYPES})")
     if key in _SCHEMA:
         raise ValueError(f"config key {key!r} declared twice")
-    entry = ConfigKey(key, type, default, doc, reserved)
+    if choices is not None:
+        choices = tuple(choices)
+        if type != "str":
+            raise ValueError(f"config key {key!r}: choices= is only "
+                             "meaningful for str knobs")
+        if default is not None and default not in choices:
+            raise ValueError(f"config key {key!r}: default {default!r} "
+                             f"not in choices {choices}")
+    entry = ConfigKey(key, type, default, doc, reserved, choices)
     _SCHEMA[key] = entry
     return entry
 
@@ -82,3 +96,36 @@ declare("hpx.cuda.watcher_threads", "int", "2",
         "future-completion watcher pool width")
 declare("hpx.cuda.eager_futures", "bool", "1",
         "device futures ready at dispatch")
+
+# -- KV cache (paged serving) -----------------------------------------------
+declare("hpx.cache.block_size", "str", "auto",
+        "KV tokens per paged block (auto: HPX_PAGED_BLOCK env, then the "
+        "port's seed table, then 16)")
+declare("hpx.cache.num_blocks", "str", "auto",
+        "pool size (auto: 2x worst case)")
+declare("hpx.cache.radix_budget_blocks", "str", "auto",
+        "prefix-tree block budget")
+declare("hpx.cache.prefix_reuse", "bool", "1",
+        "radix prefix matching on admit")
+declare("hpx.cache.kv_dtype", "str", "bf16",
+        "paged pool storage: bf16 (compute dtype) | int8 (absmax-scaled "
+        "integer blocks) | fp8 (e4m3 blocks, same f32 scale sidecars)",
+        choices=("bf16", "int8", "fp8"))
+
+# -- serving ----------------------------------------------------------------
+declare("hpx.serving.paged_kernel", "str", "auto",
+        "decode-attention formulation: auto (fused on a CUDA device, "
+        "gather elsewhere) | gather (torch oracle) | fused (exact CUDA "
+        "table walk, O(S) shared memory) | fused_online (online "
+        "softmax, O(block) shared memory)",
+        choices=("auto", "gather", "fused", "fused_online"))
+declare("hpx.serving.prefill_chunk", "int", "128",
+        "prompt tokens per prefill chunk")
+declare("hpx.serving.prefill_buckets", "str", "auto",
+        "chunk-width ladder (csv|auto)")
+declare("hpx.serving.async_dispatch", "bool", "1",
+        "decode without per-step sync")
+declare("hpx.serving.max_async_steps", "int", "32",
+        "buffered steps before a sync")
+declare("hpx.serving.admit_retries", "int", "8",
+        "admission OOM deferrals before a request is shed")

@@ -179,6 +179,32 @@ class CacheOOM(HpxError):
         super().__init__(Error.out_of_memory, message, function)
 
 
+class ServerClosedError(HpxError):
+    """submit() after shutdown(): the server is draining (invalid_status),
+    which a client tells apart from a malformed request."""
+
+    def __init__(self, message: str = ""):
+        super().__init__(Error.invalid_status,
+                         message or "server is shut down — submit() no "
+                         "longer accepts requests (queued and in-flight "
+                         "work still drains via run())",
+                         "ContinuousServer.submit")
+
+
+class RequestShedError(HpxError):
+    """The server gave up on one request (admission OOM that outlived
+    its deferral budget, or a decode-step OOM). Recorded per rid in
+    ``ContinuousServer.failed``; service_unavailable, so a client may
+    retry, unlike a bad_parameter rejection."""
+
+    def __init__(self, rid: int, reason: str):
+        super().__init__(Error.service_unavailable,
+                         f"request {rid} shed: {reason}",
+                         "ContinuousServer")
+        self.rid = rid
+        self.reason = reason
+
+
 def throw_exception(code: Error, message: str = "", function: str = "") -> None:
     """HPX_THROW_EXCEPTION analog."""
     raise HpxError(code, message, function)

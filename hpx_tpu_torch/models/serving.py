@@ -1,0 +1,997 @@
+"""Continuous batching: slot-based serving with per-slot positions.
+
+Counterpart of ``hpx_tpu.models.serving`` on one device: a FIXED batch of
+decode slots, each at its OWN sequence position, stepping together.
+Requests admit into free slots between steps (their prompt prefills on
+the side in BUCKETED CHUNKS on a b=1 scratch cache, then SPLICES into
+the slot's cache rows) and retire on eos/max_new, so short requests
+never wait for long ones. Dead slots compute masked work.
+
+* BUCKETED prefill: prompts run through fixed-width chunk programs
+  (widths from the ``hpx.serving.prefill_buckets`` ladder, padded then
+  causally masked), so the program memo holds O(buckets) shapes.
+* CHUNKED prefill interleaved with decode: a prompt longer than
+  ``hpx.serving.prefill_chunk`` advances one chunk per step between
+  decode steps, shortest-remaining-first.
+* ASYNC dispatch: sampled tokens feed back on the device and the host
+  reads them only when a token VALUE is needed (eos check, retirement)
+  or ``hpx.serving.max_async_steps`` steps are buffered.
+* PAGED KV (``paged=True``): K/V live in one block pool per layer,
+  addressed through per-request page tables (``cache/``); retired
+  prompts publish their full blocks into a radix tree, so a later
+  prompt with the same prefix skips prefilling it (copy-on-write keeps
+  shared blocks intact). ``paged_kernel`` picks the decode attention:
+  ``gather`` (the torch oracle), ``fused`` (the exact CUDA table walk)
+  or ``fused_online`` (the online-softmax CUDA table walk); ``auto``
+  means ``fused`` on a CUDA device and ``gather`` on the CPU.
+  ``kv_dtype`` stores the pools as the compute dtype (``bf16``) or as
+  int8/fp8 blocks with per-(block, head) scales.
+
+Differential contract: every request's tokens are EXACTLY what
+``transformer.generate`` emits for that prompt alone, greedy or sampled
+(keys fold position, then row 0) — batching changes throughput, never
+content — and, on the CPU, exactly what the reference server emits.
+
+Left for later slices (the constructor takes none of their arguments):
+speculative decoding and draft models, the mesh, mixture-of-experts,
+the host KV tier, disaggregated prefill, resiliency (checkpoints,
+replay, fault injection, deadlines), metrics and live tuning. Without
+the replay ladder, a decode step that runs out of KV blocks sheds every
+in-flight request with ``RequestShedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from ..cache.block_allocator import BlockAllocator, CacheOOM, block_bytes
+from ..cache.page_table import PageTable, device_table, occupancy
+from ..cache.radix import RadixCache
+from ..core.config import runtime_config
+from ..core.errors import HpxError, RequestShedError, ServerClosedError
+from ..core.programs import cached_program
+from ..exec.cuda import resolve_device
+from ..models.quant import FP8_DTYPE, as_raw
+from ..ops.attention_cuda import resolve_paged_block_src
+from ..ops.paged_attention import (gather_block_kv, paged_decode_attention,
+                                   scatter_seq_blocks, scatter_seq_blocks_q)
+from ..utils import prng
+from .transformer import (_PREFILL_CHUNK, TransformerConfig, _attend,
+                          _decode_window, _ffn_tail, _ln, _pick_rows,
+                          _qkv_proj, _rope_angles, _rotate, _sample_row)
+
+__all__ = ["ContinuousServer", "RequestShedError", "ServerClosedError"]
+
+
+def _resolve_buckets(spec, chunk: int) -> Tuple[int, ...]:
+    """The chunk-width ladder: ``auto`` doubles from 8 up to the chunk
+    size; a csv spec is parsed, clamped to the chunk, and always
+    completed with the full chunk width so every chunk has a bucket."""
+    if spec is None or str(spec).strip() in ("", "auto"):
+        ladder, w = [], 8
+        while w < chunk:
+            ladder.append(w)
+            w *= 2
+        ladder.append(chunk)
+        return tuple(sorted(set(ladder)))
+    vals: List[int] = []
+    for part in str(spec).split(","):
+        part = part.strip()
+        if not part:
+            continue
+        v = int(part)
+        if v < 1:
+            raise ValueError(
+                f"hpx.serving.prefill_buckets entries must be >= 1, "
+                f"got {v}")
+        vals.append(min(v, chunk))
+    if not vals:
+        raise ValueError(
+            f"hpx.serving.prefill_buckets parsed to nothing: {spec!r}")
+    vals.append(chunk)
+    return tuple(sorted(set(vals)))
+
+
+def _resolve_kv_dtype(kv_dtype, rc) -> str:
+    if kv_dtype is None:
+        kv_dtype = rc.get("hpx.cache.kv_dtype", "bf16")
+    if kv_dtype not in ("bf16", "int8", "fp8"):
+        raise ValueError(
+            "hpx.cache.kv_dtype must be one of 'bf16' (pools in "
+            "the model compute dtype), 'int8' (quantized blocks "
+            "with absmax scale sidecars) or 'fp8' (e4m3 blocks "
+            f"with the same sidecars), got {kv_dtype!r}")
+    return kv_dtype
+
+
+def _resolve_paged_kernel(paged_kernel, rc, device: torch.device) -> str:
+    """hpx.serving.paged_kernel: auto -> fused on a CUDA device, gather
+    elsewhere (the plain versions are a test vehicle, not a serving
+    path)."""
+    if paged_kernel is None:
+        paged_kernel = rc.get("hpx.serving.paged_kernel", "auto")
+    if paged_kernel in (None, "", "auto"):
+        paged_kernel = "fused" if device.type == "cuda" else "gather"
+    if paged_kernel not in ("gather", "fused", "fused_online"):
+        raise ValueError(
+            "hpx.serving.paged_kernel must be one of 'auto', "
+            "'gather', 'fused' (exact CUDA table walk) or "
+            "'fused_online' (O(block) online-softmax table walk), "
+            f"got {paged_kernel!r}")
+    return paged_kernel
+
+
+# -- per-row-position forwards -------------------------------------------------
+
+def _rope_rows(x: torch.Tensor, pos: torch.Tensor, cfg: TransformerConfig):
+    """Rotate-half RoPE with per-row positions: x [B, 1, N, H], pos
+    [B]."""
+    ang, half = _rope_angles(pos[:, None], x.shape[-1], cfg)  # [B, 1, half]
+    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
+    return _rotate(x, cos, sin, half)
+
+
+def _project_rows(x, lp, pos, cfg):
+    h = _ln(x, lp["ln1"])
+    q, k, v = _qkv_proj(h, lp)
+    if cfg.rope:
+        q = _rope_rows(q, pos, cfg)
+        k = _rope_rows(k, pos, cfg)
+    return q, k, v
+
+
+def _block_decode_rows(x, lp, kv, pos, cfg: TransformerConfig):
+    """One decoder block for ONE new token per slot at per-slot
+    positions: x [B, 1, D]; kv (k_cache, v_cache) [B, Smax, Nkv, H],
+    written in place (row b at pos[b]); pos [B]. Slot b attends cache
+    positions <= pos[b]."""
+    kc, vc = kv
+    q, k, v = _project_rows(x, lp, pos, cfg)
+    rows = torch.arange(x.shape[0], device=x.device)
+    p = pos.long()
+    kc[rows, p] = k[:, 0].to(kc.dtype)
+    vc[rows, p] = v[:, 0].to(vc.dtype)
+    kpos = torch.arange(kc.shape[1], device=x.device)
+    live = (kpos[None, :] <= p[:, None])[:, None]              # [B, 1, S]
+    att = _attend(q, kc, vc, live, x.dtype)
+    return _ffn_tail(x, att, lp), (kc, vc)
+
+
+def _decode_rows(params, caches, tok, pos, cfg):
+    """One token per slot through every block at per-slot positions;
+    returns (caches, f32 logits [B, V])."""
+    x = params["emb"][tok][:, None, :]
+    new_caches = []
+    for lp, kv in zip(params["layers"], caches):
+        x, kv = _block_decode_rows(x, lp, kv, pos, cfg)
+        new_caches.append(kv)
+    x = _ln(x, params["ln_f"])
+    logits = torch.einsum("bsd,vd->bsv", x, params["emb"])
+    return new_caches, logits[:, 0, :].float()
+
+
+def _paged_block_rows(x, lp, pools, scales, table, pos,
+                      cfg: TransformerConfig, fused=False):
+    """``_block_decode_rows`` with the K/V rows in a shared block pool:
+    pools (k_pool, v_pool) [num_blocks, block_size, Nkv, H]; scales
+    (k_scale, v_scale) [num_blocks, Nkv] f32 for int8/fp8 pools, or
+    None; table [B, max_blocks] int32; pos [B] int32. Projections,
+    rope and the MLP are the dense path's; only the cache write and
+    read differ, which keeps paged == dense token-exact."""
+    kp, vp = pools
+    q, k, v = _project_rows(x, lp, pos, cfg)
+    if scales is None:
+        att, kp, vp = paged_decode_attention(q, k[:, 0], v[:, 0], kp, vp,
+                                             table, pos, fused=fused)
+    else:
+        ks, vs = scales
+        att, kp, vp, ks, vs = paged_decode_attention(
+            q, k[:, 0], v[:, 0], kp, vp, table, pos, k_scale=ks,
+            v_scale=vs, fused=fused)
+        scales = (ks, vs)
+    return _ffn_tail(x, att, lp), (kp, vp), scales
+
+
+def _paged_decode_rows(params, pools, scales, tok, table, pos, cfg,
+                       fused=False):
+    """One token per slot through every block over paged pools;
+    returns (pools, scales, f32 logits [B, V])."""
+    x = params["emb"][tok][:, None, :]
+    new_pools, new_scales = [], []
+    for i, (lp, pl) in enumerate(zip(params["layers"], pools)):
+        sc = None if scales is None else scales[i]
+        x, pl, sc = _paged_block_rows(x, lp, pl, sc, table, pos, cfg,
+                                      fused)
+        new_pools.append(pl)
+        new_scales.append(sc)
+    x = _ln(x, params["ln_f"])
+    logits = torch.einsum("bsd,vd->bsv", x, params["emb"])
+    return (new_pools, None if scales is None else new_scales,
+            logits[:, 0, :].float())
+
+
+@dataclasses.dataclass
+class _Request:
+    rid: int
+    prompt: List[int]
+    max_new: int
+    eos_id: Optional[int]
+    temperature: float = 0.0       # 0: greedy; >0: sample with `key`
+    key: Any = None                # int64 [2] raw PRNG key (host)
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    sent: int = 0                  # tokens DISPATCHED (>= len(tokens))
+
+
+@dataclasses.dataclass
+class _PendingPrefill:
+    """One in-flight chunked prefill: owns a reserved slot and a b=1
+    scratch cache; `done` is the absolute prompt cursor (starts at the
+    radix-matched prefix length in paged mode)."""
+    req: _Request
+    slot: int
+    caches: Any                    # b=1 [1, smax] scratch, per layer
+    done: int                      # prompt tokens already in scratch
+    seq: int                       # admission order (FIFO tiebreak)
+    pt: Optional[PageTable] = None  # paged: blocks held for the request
+    wrow: Any = None               # paged: splice WRITE row (matched
+                                   # prefix entries point at trash)
+
+    @property
+    def remaining(self) -> int:
+        return len(self.req.prompt) - self.done
+
+
+class ContinuousServer:
+    """Slot-based continuous batching, per-request greedy or sampled.
+
+    ::
+
+        srv = ContinuousServer(params, cfg, slots=4, smax=256)
+        a = srv.submit([3, 1, 4], max_new=16)
+        b = srv.submit([2, 7], max_new=8, eos_id=0)
+        out = srv.run()            # {a: [tokens...], b: [tokens...]}
+
+    ``params`` is a ``models.transformer.Transformer``; it is moved to
+    ``device`` (None means ``cuda:0``; pass ``device="cpu"`` for the
+    CPU)."""
+
+    def __init__(self, params, cfg: TransformerConfig, slots: int = 4,
+                 smax: int = 512, paged: bool = False,
+                 block_size: Optional[int] = None,
+                 num_blocks: Optional[int] = None,
+                 radix_budget_blocks: Optional[int] = None,
+                 prefix_reuse: Optional[bool] = None,
+                 prefill_chunk: Optional[int] = None,
+                 prefill_buckets: Optional[str] = None,
+                 async_dispatch: Optional[bool] = None,
+                 paged_kernel: Optional[str] = None,
+                 kv_dtype: Optional[str] = None,
+                 device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.slots = slots
+        self.smax = smax
+        self.paged = bool(paged)
+        self.params = params.to(self.device)
+        rc = runtime_config()
+        if prefill_chunk is None:
+            prefill_chunk = rc.get_int("hpx.serving.prefill_chunk",
+                                       _PREFILL_CHUNK)
+        self.prefill_chunk = max(1, int(prefill_chunk))
+        if prefill_buckets is None:
+            prefill_buckets = rc.get("hpx.serving.prefill_buckets", "auto")
+        self.prefill_buckets = _resolve_buckets(prefill_buckets,
+                                                self.prefill_chunk)
+        if async_dispatch is None:
+            async_dispatch = rc.get_bool("hpx.serving.async_dispatch", True)
+        self._async = bool(async_dispatch)
+        self._max_async = max(1, rc.get_int("hpx.serving.max_async_steps",
+                                            32))
+        self._admit_retries = max(0, rc.get_int(
+            "hpx.serving.admit_retries", 8))
+        self._programs: Dict[Any, Any] = {}
+        if self.paged:
+            self._init_paged(block_size, num_blocks, radix_budget_blocks,
+                             prefix_reuse, paged_kernel, kv_dtype)
+            self._caches = None     # dense buffers never allocated
+        else:
+            if paged_kernel is not None or kv_dtype is not None:
+                raise ValueError(
+                    "paged_kernel / kv_dtype are paged-mode knobs; "
+                    "pass paged=True to use them")
+            self._caches = [(self._zeros(slots), self._zeros(slots))
+                            for _ in range(cfg.n_layers)]
+        # host-side slot state
+        self._slot_req: List[Optional[_Request]] = [None] * slots
+        self._pos = [0] * slots         # next write position per slot
+        self._cur = [0] * slots         # token to feed next, per slot
+        self._temp = [0.0] * slots      # per-slot temperature
+        self._key = [prng.PRNGKey(0)] * slots
+        self._queue: deque = deque()
+        self._done: Dict[int, List[int]] = {}
+        self._next_rid = 0
+        # chunked-prefill state: slot -> in-flight pending
+        self._pending: Dict[int, _PendingPrefill] = {}
+        self._pf_seq = 0
+        # async-dispatch state: buffered (nxt, [(slot, req)]) steps plus
+        # device-resident mirrors of the per-slot host vectors
+        self._buf: deque = deque()
+        self._cur_dev: Optional[torch.Tensor] = None
+        self._temp_dev: Optional[torch.Tensor] = None
+        self._keys_dev: Optional[torch.Tensor] = None
+        self._closed = False
+        self.failed: Dict[int, HpxError] = {}
+        self._admit_defers: Dict[int, int] = {}  # rid -> OOM deferrals
+
+    def _zeros(self, rows: int) -> torch.Tensor:
+        cfg = self.cfg
+        return torch.zeros((rows, self.smax, cfg.kv_heads, cfg.head_dim),
+                           dtype=cfg.dtype, device=self.device)
+
+    def _init_paged(self, block_size, num_blocks, radix_budget_blocks,
+                    prefix_reuse, paged_kernel=None, kv_dtype=None) -> None:
+        """Resolve the hpx.cache.* knobs and build the paged state: one
+        preallocated block pool per layer (plus the [num_blocks, n_kv]
+        f32 scale sidecars for int8/fp8), the allocator over it, and
+        the radix prefix tree."""
+        cfg, slots, smax = self.cfg, self.slots, self.smax
+        rc = runtime_config()
+        self._kv_dtype = _resolve_kv_dtype(kv_dtype, rc)
+        self._paged_kernel = _resolve_paged_kernel(paged_kernel, rc,
+                                                   self.device)
+        # the `fused=` mode of ops.paged_attention: False -> gather
+        # oracle, True -> exact kernel, "online" -> online kernel
+        self._paged_fused = {"gather": False, "fused": True,
+                             "fused_online": "online"}[self._paged_kernel]
+        if block_size is None:
+            v = rc.get("hpx.cache.block_size", "auto")
+            if v in (None, "", "auto"):
+                block_size, self._block_size_src = resolve_paged_block_src(
+                    cfg.head_dim, self._kv_dtype, 16)
+            else:
+                block_size = int(v)
+                self._block_size_src = "config"
+        else:
+            self._block_size_src = "arg"
+        bs = int(block_size)
+        if bs < 1:
+            raise ValueError(f"block_size must be >= 1, got {bs}")
+        if smax % bs:
+            raise ValueError(
+                f"paged serving needs smax divisible by the block "
+                f"size {bs}; got smax {smax} (use smax="
+                f"{-(-smax // bs) * bs})")
+        self.block_size = bs
+        self._maxb = smax // bs     # table width: blocks per sequence
+        if num_blocks is None:
+            v = rc.get("hpx.cache.num_blocks", "auto")
+            num_blocks = None if v in (None, "", "auto") else int(v)
+        if num_blocks is None:
+            # worst-case live demand + the trash block + equal headroom
+            # for radix retention
+            num_blocks = 2 * slots * self._maxb + 1
+        if num_blocks < self._maxb + 1:
+            raise ValueError(
+                f"num_blocks {num_blocks} cannot hold one max-length "
+                f"request ({self._maxb} blocks) plus the reserved "
+                "trash block")
+        if radix_budget_blocks is None:
+            v = rc.get("hpx.cache.radix_budget_blocks", "auto")
+            radix_budget_blocks = (None if v in (None, "", "auto")
+                                   else int(v))
+        if prefix_reuse is None:
+            prefix_reuse = rc.get_bool("hpx.cache.prefix_reuse", True)
+        self._prefix_reuse = bool(prefix_reuse)
+        self._alloc = BlockAllocator(num_blocks, bs,
+                                     kv_dtype=self._kv_dtype)
+        # the trash block: dead slots' tables and table padding point
+        # here, so masked decode lanes write into rows nothing reads
+        self._trash = self._alloc.alloc()
+        self._radix = RadixCache(self._alloc, radix_budget_blocks)
+        dt = {"int8": torch.int8,
+              "fp8": FP8_DTYPE}.get(self._kv_dtype, cfg.dtype)
+        shape = (num_blocks, bs, cfg.kv_heads, cfg.head_dim)
+        self._pools = [tuple(torch.zeros(shape, dtype=dt, device=self.device)
+                             for _ in range(2))
+                       for _ in range(cfg.n_layers)]
+        if self._kv_dtype in ("int8", "fp8"):
+            # scale 1.0: fresh pools dequantize to exact zeros
+            self._scales = [tuple(torch.ones((num_blocks, cfg.kv_heads),
+                                             dtype=torch.float32,
+                                             device=self.device)
+                                  for _ in range(2))
+                            for _ in range(cfg.n_layers)]
+        else:
+            self._scales = None
+        self._tables: List[Optional[PageTable]] = [None] * slots
+        self._tables_sig = None     # (uid, version) per slot
+        self._tables_arr = None     # cached device [slots, maxb] map
+        self._prefill_saved = 0
+        self._prefill_computed = 0
+
+    # -- programs (memoized on what they bake in) ---------------------------
+
+    def _program(self, ck, build):
+        return cached_program(self._programs, ck, build)
+
+    def _step_prog(self):
+        cfg = self.cfg
+
+        def build():
+            def step(params, caches, tok, pos, temp, keys, sample):
+                caches, logits = _decode_rows(params, caches, tok, pos, cfg)
+                return caches, _pick_rows(logits, keys, temp, pos, sample)
+            return step
+        return self._program(("cb_step",), build)
+
+    def _chunk_prog(self, width: int):
+        """One bucketed prefill chunk: toks [1, width] (tail-padded with
+        token 0) written into the b=1 scratch at positions pos0 ..
+        pos0 + width - 1. Keyed per LADDER WIDTH, not per prompt length.
+        Pad rows land past the real frontier; they are never attended
+        and are overwritten before their positions go live."""
+        cfg = self.cfg
+
+        def build():
+            def chunk(params, caches, toks, pos0):
+                caches, _ = _decode_window(params, caches, toks, pos0, cfg,
+                                           need_logits=False)
+                return caches
+            return chunk
+        return self._program(("cb_chunk", width), build)
+
+    def _probe_prog(self):
+        """Seed-logits probe: rerun the LAST prompt token at its own
+        position (an idempotent K/V rewrite) and return its logits."""
+        cfg = self.cfg
+
+        def build():
+            def probe(params, caches, tok, pos):
+                caches, lg = _decode_window(params, caches, tok, pos, cfg,
+                                            need_logits=True)
+                return caches, lg[:, -1]
+            return probe
+        return self._program(("cb_probe",), build)
+
+    def _splice_prog(self):
+        """Copy the b=1 scratch cache into one slot's rows — all smax
+        rows, so one program serves every prompt length."""
+        def build():
+            def splice(caches, one, slot):
+                for (kc, vc), (k1, v1) in zip(caches, one):
+                    kc[slot] = k1[0].to(kc.dtype)
+                    vc[slot] = v1[0].to(vc.dtype)
+                return caches
+            return splice
+        return self._program(("cb_splice",), build)
+
+    def _paged_step_prog(self):
+        cfg, fused = self.cfg, self._paged_fused
+
+        def build():
+            def step(params, pools, scales, tok, pos, tables, temp, keys,
+                     sample):
+                pools, scales, logits = _paged_decode_rows(
+                    params, pools, scales, tok, tables, pos, cfg, fused)
+                return pools, scales, _pick_rows(logits, keys, temp, pos,
+                                                 sample)
+            return step
+        return self._program(("pg_step", self._paged_kernel), build)
+
+    def _paged_gather_prog(self):
+        """Materialize one request's (possibly prefix-matched) blocks
+        into a contiguous b=1 scratch cache the chunk/probe programs run
+        over; quantized pools dequantize here. Rows at/past `valid` (the
+        matched prefix length) are zeroed, so the scratch is a function
+        of the matched content, not of allocation history."""
+        dt = self.cfg.dtype
+        rows = self._maxb * self.block_size
+
+        def build():
+            def gather(pools, scales, trow, valid):
+                keep = (torch.arange(rows, device=trow.device)
+                        < valid)[None, :, None, None]
+                zero = torch.zeros((), dtype=dt, device=trow.device)
+                out = []
+                for i, (kp, vp) in enumerate(pools):
+                    ks, vs = (None, None) if scales is None else scales[i]
+                    out.append(tuple(
+                        torch.where(keep, gather_block_kv(p, trow[None], s,
+                                                          dt), zero)
+                        for p, s in ((kp, ks), (vp, vs))))
+                return out
+            return gather
+        return self._program(("pg_gather",), build)
+
+    def _paged_splice_prog(self):
+        """Write the request's padded block row back from the b=1
+        scratch (chunked-prefill splice). The WRITE row redirects
+        radix-matched prefix entries to the trash block, so shared
+        prefix blocks are never rewritten (for int8/fp8 a rewrite would
+        requantize a SHARED block); the trash-padded tail is
+        garbage-on-garbage."""
+        maxb, bs = self._maxb, self.block_size
+
+        def build():
+            def splice(pools, scales, one, wrow):
+                for i, ((kp, vp), (kc, vc)) in enumerate(zip(pools, one)):
+                    kseg = kc[0].reshape(maxb, bs, *kc.shape[2:])
+                    vseg = vc[0].reshape(maxb, bs, *vc.shape[2:])
+                    if scales is None:
+                        scatter_seq_blocks(kp, wrow, kseg)
+                        scatter_seq_blocks(vp, wrow, vseg)
+                    else:
+                        ks, vs = scales[i]
+                        scatter_seq_blocks_q(kp, ks, wrow, kseg)
+                        scatter_seq_blocks_q(vp, vs, wrow, vseg)
+                return pools, scales
+            return splice
+        return self._program(("pg_splice",), build)
+
+    def _copy_block_prog(self):
+        """Device side of allocator copy-on-write: duplicate one block's
+        rows src -> dst in every layer's pools (scale sidecars too)."""
+        def build():
+            def copy(pools, scales, src, dst):
+                for kp, vp in pools:
+                    for p in (kp, vp):
+                        as_raw(p)[dst] = as_raw(p)[src]
+                for pair in scales or ():
+                    for s in pair:
+                        s[dst] = s[src]
+                return pools, scales
+            return copy
+        return self._program(("pg_copy",), build)
+
+    # -- paged host-side bookkeeping ----------------------------------------
+
+    def _alloc_block(self) -> int:
+        """allocator.alloc with OOM -> evict -> retry: a full pool first
+        evicts the least-recently-used idle radix chain."""
+        try:
+            return self._alloc.alloc()
+        except CacheOOM:
+            if not sum(self._radix.evict(1)):
+                raise
+            return self._alloc.alloc()
+
+    def _cow_guard(self, pt: PageTable, bi: int) -> None:
+        """Make the block backing logical block `bi` exclusively ours
+        before writing into it (copy-on-write fork + device copy)."""
+        bid = pt.blocks[bi]
+        if self._alloc.refcount(bid) > 1:
+            new, copied = self._alloc.fork(bid)
+            if copied:
+                self._pools, self._scales = self._copy_block_prog()(
+                    self._pools, self._scales, bid, new)
+                pt.replace_block(bi, new)
+
+    def _ensure_block(self, slot: int, pos: int) -> None:
+        """Before a decode write at `pos`: extend the slot's table to
+        cover it, and make the target block exclusively ours."""
+        pt = self._tables[slot]
+        assert pt is not None
+        while pt.capacity <= pos:
+            pt.append_block(self._alloc_block())
+        self._cow_guard(pt, pos // self.block_size)
+
+    def _tables_dev(self) -> torch.Tensor:
+        """The [slots, maxb] int32 device map for one decode step,
+        rebuilt only when some table mutated or was swapped."""
+        sig = tuple((pt.uid, pt.version) if pt is not None else None
+                    for pt in self._tables)
+        if sig != self._tables_sig or self._tables_arr is None:
+            self._tables_arr = device_table(self._tables, self._maxb,
+                                            self._trash, self.device)
+            self._tables_sig = sig
+        return self._tables_arr
+
+    def _release_slot(self, slot: int, req: _Request) -> None:
+        """Paged retire: publish the request's FULL prompt blocks into
+        the radix tree, then drop the request's references."""
+        pt = self._tables[slot]
+        if pt is None:
+            return
+        if self._prefix_reuse:
+            nfull = len(req.prompt) // self.block_size
+            if nfull:
+                self._radix.insert(req.prompt[:nfull * self.block_size],
+                                   pt.blocks[:nfull])
+        for bid in pt.blocks:
+            self._alloc.decref(bid)
+        self._tables[slot] = None
+
+    def cache_stats(self) -> Dict[str, Any]:
+        """Paged-mode snapshot: allocator, radix tree, prefill savings
+        and the modeled decode-attention read cost."""
+        if not self.paged:
+            raise ValueError("cache_stats() requires paged=True")
+        st: Dict[str, Any] = dict(self._alloc.stats())
+        st.update(self._radix.stats())
+        st["prefill_tokens_saved"] = self._prefill_saved
+        st["prefill_tokens_computed"] = self._prefill_computed
+        st.update(self.hbm_read_stats())
+        return st
+
+    def _kv_acct_dtype(self) -> str:
+        """block_bytes key for the pools as allocated."""
+        if self._kv_dtype in ("int8", "fp8"):
+            return self._kv_dtype
+        return "f32" if self.cfg.dtype.itemsize == 4 else "bf16"
+
+    def hbm_read_stats(self) -> Dict[str, Any]:
+        """Modeled decode-attention device-memory read cost per generated
+        token: every MAPPED block of a live slot, K and V, every layer."""
+        if not self.paged:
+            raise ValueError("hbm_read_stats() requires paged=True")
+        live = sum(1 for pt in self._tables if pt is not None)
+        blocks = occupancy(self._tables)
+        per_tok = (blocks / live) if live else 0.0
+        bb = block_bytes(self.block_size, self.cfg.kv_heads,
+                         self.cfg.head_dim, self._kv_acct_dtype(),
+                         layers=self.cfg.n_layers)
+        return {
+            "hbm_read_blocks_per_token": per_tok,
+            "hbm_read_bytes_per_token": per_tok * bb,
+            "block_size_source": self._block_size_src,
+        }
+
+    # -- public API -----------------------------------------------------------
+
+    def submit(self, prompt, max_new: int, eos_id: Optional[int] = None,
+               temperature: float = 0.0, key=None) -> int:
+        """Queue one request; returns its id. ``key`` is a raw PRNG key
+        (``utils.prng.PRNGKey(seed)``, or a uint32[2] array)."""
+        if self._closed:
+            raise ServerClosedError()
+        prompt = [int(t) for t in prompt]
+        if not prompt:
+            raise ValueError("continuous batching needs a non-empty "
+                             "prompt (unconditional generation: "
+                             "transformer.generate)")
+        if len(prompt) + max_new > self.smax:
+            raise ValueError(
+                f"plen {len(prompt)} + max_new {max_new} exceeds "
+                f"smax {self.smax}")
+        if max_new < 1:
+            raise ValueError(f"max_new must be >= 1, got {max_new} "
+                             "(generate() handles max_new == 0)")
+        if temperature > 0.0 and key is None:
+            raise ValueError("temperature > 0 needs a PRNG key")
+        if temperature <= 0.0 and key is not None:
+            raise ValueError(
+                "key has no effect at temperature=0 (greedy); pass "
+                "temperature > 0 to sample")
+        if key is not None:
+            key = prng.as_key(key, "cpu")
+        rid = self._next_rid
+        self._next_rid += 1
+        self._queue.append(_Request(rid, prompt, max_new, eos_id,
+                                    temperature, key))
+        return rid
+
+    def shutdown(self) -> None:
+        """Close the intake: later submit() calls raise
+        ServerClosedError; queued and in-flight work still drains."""
+        self._closed = True
+
+    # -- chunked prefill ------------------------------------------------------
+
+    def _bucket_width(self, n: int) -> int:
+        """Smallest ladder width covering n chunk tokens."""
+        for w in self.prefill_buckets:
+            if w >= n:
+                return w
+        return self.prefill_buckets[-1]
+
+    def _start_prefill(self, req: _Request, slot: int) -> _PendingPrefill:
+        """Reserve `slot` and stand up the b=1 scratch cache (paged:
+        match the radix prefix, hold blocks for the whole prompt, and
+        gather them into the scratch)."""
+        self._pf_seq += 1
+        if self.paged:
+            p = self._start_paged(req, slot)
+        else:
+            scratch = [(self._zeros(1), self._zeros(1))
+                       for _ in range(self.cfg.n_layers)]
+            p = _PendingPrefill(req=req, slot=slot, caches=scratch, done=0,
+                                seq=self._pf_seq)
+        self._pending[slot] = p
+        self._admit_defers.pop(req.rid, None)   # admitted: ladder done
+        return p
+
+    def _start_paged(self, req: _Request, slot: int) -> _PendingPrefill:
+        plen = len(req.prompt)
+        matched, mbids = 0, []
+        if self._prefix_reuse:
+            # always leave >= 1 suffix token: admission needs the LAST
+            # prompt token's logits to seed generation
+            matched, mbids = self._radix.match(req.prompt[:-1])
+        pt = PageTable(self.block_size)
+        pt.extend_blocks(mbids)
+        try:
+            while pt.capacity < plen:
+                pt.append_block(self._alloc_block())
+        except CacheOOM:
+            for bid in pt.blocks:
+                self._alloc.decref(bid)
+            raise
+        pt.tokens = plen
+        self._prefill_saved += matched
+        self._prefill_computed += plen - matched
+        row = pt.as_row(self._maxb, self._trash)
+        trow = torch.from_numpy(row).to(self.device)
+        # the splice's WRITE row: radix-matched prefix blocks are shared,
+        # so their entries redirect to the trash block
+        wnp = row.copy()
+        wnp[:matched // self.block_size] = self._trash
+        wrow = torch.from_numpy(wnp).to(self.device)
+        caches = self._paged_gather_prog()(self._pools, self._scales, trow,
+                                           matched)
+        return _PendingPrefill(req=req, slot=slot, caches=caches,
+                               done=matched, seq=self._pf_seq, pt=pt,
+                               wrow=wrow)
+
+    def _advance_chunk(self, p: _PendingPrefill) -> None:
+        """Run ONE bucketed chunk of p's prompt into its scratch."""
+        req, plen = p.req, len(p.req.prompt)
+        n = min(self.prefill_chunk, plen - p.done)
+        width = self._bucket_width(n)
+        toks = req.prompt[p.done:p.done + n] + [0] * (width - n)
+        with torch.no_grad():
+            p.caches = self._chunk_prog(width)(
+                self.params, p.caches,
+                torch.tensor([toks], dtype=torch.int64, device=self.device),
+                p.done)
+        p.done += n
+
+    def _finish_prefill(self, p: _PendingPrefill) -> None:
+        """Prompt fully chunked: probe the last position's logits,
+        splice the scratch into the slot (dense rows / paged blocks),
+        seed the first generated token, go live."""
+        req, slot = p.req, p.slot
+        plen = len(req.prompt)
+        tok = torch.tensor([[req.prompt[-1]]], dtype=torch.int64,
+                           device=self.device)
+        with torch.no_grad():
+            caches, logits = self._probe_prog()(self.params, p.caches, tok,
+                                                plen - 1)
+            if self.paged:
+                self._pools, self._scales = self._paged_splice_prog()(
+                    self._pools, self._scales, caches, p.wrow)
+                self._tables[slot] = p.pt
+            else:
+                self._caches = self._splice_prog()(self._caches, caches,
+                                                   slot)
+        del self._pending[slot]
+        if req.temperature > 0.0:
+            # generate()'s tok0 draw: position plen-1, row 0
+            tok0 = int(_sample_row(logits[0], req.temperature,
+                                   req.key.to(self.device), plen - 1, 0))
+        else:
+            tok0 = int(torch.argmax(logits[0]))
+        req.tokens.append(tok0)
+        req.sent = 1
+        self._slot_req[slot] = req
+        self._pos[slot] = plen
+        self._cur[slot] = tok0
+        if self._cur_dev is not None:
+            # a copy: the buffered steps still hold the old tensor
+            self._cur_dev = self._cur_dev.clone()
+            self._cur_dev[slot] = tok0
+        self._temp[slot] = req.temperature
+        self._key[slot] = (req.key if req.key is not None
+                           else prng.PRNGKey(0))
+        self._temp_dev = None          # rebuilt with keys next step
+        self._maybe_retire(slot)
+
+    def _admit(self) -> None:
+        """Fill free slots from the queue. A prompt whose remaining
+        tokens fit one chunk prefills INLINE; a longer prompt reserves
+        the slot as a PENDING prefill that advances chunk by chunk in
+        _prefill_tick. A request that retires during admission frees its
+        slot at once, and the slot is re-scanned in the same pass.
+        Admission OOM (after evict -> retry) walks _defer_admit: requeue
+        at the front up to hpx.serving.admit_retries passes, then shed."""
+        for slot in range(self.slots):
+            while (self._slot_req[slot] is None
+                   and slot not in self._pending and self._queue):
+                req = self._queue.popleft()
+                try:
+                    p = self._start_prefill(req, slot)
+                    if p.remaining <= self.prefill_chunk:
+                        self._advance_chunk(p)
+                        self._finish_prefill(p)
+                except CacheOOM as e:
+                    if slot in self._pending:
+                        self._drop_pending(slot)
+                    if not self._defer_admit(req, e):
+                        return   # deferred: give retirements a step to
+                                 # free blocks before re-admitting
+
+    def _defer_admit(self, req: _Request, exc: CacheOOM) -> bool:
+        """Requeue the request at the FRONT (bounded by
+        hpx.serving.admit_retries), then shed. Returns True when the
+        request was shed, False when deferred."""
+        n = self._admit_defers.get(req.rid, 0) + 1
+        if n > self._admit_retries:
+            self._admit_defers.pop(req.rid, None)
+            self._shed_req(req, RequestShedError(
+                req.rid,
+                f"admission OOM persisted through {n} attempts ({exc})"))
+            return True
+        self._admit_defers[req.rid] = n
+        self._queue.appendleft(req)
+        return False
+
+    def _prefill_tick(self) -> None:
+        """Advance chunked prefills: ONE chunk per step, given to the
+        pending with the FEWEST remaining prompt tokens (FIFO breaks
+        ties). The finishing pending splices and goes live the same
+        step."""
+        if not self._pending:
+            return
+        p = min(self._pending.values(), key=lambda q: (q.remaining, q.seq))
+        self._advance_chunk(p)
+        if p.remaining == 0:
+            self._finish_prefill(p)
+
+    def _drop_pending(self, slot: int) -> _PendingPrefill:
+        """Tear down one in-flight prefill (blocks decref'd)."""
+        p = self._pending.pop(slot)
+        if p.pt is not None:
+            for bid in p.pt.blocks:
+                self._alloc.decref(bid)
+            p.pt = None
+        return p
+
+    # -- shedding and retirement ----------------------------------------------
+
+    def _shed_req(self, req: _Request, err: HpxError) -> None:
+        """Fail one request with a typed error, surfaced via `failed`
+        (run() returns successes only)."""
+        self.failed[req.rid] = err
+        self._admit_defers.pop(req.rid, None)
+
+    def _shed_everything(self, exc: BaseException) -> None:
+        """A decode step ran out of KV blocks: completed requests keep
+        their results (the flush finalizes buffered tokens); every
+        in-flight and queued request sheds into `failed`."""
+        self._flush()
+        reason = f"decode step out of KV blocks ({exc})"
+        for s in range(self.slots):
+            req = self._slot_req[s]
+            if req is None:
+                continue
+            self._slot_req[s] = None
+            if self.paged:
+                self._release_slot(s, req)
+            self._shed_req(req, RequestShedError(req.rid, reason))
+        for s in list(self._pending):
+            p = self._drop_pending(s)
+            self._shed_req(p.req, RequestShedError(p.req.rid, reason))
+        while self._queue:
+            q = self._queue.popleft()
+            self._shed_req(q, RequestShedError(q.rid, reason))
+        self._cur_dev = self._temp_dev = self._keys_dev = None
+
+    def _maybe_retire(self, slot: int) -> None:
+        req = self._slot_req[slot]
+        if req is None:
+            return
+        hit_eos = req.eos_id is not None and req.tokens[-1] == req.eos_id
+        if len(req.tokens) >= req.max_new or hit_eos:
+            self._finalize(slot, req, hit_eos)
+
+    def _finalize(self, slot: int, req: _Request, hit_eos: bool) -> None:
+        """Retire one request: pad the eos tail exactly like generate()'s
+        pinning, publish to _done, free the slot if it still holds this
+        request (async max_new retires free it at dispatch time)."""
+        if req.rid in self._done:
+            return
+        if hit_eos:
+            req.tokens = req.tokens + [req.eos_id] * (
+                req.max_new - len(req.tokens))
+        self._done[req.rid] = req.tokens
+        if self._slot_req[slot] is req:
+            self._slot_req[slot] = None
+            if self.paged:
+                self._release_slot(slot, req)
+
+    def _flush(self) -> None:
+        """Materialize every buffered step's token vector and replay the
+        per-slot bookkeeping in dispatch order — the only device-to-host
+        read in the decode loop."""
+        while self._buf:
+            nxt, lanes = self._buf.popleft()
+            vals = nxt.cpu().numpy()
+            for s, req in lanes:
+                t = int(vals[s])
+                req.tokens.append(t)
+                self._cur[s] = t
+                hit_eos = req.eos_id is not None and t == req.eos_id
+                if hit_eos or len(req.tokens) >= req.max_new:
+                    self._finalize(s, req, hit_eos)
+
+    # -- the step loop ----------------------------------------------------------
+
+    def step(self) -> bool:
+        """Admit + one prefill chunk + one decode step for every live
+        slot. Returns True while any work remains (live slots, pending
+        prefills, or queued requests)."""
+        try:
+            return self._step_inner()
+        except CacheOOM as e:
+            self._shed_everything(e)
+            return bool(self._queue or self._pending)
+
+    def _step_inner(self) -> bool:
+        self._admit()
+        self._prefill_tick()
+        live = [s for s in range(self.slots)
+                if self._slot_req[s] is not None]
+        if not live:
+            self._flush()
+            return bool(self._queue or self._pending)
+        dev = self.device
+        # dense: dead slots re-write their own last position (never
+        # read). Paged: dead slots' tables are all-trash. Dead slots'
+        # feedback tokens are stale outputs — always valid ids.
+        tok = (torch.tensor(self._cur, dtype=torch.int64, device=dev)
+               if self._cur_dev is None else self._cur_dev)
+        pos = torch.tensor(self._pos, dtype=torch.int32, device=dev)
+        if self._temp_dev is None:
+            self._temp_dev = torch.tensor(self._temp, dtype=torch.float32,
+                                          device=dev)
+            self._keys_dev = torch.stack(self._key).to(dev)
+        sample = any(t > 0.0 for t in self._temp)
+        with torch.no_grad():
+            if self.paged:
+                for s in live:
+                    self._ensure_block(s, self._pos[s])
+                self._pools, self._scales, nxt = self._paged_step_prog()(
+                    self.params, self._pools, self._scales, tok, pos,
+                    self._tables_dev(), self._temp_dev, self._keys_dev,
+                    sample)
+            else:
+                self._caches, nxt = self._step_prog()(
+                    self.params, self._caches, tok, pos, self._temp_dev,
+                    self._keys_dev, sample)
+        self._cur_dev = nxt
+        lanes = []
+        need_sync = not self._async
+        for s in live:
+            req = self._slot_req[s]
+            assert req is not None
+            lanes.append((s, req))
+            self._pos[s] += 1
+            req.sent += 1
+            if req.eos_id is not None:
+                # the eos check needs this step's VALUE before the next
+                # dispatch — retire timing must not drift
+                need_sync = True
+            elif req.sent >= req.max_new:
+                # bookkeeping retire at dispatch: the slot frees NOW;
+                # token values land at the flush this triggers
+                self._slot_req[s] = None
+                if self.paged:
+                    self._release_slot(s, req)
+                need_sync = True
+        self._buf.append((nxt, lanes))
+        if need_sync or len(self._buf) >= self._max_async:
+            self._flush()
+        return True
+
+    def run(self) -> Dict[int, List[int]]:
+        """Drive step() until every submitted request finishes; returns
+        {request_id: tokens}. Shed requests are not in the result; their
+        typed errors are in ``self.failed``."""
+        while self.step():
+            pass
+        out, self._done = self._done, {}
+        return out

@@ -1,0 +1,467 @@
+"""Decoder-only transformer, inference half: weights, cached decode, generate.
+
+Counterpart of the serving side of ``hpx_tpu.models.transformer``: the
+config, the weight tree, the KV-cached forward (``_block_decode`` /
+``_decode_window`` / ``_prefill_window``), ``generate`` and the shared
+per-row sampling contract (``_sample_row`` / ``_pick_row``). Training,
+the mesh and mixture-of-experts wait for later slices.
+
+The weights live in an ``nn.Module`` (``Transformer``) whose parameter
+names follow the reference's tree: ``emb``, ``ln_f`` and
+``layers.{i}.{ln1,wqkv | wq+wkv,wo,ln2,w1,b1,w2}``; an int8 weight is a
+``QWeight`` with buffers ``q`` and ``s``. Both classes answer
+``params["name"]`` as the reference's dicts do, so the decode functions
+read like the reference's and stay plain functions on tensors.
+
+Numerics follow the reference op for op: ``_ln`` is mean / population
+variance / rsqrt(var + 1e-5) (not ``F.layer_norm``), gelu is the tanh
+form (``jax.nn.gelu``'s default), the unembedding is tied, and attention
+runs its softmax in float32 (max, exp, sum, divide) and casts back to
+the compute dtype before p·V. KV caches are written in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.errors import NotImplementedYet
+from ..exec.cuda import resolve_device
+from ..utils import prng
+from .quant import QTensor, dequant
+
+__all__ = ["TransformerConfig", "Transformer", "QWeight", "init_params",
+           "params_from_reference", "generate"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab: int = 256
+    d_model: int = 64
+    n_heads: int = 4
+    head_dim: int = 16
+    n_layers: int = 2
+    d_ff: int = 128
+    dtype: torch.dtype = torch.float32
+    # grouped-query attention: 0 < n_kv_heads < n_heads shares each K/V
+    # head across n_heads / n_kv_heads query heads; 0 means n_heads
+    n_kv_heads: int = 0
+    # rotary position embeddings (GPT-NeoX rotate-half) on q and k
+    rope: bool = False
+    rope_theta: float = 10000.0
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+
+# -- the weight tree ------------------------------------------------------------
+
+class QWeight(nn.Module):
+    """An int8 serving weight: values ``q`` and per-output-channel f32
+    scales ``s`` (the reference's ``QTensor`` leaf)."""
+
+    def __init__(self, q: torch.Tensor, s: torch.Tensor) -> None:
+        super().__init__()
+        self.register_buffer("q", q)
+        self.register_buffer("s", s)
+
+
+class _Tree(nn.Module):
+    """A module that answers ``tree["name"]`` like the reference's dict:
+    a parameter, a ``QTensor`` view of a ``QWeight``, or a submodule."""
+
+    def _put(self, name: str, value: Any) -> None:
+        if isinstance(value, QTensor):
+            self.add_module(name, QWeight(value.q, value.s))
+        elif isinstance(value, nn.Module):
+            self.add_module(name, value)
+        else:
+            self.register_parameter(
+                name, nn.Parameter(value, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        if name in self._parameters:
+            return self._parameters[name]
+        m = self._modules.get(name)
+        if m is None:
+            raise KeyError(name)
+        return QTensor(m.q, m.s) if isinstance(m, QWeight) else m
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+class Layer(_Tree):
+    def __init__(self, tensors: Dict[str, Any]) -> None:
+        super().__init__()
+        for name, value in tensors.items():
+            self._put(name, value)
+
+
+class Transformer(_Tree):
+    """``emb`` [vocab, d], ``ln_f`` [d] and ``layers`` (one ``Layer``
+    each)."""
+
+    def __init__(self, emb: torch.Tensor, ln_f: torch.Tensor,
+                 layers: Sequence[Dict[str, Any]]) -> None:
+        super().__init__()
+        self._put("emb", emb)
+        self._put("ln_f", ln_f)
+        self.add_module("layers", nn.ModuleList(Layer(t) for t in layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.emb.device
+
+
+def init_params(cfg: TransformerConfig, seed: int = 0, device=None,
+                generator: Optional[torch.Generator] = None) -> Transformer:
+    """Random weights, the reference's init scheme (normal scaled by
+    1/sqrt(d_model), w2 by 1/sqrt(d_ff); layer-norm scales 1, biases
+    0), drawn from ``generator`` or from a generator seeded with
+    ``seed`` on the target device. ``device=None`` means ``cuda:0``."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(int(seed))
+    d, nh, hd, f = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
+    nkv = cfg.kv_heads
+    if nh % nkv:
+        raise ValueError(f"n_heads={nh} not a multiple of "
+                         f"n_kv_heads={nkv}")
+    s = 1.0 / math.sqrt(d)
+
+    def normal(shape, scale):
+        x = torch.randn(shape, generator=generator, device=dev)
+        return (x * scale).to(cfg.dtype)
+
+    layers = []
+    for _ in range(cfg.n_layers):
+        t: Dict[str, Any] = {"ln1": torch.ones(d, dtype=cfg.dtype,
+                                               device=dev)}
+        if nkv == nh:
+            t["wqkv"] = normal((3, d, nh, hd), s)
+        else:
+            t["wq"] = normal((d, nh, hd), s)
+            t["wkv"] = normal((2, d, nkv, hd), s)
+        t["wo"] = normal((nh, hd, d), s)
+        t["ln2"] = torch.ones(d, dtype=cfg.dtype, device=dev)
+        t["w1"] = normal((d, f), s)
+        t["b1"] = torch.zeros(f, dtype=cfg.dtype, device=dev)
+        t["w2"] = normal((f, d), 1.0 / math.sqrt(f))
+        layers.append(t)
+    emb = normal((cfg.vocab, d), s)
+    return Transformer(emb, torch.ones(d, dtype=cfg.dtype, device=dev),
+                       layers)
+
+
+def _from_numpy(a, dev: torch.device) -> torch.Tensor:
+    """A numpy array (bfloat16 and float8_e4m3fn included, which numpy
+    itself does not know) as a tensor on ``dev``."""
+    arr = np.ascontiguousarray(np.asarray(a))
+    name = arr.dtype.name
+    if name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    elif name == "float8_e4m3fn":
+        t = torch.from_numpy(arr.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn)
+    else:
+        t = torch.from_numpy(arr.copy())
+    return t.to(dev)
+
+
+def params_from_reference(np_tree: Dict[str, Any], device=None
+                          ) -> Transformer:
+    """The reference's parameter tree, as numpy arrays
+    (``jax.tree.map(np.asarray, params)``), as a ``Transformer`` on
+    ``device`` (None means ``cuda:0``). int8 ``QTensor`` leaves (from
+    ``quantize_params(bits=8)``) become ``QWeight``s."""
+    dev = resolve_device(device)
+
+    def leaf(v):
+        if isinstance(v, tuple) and hasattr(v, "q") and hasattr(v, "s"):
+            if len(v) != 2:
+                raise NotImplementedYet(
+                    "packed int4 weights are not ported yet",
+                    "params_from_reference")
+            return QTensor(_from_numpy(v.q, dev), _from_numpy(v.s, dev))
+        return _from_numpy(v, dev)
+
+    layers = []
+    for lp in np_tree["layers"]:
+        if "moe" in lp:
+            raise NotImplementedYet("mixture-of-experts layers are not "
+                                    "ported yet", "params_from_reference")
+        layers.append({k: leaf(v) for k, v in lp.items()})
+    return Transformer(leaf(np_tree["emb"]), leaf(np_tree["ln_f"]), layers)
+
+
+# -- the cached forward -------------------------------------------------------------
+
+def _ln(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + 1e-5) * scale
+
+
+def _dq(w, like: torch.Tensor):
+    """Dequantize an int8 serving weight at use; dense weights pass
+    through."""
+    return dequant(w, like.dtype)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def _qkv_proj(h: torch.Tensor, lp) -> Tuple[torch.Tensor, ...]:
+    """Project to (q, k, v); the GQA layout ("wq" + "wkv") gives k/v
+    their smaller head count."""
+    if "wqkv" in lp:
+        q, k, v = torch.einsum("bsd,cdnh->cbsnh", h, _dq(lp["wqkv"], h))
+        return q, k, v
+    q = torch.einsum("bsd,dnh->bsnh", h, _dq(lp["wq"], h))
+    k, v = torch.einsum("bsd,cdnh->cbsnh", h, _dq(lp["wkv"], h))
+    return q, k, v
+
+
+def _rope_angles(pos: torch.Tensor, hd: int, cfg: TransformerConfig):
+    if hd % 2:
+        raise ValueError(f"rope needs an even head_dim; got {hd}")
+    half = hd // 2
+    exps = -torch.arange(0, half, dtype=torch.float32,
+                         device=pos.device) / half
+    freq = torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32,
+                                  device=pos.device), exps)
+    return pos.to(torch.float32)[..., None] * freq, half
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+            half: int) -> torch.Tensor:
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def _rope(x: torch.Tensor, pos: torch.Tensor, cfg: TransformerConfig):
+    """Rotate q/k by position (rotate-half). x: [B, S, N, H]; pos: [S]."""
+    ang, half = _rope_angles(pos, x.shape[-1], cfg)       # [S, half]
+    cos = torch.cos(ang)[None, :, None, :].to(x.dtype)
+    sin = torch.sin(ang)[None, :, None, :].to(x.dtype)
+    return _rotate(x, cos, sin, half)
+
+
+def _softmax_f32(s: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` in float32: max, exp, sum, divide."""
+    s = s.float()
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
+
+
+def _attend(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+            live: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Masked attention of q [B, W, nq, hd] over caches [B, S, nkv, hd];
+    live [B, W, S] (or broadcastable) marks the visible positions.
+    Returns [B, W, nq, hd]."""
+    b, w, nq, hd = q.shape
+    nkv = kc.shape[2]
+    qg = q.reshape(b, w, nkv, nq // nkv, hd)
+    s = torch.einsum("bqngh,bknh->bngqk", qg, kc) / math.sqrt(hd)
+    s = s.masked_fill(~live[:, None, None, :, :], float("-inf"))
+    p = _softmax_f32(s).to(dtype)
+    return torch.einsum("bngqk,bknh->bqngh", p, vc).reshape(b, w, nq, hd)
+
+
+def _ffn_tail(x: torch.Tensor, att: torch.Tensor, lp) -> torch.Tensor:
+    """Output projection, residual, second norm and the MLP."""
+    x = x + torch.einsum("bsnh,nhd->bsd", att, _dq(lp["wo"], att))
+    h = _ln(x, lp["ln2"])
+    h = _gelu(h @ _dq(lp["w1"], h) + lp["b1"]) @ _dq(lp["w2"], h)
+    return x + h
+
+
+def _block_decode(x, lp, kv, write_at: int, cfg: TransformerConfig):
+    """One decoder block for a window of W new tokens at positions
+    write_at .. write_at + W - 1, with a KV cache (kc, vc) each
+    [B, Smax, Nkv, H] written in place. Window token i attends cache
+    positions <= write_at + i. The write start clamps so the window
+    fits, as ``dynamic_update_slice`` clamps it in the reference."""
+    kc, vc = kv
+    h = _ln(x, lp["ln1"])
+    q, k, v = _qkv_proj(h, lp)
+    sq = x.shape[1]
+    dev = x.device
+    if cfg.rope:
+        pos = write_at + torch.arange(sq, device=dev)
+        q, k = _rope(q, pos, cfg), _rope(k, pos, cfg)
+    start = min(max(int(write_at), 0), kc.shape[1] - sq)
+    kc[:, start:start + sq] = k.to(kc.dtype)
+    vc[:, start:start + sq] = v.to(vc.dtype)
+    kpos = torch.arange(kc.shape[1], device=dev)
+    qpos = write_at + torch.arange(sq, device=dev)
+    live = (kpos[None, :] <= qpos[:, None])[None]          # [1, W, S]
+    att = _attend(q, kc, vc, live, x.dtype)
+    return _ffn_tail(x, att, lp), (kc, vc)
+
+
+def _decode_window(params, caches, toks: torch.Tensor, pos0: int,
+                   cfg: TransformerConfig, need_logits: bool = True):
+    """A window of new tokens toks [B, W] at positions pos0 .. pos0+W-1
+    through every cached block. Returns (caches, f32 logits [B, W, V]),
+    or (caches, None) with need_logits=False (the cache-only prefill)."""
+    x = params["emb"][toks]
+    new_caches = []
+    for lp, kv in zip(params["layers"], caches):
+        x, kv = _block_decode(x, lp, kv, pos0, cfg)
+        new_caches.append(kv)
+    if not need_logits:
+        return new_caches, None
+    x = _ln(x, params["ln_f"])
+    logits = torch.einsum("bsd,vd->bsv", x, params["emb"])
+    return new_caches, logits.float()
+
+
+def _decode_forward(params, caches, tok: torch.Tensor, pos: int, cfg):
+    """One decode token per row: the W == 1 case of _decode_window.
+    Returns (caches, f32 logits [B, V])."""
+    caches, logits = _decode_window(params, caches, tok[:, None], pos, cfg)
+    return caches, logits[:, 0, :]
+
+
+# CHUNK tokens per prefill window
+_PREFILL_CHUNK = 128
+
+
+def _prefill_window(params, cfg, caches, prompt: torch.Tensor,
+                    chunk: int = _PREFILL_CHUNK, need_logits: bool = True,
+                    logits0: Optional[torch.Tensor] = None):
+    """Feed the prompt [B, plen] into the caches in windowed chunks of up
+    to ``chunk`` tokens. Returns (caches, logits after the last prompt
+    token); intermediate chunks run cache-only. ``logits0`` is the
+    empty-prompt result."""
+    plen = prompt.shape[1]
+    last = logits0[:, None] if logits0 is not None else None
+    for s in range(0, plen, chunk):
+        e = min(plen, s + chunk)
+        caches, lg = _decode_window(params, caches, prompt[:, s:e], s, cfg,
+                                    need_logits=need_logits and e == plen)
+        if lg is not None:
+            last = lg
+    return caches, (last[:, -1] if need_logits else None)
+
+
+# -- sampling ------------------------------------------------------------------------
+
+def _sample_rows(logits: torch.Tensor, temperature, keys: torch.Tensor,
+                 pos, rows) -> torch.Tensor:
+    """THE per-row sampling contract every decoder shares: scale by the
+    temperature, fold (position, row) into the key, draw categorically.
+    logits [B, V]; keys [B, 2] (or [2]); temperature, pos and rows are
+    scalars or [B] tensors."""
+    k = prng.fold_in(prng.fold_in(keys, pos), rows)
+    t = torch.as_tensor(temperature, dtype=torch.float32,
+                        device=logits.device)
+    if t.dim():
+        t = t[:, None]
+    return prng.categorical(k, logits.float() / t)
+
+
+def _sample_row(logits_row: torch.Tensor, temperature, key: torch.Tensor,
+                pos, row) -> torch.Tensor:
+    """``_sample_rows`` for one row: logits_row [V], key [2]."""
+    return _sample_rows(logits_row[None], temperature, key[None], pos,
+                        row)[0]
+
+
+def _pick_rows(logits: torch.Tensor, keys: torch.Tensor,
+               temperature: torch.Tensor, pos: torch.Tensor,
+               sample: bool = True) -> torch.Tensor:
+    """Greedy-or-sampled next token per row, the batched ``_pick_row``:
+    argmax where the row's temperature is 0, the shared categorical
+    draw at (pos, row 0) otherwise. ``sample=False`` (no row samples)
+    skips the draw; the argmax it would be selected against is the
+    same."""
+    greedy = torch.argmax(logits, dim=-1)
+    if not sample:
+        return greedy
+    drawn = _sample_rows(logits, torch.clamp_min(temperature, 1e-6), keys,
+                         pos, 0)
+    return torch.where(temperature > 0, drawn, greedy)
+
+
+def _pick_row(logits_row, key, temperature, pos) -> torch.Tensor:
+    """``_pick_rows`` for one row."""
+    t = torch.as_tensor(temperature, dtype=torch.float32,
+                        device=logits_row.device).reshape(1)
+    return _pick_rows(logits_row[None], key[None], t,
+                      torch.as_tensor([pos], device=logits_row.device))[0]
+
+
+# -- generate -------------------------------------------------------------------------
+
+def generate(params, cfg: TransformerConfig, prompt, max_new: int = 32,
+             temperature: float = 0.0, top_k: int = 0,
+             eos_id: Optional[int] = None, key=None,
+             device=None) -> torch.Tensor:
+    """Decode: prefill the prompt [B, plen] into KV caches in chunks, then
+    emit max_new tokens per row; returns int32 [B, max_new].
+
+    temperature=0: greedy argmax. temperature>0: sample with ``key``
+    (a raw PRNG key, see ``utils.prng``), folding in (position, row) as
+    the reference does, so the draws equal its draws. eos_id: rows that
+    emit it keep emitting it. ``device=None`` means ``cuda:0``; the
+    weights must be there."""
+    if temperature > 0.0 and key is None:
+        raise ValueError("temperature > 0 needs a PRNG key")
+    if temperature <= 0.0 and (top_k > 0 or key is not None):
+        raise ValueError(
+            "top_k/key have no effect at temperature=0 (greedy); pass "
+            "temperature > 0 to sample")
+    if top_k > 0:
+        raise NotImplementedYet("top_k sampling is not ported yet",
+                                "generate")
+    dev = resolve_device(device)
+    if params.device != dev:
+        raise ValueError(f"params live on {params.device}, not {dev}")
+    prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int64,
+                             device=dev)
+    b, plen = prompt.shape
+    smax = plen + max_new
+    karg = prng.as_key(key, dev) if key is not None else None
+    rows = torch.arange(b, device=dev)
+
+    def select(logits, pos):
+        if temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)
+        return _sample_rows(logits, temperature, karg, pos, rows)
+
+    with torch.no_grad():
+        caches = [tuple(torch.zeros((b, smax, cfg.kv_heads, cfg.head_dim),
+                                    dtype=cfg.dtype, device=dev)
+                        for _ in range(2)) for _ in range(cfg.n_layers)]
+        logits0 = torch.zeros((b, cfg.vocab), dtype=torch.float32,
+                              device=dev)
+        caches, last = _prefill_window(params, cfg, caches, prompt,
+                                       logits0=logits0)
+        tok = select(last, plen - 1)
+        done = torch.zeros(b, dtype=torch.bool, device=dev)
+        out: List[torch.Tensor] = []
+        for i, pos in enumerate(range(plen, smax)):
+            if eos_id is not None:
+                tok = torch.where(done, torch.full_like(tok, eos_id), tok)
+            out.append(tok)
+            if i == max_new - 1:
+                break           # the last step's prediction is unused
+            caches, logits = _decode_forward(params, caches, tok, pos, cfg)
+            nxt = select(logits, pos)
+            if eos_id is not None:
+                done = done | (tok == eos_id)
+            tok = nxt
+    if not out:
+        return torch.zeros((b, 0), dtype=torch.int32, device=dev)
+    return torch.stack(out, dim=1).to(torch.int32)

@@ -9,6 +9,12 @@ failed build raises: there is no fallback for a CUDA tensor.
 The sources have a plain C interface (no PyTorch headers), which keeps a
 build to seconds; the wrappers in ``ops/`` set each function's
 ``argtypes`` and ``restype``.
+
+Flags: every source gets ``NVCC_FLAGS``, plus its entry in
+``SOURCE_FLAGS``. The stencil kernels equal their plain versions bit
+for bit only without mul+add contraction (``--fmad=false``); the
+paged-attention kernels are held to a tolerance, so they keep nvcc's
+default contraction into FMA.
 """
 
 from __future__ import annotations
@@ -29,12 +35,19 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # no mul+add contraction into FMA: the kernels equal their plain
-    # PyTorch versions bit for bit
-    "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",          # registers, shared memory, spills: into the log
 )
+SOURCE_FLAGS: Dict[str, tuple] = {
+    # no mul+add contraction into FMA: the stencil kernels equal their
+    # plain PyTorch versions bit for bit
+    "stencil": ("--fmad=false",),
+}
+
+
+def flags(name: str) -> tuple:
+    """nvcc flags for ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
 _BUILD_TIMEOUT_S = 600
 
 # name -> {"path", "seconds", "built", "log"} for each library loaded
@@ -61,14 +74,14 @@ def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
-    h.update("\0".join(NVCC_FLAGS).encode())
+    h.update("\0".join(flags(name)).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def _build(name: str, out: Path) -> str:
     """Compile csrc/<name>.cu into ``out``; return nvcc's output."""
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,

@@ -71,3 +71,26 @@ def test_batch_environment_layer():
     env["HPX_TPU_TORCH_IGNORE_BATCH_ENV"] = "1"
     assert port.Configuration(environ=env, ini_files=[]).get(
         "hpx.localities") == "1"
+
+
+@pytest.mark.parametrize("key,good,bad", [
+    ("hpx.cache.kv_dtype", "int8", "fp4"),
+    ("hpx.serving.paged_kernel", "fused_online", "online"),
+])
+def test_serving_keys_match_the_reference(key, good, bad):
+    """The slice-2 keys carry the reference's defaults, and strict mode
+    refuses an enumerated knob's value outside its set, as there."""
+    from hpx_tpu.core import config_schema as ref_schema
+    for k in ("hpx.serving.prefill_chunk", "hpx.serving.prefill_buckets",
+              "hpx.serving.async_dispatch", "hpx.serving.max_async_steps",
+              "hpx.serving.admit_retries", "hpx.cache.block_size",
+              "hpx.cache.num_blocks", "hpx.cache.prefix_reuse",
+              "hpx.cache.radix_budget_blocks", key):
+        mine, theirs = config_schema.lookup(k), ref_schema.lookup(k)
+        assert (mine.type, mine.default) == (theirs.type, theirs.default), k
+    for mod, errs in ((port, port_errors), (ref, ref_errors)):
+        cfg = mod.Configuration(environ={}, ini_files=[], strict=True)
+        cfg.set(key, good)
+        assert cfg.get(key) == good
+        with pytest.raises(errs.BadParameter):
+            cfg.set(key, bad)

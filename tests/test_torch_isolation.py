@@ -72,3 +72,29 @@ def test_cuda_is_the_default_and_the_cpu_is_asked_for(monkeypatch):
     assert ex.target.device == torch.device("cpu")
     assert stencil1d.init_domain(p, "cpu").device == torch.device("cpu")
     assert hpx_tpu_torch.cuda_executor is CudaExecutor
+
+
+def test_serving_entry_points_need_cuda_unless_the_cpu_is_asked_for(
+        monkeypatch):
+    from hpx_tpu_torch.models import serving, transformer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = transformer.TransformerConfig(vocab=16, d_model=8, n_heads=2,
+                                        head_dim=4, n_layers=1, d_ff=16)
+    params = transformer.init_params(cfg, seed=0, device="cpu")
+    for make in (lambda: transformer.init_params(cfg),
+                 lambda: transformer.generate(params, cfg, [[1, 2]]),
+                 lambda: serving.ContinuousServer(params, cfg),
+                 lambda: serving.ContinuousServer(params, cfg, paged=True),
+                 lambda: transformer.params_from_reference(
+                     {"emb": params["emb"].numpy(),
+                      "ln_f": params["ln_f"].numpy(), "layers": []})):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    srv = serving.ContinuousServer(params, cfg, slots=1, smax=8,
+                                   paged=True, block_size=4, device="cpu")
+    assert srv._paged_kernel == "gather"
+    srv.submit([1, 2], max_new=3)
+    assert len(srv.run()[0]) == 3
+    out = transformer.generate(params, cfg, [[1, 2]], max_new=2,
+                               device="cpu")
+    assert out.device == torch.device("cpu")
