@@ -1,0 +1,958 @@
+// Flash attention for training: the forward kernel and the two backward
+// kernels, hand-written for Hopper (sm_90a).
+//
+// Replaces the three Pallas kernels of hpx_tpu/ops/attention_pallas.py:
+//   flash_fwd      <- _flash_kernel         (:112)
+//   flash_bwd_dq   <- _flash_bwd_dq_kernel  (:397)
+//   flash_bwd_dkv  <- _flash_bwd_dkv_kernel (:446)
+// Plain C interface (no PyTorch headers), loaded with ctypes by
+// hpx_tpu_torch/ops/attention_cuda.py, which checks shapes, types,
+// devices and alignment and allocates the outputs.
+//
+// Layouts (all contiguous, T = float or bf16):
+//   q, do, o   [BN, sq, H]  T      BN = B * N q rows
+//   k, v       [BNkv, sk, H] T     q row bn reads K/V row bn / g, g = BN / BNkv
+//   lse, delta [BN, sq] f32        one value a row
+//   dq         [BN, sq, H] f32
+//   dk, dv     [BN, sk, H] f32     per q row; the wrapper sums each group
+// Causal: key j is visible to query i iff j <= i + d (d = sk - sq in the
+// forward: bottom-right alignment); keys j >= sk never are.
+//
+// What bounds them on this card: at the training shape (S 1024, H 64,
+// causal) the forward does ~8.6 GFLOP on ~34 MB, about 250 FLOP/byte,
+// near the H100's bf16 ridge, so memory and tensor cores bound it alike
+// (~0.01 ms); the backward does 3.5x the operations on about as many
+// bytes. These first versions are simple. Each CTA owns one 64-row tile
+// (q rows, or key rows for dk/dv), walks the other operand in 64-row
+// tiles staged in shared memory by 16-byte loads, and skips causal tiles
+// past the diagonal, as at :137 / :410 / :460. No TMA, no wgmma, no
+// pipelining: those are the next versions.
+//   bf16 operands: the tensor cores (mma.sync m16n8k16, f32 accumulate),
+//     4 warps a CTA, 16 rows a warp; p and ds stay in registers between
+//     the two products of a tile.
+//   f32 operands: the FP32 units, full f32 products (TF32 would miss the
+//     plain version's 1e-5), 256 threads a CTA, each computing a 4 x 4
+//     piece of every 64 x 64 product from f32 tiles whose rows are padded
+//     by 4 floats, so the 16-byte shared reads are free of bank conflicts.
+//
+// Numerics follow the reference kernels: scores = f32 dot * scale;
+// masked lanes -1e30 and p exactly 0; online softmax in f32; p cast to
+// bf16 before p.V (bf16 inputs), p and ds cast before the backward
+// products; o = acc / l (0 on a row with no visible key), L = m + log l
+// (0 there); p = exp(s - L), ds = p * (dp - delta) * scale; dq, dk, dv
+// in f32. No atomics: dk/dv are written per q row.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBlock = 64;     // rows of a q tile and of a key tile
+constexpr int kThreads = 256;  // FP32 kernels, 16 x 16: thread (ty, tx)
+                               // owns rows ty*4 .. ty*4+3 of a tile
+constexpr int kPad = 4;        // floats of padding at the end of a row
+constexpr int kPLd = kBlock + kPad;  // row stride of a p / ds tile
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ void store4(float* p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+
+// reductions over the 16 lanes (tx) that share a row: xor offsets below
+// 16 stay inside each half of the warp
+__device__ __forceinline__ float row_max(float v) {
+  for (int o = 8; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float row_sum(float v) {
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Rows r0 .. r0+63 of src [rows][H] into dst [64][H + kPad], by 16-byte
+// loads; rows at or past `rows` are zero.
+template <int H>
+__device__ void load_tile(float* dst, const float* __restrict__ src, int r0,
+                          int rows) {
+  constexpr int PER_ROW = H / 4;
+  constexpr int LD = H + kPad;
+  for (int i = threadIdx.x; i < kBlock * PER_ROW; i += kThreads) {
+    const int r = i / PER_ROW, c = (i - r * PER_ROW) * 4;
+    *reinterpret_cast<float4*>(dst + r * LD + c) =
+        r0 + r < rows ? *reinterpret_cast<const float4*>(
+                            src + (size_t)(r0 + r) * H + c)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// Values r0 .. r0+63 of a [rows] f32 vector into dst[64]; 0 past `rows`.
+__device__ void load_rows(float* dst, const float* __restrict__ src, int r0,
+                          int rows) {
+  for (int i = threadIdx.x; i < kBlock; i += kThreads)
+    dst[i] = r0 + i < rows ? src[r0 + i] : 0.f;
+}
+
+// acc[r][c] = sum_d a[ty*4 + r][d] * b[tx + 16c][d]: a 4 x 4 piece of
+// the 64 x 64 product a bᵀ of two [64][H + kPad] tiles, d in order.
+template <int H>
+__device__ __forceinline__ void tile_dot(const float* a, const float* b,
+                                         float acc[4][4], int ty, int tx) {
+  constexpr int LD = H + kPad;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < H; d += 4) {
+    float4 av[4], bv[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      av[r] = *reinterpret_cast<const float4*>(a + (ty * 4 + r) * LD + d);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      bv[c] = *reinterpret_cast<const float4*>(b + (tx + 16 * c) * LD + d);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float x = acc[r][c];
+        x = fmaf(av[r].x, bv[c].x, x);
+        x = fmaf(av[r].y, bv[c].y, x);
+        x = fmaf(av[r].z, bv[c].z, x);
+        x = fmaf(av[r].w, bv[c].w, x);
+        acc[r][c] = x;
+      }
+  }
+}
+
+// acc[r][4c + e] += sum_j p[ty*4 + r][j] * v[j][64c + 4tx + e]: rows
+// ty*4 .. +3 and columns {64c + 4tx + e} of the product p v, p a
+// [64][kPLd] tile, v a [64][H + kPad] tile, j in order.
+template <int H>
+__device__ __forceinline__ void tile_pv(const float* p, const float* v,
+                                        float acc[4][H / 16], int ty,
+                                        int tx) {
+  constexpr int LD = H + kPad;
+#pragma unroll 2
+  for (int j = 0; j < kBlock; j += 4) {
+    float pr[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float4 t =
+          *reinterpret_cast<const float4*>(p + (ty * 4 + r) * kPLd + j);
+      pr[r][0] = t.x;
+      pr[r][1] = t.y;
+      pr[r][2] = t.z;
+      pr[r][3] = t.w;
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int c = 0; c < H / 64; ++c) {
+        const float4 vv = *reinterpret_cast<const float4*>(
+            v + (j + jj) * LD + 64 * c + 4 * tx);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          acc[r][4 * c + 0] = fmaf(pr[r][jj], vv.x, acc[r][4 * c + 0]);
+          acc[r][4 * c + 1] = fmaf(pr[r][jj], vv.y, acc[r][4 * c + 1]);
+          acc[r][4 * c + 2] = fmaf(pr[r][jj], vv.z, acc[r][4 * c + 2]);
+          acc[r][4 * c + 3] = fmaf(pr[r][jj], vv.w, acc[r][4 * c + 3]);
+        }
+      }
+  }
+}
+
+// Rows ty*4 .. +3 (those of row0 + ty*4 + r below `rows`) of a thread's
+// f32 accumulator acc[4][H/16] (column 64c + 4tx + e) into out [rows][H].
+template <int H>
+__device__ __forceinline__ void store_rows(float* out,
+                                           const float acc[4][H / 16],
+                                           int row0, int rows, int ty,
+                                           int tx) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = row0 + ty * 4 + r;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int c = 0; c < H / 64; ++c)
+      store4(out + (size_t)row * H + 64 * c + 4 * tx, acc[r][4 * c],
+             acc[r][4 * c + 1], acc[r][4 * c + 2], acc[r][4 * c + 3]);
+  }
+}
+
+__device__ __forceinline__ bool visible(int qpos, int kpos, int sk, int d,
+                                        int causal) {
+  return kpos < sk && (!causal || kpos <= qpos + d);
+}
+
+// Key tiles a q tile starting at q0 walks: all of them, or, causal, up
+// to the last one holding a key visible to its last row q0 + 63.
+__device__ __forceinline__ int key_tiles(int q0, int sk, int d, int causal) {
+  const int nk = (sk + kBlock - 1) / kBlock;
+  if (!causal) return nk;
+  const int last = q0 + kBlock - 1 + d;
+  return last < 0 ? 0 : min(nk, last / kBlock + 1);
+}
+
+// ---------------------------------------------------------------------------
+// flash_fwd (replaces _flash_kernel). Grid (q tiles, BN); the longest
+// causal rows start first. Shared memory: q | k | v tiles, p tile.
+// ---------------------------------------------------------------------------
+template <int H>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ o,
+          float* __restrict__ lse, int sq, int sk, int g, int causal,
+          float scale) {
+  extern __shared__ float4 smem4[];
+  constexpr int LD = H + kPad;
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* ks = qs + kBlock * LD;
+  float* vs = ks + kBlock * LD;
+  float* ps = vs + kBlock * LD;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int bn = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlock;
+  const int d = sk - sq;                    // bottom-right alignment
+  const float* kb = k + (size_t)(bn / g) * sk * H;
+  const float* vb = v + (size_t)(bn / g) * sk * H;
+
+  load_tile<H>(qs, q + (size_t)bn * sq * H, q0, sq);
+  float m[4], l[4], acc[4][H / 16];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < H / 16; ++e) acc[r][e] = 0.f;
+  }
+
+  const int nk = key_tiles(q0, sk, d, causal);
+  for (int ik = 0; ik < nk; ++ik) {
+    const int k0 = ik * kBlock;
+    __syncthreads();                        // the last tile's readers are done
+    load_tile<H>(ks, kb, k0, sk);
+    load_tile<H>(vs, vb, k0, sk);
+    __syncthreads();
+    float s[4][4];
+    tile_dot<H>(qs, ks, s, ty, tx);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int qpos = q0 + ty * 4 + r;
+      float mx = kNegInf;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[r][c] = visible(qpos, k0 + tx + 16 * c, sk, d, causal)
+                      ? s[r][c] * scale
+                      : kNegInf;
+        mx = fmaxf(mx, s[r][c]);
+      }
+      const float m_new = fmaxf(m[r], row_max(mx));
+      float psum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = visible(qpos, k0 + tx + 16 * c, sk, d, causal)
+                            ? expf(s[r][c] - m_new)
+                            : 0.f;
+        psum += p;
+        ps[(ty * 4 + r) * kPLd + tx + 16 * c] = p;
+      }
+      const float corr = expf(m[r] - m_new);   // 1 where m did not move
+      l[r] = l[r] * corr + row_sum(psum);
+      m[r] = m_new;
+#pragma unroll
+      for (int e = 0; e < H / 16; ++e) acc[r][e] *= corr;
+    }
+    __syncthreads();                        // p visible to every thread
+    tile_pv<H>(ps, vs, acc, ty, tx);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = q0 + ty * 4 + r;
+    if (row >= sq) continue;
+    if (tx == 0)
+      lse[(size_t)bn * sq + row] = l[r] > 0.f ? m[r] + logf(l[r]) : 0.f;
+    // o = acc / l, divided as the reference divides
+    const float den = l[r] > 0.f ? l[r] : 1.f;
+#pragma unroll
+    for (int c = 0; c < H / 64; ++c)
+      store4(o + ((size_t)bn * sq + row) * H + 64 * c + 4 * tx,
+             acc[r][4 * c] / den, acc[r][4 * c + 1] / den,
+             acc[r][4 * c + 2] / den, acc[r][4 * c + 3] / den);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// flash_bwd_dq (replaces _flash_bwd_dq_kernel). Grid (q tiles, BN); the
+// CTA walks key tiles. Shared memory: q | do | k | v tiles, ds tile,
+// lse and delta of its rows.
+// ---------------------------------------------------------------------------
+template <int H>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dout,
+             const float* __restrict__ delta, const float* __restrict__ lse,
+             float* __restrict__ dq, int sq, int sk, int g, int d,
+             int causal, float scale) {
+  extern __shared__ float4 smem4[];
+  constexpr int LD = H + kPad;
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* dos = qs + kBlock * LD;
+  float* ks = dos + kBlock * LD;
+  float* vs = ks + kBlock * LD;
+  float* dss = vs + kBlock * LD;
+  float* lr = dss + kBlock * kPLd;
+  float* dr = lr + kBlock;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int bn = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlock;
+  const float* kb = k + (size_t)(bn / g) * sk * H;
+  const float* vb = v + (size_t)(bn / g) * sk * H;
+
+  load_tile<H>(qs, q + (size_t)bn * sq * H, q0, sq);
+  load_tile<H>(dos, dout + (size_t)bn * sq * H, q0, sq);
+  load_rows(lr, lse + (size_t)bn * sq, q0, sq);
+  load_rows(dr, delta + (size_t)bn * sq, q0, sq);
+  float acc[4][H / 16];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int e = 0; e < H / 16; ++e) acc[r][e] = 0.f;
+
+  const int nk = key_tiles(q0, sk, d, causal);
+  for (int ik = 0; ik < nk; ++ik) {
+    const int k0 = ik * kBlock;
+    __syncthreads();
+    load_tile<H>(ks, kb, k0, sk);
+    load_tile<H>(vs, vb, k0, sk);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    tile_dot<H>(qs, ks, s, ty, tx);
+    tile_dot<H>(dos, vs, dp, ty, tx);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int qpos = q0 + ty * 4 + r;
+      const float L = lr[ty * 4 + r], D = dr[ty * 4 + r];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = visible(qpos, k0 + tx + 16 * c, sk, d, causal)
+                            ? expf(s[r][c] * scale - L)
+                            : 0.f;
+        dss[(ty * 4 + r) * kPLd + tx + 16 * c] = p * (dp[r][c] - D) * scale;
+      }
+    }
+    __syncthreads();
+    tile_pv<H>(dss, ks, acc, ty, tx);
+  }
+  store_rows<H>(dq + (size_t)bn * sq * H, acc, q0, sq, ty, tx);
+}
+
+// ---------------------------------------------------------------------------
+// flash_bwd_dkv (replaces _flash_bwd_dkv_kernel). Grid (key tiles, BN q
+// rows); the CTA walks the q tiles that see its keys. Thread (ty, tx)
+// owns key rows ty*4 .. +3 of pᵀ and dsᵀ, q columns tx + 16c. Shared
+// memory: k | v | q | do tiles, pᵀ and dsᵀ tiles, lse and delta.
+// ---------------------------------------------------------------------------
+template <int H>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
+              const float* __restrict__ delta,
+              const float* __restrict__ lse, float* __restrict__ dk,
+              float* __restrict__ dv, int sq, int sk, int g, int d,
+              int causal, float scale) {
+  extern __shared__ float4 smem4[];
+  constexpr int LD = H + kPad;
+  float* ks = reinterpret_cast<float*>(smem4);
+  float* vs = ks + kBlock * LD;
+  float* qs = vs + kBlock * LD;
+  float* dos = qs + kBlock * LD;
+  float* pts = dos + kBlock * LD;
+  float* dsts = pts + kBlock * kPLd;
+  float* lr = dsts + kBlock * kPLd;
+  float* dr = lr + kBlock;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int bn = blockIdx.y;
+  const int k0 = blockIdx.x * kBlock;       // causal: the first key tiles
+                                            // see the most q tiles
+  const float* qb = q + (size_t)bn * sq * H;
+  const float* db = dout + (size_t)bn * sq * H;
+
+  load_tile<H>(ks, k + (size_t)(bn / g) * sk * H, k0, sk);
+  load_tile<H>(vs, v + (size_t)(bn / g) * sk * H, k0, sk);
+  float dka[4][H / 16], dva[4][H / 16];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int e = 0; e < H / 16; ++e) {
+      dka[r][e] = 0.f;
+      dva[r][e] = 0.f;
+    }
+
+  // causal: q tile iq sees key k0 iff k0 <= iq*64 + 63 + d
+  const int nq = (sq + kBlock - 1) / kBlock;
+  const int first = k0 - (kBlock - 1) - d;
+  const int iq0 = causal && first > 0 ? (first + kBlock - 1) / kBlock : 0;
+  for (int iq = iq0; iq < nq; ++iq) {
+    const int q0 = iq * kBlock;
+    __syncthreads();
+    load_tile<H>(qs, qb, q0, sq);
+    load_tile<H>(dos, db, q0, sq);
+    load_rows(lr, lse + (size_t)bn * sq, q0, sq);
+    load_rows(dr, delta + (size_t)bn * sq, q0, sq);
+    __syncthreads();
+    float st[4][4], dpt[4][4];
+    tile_dot<H>(ks, qs, st, ty, tx);        // sᵀ: key rows, q columns
+    tile_dot<H>(vs, dos, dpt, ty, tx);      // dpᵀ
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int kpos = k0 + ty * 4 + r;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = tx + 16 * c, qpos = q0 + i;
+        const float p = qpos < sq && visible(qpos, kpos, sk, d, causal)
+                            ? expf(st[r][c] * scale - lr[i])
+                            : 0.f;
+        pts[(ty * 4 + r) * kPLd + i] = p;
+        dsts[(ty * 4 + r) * kPLd + i] = p * (dpt[r][c] - dr[i]) * scale;
+      }
+    }
+    __syncthreads();
+    tile_pv<H>(pts, dos, dva, ty, tx);      // dv += pᵀ do
+    tile_pv<H>(dsts, qs, dka, ty, tx);      // dk += dsᵀ q
+  }
+  store_rows<H>(dk + (size_t)bn * sk * H, dka, k0, sk, ty, tx);
+  store_rows<H>(dv + (size_t)bn * sk * H, dva, k0, sk, ty, tx);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 operands on the tensor cores: mma.sync m16n8k16, bf16 x bf16 with
+// f32 accumulation (bf16 products are exact, sums in f32, as the
+// reference's dots with preferred_element_type=f32). A CTA of 4 warps
+// owns one 64-row tile, each warp 16 rows of it; operand tiles sit in
+// shared memory as bf16, rows padded by 8 elements so that ldmatrix's
+// eight 16-byte rows fall in distinct banks. Fragment layouts (PTX ISA,
+// m16n8k16): lane = 4 g + t; A holds rows g, g+8 at k = 2t, 2t+1 and
+// 2t+8, 2t+9; B holds k = 2t, 2t+1 and 2t+8, 2t+9 at column g; C holds
+// rows g, g+8 at columns 2t, 2t+1. The C fragments of a 16 x 16 score
+// block are, packed to bf16 pairs, the A fragment of the next product,
+// so p and ds never leave registers.
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+constexpr int kMmaThreads = 128;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8 x 8 bf16 matrices from shared memory; lane l gives the address
+// of row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a b for one 16 x 8 block
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16 (astype(bf16)), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int H>
+struct Mma {
+  static constexpr int LD = H + 8;    // bf16 elements a shared-memory row
+  static constexpr int TILE = kBlock * LD;
+
+  // rows r0 .. r0+63 of src [rows][H] into dst [64][LD]; 0 past `rows`
+  static __device__ void load(bf16* dst, const bf16* __restrict__ src,
+                              int r0, int rows) {
+    constexpr int PER_ROW = H / 8;
+    for (int i = threadIdx.x; i < kBlock * PER_ROW; i += kMmaThreads) {
+      const int r = i / PER_ROW, c = (i - r * PER_ROW) * 8;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r0 + r < rows)
+        v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * H + c);
+      *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
+    }
+  }
+  // A fragment: rows row0 .. +15, columns k0 .. +15 of a [64][LD] tile
+  static __device__ void a_frag(uint32_t a[4], const bf16* t, int row0,
+                                int k0, int lane) {
+    ldsm_x4(a, t + (row0 + (lane & 15)) * LD + k0 + (lane >> 4) * 8);
+  }
+  // B fragments of the 8-column blocks n0 and n0+8 (b[0..1], b[2..3]),
+  // depth k0 .. +15, from a tile stored [n][k] (the product a tᵀ)
+  static __device__ void b_frag_nk(uint32_t b[4], const bf16* t, int n0,
+                                   int k0, int lane) {
+    ldsm_x4(b, t + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + k0 +
+                   ((lane >> 3) & 1) * 8);
+  }
+  // the same from a tile stored [k][n] (the product a t)
+  static __device__ void b_frag_kn(uint32_t b[4], const bf16* t, int n0,
+                                   int k0, int lane) {
+    ldsm_x4_t(b, t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + n0 +
+                     (lane >> 4) * 8);
+  }
+  // c[j] (j < 8: columns 8j .. 8j+7) += a(16 x H, from tile a at row0)
+  //   · bᵀ (b a [64][LD] tile: its 64 rows are the columns)
+  static __device__ void dot_t(float c[8][4], const bf16* a, int row0,
+                               const bf16* b, int lane) {
+#pragma unroll
+    for (int kk = 0; kk < H / 16; ++kk) {
+      uint32_t af[4];
+      a_frag(af, a, row0, kk * 16, lane);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        uint32_t bf[4];
+        b_frag_nk(bf, b, jj * 16, kk * 16, lane);
+        mma(c[2 * jj], af, bf[0], bf[1]);
+        mma(c[2 * jj + 1], af, bf[2], bf[3]);
+      }
+    }
+  }
+  // acc[n] (n < H/8: columns 8n ..) += p (16 x 64, A fragments in
+  //   registers) · t (a [64][LD] tile)
+  static __device__ void dot_p(float acc[H / 8][4], const uint32_t p[4][4],
+                               const bf16* t, int lane) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int hp = 0; hp < H / 16; ++hp) {
+        uint32_t bf[4];
+        b_frag_kn(bf, t, hp * 16, kk * 16, lane);
+        mma(acc[2 * hp], p[kk], bf[0], bf[1]);
+        mma(acc[2 * hp + 1], p[kk], bf[2], bf[3]);
+      }
+  }
+};
+
+// the C fragments of a 16 x 64 block as the A fragments of 4 16-deep
+// steps, rounded to bf16
+__device__ __forceinline__ void to_a(uint32_t a[4][4], const float c[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+// reductions over the 4 lanes (t) that share a row of a C fragment
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <int H>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, bf16* __restrict__ o,
+              float* __restrict__ lse, int sq, int sk, int g, int causal,
+              float scale) {
+  using M = Mma<H>;
+  extern __shared__ uint4 smem_u4[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_u4);
+  bf16* ks = qs + M::TILE;
+  bf16* vs = ks + M::TILE;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane / 4, tq = lane % 4;
+  const int bn = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlock;
+  const int d = sk - sq;                    // bottom-right alignment
+  const int row = q0 + warp * 16 + gr;      // this lane's rows: row, row+8
+  const bf16* kb = k + (size_t)(bn / g) * sk * H;
+  const bf16* vb = v + (size_t)(bn / g) * sk * H;
+
+  M::load(qs, q + (size_t)bn * sq * H, q0, sq);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[H / 8][4];
+#pragma unroll
+  for (int n = 0; n < H / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  const int nk = key_tiles(q0, sk, d, causal);
+  for (int ik = 0; ik < nk; ++ik) {
+    const int k0 = ik * kBlock;
+    __syncthreads();
+    M::load(ks, kb, k0, sk);
+    M::load(vs, vb, k0, sk);
+    __syncthreads();
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    M::dot_t(s, qs, warp * 16, ks, lane);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool live = visible(row + (e >> 1) * 8,
+                                  k0 + 8 * j + 2 * tq + (e & 1), sk, d,
+                                  causal);
+        s[j][e] = live ? s[j][e] * scale : kNegInf;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float m_new[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) m_new[r] = fmaxf(m[r], quad_max(mx[r]));
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool live = visible(row + (e >> 1) * 8,
+                                  k0 + 8 * j + 2 * tq + (e & 1), sk, d,
+                                  causal);
+        s[j][e] = live ? expf(s[j][e] - m_new[e >> 1]) : 0.f;
+        psum[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float corr = expf(m[r] - m_new[r]);   // 1 where m did not move
+      l[r] = l[r] * corr + quad_sum(psum[r]);
+      m[r] = m_new[r];
+#pragma unroll
+      for (int n = 0; n < H / 8; ++n) {
+        acc[n][2 * r] *= corr;
+        acc[n][2 * r + 1] *= corr;
+      }
+    }
+    uint32_t p[4][4];
+    to_a(p, s);                           // p cast to bf16 before p.V
+    M::dot_p(acc, p, vs, lane);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = row + 8 * r;
+    if (rr >= sq) continue;
+    if (tq == 0)
+      lse[(size_t)bn * sq + rr] = l[r] > 0.f ? m[r] + logf(l[r]) : 0.f;
+    const float den = l[r] > 0.f ? l[r] : 1.f;
+#pragma unroll
+    for (int n = 0; n < H / 8; ++n)
+      *reinterpret_cast<uint32_t*>(o + ((size_t)bn * sq + rr) * H + 8 * n +
+                                   2 * tq) =
+          pack_bf16(acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
+  }
+}
+
+template <int H>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ delta,
+                 const float* __restrict__ lse, float* __restrict__ dq,
+                 int sq, int sk, int g, int d, int causal, float scale) {
+  using M = Mma<H>;
+  extern __shared__ uint4 smem_u4[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_u4);
+  bf16* dos = qs + M::TILE;
+  bf16* ks = dos + M::TILE;
+  bf16* vs = ks + M::TILE;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane / 4, tq = lane % 4;
+  const int bn = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlock;
+  const int row = q0 + warp * 16 + gr;
+  const bf16* kb = k + (size_t)(bn / g) * sk * H;
+  const bf16* vb = v + (size_t)(bn / g) * sk * H;
+
+  M::load(qs, q + (size_t)bn * sq * H, q0, sq);
+  M::load(dos, dout + (size_t)bn * sq * H, q0, sq);
+  float L[2], D[2], acc[H / 8][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = row + 8 * r < sq;
+    L[r] = in ? lse[(size_t)bn * sq + row + 8 * r] : 0.f;
+    D[r] = in ? delta[(size_t)bn * sq + row + 8 * r] : 0.f;
+  }
+#pragma unroll
+  for (int n = 0; n < H / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  const int nk = key_tiles(q0, sk, d, causal);
+  for (int ik = 0; ik < nk; ++ik) {
+    const int k0 = ik * kBlock;
+    __syncthreads();
+    M::load(ks, kb, k0, sk);
+    M::load(vs, vb, k0, sk);
+    __syncthreads();
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    M::dot_t(s, qs, warp * 16, ks, lane);
+    M::dot_t(dp, dos, warp * 16, vs, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = visible(row + 8 * r, k0 + 8 * j + 2 * tq + (e & 1),
+                                sk, d, causal)
+                            ? expf(s[j][e] * scale - L[r])
+                            : 0.f;
+        s[j][e] = p * (dp[j][e] - D[r]) * scale;   // ds
+      }
+    uint32_t ds[4][4];
+    to_a(ds, s);                          // ds cast to k's dtype
+    M::dot_p(acc, ds, ks, lane);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = row + 8 * r;
+    if (rr >= sq) continue;
+#pragma unroll
+    for (int n = 0; n < H / 8; ++n)
+      *reinterpret_cast<float2*>(dq + ((size_t)bn * sq + rr) * H + 8 * n +
+                                 2 * tq) =
+          make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+  }
+}
+
+template <int H>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float* __restrict__ delta,
+                  const float* __restrict__ lse, float* __restrict__ dk,
+                  float* __restrict__ dv, int sq, int sk, int g, int d,
+                  int causal, float scale) {
+  using M = Mma<H>;
+  extern __shared__ uint4 smem_u4[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_u4);
+  bf16* vs = ks + M::TILE;
+  bf16* qs = vs + M::TILE;
+  bf16* dos = qs + M::TILE;
+  float* lr = reinterpret_cast<float*>(dos + M::TILE);
+  float* dr = lr + kBlock;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane / 4, tq = lane % 4;
+  const int bn = blockIdx.y;
+  const int k0 = blockIdx.x * kBlock;
+  const int key = k0 + warp * 16 + gr;     // this lane's keys: key, key+8
+  const bf16* qb = q + (size_t)bn * sq * H;
+  const bf16* db = dout + (size_t)bn * sq * H;
+
+  M::load(ks, k + (size_t)(bn / g) * sk * H, k0, sk);
+  M::load(vs, v + (size_t)(bn / g) * sk * H, k0, sk);
+  float dka[H / 8][4], dva[H / 8][4];
+#pragma unroll
+  for (int n = 0; n < H / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  const int nq = (sq + kBlock - 1) / kBlock;
+  const int first = k0 - (kBlock - 1) - d;
+  const int iq0 = causal && first > 0 ? (first + kBlock - 1) / kBlock : 0;
+  for (int iq = iq0; iq < nq; ++iq) {
+    const int q0 = iq * kBlock;
+    __syncthreads();
+    M::load(qs, qb, q0, sq);
+    M::load(dos, db, q0, sq);
+    load_rows(lr, lse + (size_t)bn * sq, q0, sq);
+    load_rows(dr, delta + (size_t)bn * sq, q0, sq);
+    __syncthreads();
+    float st[8][4], dpt[8][4];               // sᵀ, dpᵀ: key rows, q columns
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+    M::dot_t(st, ks, warp * 16, qs, lane);
+    M::dot_t(dpt, vs, warp * 16, dos, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 8 * j + 2 * tq + (e & 1), qpos = q0 + i;
+        const float p =
+            qpos < sq && visible(qpos, key + 8 * (e >> 1), sk, d, causal)
+                ? expf(st[j][e] * scale - lr[i])
+                : 0.f;
+        st[j][e] = p;
+        dpt[j][e] = p * (dpt[j][e] - dr[i]) * scale;   // dsᵀ
+      }
+    uint32_t pa[4][4], dsa[4][4];
+    to_a(pa, st);                         // p cast to do's dtype
+    to_a(dsa, dpt);                       // ds cast to q's dtype
+    M::dot_p(dva, pa, dos, lane);         // dv += pᵀ do
+    M::dot_p(dka, dsa, qs, lane);         // dk += dsᵀ q
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kk = key + 8 * r;
+    if (kk >= sk) continue;
+#pragma unroll
+    for (int n = 0; n < H / 8; ++n) {
+      const size_t at = ((size_t)bn * sk + kk) * H + 8 * n + 2 * tq;
+      *reinterpret_cast<float2*>(dk + at) =
+          make_float2(dka[n][2 * r], dka[n][2 * r + 1]);
+      *reinterpret_cast<float2*>(dv + at) =
+          make_float2(dva[n][2 * r], dva[n][2 * r + 1]);
+    }
+  }
+}
+
+// shared memory of each kernel at head dim h: f32 tiles for the FP32
+// kernels, bf16 tiles for the tensor-core ones
+constexpr int tile_bytes(int h) { return kBlock * (h + kPad) * 4; }
+constexpr int fwd_smem(int h) { return 3 * tile_bytes(h) + kBlock * kPLd * 4; }
+constexpr int dq_smem(int h) {
+  return 4 * tile_bytes(h) + kBlock * kPLd * 4 + 2 * kBlock * 4;
+}
+constexpr int dkv_smem(int h) {
+  return 4 * tile_bytes(h) + 2 * kBlock * kPLd * 4 + 2 * kBlock * 4;
+}
+constexpr int mma_tile_bytes(int h) { return kBlock * (h + 8) * 2; }
+
+template <typename K>
+cudaError_t prepare(K kernel, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem);
+}
+
+int tiles(int n) { return (n + kBlock - 1) / kBlock; }
+
+template <typename K, typename... Args>
+int launch(K kernel, dim3 grid, int threads, int smem, cudaStream_t stream,
+           Args... args) {
+  cudaError_t e = prepare(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// f32 operands run the FP32 kernels, bf16 operands the tensor-core ones
+template <int H>
+int fwd(bool bf, const void* q, const void* k, const void* v, void* o,
+        float* lse, int bn, int bnkv, int sq, int sk, int causal,
+        float scale, cudaStream_t stream) {
+  const dim3 grid(tiles(sq), bn);
+  if (bf)
+    return launch(flash_fwd_mma<H>, grid, kMmaThreads, 3 * mma_tile_bytes(H),
+                  stream, (const bf16*)q, (const bf16*)k, (const bf16*)v,
+                  (bf16*)o, lse, sq, sk, bn / bnkv, causal, scale);
+  return launch(flash_fwd<H>, grid, kThreads, fwd_smem(H), stream,
+                (const float*)q, (const float*)k, (const float*)v, (float*)o,
+                lse, sq, sk, bn / bnkv, causal, scale);
+}
+
+template <int H>
+int bwd_dq(bool bf, const void* q, const void* k, const void* v,
+           const void* dout, const float* delta, const float* lse, float* dq,
+           int bn, int bnkv, int sq, int sk, int d, int causal, float scale,
+           cudaStream_t stream) {
+  const dim3 grid(tiles(sq), bn);
+  if (bf)
+    return launch(flash_bwd_dq_mma<H>, grid, kMmaThreads,
+                  4 * mma_tile_bytes(H), stream, (const bf16*)q,
+                  (const bf16*)k, (const bf16*)v, (const bf16*)dout, delta,
+                  lse, dq, sq, sk, bn / bnkv, d, causal, scale);
+  return launch(flash_bwd_dq<H>, grid, kThreads, dq_smem(H), stream,
+                (const float*)q, (const float*)k, (const float*)v,
+                (const float*)dout, delta, lse, dq, sq, sk, bn / bnkv, d,
+                causal, scale);
+}
+
+template <int H>
+int bwd_dkv(bool bf, const void* q, const void* k, const void* v,
+            const void* dout, const float* delta, const float* lse,
+            float* dk, float* dv, int bn, int bnkv, int sq, int sk, int d,
+            int causal, float scale, cudaStream_t stream) {
+  const dim3 grid(tiles(sk), bn);
+  if (bf)
+    return launch(flash_bwd_dkv_mma<H>, grid, kMmaThreads,
+                  4 * mma_tile_bytes(H) + 2 * kBlock * 4, stream,
+                  (const bf16*)q, (const bf16*)k, (const bf16*)v,
+                  (const bf16*)dout, delta, lse, dk, dv, sq, sk, bn / bnkv, d,
+                  causal, scale);
+  return launch(flash_bwd_dkv<H>, grid, kThreads, dkv_smem(H), stream,
+                (const float*)q, (const float*)k, (const float*)v,
+                (const float*)dout, delta, lse, dk, dv, sq, sk, bn / bnkv, d,
+                causal, scale);
+}
+
+}  // namespace
+
+// One C entry point per (kernel, operand type); the head dim picks the
+// instantiation (the wrapper admits 64 and 128 only).
+#define HPX_FLASH_BY_HEAD(CALL_64, CALL_128) \
+  if (h == 64) return CALL_64;               \
+  if (h == 128) return CALL_128;             \
+  return (int)cudaErrorInvalidValue;
+
+#define HPX_FLASH_ENTRY(NAME, BF)                                            \
+  extern "C" int hpx_flash_fwd_##NAME(                                       \
+      const void* q, const void* k, const void* v, void* o, float* lse,      \
+      int bn, int bnkv, int sq, int sk, int h, int causal, float scale,      \
+      cudaStream_t stream) {                                                 \
+    HPX_FLASH_BY_HEAD(                                                       \
+        fwd<64>(BF, q, k, v, o, lse, bn, bnkv, sq, sk, causal, scale,        \
+                stream),                                                     \
+        fwd<128>(BF, q, k, v, o, lse, bn, bnkv, sq, sk, causal, scale,       \
+                 stream))                                                    \
+  }                                                                          \
+  extern "C" int hpx_flash_bwd_dq_##NAME(                                    \
+      const void* q, const void* k, const void* v, const void* dout,         \
+      const float* delta, const float* lse, float* dq, int bn, int bnkv,     \
+      int sq, int sk, int h, int d, int causal, float scale,                 \
+      cudaStream_t stream) {                                                 \
+    HPX_FLASH_BY_HEAD(                                                       \
+        bwd_dq<64>(BF, q, k, v, dout, delta, lse, dq, bn, bnkv, sq, sk, d,   \
+                   causal, scale, stream),                                   \
+        bwd_dq<128>(BF, q, k, v, dout, delta, lse, dq, bn, bnkv, sq, sk, d,  \
+                    causal, scale, stream))                                  \
+  }                                                                          \
+  extern "C" int hpx_flash_bwd_dkv_##NAME(                                   \
+      const void* q, const void* k, const void* v, const void* dout,         \
+      const float* delta, const float* lse, float* dk, float* dv, int bn,    \
+      int bnkv, int sq, int sk, int h, int d, int causal, float scale,       \
+      cudaStream_t stream) {                                                 \
+    HPX_FLASH_BY_HEAD(                                                       \
+        bwd_dkv<64>(BF, q, k, v, dout, delta, lse, dk, dv, bn, bnkv, sq, sk, \
+                    d, causal, scale, stream),                               \
+        bwd_dkv<128>(BF, q, k, v, dout, delta, lse, dk, dv, bn, bnkv, sq,    \
+                     sk, d, causal, scale, stream))                          \
+  }
+
+HPX_FLASH_ENTRY(f32, false)
+HPX_FLASH_ENTRY(bf16, true)
+
+extern "C" const char* hpx_flash_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

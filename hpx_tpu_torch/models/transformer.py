@@ -1,10 +1,14 @@
-"""Decoder-only transformer, inference half: weights, cached decode, generate.
+"""Decoder-only transformer: weights, cached decode, generate, training.
 
-Counterpart of the serving side of ``hpx_tpu.models.transformer``: the
-config, the weight tree, the KV-cached forward (``_block_decode`` /
-``_decode_window`` / ``_prefill_window``), ``generate`` and the shared
-per-row sampling contract (``_sample_row`` / ``_pick_row``). Training,
-the mesh and mixture-of-experts wait for later slices.
+Counterpart of ``hpx_tpu.models.transformer`` on one device: the config,
+the weight tree, the KV-cached forward (``_block_decode`` /
+``_decode_window`` / ``_prefill_window``), ``generate``, the shared
+per-row sampling contract (``_sample_row`` / ``_pick_row``), and the
+single-device training step (``_block`` / ``_nll_head`` / ``_local_loss``
+/ ``make_train_step``), whose attention is flash attention with the flash
+backward (``ops/attention_cuda.flash_attention``). The mesh,
+sequence/tensor parallel steps and mixture-of-experts wait for the
+multi-device slice.
 
 The weights live in an ``nn.Module`` (``Transformer``) whose parameter
 names follow the reference's tree: ``emb``, ``ln_f`` and
@@ -30,14 +34,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.errors import NotImplementedYet
 from ..exec.cuda import resolve_device
+from ..ops.attention_cuda import flash_attention
 from ..utils import prng
 from .quant import QTensor, dequant
 
 __all__ = ["TransformerConfig", "Transformer", "QWeight", "init_params",
-           "params_from_reference", "generate"]
+           "params_from_reference", "generate", "sample_batch",
+           "make_train_step", "make_opt_state"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,9 +56,14 @@ class TransformerConfig:
     n_layers: int = 2
     d_ff: int = 128
     dtype: torch.dtype = torch.float32
+    # SGD learning rate of make_train_step (no optimizer given)
+    lr: float = 1e-2
     # grouped-query attention: 0 < n_kv_heads < n_heads shares each K/V
     # head across n_heads / n_kv_heads query heads; 0 means n_heads
     n_kv_heads: int = 0
+    # recompute each block in the backward pass (activation checkpoint):
+    # one block's activations live instead of n_layers'
+    remat: bool = False
     # rotary position embeddings (GPT-NeoX rotate-half) on q and k
     rope: bool = False
     rope_theta: float = 10000.0
@@ -465,3 +477,135 @@ def generate(params, cfg: TransformerConfig, prompt, max_new: int = 32,
     if not out:
         return torch.zeros((b, 0), dtype=torch.int32, device=dev)
     return torch.stack(out, dim=1).to(torch.int32)
+
+
+# -- training (one device) -------------------------------------------------------
+
+def sample_batch(cfg: TransformerConfig, batch: int, seq: int,
+                 generator: Optional[torch.Generator] = None, device=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Uniform random tokens [batch, seq + 1] from ``generator`` (one on
+    the target device; the default generator when None), split into
+    (tokens, next-token targets), each [batch, seq] int64. ``device=None``
+    means ``cuda:0``."""
+    dev = resolve_device(device)
+    toks = torch.randint(0, cfg.vocab, (batch, seq + 1), generator=generator,
+                         device=dev)
+    return toks[:, :-1], toks[:, 1:]
+
+
+def _block(x: torch.Tensor, lp, cfg: TransformerConfig) -> torch.Tensor:
+    """One decoder block over a whole [B, S, D] sequence: causal flash
+    attention, then the MLP."""
+    h = _ln(x, lp["ln1"])
+    q, k, v = _qkv_proj(h, lp)
+    if cfg.rope:
+        pos = torch.arange(q.shape[1], device=x.device)
+        q, k = _rope(q, pos, cfg), _rope(k, pos, cfg)
+    att = flash_attention(q, k, v, causal=True)
+    return _ffn_tail(x, att, lp)
+
+
+def _nll_head(params, x: torch.Tensor, targets: torch.Tensor):
+    """ln_f + tied-embedding loss head on [B, S, D]; returns (nll_sum,
+    count). -log p[target] = logsumexp(row) - logits[target], the
+    logsumexp in f32 and the target logit as a row dot against the
+    gathered embedding rows in the logits' dtype, as the reference
+    computes them."""
+    x = _ln(x, params["ln_f"])
+    emb = params["emb"]
+    logits = torch.einsum("bsd,vd->bsv", x, emb)
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    tgt = torch.einsum("bsd,bsd->bs", x, emb[targets]).float()
+    nll = lse - tgt
+    return nll.sum(), nll.numel()
+
+
+def _local_loss(params, tokens: torch.Tensor, targets: torch.Tensor,
+                cfg: TransformerConfig):
+    """Token loss sum and count over the batch; with ``cfg.remat`` each
+    block is recomputed in the backward pass."""
+    x = params["emb"][tokens]
+    for lp in params["layers"]:
+        if cfg.remat:
+            x = checkpoint(_block, x, lp, cfg, use_reentrant=False)
+        else:
+            x = _block(x, lp, cfg)
+    return _nll_head(params, x, targets)
+
+
+def _as_tokens(t, dev: torch.device) -> torch.Tensor:
+    if isinstance(t, torch.Tensor):
+        return t.to(device=dev, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(t), dtype=torch.int64, device=dev)
+
+
+def _loss_and_grads(params: Transformer, tokens, targets,
+                    cfg: TransformerConfig, dev: torch.device):
+    """(weights, their gradients, detached mean token NLL) of one batch
+    on ``dev``. The weights take ``requires_grad`` only while the
+    gradients are computed, so the serving paths stay free of
+    autograd."""
+    if params.device != dev:
+        raise ValueError(f"params live on {params.device}, not {dev}")
+    if any(isinstance(m, QWeight) for m in params.modules()):
+        raise ValueError("int8 serving weights cannot be trained")
+    tokens, targets = _as_tokens(tokens, dev), _as_tokens(targets, dev)
+    weights = list(params.parameters())
+    for w in weights:
+        w.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            s, n = _local_loss(params, tokens, targets, cfg)
+            loss = s / n
+            grads = torch.autograd.grad(loss, weights)
+    finally:
+        for w in weights:
+            w.requires_grad_(False)
+    return weights, grads, loss.detach()
+
+
+def make_opt_state(params: Transformer, cfg: TransformerConfig, optimizer):
+    """The state of ``optimizer``, a ``torch.optim`` factory such as
+    ``functools.partial(torch.optim.Adam, lr=1e-2)``, over the weights:
+    the torch.optim object itself."""
+    return optimizer(list(params.parameters()))
+
+
+def make_train_step(cfg: TransformerConfig, optimizer=None, device=None):
+    """The single-device training step (the reference's
+    ``make_train_step(cfg, make_mesh_3d(1))``), updating the
+    ``Transformer`` in place. ``device=None`` means ``cuda:0``.
+
+    optimizer=None: SGD, ``p - lr * g`` in p's dtype;
+    ``step(params, tokens, targets) -> (params, loss)``.
+
+    optimizer=<torch.optim factory>: ``step(params, opt_state, tokens,
+    targets) -> (params, opt_state, loss)``, with ``opt_state`` from
+    ``make_opt_state(params, cfg, optimizer)``.
+
+    The loss is the mean token NLL, a detached f32 scalar. The weights
+    take ``requires_grad`` only while the step computes their gradients,
+    so the serving paths stay free of autograd."""
+    dev = resolve_device(device)
+
+    if optimizer is None:
+        def step(params, tokens, targets):
+            weights, grads, loss = _loss_and_grads(params, tokens, targets,
+                                                    cfg, dev)
+            with torch.no_grad():
+                for w, g in zip(weights, grads):
+                    w.sub_(cfg.lr * g.to(w.dtype))
+            return params, loss
+        return step
+
+    def step_opt(params, opt_state, tokens, targets):
+        weights, grads, loss = _loss_and_grads(params, tokens, targets,
+                                                cfg, dev)
+        for w, g in zip(weights, grads):
+            w.grad = g.to(w.dtype)
+        opt_state.step()
+        for w in weights:
+            w.grad = None
+        return params, opt_state, loss
+    return step_opt

@@ -1,7 +1,7 @@
-"""Paged decode attention that walks the block table: two CUDA kernels.
+"""Attention kernels: paged decode (two) and flash attention (three).
 
-Counterpart of the paged half of ``hpx_tpu.ops.attention_pallas``. Two
-hand-written kernels in ``csrc/paged_attention.cu`` replace its two
+Counterpart of ``hpx_tpu.ops.attention_pallas``. Hand-written kernels in
+``csrc/paged_attention.cu`` and ``csrc/flash_attention.cu`` replace its
 Pallas kernels; each has a plain PyTorch version beside it that computes
 the same function with the same dtype steps, which the CPU path runs and
 which the kernel is held against on the card:
@@ -12,8 +12,19 @@ which the kernel is held against on the card:
   fused_paged_online_attention  kernel paged_attention_online
                                 (replaces _paged_online_kernel; plain
                                 version plain_paged_attention_online)
+  flash_attention_fwd           kernel flash_fwd (replaces _flash_kernel;
+                                plain version plain_flash_fwd)
+  flash_attention_bwd_dq        kernel flash_bwd_dq (replaces
+                                _flash_bwd_dq_kernel; plain_flash_bwd_dq)
+  flash_attention_bwd_dkv       kernel flash_bwd_dkv (replaces
+                                _flash_bwd_dkv_kernel; plain_flash_bwd_dkv)
 
-Operands (the reference's): q [B, W, nq, hd] post-rope queries (W = 1
+Each flash kernel has two routes in the source, chosen by the operands'
+dtype: bf16 on the tensor cores (``*_mma``), f32 on the FP32 units.
+``flash_attention`` (at the end of this file) is the differentiable
+[B, S, N, H] entry point over the three flash wrappers.
+
+Paged operands (the reference's): q [B, W, nq, hd] post-rope queries (W = 1
 for decode, W > 1 for a speculative-verify window); k_pool/v_pool
 [num_blocks, block_size, nkv, hd] with this step's rows already written;
 table [B, max_blocks] int32; pos0 [B] int32, window row w attends
@@ -53,7 +64,10 @@ __all__ = ["fused_paged_attention", "fused_paged_online_attention",
            "plain_paged_attention_exact", "plain_paged_attention_online",
            "resolve_paged_block_src", "resolve_paged_block",
            "chunk_blocks", "exact_smem_bytes", "online_smem_bytes",
-           "SMEM_LIMIT"]
+           "SMEM_LIMIT", "flash_attention", "flash_attention_fwd",
+           "flash_attention_bwd", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv", "bwd_prep", "plain_flash_fwd",
+           "plain_flash_bwd_dq", "plain_flash_bwd_dkv"]
 
 _NEG_INF = -1e30     # the online carry's "minus infinity" (exp stays exact)
 
@@ -360,3 +374,380 @@ def fused_paged_online_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 fused_paged_online_attention.launches = 0
+
+
+# -- flash attention: forward and the two backward kernels --------------------
+#
+# Kernel layout, as the reference's kernels take it: q, do, o [B·N, Sq, H];
+# k, v [B·Nkv, Sk, H]; the row logsumexp ``lse`` and ``delta`` [B·N, Sq]
+# f32 (one value a row, not the TPU's lane-replicated [.., 128]). GQA
+# reads K/V row ``bn // g`` for q row bn, g = (B·N) / (B·Nkv): the
+# reference's ``_kv_row_map`` (b·N + n -> b·Nkv + n // g) in one division.
+#
+# Math (s = scale · q kᵀ; L = row logsumexp; causal: kpos <= qpos + d):
+#   forward   online softmax over key blocks of FLASH_BLOCK rows, in f32;
+#             masked lanes -1e30 and p exactly 0; o = acc / l (0 on a row
+#             with no visible key), L = m + log l (0 on such a row)
+#   backward  p = exp(s - L), dp = do vᵀ, ds = p · (dp - delta) · scale,
+#             delta = rowsum(do · o) (``bwd_prep``);
+#             dq = ds k, dk = dsᵀ q, dv = pᵀ do, all f32
+# bf16 operands: every dot accumulates in f32 (bf16 products are exact
+# there); p is cast to bf16 before p·V, and p and ds before the backward
+# products, as the reference casts them. f32 operands stay f32 (no TF32).
+
+FLASH_BLOCK = 64           # rows of a q tile and of a key tile
+FLASH_HEAD_DIMS = (64, 128)  # head dims the CUDA kernels are built for
+_FLASH_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _flash_scale(h: int) -> float:
+    """1/sqrt(h) rounded to f32, as the reference's weak-typed scale is."""
+    return float(np.float32(1.0 / math.sqrt(h)))
+
+
+def _kv_rows(x: torch.Tensor, g: int) -> torch.Tensor:
+    """K/V rows [B·Nkv, S, H] repeated to one per q row (row bn is K/V
+    row bn // g); the plain versions' form of the kernels' row remap."""
+    return x if g == 1 else x.repeat_interleave(g, dim=0)
+
+
+def _bf16_round(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x.astype(like.dtype)`` where like is bf16, as f32 again; x as it
+    is otherwise."""
+    return x.to(torch.bfloat16).float() if like.dtype == torch.bfloat16 \
+        else x
+
+
+def _flash_live(sq: int, k0: int, kn: int, sk: int, d: int, causal: bool,
+          device) -> torch.Tensor:
+    """[sq, kn] mask of key positions k0 .. k0+kn-1 visible to each q
+    row: kpos < sk and, when causal, kpos <= qpos + d."""
+    kpos = k0 + torch.arange(kn, device=device)
+    live = (kpos < sk)[None, :].expand(sq, kn)
+    if causal:
+        qpos = torch.arange(sq, device=device)
+        live = live & (kpos[None, :] <= qpos[:, None] + d)
+    return live
+
+
+def plain_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's function in PyTorch, its order of operations
+    included: keys in blocks of FLASH_BLOCK folded into an (acc, m, l)
+    carry in f32. Returns (o [B·N, Sq, H] in q.dtype, lse [B·N, Sq] f32)."""
+    bn, sq, h = q.shape
+    sk, g = k.shape[1], bn // k.shape[0]
+    scale, off = _flash_scale(h), sk - sq
+    kr, vr, qf = _kv_rows(k, g), _kv_rows(v, g), q.float()
+    acc = torch.zeros((bn, sq, h), dtype=torch.float32, device=q.device)
+    m = torch.full((bn, sq, 1), _NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    lsum = torch.zeros_like(m)
+    for k0 in range(0, sk, FLASH_BLOCK):
+        if causal and k0 > sq - 1 + off:
+            break                      # every later key tile is masked
+        kb = kr[:, k0:k0 + FLASH_BLOCK].float()
+        vb = vr[:, k0:k0 + FLASH_BLOCK].float()
+        s = torch.matmul(qf, kb.transpose(1, 2)) * scale
+        live = _flash_live(sq, k0, kb.shape[1], sk, off, causal, q.device)
+        s = torch.where(live, s, torch.full_like(s, _NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(live, torch.exp(s - m_new), torch.zeros_like(s))
+        corr = torch.exp(m - m_new)       # exactly 1 where m did not move
+        acc = acc * corr
+        lsum = lsum * corr + p.sum(-1, keepdim=True)
+        m = m_new
+        acc = acc + torch.matmul(_bf16_round(p, v), vb)
+    seen = lsum > 0
+    den = torch.where(seen, lsum, torch.ones_like(lsum))
+    lse = torch.where(seen, m + torch.log(den), torch.zeros_like(m))
+    return (acc / den).to(q.dtype), lse[..., 0]
+
+
+def _plain_bwd_common(q, k, v, do, delta, lse, d, causal):
+    """p (masked, f32) and ds of the backward, for every (q, key) pair."""
+    bn, sq, h = q.shape
+    sk, g = k.shape[1], bn // k.shape[0]
+    scale = _flash_scale(h)
+    kr, vr = _kv_rows(k, g), _kv_rows(v, g)
+    s = torch.matmul(q.float(), kr.float().transpose(1, 2)) * scale
+    live = _flash_live(sq, 0, sk, sk, d, causal, q.device)
+    p = torch.where(live, torch.exp(s - lse[..., None]),
+                    torch.zeros_like(s))
+    dp = torch.matmul(do.float(), vr.float().transpose(1, 2))
+    ds = p * (dp - delta[..., None]) * scale
+    return kr, p, ds
+
+
+def plain_flash_bwd_dq(q, k, v, do, delta, lse, d: int,
+                       causal: bool = False) -> torch.Tensor:
+    """The dq kernel's function in PyTorch: dq = ds k in f32, ds cast to
+    k's dtype first where that is bf16. Returns dq [B·N, Sq, H] f32."""
+    kr, _, ds = _plain_bwd_common(q, k, v, do, delta, lse, d, causal)
+    return torch.matmul(_bf16_round(ds, k), kr.float())
+
+
+def plain_flash_bwd_dkv(q, k, v, do, delta, lse, d: int,
+                        causal: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel's function in PyTorch: dv = pᵀ do and
+    dk = dsᵀ q in f32 (p cast to do's dtype and ds to q's where bf16),
+    PER Q ROW: (dk, dv) each [B·N, Sk, H] f32, not yet group-summed."""
+    _, p, ds = _plain_bwd_common(q, k, v, do, delta, lse, d, causal)
+    dv = torch.matmul(_bf16_round(p, do).transpose(1, 2), do.float())
+    dk = torch.matmul(_bf16_round(ds, q).transpose(1, 2), q.float())
+    return dk, dv
+
+
+def _flash_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    if not getattr(lib, "_hpx_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        f = ctypes.c_float
+        for name in _FLASH_DTYPES.values():
+            fn = getattr(lib, f"hpx_flash_fwd_{name}")
+            fn.argtypes = [p] * 5 + [i] * 6 + [f, p]
+            fn.restype = i
+            fn = getattr(lib, f"hpx_flash_bwd_dq_{name}")
+            fn.argtypes = [p] * 7 + [i] * 7 + [f, p]
+            fn.restype = i
+            fn = getattr(lib, f"hpx_flash_bwd_dkv_{name}")
+            fn.argtypes = [p] * 8 + [i] * 7 + [f, p]
+            fn.restype = i
+        lib.hpx_flash_error_string.argtypes = [i]
+        lib.hpx_flash_error_string.restype = ctypes.c_char_p
+        lib._hpx_typed = True
+    return lib
+
+
+def _flash_check(what: str, q, k, v, rows=(), cotangents=()) -> None:
+    """Device, type, shape, contiguity and alignment checks before a
+    flash launch. ``cotangents``: tensors shaped like q in q's dtype;
+    ``rows``: f32 [B·N, Sq] tensors (lse, delta)."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: q on {dev}; the kernels take CUDA "
+                         "tensors, the plain versions CPU ones")
+    named = [("q", q), ("k", k), ("v", v), *cotangents, *rows]
+    for name, t in named:
+        if t.device != dev:
+            raise ValueError(f"{what}: {name} on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
+    if q.dtype not in _FLASH_DTYPES:
+        raise TypeError(f"{what}: q must be float32 or bfloat16, got "
+                        f"{q.dtype}")
+    for name, t in (("k", k), ("v", v), *cotangents):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{what}: {name} is {t.dtype}, q {q.dtype}")
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+        raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} are not [rows, S, H]")
+    bn, sq, h = q.shape
+    if k.shape[2] != h or k.shape[0] == 0 or bn % k.shape[0]:
+        raise ValueError(f"{what}: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} do not fit together")
+    if h not in FLASH_HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {h}; the CUDA kernels take "
+                         f"{FLASH_HEAD_DIMS}")
+    if bn > 65535:
+        raise ValueError(f"{what}: {bn} rows of B·N, above the grid's "
+                         "65535")
+    for name, t in cotangents:
+        if t.shape != q.shape:
+            raise ValueError(f"{what}: {name} {tuple(t.shape)} is not "
+                             f"shaped like q {tuple(q.shape)}")
+    for name, t in rows:
+        if t.dtype != torch.float32 or tuple(t.shape) != (bn, sq):
+            raise ValueError(f"{what}: {name} must be float32 {(bn, sq)}")
+
+
+def _flash_launch(what: str, fn, *args) -> None:
+    stream = torch.cuda.current_stream().cuda_stream
+    code = fn(*args, stream)
+    if code != 0:
+        msg = _flash_lib().hpx_flash_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed: {msg} ({code})")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flash forward in the kernel layout: q [B·N, Sq, H], k/v
+    [B·Nkv, Sk, H] -> (o [B·N, Sq, H] in q.dtype, lse [B·N, Sq] f32).
+    Causal masks are bottom-right aligned: query i sees keys
+    j <= i + (Sk - Sq).
+
+    CUDA tensor: kernel ``flash_fwd`` (``flash_fwd_mma`` for bf16), which
+    replaces ``hpx_tpu/ops/attention_pallas.py:_flash_kernel``. CPU
+    tensor: ``plain_flash_fwd``."""
+    if q.device.type == "cpu":
+        return plain_flash_fwd(q, k, v, causal)
+    _flash_check("flash_attention_fwd", q, k, v)
+    bn, sq, h = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((bn, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        lib = _flash_lib()
+        _flash_launch("flash_attention_fwd",
+                      getattr(lib, f"hpx_flash_fwd_{_FLASH_DTYPES[q.dtype]}"),
+                      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                      lse.data_ptr(), bn, k.shape[0], sq, k.shape[1], h,
+                      int(causal), _flash_scale(h))
+    flash_attention_fwd.launches += 1
+    return o, lse
+
+
+flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd_dq(q, k, v, do, delta, lse, d: int,
+                           causal: bool = False) -> torch.Tensor:
+    """dq [B·N, Sq, H] f32 of the flash backward, in the kernel layout;
+    ``d`` is the causal offset (key j visible to query i iff
+    j <= i + d; Sk - Sq for plain flash, per chunk on a ring).
+
+    CUDA tensor: kernel ``flash_bwd_dq`` (``flash_bwd_dq_mma`` for
+    bf16), which replaces
+    ``hpx_tpu/ops/attention_pallas.py:_flash_bwd_dq_kernel``. CPU
+    tensor: ``plain_flash_bwd_dq``."""
+    if q.device.type == "cpu":
+        return plain_flash_bwd_dq(q, k, v, do, delta, lse, d, causal)
+    _flash_check("flash_attention_bwd_dq", q, k, v,
+                 rows=(("delta", delta), ("lse", lse)),
+                 cotangents=(("do", do),))
+    bn, sq, h = q.shape
+    dq = torch.empty((bn, sq, h), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        lib = _flash_lib()
+        _flash_launch(
+            "flash_attention_bwd_dq",
+            getattr(lib, f"hpx_flash_bwd_dq_{_FLASH_DTYPES[q.dtype]}"),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            delta.data_ptr(), lse.data_ptr(), dq.data_ptr(), bn, k.shape[0],
+            sq, k.shape[1], h, int(d), int(causal), _flash_scale(h))
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, do, delta, lse, d: int,
+                            causal: bool = False
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) of the flash backward PER Q ROW, each [B·N, Sk, H] f32
+    (``flash_attention_bwd`` group-sums them to the K/V rows).
+
+    CUDA tensor: kernel ``flash_bwd_dkv`` (``flash_bwd_dkv_mma`` for
+    bf16), which replaces
+    ``hpx_tpu/ops/attention_pallas.py:_flash_bwd_dkv_kernel``. CPU
+    tensor: ``plain_flash_bwd_dkv``."""
+    if q.device.type == "cpu":
+        return plain_flash_bwd_dkv(q, k, v, do, delta, lse, d, causal)
+    _flash_check("flash_attention_bwd_dkv", q, k, v,
+                 rows=(("delta", delta), ("lse", lse)),
+                 cotangents=(("do", do),))
+    bn, sq, h = q.shape
+    sk = k.shape[1]
+    dk = torch.empty((bn, sk, h), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    with torch.cuda.device(q.device):
+        lib = _flash_lib()
+        _flash_launch(
+            "flash_attention_bwd_dkv",
+            getattr(lib, f"hpx_flash_bwd_dkv_{_FLASH_DTYPES[q.dtype]}"),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            delta.data_ptr(), lse.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            bn, k.shape[0], sq, sk, h, int(d), int(causal), _flash_scale(h))
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def bwd_prep(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(do · o) in f32, [B·N, Sq]: the backward kernels'
+    input besides lse (the reference's XLA glue ``bwd_prep``; the
+    kernels never read o)."""
+    return (do.float() * o.float()).sum(-1)
+
+
+def flash_attention_bwd(q, k, v, do, delta, lse, d: int,
+                        causal: bool = False, q_heads: int = 1,
+                        kv_heads: int = 1):
+    """The flash backward in the kernel layout: the dq kernel, then the
+    dk/dv kernel, whose per-q-head partials are summed per GQA group
+    (so neither kernel needs atomics). Returns (dq [B·N, Sq, H],
+    dk [B·Nkv, Sk, H], dv [B·Nkv, Sk, H]), all f32."""
+    if q_heads % kv_heads or q.shape[0] * kv_heads != k.shape[0] * q_heads:
+        raise ValueError(f"q_heads={q_heads}, kv_heads={kv_heads} do not "
+                         f"fit q rows {q.shape[0]} and k rows {k.shape[0]}")
+    dq = flash_attention_bwd_dq(q, k, v, do, delta, lse, d, causal)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, delta, lse, d, causal)
+    g = q_heads // kv_heads
+    if g > 1:
+        sk, h = k.shape[1], k.shape[2]
+        dk = dk.reshape(k.shape[0], g, sk, h).sum(1)
+        dv = dv.reshape(k.shape[0], g, sk, h).sum(1)
+    return dq, dk, dv
+
+
+def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
+    """[B, S, N, H] -> [B·N, S, H], contiguous."""
+    b, s, n, h = x.shape
+    return x.transpose(1, 2).reshape(b * n, s, h)
+
+
+def _public_layout(x: torch.Tensor, b: int) -> torch.Tensor:
+    """[B·N, S, H] -> [B, S, N, H]."""
+    bn, s, h = x.shape
+    return x.reshape(b, bn // b, s, h).transpose(1, 2)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with the flash backward: the reference's
+    ``custom_vjp`` (``_fa_fwd`` / ``_fa_bwd``). Saves (q, k, v, o, lse);
+    the same Function runs the kernels on CUDA tensors and their plain
+    versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        b = q.shape[0]
+        o, lse = flash_attention_fwd(_kernel_layout(q), _kernel_layout(k),
+                                     _kernel_layout(v), causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return _public_layout(o, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        b, sq, n, _ = q.shape
+        sk, nkv = k.shape[1], k.shape[2]
+        do = _kernel_layout(g.to(q.dtype))
+        dq, dk, dv = flash_attention_bwd(
+            _kernel_layout(q), _kernel_layout(k), _kernel_layout(v), do,
+            bwd_prep(do, o), lse, sk - sq, ctx.causal, n, nkv)
+        return (_public_layout(dq, b).to(q.dtype),
+                _public_layout(dk, b).to(k.dtype),
+                _public_layout(dv, b).to(v.dtype), None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False) -> torch.Tensor:
+    """[B, S, N, H] flash attention, differentiable: the three flash
+    kernels on a CUDA tensor, their plain versions on a CPU tensor.
+    k/v may carry fewer heads than q (GQA/MQA, N % Nkv == 0); causal
+    masks are bottom-right aligned."""
+    nq, nkv = q.shape[2], k.shape[2]
+    if v.shape[2] != nkv:
+        raise ValueError(f"k heads ({nkv}) != v heads ({v.shape[2]})")
+    if nq % nkv:
+        raise ValueError(f"q heads ({nq}) not a multiple of kv heads "
+                         f"({nkv})")
+    return _FlashAttention.apply(q, k, v, causal)

@@ -98,3 +98,30 @@ def test_serving_entry_points_need_cuda_unless_the_cpu_is_asked_for(
     out = transformer.generate(params, cfg, [[1, 2]], max_new=2,
                                device="cpu")
     assert out.device == torch.device("cpu")
+
+
+def test_training_entry_points_need_cuda_unless_the_cpu_is_asked_for(
+        monkeypatch):
+    from hpx_tpu_torch.models import transformer
+    from hpx_tpu_torch.ops import attention_cuda
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = transformer.TransformerConfig(vocab=16, d_model=8, n_heads=2,
+                                        head_dim=4, n_layers=1, d_ff=16)
+    for make in (lambda: transformer.make_train_step(cfg),
+                 lambda: transformer.make_train_step(
+                     cfg, optimizer=torch.optim.SGD, device="cuda:0"),
+                 lambda: transformer.sample_batch(cfg, 2, 4)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    # CUDA tensors cannot be made here; a tensor that is not on the CPU
+    # (meta) stands for one: it never takes the plain versions
+    meta = torch.empty((2, 4, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        attention_cuda.flash_attention(meta, meta, meta, causal=True)
+    params = transformer.init_params(cfg, seed=0, device="cpu")
+    toks, tgts = transformer.sample_batch(cfg, 2, 4, device="cpu")
+    params, loss = transformer.make_train_step(cfg, device="cpu")(
+        params, toks, tgts)
+    assert loss.device == torch.device("cpu") and torch.isfinite(loss)
+    x = torch.zeros((1, 4, 2, 4))
+    assert attention_cuda.flash_attention(x, x, x).device == x.device
