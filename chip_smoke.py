@@ -47,6 +47,24 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
                seed 1): 10 bfloat16 SGD steps (lr 0.01), each launching
                each flash kernel once a layer, that lower the loss; 3
                Adam steps (torch.optim.Adam, lr 1e-3) that lower it.
+     ring      the same model, batch and weights through the sharded
+               step, make_train_step(cfg, make_mesh_3d(4)) = (dp 1, sp
+               2, tp 2): 4 ranks started by hpx_tpu_torch's launcher
+               (gloo on one card, nccl with a card a rank). 10 bf16 SGD
+               steps that lower the loss, each launching
+               flash_attention_chunk (kernel 8), bwd_dq and bwd_dkv 8
+               times a rank (2 ring steps x 4 layers) and the flash
+               forward never; 3 more with the time in collectives and
+               in host staging copies measured; one striped_ring step
+               whose loss agrees with the contiguous one within 5e-3
+               relative; then in f32 (batch 2 x 1024), contiguous and
+               striped, its loss within 1e-5 relative and every
+               gradient within 1e-5 by the norm of the single-device
+               step's on this card (kernels 5-7), a left-out fold of a
+               past chunk (contiguous) and offsets all 0 (striped)
+               reading above that limit. On one card the step's host
+               time is four processes time-slicing it: not a training
+               rate.
    Each stencil kernel's output must equal its plain version on the same
    inputs bit for bit; the dataflow result must equal stencil_serial;
    the fused result must conserve the sum, and a small run must agree
@@ -65,6 +83,16 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    <= 5e-3 (a skipped 64-row tile, simulated on the S 1024 inputs, must
    read above that); and flash_attention's gradients through the
    kernels against the same autograd Function over the plain versions.
+   The chunk kernel (8) is checked against its plain version on (sq, sk)
+   in {(64, 64), (37, 53), (512, 512)}, causal at d in {sk, 0, -1, -sq}
+   and not causal, MHA and GQA, head dims 64 and 128, f32 and bf16, from
+   a carry an earlier fold left: acc at the flash forward's tolerances
+   (and by the norm in bf16, where a skipped 64-row key tile must read
+   above the limit), m and l at 1e-5; and at the ring path's own shape
+   (q [32, 512, 64] bf16, causal) at d in {0, 512, -512}.
+   Before the ring path, 2 ranks try over gloo, on CUDA tensors as they
+   are, every torch.distributed verb that collectives.device.GLOO_CUDA
+   hands over unstaged: each must run and agree.
    After the main path, the training width in f32 (batch 2 x 1024):
    the loss through the kernels within 1e-5 relative of the loss through
    their plain versions, every weight's gradient within 1e-5 by its norm
@@ -86,9 +114,14 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    of 128), their operations counted over the visible (query, key)
    pairs, beside SDPA (is_causal) for the forward and SDPA's autograd
    backward (forward + backward less forward) for kernels 6 and 7
-   together. Every library yardstick is device time under
+   together. Kernel 8 is timed at the ring's shape (q [32, 512, 64]
+   bf16, causal) at d = 0 and d = 512; no single PyTorch call folds a
+   chunk into a carry, so it has no library yardstick. Every library
+   yardstick is device time under
    torch.profiler: a library call's host work (autograd, dispatch) can
-   outlast its kernels, and events would then time the host. The
+   outlast its kernels, and events would then time the host; where three
+   traces record no device time it is CUDA-event time, and each row's
+   library_by says which ("profiler" or "events"). The
    training step is timed on the host clock (median of the
    bf16 steps after 2 warm-ups).
 5. Prints {"kernels": [...]} and, last, {"ok": true, "device": ...}.
@@ -134,6 +167,8 @@ FLASH_KERNELS = {
     "flash_attention_bwd_dq": "hpx_tpu/ops/attention_pallas.py:397",
     "flash_attention_bwd_dkv": "hpx_tpu/ops/attention_pallas.py:446",
 }
+# the ring's chunk kernel -> the TPU kernel its CUDA kernel replaces
+CHUNK_KERNEL = {"flash_attention_chunk": "hpx_tpu/ops/attention_pallas.py:618"}
 # (rtol, atol) of a flash kernel against its plain version: f32 forward,
 # f32 backward (sums of up to Sk terms of exp(s - L)), bf16
 FLASH_TOL = {"fwd": (1e-5, 1e-5), "bwd": (1e-4, 1e-4), "bf16": (2e-2, 2e-2)}
@@ -180,22 +215,29 @@ def _cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(run(calls) for _ in range(reps))
 
 
-def _device_ms(fn, reps: int) -> float:
-    """Device milliseconds a call of fn(): the kernels' summed device
-    time under torch.profiler over ``reps`` calls, after a warm-up. For
-    library calls whose host work (autograd) outlasts their kernels, so
-    that CUDA events would time the host."""
+def _device_ms(fn, reps: int) -> tuple:
+    """(device milliseconds a call of fn(), "profiler"): the kernels'
+    summed device time under torch.profiler over ``reps`` calls, after a
+    warm-up. For library calls whose host work (autograd) outlasts their
+    kernels, so that CUDA events would time the host. Where three traces
+    record no device time: (CUDA-event milliseconds, "events"), host
+    work included, and the method travels with the number."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type != torch.autograd.DeviceType.CPU)
-    return dev_us * 1e-3 / reps
+    for _ in range(3):          # a trace that recorded no device time
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type != torch.autograd.DeviceType.CPU)
+        if dev_us > 0:
+            return dev_us * 1e-3 / reps, "profiler"
+    print("   the profiler recorded no device time in 3 traces: CUDA events "
+          "instead (host work included)", flush=True)
+    return _cuda_ms(fn, reps), "events"
 
 
 def _ptxas_report(log: str):
@@ -213,7 +255,10 @@ def _ptxas_report(log: str):
             if n:
                 name = n.group(2)[:int(n.group(1))]
                 rest = n.group(2)[int(n.group(1)):]
-                targs = rest[1:rest.find("E")] if rest.startswith("I") else ""
+                lits = re.match(r"I((?:L[a-z]\d+E)+)E", rest)
+                targs = (",".join(re.findall(r"L[a-z](\d+)E", lits.group(1)))
+                         if lits else rest[1:rest.find("E")]
+                         if rest.startswith("I") else "")
                 kernel = f"{name}<{targs}>" if targs else name
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -242,16 +287,252 @@ def _bound(nbytes: float, ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _comm_split(step, dev, n: int) -> dict:
+    """Host seconds of ``n`` calls of ``step`` (one training step on a
+    rank), and of that the time inside torch.distributed's verbs
+    (transfers, gloo's host reductions, waiting for peers) and inside
+    collectives.device's host staging copies. Each timed call is fenced
+    by synchronize() on both sides, so it does not count the card's
+    queued compute; the fences cost the step some overlap."""
+    import time
+    import torch
+    import torch.distributed as dist
+    from hpx_tpu_torch.collectives import device as cd
+    acc = {"comm": 0.0, "copies": 0.0}
+
+    class TimedWait:
+        """A point-to-point request whose wait() is timed (a request may
+        be waited on once only)."""
+
+        def __init__(self, req):
+            self.req = req
+
+        def wait(self):
+            t0 = time.perf_counter()
+            self.req.wait()
+            torch.cuda.synchronize(dev)
+            acc["comm"] += time.perf_counter() - t0
+
+    def timed(fn, what):
+        def run(*a, **kw):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize(dev)
+            acc[what] += time.perf_counter() - t0
+            # batch_isend_irecv: the transfers end in the waits
+            return [TimedWait(q) for q in r] if isinstance(r, list) else r
+        return run
+    verbs = ("all_reduce", "all_gather", "broadcast", "all_to_all_single",
+             "reduce_scatter", "batch_isend_irecv")
+    saved = {v: getattr(dist, v) for v in verbs}
+    saved_cd = (cd._host, cd._home)
+    for v in verbs:
+        setattr(dist, v, timed(saved[v], "comm"))
+    cd._host, cd._home = (timed(f, "copies") for f in saved_cd)
+    try:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize(dev)
+        total = time.perf_counter() - t0
+    finally:
+        for v in verbs:
+            setattr(dist, v, saved[v])
+        cd._host, cd._home = saved_cd
+    return {"step_ms": total / n * 1e3, "comm_ms": acc["comm"] / n * 1e3,
+            "copies_ms": acc["copies"] / n * 1e3}
+
+
+def _ring_rank(f32_batch: int) -> dict:
+    """One rank of the ring path (spawned by hpx_tpu_torch's launcher):
+    the training model at full width on make_mesh_3d(4) = (dp 1, sp 2,
+    tp 2), weights from seed 0 and the batch from seed 1 made on the
+    rank's card as the single-device path makes them.
+      1. 10 bf16 SGD steps, each step's kernel launches counted;
+      2. 3 more, each collective and each host staging copy timed
+         (``_comm_split``), then 3 with every verb staged through host
+         memory under gloo;
+      3. one bf16 step with striped_ring, for its first loss;
+      4. f32, the batch's first ``f32_batch`` rows: the loss and the
+         gradients summed over (dp, sp), gathered over tp, of the
+         contiguous ring as it is and with a planted fault (rank sp 1
+         leaves out its fold of the past chunk), and of the striped ring
+         as it is and with every chunk's offset 0.
+    Rank 0 returns the full f32 gradients; every rank its readings."""
+    import dataclasses
+    import time
+    import torch
+    from hpx_tpu_torch.models import transformer as tf
+    from hpx_tpu_torch.ops import attention as ao
+    from hpx_tpu_torch.ops import attention_cuda as ac
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = tf.make_mesh_3d(4)
+    dev = mesh.device
+    kern = (ac.flash_attention_chunk, ac.flash_attention_bwd_dq,
+            ac.flash_attention_bwd_dkv, ac.flash_attention_fwd)
+    out = {"rank": mesh.rank, "coords": mesh.coords, "device": str(dev),
+           "backend": mesh.backend}
+
+    def sharded(cfg):
+        return tf.shard_params(tf.init_params(cfg, seed=0, device=dev), cfg,
+                               mesh)
+    cfg = tf.TransformerConfig(**TRAIN_MODEL, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks, tgts = tf.sample_batch(cfg, 8, 1024, generator=gen, device=dev)
+    params = sharded(cfg)
+    t, g = tf.shard_batch(toks, tgts, mesh)
+    step = tf.make_train_step(cfg, mesh)
+    losses, secs, per_step = [], [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kern:
+        k.launches = 0
+    for _ in range(10):
+        before = [k.launches for k in kern]
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, loss = step(params, t, g)
+        torch.cuda.synchronize(dev)
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        per_step.append([k.launches - b for k, b in zip(kern, before)])
+    out.update(losses=losses, secs=secs, per_step=per_step,
+               launches={k.__name__: k.launches for k in kern},
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    from hpx_tpu_torch.collectives import device as cd
+    direct = cd.GLOO_CUDA
+    out["split"] = {"as_shipped": _comm_split(lambda: step(params, t, g),
+                                              dev, 3)}
+    cd.GLOO_CUDA = frozenset()      # every verb staged, for comparison
+    try:
+        out["split"]["all_staged"] = _comm_split(
+            lambda: step(params, t, g), dev, 3)
+    finally:
+        cd.GLOO_CUDA = direct
+    del params, step
+    cfg_s = dataclasses.replace(cfg, striped_ring=True)
+    ts, gs = tf.shard_batch(toks, tgts, mesh, striped=True)
+    _, loss = tf.make_train_step(cfg_s, mesh)(sharded(cfg_s), ts, gs)
+    out["striped_loss"] = float(loss)
+
+    cfg32 = tf.TransformerConfig(**TRAIN_MODEL)
+    cfg32s = dataclasses.replace(cfg32, striped_ring=True)
+    p32 = sharded(cfg32)
+    names = [n for n, _ in p32.named_parameters()]
+    fold, offset = ac.flash_attention_chunk, ao.ring_offset
+
+    def skip_past(q, k, v, acc, m, l, d, causal=False):
+        # planted fault 1: the fold of a past chunk (d > 0) left out
+        return (acc, m, l) if d > 0 else fold(q, k, v, acc, m, l, d, causal)
+    # the wrapper counts its launches on the module name it stands under
+    skip_past.launches = 0
+
+    def all_visible(idx, src, sq, striped):
+        # planted fault 2, striped: every chunk at offset 0, so a query
+        # sees the key in its own slot of every later shard, a future one
+        return 0
+    for key, c, fold_fn, offset_fn in (
+            ("f32", cfg32, fold, offset),
+            ("f32_fault", cfg32, skip_past, offset),
+            ("f32_striped", cfg32s, fold, offset),
+            ("f32_striped_fault", cfg32s, fold, all_visible)):
+        t2, g2 = tf.shard_batch(toks[:f32_batch], tgts[:f32_batch], mesh,
+                                striped=c.striped_ring)
+        ac.flash_attention_chunk, ao.ring_offset = fold_fn, offset_fn
+        try:
+            w, grads, loss = tf._loss_and_grads(p32, t2, g2, c, mesh)
+        finally:
+            ac.flash_attention_chunk, ao.ring_offset = fold, offset
+        full = tf.unshard_params(
+            tf._from_named(dict(zip(names, grads)), c.n_layers), c, mesh)
+        out[key + "_loss"] = float(loss)
+        if mesh.rank == 0:
+            out[key + "_grads"] = {n: x.detach().cpu() for n, x in
+                                   full.named_parameters()}
+        del w, grads, full
+    return out
+
+
+def _gloo_cuda_rank(verbs) -> dict:
+    """One of 2 ranks (spawned by hpx_tpu_torch's launcher; on one card
+    they share it): each of ``verbs``, torch.distributed verbs that
+    collectives/device.py calls, over a gloo group, on float32 and
+    bfloat16 CUDA tensors as they are. Returns verb -> None where it ran
+    and gave the right result, else the error."""
+    import torch
+    import torch.distributed as dist
+    g = dist.new_group([0, 1], backend="gloo")
+    r = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dts = (torch.float32, torch.bfloat16)
+
+    def mine(dt, rank=r):
+        return (torch.arange(8, device=dev) + 10 * rank).to(dt)
+
+    def all_reduce():
+        for dt in dts:
+            t = mine(dt)
+            dist.all_reduce(t, group=g)
+            assert torch.equal(t, mine(dt, 0) + mine(dt, 1))
+
+    def all_gather():
+        for dt in dts:
+            outs = [torch.empty(8, device=dev, dtype=dt) for _ in range(2)]
+            dist.all_gather(outs, mine(dt), group=g)
+            assert torch.equal(torch.cat(outs),
+                               torch.cat([mine(dt, 0), mine(dt, 1)]))
+
+    def broadcast():
+        for dt in dts:
+            t = mine(dt)
+            dist.broadcast(t, src=0, group=g)
+            assert torch.equal(t, mine(dt, 0))
+
+    def all_to_all():
+        for dt in dts:
+            out = torch.empty(8, device=dev, dtype=dt)
+            dist.all_to_all_single(out, mine(dt), group=g)
+            assert torch.equal(out, torch.cat([mine(dt, j)[4 * r:4 * r + 4]
+                                               for j in (0, 1)]))
+
+    def reduce_scatter():
+        for dt in dts:
+            out = torch.empty(4, device=dev, dtype=dt)
+            dist.reduce_scatter(out, list(mine(dt).chunk(2)), group=g)
+            assert torch.equal(out,
+                               (mine(dt, 0) + mine(dt, 1))[4 * r:4 * r + 4])
+
+    res = {}
+    for fn in (all_reduce, all_gather, broadcast, all_to_all,
+               reduce_scatter):
+        if fn.__name__ not in verbs:
+            continue
+        try:
+            fn()
+            torch.cuda.synchronize(dev)
+            res[fn.__name__] = None
+        except Exception as e:  # noqa: BLE001 - the verb's answer
+            res[fn.__name__] = f"{type(e).__name__}: {str(e)[:160]}"
+        # printed as it comes: a verb that kills its rank leaves the
+        # answers before it
+        print(f"   rank {r}: {fn.__name__} on CUDA tensors over gloo: "
+              f"{res[fn.__name__] or 'ran and agreed'}", flush=True)
+        dist.barrier(group=g)
+    return res
+
+
 class Smoke:
     def __init__(self) -> None:
         self.failures = []
         names = ("heat_step_blocked", "multistep_fused", *PAGED_KERNELS,
-                 *FLASH_KERNELS)
+                 *FLASH_KERNELS, *CHUNK_KERNEL)
         self.max_abs_err = {k: 0.0 for k in names}
         # largest |got - want| / (atol + rtol |want|) of a kernel: <= 1
         self.margin = {k: 0.0 for k in names}
         # largest norm-relative reading of a bf16 flash output
-        self.norm_rel = {k: 0.0 for k in FLASH_KERNELS}
+        self.norm_rel = {k: 0.0 for k in (*FLASH_KERNELS, *CHUNK_KERNEL)}
         self.launches = {k: 0 for k in names}
 
     def phase(self, name, fn) -> bool:
@@ -338,7 +619,7 @@ def main() -> int:
     kernels = (st.heat_step_blocked, st.multistep_fused,
                ac.fused_paged_attention, ac.fused_paged_online_attention,
                ac.flash_attention_fwd, ac.flash_attention_bwd_dq,
-               ac.flash_attention_bwd_dkv)
+               ac.flash_attention_bwd_dkv, ac.flash_attention_chunk)
     paged = {"fused_paged_attention": (ac.fused_paged_attention,
                                        ac.plain_paged_attention_exact),
              "fused_paged_online_attention": (
@@ -608,6 +889,115 @@ def main() -> int:
               f"{sm.norm_rel} (limit {FLASH_NORM_REL})", flush=True)
     sm.phase("flash kernel checks", flash_kernel_checks)
 
+    def chunk_state(sq, sk, nq, nkv, h, dt, seed):
+        """q, k, v in the kernel layout and a carry (acc, m, l) left by
+        folding an earlier, fully visible chunk into (0, -1e30, 0)."""
+        q, k0, v0, _ = flash_state(2, sq, sk, nq, nkv, h, dt, seed)
+        _, k, v, _ = flash_state(2, sq, sk, nq, nkv, h, dt, seed + 1000)
+        acc = torch.zeros(q.shape, device="cuda")
+        m = torch.full(q.shape[:2], -1e30, device="cuda")
+        carry = ac.plain_flash_chunk(q, k0, v0, acc, m, torch.zeros_like(m),
+                                     sk, True)
+        return q, k, v, carry
+
+    def chunk_fault_reading(q, k, v, carry, d, causal, want_acc):
+        """||acc_t - acc|| / ||acc|| for acc_t the fold without key tile
+        t (the keys before it at d, the keys after it at d - their
+        start), smallest over t."""
+        sk, reads = k.shape[1], []
+        for t0 in range(0, sk, 64):
+            a = tuple(x.clone() for x in carry)
+            if t0:
+                a = ac.plain_flash_chunk(q, k[:, :t0], v[:, :t0], *a, d,
+                                         causal)
+            if t0 + 64 < sk:
+                a = ac.plain_flash_chunk(q, k[:, t0 + 64:], v[:, t0 + 64:],
+                                         *a, d - t0 - 64, causal)
+            reads.append(_norm_rel(a[0], want_acc))
+        return min(reads)
+
+    def chunk_kernel_checks():
+        """Kernel 8 against plain_flash_chunk from a carry an earlier
+        fold left: acc by the flash forward's tolerances (and in bf16 by
+        the norm), m and l at the f32 forward's."""
+        n, seed, faults = 0, 5000, []
+        for dt in (torch.float32, torch.bfloat16):
+            f32 = dt == torch.float32
+            tol = FLASH_TOL["fwd" if f32 else "bf16"]
+            for h in (64, 128):
+                worst = 0.0
+                for sq, sk in ((64, 64), (37, 53), (512, 512)):
+                    for nq, nkv in ((8, 8), (8, 2)):
+                        for causal, ds in ((True, (sk, 0, -1, -sq)),
+                                           (False, (0,))):
+                            for d in ds:
+                                seed += 1
+                                q, k, v, carry = chunk_state(sq, sk, nq, nkv,
+                                                             h, dt, seed)
+                                want = ac.plain_flash_chunk(q, k, v, *carry,
+                                                            d, causal)
+                                got = ac.flash_attention_chunk(
+                                    q, k, v, *(x.clone() for x in carry), d,
+                                    causal)
+                                what = (f"{dt} hd {h} sq {sq} sk {sk} heads "
+                                        f"{nq}/{nkv} causal {causal} d {d}")
+                                worst = max(worst, sm.expect_close(
+                                    "flash_attention_chunk", got[0], want[0],
+                                    f"acc {what}", quiet=True, tol=tol,
+                                    norm=not f32))
+                                for name, g, w in zip("ml", got[1:],
+                                                      want[1:]):
+                                    sm.expect_close(
+                                        "flash_attention_chunk", g, w,
+                                        f"{name} {what}", quiet=True,
+                                        tol=FLASH_TOL["fwd"])
+                                if sq == 512 and not f32 and nq == nkv \
+                                        and d in (sk, 0):
+                                    faults.append(chunk_fault_reading(
+                                        q, k, v, carry, d, causal, want[0]))
+                                n += 1
+                print(f"   flash_chunk {dt} hd {h}: acc max abs err {worst} "
+                      f"(tolerance {tol}), m and l within "
+                      f"{FLASH_TOL['fwd']}", flush=True)
+        print(f"   {n} chunk-kernel cases passed so far; largest error over its "
+              f"tolerance {sm.margin['flash_attention_chunk']}; bf16 "
+              f"norm-relative reading of acc, largest "
+              f"{sm.norm_rel['flash_attention_chunk']} (limit "
+              f"{FLASH_NORM_REL})", flush=True)
+        # the ring path's own shape: each rank's q [32, 512, 64] bf16
+        # (B 8 x 4 local heads) against one kv chunk, at the offsets of
+        # its own chunk, a past one and a future one
+        tol = FLASH_TOL["bf16"]
+        for d in (0, 512, -512):
+            seed += 1
+            q, k, v, carry = chunk_state(512, 512, 16, 16, 64,
+                                         torch.bfloat16, seed)
+            want = ac.plain_flash_chunk(q, k, v, *carry, d, True)
+            got = ac.flash_attention_chunk(q, k, v,
+                                           *(x.clone() for x in carry), d,
+                                           True)
+            what = f"ring shape q {list(q.shape)} bf16 causal d {d}"
+            err = sm.expect_close("flash_attention_chunk", got[0], want[0],
+                                  f"acc {what}", quiet=True, tol=tol,
+                                  norm=True)
+            for name, g, w in zip("ml", got[1:], want[1:]):
+                sm.expect_close("flash_attention_chunk", g, w,
+                                f"{name} {what}", quiet=True,
+                                tol=FLASH_TOL["fwd"])
+            print(f"   {what}: acc max abs err {err!r} (tolerance {tol}), "
+                  f"by the norm {_norm_rel(got[0], want[0])!r} (limit "
+                  f"{FLASH_NORM_REL}); m and l within {FLASH_TOL['fwd']}",
+                  flush=True)
+            n += 1
+        fault = min(faults)
+        print(f"   planted fault, one 64-row key tile skipped (512 x 512, "
+              f"MHA, bf16, d = 512 and 0; smallest over tiles and hd): "
+              f"{fault}", flush=True)
+        if fault <= FLASH_NORM_REL:
+            raise AssertionError(f"the norm check would miss a skipped "
+                                 f"tile: {fault}")
+    sm.phase("flash chunk kernel checks", chunk_kernel_checks)
+
     # -- 3. the main path ---------------------------------------------------------
     def run_path(fn):
         for k in kernels:
@@ -858,7 +1248,7 @@ def main() -> int:
 
         def grads():
             _, g, loss = tf._loss_and_grads(params, toks, tgts, cfg,
-                                            params.device)
+                                            tf.make_mesh_3d(1))
             return g, float(loss)
         g_kernel, l_kernel = grads()
         with plain_flash():
@@ -907,6 +1297,138 @@ def main() -> int:
               "= 1e-5)", flush=True)
     if train:
         sm.phase("training: f32 kernels against plain", training_gate)
+
+    def gloo_cuda():
+        """Every verb that collectives.device.GLOO_CUDA hands to gloo on
+        CUDA tensors as they are, tried by 2 ranks: each must run and
+        agree. The others are staged through pinned host memory."""
+        from hpx_tpu_torch.collectives import device as cd
+        from hpx_tpu_torch.parallel.mesh import launch
+        res = launch(_gloo_cuda_rank, 2, sorted(cd.GLOO_CUDA), timeout=120)
+        for verb in sorted(cd.GLOO_CUDA):
+            errs = [r[verb] for r in res if r.get(verb, "not run")]
+            print(f"   {verb}: gloo on CUDA tensors "
+                  f"{'fails: ' + errs[0] if errs else 'runs and agrees'}",
+                  flush=True)
+            if errs:
+                raise AssertionError(f"{verb} is in GLOO_CUDA but gloo "
+                                     f"fails it on CUDA tensors: {errs}")
+        print("   staged through pinned host memory: every other verb "
+              "(ppermute: gloo's send/recv of a CUDA tensor aborts its "
+              "process)", flush=True)
+    sm.phase("gloo and CUDA tensors", gloo_cuda)
+
+    ring = {}
+
+    def ring_path():
+        """The sharded step (make_mesh_3d(4), 4 ranks through the port's
+        launcher) at full width: launches, falling bf16 losses, the
+        striped first loss; then its f32 gradients against the
+        single-device step's on this card, with a planted fault."""
+        from hpx_tpu_torch.parallel.mesh import launch
+        f32_batch = 2
+        torch.cuda.empty_cache()
+        print(f"   card: {smi}", flush=True)
+        t = HighResolutionTimer()
+        res = launch(_ring_rank, 4, f32_batch, timeout=900)
+        wall = t.elapsed()
+        r0 = res[0]
+        print(f"   4 ranks in {wall!r} s (spawn, CUDA contexts and every "
+              f"phase); ranks' devices {[r['device'] for r in res]}, "
+              f"coords {[r['coords'] for r in res]}, backend "
+              f"{r0['backend']}", flush=True)
+        want = [2 * 4, 2 * 4, 2 * 4, 0]    # sp ring steps x layers; no fwd
+        for r in res:
+            if any(p != want for p in r["per_step"]):
+                raise AssertionError(
+                    f"rank {r['rank']}: launches a step {r['per_step']} of "
+                    "(flash_attention_chunk, bwd_dq, bwd_dkv, fwd), want "
+                    f"{want}")
+            if r["losses"] != r0["losses"]:
+                raise AssertionError(f"rank {r['rank']}'s losses differ "
+                                     "from rank 0's")
+            for k in ("flash_attention_chunk", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv"):
+                sm.launches[k] += r["launches"][k]
+        losses = r0["losses"]
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"ring bf16 losses did not fall: {losses}")
+        step_s = statistics.median(max(r["secs"][i] for r in res)
+                                   for i in range(2, 10))
+        ring["step_ms"] = step_s * 1e3
+        # a training rate only where every rank had a card of its own
+        ring["what"] = (f"one card a rank over {r0['backend']}"
+                        if len({r["device"] for r in res}) == len(res)
+                        else f"four processes time-slicing one card over "
+                             f"{r0['backend']}: not a training rate")
+        rel_s = abs(r0["striped_loss"] - losses[0]) / abs(losses[0])
+        print(f"   bf16 SGD, 10 steps on the fixed batch (8 x 1024): losses "
+              f"{losses}", flush=True)
+        print(f"   every rank launched flash_attention_chunk, bwd_dq and "
+              f"bwd_dkv 8 times a step and flash_attention_fwd never: "
+              f"{[r['launches'] for r in res]}; peak memory a rank "
+              f"{[r['peak_gib'] for r in res]} GiB", flush=True)
+        print(f"   step time (host clock, slowest rank, median after 2 "
+              f"warm-ups): {step_s * 1e3!r} ms; {ring['what']}; step "
+              f"times of rank 0 {r0['secs']}", flush=True)
+        print(f"   striped_ring first loss {r0['striped_loss']!r} vs "
+              f"contiguous {losses[0]!r}: relative {rel_s!r} (<= 5e-3)",
+              flush=True)
+        if rel_s > 5e-3:
+            raise AssertionError(f"striped first loss differs by {rel_s}")
+        for r in res:
+            for how, sp in r["split"].items():
+                print(f"   rank {r['rank']}, 3 more bf16 steps ({how}) with "
+                      f"every collective and staging copy fenced and timed:"
+                      f" step {sp['step_ms']!r} ms, in torch.distributed's "
+                      f"verbs {sp['comm_ms']!r} ms "
+                      f"({sp['comm_ms'] / sp['step_ms']!r}), in the verbs' "
+                      f"buffer copies (host staging; a device clone where "
+                      f"a verb writes its input) {sp['copies_ms']!r} ms "
+                      f"({sp['copies_ms'] / sp['step_ms']!r})", flush=True)
+        ring["split"] = [r["split"] for r in res]
+        # the same f32 gradients on one device, through kernels 5-7
+        cfg = tf.TransformerConfig(**TRAIN_MODEL)
+        params = tf.init_params(cfg, seed=0)
+        toks, tgts = train["toks"][:f32_batch], train["tgts"][:f32_batch]
+        _, g_one, l_one = tf._loss_and_grads(params, toks, tgts, cfg,
+                                             tf.make_mesh_3d(1))
+        names = [k for k, _ in params.named_parameters()]
+        g_one = dict(zip(names, (g.cpu() for g in g_one)))
+        l_one = float(l_one)
+        for ring_kind, key, fault in (
+                ("contiguous", "f32", "rank sp 1 leaves out its past "
+                 "chunk's fold"),
+                ("striped", "f32_striped", "every chunk at offset 0")):
+            rel = abs(r0[key + "_loss"] - l_one) / abs(l_one)
+            reads = {n: _norm_rel(r0[key + "_grads"][n], g_one[n])
+                     for n in names}
+            faults = {n: _norm_rel(r0[key + "_fault_grads"][n], g_one[n])
+                      for n in names}
+            worst = max(reads, key=reads.get)
+            caught = max(faults, key=faults.get)
+            ring[key] = dict(rel=rel, grad_read=reads[worst],
+                             fault=faults[caught])
+            print(f"   f32 gate, {ring_kind} ring, batch {f32_batch} x 1024: "
+                  f"loss {r0[key + '_loss']!r} (4 ranks, kernels 8/6/7) vs "
+                  f"{l_one!r} (one device, kernels 5/6/7), relative {rel!r} "
+                  f"(<= 1e-5); gradients' largest norm-relative reading "
+                  f"{reads[worst]!r} ({worst}; limit {GRAD_NORM_REL}); "
+                  f"planted fault ({fault}) reads {faults[caught]!r} "
+                  f"({caught}), loss {r0[key + '_fault_loss']!r}",
+                  flush=True)
+            if rel > 1e-5:
+                raise AssertionError(f"f32 {ring_kind} ring loss relative "
+                                     f"{rel}")
+            if reads[worst] > GRAD_NORM_REL:
+                raise AssertionError(f"f32 {ring_kind} ring gradient of "
+                                     f"{worst}: {reads[worst]}")
+            if faults[caught] <= GRAD_NORM_REL:
+                raise AssertionError(f"the gradient check would miss the "
+                                     f"{ring_kind} fault: {faults[caught]}")
+    if train:
+        sm.phase("main path: ring training (4 ranks)", ring_path)
 
     def bf16_pool_gate():
         """Both kernels against their plain versions on the pools the
@@ -1052,10 +1574,12 @@ def main() -> int:
             torch.cuda.empty_cache()
         time_paged()
         time_flash()
+        time_chunk()
         for k, t in timing.items():
             print(f"   timing {k} [{t['shape']}]: kernel_ms={t['ms']!r} "
                   f"plain_ms={t['plain']!r} bound_ms={t['bound']!r} "
                   f"({t['by']}) library_ms={t['library']!r} "
+                  f"({t.get('library_by')}) "
                   f"launches={sm.launches[k.split()[0]]} on {smi}")
 
     def time_paged():
@@ -1082,13 +1606,15 @@ def main() -> int:
             live = (torch.arange(seq, device="cuda")[None, :]
                     <= pos.long()[:, None])[:, None, None, :]
             qs = q.transpose(1, 2)
-            library = _device_ms(lambda: F.scaled_dot_product_attention(
-                qs, kc, vc, attn_mask=live), 7)
+            library, library_by = _device_ms(
+                lambda: F.scaled_dot_product_attention(qs, kc, vc,
+                                                       attn_mask=live), 7)
             dt = str(pool_dt).split(".")[-1]
             for k, (fn, plain) in paged.items():
                 t = {"ms": _cuda_ms(lambda: fn(*args), 7),
                      "plain": _cuda_ms(lambda: plain(*args), 3),
                      "bound": bound, "by": by, "library": library,
+                     "library_by": library_by,
                      "shape": f"B={b} W={w} nq=nkv={nh} hd={hd} bs={bs} "
                               f"S={seq} {dt} pools, bf16 q"}
                 timing[k if pool_dt == torch.bfloat16 else f"{k} {dt}"] = t
@@ -1128,34 +1654,61 @@ def main() -> int:
             def sdpa_fwd_bwd():
                 out = F.scaled_dot_product_attention(*xs, is_causal=True)
                 torch.autograd.grad(out, xs, do4)
-            lib_fwd = _device_ms(sdpa_fwd, 7)
-            lib_bwd = _device_ms(sdpa_fwd_bwd, 7) - lib_fwd
+            lib_fwd, by_fwd = _device_ms(sdpa_fwd, 7)
+            lib_both, by_both = _device_ms(sdpa_fwd_bwd, 7)
+            lib_bwd = lib_both - lib_fwd
+            by_bwd = by_fwd if by_fwd == by_both else "profiler - events"
             events = (_cuda_ms(sdpa_fwd, 7), _cuda_ms(sdpa_fwd_bwd, 7))
             runs = {"flash_attention_fwd": (
                         lambda: ac.flash_attention_fwd(q, k, v, True),
-                        lambda: ac.plain_flash_fwd(q, k, v, True), lib_fwd),
+                        lambda: ac.plain_flash_fwd(q, k, v, True), lib_fwd,
+                        by_fwd),
                     "flash_attention_bwd_dq": (
                         lambda: ac.flash_attention_bwd_dq(*args),
-                        lambda: ac.plain_flash_bwd_dq(*args), lib_bwd),
+                        lambda: ac.plain_flash_bwd_dq(*args), lib_bwd,
+                        by_bwd),
                     "flash_attention_bwd_dkv": (
                         lambda: ac.flash_attention_bwd_dkv(*args),
-                        lambda: ac.plain_flash_bwd_dkv(*args), lib_bwd)}
+                        lambda: ac.plain_flash_bwd_dkv(*args), lib_bwd,
+                        by_bwd)}
             shape = f"B={b} S={seq} N={n} H={h} bf16 causal"
-            for kname, (fn, plain, library) in runs.items():
+            for kname, (fn, plain, library, library_by) in runs.items():
                 bound, by = bounds[kname]
                 t = {"ms": _cuda_ms(fn, 7), "plain": _cuda_ms(plain, 3),
                      "bound": bound, "by": by, "library": library,
-                     "shape": shape}
+                     "library_by": library_by, "shape": shape}
                 timing[kname if seq == 1024 else f"{kname} S={seq}"] = t
                 torch.cuda.empty_cache()
-            print(f"   SDPA at {shape}, device time (profiler): forward "
-                  f"{lib_fwd!r} ms, backward (forward + backward less "
+            print(f"   SDPA at {shape}, device time ({by_fwd}, {by_both}): "
+                  f"forward {lib_fwd!r} ms, backward (forward + backward less "
                   f"forward) {lib_bwd!r} ms, the backward yardstick for "
                   "kernels 6 and 7 together; CUDA events around the calls "
                   f"(host-bound where autograd runs): forward {events[0]!r}"
                   f" ms, forward + backward {events[1]!r} ms", flush=True)
             del q, k, v, do, o, lse, delta, args, xs, q4, k4, v4, do4
             torch.cuda.empty_cache()
+    def time_chunk():
+        """Kernel 8 at the ring path's shape (each rank's q [32, 512, 64]
+        bf16 against one chunk of its kv, causal), d = 0 (its own chunk)
+        and d = 512 (a past chunk, all visible), from a real carry."""
+        q, k, v, carry = chunk_state(512, 512, 16, 16, 64, torch.bfloat16,
+                                     seed=13)
+        bn, sq, h = q.shape
+        # bytes: q, k, v read once; acc, m, l read and written once
+        nbytes = 3 * q.numel() * 2 + 2 * sum(x.numel() * 4 for x in carry)
+        for d in (0, 512):
+            pairs = bn * sum(min(512, i + d + 1) for i in range(sq))
+            bound, by = _bound(nbytes, 4 * pairs * h, BF16_OPS_PER_S)
+            work = tuple(x.clone() for x in carry)
+            t = {"ms": _cuda_ms(lambda: ac.flash_attention_chunk(
+                     q, k, v, *work, d, True), 7),
+                 "plain": _cuda_ms(lambda: ac.plain_flash_chunk(
+                     q, k, v, *carry, d, True), 3),
+                 "bound": bound, "by": by, "library": None,
+                 "library_by": None,
+                 "shape": f"q [{bn}, {sq}, {h}] bf16, causal, d={d}"}
+            timing["flash_attention_chunk" if d == 0
+                   else f"flash_attention_chunk d={d}"] = t
     sm.phase("timing", time_kernels)
 
     if sm.failures:
@@ -1164,10 +1717,11 @@ def main() -> int:
 
     replaces = {"heat_step_blocked": "hpx_tpu/ops/stencil.py:110",
                 "multistep_fused": "hpx_tpu/ops/stencil.py:44",
-                **PAGED_KERNELS, **FLASH_KERNELS}
+                **PAGED_KERNELS, **FLASH_KERNELS, **CHUNK_KERNEL}
     sources = {"heat_step_blocked": "stencil", "multistep_fused": "stencil",
                **{k: "paged_attention" for k in PAGED_KERNELS},
-               **{k: "flash_attention" for k in FLASH_KERNELS}}
+               **{k: "flash_attention" for k in (*FLASH_KERNELS,
+                                                 *CHUNK_KERNEL)}}
     rows = []
     for k, at in replaces.items():
         t = timing[k]
@@ -1177,10 +1731,13 @@ def main() -> int:
                      "max_abs_err": sm.max_abs_err[k], "ms": t["ms"],
                      "plain_ms": t["plain"], "bound_ms": t["bound"],
                      "bound_by": t["by"], "library_ms": t["library"],
+                     "library_by": t.get("library_by"),
                      "shape": t["shape"]})
     print(f"training step (bf16, B 8 x S 1024, full width): "
           f"{train['step_ms']!r} ms = {train['tokens_per_s']!r} tokens/s; "
-          f"card: {smi}")
+          f"sharded step (4 ranks on make_mesh_3d(4), same model and "
+          f"batch, host clock; {ring['what']}): {ring['step_ms']!r} "
+          f"ms; card: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

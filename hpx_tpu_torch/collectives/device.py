@@ -1,0 +1,229 @@
+"""Device collectives over one mesh axis: SPMD verbs on a rank's tensor.
+
+Counterpart of ``hpx_tpu.collectives.device``. The reference's verbs are
+whole-array programs (one ``shard_map`` over a sharded ``jax.Array``);
+here each rank holds its own shard and calls the verb with it, as the
+reference's in-body verbs (``lax.psum``, ``ppermute``, ...) are called
+inside ``shard_map``. ``axis`` is one mesh axis name or several (the
+group over all of them, as ``psum(x, ("dp", "sp"))``). A group of one
+member makes every verb the identity.
+
+    all_reduce(x, mesh, axis, op)   psum / pmax / pmin / pmean
+    all_gather(x, mesh, axis, dim)  lax.all_gather(tiled=True) along dim
+    broadcast(x, mesh, axis, root)  the root member's x
+    all_to_all(x, mesh, axis)       block j of x to member j
+    reduce_scatter(x, mesh, axis)   psum_scatter(tiled=True) along dim 0
+    ppermute(xs, mesh, axis, shift) member i's tensors to member i+shift
+    ring_shift                      ppermute of one tensor
+    barrier(mesh, axis)
+
+and the two Megatron operators of tensor parallelism, autograd
+Functions: ``copy_to`` (identity forward, all-reduce backward: before a
+column-parallel product) and ``reduce_from`` (all-reduce forward,
+identity backward: after a row-parallel one). ``reduce_from`` is not
+``torch.distributed.nn.functional.all_reduce``, whose backward
+all-reduces again and makes every gradient upstream of it ``tp`` times
+too large.
+
+Transport: NCCL takes the rank's CUDA tensors as they are, and so does
+gloo (the CPU, or ranks sharing a card) for the verbs in ``GLOO_CUDA``.
+For any other verb under gloo a CUDA tensor is copied to pinned host
+memory, exchanged there and copied back (``_host`` / ``_home``, the one
+place that stages). Either way gloo's reductions run on the host; the
+computing stays on the card.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Union
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["all_reduce", "all_gather", "broadcast", "all_to_all",
+           "reduce_scatter", "ppermute", "ring_shift", "barrier", "copy_to",
+           "reduce_from"]
+
+_OPS = {"add": dist.ReduceOp.SUM, "sum": dist.ReduceOp.SUM,
+        "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN,
+        "mean": dist.ReduceOp.SUM}
+
+
+# the verbs whose CUDA tensors gloo takes as they are (it stages them
+# itself); chip_smoke.py's "gloo and CUDA tensors" phase checks each.
+# Not ppermute: gloo's send/recv hand the device pointer to its TCP
+# transport, whose writev fails ("Bad address") and aborts the process.
+GLOO_CUDA = frozenset({"all_reduce", "all_gather", "broadcast",
+                       "all_to_all", "reduce_scatter"})
+
+
+def _host(mesh, verb: str, x: torch.Tensor, fresh: bool = True
+          ) -> torch.Tensor:
+    """The buffer ``verb`` hands to torch.distributed: a pinned host copy
+    of a CUDA tensor under gloo where the verb is not in ``GLOO_CUDA``,
+    else x itself (``fresh``: a copy, for verbs that write their
+    input)."""
+    x = x.contiguous()
+    if mesh.backend == "gloo" and x.is_cuda and verb not in GLOO_CUDA:
+        return torch.empty(x.shape, dtype=x.dtype,
+                           pin_memory=True).copy_(x)
+    return x.clone() if fresh else x
+
+
+def _home(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return buf.to(like.device, non_blocking=True)
+
+
+def all_reduce(x: torch.Tensor, mesh, axis="x", op: str = "add"
+               ) -> torch.Tensor:
+    """x reduced with ``op`` (add | max | min | mean) over the group;
+    every member gets the result. x itself where the group has one
+    member."""
+    if op not in _OPS:
+        raise ValueError(f"all_reduce: op {op!r} (add, max, min, mean)")
+    g = mesh.group(axis)
+    if g is None:
+        return x
+    buf = _host(mesh, "all_reduce", x)
+    dist.all_reduce(buf, _OPS[op], group=g)
+    if op == "mean":
+        buf = buf / mesh.axis_size(axis)
+    return _home(buf, x)
+
+
+def all_gather(x: torch.Tensor, mesh, axis="x", dim: int = 0
+               ) -> torch.Tensor:
+    """Every member's x concatenated along ``dim`` in member order."""
+    g = mesh.group(axis)
+    if g is None:
+        return x
+    buf = _host(mesh, "all_gather", x, fresh=False)
+    outs = [torch.empty_like(buf) for _ in range(mesh.axis_size(axis))]
+    dist.all_gather(outs, buf, group=g)
+    return _home(torch.cat(outs, dim), x)
+
+
+def broadcast(x: torch.Tensor, mesh, axis="x", root: int = 0
+              ) -> torch.Tensor:
+    """The x of member ``root`` (its index along the axis), on every
+    member."""
+    g = mesh.group(axis)
+    if g is None:
+        return x
+    buf = _host(mesh, "broadcast", x)
+    dist.broadcast(buf, src=mesh.group_ranks(axis)[root], group=g)
+    return _home(buf, x)
+
+
+def all_to_all(x: torch.Tensor, mesh, axis="x") -> torch.Tensor:
+    """x cut into n blocks along dim 0; block j goes to member j, and
+    the result is the blocks received, in member order."""
+    n = mesh.axis_size(axis)
+    if x.shape[0] % n:
+        raise ValueError(f"all_to_all: leading dim {x.shape[0]} does not "
+                         f"divide into {n} blocks")
+    g = mesh.group(axis)
+    if g is None:
+        return x
+    buf = _host(mesh, "all_to_all", x, fresh=False)
+    out = torch.empty_like(buf)
+    dist.all_to_all_single(out, buf, group=g)
+    return _home(out, x)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis="x", op: str = "add"
+                   ) -> torch.Tensor:
+    """The sum over the group, member i keeping block i of n along
+    dim 0. Additive only, as the reference's psum_scatter."""
+    if op not in ("add", "sum"):
+        raise ValueError(f"reduce_scatter supports only add, got {op!r}")
+    n = mesh.axis_size(axis)
+    if x.shape[0] % n:
+        raise ValueError(f"reduce_scatter: leading dim {x.shape[0]} does "
+                         f"not divide into {n} blocks")
+    g = mesh.group(axis)
+    if g is None:
+        return x
+    buf = _host(mesh, "reduce_scatter", x, fresh=False)
+    out = buf.new_empty((buf.shape[0] // n, *buf.shape[1:]))
+    dist.reduce_scatter(out, list(buf.chunk(n)), group=g)
+    return _home(out, x)
+
+
+def ppermute(xs: Union[torch.Tensor, Sequence[torch.Tensor]], mesh,
+             axis="x", shift: int = 1):
+    """Member i's tensors go to member (i + shift) mod n; returns what
+    arrived from member (i - shift) mod n. All sends and receives are
+    one ``batch_isend_irecv``: with two members the send and receive
+    peers are the same rank, where blocking sends would deadlock."""
+    one = isinstance(xs, torch.Tensor)
+    xs: List[torch.Tensor] = [xs] if one else list(xs)
+    n = mesh.axis_size(axis)
+    if n == 1 or shift % n == 0:
+        return xs[0] if one else xs
+    g = mesh.group(axis)
+    ranks = mesh.group_ranks(axis)
+    i = ranks.index(mesh.rank)
+    dst, src = ranks[(i + shift) % n], ranks[(i - shift) % n]
+    bufs = [_host(mesh, "ppermute", x, fresh=False) for x in xs]
+    outs = [torch.empty_like(b) for b in bufs]
+    ops = ([dist.P2POp(dist.isend, b, dst, group=g) for b in bufs]
+           + [dist.P2POp(dist.irecv, o, src, group=g) for o in outs])
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    outs = [_home(o, x) for o, x in zip(outs, xs)]
+    return outs[0] if one else outs
+
+
+def ring_shift(x: torch.Tensor, mesh, axis="x", shift: int = 1
+               ) -> torch.Tensor:
+    """Member i receives member (i - shift) mod n's x."""
+    return ppermute(x, mesh, axis, shift)
+
+
+def barrier(mesh, axis="x") -> None:
+    """Returns once every member has reached it (a one-element
+    all-reduce on the rank's device, for NCCL and gloo alike)."""
+    t = all_reduce(torch.zeros(1, device=mesh.device), mesh, axis)
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+# -- tensor parallelism: the Megatron conjugate pair --------------------------
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ctx.axis), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to(x: torch.Tensor, mesh, axis="tp") -> torch.Tensor:
+    """Identity forward, all-reduce of the gradient backward: a
+    replicated activation entering a column-parallel product, whose
+    members each see part of its gradient."""
+    if mesh.axis_size(axis) == 1:
+        return x
+    return _CopyTo.apply(x, mesh, axis)
+
+
+def reduce_from(x: torch.Tensor, mesh, axis="tp") -> torch.Tensor:
+    """All-reduce forward, identity backward: the partial sums of a
+    row-parallel product closed into a replicated activation."""
+    if mesh.axis_size(axis) == 1:
+        return x
+    return _ReduceFrom.apply(x, mesh, axis)

@@ -1,10 +1,13 @@
-// Flash attention for training: the forward kernel and the two backward
-// kernels, hand-written for Hopper (sm_90a).
+// Flash attention for training: the forward kernel, the two backward
+// kernels and the ring's chunk fold, hand-written for Hopper (sm_90a).
 //
-// Replaces the three Pallas kernels of hpx_tpu/ops/attention_pallas.py:
+// Replaces the four Pallas kernels of hpx_tpu/ops/attention_pallas.py:
 //   flash_fwd      <- _flash_kernel         (:112)
 //   flash_bwd_dq   <- _flash_bwd_dq_kernel  (:397)
 //   flash_bwd_dkv  <- _flash_bwd_dkv_kernel (:446)
+//   flash_chunk    <- _flash_chunk_kernel   (:618), flash_fwd's tile loop
+//                     with the (acc, m, l) carry read in and written back
+//                     unnormalized, in place (template flag kChunk)
 // Plain C interface (no PyTorch headers), loaded with ctypes by
 // hpx_tpu_torch/ops/attention_cuda.py, which checks shapes, types,
 // devices and alignment and allocates the outputs.
@@ -13,16 +16,21 @@
 //   q, do, o   [BN, sq, H]  T      BN = B * N q rows
 //   k, v       [BNkv, sk, H] T     q row bn reads K/V row bn / g, g = BN / BNkv
 //   lse, delta [BN, sq] f32        one value a row
+//   acc        [BN, sq, H] f32     the chunk fold's carry, with m, l
+//   m, l       [BN, sq] f32        (running max and sum), updated in place
 //   dq         [BN, sq, H] f32
 //   dk, dv     [BN, sk, H] f32     per q row; the wrapper sums each group
 // Causal: key j is visible to query i iff j <= i + d (d = sk - sq in the
-// forward: bottom-right alignment); keys j >= sk never are.
+// forward: bottom-right alignment; the ring's offset for a chunk); keys
+// j >= sk never are.
 //
 // What bounds them on this card: at the training shape (S 1024, H 64,
 // causal) the forward does ~8.6 GFLOP on ~34 MB, about 250 FLOP/byte,
 // near the H100's bf16 ridge, so memory and tensor cores bound it alike
 // (~0.01 ms); the backward does 3.5x the operations on about as many
-// bytes. These first versions are simple. Each CTA owns one 64-row tile
+// bytes. The chunk fold at the ring's shape (32 rows of B.N, 512 x 512,
+// H 64, bf16) moves 14.9 MB, most of it the f32 carry in and out, for
+// at most 2.1 GFLOP: bytes bound it (~4.5 us). These first versions are simple. Each CTA owns one 64-row tile
 // (q rows, or key rows for dk/dv), walks the other operand in 64-row
 // tiles staged in shared memory by 16-byte loads, and skips causal tiles
 // past the diagonal, as at :137 / :410 / :460. No TMA, no wgmma, no
@@ -199,15 +207,21 @@ __device__ __forceinline__ int key_tiles(int q0, int sk, int d, int causal) {
 }
 
 // ---------------------------------------------------------------------------
-// flash_fwd (replaces _flash_kernel). Grid (q tiles, BN); the longest
-// causal rows start first. Shared memory: q | k | v tiles, p tile.
+// flash_fwd (replaces _flash_kernel) and, kChunk, flash_chunk (replaces
+// _flash_chunk_kernel). Grid (q tiles, BN); the longest causal rows start
+// first. Shared memory: q | k | v tiles, p tile. The forward starts from
+// (acc, m, l) = (0, -1e30, 0) and writes o = acc / l and L; the chunk
+// fold reads the carry (cacc, cm, cl) and writes it back unnormalized. A
+// chunk CTA whose rows see no key of the chunk (a future chunk on a
+// contiguous causal ring) returns at once, its carry untouched.
 // ---------------------------------------------------------------------------
-template <int H>
+template <int H, bool kChunk>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o,
-          float* __restrict__ lse, int sq, int sk, int g, int causal,
-          float scale) {
+          float* __restrict__ lse, float* __restrict__ cacc,
+          float* __restrict__ cm, float* __restrict__ cl, int sq, int sk,
+          int g, int d, int causal, float scale) {
   extern __shared__ float4 smem4[];
   constexpr int LD = H + kPad;
   float* qs = reinterpret_cast<float*>(smem4);
@@ -217,21 +231,37 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int bn = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlock;
-  const int d = sk - sq;                    // bottom-right alignment
   const float* kb = k + (size_t)(bn / g) * sk * H;
   const float* vb = v + (size_t)(bn / g) * sk * H;
+  const int nk = key_tiles(q0, sk, d, causal);
+  if (kChunk && nk == 0) return;            // the whole CTA: carry kept
 
   load_tile<H>(qs, q + (size_t)bn * sq * H, q0, sq);
   float m[4], l[4], acc[4][H / 16];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
+    const int row = q0 + ty * 4 + r;
+    if (kChunk && row < sq) {
+      const size_t at = (size_t)bn * sq + row;
+      m[r] = cm[at];
+      l[r] = cl[at];
+#pragma unroll
+      for (int c = 0; c < H / 64; ++c) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            cacc + at * H + 64 * c + 4 * tx);
+        acc[r][4 * c] = a.x;
+        acc[r][4 * c + 1] = a.y;
+        acc[r][4 * c + 2] = a.z;
+        acc[r][4 * c + 3] = a.w;
+      }
+      continue;
+    }
     m[r] = kNegInf;
     l[r] = 0.f;
 #pragma unroll
     for (int e = 0; e < H / 16; ++e) acc[r][e] = 0.f;
   }
 
-  const int nk = key_tiles(q0, sk, d, causal);
   for (int ik = 0; ik < nk; ++ik) {
     const int k0 = ik * kBlock;
     __syncthreads();                        // the last tile's readers are done
@@ -271,6 +301,18 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     tile_pv<H>(ps, vs, acc, ty, tx);
   }
 
+  if constexpr (kChunk) {                   // the carry out, unnormalized
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = q0 + ty * 4 + r;
+      if (row < sq && tx == 0) {
+        cm[(size_t)bn * sq + row] = m[r];
+        cl[(size_t)bn * sq + row] = l[r];
+      }
+    }
+    store_rows<H>(cacc + (size_t)bn * sq * H, acc, q0, sq, ty, tx);
+    return;
+  }
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int row = q0 + ty * 4 + r;
@@ -572,12 +614,15 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-template <int H>
+// flash_fwd_mma and, kChunk, flash_chunk_mma: flash_fwd / flash_chunk on
+// the tensor cores
+template <int H, bool kChunk>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, bf16* __restrict__ o,
-              float* __restrict__ lse, int sq, int sk, int g, int causal,
-              float scale) {
+              float* __restrict__ lse, float* __restrict__ cacc,
+              float* __restrict__ cm, float* __restrict__ cl, int sq,
+              int sk, int g, int d, int causal, float scale) {
   using M = Mma<H>;
   extern __shared__ uint4 smem_u4[];
   bf16* qs = reinterpret_cast<bf16*>(smem_u4);
@@ -587,10 +632,11 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int gr = lane / 4, tq = lane % 4;
   const int bn = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlock;
-  const int d = sk - sq;                    // bottom-right alignment
   const int row = q0 + warp * 16 + gr;      // this lane's rows: row, row+8
   const bf16* kb = k + (size_t)(bn / g) * sk * H;
   const bf16* vb = v + (size_t)(bn / g) * sk * H;
+  const int nk = key_tiles(q0, sk, d, causal);
+  if (kChunk && nk == 0) return;            // the whole CTA: carry kept
 
   M::load(qs, q + (size_t)bn * sq * H, q0, sq);
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[H / 8][4];
@@ -598,8 +644,24 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int n = 0; n < H / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  if constexpr (kChunk) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rr = row + 8 * r;
+      if (rr >= sq) continue;
+      const size_t at = (size_t)bn * sq + rr;
+      m[r] = cm[at];
+      l[r] = cl[at];
+#pragma unroll
+      for (int n = 0; n < H / 8; ++n) {
+        const float2 a = *reinterpret_cast<const float2*>(
+            cacc + at * H + 8 * n + 2 * tq);
+        acc[n][2 * r] = a.x;
+        acc[n][2 * r + 1] = a.y;
+      }
+    }
+  }
 
-  const int nk = key_tiles(q0, sk, d, causal);
   for (int ik = 0; ik < nk; ++ik) {
     const int k0 = ik * kBlock;
     __syncthreads();
@@ -652,6 +714,23 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     M::dot_p(acc, p, vs, lane);
   }
 
+  if constexpr (kChunk) {                   // the carry out, unnormalized
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rr = row + 8 * r;
+      if (rr >= sq) continue;
+      const size_t at = (size_t)bn * sq + rr;
+      if (tq == 0) {
+        cm[at] = m[r];
+        cl[at] = l[r];
+      }
+#pragma unroll
+      for (int n = 0; n < H / 8; ++n)
+        *reinterpret_cast<float2*>(cacc + at * H + 8 * n + 2 * tq) =
+            make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+    }
+    return;
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int rr = row + 8 * r;
@@ -863,13 +942,34 @@ int fwd(bool bf, const void* q, const void* k, const void* v, void* o,
         float* lse, int bn, int bnkv, int sq, int sk, int causal,
         float scale, cudaStream_t stream) {
   const dim3 grid(tiles(sq), bn);
+  float* none = nullptr;
   if (bf)
-    return launch(flash_fwd_mma<H>, grid, kMmaThreads, 3 * mma_tile_bytes(H),
-                  stream, (const bf16*)q, (const bf16*)k, (const bf16*)v,
-                  (bf16*)o, lse, sq, sk, bn / bnkv, causal, scale);
-  return launch(flash_fwd<H>, grid, kThreads, fwd_smem(H), stream,
+    return launch(flash_fwd_mma<H, false>, grid, kMmaThreads,
+                  3 * mma_tile_bytes(H), stream, (const bf16*)q,
+                  (const bf16*)k, (const bf16*)v, (bf16*)o, lse, none, none,
+                  none, sq, sk, bn / bnkv, sk - sq, causal, scale);
+  return launch(flash_fwd<H, false>, grid, kThreads, fwd_smem(H), stream,
                 (const float*)q, (const float*)k, (const float*)v, (float*)o,
-                lse, sq, sk, bn / bnkv, causal, scale);
+                lse, none, none, none, sq, sk, bn / bnkv, sk - sq, causal,
+                scale);
+}
+
+// the chunk fold: the forward's kernels with the carry in and out
+template <int H>
+int chunk(bool bf, const void* q, const void* k, const void* v, float* acc,
+          float* m, float* l, int bn, int bnkv, int sq, int sk, int d,
+          int causal, float scale, cudaStream_t stream) {
+  const dim3 grid(tiles(sq), bn);
+  if (bf)
+    return launch(flash_fwd_mma<H, true>, grid, kMmaThreads,
+                  3 * mma_tile_bytes(H), stream, (const bf16*)q,
+                  (const bf16*)k, (const bf16*)v, (bf16*)nullptr,
+                  (float*)nullptr, acc, m, l, sq, sk, bn / bnkv, d, causal,
+                  scale);
+  return launch(flash_fwd<H, true>, grid, kThreads, fwd_smem(H), stream,
+                (const float*)q, (const float*)k, (const float*)v,
+                (float*)nullptr, (float*)nullptr, acc, m, l, sq, sk,
+                bn / bnkv, d, causal, scale);
 }
 
 template <int H>
@@ -948,6 +1048,16 @@ int bwd_dkv(bool bf, const void* q, const void* k, const void* v,
                     d, causal, scale, stream),                               \
         bwd_dkv<128>(BF, q, k, v, dout, delta, lse, dk, dv, bn, bnkv, sq,    \
                      sk, d, causal, scale, stream))                          \
+  }                                                                          \
+  extern "C" int hpx_flash_chunk_##NAME(                                     \
+      const void* q, const void* k, const void* v, float* acc, float* m,     \
+      float* l, int bn, int bnkv, int sq, int sk, int h, int d, int causal,  \
+      float scale, cudaStream_t stream) {                                    \
+    HPX_FLASH_BY_HEAD(                                                       \
+        chunk<64>(BF, q, k, v, acc, m, l, bn, bnkv, sq, sk, d, causal,       \
+                  scale, stream),                                            \
+        chunk<128>(BF, q, k, v, acc, m, l, bn, bnkv, sq, sk, d, causal,      \
+                   scale, stream))                                           \
   }
 
 HPX_FLASH_ENTRY(f32, false)

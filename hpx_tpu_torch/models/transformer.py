@@ -4,11 +4,19 @@ Counterpart of ``hpx_tpu.models.transformer`` on one device: the config,
 the weight tree, the KV-cached forward (``_block_decode`` /
 ``_decode_window`` / ``_prefill_window``), ``generate``, the shared
 per-row sampling contract (``_sample_row`` / ``_pick_row``), and the
-single-device training step (``_block`` / ``_nll_head`` / ``_local_loss``
-/ ``make_train_step``), whose attention is flash attention with the flash
-backward (``ops/attention_cuda.flash_attention``). The mesh,
-sequence/tensor parallel steps and mixture-of-experts wait for the
-multi-device slice.
+training step (``_block`` / ``_nll_head`` / ``_local_loss`` /
+``make_train_step``). On one device its attention is flash attention
+with the flash backward (``ops/attention_cuda.flash_attention``).
+
+Over a (dp, sp, tp) mesh (``make_mesh_3d``, one process per rank) the
+same step is the reference's sharded step: tokens split over dp (batch)
+and sp (sequence), attention walking the sp ring
+(``ops/attention.ring_attention_sharded``, RoPE at global positions from
+``ring_positions``), heads and d_ff split over tp (Megatron: ``copy_to``
+before the column-parallel products, ``reduce_from`` after ``wo`` and
+``w2``), every gradient summed over the (dp, sp) group of its tp index.
+``shard_params`` / ``unshard_params`` / ``shard_batch`` cut and rejoin
+the weights and the batch. Mixture-of-experts waits for a later slice.
 
 The weights live in an ``nn.Module`` (``Transformer``) whose parameter
 names follow the reference's tree: ``emb``, ``ln_f`` and
@@ -36,15 +44,21 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..collectives.device import all_gather, all_reduce, copy_to, reduce_from
 from ..core.errors import NotImplementedYet
 from ..exec.cuda import resolve_device
+from ..ops.attention import (ring_attention_sharded, ring_positions,
+                             stripe_sequence)
 from ..ops.attention_cuda import flash_attention
+from ..parallel.mesh import Mesh
 from ..utils import prng
 from .quant import QTensor, dequant
 
 __all__ = ["TransformerConfig", "Transformer", "QWeight", "init_params",
            "params_from_reference", "generate", "sample_batch",
-           "make_train_step", "make_opt_state"]
+           "make_train_step", "make_opt_state", "make_mesh_3d",
+           "mesh_3d_shape", "param_specs", "shard_params",
+           "unshard_params", "shard_batch"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +81,10 @@ class TransformerConfig:
     # rotary position embeddings (GPT-NeoX rotate-half) on q and k
     rope: bool = False
     rope_theta: float = 10000.0
+    # striped sequence parallelism: sp shard r holds tokens r, r+sp, ...
+    # (shard_batch stripes the batch), so every causal ring step does
+    # half a chunk's work; positions stay global
+    striped_ring: bool = False
 
     @property
     def kv_heads(self) -> int:
@@ -479,7 +497,120 @@ def generate(params, cfg: TransformerConfig, prompt, max_new: int = 32,
     return torch.stack(out, dim=1).to(torch.int32)
 
 
-# -- training (one device) -------------------------------------------------------
+# -- the (dp, sp, tp) mesh and its shards -------------------------------------
+
+def mesh_3d_shape(n: int) -> Tuple[int, int, int]:
+    """(dp, sp, tp) for n ranks, as the reference's ``make_mesh_3d``
+    factors them: tp 2 where n is even, then sp 2 where what is left is
+    even, the rest dp."""
+    tp = 2 if n % 2 == 0 else 1
+    rest = n // tp
+    sp = 2 if rest % 2 == 0 else 1
+    return rest // sp, sp, tp
+
+
+def make_mesh_3d(n: int, device=None) -> Mesh:
+    """The ("dp", "sp", "tp") mesh of ``mesh_3d_shape(n)`` over the
+    current world of n ranks (``parallel.mesh.launch``); ``n == 1`` also
+    without a world. ``device=None`` is the rank's card, ``"cpu"`` the
+    CPU."""
+    return Mesh(mesh_3d_shape(n), ("dp", "sp", "tp"), device)
+
+
+def param_specs(cfg: TransformerConfig) -> Dict[str, Tuple]:
+    """Parameter name -> its sharding, the reference's PartitionSpecs as
+    data: the mesh axis (or None) of each leading dim, () replicated.
+    Heads and d_ff go over tp; everything else is replicated."""
+    if cfg.kv_heads == cfg.n_heads:
+        qkv = {"wqkv": (None, None, "tp", None)}
+    else:
+        qkv = {"wq": (None, "tp", None), "wkv": (None, None, "tp", None)}
+    layer = {"ln1": (), **qkv, "wo": ("tp", None, None), "ln2": (),
+             "w1": (None, "tp"), "b1": ("tp",), "w2": ("tp", None)}
+    specs = {"emb": (), "ln_f": ()}
+    for i in range(cfg.n_layers):
+        specs.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    return specs
+
+
+def _tp_dim(spec: Tuple) -> Optional[int]:
+    return spec.index("tp") if "tp" in spec else None
+
+
+def _from_named(tensors: Dict[str, torch.Tensor], n_layers: int
+                ) -> Transformer:
+    """A ``Transformer`` from named tensors in ``named_parameters`` order."""
+    layers: List[Dict[str, Any]] = [{} for _ in range(n_layers)]
+    for name, t in tensors.items():
+        if name.startswith("layers."):
+            _, i, key = name.split(".", 2)
+            layers[int(i)][key] = t
+    return Transformer(tensors["emb"], tensors["ln_f"], layers)
+
+
+def _dense_named(params: Transformer) -> Dict[str, torch.Tensor]:
+    if any(isinstance(m, QWeight) for m in params.modules()):
+        raise ValueError("int8 serving weights cannot be trained")
+    return dict(params.named_parameters())
+
+
+def shard_params(params: Transformer, cfg: TransformerConfig,
+                 mesh: Mesh) -> Transformer:
+    """This rank's shard of full weights (the reference's
+    ``shard_params``), copied to the rank's device: wqkv / wq / wkv and
+    wo cut by heads, w1 / b1 by columns, w2 by rows over tp; the rest
+    whole."""
+    tp, i = mesh.shape["tp"], mesh.axis_index("tp")
+    specs = param_specs(cfg)
+    out = {}
+    for name, w in _dense_named(params).items():
+        dim = _tp_dim(specs[name])
+        if dim is not None:
+            if w.shape[dim] % tp:
+                raise ValueError(f"{name}: dim {dim} of {tuple(w.shape)} "
+                                 f"does not divide over tp={tp}")
+            w = w.chunk(tp, dim)[i]
+        out[name] = w.detach().to(mesh.device, copy=True).contiguous()
+    return _from_named(out, cfg.n_layers)
+
+
+def unshard_params(params: Transformer, cfg: TransformerConfig,
+                   mesh: Mesh) -> Transformer:
+    """The full weights from every rank's shard (all-gathered over tp),
+    on the rank's device: the counterpart of reading a global array.
+    Every rank of a tp group calls it together."""
+    specs = param_specs(cfg)
+    out = {}
+    for name, w in _dense_named(params).items():
+        dim = _tp_dim(specs[name])
+        w = w.detach()
+        out[name] = (all_gather(w, mesh, "tp", dim) if dim is not None
+                     else w.clone())
+    return _from_named(out, cfg.n_layers)
+
+
+def shard_batch(tokens, targets, mesh: Mesh, striped: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's [B/dp, S/sp] slice of a global batch of tokens and
+    targets (int64, on the rank's device). ``striped`` (pass
+    ``cfg.striped_ring``) stripes the sequence over the sp ring first,
+    the reference's ``_jit_maybe_striped`` done where the shard is
+    cut."""
+    dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+
+    def cut(x):
+        x = _as_tokens(x, mesh.device)
+        if x.shape[0] % dp or x.shape[1] % sp:
+            raise ValueError(f"batch {tuple(x.shape)} does not divide "
+                             f"over dp={dp}, sp={sp}")
+        if striped and sp > 1:
+            x = stripe_sequence(x, sp, 1)
+        x = x.chunk(dp, 0)[mesh.axis_index("dp")]
+        return x.chunk(sp, 1)[mesh.axis_index("sp")].contiguous()
+    return cut(tokens), cut(targets)
+
+
+# -- training -----------------------------------------------------------------
 
 def sample_batch(cfg: TransformerConfig, batch: int, seq: int,
                  generator: Optional[torch.Generator] = None, device=None
@@ -494,16 +625,25 @@ def sample_batch(cfg: TransformerConfig, batch: int, seq: int,
     return toks[:, :-1], toks[:, 1:]
 
 
-def _block(x: torch.Tensor, lp, cfg: TransformerConfig) -> torch.Tensor:
-    """One decoder block over a whole [B, S, D] sequence: causal flash
-    attention, then the MLP."""
-    h = _ln(x, lp["ln1"])
+def _block(x: torch.Tensor, lp, cfg: TransformerConfig,
+           mesh: Mesh) -> torch.Tensor:
+    """One decoder block over this rank's [B/dp, S/sp, D] shard of a
+    sequence, with the weights' tp shard: causal attention walking the
+    sp ring (flash attention where sp is 1), RoPE at the shard's global
+    positions, the Megatron pair closing each tp-split half. On a mesh
+    of one rank that is flash attention over the whole sequence."""
+    h = copy_to(_ln(x, lp["ln1"]), mesh)
     q, k, v = _qkv_proj(h, lp)
     if cfg.rope:
-        pos = torch.arange(q.shape[1], device=x.device)
+        pos = ring_positions(mesh.axis_index("sp"), mesh.shape["sp"],
+                             q.shape[1], cfg.striped_ring, x.device)
         q, k = _rope(q, pos, cfg), _rope(k, pos, cfg)
-    att = flash_attention(q, k, v, causal=True)
-    return _ffn_tail(x, att, lp)
+    att = ring_attention_sharded(q, k, v, mesh, "sp", causal=True,
+                                 striped=cfg.striped_ring)
+    x = x + reduce_from(torch.einsum("bsnh,nhd->bsd", att, lp["wo"]), mesh)
+    h = copy_to(_ln(x, lp["ln2"]), mesh)
+    h = _gelu(h @ lp["w1"] + lp["b1"]) @ lp["w2"]
+    return x + reduce_from(h, mesh)
 
 
 def _nll_head(params, x: torch.Tensor, targets: torch.Tensor):
@@ -522,15 +662,15 @@ def _nll_head(params, x: torch.Tensor, targets: torch.Tensor):
 
 
 def _local_loss(params, tokens: torch.Tensor, targets: torch.Tensor,
-                cfg: TransformerConfig):
-    """Token loss sum and count over the batch; with ``cfg.remat`` each
-    block is recomputed in the backward pass."""
+                cfg: TransformerConfig, mesh: Mesh):
+    """Token loss sum and count over this rank's batch; with
+    ``cfg.remat`` each block is recomputed in the backward pass."""
     x = params["emb"][tokens]
     for lp in params["layers"]:
         if cfg.remat:
-            x = checkpoint(_block, x, lp, cfg, use_reentrant=False)
+            x = checkpoint(_block, x, lp, cfg, mesh, use_reentrant=False)
         else:
-            x = _block(x, lp, cfg)
+            x = _block(x, lp, cfg, mesh)
     return _nll_head(params, x, targets)
 
 
@@ -540,12 +680,35 @@ def _as_tokens(t, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(t), dtype=torch.int64, device=dev)
 
 
+_DATA_AXES = ("dp", "sp")
+
+
+def _sum_grads(grads, mesh: Mesh) -> List[torch.Tensor]:
+    """Every gradient summed over the (dp, sp) group of its tp index,
+    one all-reduce per dtype over the gradients laid end to end."""
+    grads = list(grads)
+    if mesh.axis_size(_DATA_AXES) == 1:
+        return grads
+    for dtype in dict.fromkeys(g.dtype for g in grads):   # rank order
+        idx = [i for i, g in enumerate(grads) if g.dtype == dtype]
+        flat = all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]),
+                          mesh, _DATA_AXES)
+        for i, part in zip(idx, flat.split([grads[i].numel()
+                                            for i in idx])):
+            grads[i] = part.view_as(grads[i])
+    return grads
+
+
 def _loss_and_grads(params: Transformer, tokens, targets,
-                    cfg: TransformerConfig, dev: torch.device):
+                    cfg: TransformerConfig, mesh: Mesh):
     """(weights, their gradients, detached mean token NLL) of one batch
-    on ``dev``. The weights take ``requires_grad`` only while the
-    gradients are computed, so the serving paths stay free of
-    autograd."""
+    on the mesh's device; tokens and targets are this rank's shard. The
+    rank backpropagates its loss sum over the global token count, the
+    gradients are summed over (dp, sp), and the loss is the global mean
+    (on a mesh of one rank: the batch's own). The weights take
+    ``requires_grad`` only while the gradients are computed, so the
+    serving paths stay free of autograd."""
+    dev = mesh.device
     if params.device != dev:
         raise ValueError(f"params live on {params.device}, not {dev}")
     if any(isinstance(m, QWeight) for m in params.modules()):
@@ -556,26 +719,35 @@ def _loss_and_grads(params: Transformer, tokens, targets,
         w.requires_grad_(True)
     try:
         with torch.enable_grad():
-            s, n = _local_loss(params, tokens, targets, cfg)
-            loss = s / n
-            grads = torch.autograd.grad(loss, weights)
+            s, n = _local_loss(params, tokens, targets, cfg, mesh)
+            n *= mesh.axis_size(_DATA_AXES)
+            grads = torch.autograd.grad(s / n, weights)
     finally:
         for w in weights:
             w.requires_grad_(False)
-    return weights, grads, loss.detach()
+    return (weights, _sum_grads(grads, mesh),
+            all_reduce(s.detach(), mesh, _DATA_AXES) / n)
 
 
 def make_opt_state(params: Transformer, cfg: TransformerConfig, optimizer):
     """The state of ``optimizer``, a ``torch.optim`` factory such as
     ``functools.partial(torch.optim.Adam, lr=1e-2)``, over the weights:
-    the torch.optim object itself."""
+    the torch.optim object itself. Over sharded weights its moments are
+    sharded like them."""
     return optimizer(list(params.parameters()))
 
 
-def make_train_step(cfg: TransformerConfig, optimizer=None, device=None):
-    """The single-device training step (the reference's
-    ``make_train_step(cfg, make_mesh_3d(1))``), updating the
-    ``Transformer`` in place. ``device=None`` means ``cuda:0``.
+def make_train_step(cfg: TransformerConfig, mesh: Optional[Mesh] = None,
+                    optimizer=None, device=None):
+    """The training step, updating the ``Transformer`` in place.
+
+    mesh=None: one device, the step on ``make_mesh_3d(1)`` over
+    ``device`` (None means ``cuda:0``), as the reference's
+    ``make_train_step(cfg, make_mesh_3d(1))``.
+    mesh=<(dp, sp, tp) Mesh>: the reference's sharded step on this
+    rank, which every rank of the mesh runs together on its shard of
+    the weights (``shard_params``) and of the batch (``shard_batch``);
+    the device is the mesh's.
 
     optimizer=None: SGD, ``p - lr * g`` in p's dtype;
     ``step(params, tokens, targets) -> (params, loss)``.
@@ -584,15 +756,25 @@ def make_train_step(cfg: TransformerConfig, optimizer=None, device=None):
     targets) -> (params, opt_state, loss)``, with ``opt_state`` from
     ``make_opt_state(params, cfg, optimizer)``.
 
-    The loss is the mean token NLL, a detached f32 scalar. The weights
-    take ``requires_grad`` only while the step computes their gradients,
-    so the serving paths stay free of autograd."""
-    dev = resolve_device(device)
+    The loss is the mean token NLL over the global batch, a detached f32
+    scalar. The weights take ``requires_grad`` only while the step
+    computes their gradients, so the serving paths stay free of
+    autograd."""
+    if mesh is None:
+        mesh = make_mesh_3d(1, device=resolve_device(device))
+    elif device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    tp = mesh.shape["tp"]
+    if cfg.n_heads % tp or cfg.kv_heads % tp or cfg.d_ff % tp:
+        raise ValueError(
+            f"heads (q={cfg.n_heads}, kv={cfg.kv_heads}) and d_ff "
+            f"({cfg.d_ff}) must divide by tp={tp} (MQA under tp needs "
+            "n_kv_heads >= tp)")
 
     if optimizer is None:
         def step(params, tokens, targets):
             weights, grads, loss = _loss_and_grads(params, tokens, targets,
-                                                    cfg, dev)
+                                                    cfg, mesh)
             with torch.no_grad():
                 for w, g in zip(weights, grads):
                     w.sub_(cfg.lr * g.to(w.dtype))
@@ -601,7 +783,7 @@ def make_train_step(cfg: TransformerConfig, optimizer=None, device=None):
 
     def step_opt(params, opt_state, tokens, targets):
         weights, grads, loss = _loss_and_grads(params, tokens, targets,
-                                                cfg, dev)
+                                                cfg, mesh)
         for w, g in zip(weights, grads):
             w.grad = g.to(w.dtype)
         opt_state.step()

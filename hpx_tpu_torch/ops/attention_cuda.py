@@ -1,4 +1,4 @@
-"""Attention kernels: paged decode (two) and flash attention (three).
+"""Attention kernels: paged decode (two) and flash attention (four).
 
 Counterpart of ``hpx_tpu.ops.attention_pallas``. Hand-written kernels in
 ``csrc/paged_attention.cu`` and ``csrc/flash_attention.cu`` replace its
@@ -18,11 +18,17 @@ which the kernel is held against on the card:
                                 _flash_bwd_dq_kernel; plain_flash_bwd_dq)
   flash_attention_bwd_dkv       kernel flash_bwd_dkv (replaces
                                 _flash_bwd_dkv_kernel; plain_flash_bwd_dkv)
+  flash_attention_chunk         kernel flash_chunk (replaces
+                                _flash_chunk_kernel; plain_flash_chunk):
+                                the ring's fold of one K/V chunk into an
+                                (acc, m, l) carry, kernel flash_fwd's
+                                loop with the carry in and out
 
 Each flash kernel has two routes in the source, chosen by the operands'
 dtype: bf16 on the tensor cores (``*_mma``), f32 on the FP32 units.
 ``flash_attention`` (at the end of this file) is the differentiable
-[B, S, N, H] entry point over the three flash wrappers.
+[B, S, N, H] entry point over the forward and backward wrappers; the
+ring (``ops/attention.py``) runs the chunk and backward wrappers.
 
 Paged operands (the reference's): q [B, W, nq, hd] post-rope queries (W = 1
 for decode, W > 1 for a speculative-verify window); k_pool/v_pool
@@ -66,8 +72,9 @@ __all__ = ["fused_paged_attention", "fused_paged_online_attention",
            "chunk_blocks", "exact_smem_bytes", "online_smem_bytes",
            "SMEM_LIMIT", "flash_attention", "flash_attention_fwd",
            "flash_attention_bwd", "flash_attention_bwd_dq",
-           "flash_attention_bwd_dkv", "bwd_prep", "plain_flash_fwd",
-           "plain_flash_bwd_dq", "plain_flash_bwd_dkv"]
+           "flash_attention_bwd_dkv", "flash_attention_chunk", "bwd_prep",
+           "plain_flash_fwd", "plain_flash_bwd_dq", "plain_flash_bwd_dkv",
+           "plain_flash_chunk", "flash_finish"]
 
 _NEG_INF = -1e30     # the online carry's "minus infinity" (exp stays exact)
 
@@ -434,23 +441,51 @@ def plain_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's function in PyTorch, its order of operations
-    included: keys in blocks of FLASH_BLOCK folded into an (acc, m, l)
-    carry in f32. Returns (o [B·N, Sq, H] in q.dtype, lse [B·N, Sq] f32)."""
+    included: the chunk fold of the whole K/V (keys in blocks of
+    FLASH_BLOCK folded into an (acc, m, l) carry in f32) from
+    (0, -1e30, 0) at the bottom-right offset Sk - Sq, then finished.
+    Returns (o [B·N, Sq, H] in q.dtype, lse [B·N, Sq] f32)."""
+    m = torch.full(q.shape[:2], _NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    carry = plain_flash_chunk(q, k, v, acc, m, torch.zeros_like(m),
+                              k.shape[1] - q.shape[1], causal)
+    return flash_finish(*carry, q.dtype)
+
+
+def flash_finish(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                 dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, L) of a finished (acc, m, l) carry: o = acc / l in ``dtype``
+    and L = m + log l, both 0 on a row that saw no key (l = 0)."""
+    seen = l > 0
+    den = torch.where(seen, l, torch.ones_like(l))
+    lse = torch.where(seen, m + torch.log(den), torch.zeros_like(m))
+    return (acc / den[..., None]).to(dtype), lse
+
+
+def plain_flash_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                      d: int, causal: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The chunk kernel's function in PyTorch, its order of operations
+    included: keys in blocks of FLASH_BLOCK folded into the carry (acc
+    [B·N, Sq, H], m and l [B·N, Sq], all f32) with the causal offset
+    ``d`` (key j visible to query i iff j <= i + d), nothing finished.
+    Key tiles past the last row's offset are skipped, as the kernels
+    skip them; a skipped or wholly masked tile leaves a row's carry
+    exactly as it was. Returns the new (acc, m, l), unnormalized."""
     bn, sq, h = q.shape
     sk, g = k.shape[1], bn // k.shape[0]
-    scale, off = _flash_scale(h), sk - sq
+    scale = _flash_scale(h)
     kr, vr, qf = _kv_rows(k, g), _kv_rows(v, g), q.float()
-    acc = torch.zeros((bn, sq, h), dtype=torch.float32, device=q.device)
-    m = torch.full((bn, sq, 1), _NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    lsum = torch.zeros_like(m)
+    acc, m, lsum = acc.clone(), m[..., None].clone(), l[..., None].clone()
     for k0 in range(0, sk, FLASH_BLOCK):
-        if causal and k0 > sq - 1 + off:
+        if causal and k0 > sq - 1 + d:
             break                      # every later key tile is masked
         kb = kr[:, k0:k0 + FLASH_BLOCK].float()
         vb = vr[:, k0:k0 + FLASH_BLOCK].float()
         s = torch.matmul(qf, kb.transpose(1, 2)) * scale
-        live = _flash_live(sq, k0, kb.shape[1], sk, off, causal, q.device)
+        live = _flash_live(sq, k0, kb.shape[1], sk, d, causal, q.device)
         s = torch.where(live, s, torch.full_like(s, _NEG_INF))
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         p = torch.where(live, torch.exp(s - m_new), torch.zeros_like(s))
@@ -459,10 +494,7 @@ def plain_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lsum = lsum * corr + p.sum(-1, keepdim=True)
         m = m_new
         acc = acc + torch.matmul(_bf16_round(p, v), vb)
-    seen = lsum > 0
-    den = torch.where(seen, lsum, torch.ones_like(lsum))
-    lse = torch.where(seen, m + torch.log(den), torch.zeros_like(m))
-    return (acc / den).to(q.dtype), lse[..., 0]
+    return acc, m[..., 0], lsum[..., 0]
 
 
 def _plain_bwd_common(q, k, v, do, delta, lse, d, causal):
@@ -514,6 +546,9 @@ def _flash_lib() -> ctypes.CDLL:
             fn.restype = i
             fn = getattr(lib, f"hpx_flash_bwd_dkv_{name}")
             fn.argtypes = [p] * 8 + [i] * 7 + [f, p]
+            fn.restype = i
+            fn = getattr(lib, f"hpx_flash_chunk_{name}")
+            fn.argtypes = [p] * 6 + [i] * 7 + [f, p]
             fn.restype = i
         lib.hpx_flash_error_string.argtypes = [i]
         lib.hpx_flash_error_string.restype = ctypes.c_char_p
@@ -668,6 +703,50 @@ def flash_attention_bwd_dkv(q, k, v, do, delta, lse, d: int,
 
 
 flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_chunk(q, k, v, acc, m, l, d: int, causal: bool = False
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Fold one K/V chunk into an online-softmax carry, IN PLACE: q
+    [B·N, Sq, H], k/v [B·Nkv, Sk, H]; acc [B·N, Sq, H], m and l
+    [B·N, Sq], all f32 and owned by the caller (the ring), which
+    finishes once after its last chunk: o = acc / l, L = m + log l
+    (where l > 0). ``d`` is the causal offset of this chunk (key j
+    visible to query i iff j <= i + d), a host int. Returns (acc, m, l).
+
+    CUDA tensor: kernel flash_chunk (``flash_fwd<H, kChunk=true>``,
+    ``flash_fwd_mma`` for bf16), which replaces
+    ``hpx_tpu/ops/attention_pallas.py:_flash_chunk_kernel``;
+    a q tile that sees no key of the chunk leaves its carry untouched.
+    CPU tensor: ``plain_flash_chunk``, copied into the carry."""
+    if q.device.type == "cpu":
+        for t, new in zip((acc, m, l),
+                          plain_flash_chunk(q, k, v, acc, m, l, d, causal)):
+            t.copy_(new)
+        return acc, m, l
+    _flash_check("flash_attention_chunk", q, k, v,
+                 rows=(("m", m), ("l", l)))
+    bn, sq, h = q.shape
+    if (acc.dtype != torch.float32 or tuple(acc.shape) != (bn, sq, h)
+            or acc.device != q.device or not acc.is_contiguous()
+            or acc.data_ptr() % 16):
+        raise ValueError("flash_attention_chunk: acc must be a contiguous, "
+                         f"16-byte aligned float32 {(bn, sq, h)} tensor on "
+                         f"{q.device}")
+    with torch.cuda.device(q.device):
+        lib = _flash_lib()
+        _flash_launch(
+            "flash_attention_chunk",
+            getattr(lib, f"hpx_flash_chunk_{_FLASH_DTYPES[q.dtype]}"),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
+            m.data_ptr(), l.data_ptr(), bn, k.shape[0], sq, k.shape[1], h,
+            int(d), int(causal), _flash_scale(h))
+    flash_attention_chunk.launches += 1
+    return acc, m, l
+
+
+flash_attention_chunk.launches = 0
 
 
 def bwd_prep(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:

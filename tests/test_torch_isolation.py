@@ -13,6 +13,7 @@ import torch
 import hpx_tpu_torch
 from hpx_tpu_torch import CudaExecutor, Target
 from hpx_tpu_torch.models import stencil1d
+from hpx_tpu_torch.parallel.mesh import launch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "hpx_tpu_torch"
@@ -47,6 +48,21 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
 def test_no_source_imports_jax_or_the_reference(path):
     found = FORBIDDEN.findall(path.read_text())
     assert not found, f"{path}: {found}"
+
+
+def _loaded_modules():
+    """In a spawned rank: the sharded step's modules imported, which of
+    JAX's or the reference's are loaded."""
+    from hpx_tpu_torch.collectives import device  # noqa: F401
+    from hpx_tpu_torch.models import transformer  # noqa: F401
+    from hpx_tpu_torch.ops import attention  # noqa: F401
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "hpx_tpu"))
+
+
+def test_a_spawned_rank_loads_no_jax_and_no_reference():
+    assert launch(_loaded_modules, 2, device="cpu", verbose=False,
+                  timeout=300) == [[], []]
 
 
 def test_forbidden_pattern():
@@ -110,7 +126,9 @@ def test_training_entry_points_need_cuda_unless_the_cpu_is_asked_for(
     for make in (lambda: transformer.make_train_step(cfg),
                  lambda: transformer.make_train_step(
                      cfg, optimizer=torch.optim.SGD, device="cuda:0"),
-                 lambda: transformer.sample_batch(cfg, 2, 4)):
+                 lambda: transformer.sample_batch(cfg, 2, 4),
+                 lambda: transformer.make_mesh_3d(1),
+                 lambda: launch(_loaded_modules, 2)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     # CUDA tensors cannot be made here; a tensor that is not on the CPU
