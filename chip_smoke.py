@@ -15,8 +15,20 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    and ragged shapes. The stencil kernels bitwise (tolerance 0); the
    paged-attention kernels within rtol = atol = 1e-5 for float32 output
    and rtol = atol = 1e-2 (about one bfloat16 ulp at the outputs'
-   magnitude) for bfloat16 output, over every pool type; an exact-kernel
-   shape above the shared-memory cap must raise.
+   magnitude) for bfloat16 output, over every pool type and 15 shapes
+   (three of them split over P = 8, 8 and 5 CTAs with wholly dead runs;
+   head dims 80, 40, 36, 256 and 384 for the kernels' other paths:
+   element loads, padded rows, 16 lanes a key, a ring of 2 stages),
+   the online kernel against its plain version in the kernel's split
+   (splits=P); each output bitwise the same on a second call, with
+   every dead table entry pointed at another block and from pools that
+   are not 16-byte aligned; the wrapper's shared-memory sizes equal the
+   source's; an exact-kernel shape above the shared-memory cap
+   (W*g*S/8) must raise; both kernels at S 49600 and 56960 with 528
+   (slot, head) pairs (P = 1, raised for the exact kernel where its run
+   does not fit); the exact kernel at hd 512 of f32 with a halved
+   chunk. nvcc's register and spill report is printed for every
+   instantiation.
 3. The main path, through the entry points a user calls, each path with
    the launch counts set to 0 just before it and read just after:
      fused     stencil_fused -> multistep -> multistep_fused (kernel B),
@@ -106,18 +118,26 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    3.35 TB/s and operations over the peak of their type (H100 SXM data
    sheet: 67 TFLOP/s FP32, 989 TFLOP/s bf16). The paged kernels are
    timed at the full-width decode shape (B 8, W 1, 8 heads of 128,
-   block 16, S 1024) with bfloat16 and int8 pools, beside
-   F.scaled_dot_product_attention on K/V gathered beforehand (the
-   gather not counted), as a yardstick the port never calls. The flash
-   kernels are timed in bfloat16, causal, at the training shape (B 8,
-   S 1024, 8 heads of 64) and at bench.py:448's (B 2, S 4096, 8 heads
-   of 128), their operations counted over the visible (query, key)
-   pairs, beside SDPA (is_causal) for the forward and SDPA's autograd
-   backward (forward + backward less forward) for kernels 6 and 7
-   together. Kernel 8 is timed at the ring's shape (q [32, 512, 64]
-   bf16, causal) at d = 0 and d = 512; no single PyTorch call folds a
-   chunk into a carry, so it has no library yardstick. Every library
-   yardstick is device time under
+   block 16) at S 1024 with bfloat16 and int8 pools and at S 8192 with
+   bfloat16 pools, beside F.scaled_dot_product_attention on K/V gathered
+   beforehand (the gather not counted), as a yardstick the port never
+   calls: CUDA events around a CUDA graph of the calls (the wrappers'
+   host work outlasts the kernels), each call on the next of several
+   copies of the pools so that it finds L2 cold, with the warm time,
+   CUDA-event time of back-to-back calls and host enqueue time beside
+   it, and the time with every slot at position 0 and by P; the bound
+   counts the live rows (positions up to pos0 + W - 1) and the live
+   blocks' table entries and scales (the all-block bound is printed
+   beside it).
+   The flash kernels are timed in bfloat16, causal, at the training
+   shape (B 8, S 1024, 8 heads of 64) and at bench.py:448's (B 2,
+   S 4096, 8 heads of 128), their operations counted over the visible
+   (query, key) pairs, beside SDPA (is_causal) for the forward and
+   SDPA's autograd backward (forward + backward less forward) for
+   kernels 6 and 7 together. Kernel 8 is timed at the ring's shape
+   (q [32, 512, 64] bf16, causal) at d = 0 and d = 512; no single
+   PyTorch call folds a chunk into a carry, so it has no library
+   yardstick. Every other library yardstick is device time under
    torch.profiler: a library call's host work (autograd, dispatch) can
    outlast its kernels, and events would then time the host; where three
    traces record no device time it is CUDA-event time, and each row's
@@ -135,12 +155,14 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import itertools
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import time
 import traceback
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, device memory
@@ -213,6 +235,36 @@ def _cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     torch.cuda.synchronize()
     calls = max(1, min(50, math.ceil(2.0 / run(1))))
     return statistics.median(run(calls) for _ in range(reps))
+
+
+def _graph_ms(calls, reps: int = 7) -> float:
+    """Milliseconds a call by CUDA events around replays of one CUDA graph
+    that holds ``calls`` (functions of no argument, each launching work)
+    in order: the median over ``reps`` replays, over the number of calls.
+    The host's work for each call (argument checks, allocation, the
+    launch) stays out of the timing; the graph's launch of each node is
+    in it. For kernels whose wrappers' host work outlasts them."""
+    import torch
+    for c in calls:                 # warm-up, outside the capture
+        c()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for c in calls:
+            c()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / len(calls))
+    del graph
+    return statistics.median(times)
 
 
 def _device_ms(fn, reps: int) -> tuple:
@@ -294,7 +346,6 @@ def _comm_split(step, dev, n: int) -> dict:
     collectives.device's host staging copies. Each timed call is fenced
     by synchronize() on both sides, so it does not count the card's
     queued compute; the fences cost the step some overlap."""
-    import time
     import torch
     import torch.distributed as dist
     from hpx_tpu_torch.collectives import device as cd
@@ -362,7 +413,6 @@ def _ring_rank(f32_batch: int) -> dict:
          as it is and with every chunk's offset 0.
     Rank 0 returns the full f32 gradients; every rank its readings."""
     import dataclasses
-    import time
     import torch
     from hpx_tpu_torch.models import transformer as tf
     from hpx_tpu_torch.ops import attention as ao
@@ -620,11 +670,33 @@ def main() -> int:
                ac.fused_paged_attention, ac.fused_paged_online_attention,
                ac.flash_attention_fwd, ac.flash_attention_bwd_dq,
                ac.flash_attention_bwd_dkv, ac.flash_attention_chunk)
+
+    def plan_of(kind, q, k_pool, v_pool, table, *_):
+        """(P, stages, cb, shared-memory bytes): the wrapper's own plan of
+        a launch of kernel ``kind`` ("exact" or "online") on these
+        inputs."""
+        b, w, nq, hd = q.shape
+        nkv = k_pool.shape[2]
+        return ac.paged_plan(kind == "exact", b, nkv, w * (nq // nkv),
+                             table.shape[1], k_pool.shape[1], hd,
+                             k_pool.element_size())
+
+    def splits_of(*args):
+        """P, the CTAs the online kernel gives each (slot, kv-head) on
+        these inputs."""
+        return plan_of("online", *args)[0]
+
+    def plain_online(*args):
+        """The online kernel's plain version in the kernel's order: the
+        same P runs, merged in rank order."""
+        return ac.plain_paged_attention_online(*args,
+                                               splits=splits_of(*args))
     paged = {"fused_paged_attention": (ac.fused_paged_attention,
                                        ac.plain_paged_attention_exact),
              "fused_paged_online_attention": (
-                 ac.fused_paged_online_attention,
-                 ac.plain_paged_attention_online)}
+                 ac.fused_paged_online_attention, plain_online)}
+    kind_of = {"fused_paged_attention": "exact",
+               "fused_paged_online_attention": "online"}
 
     # -- 1. build ---------------------------------------------------------------
     def build():
@@ -693,40 +765,173 @@ def main() -> int:
                   (torch.float8_e4m3fn, torch.float32),
                   (torch.float8_e4m3fn, torch.bfloat16))
 
+    def moved_dead(args):
+        """args with every dead table entry (a block whose first
+        position is past pos0 + W - 1) pointed at another pool block."""
+        q, kp, _, table, pos = args[:5]
+        bs, maxb, nb = kp.shape[1], table.shape[1], kp.shape[0]
+        nlive = ((pos.long() + q.shape[1] - 1) // bs + 1).clamp(max=maxb)
+        dead = (torch.arange(maxb, device=table.device)[None, :]
+                >= nlive[:, None])
+        moved = table.clone()
+        moved[dead] = (moved[dead] + 1) % nb
+        return [*args[:3], moved, *args[4:]], int(dead.sum())
+
+    def misaligned(t):
+        """A copy of t whose data starts one element past a 16-byte
+        boundary."""
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    def long_state(b, maxb, nkv, hd, seed):
+        """f32 q and pools on the card for S = maxb * 16 (W 1, g 1), the
+        slots at random positions in the second half, the last at S - 1;
+        (q, k_pool, v_pool, table, pos0, None, None)."""
+        cuda = torch.Generator(device="cuda").manual_seed(seed)
+        nb, s = b * maxb + 2, maxb * 16
+        kp, vp = (torch.randn(nb, 16, nkv, hd, generator=cuda,
+                              device="cuda") for _ in range(2))
+        table = (torch.randperm(nb - 1, generator=cuda, device="cuda")
+                 [:b * maxb] + 1).reshape(b, maxb).int()
+        pos = torch.randint(s // 2, s, (b,), generator=cuda,
+                            device="cuda").int()
+        pos[-1] = s - 1
+        q = torch.randn(b, 1, nkv, hd, generator=cuda, device="cuda")
+        return [q, kp, vp, table, pos, None, None]
+
     def paged_kernel_checks():
-        # (slots, max_blocks, block_size, kv heads, group g, head_dim, W)
+        # (slots, max_blocks, block_size, kv heads, group g, head_dim, W);
+        # shapes 8-10 split each walk over P = 8, 8 and 5 CTAs, with slot 0
+        # at position 0 (its runs after the first wholly dead); 11-15 take
+        # the kernels' other paths: hd 80 (10 pieces of bf16, not a
+        # multiple of the dot's 8 lanes), hd 40 and 36 (element loads and
+        # rows padded to 16 bytes for int8/fp8, and for bf16 at 36), W*g 20
+        # x hd 256 and hd 384 (a ring of 2 stages for f32 pools; 16 lanes a
+        # key at 384)
         shapes = ((3, 4, 8, 2, 1, 64, 1), (3, 3, 16, 2, 2, 128, 2),
                   (2, 3, 32, 1, 4, 64, 5), (5, 7, 16, 2, 1, 128, 1),
                   (4, 2, 8, 3, 4, 128, 2), (1, 5, 32, 2, 2, 64, 5),
-                  (2, 1, 16, 1, 1, 64, 1))
-        n = 0
+                  (2, 1, 16, 1, 1, 64, 1), (2, 64, 16, 2, 1, 128, 1),
+                  (3, 256, 16, 1, 2, 64, 3), (8, 64, 16, 8, 1, 128, 1),
+                  (2, 6, 16, 2, 2, 80, 2), (2, 5, 8, 2, 1, 40, 3),
+                  (3, 4, 16, 1, 2, 36, 1), (1, 4, 16, 1, 4, 256, 5),
+                  (2, 3, 16, 1, 1, 384, 1))
+        n = dead_total = 0
+        plans = set()
         for pool_dt, q_dt in pool_types:
             worst = {k: 0.0 for k in paged}
             for i, shape in enumerate(shapes):
                 args = paged_state(*shape, pool_dt, q_dt, seed=i)
+                moved, dead = moved_dead(args)
+                dead_total += dead
+                unaligned = [*args[:1], misaligned(args[1]),
+                             misaligned(args[2]), *args[3:]]
                 for k, (fn, plain) in paged.items():
-                    err = sm.expect_close(k, fn(*args), plain(*args),
-                                          f"{k} {shape} {pool_dt} q {q_dt}",
+                    got = fn(*args)
+                    plan = plan_of(kind_of[k], *args)
+                    plans.add((kind_of[k], shape[5], str(pool_dt), plan[:3]))
+                    what = (f"{k} {shape} (P, stages, cb) = {plan[:3]} "
+                            f"{pool_dt} q {q_dt}")
+                    err = sm.expect_close(k, got, plain(*args), what,
                                           quiet=True)
                     worst[k] = max(worst[k], err)
+                    # the same bits again, with the dead blocks moved, and
+                    # from pools that are not 16-byte aligned
+                    if not torch.equal(fn(*args), got):
+                        raise AssertionError(f"{what}: two calls differ")
+                    if not torch.equal(fn(*moved), got):
+                        raise AssertionError(f"{what}: the output depends "
+                                             "on dead table entries")
+                    if not torch.equal(fn(*unaligned), got):
+                        raise AssertionError(f"{what}: unaligned pools "
+                                             "give other bits")
                     n += 1
             print(f"   pools {pool_dt}, q {q_dt}: {len(shapes)} shapes "
                   f"within {PAGED_TOL[str(q_dt).split('.')[-1]]}, max abs "
-                  f"err {worst}", flush=True)
-        # above the shared-memory cap the exact kernel raises
-        args = paged_state(1, 256, 16, 1, 4, 64, 5, torch.float32,
+                  f"err {worst}; each call's bits equal on a second call, "
+                  "with the dead table entries pointed elsewhere and from "
+                  "unaligned pools", flush=True)
+        ps = [ac.paged_splits(sh[0], sh[3], sh[1], sh[2]) for sh in shapes]
+        print(f"   P over the shapes: {ps}; {dead_total} dead table "
+              "entries moved; plans (kernel, hd, pool, (P, stages, cb)) "
+              f"other than 3 stages: "
+              f"{sorted(p for p in plans if p[3][1] != 3)}", flush=True)
+        if not any(p[3][1] == 2 for p in plans):
+            raise AssertionError("no shape took a ring of 2 stages")
+
+        # the layout's two copies: the wrapper's sizes equal the source's
+        lib = ac._lib()
+        for exact, elem, wg, maxb, bs, hd, p, stages, cb in itertools.product(
+                (True, False), (1, 2, 4), (1, 20), (1, 64, 3560),
+                (1, 16, 64), (36, 128, 384), (1, 8), (2, 3), (1, 4)):
+            want = ac._layout_bytes(exact, wg, maxb, bs, hd, p, elem, stages,
+                                    cb)
+            got = lib.hpx_paged_smem_bytes(int(exact), elem, wg, maxb, bs, hd,
+                                           cb, p, stages)
+            if got != want:
+                raise AssertionError(
+                    f"shared memory of {(exact, elem, wg, maxb, bs, hd, p)}"
+                    f" stages {stages} cb {cb}: {want} in attention_cuda.py, "
+                    f"{got} in paged_attention.cu")
+        print("   shared-memory layout: attention_cuda.py's sizes equal "
+              "paged_layout's on 2592 shapes", flush=True)
+
+        # above the shared-memory cap (W*g*S/P scores, P raised to 8) the
+        # exact kernel raises: W*g*S = 20*24576
+        args = paged_state(1, 1536, 16, 1, 4, 64, 5, torch.float32,
                            torch.float32, seed=99)
         try:
             ac.fused_paged_attention(*args)
         except ValueError as e:
-            print(f"   W*g*S = 20*4096 raises: {e}", flush=True)
+            print(f"   W*g*S = 20*24576 raises: {e}", flush=True)
         else:
             raise AssertionError("fused_paged_attention took a shape "
                                  "above its shared-memory cap")
         sm.expect_close("fused_paged_online_attention",
                         ac.fused_paged_online_attention(*args),
-                        ac.plain_paged_attention_online(*args),
-                        "fused_paged_online_attention at W*g*S = 20*4096")
+                        plain_online(*args),
+                        f"fused_paged_online_attention at W*g*S = 20*24576,"
+                        f" P={splits_of(*args)}")
+        # 528 CTAs already (paged_splits gives P = 1) at long S, f32, hd
+        # 16: the exact kernel at one CTA a (slot, head) where its run
+        # fits (S 49600), P raised where it does not (S 56960, the one-CTA
+        # design's cap); the online kernel at P = 1 on both
+        for maxb, raised in ((3100, False), (3560, True)):
+            args = long_state(66, maxb, 8, 16, seed=maxb)
+            plan = plan_of("exact", *args)
+            if ac.paged_splits(66, 8, maxb, 16) != 1 or (plan[0] > 1) != raised:
+                raise AssertionError(f"S {maxb * 16}: plan {plan}")
+            for k, (fn, plain) in paged.items():
+                sm.expect_close(k, fn(*args), plain(*args),
+                                f"{k} B 66 x 8 heads of 16, S {maxb * 16}, "
+                                f"plan {plan_of(kind_of[k], *args)[:3]}")
+            print(f"   S {maxb * 16} at 528 CTAs: exact plan "
+                  f"(P, stages, cb) = {plan[:3]}", flush=True)
+            del args
+        # f32 pools, hd 512: 2 stages of 64 rows do not fit, so the exact
+        # kernel halves its chunk; the online kernel raises (as the one-CTA
+        # design did)
+        args = paged_state(2, 4, 16, 1, 1, 512, 1, torch.float32,
+                           torch.float32, seed=98)
+        plan = plan_of("exact", *args)
+        if plan[2] >= ac.chunk_blocks(16):
+            raise AssertionError(f"hd 512 f32: plan {plan}")
+        got = ac.fused_paged_attention(*args)
+        sm.expect_close("fused_paged_attention", got,
+                        ac.plain_paged_attention_exact(*args),
+                        f"fused_paged_attention hd 512 f32, plan {plan[:3]}")
+        if not torch.equal(ac.fused_paged_attention(*args), got):
+            raise AssertionError("hd 512: two calls differ")
+        try:
+            ac.fused_paged_online_attention(*args)
+        except ValueError as e:
+            print(f"   hd 512 f32: exact plan {plan[:3]}; online raises: "
+                  f"{e}", flush=True)
+        else:
+            raise AssertionError("fused_paged_online_attention took hd 512 "
+                                 "of f32 above its shared memory")
         print(f"   {n} paged-kernel comparisons passed", flush=True)
     sm.phase("paged kernel checks", paged_kernel_checks)
 
@@ -1479,18 +1684,26 @@ def main() -> int:
         dev = [e for e in ev
                if e.device_type != torch.autograd.DeviceType.CPU]
         dev_us = sum(e.self_device_time_total for e in dev)
-        launches = sum(e.count for e in ev if e.key == "cudaLaunchKernel")
+        # kernel launches: cudaLaunchKernel, and cudaLaunchKernelExC for
+        # the clustered paged-attention launches
+        launches = {e.key: e.count for e in ev
+                    if e.key.startswith("cudaLaunchKernel")}
+        total = sum(launches.values())
         print(f"   profiled (b) bf16 auto: {steps} steps in {wall!r} s "
               f"({wall / steps * 1e3!r} ms a step, under the profiler); "
-              f"{launches} cudaLaunchKernel calls "
-              f"({launches / steps!r} a step)", flush=True)
+              f"{total} kernel launches {launches} ({total / steps!r} a "
+              "step)", flush=True)
         if dev_us <= 0:
             print("   device busy share: not measured (the profiler "
                   "recorded no device time)", flush=True)
             return
         busy = dev_us * 1e-6 / wall
+        exact_us = sum(e.self_device_time_total for e in dev
+                       if "paged_attention_exact" in e.key)
         print(f"   device busy {dev_us * 1e-6!r} s of {wall!r} s wall: "
-              f"busy share {busy!r}, idle share {1 - busy!r}", flush=True)
+              f"busy share {busy!r}, idle share {1 - busy!r}; "
+              f"paged_attention_exact {exact_us * 1e-3!r} ms device, "
+              f"{exact_us / dev_us!r} of the device time", flush=True)
         for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"     {e.key[:70]}: {e.self_device_time_total * 1e-3!r} "
                   f"ms device, {e.count} calls", flush=True)
@@ -1583,43 +1796,133 @@ def main() -> int:
                   f"launches={sm.launches[k.split()[0]]} on {smi}")
 
     def time_paged():
-        """Kernels 3 and 4 at the full-width decode shape, bf16 and int8
-        pools (bf16 queries), beside SDPA on K/V gathered beforehand."""
+        """Kernels 3 and 4 at the full-width decode shape (B 8, W 1, 8
+        heads of 128, block 16, bf16 queries): S 1024 with bf16 and int8
+        pools, S 8192 with bf16 pools; beside SDPA on K/V gathered
+        beforehand, timed the same way. Each is timed in a CUDA graph
+        (the wrapper's host work outlasts the kernel, so events around
+        back-to-back calls would time the host; those are printed
+        beside). Cold L2: the graph's calls take the copies of the pools
+        (or of the gathered K/V) in turn, so many copies that the others'
+        live K/V passing through between two calls on one copy is over
+        100 MB (at least 4), as the server's call of a layer finds its
+        pools after the other layers' pools and weights; warm: every call
+        on one copy. The bound counts the live blocks these inputs need;
+        the bound over every block of the table is printed beside it."""
         import torch.nn.functional as F
-        b, w, nh, hd, bs, seq = 8, 1, 8, 128, 16, 1024
-        maxb = seq // bs
-        for pool_dt in (torch.bfloat16, torch.int8):
+        b, w, nh, hd, bs = 8, 1, 8, 128, 16
+        for seq, pool_dt in ((1024, torch.bfloat16), (1024, torch.int8),
+                             (8192, torch.bfloat16)):
+            maxb = seq // bs
             args = paged_state(b, maxb, bs, nh, 1, hd, w, pool_dt,
                                torch.bfloat16, seed=3)
             q, kp, vp, table, pos, ks, vs = args
-            # bytes: every K and V row of the maxb blocks once, q, out,
-            # the table, the positions and the blocks' scales
-            nbytes = (2 * b * maxb * bs * nh * hd * kp.element_size()
-                      + 2 * q.numel() * q.element_size()
-                      + table.numel() * 4 + pos.numel() * 4
-                      + (2 * b * maxb * nh * 4 if ks is not None else 0))
-            bound, by = _bound(nbytes, 4 * b * nh * w * seq * hd,
-                               BF16_OPS_PER_S)
+            splits = splits_of(*args)
+            nlive = int(((pos.long() + w - 1) // bs + 1).clamp(max=maxb)
+                        .sum())
+
+            def nbytes(keys, blocks):
+                # the K and V rows of `keys` positions once, the scales and
+                # table entries of `blocks` blocks, q, out and the positions
+                return (2 * keys * nh * hd * kp.element_size()
+                        + (2 * blocks * nh * 4 if ks is not None else 0)
+                        + blocks * 4 + 2 * q.numel() * q.element_size()
+                        + pos.numel() * 4)
+            # the live rows: positions up to pos0 + W - 1 of each slot
+            live_keys = int((pos.long() + w).clamp(max=seq).sum())
+            bound, by = _bound(nbytes(live_keys, nlive),
+                               4 * nh * w * live_keys * hd, BF16_OPS_PER_S)
+            bound_all, by_all = _bound(nbytes(b * seq, b * maxb),
+                                       4 * b * nh * w * seq * hd,
+                                       BF16_OPS_PER_S)
+            n_copies = max(4, math.ceil(100e6 / nbytes(nlive * bs, nlive))
+                           + 1)
+            copies = [args] + [[q, kp.clone(), vp.clone(), table, pos,
+                                None if ks is None else ks.clone(),
+                                None if vs is None else vs.clone()]
+                               for _ in range(n_copies - 1)]
             # the yardstick: one library call on K/V gathered beforehand
-            kc = pa.gather_block_kv(kp, table, ks, q.dtype).transpose(1, 2)
-            vc = pa.gather_block_kv(vp, table, vs, q.dtype).transpose(1, 2)
             live = (torch.arange(seq, device="cuda")[None, :]
                     <= pos.long()[:, None])[:, None, None, :]
             qs = q.transpose(1, 2)
-            library, library_by = _device_ms(
-                lambda: F.scaled_dot_product_attention(qs, kc, vc,
-                                                       attn_mask=live), 7)
+            kc = pa.gather_block_kv(kp, table, ks, q.dtype).transpose(1, 2)
+            vc = pa.gather_block_kv(vp, table, vs, q.dtype).transpose(1, 2)
+            n_lib = max(4, math.ceil(100e6 / (2 * kc.numel() * 2)) + 1)
+            gathered = [(kc, vc)] + [(kc.clone(), vc.clone())
+                                     for _ in range(n_lib - 1)]
+
+            def sdpa(kc, vc):
+                return lambda: F.scaled_dot_product_attention(
+                    qs, kc, vc, attn_mask=live)
+            n_calls = 4 * max(n_copies, n_lib)
+            library = _graph_ms([sdpa(*gathered[i % n_lib])
+                                 for i in range(n_calls)])
+            library_warm = _graph_ms([sdpa(kc, vc)] * n_calls)
             dt = str(pool_dt).split(".")[-1]
+            print(f"   paged timing S={seq} {dt} pools: P={splits}, {nlive} "
+                  f"of {b * maxb} blocks live, {live_keys} of {b * seq} "
+                  f"rows; cold over {n_copies} copies "
+                  f"of the pools ({n_lib} of the gathered K/V for SDPA); "
+                  f"bound over live blocks {bound!r} ms ({by}), over every "
+                  f"block {bound_all!r} ms ({by_all}); SDPA cold "
+                  f"{library!r} ms, warm {library_warm!r} ms (CUDA graph) "
+                  f"on {smi}", flush=True)
             for k, (fn, plain) in paged.items():
-                t = {"ms": _cuda_ms(lambda: fn(*args), 7),
+                t0 = time.perf_counter()
+                for _ in range(50):
+                    fn(*args)
+                host = (time.perf_counter() - t0) / 50 * 1e3
+                torch.cuda.synchronize()
+                it = itertools.cycle(copies)
+                t = {"ms": _graph_ms([functools.partial(fn, *copies[
+                         i % n_copies]) for i in range(n_calls)]),
+                     "warm": _graph_ms([functools.partial(fn, *args)]
+                                       * n_calls),
+                     "events": _cuda_ms(lambda: fn(*next(it)), 7),
+                     "host": host,
                      "plain": _cuda_ms(lambda: plain(*args), 3),
-                     "bound": bound, "by": by, "library": library,
-                     "library_by": library_by,
+                     "bound": bound, "by": by, "bound_all": bound_all,
+                     "library": library, "library_by": "CUDA graph",
+                     "library_warm": library_warm, "splits": splits,
                      "shape": f"B={b} W={w} nq=nkv={nh} hd={hd} bs={bs} "
-                              f"S={seq} {dt} pools, bf16 q"}
-                timing[k if pool_dt == torch.bfloat16 else f"{k} {dt}"] = t
-            del args, kc, vc
+                              f"S={seq} {dt} pools, bf16 q, P={splits}, "
+                              "cold L2, CUDA graph"}
+                print(f"   {k} S={seq} {dt}: cold {t['ms']!r} ms, warm "
+                      f"{t['warm']!r} ms (CUDA graph); CUDA events around "
+                      f"back-to-back cold calls {t['events']!r} ms; host "
+                      f"enqueue {host!r} ms a call; "
+                      f"{bound / t['ms'] * 100!r} % of the live-block "
+                      f"bound, P={splits}", flush=True)
+                key = (k if (seq, pool_dt) == (1024, torch.bfloat16)
+                       else f"{k} {dt}" if seq == 1024 else f"{k} S={seq}")
+                timing[key] = t
+            if (seq, pool_dt) == (1024, torch.bfloat16):
+                paged_breakdown(args)
+            del args, copies, gathered, kc, vc
             torch.cuda.empty_cache()
+
+    def paged_breakdown(args):
+        """What a decode call's time is made of: the same call with every
+        slot at position 0 (one live block a slot: launch, prologue,
+        cluster exchanges and merge, almost no walk), and the call with P
+        forced to 1, 2, 4 and 8 (warm L2, CUDA graph)."""
+        q, kp, vp, table, pos, ks, vs = args
+        one = [q, kp, vp, table, torch.zeros_like(pos), ks, vs]
+        splits = ac.paged_splits
+        try:
+            for k, (fn, _) in paged.items():
+                fixed = _graph_ms([functools.partial(fn, *one)] * 32)
+                by_p = {}
+                for p in (1, 2, 4, 8):
+                    ac.paged_splits = lambda *a, p=p: p
+                    by_p[p] = _graph_ms([functools.partial(fn, *args)] * 32)
+                ac.paged_splits = splits
+                print(f"   {k} at the decode shape (CUDA graph): every slot "
+                      f"at position 0 {fixed!r} ms; by P (warm) {by_p}",
+                      flush=True)
+        finally:
+            ac.paged_splits = splits
+
     def time_flash():
         """Kernels 5-7 in bf16, causal, at the training shape and at
         bench.py:448's, beside SDPA (forward) and SDPA's autograd
@@ -1732,6 +2035,10 @@ def main() -> int:
                      "plain_ms": t["plain"], "bound_ms": t["bound"],
                      "bound_by": t["by"], "library_ms": t["library"],
                      "library_by": t.get("library_by"),
+                     **{f"{x}_ms": t[x] for x in (
+                         "warm", "events", "host", "bound_all",
+                         "library_warm") if x in t},
+                     **({"splits": t["splits"]} if "splits" in t else {}),
                      "shape": t["shape"]})
     print(f"training step (bf16, B 8 x S 1024, full width): "
           f"{train['step_ms']!r} ms = {train['tokens_per_s']!r} tokens/s; "

@@ -36,17 +36,26 @@ for decode, W > 1 for a speculative-verify window); k_pool/v_pool
 table [B, max_blocks] int32; pos0 [B] int32, window row w attends
 logical positions <= pos0 + w; k_scale/v_scale [num_blocks, nkv] f32 for
 int8/fp8 pools (None otherwise). Returns att [B, W, nq, hd] in q.dtype.
-Every logical block up to max_blocks is visited and masked, so trash and
-pad blocks contribute exactly 0.
+Blocks whose first position is past pos0 + W - 1 are dead: the kernels
+never load them, the plain versions visit and mask them; masked lanes
+add exactly 0 either way, so trash and pad blocks do not change the
+result.
+
+Each kernel is one clustered launch: ``paged_splits`` CTAs (P <= 8, one
+thread-block cluster) share a (slot, kv-head), each walking one run of
+``paged_runs`` (a contiguous share of the live blocks), and merge
+through distributed shared memory in rank order.
 
 ``exact`` keeps the oracle's op order: the score dot rounded to q.dtype,
-divided by sqrt(hd), masked, softmax in f32 over the whole row (max,
-exp, sum, divide), p cast to q.dtype, then p·V. Its shared memory holds
-the (W·g, S) f32 score row, so W·g·S is capped (``exact_smem_bytes``);
-above the cap the wrapper raises. ``online`` folds each block into a
-flash (acc, m, l) carry in f32, O(chunk) memory, no cap on S. Both walk
-the table ``chunk_blocks(bs)`` blocks at a time (64 rows, or one block
-where a block is longer).
+divided by sqrt(hd), masked, softmax in f32 over the whole row (the
+global max and sum over the runs), p cast to q.dtype, then p·V. Its
+shared memory holds the (W·g, S/P) f32 scores of its run, so W·g·S/P is
+capped (``exact_smem_bytes``): ``paged_plan`` raises P, up to 8, until
+the run fits, and above W·g·S/8 the wrapper raises.
+``online`` folds its run ``chunk_blocks(bs)`` blocks at a time (64
+rows, or one block where a block is longer) into a flash (acc, m, l)
+carry in f32, O(chunk) memory; ``plain_paged_attention_online(...,
+splits=P)`` follows the same runs and merge.
 
 A wrapper takes its plain version only for a tensor on the CPU; for a
 CUDA tensor it launches its kernel or raises. Each wrapper counts its
@@ -69,7 +78,8 @@ from . import _build
 __all__ = ["fused_paged_attention", "fused_paged_online_attention",
            "plain_paged_attention_exact", "plain_paged_attention_online",
            "resolve_paged_block_src", "resolve_paged_block",
-           "chunk_blocks", "exact_smem_bytes", "online_smem_bytes",
+           "chunk_blocks", "paged_splits", "paged_plan", "paged_runs",
+           "exact_smem_bytes", "online_smem_bytes", "PAGED_STAGES",
            "SMEM_LIMIT", "flash_attention", "flash_attention_fwd",
            "flash_attention_bwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "flash_attention_chunk", "bwd_prep",
@@ -142,9 +152,10 @@ def _blocks(pool, scale, bids, dtype):
 
 
 def _live(pos0, wg, g, kpos):
-    """[B, W*g, len(kpos)]: key position visible to query row r."""
+    """[B, W*g, n]: key position visible to query row r, for key
+    positions kpos [n] (every slot's) or [B, n] (each slot's own)."""
     lim = pos0.long()[:, None] + torch.arange(wg, device=pos0.device) // g
-    return kpos[None, None, :] <= lim[:, :, None]
+    return kpos.reshape(-1, kpos.shape[-1])[:, None, :] <= lim[:, :, None]
 
 
 def plain_paged_attention_exact(q, k_pool, v_pool, table, pos0,
@@ -168,40 +179,78 @@ def plain_paged_attention_exact(q, k_pool, v_pool, table, pos0,
     return _from_rows(att, w, g)
 
 
+def paged_runs(pos0: torch.Tensor, w: int, bs: int, maxb: int,
+               splits: int) -> torch.Tensor:
+    """[B, splits + 1] table-block bounds of the kernels' split of each
+    slot's table row: run p is logical blocks [runs[b, p], runs[b, p+1]).
+    The live blocks (those holding a position <= pos0 + w - 1) are cut
+    into ``splits`` contiguous runs, run p starting at block
+    ceil(p * nlive / splits); the last run also takes the dead blocks up
+    to maxb, which the kernels skip and the plain walk masks."""
+    lim = pos0.long() + (w - 1)
+    nlive = torch.where(lim < 0, torch.zeros_like(lim),
+                        lim // bs + 1).clamp(max=maxb)
+    p = torch.arange(splits + 1, device=pos0.device)
+    runs = (p[None, :] * nlive[:, None] + splits - 1) // splits
+    runs[:, -1] = maxb
+    return runs
+
+
 def plain_paged_attention_online(q, k_pool, v_pool, table, pos0,
-                                 k_scale=None, v_scale=None):
-    """The online kernel's function in PyTorch: the same table walk,
-    ``chunk_blocks(bs)`` blocks a step, folded into an (acc, m, l)
-    carry in f32."""
+                                 k_scale=None, v_scale=None, splits=1):
+    """The online kernel's function in PyTorch, in its order: each of the
+    ``splits`` runs of ``paged_runs`` is walked from its own start,
+    ``chunk_blocks(bs)`` blocks a step, folded into an (acc, m, l) carry
+    in f32; the runs' carries are then merged in rank order (m = max
+    m_p, l = sum l_p e^(m_p - m), acc likewise) and normalized once.
+    ``splits=1`` is the single walk of the whole table."""
     b, w, nq, hd, bs, nkv, maxb, g = _shape(q, k_pool, table)
     wg, cb = w * g, chunk_blocks(bs)
     qk = _q_rows(q, nkv, g).float()
-    acc = torch.zeros((b, nkv, wg, hd), dtype=torch.float32,
-                      device=q.device)
-    m = torch.full((b, nkv, wg, 1), _NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    lsum = torch.zeros_like(m)
     sqrt_hd = float(np.float32(math.sqrt(hd)))
-    for i0 in range(0, maxb, cb):
-        ids = table[:, i0:i0 + cb]
-        rows = ids.shape[1] * bs
+    dev = q.device
+    runs = paged_runs(pos0, w, bs, maxb, splits)
 
-        def chunk(pool, scale):               # [B, nkv, rows, hd]
-            x = _blocks(pool, scale, ids, q.dtype)
-            return x.permute(0, 2, 1, 3, 4).reshape(b, nkv, rows, hd)
-        kb, vb = chunk(k_pool, k_scale), chunk(v_pool, v_scale)
-        s = torch.matmul(qk, kb.float().transpose(-1, -2)) / sqrt_hd
-        kpos = i0 * bs + torch.arange(rows, device=q.device)
-        live = _live(pos0, wg, g, kpos)[:, None]
-        s = torch.where(live, s, torch.full_like(s, _NEG_INF))
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        p = torch.where(live, torch.exp(s - m_new), torch.zeros_like(s))
-        corr = torch.exp(m - m_new)       # exactly 1 where m did not move
-        acc = acc * corr
-        lsum = lsum * corr + p.sum(-1, keepdim=True)
-        m = m_new
-        pv = p.to(vb.dtype) if vb.dtype == torch.bfloat16 else p
-        acc = acc + torch.matmul(pv.float(), vb.float())
+    def chunk(pool, scale, ids):              # [B, nkv, rows, hd]
+        x = _blocks(pool, scale, ids, q.dtype)
+        return x.permute(0, 2, 1, 3, 4).reshape(b, nkv, -1, hd)
+
+    def fold(lo, hi):
+        acc = torch.zeros((b, nkv, wg, hd), dtype=torch.float32, device=dev)
+        m = torch.full((b, nkv, wg, 1), _NEG_INF, dtype=torch.float32,
+                       device=dev)
+        lsum = torch.zeros_like(m)
+        span = int((hi - lo).max()) if b else 0
+        for j in range(0, span, cb):
+            blk = lo[:, None] + j + torch.arange(min(cb, span - j),
+                                                 device=dev)  # [B, n]
+            ids = table.gather(1, blk.clamp(max=maxb - 1))
+            kb, vb = chunk(k_pool, k_scale, ids), chunk(v_pool, v_scale, ids)
+            s = torch.matmul(qk, kb.float().transpose(-1, -2)) / sqrt_hd
+            kpos = (blk[:, :, None] * bs
+                    + torch.arange(bs, device=dev)).reshape(b, -1)
+            inrun = (blk < hi[:, None]).repeat_interleave(bs, dim=1)
+            live = (_live(pos0, wg, g, kpos) & inrun[:, None, :])[:, None]
+            s = torch.where(live, s, torch.full_like(s, _NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.where(live, torch.exp(s - m_new), torch.zeros_like(s))
+            corr = torch.exp(m - m_new)   # exactly 1 where m did not move
+            acc = acc * corr
+            lsum = lsum * corr + p.sum(-1, keepdim=True)
+            m = m_new
+            pv = p.to(vb.dtype) if vb.dtype == torch.bfloat16 else p
+            acc = acc + torch.matmul(pv.float(), vb.float())
+        return acc, m, lsum
+
+    parts = [fold(runs[:, p], runs[:, p + 1]) for p in range(splits)]
+    m = parts[0][1]
+    for _, m_p, _ in parts[1:]:
+        m = torch.maximum(m, m_p)
+    acc, lsum = torch.zeros_like(parts[0][0]), torch.zeros_like(m)
+    for acc_p, m_p, l_p in parts:              # rank order
+        f = torch.exp(m_p - m)
+        lsum = lsum + l_p * f
+        acc = acc + acc_p * f
     den = torch.where(lsum > 0, lsum, torch.ones_like(lsum))
     return _from_rows((acc / den).to(q.dtype), w, g)
 
@@ -212,33 +261,111 @@ _POOL_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
                torch.int8: "i8", torch.float8_e4m3fn: "fp8"}
 _Q_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _FLOATS = 4
-_CHUNK_ROWS = 64     # K/V rows a kernel stages per step of its table walk
+_CHUNK_ROWS = 64     # K/V rows a kernel stages (and online folds) a step
+PAGED_STAGES = 3     # the kernels' ring of staged chunks (2 where 3 do not fit)
+_SMS = 132           # streaming multiprocessors of an H100 SXM
+_MAX_CLUSTER = 8     # portable thread-block cluster size
+_MAX_HEAD_DIM = 1024  # 32 lanes a key's dot, 32 elements of q a lane
+_ERR_LAYOUT = 100000  # the entry points' code for a layout they cannot take
 
 
 def chunk_blocks(bs: int) -> int:
-    """Table blocks the kernels stage per step: as many as fit
-    ``_CHUNK_ROWS`` rows, at least one."""
+    """Table blocks the kernels stage per step of a run (and the online
+    walk folds): as many as fit ``_CHUNK_ROWS`` rows, at least one."""
     return max(1, _CHUNK_ROWS // bs)
 
 
-def exact_smem_bytes(wg: int, seq: int, bs: int, hd: int) -> int:
-    """Shared memory of the exact kernel: the (W·g, S) f32 score row,
-    the query rows, one staged chunk of K/V blocks and the p·V
-    accumulator."""
-    return _FLOATS * (wg * seq + 2 * wg * hd + chunk_blocks(bs) * bs * hd)
+def paged_splits(b: int, nkv: int, maxb: int, bs: int) -> int:
+    """P, the CTAs (one thread-block cluster) that split each (slot,
+    kv-head)'s table walk: enough for 4 x 132 CTAs (so at least 2 x 132
+    where the table allows), never more than the table's chunks of
+    ``chunk_blocks(bs)`` blocks nor the portable cluster size of 8, at
+    least 1."""
+    chunks = -(-maxb // chunk_blocks(bs))
+    want = -(-4 * _SMS // max(1, b * nkv))
+    return max(1, min(_MAX_CLUSTER, chunks, want))
 
 
-def online_smem_bytes(wg: int, bs: int, hd: int) -> int:
-    """Shared memory of the online kernel: O(chunk), no sequence
-    extent."""
-    cr = chunk_blocks(bs) * bs
-    return _FLOATS * (2 * wg * hd + 2 * cr * hd + wg * cr + 3 * wg)
+def _row_elems(hd: int, elem: int) -> int:
+    """A staged row's elements: hd padded to a whole number of 16-byte
+    pieces of ``elem``-byte pool elements."""
+    nv = 16 // elem
+    return -(-hd // nv) * nv
+
+
+def _pv_groups(wg: int, hp: int, elem: int) -> int:
+    """Key groups of the kernels' p·V: the largest power of two KG with
+    KG · W·g · (a staged row's 16-byte pieces) <= 128 threads, at least
+    1."""
+    items, kg = wg * hp * elem // 16, 1
+    while kg * 2 * items <= 128:
+        kg *= 2
+    return kg
+
+
+def _layout_bytes(exact: bool, wg: int, maxb: int, bs: int, hd: int,
+                  splits: int, elem: int, stages: int, cb: int) -> int:
+    """The kernels' shared memory, as ``paged_layout`` in
+    ``csrc/paged_attention.cu`` lays it out (that function owns it; the
+    entry points refuse a smaller size): the ring of ``stages`` raw
+    chunks of ``cb`` [bs, hp] blocks, the f32 query rows, the p·V
+    accumulator of each key group, the scores (exact: the longest run's;
+    online: a chunk's) and statistics of each row, and the block ids and
+    scales of ``stages + 1`` loads."""
+    hp = _row_elems(hd, elem)
+    rows, per = cb * bs, -(-maxb // splits)
+    return (stages * rows * hp * elem
+            + _FLOATS * ((1 + _pv_groups(wg, hp, elem)) * wg * hp
+                         + wg * (per * bs + 4 if exact else rows + 3)
+                         + 2 * (stages + 1) * cb))
+
+
+def exact_smem_bytes(wg: int, maxb: int, bs: int, hd: int, splits: int = 1,
+                     elem: int = 4, stages: int = PAGED_STAGES,
+                     cb: Optional[int] = None) -> int:
+    """Shared memory of the exact kernel, whose (W·g, longest run) f32
+    scores make it grow with S / P. ``elem`` is the pool's element
+    size."""
+    return _layout_bytes(True, wg, maxb, bs, hd, splits, elem, stages,
+                         chunk_blocks(bs) if cb is None else cb)
+
+
+def online_smem_bytes(wg: int, bs: int, hd: int, elem: int = 4,
+                      stages: int = PAGED_STAGES) -> int:
+    """Shared memory of the online kernel: one chunk's f32 scores and the
+    (m, l, corr) carry; no extent in the sequence."""
+    return _layout_bytes(False, wg, 1, bs, hd, 1, elem, stages,
+                         chunk_blocks(bs))
+
+
+def paged_plan(exact: bool, b: int, nkv: int, wg: int, maxb: int, bs: int,
+               hd: int, elem: int) -> Optional[Tuple[int, int, int, int]]:
+    """(P, stages, cb, shared-memory bytes) of a kernel's launch, or None
+    where no plan fits a CTA. P starts at ``paged_splits``; the exact
+    kernel raises it (up to 8, at most one run a block) until its run's
+    scores fit, so its cap is W·g·S/8 at every batch. A ring of 3 stages
+    where it fits, else 2; the exact kernel then halves its chunk, down
+    to one block (its function does not depend on the chunk). The online
+    kernel keeps ``chunk_blocks(bs)``: its fold order."""
+    p0, cb0 = paged_splits(b, nkv, maxb, bs), chunk_blocks(bs)
+    ps = range(p0, max(p0, min(_MAX_CLUSTER, maxb)) + 1) if exact else (p0,)
+    cbs = [cb0]
+    while exact and cbs[-1] > 1:
+        cbs.append(cbs[-1] // 2)
+    for cb in cbs:
+        for stages in (PAGED_STAGES, 2):
+            for p in ps:
+                smem = _layout_bytes(exact, wg, maxb, bs, hd, p, elem,
+                                     stages, cb)
+                if smem <= SMEM_LIMIT:
+                    return p, stages, cb, smem
+    return None
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("paged_attention")
     if not getattr(lib, "_hpx_typed", False):
-        args = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+        args = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         for kind in ("exact", "online"):
             for p in ("f32", "bf16", "i8", "fp8"):
@@ -247,6 +374,8 @@ def _lib() -> ctypes.CDLL:
                     if fn is not None:
                         fn.argtypes = args
                         fn.restype = ctypes.c_int
+        lib.hpx_paged_smem_bytes.argtypes = [ctypes.c_int] * 9
+        lib.hpx_paged_smem_bytes.restype = ctypes.c_longlong
         lib.hpx_paged_error_string.argtypes = [ctypes.c_int]
         lib.hpx_paged_error_string.restype = ctypes.c_char_p
         lib._hpx_typed = True
@@ -302,20 +431,20 @@ def _launch(kind: str, q, k_pool, v_pool, table, pos0, k_scale, v_scale):
             else "fused_paged_online_attention")
     _check(what, q, k_pool, v_pool, table, pos0, k_scale, v_scale)
     b, w, nq, hd, bs, nkv, maxb, g = _shape(q, k_pool, table)
-    wg = w * g
-    if kind == "exact":
-        smem = exact_smem_bytes(wg, maxb * bs, bs, hd)
-        if smem > SMEM_LIMIT:
-            raise ValueError(
-                f"{what}: W*g*S = {wg}*{maxb * bs} needs {smem} bytes of "
-                f"shared memory, above the {SMEM_LIMIT} a CTA can use; "
-                "use fused_paged_online_attention (paged_kernel="
-                "'fused_online') for this context length")
-    else:
-        smem = online_smem_bytes(wg, bs, hd)
-        if smem > SMEM_LIMIT:
-            raise ValueError(f"{what}: a window of {wg} rows x block "
-                             f"{bs} needs {smem} bytes of shared memory")
+    if hd > _MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head_dim {hd} is above {_MAX_HEAD_DIM} "
+                         "(32 lanes a key, 32 elements of q a lane)")
+    wg, exact = w * g, kind == "exact"
+    plan = paged_plan(exact, b, nkv, wg, maxb, bs, hd,
+                      k_pool.element_size())
+    if plan is None:
+        hint = ("; use fused_paged_online_attention (paged_kernel="
+                "'fused_online') for this context length" if exact else "")
+        raise ValueError(
+            f"{what}: W*g = {wg} rows, S = {maxb * bs}, block {bs} x {hd} "
+            f"of {k_pool.dtype} need more than the {SMEM_LIMIT} bytes of "
+            f"shared memory a CTA can use, in every plan{hint}")
+    splits, stages, cb, smem = plan
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -328,7 +457,7 @@ def _launch(kind: str, q, k_pool, v_pool, table, pos0, k_scale, v_scale):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks,
                   vs, table.data_ptr(), pos0.data_ptr(), out.data_ptr(),
-                  b, w, nq, nkv, hd, bs, maxb, chunk_blocks(bs),
+                  b, w, nq, nkv, hd, bs, maxb, cb, splits, stages,
                   float(np.float32(math.sqrt(hd))), smem, stream)
     if code != 0:
         msg = lib.hpx_paged_error_string(code).decode()
@@ -345,8 +474,9 @@ def fused_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """Decode/verify attention that walks the block table, exact order.
 
     CUDA tensor: kernel ``paged_attention_exact``, which replaces
-    ``hpx_tpu/ops/attention_pallas.py:_paged_kernel``; raises when
-    W·g·S exceeds its shared memory. CPU tensor:
+    ``hpx_tpu/ops/attention_pallas.py:_paged_kernel``, one clustered
+    launch of P CTAs a (slot, kv-head), P from ``paged_plan``; raises
+    when W·g·S/8 exceeds its shared memory. CPU tensor:
     ``plain_paged_attention_exact``."""
     if q.device.type == "cpu":
         return plain_paged_attention_exact(q, k_pool, v_pool, table, pos0,
@@ -369,8 +499,10 @@ def fused_paged_online_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """``fused_paged_attention`` with an online softmax, O(block) memory.
 
     CUDA tensor: kernel ``paged_attention_online``, which replaces
-    ``hpx_tpu/ops/attention_pallas.py:_paged_online_kernel``. CPU
-    tensor: ``plain_paged_attention_online``."""
+    ``hpx_tpu/ops/attention_pallas.py:_paged_online_kernel``, one
+    clustered launch of P = ``paged_splits`` CTAs a (slot, kv-head),
+    whose order ``plain_paged_attention_online(..., splits=P)`` follows.
+    CPU tensor: ``plain_paged_attention_online`` (one run)."""
     if q.device.type == "cpu":
         return plain_paged_attention_online(q, k_pool, v_pool, table, pos0,
                                             k_scale, v_scale)

@@ -13,6 +13,8 @@ The CUDA kernels themselves run only on a GPU; ``chip_smoke.py`` holds
 them against these plain versions there.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -235,6 +237,137 @@ def test_paged_attention_entry_points(w, kind):
             _same(g_, w_)
 
 
+# -- the kernels' split of the table walk ----------------------------------------
+
+def _single_walk(q, k_pool, v_pool, table, pos0, k_scale=None, v_scale=None):
+    """The online plain version as it was before the walk was split: the
+    whole table from block 0, ``chunk_blocks(bs)`` blocks a step."""
+    b, w, nq, hd, bs, nkv, maxb, g = ac._shape(q, k_pool, table)
+    wg, cb = w * g, ac.chunk_blocks(bs)
+    qk = ac._q_rows(q, nkv, g).float()
+    acc = torch.zeros((b, nkv, wg, hd), dtype=torch.float32)
+    m = torch.full((b, nkv, wg, 1), ac._NEG_INF, dtype=torch.float32)
+    lsum = torch.zeros_like(m)
+    sqrt_hd = float(np.float32(np.sqrt(hd)))
+    for i0 in range(0, maxb, cb):
+        ids = table[:, i0:i0 + cb]
+        rows = ids.shape[1] * bs
+
+        def chunk(pool, scale):
+            x = ac._blocks(pool, scale, ids, q.dtype)
+            return x.permute(0, 2, 1, 3, 4).reshape(b, nkv, rows, hd)
+        kb, vb = chunk(k_pool, k_scale), chunk(v_pool, v_scale)
+        s = torch.matmul(qk, kb.float().transpose(-1, -2)) / sqrt_hd
+        live = ac._live(pos0, wg, g, i0 * bs + torch.arange(rows))[:, None]
+        s = torch.where(live, s, torch.full_like(s, ac._NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(live, torch.exp(s - m_new), torch.zeros_like(s))
+        corr = torch.exp(m - m_new)
+        acc = acc * corr
+        lsum = lsum * corr + p.sum(-1, keepdim=True)
+        m = m_new
+        pv = p.to(vb.dtype) if vb.dtype == torch.bfloat16 else p
+        acc = acc + torch.matmul(pv.float(), vb.float())
+    den = torch.where(lsum > 0, lsum, torch.ones_like(lsum))
+    return ac._from_rows((acc / den).to(q.dtype), w, g)
+
+
+def _port_args(bs, maxb, w, g, kind, seed, b=3):
+    kp, vp, table, pos, q, *_ = _state(bs, maxb=maxb, b=b, w=w, g=g,
+                                       seed=seed)
+    r, (pk, pv, pks, pvs) = _pools(kp, vp, kind)
+    return r, (q, kp, vp, table, pos), (torch.from_numpy(q), pk, pv,
+                                        torch.from_numpy(table),
+                                        torch.from_numpy(pos), pks, pvs)
+
+
+# (splits, block_size, W, g, pools) on a table of 6 blocks; slot 0 sits
+# at position 0, so its runs after the first are wholly dead
+SPLIT_CASES = [(2, 8, 1, 1, "f32"), (3, 16, 3, 2, "f32"),
+               (3, 8, 1, 2, "int8")]
+
+
+@pytest.mark.parametrize("splits,bs,w,g,kind", SPLIT_CASES)
+def test_plain_online_splits_match_pallas_interpret(splits, bs, w, g, kind):
+    (rk, rv, rks, rvs), (q, _, _, table, pos), pargs = _port_args(
+        bs, 6, w, g, kind, seed=40 + splits + bs)
+    runs = ac.paged_runs(pargs[4], w, bs, 6, splits)
+    assert runs[0, 1].item() == 1 and runs[0, -1].item() == 6
+    assert bool((runs[0, 1:-1] == 1).all())        # later runs: no live
+    want = ref_ap.fused_paged_online_attention(
+        jnp.asarray(q), rk, rv, jnp.asarray(table), jnp.asarray(pos),
+        k_scale=rks, v_scale=rvs, interpret=True)
+    got = ac.plain_paged_attention_online(*pargs, splits=splits)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("bs,maxb,w,g,kind", [
+    (8, 3, 1, 1, "f32"), (16, 6, 3, 2, "f32"), (8, 6, 3, 2, "int8"),
+    (32, 5, 1, 2, "fp8")])
+def test_one_split_is_the_single_walk(bs, maxb, w, g, kind):
+    *_, pargs = _port_args(bs, maxb, w, g, kind, seed=50 + bs + maxb)
+    q, kp, vp, table, pos, ks, vs = pargs
+    for qq, k_, v_ in ((q, kp, vp), (q.bfloat16(), kp, vp) if ks is not None
+                       else (q.bfloat16(), kp.bfloat16(), vp.bfloat16())):
+        got = ac.plain_paged_attention_online(qq, k_, v_, table, pos, ks, vs,
+                                              splits=1)
+        assert torch.equal(got, _single_walk(qq, k_, v_, table, pos, ks, vs))
+
+
+def test_paged_splits_rules():
+    for b, nkv in ((1, 1), (3, 2), (4, 8), (8, 8), (16, 8), (64, 8),
+                   (300, 1)):
+        for maxb in (1, 3, 6, 64, 512):
+            for bs in (8, 16, 32, 64):
+                p = ac.paged_splits(b, nkv, maxb, bs)
+                chunks = -(-maxb // ac.chunk_blocks(bs))
+                assert 1 <= p <= min(8, chunks)
+                if p < min(8, chunks):           # the table allows more
+                    assert b * nkv * p >= 2 * 132
+    # the decode shape: B 8, 8 kv heads, S 1024 in blocks of 16
+    assert ac.paged_splits(8, 8, 64, 16) == 8
+    assert ac.paged_splits(8, 8, 64, 64) == 8
+    assert ac.paged_splits(16, 8, 64, 16) == 5
+    assert ac.paged_splits(1, 1, 256, 16) == 8
+
+
+def test_paged_runs_cut_the_live_blocks():
+    pos = torch.tensor([0, 15, 16, 40, 95, 200], dtype=torch.int32)
+    for w in (1, 3):
+        for splits in (1, 2, 3, 5, 8):
+            runs = ac.paged_runs(pos, w, 16, 6, splits)
+            nlive = torch.clamp((pos.long() + w - 1) // 16 + 1, max=6)
+            assert runs.shape == (6, splits + 1)
+            assert bool((runs[:, 0] == 0).all() and (runs[:, -1] == 6).all())
+            assert bool((runs[:, 1:] >= runs[:, :-1]).all())
+            if splits > 1:                     # the live blocks, shared out
+                longest = -(-nlive // splits)
+                assert bool((runs[:, -2] <= nlive).all())
+                assert bool((runs[:, 1:-1] - runs[:, :-2]
+                             <= longest[:, None]).all())
+                assert bool((nlive - runs[:, -2] <= longest).all())
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+def test_dead_blocks_do_not_change_the_plain_versions(kind):
+    """Table entries past each slot's last live block pointed at other
+    (finite) pool blocks: both plain versions give the same values."""
+    *_, pargs = _port_args(8, 6, 3, 2, kind, seed=60)
+    q, kp, vp, table, pos, ks, vs = pargs
+    nlive = torch.clamp((pos.long() + 2) // 8 + 1, max=6)
+    moved = table.clone()
+    dead = torch.arange(6)[None, :] >= nlive[:, None]
+    assert bool(dead.any())
+    moved[dead] = (moved[dead] % (kp.shape[0] - 1)) + 1   # other blocks
+    assert not bool((moved == table)[dead].any())
+    for fn in (ac.plain_paged_attention_exact,
+               functools.partial(ac.plain_paged_attention_online, splits=1),
+               functools.partial(ac.plain_paged_attention_online, splits=2),
+               functools.partial(ac.plain_paged_attention_online, splits=3)):
+        assert torch.equal(fn(q, kp, vp, moved, pos, ks, vs),
+                           fn(q, kp, vp, table, pos, ks, vs))
+
+
 # -- wrappers, limits and the block-size resolver --------------------------------
 
 def test_wrappers_take_the_plain_version_on_the_cpu():
@@ -269,15 +402,87 @@ def test_launch_checks_refuse_what_the_kernels_do_not_take():
 
 
 def test_shared_memory_sizes():
-    # the table walk stages 64 rows a step, at least one block
+    # the online walk folds 64 rows a step, at least one block
     assert [ac.chunk_blocks(bs) for bs in (8, 16, 32, 64, 128)] == [
         8, 4, 2, 1, 1]
-    # exact: the (W*g, S) f32 score row + q rows + a chunk tile + acc
-    assert ac.exact_smem_bytes(1, 1024, 16, 128) == 4 * (
-        1024 + 2 * 128 + 64 * 128)
-    assert ac.exact_smem_bytes(20, 4096, 16, 64) > ac.SMEM_LIMIT
-    # online: no sequence extent at all
-    assert ac.online_smem_bytes(20, 16, 64) < ac.SMEM_LIMIT
+    # both: a ring of 3 raw chunks of 64 rows, the f32 q rows, the p.V
+    # accumulator of each of 8 key groups (16 pieces of 16 bytes a bf16
+    # row of 128), the block ids and scales of 4 loads of 4 blocks; exact
+    # adds its run's (W*g, S/P) f32 scores and 4 statistics a row (decode
+    # shape: bf16 pools, S 1024 in 8 runs of 8 blocks)
+    assert ac.PAGED_STAGES == 3
+    assert ac._pv_groups(1, 128, 2) == 8 and ac._pv_groups(20, 64, 4) == 1
+    assert ac.exact_smem_bytes(1, 64, 16, 128, 8, 2) == (
+        3 * 64 * 128 * 2 + 4 * (9 * 128 + 8 * 16 + 4 + 2 * 4 * 4))
+    # online: one chunk's scores and (m, l, corr) instead, and nothing
+    # that grows with S
+    assert ac.online_smem_bytes(1, 16, 128, 2) == (
+        3 * 64 * 128 * 2 + 4 * (9 * 128 + 64 + 3 + 2 * 4 * 4))
+    # a row that is not a whole number of 16-byte pieces is padded: hd 36
+    # of bf16 is staged as 40
+    assert ac._row_elems(36, 2) == 40 and ac._row_elems(36, 4) == 36
+    assert ac.online_smem_bytes(1, 16, 36, 2) == ac.online_smem_bytes(
+        1, 16, 40, 2)
+    # the exact kernel's cap falls P-fold with the runs: W*g*S = 20*4096
+    # fits in 8 runs, not in one; 20*24576 does not fit in 8
+    assert ac.exact_smem_bytes(20, 256, 16, 64, 1, 4) > ac.SMEM_LIMIT
+    assert ac.exact_smem_bytes(20, 256, 16, 64, 8, 4) < ac.SMEM_LIMIT
+    assert ac.exact_smem_bytes(20, 1536, 16, 64, 8, 4) > ac.SMEM_LIMIT
+    # a ring of 2 stages, and a chunk of 2 blocks, take less
+    assert ac.exact_smem_bytes(1, 64, 16, 128, 8, 4, stages=2) == (
+        ac.exact_smem_bytes(1, 64, 16, 128, 8, 4) - 64 * 128 * 4 - 4 * 8)
+    assert ac.exact_smem_bytes(1, 64, 16, 128, 8, 4, cb=2) < (
+        ac.exact_smem_bytes(1, 64, 16, 128, 8, 4))
+
+
+def _single_cta_smem(kind, wg, seq, bs, hd):
+    """Shared memory of the kernels' earlier one-CTA design (f32 staging
+    of one chunk for exact, two for online), whose limits the plans must
+    not undercut."""
+    cr = ac.chunk_blocks(bs) * bs
+    if kind == "exact":
+        return 4 * (wg * seq + 2 * wg * hd + cr * hd)
+    return 4 * (2 * wg * hd + 2 * cr * hd + wg * cr + 3 * wg)
+
+
+def test_paged_plan_rules():
+    # the decode shape: P from paged_splits, 3 stages, 4 blocks a chunk
+    assert ac.paged_plan(True, 8, 8, 1, 64, 16, 128, 2)[:3] == (8, 3, 4)
+    assert ac.paged_plan(False, 8, 8, 1, 64, 16, 128, 2)[:3] == (8, 3, 4)
+    # 528 CTAs already (P = 1): the exact kernel raises P until its run
+    # fits; at bf16, hd 128, W*g 1 its cap is W*g*S/8, far above the
+    # 49,664 keys one CTA held
+    assert ac.paged_splits(66, 8, 3104, 16) == 1
+    p, stages, cb, smem = ac.paged_plan(True, 66, 8, 1, 3104, 16, 128, 2)
+    assert p > 1 and smem <= ac.SMEM_LIMIT
+    assert ac.paged_plan(True, 66, 8, 1, 8 * 3104, 16, 128, 2) is not None
+    assert ac.paged_plan(True, 66, 8, 20, 8 * 3104, 16, 128, 2) is None
+    # the online kernel takes any S, at any batch
+    assert ac.paged_plan(False, 66, 8, 20, 1 << 20, 16, 128, 4)[0] == 1
+    # where 3 stages do not fit, 2; then the exact kernel halves its chunk
+    assert ac.paged_plan(False, 1, 1, 20, 4, 16, 256, 4)[1] == 2
+    assert ac.paged_plan(True, 2, 1, 1, 4, 16, 512, 4)[1:3] == (3, 2)
+    assert ac.paged_plan(False, 2, 1, 1, 4, 16, 512, 4) is None
+
+
+@pytest.mark.parametrize("elem", [1, 2, 4])
+def test_paged_plan_takes_every_shape_one_cta_took(elem):
+    """For blocks of up to 32 rows and head_dim up to 256, every shape the
+    one-CTA kernels took (exact at its longest S) has a plan, the exact
+    kernel's with a run that fits."""
+    for hd in (8, 16, 36, 40, 64, 80, 96, 128, 192, 256):
+        for wg in (1, 2, 4, 5, 8, 20):
+            for bs in (1, 8, 16, 32):
+                if _single_cta_smem("online", wg, 0, bs, hd) <= ac.SMEM_LIMIT:
+                    assert ac.paged_plan(False, 528, 1, wg, 1 << 16, bs, hd,
+                                         elem) is not None, (hd, wg, bs)
+                fixed = _single_cta_smem("exact", wg, 0, bs, hd)
+                maxb = (ac.SMEM_LIMIT - fixed) // (4 * wg) // bs
+                if maxb >= 1:
+                    plan = ac.paged_plan(True, 528, 1, wg, maxb, bs, hd,
+                                         elem)
+                    assert plan is not None, (hd, wg, bs, maxb)
+                    assert plan[3] <= ac.SMEM_LIMIT
 
 
 def test_resolve_paged_block_order(monkeypatch):
