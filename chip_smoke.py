@@ -9,26 +9,28 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
 
 1. Build: compiles the port's CUDA sources (hpx_tpu_torch/csrc/*.cu, one
    nvcc per source, all started together) and prints each build's time,
-   nvcc's register and shared-memory report, and the card's name and
-   power limit (nvidia-smi).
+   nvcc's register and spill report, and the card's name and power
+   limit (nvidia-smi); the flash library's SASS must hold HGMMA (wgmma)
+   and UTMALDG (TMA loads) instructions (cuobjdump -sass).
 2. Kernel checks: each kernel against its plain PyTorch version on small
    and ragged shapes. The stencil kernels bitwise (tolerance 0); the
    paged-attention kernels within rtol = atol = 1e-5 for float32 output
    and rtol = atol = 1e-2 (about one bfloat16 ulp at the outputs'
-   magnitude) for bfloat16 output, over every pool type and 15 shapes
+   magnitude) for bfloat16 output, over every pool type and 18 shapes
    (three of them split over P = 8, 8 and 5 CTAs with wholly dead runs;
    head dims 80, 40, 36, 256 and 384 for the kernels' other paths:
-   element loads, padded rows, 16 lanes a key, a ring of 2 stages),
+   element loads, padded rows, 16 lanes a key, a ring of 2 stages;
+   blocks of 256 and 128 rows walked in parts, and an online chunk of
+   fewer blocks, the plans the first split design refused),
    the online kernel against its plain version in the kernel's split
-   (splits=P); each output bitwise the same on a second call, with
+   and chunk (splits=P, chunk_rows); each output bitwise the same on a
+   second call, with
    every dead table entry pointed at another block and from pools that
    are not 16-byte aligned; the wrapper's shared-memory sizes equal the
    source's; an exact-kernel shape above the shared-memory cap
    (W*g*S/8) must raise; both kernels at S 49600 and 56960 with 528
    (slot, head) pairs (P = 1, raised for the exact kernel where its run
-   does not fit); the exact kernel at hd 512 of f32 with a halved
-   chunk. nvcc's register and spill report is printed for every
-   instantiation.
+   does not fit); both kernels at hd 512 of f32 with a halved chunk.
 3. The main path, through the entry points a user calls, each path with
    the launch counts set to 0 just before it and read just after:
      fused     stencil_fused -> multistep -> multistep_fused (kernel B),
@@ -50,6 +52,10 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
                each in float32 through paged_kernel fused (kernel
                paged_attention_exact), fused_online (kernel
                paged_attention_online) and gather, and the dense server;
+               then (b) in float32 with blocks of 256 rows (a shape
+               the first split design refused): auto, resolved to
+               fused when the server is built, fused_online and
+               gather, each kernel's plan walking a block in 2 parts;
                then (b) in bfloat16 with paged_kernel auto (-> fused)
                beside a bfloat16 gather run.
      training  make_train_step at the full width of the repo's training
@@ -88,20 +94,35 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    their plain versions on the pools it left.
    The flash kernels (5-7) are also checked against their plain versions
    on (sq, sk) in {(1, 1), (37, 53), (48, 16), (16, 48), (1024, 1024)},
-   causal or not, MHA and GQA (8 q heads over 2), head dims 64 and 128,
-   f32 and bf16, the backward at offsets d in {sk - sq, 0, -16}:
-   rtol = atol = 1e-5 for the f32 forward (o and L), 1e-4 for the f32
-   backward, 2e-2 in bf16, and in bf16 also ||got - want|| / ||want||
-   <= 5e-3 (a skipped 64-row tile, simulated on the S 1024 inputs, must
-   read above that); and flash_attention's gradients through the
-   kernels against the same autograd Function over the plain versions.
+   and, to cross the bf16 forward's 128-row tiles, (129, 129), (200,
+   200), (1, 200), (300, 129), (1000, 1000), causal or not, MHA and GQA
+   (8 q heads over 2), head dims 64 and 128, f32 and bf16, the backward
+   at offsets d in {sk - sq, 0, -16}, each given the o and L of the
+   forward at its own offset (so p <= 1, as the ring gives them):
+   rtol = atol = 1e-5 for the f32 forward (o and L), 1e-4 for the
+   f32 backward, 2e-2 in bf16, and in bf16 also ||got - want|| /
+   ||want|| <= 5e-3 (a skipped 64-row tile, a skipped 128-key tile of
+   the bf16 forward, both simulated on the S 1024 inputs, and the bf16
+   forward built to release each K/V stage before its P V completed,
+   at H 64 and at H 128 with 128-row CTAs, must read above that); the
+   bf16 forward's plain version folds keys in the kernel's tiles of
+   128; the bf16 forward's 128-row CTAs (two consumer warpgroups, H
+   128, B 8 x 8 heads so that the plan takes them) on (sq, sk) in
+   {(300, 300), (600, 664), (664, 600), (1000, 1000), (257, 1029)},
+   causal or not, MHA and GQA; and flash_attention's gradients
+   through the kernels against the same autograd Function over the
+   plain versions.
    The chunk kernel (8) is checked against its plain version on (sq, sk)
-   in {(64, 64), (37, 53), (512, 512)}, causal at d in {sk, 0, -1, -sq}
+   in {(64, 64), (37, 53), (129, 200), (200, 129), (512, 512)}, causal
+   at d in {sk, 0, -1, -sq}
    and not causal, MHA and GQA, head dims 64 and 128, f32 and bf16, from
-   a carry an earlier fold left: acc at the flash forward's tolerances
-   (and by the norm in bf16, where a skipped 64-row key tile must read
-   above the limit), m and l at 1e-5; and at the ring path's own shape
-   (q [32, 512, 64] bf16, causal) at d in {0, 512, -512}.
+   a carry an earlier fold left: acc in bf16 at 2e-2 and by the norm
+   (where a skipped key tile of the kernel's must read above the
+   limit), in f32 as acc / l (the o the ring makes of the unnormalized
+   carry) at 1e-5, its raw elementwise reading printed; m and l at
+   1e-5; at the 128-row CTAs (bf16, H 128, B 8 x 8 heads, (300, 300)
+   and (600, 664), d in {sk, 64, 0, -64, -sq}); and at the ring path's
+   own shape (q [32, 512, 64] bf16, causal) at d in {0, 512, -512}.
    Before the ring path, 2 ranks try over gloo, on CUDA tensors as they
    are, every torch.distributed verb that collectives.device.GLOO_CUDA
    hands over unstaged: each must run and agree.
@@ -134,10 +155,19 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    S 4096, 8 heads of 128), their operations counted over the visible
    (query, key) pairs, beside SDPA (is_causal) for the forward and
    SDPA's autograd backward (forward + backward less forward) for
-   kernels 6 and 7 together. Kernel 8 is timed at the ring's shape
-   (q [32, 512, 64] bf16, causal) at d = 0 and d = 512; no single
+   kernels 6 and 7 together; kernel 5's time is its device time, CUDA
+   events around a CUDA graph of 20 calls (the wrapper's host work, a
+   plan and three TMA tensor maps a call, can outlast the kernel), and
+   SDPA's library time is taken the same way, with the back-to-back
+   event times, SDPA's profiler time and the wrapper's host time a call
+   (the wall clock of calls made while the card is held busy) beside
+   them; the timed inputs are held against the plain version first.
+   Kernel 8 is timed the same
+   way at the ring's shape (q [32, 512, 64] bf16, causal) at d = 0 and
+   d = 512; no single
    PyTorch call folds a chunk into a carry, so it has no library
-   yardstick. Every other library yardstick is device time under
+   yardstick. Every other library yardstick (but kernel 5's) is device
+   time under
    torch.profiler: a library call's host work (autograd, dispatch) can
    outlast its kernels, and events would then time the host; where three
    traces record no device time it is CUDA-event time, and each row's
@@ -264,6 +294,25 @@ def _graph_ms(calls, reps: int = 7) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop) / len(calls))
     del graph
+    return statistics.median(times)
+
+
+def _host_ms(fn, reps: int = 7, calls: int = 20) -> float:
+    """Host milliseconds a call of fn(): the wall clock around ``calls``
+    calls made while the card is held busy (``torch.cuda._sleep``), so
+    that no call waits on the device; median over ``reps``. The wrapper's
+    checks, allocation, plan and launch, not the kernel."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(100_000_000)    # tens of ms of device work
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / calls)
+        torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -672,8 +721,8 @@ def main() -> int:
                ac.flash_attention_bwd_dkv, ac.flash_attention_chunk)
 
     def plan_of(kind, q, k_pool, v_pool, table, *_):
-        """(P, stages, cb, shared-memory bytes): the wrapper's own plan of
-        a launch of kernel ``kind`` ("exact" or "online") on these
+        """(P, stages, cb, shared-memory bytes, sub): the wrapper's own
+        plan of a launch of kernel ``kind`` ("exact" or "online") on these
         inputs."""
         b, w, nq, hd = q.shape
         nkv = k_pool.shape[2]
@@ -688,9 +737,11 @@ def main() -> int:
 
     def plain_online(*args):
         """The online kernel's plain version in the kernel's order: the
-        same P runs, merged in rank order."""
-        return ac.plain_paged_attention_online(*args,
-                                               splits=splits_of(*args))
+        same P runs, merged in rank order, and the same chunk of cb
+        blocks or of a part of a block (cb * bs / sub rows)."""
+        p, _, cb, _, sub = plan_of("online", *args)
+        return ac.plain_paged_attention_online(
+            *args, splits=p, chunk_rows=cb * (args[1].shape[1] // sub))
     paged = {"fused_paged_attention": (ac.fused_paged_attention,
                                        ac.plain_paged_attention_exact),
              "fused_paged_online_attention": (
@@ -712,6 +763,18 @@ def main() -> int:
             print(f"   {src}: {info['seconds']:.2f} s, built={info['built']}")
             for kernel, report in _ptxas_report(info["log"]):
                 print(f"     {kernel}: {report}")
+        # the bf16 flash forward runs on wgmma fed by TMA: its SASS holds
+        # HGMMA and UTMALDG instructions
+        cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+        sass = subprocess.run([cuobjdump, "-sass",
+                               _build.BUILD_INFO["flash_attention"]["path"]],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+        print(f"   flash_attention SASS: {counts}", flush=True)
+        if not all(counts.values()):
+            raise AssertionError(f"the flash library has no wgmma or TMA "
+                                 f"load: {counts}")
     if not sm.phase("build", build):
         return 1
 
@@ -809,7 +872,11 @@ def main() -> int:
         # multiple of the dot's 8 lanes), hd 40 and 36 (element loads and
         # rows padded to 16 bytes for int8/fp8, and for bf16 at 36), W*g 20
         # x hd 256 and hd 384 (a ring of 2 stages for f32 pools; 16 lanes a
-        # key at 384)
+        # key at 384); 16-18 take the plans that the first split design
+        # refused: blocks of 256 rows (f32: both kernels walk each block in
+        # 2 parts) and of 128 rows at hd 224 (f32: parts; bf16 exact:
+        # parts), and blocks of one row at hd 336, W*g 20 (f32 online: a
+        # chunk of fewer blocks)
         shapes = ((3, 4, 8, 2, 1, 64, 1), (3, 3, 16, 2, 2, 128, 2),
                   (2, 3, 32, 1, 4, 64, 5), (5, 7, 16, 2, 1, 128, 1),
                   (4, 2, 8, 3, 4, 128, 2), (1, 5, 32, 2, 2, 64, 5),
@@ -817,7 +884,8 @@ def main() -> int:
                   (3, 256, 16, 1, 2, 64, 3), (8, 64, 16, 8, 1, 128, 1),
                   (2, 6, 16, 2, 2, 80, 2), (2, 5, 8, 2, 1, 40, 3),
                   (3, 4, 16, 1, 2, 36, 1), (1, 4, 16, 1, 4, 256, 5),
-                  (2, 3, 16, 1, 1, 384, 1))
+                  (2, 3, 16, 1, 1, 384, 1), (2, 4, 256, 1, 1, 128, 1),
+                  (2, 3, 128, 2, 1, 224, 1), (1, 256, 1, 1, 4, 336, 5))
         n = dead_total = 0
         plans = set()
         for pool_dt, q_dt in pool_types:
@@ -831,9 +899,10 @@ def main() -> int:
                 for k, (fn, plain) in paged.items():
                     got = fn(*args)
                     plan = plan_of(kind_of[k], *args)
-                    plans.add((kind_of[k], shape[5], str(pool_dt), plan[:3]))
-                    what = (f"{k} {shape} (P, stages, cb) = {plan[:3]} "
-                            f"{pool_dt} q {q_dt}")
+                    plans.add((kind_of[k], shape[5], str(pool_dt),
+                               (*plan[:3], plan[4])))
+                    what = (f"{k} {shape} (P, stages, cb, sub) = "
+                            f"{(*plan[:3], plan[4])} {pool_dt} q {q_dt}")
                     err = sm.expect_close(k, got, plain(*args), what,
                                           quiet=True)
                     worst[k] = max(worst[k], err)
@@ -855,28 +924,44 @@ def main() -> int:
                   "unaligned pools", flush=True)
         ps = [ac.paged_splits(sh[0], sh[3], sh[1], sh[2]) for sh in shapes]
         print(f"   P over the shapes: {ps}; {dead_total} dead table "
-              "entries moved; plans (kernel, hd, pool, (P, stages, cb)) "
-              f"other than 3 stages: "
-              f"{sorted(p for p in plans if p[3][1] != 3)}", flush=True)
+              "entries moved; plans (kernel, hd, pool, (P, stages, cb, "
+              f"sub)) other than 3 stages of whole chunks: "
+              f"{sorted(p for p in plans if p[3][1] != 3 or p[3][3] != 1)}",
+              flush=True)
         if not any(p[3][1] == 2 for p in plans):
             raise AssertionError("no shape took a ring of 2 stages")
+        for kind in ("exact", "online"):
+            if not any(p[0] == kind and p[3][3] > 1 for p in plans):
+                raise AssertionError(f"no shape walked its blocks in parts "
+                                     f"({kind})")
+        if not any(p[0] == "online" and p[3][3] == 1 and p[1] == 336
+                   and p[3][2] < ac.chunk_blocks(1) for p in plans):
+            raise AssertionError("no online plan took a chunk of fewer "
+                                 "blocks")
 
-        # the layout's two copies: the wrapper's sizes equal the source's
+        # the layout's two copies: the wrapper's sizes equal the source's,
+        # blocks walked whole (sub 1) and in parts (sub 2, 4, 3)
         lib = ac._lib()
-        for exact, elem, wg, maxb, bs, hd, p, stages, cb in itertools.product(
+        n_layout = 0
+        for (exact, elem, wg, maxb, bs, hd, p, stages, cb,
+             sub) in itertools.product(
                 (True, False), (1, 2, 4), (1, 20), (1, 64, 3560),
-                (1, 16, 64), (36, 128, 384), (1, 8), (2, 3), (1, 4)):
+                (1, 16, 64, 48), (36, 128, 384), (1, 8), (2, 3), (1, 4),
+                (1, 2, 4, 3)):
+            if bs % sub:
+                continue
             want = ac._layout_bytes(exact, wg, maxb, bs, hd, p, elem, stages,
-                                    cb)
+                                    cb, sub)
             got = lib.hpx_paged_smem_bytes(int(exact), elem, wg, maxb, bs, hd,
-                                           cb, p, stages)
+                                           cb, sub, p, stages)
             if got != want:
                 raise AssertionError(
                     f"shared memory of {(exact, elem, wg, maxb, bs, hd, p)}"
-                    f" stages {stages} cb {cb}: {want} in attention_cuda.py, "
-                    f"{got} in paged_attention.cu")
+                    f" stages {stages} cb {cb} sub {sub}: {want} in "
+                    f"attention_cuda.py, {got} in paged_attention.cu")
+            n_layout += 1
         print("   shared-memory layout: attention_cuda.py's sizes equal "
-              "paged_layout's on 2592 shapes", flush=True)
+              f"paged_layout's on {n_layout} shapes", flush=True)
 
         # above the shared-memory cap (W*g*S/P scores, P raised to 8) the
         # exact kernel raises: W*g*S = 20*24576
@@ -910,41 +995,46 @@ def main() -> int:
             print(f"   S {maxb * 16} at 528 CTAs: exact plan "
                   f"(P, stages, cb) = {plan[:3]}", flush=True)
             del args
-        # f32 pools, hd 512: 2 stages of 64 rows do not fit, so the exact
-        # kernel halves its chunk; the online kernel raises (as the one-CTA
-        # design did)
+        # f32 pools, hd 512: 2 stages of 64 rows do not fit, so both
+        # kernels halve their chunk (the online kernel's fold follows it)
         args = paged_state(2, 4, 16, 1, 1, 512, 1, torch.float32,
                            torch.float32, seed=98)
-        plan = plan_of("exact", *args)
-        if plan[2] >= ac.chunk_blocks(16):
-            raise AssertionError(f"hd 512 f32: plan {plan}")
-        got = ac.fused_paged_attention(*args)
-        sm.expect_close("fused_paged_attention", got,
-                        ac.plain_paged_attention_exact(*args),
-                        f"fused_paged_attention hd 512 f32, plan {plan[:3]}")
-        if not torch.equal(ac.fused_paged_attention(*args), got):
-            raise AssertionError("hd 512: two calls differ")
-        try:
-            ac.fused_paged_online_attention(*args)
-        except ValueError as e:
-            print(f"   hd 512 f32: exact plan {plan[:3]}; online raises: "
-                  f"{e}", flush=True)
-        else:
-            raise AssertionError("fused_paged_online_attention took hd 512 "
-                                 "of f32 above its shared memory")
+        for k, (fn, plain) in paged.items():
+            plan = plan_of(kind_of[k], *args)
+            if plan[2] >= ac.chunk_blocks(16):
+                raise AssertionError(f"hd 512 f32: plan {plan}")
+            got = fn(*args)
+            sm.expect_close(k, got, plain(*args),
+                            f"{k} hd 512 f32, plan {plan}")
+            if not torch.equal(fn(*args), got):
+                raise AssertionError("hd 512: two calls differ")
         print(f"   {n} paged-kernel comparisons passed", flush=True)
     sm.phase("paged kernel checks", paged_kernel_checks)
+
+    def tile_of(q):
+        """Keys a tile of the forward kernels on q's dtype: the bf16
+        (wgmma) kernel's FLASH_TILE_N, the f32 kernel's FLASH_BLOCK; their
+        plain versions fold in the same tiles."""
+        return ac.FLASH_TILE_N if q.dtype == torch.bfloat16 else \
+            ac.FLASH_BLOCK
+
+    def plain_fwd(q, k, v, causal=False):
+        return ac.plain_flash_fwd(q, k, v, causal, tile_of(q))
+
+    def plain_chunk(q, k, v, acc, m, l, d, causal=False):
+        return ac.plain_flash_chunk(q, k, v, acc, m, l, d, causal, tile_of(q))
 
     @contextlib.contextmanager
     def plain_flash():
         """flash_attention's autograd Function over the plain versions,
         on the card: the three wrappers swapped for their plain versions
-        while the block runs (for comparisons; nothing is launched)."""
+        (the forward's in its kernel's tiles) while the block runs (for
+        comparisons; nothing is launched)."""
         names = tuple(FLASH_KERNELS)
         saved = [getattr(ac, k) for k in names]
         for k in names:
-            setattr(ac, k, getattr(ac, "plain_" + k.replace("_attention",
-                                                            "")))
+            setattr(ac, k, plain_fwd if k == "flash_attention_fwd" else
+                    getattr(ac, "plain_" + k.replace("_attention", "")))
         try:
             yield
         finally:
@@ -959,12 +1049,13 @@ def main() -> int:
             return torch.randn(rows, s_, h, generator=cpu).to(dt).cuda()
         return r(b * nq, sq), r(b * nkv, sk), r(b * nkv, sk), r(b * nq, sq)
 
-    def tile_fault_readings(q, k, v, do, causal):
-        """What the norm check reads where a kernel skips one 64-row
-        tile: for each tile t, ||x_t - x|| / ||x|| with x_t the output
-        without t (o: the forward skips key tile t; dq: the dq kernel
-        skips key tile t; dk, dv: the dkv kernel skips q tile t), in f32
-        on these inputs (MHA, sq == sk). Returns the smallest over t."""
+    def tile_fault_readings(q, k, v, do, causal, tile=64):
+        """What the norm check reads where a kernel skips one tile of
+        ``tile`` rows: for each tile t, ||x_t - x|| / ||x|| with x_t the
+        output without t (o: the forward skips key tile t; dq: the dq
+        kernel skips key tile t; dk, dv: the dkv kernel skips q tile t),
+        in f32 on these inputs (MHA, sq == sk). Returns the smallest over
+        t."""
         q, k, v, do = (x.float() for x in (q, k, v, do))
         scale = 1.0 / math.sqrt(q.shape[-1])
         s = torch.einsum("rqh,rkh->rqk", q, k) * scale
@@ -978,8 +1069,8 @@ def main() -> int:
                   - (do * o).sum(-1, keepdim=True)) * scale
         dq, dk, dv = ds @ k, ds.transpose(1, 2) @ q, p.transpose(1, 2) @ do
         out = {"o": [], "dq": [], "dk": [], "dv": []}
-        for t0 in range(0, s.shape[-1], 64):
-            t = slice(t0, t0 + 64)
+        for t0 in range(0, s.shape[-1], tile):
+            t = slice(t0, t0 + tile)
             pt = p.clone()
             pt[..., t] = 0
             lt = pt.sum(-1, keepdim=True)
@@ -992,9 +1083,52 @@ def main() -> int:
                 dv - p[:, t].transpose(1, 2) @ do[:, t], dv))
         return {name: min(r) for name, r in out.items()}
 
+    def early_release_readings():
+        """The norm readings of the bf16 forward built with each K/V stage
+        released before its P V completed (P V then reads the tile the
+        producer refilled the stage with), B 8, S 1024, 8 heads, causal,
+        against the plain version, at H 64 (64-row CTAs) and H 128
+        (128-row CTAs: two consumer warpgroups, 256 arrivals a stage):
+        the check must see both."""
+        out = {}
+        for h in (64, 128):
+            q, k, v, _ = flash_state(8, 1024, 1024, 8, 8, h, torch.bfloat16,
+                                     seed=77)
+            bn, sq, _ = q.shape
+            o = torch.empty_like(q)
+            lse = torch.empty((bn, sq), device="cuda")
+            block_m, smem = ac.flash_fwd_plan(h, bn, sq)
+            if block_m != 64 * (h // 64):
+                raise AssertionError(f"H {h}: the plan took block_m "
+                                     f"{block_m}")
+            code = ac._flash_lib().hpx_flash_fwd_bf16_early_release(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), bn, bn, sq, sq, h, 1, ac._flash_scale(h),
+                block_m, smem, torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            if code != 0:
+                raise AssertionError(f"the early-release build did not "
+                                     f"launch: {code}")
+            out[f"hd {h}, block_m {block_m}"] = _norm_rel(
+                o, plain_fwd(q, k, v, True)[0])
+        return out
+
+    def forward_at(q, k, v, d, causal):
+        """(o in q's dtype, L) of the forward at causal offset d: the plain
+        fold of every key from an empty carry, finished as the ring
+        finishes (0 on a row that sees no key)."""
+        acc = torch.zeros(q.shape, device=q.device)
+        m = torch.full(q.shape[:2], -1e30, device=q.device)
+        acc, m, l = plain_chunk(q, k, v, acc, m, torch.zeros_like(m), d,
+                                causal)
+        live, l1 = l > 0, l.clamp_min(1e-30)
+        o = torch.where(live[..., None], acc / l1[..., None], 0.0)
+        return o.to(q.dtype), torch.where(live, m + torch.log(l1), 0.0)
+
     def flash_kernel_checks():
-        n, seed = 0, 0
-        faults = []
+        n = 0
+        seeds = itertools.count(1)
+        faults, faults128 = [], []
         for dt in (torch.float32, torch.bfloat16):
             f32 = dt == torch.float32
             tf = FLASH_TOL["fwd" if f32 else "bf16"]
@@ -1002,16 +1136,16 @@ def main() -> int:
             for h in (64, 128):
                 worst = {k: 0.0 for k in FLASH_KERNELS}
                 for sq, sk in ((1, 1), (37, 53), (48, 16), (16, 48),
-                               (1024, 1024)):
+                               (129, 129), (200, 200), (1, 200), (300, 129),
+                               (1000, 1000), (1024, 1024)):
                     for causal in (False, True):
                         for nq, nkv in ((8, 8), (8, 2)):
-                            seed += 1
                             q, k, v, do = flash_state(2, sq, sk, nq, nkv, h,
-                                                      dt, seed)
+                                                      dt, next(seeds))
                             what = (f"{dt} hd {h} sq {sq} sk {sk} causal "
                                     f"{causal} heads {nq}/{nkv}")
                             o, lse = ac.flash_attention_fwd(q, k, v, causal)
-                            po, plse = ac.plain_flash_fwd(q, k, v, causal)
+                            po, plse = plain_fwd(q, k, v, causal)
                             errs = [sm.expect_close(
                                 "flash_attention_fwd", o, po, f"o {what}",
                                 quiet=True, tol=tf, norm=not f32),
@@ -1021,10 +1155,17 @@ def main() -> int:
                                 tol=FLASH_TOL["fwd"])]
                             worst["flash_attention_fwd"] = max(
                                 worst["flash_attention_fwd"], *errs)
-                            delta = ac.bwd_prep(do, po)
-                            for d in ((sk - sq, 0, -16) if causal
-                                      else (sk - sq,)):
-                                args = (q, k, v, do, delta, plse, d, causal)
+                            # the backward (kernels 6-7) at offsets d, each
+                            # given the o and L of the forward at its own
+                            # offset, so that L covers every key a row
+                            # sees and p <= 1, as the ring gives them
+                            offsets = ((sk - sq, 0, -16) if causal
+                                       else (sk - sq,))
+                            for d in offsets:
+                                od, ld = ((po, plse) if d == sk - sq else
+                                          forward_at(q, k, v, d, causal))
+                                args = (q, k, v, do, ac.bwd_prep(do, od), ld,
+                                        d, causal)
                                 w = f"{what} d {d}"
                                 got = (ac.flash_attention_bwd_dq(*args),
                                        *ac.flash_attention_bwd_dkv(*args))
@@ -1042,6 +1183,9 @@ def main() -> int:
                             if sq == sk == 1024 and nq == nkv and not f32:
                                 faults.append(tile_fault_readings(
                                     q, k, v, do, causal))
+                                faults128.append(tile_fault_readings(
+                                    q, k, v, do, causal,
+                                    ac.FLASH_TILE_N)["o"])
                             n += 1
                 print(f"   flash {dt} hd {h}: within fwd {tf}, bwd {tb}; "
                       f"max abs err {worst}", flush=True)
@@ -1057,6 +1201,61 @@ def main() -> int:
         if min(fault.values()) <= FLASH_NORM_REL:
             raise AssertionError(f"the norm check would miss a skipped "
                                  f"tile: {fault}")
+        # the 128-row CTA of the bf16 forward (two consumer warpgroups):
+        # H 128 on grids of 132 CTAs or more (B 8 x 8 heads), ragged,
+        # causal at offsets d = +-64 that put a key tile past one
+        # warpgroup's diagonal and not the other's, GQA
+        wide, worst = 0, 0.0
+        for sq, sk in ((300, 300), (600, 664), (664, 600), (1000, 1000),
+                       (257, 1029)):
+            for causal in (False, True):
+                for nq, nkv in ((8, 8), (8, 2)):
+                    q, k, v, _ = flash_state(8, sq, sk, nq, nkv, 128,
+                                             torch.bfloat16, next(seeds))
+                    block_m = ac.flash_fwd_plan(128, q.shape[0], sq)[0]
+                    if block_m != 128:
+                        raise AssertionError(f"sq {sq}: the plan took "
+                                             f"block_m {block_m}, not 128")
+                    what = (f"bf16 hd 128 B 8 sq {sq} sk {sk} causal "
+                            f"{causal} heads {nq}/{nkv}, block_m 128")
+                    o, lse = ac.flash_attention_fwd(q, k, v, causal)
+                    po, plse = plain_fwd(q, k, v, causal)
+                    worst = max(worst, sm.expect_close(
+                        "flash_attention_fwd", o, po, f"o {what}",
+                        quiet=True, tol=FLASH_TOL["bf16"], norm=True))
+                    sm.expect_close("flash_attention_fwd", lse, plse,
+                                    f"L {what}", quiet=True,
+                                    tol=FLASH_TOL["fwd"])
+                    wide += 1
+        print(f"   {wide} bf16 forward cases at block_m 128 (H 128, B 8, "
+              f"sq 257-1000, d = +-64, GQA) passed: o max abs err {worst} "
+              f"(tolerance {FLASH_TOL['bf16']}, by the norm <= "
+              f"{FLASH_NORM_REL}), L within {FLASH_TOL['fwd']}", flush=True)
+        # the bf16 forward's own faults: a skipped 128-key tile, and a
+        # stage released before its P V completed (at both block_m)
+        early = early_release_readings()
+        print(f"   planted faults of the bf16 forward (S 1024, MHA): one "
+              f"128-key tile skipped, smallest reading over tiles, hd and "
+              f"causal {min(faults128)!r}; each stage released before its "
+              f"P V completed {early} (limit {FLASH_NORM_REL})",
+              flush=True)
+        if min(faults128) <= FLASH_NORM_REL or \
+                min(early.values()) <= FLASH_NORM_REL:
+            raise AssertionError("the norm check would miss a fault of the "
+                                 f"bf16 forward: {min(faults128)}, {early}")
+        # the bf16 forward's layout: the plan's sizes equal fwd_layout's
+        lib = ac._flash_lib()
+        plans = ((64, 64), (128, 64), (128, 128))
+        for h, bm in plans:
+            want = ac.flash_fwd_smem_bytes(h, bm)
+            got = lib.hpx_flash_fwd_smem_bytes(h, bm)
+            if got != want:
+                raise AssertionError(f"bf16 forward, H {h}, block_m {bm}: "
+                                     f"{want} bytes in attention_cuda.py, "
+                                     f"{got} in flash_attention.cu")
+        print(f"   bf16 forward's shared memory: attention_cuda.py's sizes "
+              f"equal fwd_layout's on the {len(plans)} built plans",
+              flush=True)
         # the autograd Function's gradients through the kernels against
         # the same Function over the plain versions, [B, S, N, H]
         for dt, (sq, sk, nq, nkv, h, causal) in (
@@ -1094,76 +1293,123 @@ def main() -> int:
               f"{sm.norm_rel} (limit {FLASH_NORM_REL})", flush=True)
     sm.phase("flash kernel checks", flash_kernel_checks)
 
-    def chunk_state(sq, sk, nq, nkv, h, dt, seed):
+    def chunk_state(sq, sk, nq, nkv, h, dt, seed, b=2):
         """q, k, v in the kernel layout and a carry (acc, m, l) left by
         folding an earlier, fully visible chunk into (0, -1e30, 0)."""
-        q, k0, v0, _ = flash_state(2, sq, sk, nq, nkv, h, dt, seed)
-        _, k, v, _ = flash_state(2, sq, sk, nq, nkv, h, dt, seed + 1000)
+        q, k0, v0, _ = flash_state(b, sq, sk, nq, nkv, h, dt, seed)
+        _, k, v, _ = flash_state(b, sq, sk, nq, nkv, h, dt, seed + 1000)
         acc = torch.zeros(q.shape, device="cuda")
         m = torch.full(q.shape[:2], -1e30, device="cuda")
-        carry = ac.plain_flash_chunk(q, k0, v0, acc, m, torch.zeros_like(m),
-                                     sk, True)
+        carry = plain_chunk(q, k0, v0, acc, m, torch.zeros_like(m), sk, True)
         return q, k, v, carry
 
     def chunk_fault_reading(q, k, v, carry, d, causal, want_acc):
         """||acc_t - acc|| / ||acc|| for acc_t the fold without key tile
-        t (the keys before it at d, the keys after it at d - their
-        start), smallest over t."""
-        sk, reads = k.shape[1], []
-        for t0 in range(0, sk, 64):
+        t of the kernel's tiles (the keys before it at d, the keys after
+        it at d - their start), smallest over t."""
+        sk, reads, tile = k.shape[1], [], tile_of(q)
+        for t0 in range(0, sk, tile):
             a = tuple(x.clone() for x in carry)
             if t0:
-                a = ac.plain_flash_chunk(q, k[:, :t0], v[:, :t0], *a, d,
-                                         causal)
-            if t0 + 64 < sk:
-                a = ac.plain_flash_chunk(q, k[:, t0 + 64:], v[:, t0 + 64:],
-                                         *a, d - t0 - 64, causal)
+                a = plain_chunk(q, k[:, :t0], v[:, :t0], *a, d, causal)
+            if t0 + tile < sk:
+                a = plain_chunk(q, k[:, t0 + tile:], v[:, t0 + tile:], *a,
+                                d - t0 - tile, causal)
             reads.append(_norm_rel(a[0], want_acc))
         return min(reads)
 
     def chunk_kernel_checks():
         """Kernel 8 against plain_flash_chunk from a carry an earlier
-        fold left: acc by the flash forward's tolerances (and in bf16 by
-        the norm), m and l at the f32 forward's."""
-        n, seed, faults = 0, 5000, []
+        fold left. acc in bf16 at 2e-2 and by the norm; in f32 as acc / l,
+        l the plain version's, at the f32 forward's 1e-5: the carry is
+        unnormalized (sums of about l times the values' size), and acc /
+        l is the o the ring's finish makes of it, held as the forward's
+        o is; its raw elementwise reading against 1e-5 is printed. m and
+        l at the f32 forward's 1e-5."""
+        n, faults, raw = 0, [], []
+        seeds = itertools.count(5001)
+
+        def check(q, k, v, carry, d, causal, what):
+            f32 = q.dtype == torch.float32
+            want = plain_chunk(q, k, v, *carry, d, causal)
+            got = ac.flash_attention_chunk(q, k, v,
+                                           *(x.clone() for x in carry), d,
+                                           causal)
+            torch.cuda.synchronize()
+            if f32:
+                g, w = got[0], want[0]
+                raw.append(((g - w).abs() / (1e-5 + 1e-5 * w.abs())).max()
+                           .item())
+                den = want[2].clamp_min(1e-30)[..., None]
+                err = sm.expect_close(
+                    "flash_attention_chunk", g / den, w / den,
+                    f"acc / l {what}", quiet=True, tol=FLASH_TOL["fwd"])
+            else:
+                err = sm.expect_close(
+                    "flash_attention_chunk", got[0], want[0],
+                    f"acc {what}", quiet=True, tol=FLASH_TOL["bf16"],
+                    norm=True)
+            for name, g, w in zip("ml", got[1:], want[1:]):
+                sm.expect_close("flash_attention_chunk", g, w,
+                                f"{name} {what}", quiet=True,
+                                tol=FLASH_TOL["fwd"])
+            return err, want
+
         for dt in (torch.float32, torch.bfloat16):
             f32 = dt == torch.float32
-            tol = FLASH_TOL["fwd" if f32 else "bf16"]
             for h in (64, 128):
                 worst = 0.0
-                for sq, sk in ((64, 64), (37, 53), (512, 512)):
+                for sq, sk in ((64, 64), (37, 53), (129, 200), (200, 129),
+                               (512, 512)):
                     for nq, nkv in ((8, 8), (8, 2)):
                         for causal, ds in ((True, (sk, 0, -1, -sq)),
                                            (False, (0,))):
                             for d in ds:
-                                seed += 1
-                                q, k, v, carry = chunk_state(sq, sk, nq, nkv,
-                                                             h, dt, seed)
-                                want = ac.plain_flash_chunk(q, k, v, *carry,
-                                                            d, causal)
-                                got = ac.flash_attention_chunk(
-                                    q, k, v, *(x.clone() for x in carry), d,
-                                    causal)
+                                q, k, v, carry = chunk_state(
+                                    sq, sk, nq, nkv, h, dt, next(seeds))
                                 what = (f"{dt} hd {h} sq {sq} sk {sk} heads "
                                         f"{nq}/{nkv} causal {causal} d {d}")
-                                worst = max(worst, sm.expect_close(
-                                    "flash_attention_chunk", got[0], want[0],
-                                    f"acc {what}", quiet=True, tol=tol,
-                                    norm=not f32))
-                                for name, g, w in zip("ml", got[1:],
-                                                      want[1:]):
-                                    sm.expect_close(
-                                        "flash_attention_chunk", g, w,
-                                        f"{name} {what}", quiet=True,
-                                        tol=FLASH_TOL["fwd"])
+                                err, want = check(q, k, v, carry, d, causal,
+                                                  what)
+                                worst = max(worst, err)
                                 if sq == 512 and not f32 and nq == nkv \
                                         and d in (sk, 0):
                                     faults.append(chunk_fault_reading(
                                         q, k, v, carry, d, causal, want[0]))
                                 n += 1
-                print(f"   flash_chunk {dt} hd {h}: acc max abs err {worst} "
-                      f"(tolerance {tol}), m and l within "
-                      f"{FLASH_TOL['fwd']}", flush=True)
+                print(f"   flash_chunk {dt} hd {h}: "
+                      f"{'acc / l' if f32 else 'acc'} max abs err {worst} "
+                      f"(tolerance {FLASH_TOL['fwd' if f32 else 'bf16']}), "
+                      f"m and l within {FLASH_TOL['fwd']}", flush=True)
+        over = sum(r > 1 for r in raw)
+        print(f"   f32 acc unnormalized, elementwise against rtol = atol = "
+              f"1e-5: largest |got - want| / (1e-5 + 1e-5 |want|) "
+              f"{max(raw)!r}, above 1 in {over} of {len(raw)} f32 cases "
+              "(held as acc / l above)", flush=True)
+        # the 128-row CTA of the chunk fold (two consumer warpgroups): H
+        # 128 on B 8 x 8 heads, causal at offsets that put a key tile past
+        # one warpgroup's diagonal and not the other's (d = +-64), GQA
+        wide = 0
+        for sq, sk in ((300, 300), (600, 664)):
+            for nq, nkv in ((8, 8), (8, 2)):
+                for causal, ds in ((True, (sk, 64, 0, -64, -sq)),
+                                   (False, (0,))):
+                    for d in ds:
+                        q, k, v, carry = chunk_state(
+                            sq, sk, nq, nkv, 128, torch.bfloat16,
+                            next(seeds), b=8)
+                        block_m = ac.flash_fwd_plan(128, q.shape[0], sq)[0]
+                        if block_m != 128:
+                            raise AssertionError(f"sq {sq}: the plan took "
+                                                 f"block_m {block_m}")
+                        check(q, k, v, carry, d, causal,
+                              f"bf16 hd 128 B 8 sq {sq} sk {sk} heads "
+                              f"{nq}/{nkv} causal {causal} d {d}, block_m "
+                              "128")
+                        n += 1
+                        wide += 1
+        print(f"   {wide} bf16 chunk cases at block_m 128 passed",
+              flush=True)
         print(f"   {n} chunk-kernel cases passed so far; largest error over its "
               f"tolerance {sm.margin['flash_attention_chunk']}; bf16 "
               f"norm-relative reading of acc, largest "
@@ -1174,10 +1420,9 @@ def main() -> int:
         # its own chunk, a past one and a future one
         tol = FLASH_TOL["bf16"]
         for d in (0, 512, -512):
-            seed += 1
             q, k, v, carry = chunk_state(512, 512, 16, 16, 64,
-                                         torch.bfloat16, seed)
-            want = ac.plain_flash_chunk(q, k, v, *carry, d, True)
+                                         torch.bfloat16, next(seeds))
+            want = plain_chunk(q, k, v, *carry, d, True)
             got = ac.flash_attention_chunk(q, k, v,
                                            *(x.clone() for x in carry), d,
                                            True)
@@ -1195,9 +1440,9 @@ def main() -> int:
                   flush=True)
             n += 1
         fault = min(faults)
-        print(f"   planted fault, one 64-row key tile skipped (512 x 512, "
-              f"MHA, bf16, d = 512 and 0; smallest over tiles and hd): "
-              f"{fault}", flush=True)
+        print(f"   planted fault, one {ac.FLASH_TILE_N}-row key tile skipped "
+              f"(512 x 512, MHA, bf16, d = 512 and 0; smallest over tiles "
+              f"and hd): {fault}", flush=True)
         if fault <= FLASH_NORM_REL:
             raise AssertionError(f"the norm check would miss a skipped "
                                  f"tile: {fault}")
@@ -1312,7 +1557,7 @@ def main() -> int:
         extra = ""
         if srv.paged:
             st_ = srv.cache_stats()
-            extra = (f", kernel {srv._paged_kernel}, radix hit rate "
+            extra = (f", kernel {srv.paged_kernel}, radix hit rate "
                      f"{st_['hit_rate']!r}, prefill tokens saved "
                      f"{st_['prefill_tokens_saved']}")
         print(f"   ({mix}) {label}: {ntok} tokens in {secs!r} s = "
@@ -1357,6 +1602,40 @@ def main() -> int:
                                              "from generate() alone")
                 print("   (a) requests 0 and 11 equal generate() run alone",
                       flush=True)
+
+    def serving_long_blocks():
+        """(b) in f32 with blocks of 256 rows, a shape the kernels' first
+        split design refused (a stage held whole blocks): auto resolves
+        to the exact kernel at construction, whose plan walks each block
+        in 2 parts, as does the online kernel's; both kernels' tokens
+        equal the gather server's."""
+        f32, bs = torch.float32, 256
+        cfg = model(f32)[1]
+        plans = {k: ac.paged_plan(k == "fused", 8, cfg.kv_heads, 1,
+                                  1024 // bs, bs, cfg.head_dim, 4)
+                 for k in ("fused", "fused_online")}
+        if any(p is None or p[4] < 2 for p in plans.values()):
+            raise AssertionError(f"blocks of {bs}: plans {plans}")
+        before = {k.__name__: k.launches for k in kernels}
+        auto, srv = serve("b", f"f32 paged auto, blocks of {bs}", f32,
+                          paged=True, block_size=bs)
+        if srv.paged_kernel != "fused":
+            raise AssertionError(f"auto resolved to {srv.paged_kernel}")
+        online, _ = serve("b", f"f32 paged fused_online, blocks of {bs}",
+                          f32, paged=True, block_size=bs,
+                          paged_kernel="fused_online")
+        gather, _ = serve("b", f"f32 paged gather, blocks of {bs}", f32,
+                          paged=True, block_size=bs, paged_kernel="gather")
+        ran = {k.__name__: k.launches - before[k.__name__] for k in kernels
+               if k.__name__ in PAGED_KERNELS}
+        if not auto == online == gather or min(ran.values()) <= 0:
+            raise AssertionError(f"blocks of {bs}: f32 tokens of auto "
+                                 f"(fused) == fused_online == gather: "
+                                 f"{auto == gather}, {online == gather}; "
+                                 f"launches {ran}")
+        print(f"   (b) blocks of {bs}, f32: plans (P, stages, cb, smem, "
+              f"sub) {plans}; tokens of auto (fused) == fused_online == "
+              f"gather; kernel launches {ran}", flush=True)
 
     bf16_pools = []
 
@@ -1434,6 +1713,8 @@ def main() -> int:
                       ("main path: unfused", unfused),
                       ("main path: dataflow", dataflow),
                       ("main path: serving f32", serving_f32),
+                      ("main path: serving f32, blocks of 256 rows",
+                       serving_long_blocks),
                       ("main path: serving bf16", serving_bf16),
                       ("main path: training", training)):
         sm.phase(name_, lambda fn=fn: run_path(fn))
@@ -1793,7 +2074,10 @@ def main() -> int:
                   f"plain_ms={t['plain']!r} bound_ms={t['bound']!r} "
                   f"({t['by']}) library_ms={t['library']!r} "
                   f"({t.get('library_by')}) "
-                  f"launches={sm.launches[k.split()[0]]} on {smi}")
+                  + "".join(f"{x}_ms={t[x]!r} " for x in (
+                      "events", "host", "library_events",
+                      "library_profiler") if x in t)
+                  + f"launches={sm.launches[k.split()[0]]} on {smi}")
 
     def time_paged():
         """Kernels 3 and 4 at the full-width decode shape (B 8, W 1, 8
@@ -1932,6 +2216,20 @@ def main() -> int:
             q, k, v, do = flash_state(b, seq, seq, n, n, h, torch.bfloat16,
                                       seed=11)
             o, lse = ac.flash_attention_fwd(q, k, v, True)
+            # the timed inputs held against the plain version, as the
+            # checks hold theirs (at S 4096 x 128: 128-row CTAs)
+            po, plse = plain_fwd(q, k, v, True)
+            what = (f"timed inputs B {b} S {seq} {n} x {h} bf16 causal, "
+                    f"block_m {ac.flash_fwd_plan(h, b * n, seq)[0]}")
+            err = sm.expect_close("flash_attention_fwd", o, po, f"o {what}",
+                                  quiet=True, tol=FLASH_TOL["bf16"],
+                                  norm=True)
+            sm.expect_close("flash_attention_fwd", lse, plse, f"L {what}",
+                            quiet=True, tol=FLASH_TOL["fwd"])
+            print(f"   {what}: o max abs err {err!r}, by the norm "
+                  f"{_norm_rel(o, po)!r}; L within {FLASH_TOL['fwd']}",
+                  flush=True)
+            del po, plse
             delta = ac.bwd_prep(do, o)
             args = (q, k, v, do, delta, lse, 0, True)
             # operations over the visible (query, key) pairs: 2 per
@@ -1958,13 +2256,14 @@ def main() -> int:
                 out = F.scaled_dot_product_attention(*xs, is_causal=True)
                 torch.autograd.grad(out, xs, do4)
             lib_fwd, by_fwd = _device_ms(sdpa_fwd, 7)
+            lib_graph = _graph_ms([sdpa_fwd] * 20)
             lib_both, by_both = _device_ms(sdpa_fwd_bwd, 7)
             lib_bwd = lib_both - lib_fwd
             by_bwd = by_fwd if by_fwd == by_both else "profiler - events"
             events = (_cuda_ms(sdpa_fwd, 7), _cuda_ms(sdpa_fwd_bwd, 7))
             runs = {"flash_attention_fwd": (
                         lambda: ac.flash_attention_fwd(q, k, v, True),
-                        lambda: ac.plain_flash_fwd(q, k, v, True), lib_fwd,
+                        lambda: plain_fwd(q, k, v, True), lib_fwd,
                         by_fwd),
                     "flash_attention_bwd_dq": (
                         lambda: ac.flash_attention_bwd_dq(*args),
@@ -1980,6 +2279,17 @@ def main() -> int:
                 t = {"ms": _cuda_ms(fn, 7), "plain": _cuda_ms(plain, 3),
                      "bound": bound, "by": by, "library": library,
                      "library_by": library_by, "shape": shape}
+                if kname == "flash_attention_fwd":
+                    # the kernel's device time: a CUDA graph of 20 calls
+                    # (the wrapper's host work, a plan and three tensor
+                    # maps a call, stays out), SDPA's by the same method;
+                    # beside them events around back-to-back calls and
+                    # the wrapper's host time a call
+                    t.update(events=t["ms"], ms=_graph_ms([fn] * 20),
+                             host=_host_ms(fn), library=lib_graph,
+                             library_by="graph",
+                             library_events=events[0],
+                             library_profiler=lib_fwd)
                 timing[kname if seq == 1024 else f"{kname} S={seq}"] = t
                 torch.cuda.empty_cache()
             print(f"   SDPA at {shape}, device time ({by_fwd}, {by_both}): "
@@ -1987,7 +2297,8 @@ def main() -> int:
                   f"forward) {lib_bwd!r} ms, the backward yardstick for "
                   "kernels 6 and 7 together; CUDA events around the calls "
                   f"(host-bound where autograd runs): forward {events[0]!r}"
-                  f" ms, forward + backward {events[1]!r} ms", flush=True)
+                  f" ms, forward + backward {events[1]!r} ms; the forward "
+                  f"in a CUDA graph of 20 calls {lib_graph!r} ms", flush=True)
             del q, k, v, do, o, lse, delta, args, xs, q4, k4, v4, do4
             torch.cuda.empty_cache()
     def time_chunk():
@@ -2003,9 +2314,13 @@ def main() -> int:
             pairs = bn * sum(min(512, i + d + 1) for i in range(sq))
             bound, by = _bound(nbytes, 4 * pairs * h, BF16_OPS_PER_S)
             work = tuple(x.clone() for x in carry)
-            t = {"ms": _cuda_ms(lambda: ac.flash_attention_chunk(
-                     q, k, v, *work, d, True), 7),
-                 "plain": _cuda_ms(lambda: ac.plain_flash_chunk(
+
+            def call():
+                ac.flash_attention_chunk(q, k, v, *work, d, True)
+            # device time in a CUDA graph of 20 calls, events beside it
+            t = {"ms": _graph_ms([call] * 20), "events": _cuda_ms(call, 7),
+                 "host": _host_ms(call),
+                 "plain": _cuda_ms(lambda: plain_chunk(
                      q, k, v, *carry, d, True), 3),
                  "bound": bound, "by": by, "library": None,
                  "library_by": None,
@@ -2037,7 +2352,8 @@ def main() -> int:
                      "library_by": t.get("library_by"),
                      **{f"{x}_ms": t[x] for x in (
                          "warm", "events", "host", "bound_all",
-                         "library_warm") if x in t},
+                         "library_warm", "library_events",
+                         "library_profiler") if x in t},
                      **({"splits": t["splits"]} if "splits" in t else {}),
                      "shape": t["shape"]})
     print(f"training step (bf16, B 8 x S 1024, full width): "

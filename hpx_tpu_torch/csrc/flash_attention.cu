@@ -24,18 +24,34 @@
 // forward: bottom-right alignment; the ring's offset for a chunk); keys
 // j >= sk never are.
 //
-// What bounds them on this card: at the training shape (S 1024, H 64,
-// causal) the forward does ~8.6 GFLOP on ~34 MB, about 250 FLOP/byte,
-// near the H100's bf16 ridge, so memory and tensor cores bound it alike
-// (~0.01 ms); the backward does 3.5x the operations on about as many
-// bytes. The chunk fold at the ring's shape (32 rows of B.N, 512 x 512,
-// H 64, bf16) moves 14.9 MB, most of it the f32 carry in and out, for
-// at most 2.1 GFLOP: bytes bound it (~4.5 us). These first versions are simple. Each CTA owns one 64-row tile
-// (q rows, or key rows for dk/dv), walks the other operand in 64-row
-// tiles staged in shared memory by 16-byte loads, and skips causal tiles
-// past the diagonal, as at :137 / :410 / :460. No TMA, no wgmma, no
-// pipelining: those are the next versions.
-//   bf16 operands: the tensor cores (mma.sync m16n8k16, f32 accumulate),
+// What bounds them on this card: at the training shape (B 8, S 1024,
+// 8 heads of 64, causal) the forward does ~8.6 GFLOP over the visible
+// pairs on ~34 MB, about 250 FLOP/byte, near the H100's bf16 ridge (~295),
+// so memory and tensor cores bound it alike (~0.010 ms); at H 64 the
+// softmax's exp also runs at the rate of the tensor cores' products (256
+// FLOP an exp, against 4096 FLOP and 16 exp a clock an SM), so the exp
+// unit is a second bound as high. At B 2, S 4096, 8 heads of 128 it does
+// ~69 GFLOP on ~34 MB: operations bound it (~0.070 ms). The backward does
+// 3.5x the forward's operations on about as many bytes. The chunk fold at
+// the ring's shape (32 rows of B.N, 512 x 512, H 64, bf16) moves 14.9 MB,
+// most of it the f32 carry in and out, for at most 2.1 GFLOP: bytes
+// bound it (~4.5 us).
+//
+// The bf16 forward and chunk fold (flash_fwd_wgmma) are built for that:
+// wgmma for both products (the only path to the full bf16 rate), K/V
+// tiles of 128 keys brought by TMA into a ring of stages that a producer
+// warpgroup keeps full while the consumer warpgroups compute, so no warp
+// waits on a load it issued; P stays in registers between the products;
+// only tiles that cross the diagonal or the sk edge are masked; one FFMA
+// and one ex2 a score; Q read once a CTA. Where a 64-row CTA and its ring
+// fit twice an SM (H 64), two such CTAs share each SM, so that one's
+// prologue and epilogue overlap the other's products.
+// The backward kernels and the f32 route are the first, simple versions.
+// Each CTA owns one 64-row tile (q rows, or key rows for dk/dv), walks
+// the other operand in 64-row tiles staged in shared memory by 16-byte
+// loads, and skips causal tiles past the diagonal, as at :137 / :410 /
+// :460, with no TMA and no pipelining.
+//   bf16 backward: the tensor cores (mma.sync m16n8k16, f32 accumulate),
 //     4 warps a CTA, 16 rows a warp; p and ds stay in registers between
 //     the two products of a tile.
 //   f32 operands: the FP32 units, full f32 products (TF32 would miss the
@@ -54,6 +70,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -473,8 +491,9 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 operands on the tensor cores: mma.sync m16n8k16, bf16 x bf16 with
-// f32 accumulation (bf16 products are exact, sums in f32, as the
+// bf16 backward on the tensor cores (flash_bwd_dq_mma, flash_bwd_dkv_mma;
+// the forward is flash_fwd_wgmma below): mma.sync m16n8k16, bf16 x bf16
+// with f32 accumulation (bf16 products are exact, sums in f32, as the
 // reference's dots with preferred_element_type=f32). A CTA of 4 warps
 // owns one 64-row tile, each warp 16 rows of it; operand tiles sit in
 // shared memory as bf16, rows padded by 8 elements so that ldmatrix's
@@ -488,24 +507,20 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
 using bf16 = __nv_bfloat16;
 constexpr int kMmaThreads = 128;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // four 8 x 8 bf16 matrices from shared memory; lane l gives the address
 // of row l % 8 of matrix l / 8
 __device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      : "r"(hopper::smem_u32(p)));
 }
 __device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      : "r"(hopper::smem_u32(p)));
 }
 
 // c += a b for one 16 x 8 block
@@ -614,135 +629,308 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// flash_fwd_mma and, kChunk, flash_chunk_mma: flash_fwd / flash_chunk on
-// the tensor cores
-template <int H, bool kChunk>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ o,
-              float* __restrict__ lse, float* __restrict__ cacc,
-              float* __restrict__ cm, float* __restrict__ cl, int sq,
-              int sk, int g, int d, int causal, float scale) {
-  using M = Mma<H>;
-  extern __shared__ uint4 smem_u4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_u4);
-  bf16* ks = qs + M::TILE;
-  bf16* vs = ks + M::TILE;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gr = lane / 4, tq = lane % 4;
+// ---------------------------------------------------------------------------
+// flash_fwd_wgmma and, kChunk, its chunk fold: flash_fwd / flash_chunk for
+// bf16 operands on Hopper's warpgroup tensor cores, fed by TMA.
+//
+// A CTA owns kWG * 64 q rows (one consumer warpgroup each: 1, or 2 at H
+// 128 where 128-row CTAs fill the SMs; flash_fwd_plan picks) and
+// has one producer warpgroup, the last, whose first thread issues every
+// load and whose registers go to the consumers (setmaxnreg). The
+// producer loads Q once, then K and V tiles of kTileN keys into a ring
+// of kStages stages, each with a K-full, a V-full and an empty mbarrier;
+// it waits for a stage to be empty before refilling it, so the next
+// stages' copies are in flight while the consumers compute. Every tile
+// is a 128-byte-swizzled TMA box ([rows][64] bf16, two boxes a row at H
+// 128; hopper.cuh). A consumer warpgroup, for each tile:
+//   S = Q Kᵀ            wgmma m64n128k16, Q and K from shared memory
+//   softmax             f32 in registers: masked only where the tile
+//                       crosses the diagonal or the sk edge; the row max
+//                       over 4 lanes; p = 2^(x · scale·log2e - m·log2e),
+//                       one FFMA and one ex2; the rescale of O and l
+//   O += P V            wgmma m64nHk16, P from registers (S's
+//                       accumulator repacked as bf16 pairs), V from
+//                       shared memory MN-major (the transpose bit: no
+//                       transpose pass)
+// and it releases the stage (an arrive on its empty barrier) only after
+// P V's wgmma.wait_group. A tile wholly past this warpgroup's diagonal is
+// released unread (the other warpgroup, whose rows see it, waits for its
+// V before releasing, so no barrier phase is refilled early).
+// kEarlyRelease (a planted fault for chip_smoke.py's check, never on a
+// path) releases the stage once its V has landed, before P V, and then
+// reads the V that the producer refilled the stage with.
+// ---------------------------------------------------------------------------
+constexpr int kTileN = 128;       // keys of a K/V tile
+// stages of the K/V ring: 3 fit every plan (two 64-row CTAs an SM at H
+// 64, one 128-row CTA at H 128); 2 and 4 measured the same
+constexpr int kStages = 3;
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a CTA can use
+constexpr int kBoxBytes = kTileN * 128;  // a [128][64] bf16 K or V box
+constexpr float kLog2e = 1.4426950408889634f;
+// returned by an entry point whose plan its layout cannot take, or whose
+// tensor maps the driver refuses
+constexpr int kErrLayout = 100000;
+constexpr int kErrTensorMap = 100001;
+
+// The bf16 forward's shared memory, byte offsets from a 1024-byte aligned
+// base: Q (H/64 boxes of [block_m][64]) | kStages x (K boxes, V boxes) |
+// mbarriers (Q-full, K-full[kStages], V-full[kStages], empty[kStages]).
+// `total` adds the 1024 bytes of room to align the base.
+struct FwdLayout {
+  int stage, bars, total;
+};
+__host__ __device__ inline FwdLayout fwd_layout(int h, int block_m) {
+  FwdLayout L;
+  L.stage = block_m * h * 2;
+  L.bars = L.stage + kStages * 2 * kTileN * h * 2;
+  L.total = 1024 + L.bars + 8 * (1 + 3 * kStages);
+  return L;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int H, bool kChunk, int kWG, bool kEarlyRelease>
+__global__ void __launch_bounds__((kWG + 1) * 128, kWG == 1 ? 2 : 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                bf16* __restrict__ o, float* __restrict__ lse,
+                float* __restrict__ cacc, float* __restrict__ cm,
+                float* __restrict__ cl, int sq, int sk, int g, int d,
+                int causal, float scale) {
+  using namespace hopper;
+  constexpr int BM = 64 * kWG;       // q rows of the CTA
+  constexpr int KB = H / 64;         // 64-column boxes a row
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const FwdLayout L = fwd_layout(H, BM);
+  unsigned char* qs = base;
+  auto kbox = [&](int s, int j) {
+    return base + L.stage + (2 * s * KB + j) * kBoxBytes;
+  };
+  auto vbox = [&](int s, int j) {
+    return base + L.stage + ((2 * s + 1) * KB + j) * kBoxBytes;
+  };
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(base + L.bars);
+  uint64_t* kfull = qfull + 1;
+  uint64_t* vfull = kfull + kStages;
+  uint64_t* empty = vfull + kStages;
+
   const int bn = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlock;
-  const int row = q0 + warp * 16 + gr;      // this lane's rows: row, row+8
-  const bf16* kb = k + (size_t)(bn / g) * sk * H;
-  const bf16* vb = v + (size_t)(bn / g) * sk * H;
-  const int nk = key_tiles(q0, sk, d, causal);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;   // longest rows first
+  int nk = (sk + kTileN - 1) / kTileN;
+  if (causal) {
+    const int last = q0 + BM - 1 + d;
+    nk = last < 0 ? 0 : min(nk, last / kTileN + 1);
+  }
   if (kChunk && nk == 0) return;            // the whole CTA: carry kept
 
-  M::load(qs, q + (size_t)bn * sq * H, q0, sq);
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[H / 8][4];
+  if (threadIdx.x == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(kfull + s, 1);
+      mbar_init(vfull + s, 1);
+      mbar_init(empty + s, kWG * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the warpgroup, warp-uniform to the compiler (lane 0's, shuffled):
+  // branches on it are no divergent paths around the wgmma instructions
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == kWG) {                          // the producer
+    regs_dealloc<24>();
+    if (threadIdx.x == kWG * 128 && nk > 0) {
+      mbar_expect_tx(qfull, BM * H * 2);
 #pragma unroll
-  for (int n = 0; n < H / 8; ++n)
+      for (int j = 0; j < KB; ++j)
+        tma_load_3d(qs + j * BM * 128, &tq, qfull, 64 * j, q0, bn);
+      const int kv = bn / g;
+      int s = 0, ph = 0;
+      for (int i = 0; i < nk; ++i) {
+        mbar_wait(empty + s, ph ^ 1);
+        mbar_expect_tx(kfull + s, kTileN * H * 2);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  if constexpr (kChunk) {
+        for (int j = 0; j < KB; ++j)
+          tma_load_3d(kbox(s, j), &tk, kfull + s, 64 * j, i * kTileN, kv);
+        mbar_expect_tx(vfull + s, kTileN * H * 2);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int rr = row + 8 * r;
-      if (rr >= sq) continue;
-      const size_t at = (size_t)bn * sq + rr;
+        for (int j = 0; j < KB; ++j)
+          tma_load_3d(vbox(s, j), &tv, vfull + s, 64 * j, i * kTileN, kv);
+        if (++s == kStages) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows qw0 .. qw0 + 63; this thread's rows are
+  // row0 and row0 + 8 (the accumulator layout, hopper.cuh)
+  regs_alloc<kWG == 2 ? 240 : 232>();
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int t4 = lane % 4;
+  const int qw0 = q0 + wg * 64;
+  const int row0 = qw0 + warp * 16 + lane / 4;
+  const float sl2 = scale * kLog2e;
+  float oacc[H / 2], m[2], l[2];
+#pragma unroll
+  for (int i = 0; i < H / 2; ++i) oacc[i] = 0.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+    const int row = row0 + 8 * r;
+    if (kChunk && row < sq) {
+      const size_t at = (size_t)bn * sq + row;
       m[r] = cm[at];
       l[r] = cl[at];
 #pragma unroll
-      for (int n = 0; n < H / 8; ++n) {
+      for (int j = 0; j < H / 8; ++j) {
         const float2 a = *reinterpret_cast<const float2*>(
-            cacc + at * H + 8 * n + 2 * tq);
-        acc[n][2 * r] = a.x;
-        acc[n][2 * r + 1] = a.y;
+            cacc + at * H + 8 * j + 2 * t4);
+        oacc[4 * j + 2 * r] = a.x;
+        oacc[4 * j + 2 * r + 1] = a.y;
       }
     }
   }
 
-  for (int ik = 0; ik < nk; ++ik) {
-    const int k0 = ik * kBlock;
-    __syncthreads();
-    M::load(ks, kb, k0, sk);
-    M::load(vs, vb, k0, sk);
-    __syncthreads();
-    float s[8][4];
+  if (nk > 0) mbar_wait(qfull, 0);
+  const uint64_t dq = desc_sw128(qs + wg * 64 * 128, 16, 1024);
+  float sacc[64];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    M::dot_t(s, qs, warp * 16, ks, lane);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool live = visible(row + (e >> 1) * 8,
-                                  k0 + 8 * j + 2 * tq + (e & 1), sk, d,
-                                  causal);
-        s[j][e] = live ? s[j][e] * scale : kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+  for (int i = 0; i < 64; ++i) sacc[i] = 0.f;
+  int s = 0, ph = 0;
+  for (int i = 0; i < nk; ++i) {
+    const int k0 = i * kTileN;
+    mbar_wait(kfull + s, ph);
+    if (causal && k0 > qw0 + 63 + d) {      // no key of it for these rows
+      mbar_arrive(empty + s);
+      if (++s == kStages) {
+        s = 0;
+        ph ^= 1;
       }
-    float m_new[2], psum[2] = {0.f, 0.f};
+      continue;
+    }
+    // S = Q Kᵀ, H/16 steps of 16 along the head dim
+    wgmma_fence();
 #pragma unroll
-    for (int r = 0; r < 2; ++r) m_new[r] = fmaxf(m[r], quad_max(mx[r]));
+    for (int kk = 0; kk < H / 16; ++kk) {
+      const uint32_t qoff = (kk / 4) * BM * 128 + (kk % 4) * 32;
+      wgmma_ss_m64n128(sacc, dq + (qoff >> 4),
+                       desc_sw128(kbox(s, kk / 4) + (kk % 4) * 32, 16, 1024),
+                       kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sacc);
+
+    // the online softmax of the tile, in f32
+    if ((causal && k0 + kTileN - 1 > qw0 + d) || k0 + kTileN > sk) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool live = visible(row + (e >> 1) * 8,
-                                  k0 + 8 * j + 2 * tq + (e & 1), sk, d,
-                                  causal);
-        s[j][e] = live ? expf(s[j][e] - m_new[e >> 1]) : 0.f;
-        psum[e >> 1] += s[j][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float corr = expf(m[r] - m_new[r]);   // 1 where m did not move
-      l[r] = l[r] * corr + quad_sum(psum[r]);
-      m[r] = m_new[r];
-#pragma unroll
-      for (int n = 0; n < H / 8; ++n) {
-        acc[n][2 * r] *= corr;
-        acc[n][2 * r + 1] *= corr;
+      for (int e = 0; e < 64; ++e) {
+        const int kpos = k0 + 8 * (e >> 2) + 2 * t4 + (e & 1);
+        const int qpos = row0 + 8 * ((e >> 1) & 1);
+        if (kpos >= sk || (causal && kpos > qpos + d)) sacc[e] = -INFINITY;
       }
     }
-    uint32_t p[4][4];
-    to_a(p, s);                           // p cast to bf16 before p.V
-    M::dot_p(acc, p, vs, lane);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int e = 0; e < 64; ++e)
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sacc[e]);
+    float corr[2], mb[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]) * scale);
+      corr[r] = expf(m[r] - m_new);         // 1 where m did not move
+      mb[r] = m_new * kLog2e;
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int e = 0; e < 64; ++e) {          // masked lanes: 2^-inf = 0
+      const float p = ex2(fmaf(sacc[e], sl2, -mb[(e >> 1) & 1]));
+      sacc[e] = p;
+      psum[(e >> 1) & 1] += p;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(psum[r]);
+#pragma unroll
+    for (int j = 0; j < H / 8; ++j) {
+      oacc[4 * j] *= corr[0];
+      oacc[4 * j + 1] *= corr[0];
+      oacc[4 * j + 2] *= corr[1];
+      oacc[4 * j + 3] *= corr[1];
+    }
+    uint32_t pa[8][4];                      // p cast to bf16 before P V
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[kk][e] = pack_bf16(sacc[8 * kk + 2 * e], sacc[8 * kk + 2 * e + 1]);
+
+    // O += P V, 8 steps of 16 keys
+    mbar_wait(vfull + s, ph);
+    if (kEarlyRelease) {                    // the planted fault: V of tile
+      mbar_arrive(empty + s);               // i + kStages where it refills
+      if (i + kStages < nk) mbar_wait(vfull + s, ph ^ 1);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint64_t dv = desc_sw128(vbox(s, 0) + kk * 16 * 128, kBoxBytes,
+                                     1024);
+      if constexpr (H == 64)
+        wgmma_rs_m64n64_tb(oacc, pa[kk], dv, 1);
+      else
+        wgmma_rs_m64n128_tb(oacc, pa[kk], dv, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(oacc);
+    if (!kEarlyRelease) mbar_arrive(empty + s);
+    if (++s == kStages) {
+      s = 0;
+      ph ^= 1;
+    }
   }
 
   if constexpr (kChunk) {                   // the carry out, unnormalized
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int rr = row + 8 * r;
-      if (rr >= sq) continue;
-      const size_t at = (size_t)bn * sq + rr;
-      if (tq == 0) {
+      const int row = row0 + 8 * r;
+      if (row >= sq) continue;
+      const size_t at = (size_t)bn * sq + row;
+      if (t4 == 0) {
         cm[at] = m[r];
         cl[at] = l[r];
       }
 #pragma unroll
-      for (int n = 0; n < H / 8; ++n)
-        *reinterpret_cast<float2*>(cacc + at * H + 8 * n + 2 * tq) =
-            make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+      for (int j = 0; j < H / 8; ++j)
+        *reinterpret_cast<float2*>(cacc + at * H + 8 * j + 2 * t4) =
+            make_float2(oacc[4 * j + 2 * r], oacc[4 * j + 2 * r + 1]);
     }
-    return;
-  }
+  } else {                                  // o = acc / l and L
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int rr = row + 8 * r;
-    if (rr >= sq) continue;
-    if (tq == 0)
-      lse[(size_t)bn * sq + rr] = l[r] > 0.f ? m[r] + logf(l[r]) : 0.f;
-    const float den = l[r] > 0.f ? l[r] : 1.f;
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= sq) continue;
+      if (t4 == 0)
+        lse[(size_t)bn * sq + row] = l[r] > 0.f ? m[r] + logf(l[r]) : 0.f;
+      const float den = l[r] > 0.f ? l[r] : 1.f;
 #pragma unroll
-    for (int n = 0; n < H / 8; ++n)
-      *reinterpret_cast<uint32_t*>(o + ((size_t)bn * sq + rr) * H + 8 * n +
-                                   2 * tq) =
-          pack_bf16(acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
+      for (int j = 0; j < H / 8; ++j)
+        *reinterpret_cast<uint32_t*>(o + ((size_t)bn * sq + row) * H +
+                                     8 * j + 2 * t4) =
+            pack_bf16(oacc[4 * j + 2 * r] / den,
+                      oacc[4 * j + 2 * r + 1] / den);
+    }
   }
 }
 
@@ -917,59 +1105,98 @@ constexpr int dkv_smem(int h) {
 }
 constexpr int mma_tile_bytes(int h) { return kBlock * (h + 8) * 2; }
 
-template <typename K>
-cudaError_t prepare(K kernel, int smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem);
+// Let Kernel take up to a CTA's 227 KB of dynamic shared memory, once a
+// device and instantiation (the attribute belongs to the current device).
+template <auto Kernel>
+cudaError_t allow_smem() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < 64 && done[dev])) return e;
+  e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kMaxSmem);
+  if (e == cudaSuccess && dev < 64) done[dev] = true;
+  return e;
 }
 
 int tiles(int n) { return (n + kBlock - 1) / kBlock; }
 
-template <typename K, typename... Args>
-int launch(K kernel, dim3 grid, int threads, int smem, cudaStream_t stream,
+template <auto Kernel, typename... Args>
+int launch(dim3 grid, int threads, int smem, cudaStream_t stream,
            Args... args) {
-  cudaError_t e = prepare(kernel, smem);
+  cudaError_t e = allow_smem<Kernel>();
   if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, threads, smem, stream>>>(args...);
+  Kernel<<<grid, threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
+// kErrLayout unless the bf16 forward's plan fits it: block_m 64, or 128
+// at H 128 (the only instantiations), `smem` at least the layout's size
+// and at most a CTA's
+int check_fwd_plan(int h, int block_m, int smem) {
+  if (block_m != 64 && !(block_m == 128 && h == 128)) return kErrLayout;
+  return smem < fwd_layout(h, block_m).total || smem > kMaxSmem ? kErrLayout
+                                                                 : 0;
+}
+
+// The bf16 forward (kChunk: the chunk fold) of the wrapper's plan: grid
+// (ceil(sq / block_m), bn), tensor maps of q [bn][sq][H] in boxes of
+// block_m rows and of k, v [bnkv][sk][H] in boxes of kTileN rows
+template <int H, bool kChunk, bool kEarly = false>
+int fwd_wgmma(const void* q, const void* k, const void* v, bf16* o,
+              float* lse, float* acc, float* m, float* l, int bn, int bnkv,
+              int sq, int sk, int d, int causal, float scale, int block_m,
+              int smem, cudaStream_t stream) {
+  if (int e = check_fwd_plan(H, block_m, smem)) return e;
+  CUtensorMap tq, tk, tv;
+  if (!hopper::bf16_map_3d(&tq, q, H, sq, bn, block_m) ||
+      !hopper::bf16_map_3d(&tk, k, H, sk, bnkv, kTileN) ||
+      !hopper::bf16_map_3d(&tv, v, H, sk, bnkv, kTileN))
+    return kErrTensorMap;
+  const dim3 grid((sq + block_m - 1) / block_m, bn);
+  if constexpr (H == 128) {
+    if (block_m == 128)
+      return launch<flash_fwd_wgmma<H, kChunk, 2, kEarly>>(
+          grid, 3 * 128, smem, stream, tq, tk, tv, o, lse, acc, m, l, sq,
+          sk, bn / bnkv, d, causal, scale);
+  }
+  return launch<flash_fwd_wgmma<H, kChunk, 1, kEarly>>(
+      grid, 2 * 128, smem, stream, tq, tk, tv, o, lse, acc, m, l, sq, sk,
+      bn / bnkv, d, causal, scale);
+}
+
 // f32 operands run the FP32 kernels, bf16 operands the tensor-core ones
+// (the forward and the chunk fold by the wrapper's plan: block_m and
+// smem; the FP32 kernels ignore it)
 template <int H>
 int fwd(bool bf, const void* q, const void* k, const void* v, void* o,
         float* lse, int bn, int bnkv, int sq, int sk, int causal,
-        float scale, cudaStream_t stream) {
-  const dim3 grid(tiles(sq), bn);
+        float scale, int block_m, int smem, cudaStream_t stream) {
   float* none = nullptr;
   if (bf)
-    return launch(flash_fwd_mma<H, false>, grid, kMmaThreads,
-                  3 * mma_tile_bytes(H), stream, (const bf16*)q,
-                  (const bf16*)k, (const bf16*)v, (bf16*)o, lse, none, none,
-                  none, sq, sk, bn / bnkv, sk - sq, causal, scale);
-  return launch(flash_fwd<H, false>, grid, kThreads, fwd_smem(H), stream,
-                (const float*)q, (const float*)k, (const float*)v, (float*)o,
-                lse, none, none, none, sq, sk, bn / bnkv, sk - sq, causal,
-                scale);
+    return fwd_wgmma<H, false>(q, k, v, (bf16*)o, lse, none, none, none, bn,
+                               bnkv, sq, sk, sk - sq, causal, scale, block_m,
+                               smem, stream);
+  return launch<flash_fwd<H, false>>(
+      dim3(tiles(sq), bn), kThreads, fwd_smem(H), stream, (const float*)q,
+      (const float*)k, (const float*)v, (float*)o, lse, none, none, none,
+      sq, sk, bn / bnkv, sk - sq, causal, scale);
 }
 
 // the chunk fold: the forward's kernels with the carry in and out
 template <int H>
 int chunk(bool bf, const void* q, const void* k, const void* v, float* acc,
           float* m, float* l, int bn, int bnkv, int sq, int sk, int d,
-          int causal, float scale, cudaStream_t stream) {
-  const dim3 grid(tiles(sq), bn);
+          int causal, float scale, int block_m, int smem,
+          cudaStream_t stream) {
   if (bf)
-    return launch(flash_fwd_mma<H, true>, grid, kMmaThreads,
-                  3 * mma_tile_bytes(H), stream, (const bf16*)q,
-                  (const bf16*)k, (const bf16*)v, (bf16*)nullptr,
-                  (float*)nullptr, acc, m, l, sq, sk, bn / bnkv, d, causal,
-                  scale);
-  return launch(flash_fwd<H, true>, grid, kThreads, fwd_smem(H), stream,
-                (const float*)q, (const float*)k, (const float*)v,
-                (float*)nullptr, (float*)nullptr, acc, m, l, sq, sk,
-                bn / bnkv, d, causal, scale);
+    return fwd_wgmma<H, true>(q, k, v, nullptr, nullptr, acc, m, l, bn,
+                              bnkv, sq, sk, d, causal, scale, block_m, smem,
+                              stream);
+  return launch<flash_fwd<H, true>>(
+      dim3(tiles(sq), bn), kThreads, fwd_smem(H), stream, (const float*)q,
+      (const float*)k, (const float*)v, (float*)nullptr, (float*)nullptr,
+      acc, m, l, sq, sk, bn / bnkv, d, causal, scale);
 }
 
 template <int H>
@@ -979,14 +1206,15 @@ int bwd_dq(bool bf, const void* q, const void* k, const void* v,
            cudaStream_t stream) {
   const dim3 grid(tiles(sq), bn);
   if (bf)
-    return launch(flash_bwd_dq_mma<H>, grid, kMmaThreads,
-                  4 * mma_tile_bytes(H), stream, (const bf16*)q,
-                  (const bf16*)k, (const bf16*)v, (const bf16*)dout, delta,
-                  lse, dq, sq, sk, bn / bnkv, d, causal, scale);
-  return launch(flash_bwd_dq<H>, grid, kThreads, dq_smem(H), stream,
-                (const float*)q, (const float*)k, (const float*)v,
-                (const float*)dout, delta, lse, dq, sq, sk, bn / bnkv, d,
-                causal, scale);
+    return launch<flash_bwd_dq_mma<H>>(
+        grid, kMmaThreads, 4 * mma_tile_bytes(H), stream, (const bf16*)q,
+        (const bf16*)k, (const bf16*)v, (const bf16*)dout, delta, lse, dq,
+        sq, sk, bn / bnkv, d, causal, scale);
+  return launch<flash_bwd_dq<H>>(grid, kThreads, dq_smem(H), stream,
+                                 (const float*)q, (const float*)k,
+                                 (const float*)v, (const float*)dout, delta,
+                                 lse, dq, sq, sk, bn / bnkv, d, causal,
+                                 scale);
 }
 
 template <int H>
@@ -996,15 +1224,15 @@ int bwd_dkv(bool bf, const void* q, const void* k, const void* v,
             int causal, float scale, cudaStream_t stream) {
   const dim3 grid(tiles(sk), bn);
   if (bf)
-    return launch(flash_bwd_dkv_mma<H>, grid, kMmaThreads,
-                  4 * mma_tile_bytes(H) + 2 * kBlock * 4, stream,
-                  (const bf16*)q, (const bf16*)k, (const bf16*)v,
-                  (const bf16*)dout, delta, lse, dk, dv, sq, sk, bn / bnkv, d,
-                  causal, scale);
-  return launch(flash_bwd_dkv<H>, grid, kThreads, dkv_smem(H), stream,
-                (const float*)q, (const float*)k, (const float*)v,
-                (const float*)dout, delta, lse, dk, dv, sq, sk, bn / bnkv, d,
-                causal, scale);
+    return launch<flash_bwd_dkv_mma<H>>(
+        grid, kMmaThreads, 4 * mma_tile_bytes(H) + 2 * kBlock * 4, stream,
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+        delta, lse, dk, dv, sq, sk, bn / bnkv, d, causal, scale);
+  return launch<flash_bwd_dkv<H>>(grid, kThreads, dkv_smem(H), stream,
+                                  (const float*)q, (const float*)k,
+                                  (const float*)v, (const float*)dout, delta,
+                                  lse, dk, dv, sq, sk, bn / bnkv, d, causal,
+                                  scale);
 }
 
 }  // namespace
@@ -1020,12 +1248,12 @@ int bwd_dkv(bool bf, const void* q, const void* k, const void* v,
   extern "C" int hpx_flash_fwd_##NAME(                                       \
       const void* q, const void* k, const void* v, void* o, float* lse,      \
       int bn, int bnkv, int sq, int sk, int h, int causal, float scale,      \
-      cudaStream_t stream) {                                                 \
+      int block_m, int smem, cudaStream_t stream) {                          \
     HPX_FLASH_BY_HEAD(                                                       \
         fwd<64>(BF, q, k, v, o, lse, bn, bnkv, sq, sk, causal, scale,        \
-                stream),                                                     \
+                block_m, smem, stream),                                      \
         fwd<128>(BF, q, k, v, o, lse, bn, bnkv, sq, sk, causal, scale,       \
-                 stream))                                                    \
+                 block_m, smem, stream))                                     \
   }                                                                          \
   extern "C" int hpx_flash_bwd_dq_##NAME(                                    \
       const void* q, const void* k, const void* v, const void* dout,         \
@@ -1052,17 +1280,44 @@ int bwd_dkv(bool bf, const void* q, const void* k, const void* v,
   extern "C" int hpx_flash_chunk_##NAME(                                     \
       const void* q, const void* k, const void* v, float* acc, float* m,     \
       float* l, int bn, int bnkv, int sq, int sk, int h, int d, int causal,  \
-      float scale, cudaStream_t stream) {                                    \
+      float scale, int block_m, int smem, cudaStream_t stream) {             \
     HPX_FLASH_BY_HEAD(                                                       \
         chunk<64>(BF, q, k, v, acc, m, l, bn, bnkv, sq, sk, d, causal,       \
-                  scale, stream),                                            \
+                  scale, block_m, smem, stream),                             \
         chunk<128>(BF, q, k, v, acc, m, l, bn, bnkv, sq, sk, d, causal,      \
-                   scale, stream))                                           \
+                   scale, block_m, smem, stream))                            \
   }
 
 HPX_FLASH_ENTRY(f32, false)
 HPX_FLASH_ENTRY(bf16, true)
 
+// The bf16 forward's shared-memory bytes at head dim h for a plan's
+// block_m (attention_cuda.flash_fwd_smem_bytes mirrors it).
+extern "C" long long hpx_flash_fwd_smem_bytes(int h, int block_m) {
+  return fwd_layout(h, block_m).total;
+}
+
+// A planted fault for chip_smoke.py's check, never on a path: the bf16
+// forward of the plan's block_m with each stage released once its V has
+// landed, before P V, which then reads what the producer refilled the
+// stage with.
+extern "C" int hpx_flash_fwd_bf16_early_release(
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int bn, int bnkv, int sq, int sk, int h, int causal, float scale,
+    int block_m, int smem, cudaStream_t stream) {
+  HPX_FLASH_BY_HEAD(
+      (fwd_wgmma<64, false, true>(q, k, v, (bf16*)o, lse, nullptr, nullptr,
+                                  nullptr, bn, bnkv, sq, sk, sk - sq, causal,
+                                  scale, block_m, smem, stream)),
+      (fwd_wgmma<128, false, true>(q, k, v, (bf16*)o, lse, nullptr, nullptr,
+                                   nullptr, bn, bnkv, sq, sk, sk - sq,
+                                   causal, scale, block_m, smem, stream)))
+}
+
 extern "C" const char* hpx_flash_error_string(int code) {
+  if (code == kErrLayout)
+    return "the launch plan does not fit the kernel's shared-memory layout";
+  if (code == kErrTensorMap)
+    return "the driver refused a TMA tensor map (cuTensorMapEncodeTiled)";
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -44,7 +44,13 @@
 //   template argument: 3, or 2 where 3 do not fit), each one chunk of cb
 //   table blocks (64 rows) of head h in the pool's own type, filled by
 //   16-byte cp.async.cg copies S - 1 chunks ahead of the one being
-//   computed; dequantized in registers at the point of use. A load's
+//   computed; dequantized in registers at the point of use. Where a
+//   block is longer than a stage can hold, the wrapper's plan walks it
+//   in `sub` parts of bs / sub rows (a power of two dividing bs): the
+//   kernels then see blocks of bs / sub rows and a table sub times as
+//   long, part j of block t being virtual block t * sub + j, whose id is
+//   the physical id * sub + j (its rows are the pool's rows (id * sub +
+//   j) * bs / sub .. +bs / sub) and whose scale is that of id. A load's
 //   block ids and scales are read from the table and the scale arrays
 //   into registers an iteration before its copies are issued and stored
 //   at that iteration's end, into a ring of S + 1 slots, so shared
@@ -223,15 +229,16 @@ template <int S> __device__ __forceinline__ void cp_async_wait_oldest() {
 
 // What a CTA walks: live blocks [lo, lo + n) of the table row of slot b,
 // kv-head h; rank `rank` of P. `per` is the longest run, in blocks;
-// `trow` the table row from block lo.
+// `trow` the slot's table row, of maxb / sub physical blocks; `sub` the
+// parts a physical block is walked in (bs and maxb count the parts).
 struct Run {
-  int b, h, rank, P, p0, lo, n, per;
+  int b, h, rank, P, p0, lo, n, per, sub;
   const int* trow;
 };
 
 __device__ __forceinline__ Run my_run(int rank, const int* __restrict__ pos0,
                                       const int* __restrict__ table, int nkv,
-                                      int W, int bs, int maxb) {
+                                      int W, int bs, int maxb, int sub) {
   Run u;
   u.rank = rank;
   u.P = (int)gridDim.x;
@@ -243,8 +250,18 @@ __device__ __forceinline__ Run my_run(int rank, const int* __restrict__ pos0,
   u.lo = (u.rank * nlive + u.P - 1) / u.P;
   u.n = ((u.rank + 1) * nlive + u.P - 1) / u.P - u.lo;
   u.per = (maxb + u.P - 1) / u.P;
-  u.trow = table + (size_t)u.b * maxb + u.lo;
+  u.sub = sub;
+  u.trow = table + (size_t)u.b * (maxb / sub);
   return u;
+}
+
+// the id of run block j (part (lo + j) % sub of table block (lo + j) /
+// sub): the physical id where a block is walked whole
+__device__ __forceinline__ int block_id(const Run& u, int j) {
+  const int v = u.lo + j;
+  if (u.sub == 1) return u.trow[v];
+  const int t = v / u.sub;
+  return u.trow[t] * u.sub + (v - t * u.sub);
 }
 
 // A chunk of the run: blocks [c0, c0 + len) of it, staged as len * bs
@@ -257,7 +274,7 @@ __device__ __forceinline__ Chunk chunk_of(int c, int n, int cb) {
   return Chunk{c * cb, min(cb, n - c * cb)};
 }
 
-// The loads' physical block ids, from slot b's table row: load j's in
+// The loads' block ids (block_id), from slot b's table row: load j's in
 // slot j % (S + 1) of the ids ring (cb entries a slot). The first S loads' are
 // read before the walk (fill_ids: every table read in flight at once);
 // afterwards load j's are read into a register at the top of iteration
@@ -267,24 +284,22 @@ __device__ __forceinline__ Chunk chunk_of(int c, int n, int cb) {
 // copies: issue_chunk.)
 template <int S, typename CF>
 __device__ __forceinline__ void fill_ids(int loads, int cb, int* ids,
-                                         const int* __restrict__ trow,
-                                         CF chunk) {
+                                         const Run& u, CF chunk) {
   const int i = threadIdx.x;
   int bid[S];
 #pragma unroll
   for (int j = 0; j < S; ++j)
-    if (j < loads && i < chunk(j).len) bid[j] = trow[chunk(j).c0 + i];
+    if (j < loads && i < chunk(j).len) bid[j] = block_id(u, chunk(j).c0 + i);
 #pragma unroll
   for (int j = 0; j < S; ++j)
     if (j < loads && i < chunk(j).len) ids[j * cb + i] = bid[j];  // slot j
 }
 
 template <int S, typename CF>
-__device__ __forceinline__ void ids_fetch(int k, int loads,
-                                          const int* __restrict__ trow,
+__device__ __forceinline__ void ids_fetch(int k, int loads, const Run& u,
                                           CF chunk, int& r_id) {
   const int i = threadIdx.x, j = k + S;
-  if (j < loads && i < chunk(j).len) r_id = trow[chunk(j).c0 + i];
+  if (j < loads && i < chunk(j).len) r_id = block_id(u, chunk(j).c0 + i);
 }
 
 template <int S, typename CF>
@@ -297,24 +312,27 @@ __device__ __forceinline__ void ids_store(int k, int loads, int cb,
 // Copy the chunk's rows of kv-head h into `stage` (rows of hp elements),
 // its blocks' ids in `ids`, and for quantized pools the blocks' scales of
 // head h from `scales` into `scl` (4-byte copies in the same group, so
-// they land with the rows). vec: hd is a whole number of 16-byte pieces
-// and the pools are 16-byte aligned, so the raw pool bytes go by
-// len * bs * hd * sizeof(P) / 16 cp.async copies over the CTA (where the
-// row's pieces divide the CTA, each thread keeps one piece x and steps
-// over the rows without a division); otherwise by element loads, the
-// row's padding to hp zeroed.
+// they land with the rows; a part's scale is its block's, id / sub).
+// vec: hd is a whole number of 16-byte pieces and the pools are 16-byte
+// aligned, so the raw pool bytes go by len * bs * hd * sizeof(P) / 16
+// cp.async copies over the CTA (where the row's pieces divide the CTA,
+// each thread keeps one piece x and steps over the rows without a
+// division); otherwise by element loads, the row's padding to hp zeroed.
 template <typename P>
 __device__ __forceinline__ void issue_chunk(P* stage,
                                             const P* __restrict__ pool,
                                             const float* __restrict__ scales,
                                             float* scl, const int* ids,
                                             Chunk c, int h, int bs, int nkv,
-                                            int hd, int hp, bool vec) {
+                                            int hd, int hp, bool vec,
+                                            int sub) {
   constexpr int NV = Pack<P>::n;
   if constexpr (IsQuant<P>::value) {
-    if (threadIdx.x < c.len)
+    if (threadIdx.x < c.len) {
+      const int id = ids[threadIdx.x];
       cp_async4(scl + threadIdx.x,
-                scales + (size_t)ids[threadIdx.x] * nkv + h);
+                scales + (size_t)(sub == 1 ? id : id / sub) * nkv + h);
+    }
   }
   const size_t row = (size_t)nkv * hd;
   const int rows = c.len * bs;
@@ -556,11 +574,11 @@ paged_attention_exact(const Q* __restrict__ q, const P* __restrict__ kp,
                       const int* __restrict__ table,
                       const int* __restrict__ pos0, Q* __restrict__ out,
                       int W, int nq, int nkv, int hd, int bs, int maxb,
-                      int cb, float sqrt_hd) {
+                      int cb, int sub, float sqrt_hd) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const Run u =
-      my_run((int)cluster.block_rank(), pos0, table, nkv, W, bs, maxb);
+      my_run((int)cluster.block_rank(), pos0, table, nkv, W, bs, maxb, sub);
   const int g = nq / nkv, R = W * g, ld = u.per * bs, n = u.n;
   const Layout L = paged_layout(true, sizeof(P), R, maxb, bs, hd, cb, u.P, S);
   const int hp = L.hp, KG = L.KG, stage_elems = cb * bs * hp;
@@ -584,7 +602,7 @@ paged_attention_exact(const Q* __restrict__ q, const P* __restrict__ kp,
   // k's ids and scales in slot k % slots (issue_chunk copies the scales)
   auto chunk_k = [&](int k) { return chunk_of(k < nch ? k : k - nch, n, cb); };
   int r_id = 0;
-  auto fetch = [&](int k) { ids_fetch<S>(k, 2 * nch, u.trow, chunk_k, r_id); };
+  auto fetch = [&](int k) { ids_fetch<S>(k, 2 * nch, u, chunk_k, r_id); };
   auto store = [&](int k) {
     ids_store<S>(k, 2 * nch, cb, ids, chunk_k, r_id);
   };
@@ -593,13 +611,13 @@ paged_attention_exact(const Q* __restrict__ q, const P* __restrict__ kp,
       issue_chunk<P>(ring + (size_t)(k % S) * stage_elems,
                      k < nch ? kp : vp, k < nch ? ks : vs,
                      scl + (k % slots) * cb, ids + (k % slots) * cb,
-                     chunk_k(k), u.h, bs, nkv, hd, hp, vec);
+                     chunk_k(k), u.h, bs, nkv, hd, hp, vec, sub);
     cp_async_commit();                   // one group a load, maybe empty
   };
 
   load_queries<Q>(qs, q, u.b, u.h, W, nq, g, hd, hp);
   for (int e = threadIdx.x; e < KG * R * hp; e += kThreads) acc[e] = 0.f;
-  fill_ids<S>(2 * nch, cb, ids, u.trow, chunk_k);
+  fill_ids<S>(2 * nch, cb, ids, u, chunk_k);
   __syncthreads();
   for (int k = 0; k < S - 1; ++k) issue(k);
   const int G = dot_lanes<P>(hp);
@@ -719,11 +737,11 @@ paged_attention_online(const Q* __restrict__ q, const P* __restrict__ kp,
                        const int* __restrict__ table,
                        const int* __restrict__ pos0, Q* __restrict__ out,
                        int W, int nq, int nkv, int hd, int bs, int maxb,
-                       int cb, float sqrt_hd) {
+                       int cb, int sub, float sqrt_hd) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const Run u =
-      my_run((int)cluster.block_rank(), pos0, table, nkv, W, bs, maxb);
+      my_run((int)cluster.block_rank(), pos0, table, nkv, W, bs, maxb, sub);
   const int g = nq / nkv, R = W * g, n = u.n, CR = cb * bs;
   const Layout L = paged_layout(false, sizeof(P), R, maxb, bs, hd, cb, u.P,
                                 S);
@@ -748,7 +766,7 @@ paged_attention_online(const Q* __restrict__ q, const P* __restrict__ kp,
   // scales)
   auto chunk_k = [&](int k) { return chunk_of(k / 2, n, cb); };
   int r_id = 0;
-  auto fetch = [&](int k) { ids_fetch<S>(k, 2 * nch, u.trow, chunk_k, r_id); };
+  auto fetch = [&](int k) { ids_fetch<S>(k, 2 * nch, u, chunk_k, r_id); };
   auto store = [&](int k) {
     ids_store<S>(k, 2 * nch, cb, ids, chunk_k, r_id);
   };
@@ -757,7 +775,7 @@ paged_attention_online(const Q* __restrict__ q, const P* __restrict__ kp,
       issue_chunk<P>(ring + (size_t)(k % S) * stage_elems,
                      k % 2 ? vp : kp, k % 2 ? vs : ks,
                      scl + (k % slots) * cb, ids + (k % slots) * cb,
-                     chunk_k(k), u.h, bs, nkv, hd, hp, vec);
+                     chunk_k(k), u.h, bs, nkv, hd, hp, vec, sub);
     cp_async_commit();
   };
 
@@ -767,7 +785,7 @@ paged_attention_online(const Q* __restrict__ q, const P* __restrict__ kp,
     m[r] = kNegInf;                      // the neutral partial
     l[r] = 0.f;
   }
-  fill_ids<S>(2 * nch, cb, ids, u.trow, chunk_k);
+  fill_ids<S>(2 * nch, cb, ids, u, chunk_k);
   __syncthreads();
   for (int k = 0; k < S - 1; ++k) issue(k);
   const int G = dot_lanes<P>(hp);
@@ -888,7 +906,7 @@ int launch(int P, int BH, int smem, cudaStream_t stream, Args... args) {
 
 // kErrLayout unless the arguments fit the kernels: 1 <= P <= 8, stages 2
 // or 3, cb >= 1, hd <= kMaxHeadDim, and `smem` at least the layout's
-// size and at most a CTA's.
+// size and at most a CTA's (bs and maxb as the kernels see them).
 int check_layout(bool exact, int elem, int R, int maxb, int bs, int hd,
                  int cb, int P, int stages, int smem) {
   if (P < 1 || P > kMaxCluster || (stages != 2 && stages != 3) || cb < 1 ||
@@ -903,25 +921,28 @@ int check_layout(bool exact, int elem, int R, int maxb, int bs, int hd,
 #define HPX_PAGED_ARGS                                                       \
   const void *q, const void *kp, const void *vp, const float *ks,           \
       const float *vs, const int *table, const int *pos0, void *out, int B, \
-      int W, int nq, int nkv, int hd, int bs, int maxb, int cb,             \
+      int W, int nq, int nkv, int hd, int bs, int maxb, int cb, int sub,    \
       int splits, int stages, float sqrt_hd, int smem, cudaStream_t stream
 
 #define HPX_PAGED_POINTERS(P, Q)                                             \
   (const Q *)q, (const P *)kp, (const P *)vp, ks, vs, table, pos0, (Q *)out
 
 // one C entry point per (pool type, query/output type) the server uses;
-// each instantiates its kernel for a ring of 3 stages and of 2
+// each instantiates its kernel for a ring of 3 stages and of 2. Blocks
+// walked in `sub` parts reach the kernels as blocks of bs / sub rows and
+// a table of maxb * sub of them.
 #define HPX_PAGED_KERNEL(KIND, EXACT, P, Q)                                 \
-  if (int e = check_layout(EXACT, sizeof(P), W * (nq / nkv), maxb, bs, hd, \
-                           cb, splits, stages, smem))                       \
+  if (sub < 1 || bs % sub) return kErrLayout;                               \
+  if (int e = check_layout(EXACT, sizeof(P), W * (nq / nkv), maxb * sub,   \
+                           bs / sub, hd, cb, splits, stages, smem))         \
     return e;                                                               \
   return stages == 3                                                        \
              ? launch<paged_attention_##KIND<P, Q, 3>>(                     \
                    splits, B * nkv, smem, stream, HPX_PAGED_POINTERS(P, Q), \
-                   W, nq, nkv, hd, bs, maxb, cb, sqrt_hd)                   \
+                   W, nq, nkv, hd, bs / sub, maxb * sub, cb, sub, sqrt_hd)  \
              : launch<paged_attention_##KIND<P, Q, 2>>(                     \
                    splits, B * nkv, smem, stream, HPX_PAGED_POINTERS(P, Q), \
-                   W, nq, nkv, hd, bs, maxb, cb, sqrt_hd);
+                   W, nq, nkv, hd, bs / sub, maxb * sub, cb, sub, sqrt_hd);
 
 #define HPX_PAGED_ENTRY(NAME, P, Q)                                          \
   extern "C" int hpx_paged_exact_##NAME(HPX_PAGED_ARGS) {                    \
@@ -940,12 +961,13 @@ HPX_PAGED_ENTRY(fp8_bf16, __nv_fp8_e4m3, __nv_bfloat16)
 
 // Bytes of dynamic shared memory a kernel's layout takes (exact != 0: the
 // exact kernel) for R = W*g query rows, elem-byte pool elements and the
-// launch's (cb, P, stages).
+// launch's (cb, sub, P, stages); -1 where sub does not divide bs.
 extern "C" long long hpx_paged_smem_bytes(int exact, int elem, int R,
                                           int maxb, int bs, int hd, int cb,
-                                          int P, int stages) {
-  return (long long)paged_layout(exact != 0, elem, R, maxb, bs, hd, cb, P,
-                                 stages)
+                                          int sub, int P, int stages) {
+  if (sub < 1 || bs % sub) return -1;
+  return (long long)paged_layout(exact != 0, elem, R, maxb * sub, bs / sub,
+                                 hd, cb, P, stages)
       .total;
 }
 

@@ -56,7 +56,8 @@ from ..core.errors import HpxError, RequestShedError, ServerClosedError
 from ..core.programs import cached_program
 from ..exec.cuda import resolve_device
 from ..models.quant import FP8_DTYPE, as_raw
-from ..ops.attention_cuda import resolve_paged_block_src
+from ..ops.attention_cuda import (SMEM_LIMIT, paged_plan,
+                                  resolve_paged_block_src)
 from ..ops.paged_attention import (gather_block_kv, paged_decode_attention,
                                    scatter_seq_blocks, scatter_seq_blocks_q)
 from ..utils import prng
@@ -108,21 +109,44 @@ def _resolve_kv_dtype(kv_dtype, rc) -> str:
     return kv_dtype
 
 
-def _resolve_paged_kernel(paged_kernel, rc, device: torch.device) -> str:
-    """hpx.serving.paged_kernel: auto -> fused on a CUDA device, gather
-    elsewhere (the plain versions are a test vehicle, not a serving
-    path)."""
+def _resolve_paged_kernel(paged_kernel, rc, device: torch.device,
+                          slots: int, nkv: int, wg: int, maxb: int, bs: int,
+                          hd: int, elem: int) -> str:
+    """hpx.serving.paged_kernel for a server of this shape (``slots``
+    rows a decode step, ``nkv`` kv heads, ``wg`` = W·g query rows a
+    (slot, kv-head), the widest it passes a kernel, ``maxb`` table
+    blocks of ``bs`` rows, head_dim ``hd``, ``elem``-byte pool
+    elements). auto -> gather off a CUDA device (the plain versions are
+    a test vehicle, not a serving path); on a CUDA device fused (the
+    exact kernel) where ``paged_plan`` has a launch plan for it, else
+    fused_online. On a CUDA device a kernel with no plan for the shape
+    raises here, at construction, never at a decode step, and no shape
+    falls back to gather."""
     if paged_kernel is None:
         paged_kernel = rc.get("hpx.serving.paged_kernel", "auto")
-    if paged_kernel in (None, "", "auto"):
-        paged_kernel = "fused" if device.type == "cuda" else "gather"
-    if paged_kernel not in ("gather", "fused", "fused_online"):
+    auto = paged_kernel in (None, "", "auto")
+    if not auto and paged_kernel not in ("gather", "fused", "fused_online"):
         raise ValueError(
             "hpx.serving.paged_kernel must be one of 'auto', "
             "'gather', 'fused' (exact CUDA table walk) or "
             "'fused_online' (O(block) online-softmax table walk), "
             f"got {paged_kernel!r}")
-    return paged_kernel
+    if device.type != "cuda":
+        return "gather" if auto else paged_kernel
+    if paged_kernel == "gather":
+        return paged_kernel
+    kernels = ("fused", "fused_online") if auto else (paged_kernel,)
+    for k in kernels:
+        if paged_plan(k == "fused", slots, nkv, wg, maxb, bs, hd,
+                      elem) is not None:
+            return k
+    raise ValueError(
+        f"hpx.serving.paged_kernel {'auto' if auto else paged_kernel!r}: "
+        f"no launch plan of {' or '.join(kernels)} takes slots {slots}, "
+        f"{nkv} kv heads, W*g {wg}, {maxb} blocks of {bs} rows, head_dim "
+        f"{hd}, {elem}-byte pool elements: each needs more than the "
+        f"{SMEM_LIMIT} bytes of shared memory a CTA can use (or head_dim "
+        "is above 1024)")
 
 
 # -- per-row-position forwards -------------------------------------------------
@@ -342,12 +366,6 @@ class ContinuousServer:
         cfg, slots, smax = self.cfg, self.slots, self.smax
         rc = runtime_config()
         self._kv_dtype = _resolve_kv_dtype(kv_dtype, rc)
-        self._paged_kernel = _resolve_paged_kernel(paged_kernel, rc,
-                                                   self.device)
-        # the `fused=` mode of ops.paged_attention: False -> gather
-        # oracle, True -> exact kernel, "online" -> online kernel
-        self._paged_fused = {"gather": False, "fused": True,
-                             "fused_online": "online"}[self._paged_kernel]
         if block_size is None:
             v = rc.get("hpx.cache.block_size", "auto")
             if v in (None, "", "auto"):
@@ -395,6 +413,15 @@ class ContinuousServer:
         self._radix = RadixCache(self._alloc, radix_budget_blocks)
         dt = {"int8": torch.int8,
               "fp8": FP8_DTYPE}.get(self._kv_dtype, cfg.dtype)
+        # a decode step passes the kernels every slot, W = 1
+        self._paged_kernel = _resolve_paged_kernel(
+            paged_kernel, rc, self.device, slots, cfg.kv_heads,
+            cfg.n_heads // cfg.kv_heads, self._maxb, bs, cfg.head_dim,
+            torch.empty((), dtype=dt).element_size())
+        # the `fused=` mode of ops.paged_attention: False -> gather
+        # oracle, True -> exact kernel, "online" -> online kernel
+        self._paged_fused = {"gather": False, "fused": True,
+                             "fused_online": "online"}[self._paged_kernel]
         shape = (num_blocks, bs, cfg.kv_heads, cfg.head_dim)
         self._pools = [tuple(torch.zeros(shape, dtype=dt, device=self.device)
                              for _ in range(2))
@@ -605,6 +632,13 @@ class ContinuousServer:
         for bid in pt.blocks:
             self._alloc.decref(bid)
         self._tables[slot] = None
+
+    @property
+    def paged_kernel(self) -> Optional[str]:
+        """The kernel a paged server's decode runs, as resolved at
+        construction: 'gather', 'fused' or 'fused_online' (None for a
+        dense server)."""
+        return self._paged_kernel if self.paged else None
 
     def cache_stats(self) -> Dict[str, Any]:
         """Paged-mode snapshot: allocator, radix tree, prefill savings

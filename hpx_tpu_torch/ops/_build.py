@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (sm_90a) into
 ``_build/lib<name>_<hash>.so`` inside the package, at first use, and
-loaded with ``ctypes``. The hash covers the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is. A
+loaded with ``ctypes``. The hash covers the source, the headers beside
+it (``csrc/*.cuh``) and the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is. A
 failed build raises: there is no fallback for a CUDA tensor.
 
 The sources have a plain C interface (no PyTorch headers), which keeps a
@@ -71,9 +72,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    """Where ``csrc/<name>.cu`` builds to, keyed by its source, every
+    header beside it (``csrc/*.cuh``, which a source may include) and the
+    flags: a changed header never loads a stale build."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
     h.update("\0".join(flags(name)).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

@@ -25,7 +25,10 @@ which the kernel is held against on the card:
                                 loop with the carry in and out
 
 Each flash kernel has two routes in the source, chosen by the operands'
-dtype: bf16 on the tensor cores (``*_mma``), f32 on the FP32 units.
+dtype: bf16 on the tensor cores, f32 on the FP32 units. The bf16
+forward and chunk fold (``flash_fwd_wgmma``) run on Hopper's wgmma fed
+by TMA, one launch plan from ``flash_fwd_plan``; the bf16 backward
+kernels on mma.sync (``*_mma``).
 ``flash_attention`` (at the end of this file) is the differentiable
 [B, S, N, H] entry point over the forward and backward wrappers; the
 ring (``ops/attention.py``) runs the chunk and backward wrappers.
@@ -55,7 +58,10 @@ the run fits, and above W·g·S/8 the wrapper raises.
 ``online`` folds its run ``chunk_blocks(bs)`` blocks at a time (64
 rows, or one block where a block is longer) into a flash (acc, m, l)
 carry in f32, O(chunk) memory; ``plain_paged_attention_online(...,
-splits=P)`` follows the same runs and merge.
+splits=P, chunk_rows=...)`` follows the same runs, chunks and merge.
+Where a plan's ring of whole blocks does not fit a CTA, the plan takes
+an online chunk of fewer blocks, then walks each block in parts of a
+power of two rows (``paged_plan``'s ``sub``).
 
 A wrapper takes its plain version only for a tensor on the CPU; for a
 CUDA tensor it launches its kernel or raises. Each wrapper counts its
@@ -65,6 +71,7 @@ kernel launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
 from typing import Dict, Optional, Tuple
@@ -79,6 +86,8 @@ __all__ = ["fused_paged_attention", "fused_paged_online_attention",
            "plain_paged_attention_exact", "plain_paged_attention_online",
            "resolve_paged_block_src", "resolve_paged_block",
            "chunk_blocks", "paged_splits", "paged_plan", "paged_runs",
+           "flash_fwd_plan", "flash_fwd_smem_bytes", "FLASH_TILE_N",
+           "FLASH_STAGES",
            "exact_smem_bytes", "online_smem_bytes", "PAGED_STAGES",
            "SMEM_LIMIT", "flash_attention", "flash_attention_fwd",
            "flash_attention_bwd", "flash_attention_bwd_dq",
@@ -196,16 +205,47 @@ def paged_runs(pos0: torch.Tensor, w: int, bs: int, maxb: int,
     return runs
 
 
+def _parts(k_pool, v_pool, table, k_scale, v_scale, sub):
+    """The pools, table and scales with each block seen as ``sub`` blocks
+    of bs / sub rows, as the kernels see them: part j of table block t is
+    block t · sub + j, of id (physical id) · sub + j (pool rows (id · sub
+    + j) · bs / sub onward), with its block's scale."""
+    if sub == 1:
+        return k_pool, v_pool, table, k_scale, v_scale
+    nb, bs, nkv, hd = k_pool.shape
+    pools = [p.view(nb * sub, bs // sub, nkv, hd) for p in (k_pool, v_pool)]
+    parts = torch.arange(sub, device=table.device, dtype=table.dtype)
+    table = (table[..., None] * sub + parts).reshape(table.shape[0], -1)
+    scales = [None if s_ is None else s_.repeat_interleave(sub, dim=0)
+              for s_ in (k_scale, v_scale)]
+    return pools[0], pools[1], table, scales[0], scales[1]
+
+
 def plain_paged_attention_online(q, k_pool, v_pool, table, pos0,
-                                 k_scale=None, v_scale=None, splits=1):
+                                 k_scale=None, v_scale=None, splits=1,
+                                 chunk_rows=None):
     """The online kernel's function in PyTorch, in its order: each of the
     ``splits`` runs of ``paged_runs`` is walked from its own start,
-    ``chunk_blocks(bs)`` blocks a step, folded into an (acc, m, l) carry
-    in f32; the runs' carries are then merged in rank order (m = max
-    m_p, l = sum l_p e^(m_p - m), acc likewise) and normalized once.
-    ``splits=1`` is the single walk of the whole table."""
+    ``chunk_rows`` rows a step, folded into an (acc, m, l) carry in f32;
+    the runs' carries are then merged in rank order (m = max m_p, l = sum
+    l_p e^(m_p - m), acc likewise) and normalized once. ``chunk_rows``:
+    whole blocks (a multiple of bs), or a part of a block (a divisor of
+    bs), each block then walked as bs / chunk_rows blocks of that many
+    rows (the runs cut between parts); default ``chunk_blocks(bs)``
+    blocks. ``splits=1`` with the default is the single walk of the
+    whole table."""
+    bs = k_pool.shape[1]
+    if chunk_rows is None:
+        chunk_rows = chunk_blocks(bs) * bs
+    if chunk_rows < 1 or (chunk_rows % bs if chunk_rows >= bs
+                          else bs % chunk_rows):
+        raise ValueError(f"chunk_rows {chunk_rows} is neither whole blocks "
+                         f"of {bs} rows nor a part that divides one")
+    sub = max(1, bs // chunk_rows)
+    k_pool, v_pool, table, k_scale, v_scale = _parts(
+        k_pool, v_pool, table, k_scale, v_scale, sub)
     b, w, nq, hd, bs, nkv, maxb, g = _shape(q, k_pool, table)
-    wg, cb = w * g, chunk_blocks(bs)
+    wg, cb = w * g, chunk_rows // bs
     qk = _q_rows(q, nkv, g).float()
     sqrt_hd = float(np.float32(math.sqrt(hd)))
     dev = q.device
@@ -304,14 +344,17 @@ def _pv_groups(wg: int, hp: int, elem: int) -> int:
 
 
 def _layout_bytes(exact: bool, wg: int, maxb: int, bs: int, hd: int,
-                  splits: int, elem: int, stages: int, cb: int) -> int:
+                  splits: int, elem: int, stages: int, cb: int,
+                  sub: int = 1) -> int:
     """The kernels' shared memory, as ``paged_layout`` in
     ``csrc/paged_attention.cu`` lays it out (that function owns it; the
     entry points refuse a smaller size): the ring of ``stages`` raw
     chunks of ``cb`` [bs, hp] blocks, the f32 query rows, the p·V
     accumulator of each key group, the scores (exact: the longest run's;
     online: a chunk's) and statistics of each row, and the block ids and
-    scales of ``stages + 1`` loads."""
+    scales of ``stages + 1`` loads. A block walked in ``sub`` parts
+    counts as ``sub`` blocks of bs / sub rows."""
+    maxb, bs = maxb * sub, bs // sub
     hp = _row_elems(hd, elem)
     rows, per = cb * bs, -(-maxb // splits)
     return (stages * rows * hp * elem
@@ -339,33 +382,56 @@ def online_smem_bytes(wg: int, bs: int, hd: int, elem: int = 4,
 
 
 def paged_plan(exact: bool, b: int, nkv: int, wg: int, maxb: int, bs: int,
-               hd: int, elem: int) -> Optional[Tuple[int, int, int, int]]:
-    """(P, stages, cb, shared-memory bytes) of a kernel's launch, or None
-    where no plan fits a CTA. P starts at ``paged_splits``; the exact
-    kernel raises it (up to 8, at most one run a block) until its run's
-    scores fit, so its cap is W·g·S/8 at every batch. A ring of 3 stages
-    where it fits, else 2; the exact kernel then halves its chunk, down
-    to one block (its function does not depend on the chunk). The online
-    kernel keeps ``chunk_blocks(bs)``: its fold order."""
+               hd: int, elem: int
+               ) -> Optional[Tuple[int, int, int, int, int]]:
+    """(P, stages, cb, shared-memory bytes, sub) of a kernel's launch, or
+    None where no plan fits a CTA (or hd is above the kernels' 1024).
+    P starts at ``paged_splits``; the exact kernel raises it (up to 8, at
+    most one run a block) until its run's scores fit, so its cap is
+    W·g·S/8 at every batch. A ring of 3 stages where it fits, else 2; the
+    exact kernel then halves its chunk, down to one block (its function
+    does not depend on the chunk). Where none of these fits, the online
+    kernel halves its chunk of ``chunk_blocks(bs)`` blocks, down to one,
+    and then both walk each block in ``sub`` parts of a power of two
+    rows (bs / sub: the largest such part below bs first, halved down to
+    one row) a stage. The online kernel's fold order follows its chunk
+    of cb · bs / sub rows (``plain_paged_attention_online``'s
+    ``chunk_rows``); ``sub`` is 1 in every plan of the earlier steps."""
+    if hd > _MAX_HEAD_DIM:
+        return None
     p0, cb0 = paged_splits(b, nkv, maxb, bs), chunk_blocks(bs)
-    ps = range(p0, max(p0, min(_MAX_CLUSTER, maxb)) + 1) if exact else (p0,)
-    cbs = [cb0]
-    while exact and cbs[-1] > 1:
-        cbs.append(cbs[-1] // 2)
-    for cb in cbs:
-        for stages in (PAGED_STAGES, 2):
-            for p in ps:
-                smem = _layout_bytes(exact, wg, maxb, bs, hd, p, elem,
-                                     stages, cb)
-                if smem <= SMEM_LIMIT:
-                    return p, stages, cb, smem
-    return None
+
+    def first_fit(cbs, sub):
+        vmaxb = maxb * sub
+        ps = (range(p0, max(p0, min(_MAX_CLUSTER, vmaxb)) + 1) if exact
+              else (p0,))
+        for cb in cbs:
+            for stages in (PAGED_STAGES, 2):
+                for p in ps:
+                    smem = _layout_bytes(exact, wg, maxb, bs, hd, p, elem,
+                                         stages, cb, sub)
+                    if smem <= SMEM_LIMIT:
+                        return p, stages, cb, smem, sub
+        return None
+
+    halved = [cb0]
+    while halved[-1] > 1:
+        halved.append(halved[-1] // 2)
+    plan = first_fit(halved if exact else [cb0], 1)
+    if plan is None and not exact:
+        plan = first_fit(halved[1:], 1)
+    part = 1 << (bs - 1).bit_length() >> 1       # largest power of 2 < bs
+    while plan is None and part >= 1:
+        if bs % part == 0:
+            plan = first_fit([1], bs // part)
+        part >>= 1
+    return plan
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("paged_attention")
     if not getattr(lib, "_hpx_typed", False):
-        args = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+        args = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         for kind in ("exact", "online"):
             for p in ("f32", "bf16", "i8", "fp8"):
@@ -374,7 +440,7 @@ def _lib() -> ctypes.CDLL:
                     if fn is not None:
                         fn.argtypes = args
                         fn.restype = ctypes.c_int
-        lib.hpx_paged_smem_bytes.argtypes = [ctypes.c_int] * 9
+        lib.hpx_paged_smem_bytes.argtypes = [ctypes.c_int] * 10
         lib.hpx_paged_smem_bytes.restype = ctypes.c_longlong
         lib.hpx_paged_error_string.argtypes = [ctypes.c_int]
         lib.hpx_paged_error_string.restype = ctypes.c_char_p
@@ -444,7 +510,7 @@ def _launch(kind: str, q, k_pool, v_pool, table, pos0, k_scale, v_scale):
             f"{what}: W*g = {wg} rows, S = {maxb * bs}, block {bs} x {hd} "
             f"of {k_pool.dtype} need more than the {SMEM_LIMIT} bytes of "
             f"shared memory a CTA can use, in every plan{hint}")
-    splits, stages, cb, smem = plan
+    splits, stages, cb, smem, sub = plan
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -457,7 +523,7 @@ def _launch(kind: str, q, k_pool, v_pool, table, pos0, k_scale, v_scale):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks,
                   vs, table.data_ptr(), pos0.data_ptr(), out.data_ptr(),
-                  b, w, nq, nkv, hd, bs, maxb, cb, splits, stages,
+                  b, w, nq, nkv, hd, bs, maxb, cb, sub, splits, stages,
                   float(np.float32(math.sqrt(hd))), smem, stream)
     if code != 0:
         msg = lib.hpx_paged_error_string(code).decode()
@@ -524,7 +590,8 @@ fused_paged_online_attention.launches = 0
 # reference's ``_kv_row_map`` (b·N + n -> b·Nkv + n // g) in one division.
 #
 # Math (s = scale · q kᵀ; L = row logsumexp; causal: kpos <= qpos + d):
-#   forward   online softmax over key blocks of FLASH_BLOCK rows, in f32;
+#   forward   online softmax over key tiles (FLASH_BLOCK rows in f32,
+#             FLASH_TILE_N in bf16), in f32;
 #             masked lanes -1e30 and p exactly 0; o = acc / l (0 on a row
 #             with no visible key), L = m + log l (0 on such a row)
 #   backward  p = exp(s - L), dp = do vᵀ, ds = p · (dp - delta) · scale,
@@ -534,9 +601,42 @@ fused_paged_online_attention.launches = 0
 # there); p is cast to bf16 before p·V, and p and ds before the backward
 # products, as the reference casts them. f32 operands stay f32 (no TF32).
 
-FLASH_BLOCK = 64           # rows of a q tile and of a key tile
+FLASH_BLOCK = 64           # rows of a q tile and of a key tile (f32
+                           # kernels, the backward kernels)
+FLASH_TILE_N = 128         # keys of a K/V tile of the bf16 forward
 FLASH_HEAD_DIMS = (64, 128)  # head dims the CUDA kernels are built for
 _FLASH_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+FLASH_STAGES = 3           # the bf16 forward's ring of K/V stages
+_SMEM_PER_SM = 233472      # an SM's shared memory; 1 KB of it a CTA's own
+
+
+def flash_fwd_smem_bytes(h: int, block_m: int) -> int:
+    """Shared memory of the bf16 forward (kernel ``flash_fwd_wgmma``), as
+    ``fwd_layout`` in ``csrc/flash_attention.cu`` lays it out (that
+    function owns it; the entry points refuse a smaller size): 1024
+    bytes of room to align the base, Q [block_m, h] bf16, FLASH_STAGES K
+    and V tiles of FLASH_TILE_N rows, and 8-byte mbarriers (Q-full and
+    a K-full, V-full and empty one a stage)."""
+    return (1024 + block_m * h * 2
+            + FLASH_STAGES * 2 * FLASH_TILE_N * h * 2
+            + 8 * (1 + 3 * FLASH_STAGES))
+
+
+@functools.lru_cache(maxsize=256)
+def flash_fwd_plan(h: int, bn: int, sq: int) -> Tuple[int, int]:
+    """(block_m, shared-memory bytes) of a launch of the bf16 forward (and
+    of the chunk fold) on [bn, sq, h] queries. block_m, the q rows a CTA:
+    64 (one consumer warpgroup) where two such CTAs share an SM (h 64),
+    or where 128-row tiles would give fewer CTAs than the 132 SMs; else
+    128 (two consumer warpgroups, one CTA an SM; built at h 128 only).
+    Never more than SMEM_LIMIT."""
+    two_a_sm = flash_fwd_smem_bytes(h, 64) <= _SMEM_PER_SM // 2 - 1024
+    block_m = 64 if two_a_sm or -(-sq // 128) * bn < _SMS else 128
+    smem = flash_fwd_smem_bytes(h, block_m)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"flash_fwd_plan: {smem} bytes at head dim {h}, "
+                         f"block_m {block_m}: above {SMEM_LIMIT}")
+    return block_m, smem
 
 
 def _flash_scale(h: int) -> float:
@@ -570,18 +670,20 @@ def _flash_live(sq: int, k0: int, kn: int, sk: int, d: int, causal: bool,
 
 
 def plain_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = False
+                    causal: bool = False, block: int = FLASH_BLOCK
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's function in PyTorch, its order of operations
-    included: the chunk fold of the whole K/V (keys in blocks of
-    FLASH_BLOCK folded into an (acc, m, l) carry in f32) from
+    included: the chunk fold of the whole K/V (keys in tiles of
+    ``block`` folded into an (acc, m, l) carry in f32) from
     (0, -1e30, 0) at the bottom-right offset Sk - Sq, then finished.
-    Returns (o [B·N, Sq, H] in q.dtype, lse [B·N, Sq] f32)."""
+    The f32 kernel folds tiles of FLASH_BLOCK keys, the bf16 one of
+    FLASH_TILE_N. Returns (o [B·N, Sq, H] in q.dtype, lse [B·N, Sq]
+    f32)."""
     m = torch.full(q.shape[:2], _NEG_INF, dtype=torch.float32,
                    device=q.device)
     acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     carry = plain_flash_chunk(q, k, v, acc, m, torch.zeros_like(m),
-                              k.shape[1] - q.shape[1], causal)
+                              k.shape[1] - q.shape[1], causal, block)
     return flash_finish(*carry, q.dtype)
 
 
@@ -597,12 +699,13 @@ def flash_finish(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
 
 def plain_flash_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
-                      d: int, causal: bool = False
+                      d: int, causal: bool = False, block: int = FLASH_BLOCK
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The chunk kernel's function in PyTorch, its order of operations
-    included: keys in blocks of FLASH_BLOCK folded into the carry (acc
-    [B·N, Sq, H], m and l [B·N, Sq], all f32) with the causal offset
-    ``d`` (key j visible to query i iff j <= i + d), nothing finished.
+    included: keys in tiles of ``block`` (the kernel's: FLASH_BLOCK for
+    f32, FLASH_TILE_N for bf16) folded into the carry (acc [B·N, Sq, H],
+    m and l [B·N, Sq], all f32) with the causal offset ``d`` (key j
+    visible to query i iff j <= i + d), nothing finished.
     Key tiles past the last row's offset are skipped, as the kernels
     skip them; a skipped or wholly masked tile leaves a row's carry
     exactly as it was. Returns the new (acc, m, l), unnormalized."""
@@ -611,11 +714,11 @@ def plain_flash_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = _flash_scale(h)
     kr, vr, qf = _kv_rows(k, g), _kv_rows(v, g), q.float()
     acc, m, lsum = acc.clone(), m[..., None].clone(), l[..., None].clone()
-    for k0 in range(0, sk, FLASH_BLOCK):
+    for k0 in range(0, sk, block):
         if causal and k0 > sq - 1 + d:
             break                      # every later key tile is masked
-        kb = kr[:, k0:k0 + FLASH_BLOCK].float()
-        vb = vr[:, k0:k0 + FLASH_BLOCK].float()
+        kb = kr[:, k0:k0 + block].float()
+        vb = vr[:, k0:k0 + block].float()
         s = torch.matmul(qf, kb.transpose(1, 2)) * scale
         live = _flash_live(sq, k0, kb.shape[1], sk, d, causal, q.device)
         s = torch.where(live, s, torch.full_like(s, _NEG_INF))
@@ -669,10 +772,11 @@ def _flash_lib() -> ctypes.CDLL:
     if not getattr(lib, "_hpx_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         f = ctypes.c_float
-        for name in _FLASH_DTYPES.values():
+        for name in (*_FLASH_DTYPES.values(), "bf16_early_release"):
             fn = getattr(lib, f"hpx_flash_fwd_{name}")
-            fn.argtypes = [p] * 5 + [i] * 6 + [f, p]
+            fn.argtypes = [p] * 5 + [i] * 6 + [f] + [i] * 2 + [p]
             fn.restype = i
+        for name in _FLASH_DTYPES.values():
             fn = getattr(lib, f"hpx_flash_bwd_dq_{name}")
             fn.argtypes = [p] * 7 + [i] * 7 + [f, p]
             fn.restype = i
@@ -680,8 +784,10 @@ def _flash_lib() -> ctypes.CDLL:
             fn.argtypes = [p] * 8 + [i] * 7 + [f, p]
             fn.restype = i
             fn = getattr(lib, f"hpx_flash_chunk_{name}")
-            fn.argtypes = [p] * 6 + [i] * 7 + [f, p]
+            fn.argtypes = [p] * 6 + [i] * 7 + [f] + [i] * 2 + [p]
             fn.restype = i
+        lib.hpx_flash_fwd_smem_bytes.argtypes = [i] * 2
+        lib.hpx_flash_fwd_smem_bytes.restype = ctypes.c_longlong
         lib.hpx_flash_error_string.argtypes = [i]
         lib.hpx_flash_error_string.restype = ctypes.c_char_p
         lib._hpx_typed = True
@@ -748,9 +854,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Causal masks are bottom-right aligned: query i sees keys
     j <= i + (Sk - Sq).
 
-    CUDA tensor: kernel ``flash_fwd`` (``flash_fwd_mma`` for bf16), which
-    replaces ``hpx_tpu/ops/attention_pallas.py:_flash_kernel``. CPU
-    tensor: ``plain_flash_fwd``."""
+    CUDA tensor: kernel ``flash_fwd`` (``flash_fwd_wgmma`` for bf16, by
+    ``flash_fwd_plan``), which replaces
+    ``hpx_tpu/ops/attention_pallas.py:_flash_kernel``. CPU tensor:
+    ``plain_flash_fwd``."""
     if q.device.type == "cpu":
         return plain_flash_fwd(q, k, v, causal)
     _flash_check("flash_attention_fwd", q, k, v)
@@ -763,9 +870,18 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       getattr(lib, f"hpx_flash_fwd_{_FLASH_DTYPES[q.dtype]}"),
                       q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                       lse.data_ptr(), bn, k.shape[0], sq, k.shape[1], h,
-                      int(causal), _flash_scale(h))
+                      int(causal), _flash_scale(h), *_fwd_plan_args(q))
     flash_attention_fwd.launches += 1
     return o, lse
+
+
+def _fwd_plan_args(q: torch.Tensor) -> Tuple[int, int]:
+    """(block_m, smem) of ``flash_fwd_plan`` for bf16 queries, the
+    forward's and the chunk fold's launch; zeros for f32 (the FP32
+    kernels have one fixed tiling)."""
+    if q.dtype != torch.bfloat16:
+        return 0, 0
+    return flash_fwd_plan(q.shape[2], q.shape[0], q.shape[1])
 
 
 flash_attention_fwd.launches = 0
@@ -848,7 +964,7 @@ def flash_attention_chunk(q, k, v, acc, m, l, d: int, causal: bool = False
     visible to query i iff j <= i + d), a host int. Returns (acc, m, l).
 
     CUDA tensor: kernel flash_chunk (``flash_fwd<H, kChunk=true>``,
-    ``flash_fwd_mma`` for bf16), which replaces
+    ``flash_fwd_wgmma<H, kChunk=true>`` for bf16), which replaces
     ``hpx_tpu/ops/attention_pallas.py:_flash_chunk_kernel``;
     a q tile that sees no key of the chunk leaves its carry untouched.
     CPU tensor: ``plain_flash_chunk``, copied into the carry."""
@@ -873,7 +989,7 @@ def flash_attention_chunk(q, k, v, acc, m, l, d: int, causal: bool = False
             getattr(lib, f"hpx_flash_chunk_{_FLASH_DTYPES[q.dtype]}"),
             q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
             m.data_ptr(), l.data_ptr(), bn, k.shape[0], sq, k.shape[1], h,
-            int(d), int(causal), _flash_scale(h))
+            int(d), int(causal), _flash_scale(h), *_fwd_plan_args(q))
     flash_attention_chunk.launches += 1
     return acc, m, l
 

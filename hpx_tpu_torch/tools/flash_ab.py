@@ -1,0 +1,178 @@
+#!/usr/bin/env python3
+"""Time the flash forward (kernel 5) and the ring's chunk fold (kernel 8) of
+one checkout on a CUDA card.
+
+    python3 hpx_tpu_torch/tools/flash_ab.py [--root DIR] [--tag NAME]
+
+Imports ``hpx_tpu_torch`` from DIR (default: the checkout that holds this
+file), builds its ``csrc/flash_attention.cu``, prints nvcc's register
+and spill lines for each kernel, then one JSON line per case, in bf16,
+causal: kernel 5 (``flash_attention_fwd``) at the training shape (B 8,
+S 1024, 8 heads of 64) and at bench.py:448's (B 2, S 4096, 8 heads of
+128), beside ``F.scaled_dot_product_attention`` on the same inputs;
+kernel 8 (``flash_attention_chunk``) at the ring's shape (q [32, 512,
+64] against one chunk of 512 keys) at d = 0 and d = 512, from a carry.
+Inputs are random normal from seed 11 (kernel 5) and 13 (kernel 8), as
+``chip_smoke.py``'s timing. ``ms`` is the milliseconds a call on the
+device: CUDA events around replays of a CUDA graph of 20 calls (the
+wrappers' host work stays out); ``events_ms`` the same around 20
+back-to-back calls, host work included where it outlasts the kernel;
+``host_ms`` the wall clock a call spends on the host (checks,
+allocation, plan, launch) while the card is held busy, and ``c_host_ms``
+the same for a bare call of kernel 5's C entry point (its tensor maps
+and launch, without the wrapper's Python); ``sdpa_ms`` and
+``sdpa_events_ms`` SDPA's by the first two methods.
+
+To compare two versions, run it on both checkouts in one session on one
+card, in the order A B B A.
+"""
+
+import argparse
+import json
+import os
+import statistics
+import sys
+
+CALLS = 20
+
+
+def graph_ms(fn, reps=7):
+    """Milliseconds a call of fn(): CUDA events around replays of one CUDA
+    graph of CALLS calls (median of ``reps``), over CALLS."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(CALLS):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / CALLS)
+    return statistics.median(times)
+
+
+def events_ms(fn, reps=7):
+    """Milliseconds a call of fn(): CUDA events around CALLS back-to-back
+    calls (median of ``reps``)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(CALLS):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / CALLS)
+    return statistics.median(times)
+
+
+def host_ms(fn, reps=7):
+    """Host milliseconds a call of fn(): the wall clock around CALLS calls
+    made while the card is held busy (``torch.cuda._sleep``), so that no
+    call waits on the device (median of ``reps``)."""
+    import time
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(100_000_000)    # tens of ms of device work
+        t0 = time.perf_counter()
+        for _ in range(CALLS):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / CALLS)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def rows(b, s, n, h, seed):
+    """q, k, v [b·n, s, h] bf16 random normal from ``seed``, on the card."""
+    import torch
+    cpu = torch.Generator().manual_seed(seed)
+    return [torch.randn(b * n, s, h, generator=cpu).to(torch.bfloat16).cuda()
+            for _ in range(3)]
+
+
+def main() -> int:
+    here = os.path.dirname(os.path.abspath(__file__))
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(here)))
+    ap.add_argument("--tag", default="this")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+    import torch.nn.functional as F
+    if not torch.cuda.is_available():
+        print("flash_ab: CUDA is not available", file=sys.stderr)
+        return 2
+    from hpx_tpu_torch.ops import _build
+    from hpx_tpu_torch.ops import attention_cuda as ac
+
+    _build.load("flash_attention")
+    for line in _build.BUILD_INFO["flash_attention"]["log"].splitlines():
+        if "entry function" in line or "registers" in line or "spill" in line:
+            print(args.tag, line.strip()[:160], flush=True)
+    for b, s, n, h in ((8, 1024, 8, 64), (2, 4096, 8, 128)):
+        q, k, v = rows(b, s, n, h, seed=11)
+        q4, k4, v4 = (x.view(b, n, s, h) for x in (q, k, v))
+
+        def kernel():
+            ac.flash_attention_fwd(q, k, v, True)
+
+        def sdpa():
+            F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        o, lse = ac.flash_attention_fwd(q, k, v, True)
+        # the C entry point's arguments; a checkout with a launch plan
+        # passes it after the scale
+        plan = (tuple(ac.flash_fwd_plan(h, b * n, s))
+                if hasattr(ac, "flash_fwd_plan") else ())
+        c_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  lse.data_ptr(), b * n, b * n, s, s, h, 1,
+                  ac._flash_scale(h), *plan,
+                  torch.cuda.current_stream().cuda_stream)
+        entry = ac._flash_lib().hpx_flash_fwd_bf16
+
+        def bare():
+            if entry(*c_args) != 0:
+                raise RuntimeError("hpx_flash_fwd_bf16 failed")
+        print(json.dumps({"tree": args.tag, "kernel": 5,
+                          "shape": f"B={b} S={s} N={n} H={h}",
+                          "ms": graph_ms(kernel),
+                          "events_ms": events_ms(kernel),
+                          "host_ms": host_ms(kernel),
+                          "c_host_ms": host_ms(bare),
+                          "sdpa_ms": graph_ms(sdpa),
+                          "sdpa_events_ms": events_ms(sdpa)}), flush=True)
+        del q, k, v, q4, k4, v4, o, lse
+    q, k, v = rows(8, 512, 4, 64, seed=13)
+    acc = torch.zeros(q.shape, device="cuda")
+    m = torch.full(q.shape[:2], -1e30, device="cuda")
+    l = torch.zeros_like(m)
+    ac.flash_attention_chunk(q, k, v, acc, m, l, 512, True)   # a real carry
+    for d in (0, 512):
+        work = [x.clone() for x in (acc, m, l)]
+
+        def chunk():
+            ac.flash_attention_chunk(q, k, v, *work, d, True)
+        print(json.dumps({"tree": args.tag, "kernel": 8,
+                          "shape": f"q [32, 512, 64], d={d}",
+                          "ms": graph_ms(chunk), "events_ms": events_ms(chunk),
+                          "host_ms": host_ms(chunk)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

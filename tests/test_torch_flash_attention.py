@@ -204,6 +204,92 @@ def test_the_cpu_path_launches_nothing_and_a_missing_build_raises():
             ac._flash_lib()
 
 
+# (sq, sk, causal, q heads, kv heads, dtype): the plain forward in the
+# bf16 kernel's tiles of FLASH_TILE_N keys against the Pallas kernel in
+# tiles of 128 keys, crossing a tile edge
+TILE_CASES = [(200, 200, True, 2, 2, "f32"), (129, 300, False, 4, 2, "f32"),
+              (150, 150, True, 2, 1, "bf16")]
+
+
+@pytest.mark.parametrize("sq,sk,causal,nq,nkv,dt", TILE_CASES)
+def test_plain_forward_in_tiles_of_128_matches_the_pallas_kernel(
+        sq, sk, causal, nq, nkv, dt):
+    q, k, v, _ = _inputs(1, sq, sk, nq, nkv, 32, sq + 3 * sk,
+                         np.float32 if dt == "f32" else jnp.bfloat16)
+    want_o, want_l = ap._flash_fwd_impl(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, 64,
+        ac.FLASH_TILE_N, True, True)
+    o, lse = ac.plain_flash_fwd(
+        *(ac._kernel_layout(_torch(x)) for x in (q, k, v)), causal,
+        block=ac.FLASH_TILE_N)
+    _close(ac._public_layout(o, 1), want_o, F32 if dt == "f32" else BF16)
+    _close(lse, np.asarray(want_l)[:, :, 0], F32)
+
+
+@pytest.mark.parametrize("causal,d,dt", [(True, 0, "f32"),
+                                         (True, 129, "f32"),
+                                         (False, 0, "bf16")])
+def test_plain_chunk_in_tiles_of_128_matches_the_pallas_kernel(causal, d,
+                                                               dt):
+    sq = sk = 256
+    jdt = np.float32 if dt == "f32" else jnp.bfloat16
+    q, k0, v0, _ = _inputs(1, sq, sk, 2, 2, 32, 70 + d, jdt)
+    _, k, v, _ = _inputs(1, sq, sk, 2, 2, 32, 80 + d, jdt)
+    qt, k0t, v0t, kt, vt = (ac._kernel_layout(_torch(x))
+                            for x in (q, k0, v0, k, v))
+    m0 = torch.full(qt.shape[:2], -1e30)
+    carry = ac.plain_flash_chunk(qt, k0t, v0t, torch.zeros(qt.shape), m0,
+                                 torch.zeros_like(m0), sk, True)
+    lanes = (lambda x: jnp.asarray(np.repeat(x.numpy()[..., None], 128, -1)))
+    want = ap.flash_attention_chunk(
+        *(jnp.asarray(_np(x), jdt) for x in (qt, kt, vt)),
+        jnp.asarray(carry[0].numpy()), lanes(carry[1]), lanes(carry[2]), d,
+        causal=causal, block_q=sq, block_k=ac.FLASH_TILE_N, interpret=True)
+    got = ac.plain_flash_chunk(qt, kt, vt, *carry, d, causal,
+                               ac.FLASH_TILE_N)
+    tol = F32 if dt == "f32" else BF16
+    for name, g, w in zip(("acc", "m", "l"), got,
+                          (want[0], want[1][..., 0], want[2][..., 0])):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   **(tol if name == "acc" else F32))
+
+
+@pytest.mark.parametrize("h", [64, 128])
+def test_flash_fwd_plan(h):
+    """H 64: 64-row CTAs, two to an SM, at every grid; H 128: 128-row
+    CTAs (two consumer warpgroups) where they fill the 132 SMs, as at
+    bench.py:448's B 2, S 4096, else 64-row ones (the ring's
+    q [32, 512, .]); a ring of FLASH_STAGES stages; never above
+    SMEM_LIMIT."""
+    half = 233472 // 2 - 1024
+    for bn, sq in ((64, 1024), (16, 4096), (32, 512)):
+        block_m, smem = ac.flash_fwd_plan(h, bn, sq)
+        assert smem == ac.flash_fwd_smem_bytes(h, block_m)
+        if h == 64:
+            assert block_m == 64 and smem <= half
+        else:
+            assert block_m == (64 if sq == 512 else 128)
+    for bn in (1, 2, 7, 64, 1000):
+        for sq in (1, 37, 129, 1024, 8192):
+            block_m, smem = ac.flash_fwd_plan(h, bn, sq)
+            assert block_m in (64, 128) and smem <= ac.SMEM_LIMIT
+            assert (block_m == 128) == (
+                h == 128 and -(-sq // 128) * bn >= 132)
+
+
+def test_library_path_covers_the_headers(tmp_path, monkeypatch):
+    """A changed csrc/*.cuh names another build, so a stale library is
+    never loaded."""
+    for f in ("flash_attention.cu", "hopper.cuh"):
+        (tmp_path / f).write_bytes((_build.CSRC / f).read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path("flash_attention")
+    assert _build.library_path("flash_attention") == before
+    with open(tmp_path / "hopper.cuh", "ab") as f:
+        f.write(b"\n")
+    assert _build.library_path("flash_attention") != before
+
+
 def test_arguments_are_checked():
     q = torch.zeros((1, 8, 3, 16))
     k = torch.zeros((1, 8, 2, 16))

@@ -301,6 +301,34 @@ def test_plain_online_splits_match_pallas_interpret(splits, bs, w, g, kind):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+# (chunk_rows, splits, block_size, W, g, pools): parts of a block (a
+# block walked in 2 or 4 parts, the runs cut between parts) and online
+# chunks of fewer blocks than chunk_blocks(bs), as paged_plan gives them
+CHUNK_CASES = [(4, 1, 8, 1, 1, "f32"), (8, 2, 16, 3, 2, "f32"),
+               (8, 3, 32, 1, 2, "int8"), (16, 2, 8, 3, 2, "fp8"),
+               (16, 1, 16, 1, 2, "f32")]
+
+
+@pytest.mark.parametrize("rows,splits,bs,w,g,kind", CHUNK_CASES)
+def test_plain_online_chunks_match_pallas_interpret(rows, splits, bs, w, g,
+                                                    kind):
+    (rk, rv, rks, rvs), (q, _, _, table, pos), pargs = _port_args(
+        bs, 6, w, g, kind, seed=60 + rows + bs)
+    want = ref_ap.fused_paged_online_attention(
+        jnp.asarray(q), rk, rv, jnp.asarray(table), jnp.asarray(pos),
+        k_scale=rks, v_scale=rvs, interpret=True)
+    got = ac.plain_paged_attention_online(*pargs, splits=splits,
+                                          chunk_rows=rows)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # the default chunk is chunk_blocks(bs) blocks, bit for bit
+    assert torch.equal(
+        ac.plain_paged_attention_online(*pargs, splits=splits),
+        ac.plain_paged_attention_online(
+            *pargs, splits=splits, chunk_rows=ac.chunk_blocks(bs) * bs))
+    with pytest.raises(ValueError, match="chunk_rows"):
+        ac.plain_paged_attention_online(*pargs, chunk_rows=3 * bs // 2)
+
+
 @pytest.mark.parametrize("bs,maxb,w,g,kind", [
     (8, 3, 1, 1, "f32"), (16, 6, 3, 2, "f32"), (8, 6, 3, 2, "int8"),
     (32, 5, 1, 2, "fp8")])
@@ -453,8 +481,9 @@ def test_paged_plan_rules():
     # fits; at bf16, hd 128, W*g 1 its cap is W*g*S/8, far above the
     # 49,664 keys one CTA held
     assert ac.paged_splits(66, 8, 3104, 16) == 1
-    p, stages, cb, smem = ac.paged_plan(True, 66, 8, 1, 3104, 16, 128, 2)
-    assert p > 1 and smem <= ac.SMEM_LIMIT
+    p, stages, cb, smem, sub = ac.paged_plan(True, 66, 8, 1, 3104, 16, 128,
+                                             2)
+    assert p > 1 and smem <= ac.SMEM_LIMIT and sub == 1
     assert ac.paged_plan(True, 66, 8, 1, 8 * 3104, 16, 128, 2) is not None
     assert ac.paged_plan(True, 66, 8, 20, 8 * 3104, 16, 128, 2) is None
     # the online kernel takes any S, at any batch
@@ -462,7 +491,20 @@ def test_paged_plan_rules():
     # where 3 stages do not fit, 2; then the exact kernel halves its chunk
     assert ac.paged_plan(False, 1, 1, 20, 4, 16, 256, 4)[1] == 2
     assert ac.paged_plan(True, 2, 1, 1, 4, 16, 512, 4)[1:3] == (3, 2)
-    assert ac.paged_plan(False, 2, 1, 1, 4, 16, 512, 4) is None
+    # ... and so does the online kernel, after every whole-chunk plan (its
+    # fold order follows: plain_paged_attention_online's chunk_rows)
+    p, stages, cb, smem, sub = ac.paged_plan(False, 2, 1, 1, 4, 16, 512, 4)
+    assert cb < ac.chunk_blocks(16) and sub == 1 and smem <= ac.SMEM_LIMIT
+    # where one block does not fit a stage, blocks are walked in parts of
+    # a power of two rows (f32, 256 rows of hd 128: two parts of 128)
+    assert ac.paged_plan(True, 8, 8, 1, 4, 256, 128, 4)[2:] == (
+        1, ac._layout_bytes(True, 1, 8, 128, 128, 4, 4, 3, 1), 2)
+    assert ac.paged_plan(False, 8, 8, 1, 4, 256, 128, 4)[4] == 2
+    # 48 rows: parts of a power of two that divides 48 (16, 8, ...)
+    sub = ac.paged_plan(True, 528, 1, 20, 1, 48, 1024, 4)[4]
+    assert sub > 1 and 48 % sub == 0 and (48 // sub) & (48 // sub - 1) == 0
+    # no plan above the kernels' head_dim
+    assert ac.paged_plan(False, 8, 8, 1, 64, 16, 2048, 2) is None
 
 
 @pytest.mark.parametrize("elem", [1, 2, 4])
@@ -483,6 +525,41 @@ def test_paged_plan_takes_every_shape_one_cta_took(elem):
                                          elem)
                     assert plan is not None, (hd, wg, bs, maxb)
                     assert plan[3] <= ac.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("elem", [1, 2, 4])
+def test_paged_plan_takes_every_shape_one_cta_took_long_rows(elem):
+    """The same for blocks of 64 to 256 rows and head_dim up to the
+    wrappers' 1024, and for head dims above 256 at the short blocks: the
+    shapes where blocks walked in parts, or an online chunk of fewer
+    blocks, are the only plan."""
+    for bs in (1, 8, 16, 32, 48, 64, 128, 256):
+        for hd in (8, 16, 36, 64, 96, 112, 128, 192, 224, 256, 328, 336,
+                   384, 512, 768, 1024):
+            if bs <= 32 and hd <= 256:
+                continue                       # the test above
+            for wg in (1, 2, 4, 5, 8, 20):
+                if _single_cta_smem("online", wg, 0, bs, hd) <= ac.SMEM_LIMIT:
+                    plan = ac.paged_plan(False, 528, 1, wg, 1 << 16, bs, hd,
+                                         elem)
+                    assert plan is not None, (hd, wg, bs)
+                    assert bs % plan[4] == 0
+                fixed = _single_cta_smem("exact", wg, 0, bs, hd)
+                maxb = (ac.SMEM_LIMIT - fixed) // (4 * wg) // bs
+                if maxb >= 1:
+                    plan = ac.paged_plan(True, 528, 1, wg, maxb, bs, hd,
+                                         elem)
+                    assert plan is not None, (hd, wg, bs, maxb)
+                    assert plan[3] <= ac.SMEM_LIMIT
+
+
+def test_layout_of_blocks_walked_in_parts():
+    # a block walked in `sub` parts is laid out as sub blocks of bs / sub
+    for exact in (True, False):
+        for sub in (1, 2, 4):
+            assert ac._layout_bytes(exact, 4, 8, 256, 128, 2, 4, 3, 1,
+                                    sub) == ac._layout_bytes(
+                exact, 4, 8 * sub, 256 // sub, 128, 2, 4, 3, 1)
 
 
 def test_resolve_paged_block_order(monkeypatch):

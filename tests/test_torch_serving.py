@@ -210,6 +210,53 @@ def test_auto_kernel_is_gather_on_the_cpu(models):
     assert srv.cache_stats()["block_size_source"] == "default"
 
 
+def test_resolve_paged_kernel_takes_the_shape():
+    """auto resolves per shape: on a CUDA device the exact kernel where it
+    has a launch plan, else the online one, else an error at
+    construction (never gather there); on the CPU gather, as the
+    reference's auto off a TPU. Shapes: (slots, n_kv, W*g, maxb, bs, hd,
+    element size)."""
+    from hpx_tpu_torch.models.serving import _resolve_paged_kernel
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+
+    def resolve(kernel, device, *shape):
+        return _resolve_paged_kernel(kernel, {}, device, *shape)
+    decode = (8, 8, 1, 64, 16, 128, 2)
+    assert resolve(None, cuda, *decode) == "fused"
+    assert resolve("auto", cpu, *decode) == "gather"
+    for k in ("gather", "fused", "fused_online"):
+        assert resolve(k, cuda, *decode) == k
+        assert resolve(k, cpu, *decode) == k
+    # the exact kernel's scores do not fit (W*g*S/8 above its cap): online
+    too_long = (1, 1, 20, 1536, 16, 64, 4)
+    assert resolve("auto", cuda, *too_long) == "fused_online"
+    with pytest.raises(ValueError, match="fused"):
+        resolve("fused", cuda, *too_long)
+    assert resolve("fused", cpu, *too_long) == "fused"
+    # no kernel takes head_dim 2048: the error names the shape
+    with pytest.raises(ValueError, match="head_dim 2048"):
+        resolve("auto", cuda, 8, 8, 1, 64, 16, 2048, 2)
+    assert resolve("auto", cpu, 8, 8, 1, 64, 16, 2048, 2) == "gather"
+    # shapes one of the kernels took before their split walk, and that
+    # its first plans refused (blocks too long for a stage, a chunk of
+    # fewer blocks): each resolves to a kernel with a plan
+    for shape, want in (((8, 8, 1, 4, 256, 128, 4), "fused"),
+                        ((8, 8, 1, 4, 128, 224, 4), "fused"),
+                        ((8, 8, 1, 4, 256, 224, 2), "fused"),
+                        ((8, 8, 1, 8, 64, 328, 4), "fused"),
+                        ((4, 1, 20, 1 << 16, 1, 336, 4), "fused_online")):
+        assert resolve("auto", cuda, *shape) == want, shape
+
+
+def test_paged_kernel_is_resolved_at_construction(models):
+    _, _, pcfg, pp = models["mha"]
+    srv = ContinuousServer(pp, pcfg, slots=2, smax=64, paged=True,
+                           paged_kernel="fused_online", device="cpu")
+    assert srv.paged_kernel == "fused_online"
+    dense = ContinuousServer(pp, pcfg, slots=2, smax=64, device="cpu")
+    assert dense.paged_kernel is None
+
+
 def test_submit_and_shutdown_errors_match_the_reference(models):
     rcfg, rp, pcfg, pp = models["mha"]
     ref = RefServer(rp, rcfg, slots=2, smax=16)
