@@ -31,6 +31,9 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    (W*g*S/8) must raise; both kernels at S 49600 and 56960 with 528
    (slot, head) pairs (P = 1, raised for the exact kernel where its run
    does not fit); both kernels at hd 512 of f32 with a halved chunk.
+   Kernel 9 (the FP32 rate probe, fma_chain) bitwise against
+   plain_fma_chain at n in {128, 4096, 2^17 + 384}, steps in {1, 7,
+   1024}, c in {0.9999999, 0.3}.
 3. The main path, through the entry points a user calls, each path with
    the launch counts set to 0 just before it and read just after:
      fused     stencil_fused -> multistep -> multistep_fused (kernel B),
@@ -40,6 +43,25 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
                n = 2^28 and at n = 2^20 + 3;
      dataflow  stencil_dataflow over a CudaExecutor, np = 16 partitions of
                2^20, nt = 32, eager and then watched futures.
+     config #1 SAXPY + dot as examples_cuda/saxpy_cuda.py runs it at n =
+               2^22: z = a*x + y by two hpx.transform calls and dot(z,
+               x) by hpx.transform_reduce under par.on(cuda_executor())
+               on CUDA tensors, with torch's sync debug mode "error"
+               around them (no synchronization, so no copy to the
+               host), every result on cuda:0 until the final float(); z
+               within 2.5e-7 and dot within 1e-5 relative of float64
+               numpy; dot again through torch.add (a known fold) and
+               through a lambda (the general fold, log2(n) rounds),
+               each timed and within 1e-5. Then under par.task with
+               the card held busy (torch.cuda._sleep): the launch
+               returns at once, the future is not ready until the
+               device work is done, and z and dot equal the blocking
+               run's bit for bit.
+     bench     hpx_tpu_torch/tools/bench.py's four metrics once (one
+               chain at each end of each slope): the triad and copy
+               streams at 2^24, kernel 2 at 2^24 (and its device time
+               by events), kernel 9 at 2^17 x 1024 and kernel 1 at 2^19
+               x 1024, the headline last.
      serving   ContinuousServer(paged=True) on cuda:0 at the full width
                of the repo's serving model (benchmarks/serving_bench.py
                at --scale 16: vocab 1024, d_model 1024, 8 heads of 128,
@@ -134,7 +156,8 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    A profiled run of the bf16 training step gives the device busy share.
 4. Timing: each kernel at its main-path shape, CUDA events around runs
    of back-to-back calls (as many as fill about 2 ms), median of 7 runs
-   after warm-up; its plain version, median of 3; and its bound, the
+   after warm-up (kernel 9 at 2^17 x 1024, bound by its operations: 24 a
+   step and element at 67 TFLOP/s); its plain version, median of 3; and its bound, the
    larger of bytes moved (input read once, output written once) over
    3.35 TB/s and operations over the peak of their type (H100 SXM data
    sheet: 67 TFLOP/s FP32, 989 TFLOP/s bf16). The paged kernels are
@@ -174,7 +197,8 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    library_by says which ("profiler" or "events"). The
    training step is timed on the host clock (median of the
    bf16 steps after 2 warm-ups).
-5. Prints {"kernels": [...]} and, last, {"ok": true, "device": ...}.
+5. Prints the bench lines ("bench: {...}"), {"kernels": [...]} and,
+   last, {"ok": true, "device": ...}.
 
 Exits non-zero, and prints no result line, if CUDA is absent, if the
 package cannot be imported, or if any phase fails.
@@ -221,6 +245,10 @@ FLASH_KERNELS = {
 }
 # the ring's chunk kernel -> the TPU kernel its CUDA kernel replaces
 CHUNK_KERNEL = {"flash_attention_chunk": "hpx_tpu/ops/attention_pallas.py:618"}
+# the FP32 rate probe -> bench_vpu_rate's Pallas kernel it replaces
+FMA_KERNEL = {"fma_chain": "bench.py:338"}
+# config #1 (examples_cuda/saxpy_cuda.py) at the size it runs by default
+SAXPY_LOG2N = 22
 # (rtol, atol) of a flash kernel against its plain version: f32 forward,
 # f32 backward (sums of up to Sk terms of exp(s - L)), bf16
 FLASH_TOL = {"fwd": (1e-5, 1e-5), "bwd": (1e-4, 1e-4), "bf16": (2e-2, 2e-2)}
@@ -626,7 +654,7 @@ class Smoke:
     def __init__(self) -> None:
         self.failures = []
         names = ("heat_step_blocked", "multistep_fused", *PAGED_KERNELS,
-                 *FLASH_KERNELS, *CHUNK_KERNEL)
+                 *FLASH_KERNELS, *CHUNK_KERNEL, *FMA_KERNEL)
         self.max_abs_err = {k: 0.0 for k in names}
         # largest |got - want| / (atol + rtol |want|) of a kernel: <= 1
         self.margin = {k: 0.0 for k in names}
@@ -695,6 +723,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         import numpy as np
+        import hpx_tpu_torch as hpx
         from hpx_tpu_torch import CudaExecutor, HighResolutionTimer
         from hpx_tpu_torch.models import serving
         from hpx_tpu_torch.models import stencil1d as s1
@@ -702,6 +731,7 @@ def main() -> int:
         from hpx_tpu_torch.ops import _build
         from hpx_tpu_torch.ops import attention_cuda as ac
         from hpx_tpu_torch.ops import paged_attention as pa
+        from hpx_tpu_torch.ops import fma_rate as fr
         from hpx_tpu_torch.ops import stencil as st
     except ImportError as e:
         print(f"chip_smoke: cannot import hpx_tpu_torch: {e}",
@@ -718,7 +748,8 @@ def main() -> int:
     kernels = (st.heat_step_blocked, st.multistep_fused,
                ac.fused_paged_attention, ac.fused_paged_online_attention,
                ac.flash_attention_fwd, ac.flash_attention_bwd_dq,
-               ac.flash_attention_bwd_dkv, ac.flash_attention_chunk)
+               ac.flash_attention_bwd_dkv, ac.flash_attention_chunk,
+               fr.fma_chain)
 
     def plan_of(kind, q, k_pool, v_pool, table, *_):
         """(P, stages, cb, shared-memory bytes, sub): the wrapper's own
@@ -798,6 +829,22 @@ def main() -> int:
                                 st.plain_multistep(u, 0.3, steps),
                                 f"kernel B n={n} steps={steps}")
     sm.phase("kernel checks", kernel_checks)
+
+    def fma_kernel_checks():
+        """Kernel 9 against plain_fma_chain, bitwise, at bench.py's size
+        and off it, for the coefficient bench.py uses and an inexact
+        one (c * u is then rounded inside the FMA)."""
+        n_cases = 0
+        for n in (128, 4096, (1 << 17) + 128 * 3):
+            u = torch.rand(n, generator=gen, device="cuda")
+            for steps in (1, 7, 1024):
+                for c in (0.9999999, 0.3):
+                    sm.expect_equal("fma_chain", fr.fma_chain(u, c, steps),
+                                    fr.plain_fma_chain(u, c, steps),
+                                    f"kernel 9 n={n} steps={steps} c={c}")
+                    n_cases += 1
+        print(f"   {n_cases} kernel 9 cases bitwise equal", flush=True)
+    sm.phase("fma_rate kernel checks", fma_kernel_checks)
 
     def paged_state(b, maxb, bs, nkv, g, hd, w, pool_dt, q_dt, seed):
         """Random pools, a shuffled table (logical != physical, block 0
@@ -1518,6 +1565,114 @@ def main() -> int:
                                      "stencil_serial")
             print(f"   dataflow ({mode}) equals stencil_serial")
 
+    def saxpy_path():
+        """Config #1 as examples_cuda/saxpy_cuda.py runs it: z = a*x + y
+        by two transforms, then dot(z, x) by transform_reduce, all under
+        par.on(cuda_executor()) on CUDA tensors. No synchronization and
+        so no copy to the host while the algorithms run (torch's sync
+        debug mode set to "error" around them), every result a tensor
+        on cuda:0 until the final float(); z within Z_RTOL and dot
+        within DOT_RTOL of float64 numpy, and so is dot through a known
+        and through the general fold. Then the same under par.task:
+        with the card held busy by torch.cuda._sleep, the launching
+        thread returns at once and the future is not ready until the
+        device work is done; its z and dot equal the blocking run's
+        bit for bit (the same kernels on the same inputs)."""
+        from examples_cuda import saxpy_cuda as sx
+        n, a = 1 << SAXPY_LOG2N, 2.5
+        ex = hpx.cuda_executor()
+        policy = hpx.par.on(ex)
+        x, y = sx.inputs(n, ex.target.device)
+        torch.cuda.synchronize()
+        mode = torch.cuda.get_sync_debug_mode()
+        t = HighResolutionTimer()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            z, dot = sx.saxpy_dot(policy, x, y, a)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        enqueue = t.elapsed()
+        for name_, v in (("z", z), ("dot", dot)):
+            if not isinstance(v, torch.Tensor) or v.device != x.device:
+                raise AssertionError(f"config #1: {name_} is not a tensor "
+                                     f"on {x.device}: {type(v)}")
+        if z.shape != x.shape or not bool(torch.isfinite(z).all()):
+            raise AssertionError("config #1: z not finite or misshapen")
+        z64, dot64 = sx.reference(x, y, a)
+        z_rel = float(np.max(np.abs(z.cpu().numpy() - z64) / np.abs(z64)))
+        dot_rel = abs(float(dot) - dot64) / abs(dot64)
+        print(f"   n=2^{SAXPY_LOG2N} on {x.device}: dot {float(dot)!r}, "
+              f"float64 {dot64!r}, relative {dot_rel!r} (<= "
+              f"{sx.DOT_RTOL}); z max relative {z_rel!r} (<= "
+              f"{sx.Z_RTOL}); enqueued in {enqueue * 1e3!r} ms with no "
+              "synchronization", flush=True)
+        if z_rel > sx.Z_RTOL or dot_rel > sx.DOT_RTOL:
+            raise AssertionError(f"config #1 off float64: z {z_rel}, "
+                                 f"dot {dot_rel}")
+        # the same dot through a reduce operator with no known fold: the
+        # general device fold (algo/reductions._tree_fold, log2(n) rounds
+        # of the vmapped op), timed beside the known fold's
+        times = {}
+        for name_, op in (("known fold", torch.add),
+                          ("general fold", lambda p, q: p + q)):
+            torch.cuda.synchronize()
+            t = HighResolutionTimer()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                d = hpx.transform_reduce(policy, z, 0.0, op, torch.mul,
+                                         rng2=x)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            torch.cuda.synchronize()
+            times[name_] = t.elapsed()
+            rel = abs(float(d) - dot64) / abs(dot64)
+            print(f"   transform_reduce, {name_}: {times[name_] * 1e3!r} ms "
+                  f"to the result, dot relative {rel!r} (<= "
+                  f"{sx.DOT_RTOL})", flush=True)
+            if not rel <= sx.DOT_RTOL:
+                raise AssertionError(f"config #1 {name_} off float64: {rel}")
+        task = policy.task
+        torch.cuda.synchronize()
+        t = HighResolutionTimer()
+        torch.cuda._sleep(1_000_000_000)    # ~0.5 s of device work ahead
+        f1 = hpx.transform(task, x, lambda xi: a * xi)
+        launched = t.elapsed()
+        early = f1.is_ready()
+        z1 = f1.get(timeout=60)
+        waited = t.elapsed()
+        z2 = hpx.transform(task, z1, torch.add, rng2=y).get(timeout=60)
+        fd = hpx.transform_reduce(task, z2, 0.0, torch.add, torch.mul,
+                                  rng2=x)
+        if not isinstance(fd, hpx.Future):
+            raise AssertionError(f"par.task returned {type(fd)}")
+        dot_t = fd.get(timeout=60)
+        print(f"   par.task: launch returned after {launched * 1e3!r} ms, "
+              f"future ready then: {early}; ready after {waited * 1e3!r} "
+              f"ms; dot {float(dot_t)!r}", flush=True)
+        if early or launched > 0.05 or waited < 0.1:
+            raise AssertionError("par.task: the future was ready before "
+                                 "the device work, or the launch waited")
+        if not (torch.equal(z2, z) and torch.equal(dot_t, dot)):
+            raise AssertionError("par.task results differ from the "
+                                 "blocking run's")
+
+    bench_lines = []
+
+    def bench_path():
+        """hpx_tpu_torch/tools/bench.py's four metrics once (one sample
+        of one chain at each end of each slope): kernel 9 (the probe),
+        kernel 2 and kernel 1 run on this path; the headline last."""
+        from hpx_tpu_torch.tools import bench
+        lines = bench.run(samples=1, repeats=1, smi=smi)
+        got = [line["metric"] for line in lines]
+        want = ["stream_triad_gbs", "copy_stream_elems",
+                "1d_stencil_unfused_cell_updates", "1d_stencil_cell_updates"]
+        if got != want or not all(
+                math.isfinite(line["value"]) and line["value"] > 0
+                for line in lines):
+            raise AssertionError(f"bench lines {got}: {lines}")
+        bench_lines.extend(lines)
+
     # the serving model at full width; mixes (a) and (b) from seeds
     rng = np.random.default_rng(0)
     shared = rng.integers(1, 1000, 64).tolist()
@@ -1712,6 +1867,8 @@ def main() -> int:
     for name_, fn in (("main path: fused", fused),
                       ("main path: unfused", unfused),
                       ("main path: dataflow", dataflow),
+                      ("main path: config #1 (SAXPY + dot)", saxpy_path),
+                      ("main path: bench script", bench_path),
                       ("main path: serving f32", serving_f32),
                       ("main path: serving f32, blocks of 256 rows",
                        serving_long_blocks),
@@ -2066,6 +2223,7 @@ def main() -> int:
                                library=None, shape=shape)
             del u
             torch.cuda.empty_cache()
+        time_fma()
         time_paged()
         time_flash()
         time_chunk()
@@ -2078,6 +2236,23 @@ def main() -> int:
                       "events", "host", "library_events",
                       "library_profiler") if x in t)
                   + f"launches={sm.launches[k.split()[0]]} on {smi}")
+
+    def time_fma():
+        """Kernel 9 at bench.py's shape (2^17 elements, 1024 iterations,
+        c 0.9999999): bound by operations (8 FMA of 2 and 8 more a
+        step), bytes the array read and written once."""
+        n, steps = fr.N, fr.STEPS
+        u = torch.rand(n, generator=gen, device="cuda")
+        ms = _cuda_ms(lambda: fr.fma_chain(u, 0.9999999, steps), 7)
+        plain = _cuda_ms(lambda: fr.plain_fma_chain(u, 0.9999999, steps), 3)
+        bound, by = _bound(8 * n, fr.OPERATIONS_PER_STEP * n * steps)
+        timing["fma_chain"] = dict(
+            ms=ms, plain=plain, bound=bound, by=by, library=None,
+            shape=f"n=2^17 steps={steps}")
+        print(f"   kernel 9: {ms!r} ms = "
+              f"{n * steps * fr.INSTRUCTIONS_PER_STEP / ms / 1e9!r} x 1e12 "
+              f"FP32 instructions/s, {bound / ms * 100!r} % of its bound "
+              f"({by}); on {smi}", flush=True)
 
     def time_paged():
         """Kernels 3 and 4 at the full-width decode shape (B 8, W 1, 8
@@ -2335,8 +2510,10 @@ def main() -> int:
 
     replaces = {"heat_step_blocked": "hpx_tpu/ops/stencil.py:110",
                 "multistep_fused": "hpx_tpu/ops/stencil.py:44",
-                **PAGED_KERNELS, **FLASH_KERNELS, **CHUNK_KERNEL}
+                **PAGED_KERNELS, **FLASH_KERNELS, **CHUNK_KERNEL,
+                **FMA_KERNEL}
     sources = {"heat_step_blocked": "stencil", "multistep_fused": "stencil",
+               "fma_chain": "fma_rate",
                **{k: "paged_attention" for k in PAGED_KERNELS},
                **{k: "flash_attention" for k in (*FLASH_KERNELS,
                                                  *CHUNK_KERNEL)}}
@@ -2361,6 +2538,8 @@ def main() -> int:
           f"sharded step (4 ranks on make_mesh_3d(4), same model and "
           f"batch, host clock; {ring['what']}): {ring['step_ms']!r} "
           f"ms; card: {smi}")
+    for line in bench_lines:
+        print(f"bench: {json.dumps(line)}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -13,16 +13,26 @@ Public API façade mirroring HPX's umbrella headers (hpx/hpx.hpp):
     hpx.when_all(fs); hpx.wait_all(fs)   # combinators
     hpx.cuda_executor().async_execute(fn, tensor)   # device launch
 
+    # config #1: SAXPY + dot, the whole algorithm on the card
+    policy = hpx.par.on(hpx.cuda_executor())
+    z = hpx.transform(policy, x, lambda xi: a * xi)
+    dot = hpx.transform_reduce(policy, z, 0.0, operator.add,
+                               operator.mul, rng2=y)
+
 The device path runs on ``cuda:0`` unless a caller passes
 ``device="cpu"``.
 """
 
+from .core.version import HPX_TPU_VERSION, full_version_as_string  # noqa: F401
 from .core.errors import Error, ErrorCode, HpxError  # noqa: F401
 from .core.config import Configuration  # noqa: F401
 from .core.timing import (  # noqa: F401
-    HighResolutionTimer, high_resolution_clock_now,
+    HighResolutionTimer, TimedExecutor, async_after, async_at,
+    high_resolution_clock_now, sleep_for, sleep_until,
 )
 from .runtime import batch_environments  # noqa: F401
+
+__version__ = full_version_as_string()
 
 # -- futures / async / dataflow ---------------------------------------------
 from .futures import (  # noqa: F401
@@ -32,15 +42,30 @@ from .futures import (  # noqa: F401
     when_all, when_any, when_each, when_some,
     wait_all, wait_any, wait_each, wait_some, split_future,
 )
+from .futures.task_group import TaskGroup, task_group  # noqa: F401
+from . import lcos  # noqa: F401
 from .synchronization import (  # noqa: F401
     Latch, Mutex, enable_lock_verification,
 )
 
-# -- executors ---------------------------------------------------------------
+# -- executors & execution policies ------------------------------------------
 from .exec import (  # noqa: F401
     BaseExecutor, SequencedExecutor, ParallelExecutor, ThreadPoolExecutor,
     ForkJoinExecutor, CudaExecutor, Target, get_future,
+    ExecutionPolicy, seq, par, par_unseq, unseq, simd, par_simd,
+    static_chunk_size, auto_chunk_size, dynamic_chunk_size,
+    guided_chunk_size, num_cores,
 )
 
 # the HPX spelling (hpx::cuda::experimental::cuda_executor)
 cuda_executor = CudaExecutor
+
+# -- parallel algorithms (one device) ----------------------------------------
+from .algo import (  # noqa: F401
+    for_each, for_each_n, for_loop, transform, copy, copy_n, copy_if,
+    fill, fill_n, generate, generate_n,
+    reduce, transform_reduce, count, count_if,
+    all_of, any_of, none_of, min_element, max_element, minmax_element,
+    equal, mismatch, find, find_if,
+    induction, reduction,
+)

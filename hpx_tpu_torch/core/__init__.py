@@ -1,4 +1,4 @@
-from . import config, errors  # noqa: F401
+from . import config, errors, version  # noqa: F401
 from .config import Configuration  # noqa: F401
 from .errors import (  # noqa: F401
     BadParameter,

@@ -97,6 +97,12 @@ declare("hpx.cuda.watcher_threads", "int", "2",
 declare("hpx.cuda.eager_futures", "bool", "1",
         "device futures ready at dispatch")
 
+# -- execution parameters (algo/ chunking) ---------------------------------
+declare("hpx.exec.default_chunk", "str", "auto",
+        "default chunker: auto | static[:N] | dynamic[:N] | guided | N")
+declare("hpx.exec.min_chunk_size", "int", "1",
+        "floor on per-chunk iterations for auto/guided chunking")
+
 # -- KV cache (paged serving) -----------------------------------------------
 declare("hpx.cache.block_size", "str", "auto",
         "KV tokens per paged block (auto: HPX_PAGED_BLOCK env, then the "

@@ -205,6 +205,20 @@ class RequestShedError(HpxError):
         self.reason = reason
 
 
+class ConcretizationTypeError(TypeError):
+    """A function mapped over a range on the device path (the algorithms'
+    ``vmap``) asked for the Python value of an element (``float(x)``,
+    ``x.item()``). The name and base class (TypeError) of
+    ``jax.errors.ConcretizationTypeError``, which the reference raises
+    for the same function under ``jax.vmap``."""
+
+
+class TracerBoolConversionError(ConcretizationTypeError):
+    """A mapped function branched on an element (``if x > 0``): Python
+    control flow that depends on the data. The name and bases of
+    ``jax.errors.TracerBoolConversionError``."""
+
+
 def throw_exception(code: Error, message: str = "", function: str = "") -> None:
     """HPX_THROW_EXCEPTION analog."""
     raise HpxError(code, message, function)

@@ -226,14 +226,20 @@ class CudaExecutor(BaseExecutor):
 
     def async_execute(self, fn: Callable[..., Any], *args: Any,
                       **kwargs: Any) -> Future:
+        return self._submit(fn, args, kwargs, watch=not self.eager)
+
+    def _submit(self, fn: Callable[..., Any], args: tuple, kwargs: dict,
+                watch: bool) -> Future:
+        """Launch fn; with ``watch`` its future completes when fn's device
+        work is done (the watcher waits on an event recorded behind fn's
+        kernels, the launching thread never synchronizes), else at once.
+        async_execute watches in watched mode; the algorithms' task
+        policy (``par.task``) watches in either mode."""
         try:
-            value, event = self._launch(fn, args, kwargs,
-                                        record=not self.eager)
+            value, event = self._launch(fn, args, kwargs, record=watch)
         except Exception as e:  # noqa: BLE001 — launch-time errors
             return make_exceptional_future(e)
-        if self.eager:
-            return make_ready_future(value)
-        return get_future(value, event)
+        return get_future(value, event) if watch else make_ready_future(value)
 
     def then_execute(self, fn: Callable[..., Any], predecessor: Future,
                      *args: Any) -> Future:

@@ -29,3 +29,4 @@ from .combinators import (  # noqa: F401
     when_some,
 )
 from .dataflow import dataflow, unwrapping  # noqa: F401
+from .task_group import TaskGroup, task_group  # noqa: F401

@@ -12,10 +12,10 @@ build to seconds; the wrappers in ``ops/`` set each function's
 ``argtypes`` and ``restype``.
 
 Flags: every source gets ``NVCC_FLAGS``, plus its entry in
-``SOURCE_FLAGS``. The stencil kernels equal their plain versions bit
-for bit only without mul+add contraction (``--fmad=false``); the
-paged-attention kernels are held to a tolerance, so they keep nvcc's
-default contraction into FMA.
+``SOURCE_FLAGS``. The stencil kernels and the FMA probe equal their
+plain versions bit for bit only without mul+add contraction
+(``--fmad=false``); the paged-attention kernels are held to a tolerance,
+so they keep nvcc's default contraction into FMA.
 """
 
 from __future__ import annotations
@@ -40,9 +40,10 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",          # registers, shared memory, spills: into the log
 )
 SOURCE_FLAGS: Dict[str, tuple] = {
-    # no mul+add contraction into FMA: the stencil kernels equal their
-    # plain PyTorch versions bit for bit
+    # no mul+add contraction into FMA: the stencil kernels and the FMA
+    # probe equal their plain PyTorch versions bit for bit
     "stencil": ("--fmad=false",),
+    "fma_rate": ("--fmad=false",),
 }
 
 

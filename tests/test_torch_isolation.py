@@ -43,7 +43,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples_cuda").rglob("*.py")),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_the_reference(path):
     found = FORBIDDEN.findall(path.read_text())
@@ -143,3 +144,42 @@ def test_training_entry_points_need_cuda_unless_the_cpu_is_asked_for(
     assert loss.device == torch.device("cpu") and torch.isfinite(loss)
     x = torch.zeros((1, 4, 2, 4))
     assert attention_cuda.flash_attention(x, x, x).device == x.device
+
+
+def test_policies_on_the_cuda_executor_need_cuda_unless_the_cpu_is_asked_for(
+        monkeypatch):
+    """par.on(cuda_executor()) — config #1's spelling — raises without
+    CUDA, as do the algorithms' entry points, the examples and the entry
+    point that default to cuda:0; the CPU runs only when it is asked for.
+    """
+    import importlib.util
+    from hpx_tpu_torch import entry
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        hpx_tpu_torch.par.on(hpx_tpu_torch.cuda_executor())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry.entry()
+    for name in ("saxpy_cuda.py", "1d_stencil.py"):
+        spec = importlib.util.spec_from_file_location(
+            name[:-3], ROOT / "examples_cuda" / name)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            mod.main(["8"])
+    pol = hpx_tpu_torch.par.on(hpx_tpu_torch.cuda_executor(device="cpu"))
+    out = hpx_tpu_torch.transform(pol, torch.arange(3.0), lambda x: x * 2)
+    assert out.device == torch.device("cpu")
+    fn, args = entry.entry(device="cpu")
+    assert fn(*args).device == torch.device("cpu")
+
+
+def test_the_bench_script_and_tools_load_no_jax_and_no_reference():
+    code = ("import sys\n"
+            "import hpx_tpu_torch.tools.bench, hpx_tpu_torch.entry\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('jax', 'jaxlib', 'hpx_tpu'))\n"
+            "sys.exit('loaded: %s' % bad if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -95,3 +95,34 @@ def test_print_time_results_row(capsys):
     mcps = port.print_time_results("fused", 0.5, p)
     assert mcps == pytest.approx(64 * 4 * 20 / 0.5 / 1e6)
     assert "4 partitions" in capsys.readouterr().out
+
+
+def test_entry_equals_the_reference_entry():
+    """hpx_tpu_torch.entry.entry (device "cpu": the fused step's plain
+    version) against __graft_entry__.entry, the same 8 steps on the same
+    domain; tolerance 0."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    import __graft_entry__ as graft
+    from hpx_tpu_torch.entry import entry
+    rfn, rargs = graft.entry()
+    fn, args = entry(device="cpu")
+    assert np.array_equal(np.asarray(rargs[0]), args[0].numpy())
+    assert float(rargs[1]) == args[1]
+    assert np.array_equal(fn(*args).numpy(), np.asarray(rfn(*rargs)))
+
+
+@pytest.mark.parametrize("argv", [["256", "4", "8"], ["37", "5", "23"]])
+def test_1d_stencil_example_runs_on_the_cpu(argv, capsys):
+    """examples_cuda/1d_stencil.py: every variant bitwise equal to the
+    serial one, as examples/1d_stencil.py checks its own (within 1e-4)."""
+    import importlib.util
+    import pathlib
+    path = (pathlib.Path(__file__).resolve().parent.parent / "examples_cuda"
+            / "1d_stencil.py")
+    spec = importlib.util.spec_from_file_location("example_1d_stencil", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.main(argv + ["--cpu"]) == 0
+    assert "all variants agree (bitwise)" in capsys.readouterr().out
