@@ -10,8 +10,10 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
 1. Build: compiles the port's CUDA sources (hpx_tpu_torch/csrc/*.cu, one
    nvcc per source, all started together) and prints each build's time,
    nvcc's register and spill report, and the card's name and power
-   limit (nvidia-smi); the flash library's SASS must hold HGMMA (wgmma)
-   and UTMALDG (TMA loads) instructions (cuobjdump -sass).
+   limit (nvidia-smi); the SASS of the bf16 flash forward
+   (flash_fwd_wgmma) and of the bf16 flash backward (flash_bwd_wgmma)
+   must each hold HGMMA (wgmma) and UTMALDG (TMA loads) instructions
+   (cuobjdump -sass).
 2. Kernel checks: each kernel against its plain PyTorch version on small
    and ragged shapes. The stencil kernels bitwise (tolerance 0); the
    paged-attention kernels within rtol = atol = 1e-5 for float32 output
@@ -92,9 +94,10 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
                2, tp 2): 4 ranks started by hpx_tpu_torch's launcher
                (gloo on one card, nccl with a card a rank). 10 bf16 SGD
                steps that lower the loss, each launching
-               flash_attention_chunk (kernel 8), bwd_dq and bwd_dkv 8
-               times a rank (2 ring steps x 4 layers) and the flash
-               forward never; 3 more with the time in collectives and
+               flash_attention_chunk (kernel 8) and flash_attention_bwd
+               (kernels 6-7 in one) 8 times a rank (2 ring steps x 4
+               layers), the flash forward and the f32 backward kernels
+               never; 3 more with the time in collectives and
                in host staging copies measured; one striped_ring step
                whose loss agrees with the contiguous one within 5e-3
                relative; then in f32 (batch 2 x 1024), contiguous and
@@ -120,11 +123,16 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    200), (1, 200), (300, 129), (1000, 1000), causal or not, MHA and GQA
    (8 q heads over 2), head dims 64 and 128, f32 and bf16, the backward
    at offsets d in {sk - sq, 0, -16}, each given the o and L of the
-   forward at its own offset (so p <= 1, as the ring gives them):
+   forward at its own offset (so p <= 1, as the ring gives them): in
+   f32 the dq and the dk/dv kernels, in bf16 flash_attention_bwd (one
+   kernel) against plain_flash_bwd; the bf16 backward also at B 8 (grids
+   of 132 CTAs or more), MHA and MQA (8 q heads over 1), on (sq, sk) in
+   {(300, 300), (1000, 1000), (257, 1029), (1, 1029)} at every offset;
    rtol = atol = 1e-5 for the f32 forward (o and L), 1e-4 for the
    f32 backward, 2e-2 in bf16, and in bf16 also ||got - want|| /
    ||want|| <= 5e-3 (a skipped 64-row tile, a skipped 128-key tile of
-   the bf16 forward, both simulated on the S 1024 inputs, and the bf16
+   the bf16 forward, the dq partial of one 128-key tile of the bf16
+   backward left out, all simulated on the S 1024 inputs, and the bf16
    forward built to release each K/V stage before its P V completed,
    at H 64 and at H 128 with 128-row CTAs, must read above that); the
    bf16 forward's plain version folds keys in the kernel's tiles of
@@ -148,7 +156,9 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    Before the ring path, 2 ranks try over gloo, on CUDA tensors as they
    are, every torch.distributed verb that collectives.device.GLOO_CUDA
    hands over unstaged: each must run and agree.
-   After the main path, the training width in f32 (batch 2 x 1024):
+   Then the training width in f32 (batch 2 x 1024), a main path of its
+   own (the f32 route of kernels 6 and 7 runs only there and in the
+   ring's f32 gate), its launches counted with the others':
    the loss through the kernels within 1e-5 relative of the loss through
    their plain versions, every weight's gradient within 1e-5 by its norm
    (a dq zeroed on purpose must read above that), and the weights after
@@ -176,15 +186,22 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    The flash kernels are timed in bfloat16, causal, at the training
    shape (B 8, S 1024, 8 heads of 64) and at bench.py:448's (B 2,
    S 4096, 8 heads of 128), their operations counted over the visible
-   (query, key) pairs, beside SDPA (is_causal) for the forward and
-   SDPA's autograd backward (forward + backward less forward) for
-   kernels 6 and 7 together; kernel 5's time is its device time, CUDA
-   events around a CUDA graph of 20 calls (the wrapper's host work, a
-   plan and three TMA tensor maps a call, can outlast the kernel), and
-   SDPA's library time is taken the same way, with the back-to-back
-   event times, SDPA's profiler time and the wrapper's host time a call
-   (the wall clock of calls made while the card is held busy) beside
-   them; the timed inputs are held against the plain version first.
+   (query, key) pairs, beside SDPA (is_causal); each kernel's time is
+   its device time, CUDA events around a CUDA graph of 20 calls (the
+   wrapper's host work, a plan and TMA tensor maps a call, can outlast
+   the kernel), and SDPA's library time is taken the same way, with the
+   back-to-back event times, SDPA's profiler time and the wrapper's host
+   time a call (the wall clock of calls made while the card is held
+   busy) beside them; the timed inputs are held against the plain
+   version first. The backward (kernels 6-7, one launch) is timed
+   alone and as the whole route of _FlashAttention.backward (delta,
+   the dq fill, the kernel, the casts), beside SDPA's flash backward
+   (aten._scaled_dot_product_flash_attention_backward on the saved
+   outputs of its forward) by the same graph; its bound counts the
+   function's least work (10 operations a visible pair and head
+   element; q, k, v, do, L, delta read and dq, dk, dv written once in
+   f32), the split kernels' (14 operations) printed beside; and at the
+   ring's shape (q [32, 512, 64], d = 0 and 512).
    Kernel 8 is timed the same
    way at the ring's shape (q [32, 512, 64] bf16, causal) at d = 0 and
    d = 512; no single
@@ -237,12 +254,18 @@ PAGED_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}
 # bench.py:516-528, the repo's training model
 TRAIN_MODEL = dict(vocab=32768, d_model=512, n_heads=8, head_dim=64,
                    n_layers=4, d_ff=2048, lr=0.01)
-# flash wrapper -> the TPU kernel its CUDA kernel replaces
+# flash wrapper -> the TPU kernel(s) its CUDA kernel replaces: the bf16
+# backward is one kernel for kernels 6 and 7, a row of the kernels line
+# each
 FLASH_KERNELS = {
-    "flash_attention_fwd": "hpx_tpu/ops/attention_pallas.py:112",
-    "flash_attention_bwd_dq": "hpx_tpu/ops/attention_pallas.py:397",
-    "flash_attention_bwd_dkv": "hpx_tpu/ops/attention_pallas.py:446",
+    "flash_attention_fwd": ("hpx_tpu/ops/attention_pallas.py:112",),
+    "flash_attention_bwd": ("hpx_tpu/ops/attention_pallas.py:397",
+                            "hpx_tpu/ops/attention_pallas.py:446"),
 }
+# the kernels line's names of flash_attention_bwd's two rows
+BWD_ROWS = ("flash_attention_bwd (dq)", "flash_attention_bwd (dk, dv)")
+# the backward's f32 route: one wrapper (and FP32 kernel) each
+FLASH_F32_BWD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 # the ring's chunk kernel -> the TPU kernel its CUDA kernel replaces
 CHUNK_KERNEL = {"flash_attention_chunk": "hpx_tpu/ops/attention_pallas.py:618"}
 # the FP32 rate probe -> bench_vpu_rate's Pallas kernel it replaces
@@ -498,8 +521,9 @@ def _ring_rank(f32_batch: int) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     mesh = tf.make_mesh_3d(4)
     dev = mesh.device
-    kern = (ac.flash_attention_chunk, ac.flash_attention_bwd_dq,
-            ac.flash_attention_bwd_dkv, ac.flash_attention_fwd)
+    kern = (ac.flash_attention_chunk, ac.flash_attention_bwd,
+            ac.flash_attention_fwd, ac.flash_attention_bwd_dq,
+            ac.flash_attention_bwd_dkv)
     out = {"rank": mesh.rank, "coords": mesh.coords, "device": str(dev),
            "backend": mesh.backend}
 
@@ -654,7 +678,8 @@ class Smoke:
     def __init__(self) -> None:
         self.failures = []
         names = ("heat_step_blocked", "multistep_fused", *PAGED_KERNELS,
-                 *FLASH_KERNELS, *CHUNK_KERNEL, *FMA_KERNEL)
+                 *FLASH_KERNELS, *FLASH_F32_BWD, *CHUNK_KERNEL,
+                 *FMA_KERNEL)
         self.max_abs_err = {k: 0.0 for k in names}
         # largest |got - want| / (atol + rtol |want|) of a kernel: <= 1
         self.margin = {k: 0.0 for k in names}
@@ -747,9 +772,9 @@ def main() -> int:
     sm = Smoke()
     kernels = (st.heat_step_blocked, st.multistep_fused,
                ac.fused_paged_attention, ac.fused_paged_online_attention,
-               ac.flash_attention_fwd, ac.flash_attention_bwd_dq,
-               ac.flash_attention_bwd_dkv, ac.flash_attention_chunk,
-               fr.fma_chain)
+               ac.flash_attention_fwd, ac.flash_attention_bwd,
+               ac.flash_attention_bwd_dq, ac.flash_attention_bwd_dkv,
+               ac.flash_attention_chunk, fr.fma_chain)
 
     def plan_of(kind, q, k_pool, v_pool, table, *_):
         """(P, stages, cb, shared-memory bytes, sub): the wrapper's own
@@ -794,18 +819,21 @@ def main() -> int:
             print(f"   {src}: {info['seconds']:.2f} s, built={info['built']}")
             for kernel, report in _ptxas_report(info["log"]):
                 print(f"     {kernel}: {report}")
-        # the bf16 flash forward runs on wgmma fed by TMA: its SASS holds
-        # HGMMA and UTMALDG instructions
+        # the bf16 flash forward and backward run on wgmma fed by TMA:
+        # the SASS of each holds HGMMA and UTMALDG instructions
         cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
         sass = subprocess.run([cuobjdump, "-sass",
                                _build.BUILD_INFO["flash_attention"]["path"]],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
-        counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
-        print(f"   flash_attention SASS: {counts}", flush=True)
-        if not all(counts.values()):
-            raise AssertionError(f"the flash library has no wgmma or TMA "
-                                 f"load: {counts}")
+        for kern in ("flash_fwd_wgmma", "flash_bwd_wgmma"):
+            body = "".join(f for f in sass.split("Function : ")[1:]
+                           if kern in f.split("\n", 1)[0])
+            counts = {op: body.count(op) for op in ("HGMMA", "UTMALDG")}
+            print(f"   {kern} SASS: {counts}", flush=True)
+            if not all(counts.values()):
+                raise AssertionError(f"{kern} has no wgmma or TMA load: "
+                                     f"{counts}")
     if not sm.phase("build", build):
         return 1
 
@@ -1074,10 +1102,10 @@ def main() -> int:
     @contextlib.contextmanager
     def plain_flash():
         """flash_attention's autograd Function over the plain versions,
-        on the card: the three wrappers swapped for their plain versions
+        on the card: the flash wrappers swapped for their plain versions
         (the forward's in its kernel's tiles) while the block runs (for
         comparisons; nothing is launched)."""
-        names = tuple(FLASH_KERNELS)
+        names = (*FLASH_KERNELS, *FLASH_F32_BWD)
         saved = [getattr(ac, k) for k in names]
         for k in names:
             setattr(ac, k, plain_fwd if k == "flash_attention_fwd" else
@@ -1099,10 +1127,11 @@ def main() -> int:
     def tile_fault_readings(q, k, v, do, causal, tile=64):
         """What the norm check reads where a kernel skips one tile of
         ``tile`` rows: for each tile t, ||x_t - x|| / ||x|| with x_t the
-        output without t (o: the forward skips key tile t; dq: the dq
-        kernel skips key tile t; dk, dv: the dkv kernel skips q tile t),
-        in f32 on these inputs (MHA, sq == sk). Returns the smallest over
-        t."""
+        output without t (o: the forward skips key tile t; dq: key tile
+        t's dq partial is left out, as the bf16 backward would by
+        dropping one CTA's dq reduce at tile 128; dk, dv: q tile t is
+        skipped, as the bf16 backward would skip one 64-row tile), in f32
+        on these inputs (MHA, sq == sk). Returns the smallest over t."""
         q, k, v, do = (x.float() for x in (q, k, v, do))
         scale = 1.0 / math.sqrt(q.shape[-1])
         s = torch.einsum("rqh,rkh->rqk", q, k) * scale
@@ -1172,6 +1201,40 @@ def main() -> int:
         o = torch.where(live[..., None], acc / l1[..., None], 0.0)
         return o.to(q.dtype), torch.where(live, m + torch.log(l1), 0.0)
 
+    def bwd_edges(seeds):
+        """The bf16 backward where its design has edges: B 8 (grids of 132
+        CTAs or more at MHA), MQA 8/1 (a CTA walks the 8 q heads of its
+        K/V row), Sk not a multiple of its 128-key tiles, Sq = 1 at d < 0
+        (no key seen: dq 0); H 64 and 128, causal or not, every offset
+        with its own forward's L."""
+        n, worst = 0, 0.0
+        for h in ac.FLASH_HEAD_DIMS:
+            for sq, sk in ((300, 300), (1000, 1000), (257, 1029), (1, 1029)):
+                for causal in (False, True):
+                    for nq, nkv in ((8, 8), (8, 1)):
+                        q, k, v, do = flash_state(8, sq, sk, nq, nkv, h,
+                                                  torch.bfloat16, next(seeds))
+                        for d in ((sk - sq, 0, -16) if causal
+                                  else (sk - sq,)):
+                            od, ld = forward_at(q, k, v, d, causal)
+                            args = (q, k, v, do, ac.bwd_prep(do, od), ld, d,
+                                    causal, nq, nkv)
+                            got = ac.flash_attention_bwd(*args)
+                            want = ac.plain_flash_bwd(*args)
+                            for name, g, wt in zip(("dq", "dk", "dv"), got,
+                                                   want):
+                                worst = max(worst, sm.expect_close(
+                                    "flash_attention_bwd", g, wt,
+                                    f"{name} bf16 hd {h} B 8 sq {sq} sk {sk} "
+                                    f"causal {causal} heads {nq}/{nkv} d {d}",
+                                    quiet=True, tol=FLASH_TOL["bf16"],
+                                    norm=True))
+                            n += 1
+        print(f"   {n} bf16 backward cases at B 8 (MHA: 64 K/V rows; MQA "
+              f"8/1), sq 1-1000, sk 300-1029, every offset: max abs err "
+              f"{worst!r} (tolerance {FLASH_TOL['bf16']}, by the norm <= "
+              f"{FLASH_NORM_REL})", flush=True)
+
     def flash_kernel_checks():
         n = 0
         seeds = itertools.count(1)
@@ -1181,7 +1244,7 @@ def main() -> int:
             tf = FLASH_TOL["fwd" if f32 else "bf16"]
             tb = FLASH_TOL["bwd" if f32 else "bf16"]
             for h in (64, 128):
-                worst = {k: 0.0 for k in FLASH_KERNELS}
+                worst = {}
                 for sq, sk in ((1, 1), (37, 53), (48, 16), (16, 48),
                                (129, 129), (200, 200), (1, 200), (300, 129),
                                (1000, 1000), (1024, 1024)):
@@ -1201,7 +1264,7 @@ def main() -> int:
                                 f"L {what}", quiet=True,
                                 tol=FLASH_TOL["fwd"])]
                             worst["flash_attention_fwd"] = max(
-                                worst["flash_attention_fwd"], *errs)
+                                worst.get("flash_attention_fwd", 0.0), *errs)
                             # the backward (kernels 6-7) at offsets d, each
                             # given the o and L of the forward at its own
                             # offset, so that L covers every key a row
@@ -1214,40 +1277,54 @@ def main() -> int:
                                 args = (q, k, v, do, ac.bwd_prep(do, od), ld,
                                         d, causal)
                                 w = f"{what} d {d}"
-                                got = (ac.flash_attention_bwd_dq(*args),
-                                       *ac.flash_attention_bwd_dkv(*args))
-                                want = (ac.plain_flash_bwd_dq(*args),
-                                        *ac.plain_flash_bwd_dkv(*args))
+                                if f32:     # the dq, then the dk/dv kernel
+                                    got = (ac.flash_attention_bwd_dq(*args),
+                                           *ac.flash_attention_bwd_dkv(
+                                               *args))
+                                    want = (ac.plain_flash_bwd_dq(*args),
+                                            *ac.plain_flash_bwd_dkv(*args))
+                                    kerns = (FLASH_F32_BWD[0],
+                                             *FLASH_F32_BWD[1:] * 2)
+                                else:       # one kernel, dk/dv per K/V row
+                                    got = ac.flash_attention_bwd(*args, nq,
+                                                                 nkv)
+                                    want = ac.plain_flash_bwd(*args, nq,
+                                                              nkv)
+                                    kerns = ("flash_attention_bwd",) * 3
                                 for name, g, wt, kern in zip(
                                         ("dq", "dk", "dv"), got, want,
-                                        ("flash_attention_bwd_dq",
-                                         "flash_attention_bwd_dkv",
-                                         "flash_attention_bwd_dkv")):
+                                        kerns):
                                     err = sm.expect_close(
                                         kern, g, wt, f"{name} {w}",
                                         quiet=True, tol=tb, norm=not f32)
-                                    worst[kern] = max(worst[kern], err)
+                                    worst[kern] = max(worst.get(kern, 0.0),
+                                                      err)
                             if sq == sk == 1024 and nq == nkv and not f32:
                                 faults.append(tile_fault_readings(
                                     q, k, v, do, causal))
                                 faults128.append(tile_fault_readings(
-                                    q, k, v, do, causal,
-                                    ac.FLASH_TILE_N)["o"])
+                                    q, k, v, do, causal, ac.FLASH_TILE_N))
                             n += 1
                 print(f"   flash {dt} hd {h}: within fwd {tf}, bwd {tb}; "
                       f"max abs err {worst}", flush=True)
         print(f"   {n} flash-kernel cases passed (forward, and backward "
               "at every offset d); largest error over its tolerance: "
-              f"{ {k: sm.margin[k] for k in FLASH_KERNELS} }", flush=True)
+              f"{ {k: sm.margin[k] for k in (*FLASH_KERNELS, *FLASH_F32_BWD)} }",
+              flush=True)
         print(f"   bf16 norm-relative readings, largest of every case: "
               f"{sm.norm_rel} (limit {FLASH_NORM_REL})", flush=True)
         fault = {k: min(f[k] for f in faults) for k in faults[0]}
+        fault128 = {k: min(f[k] for f in faults128) for k in ("o", "dq")}
         print(f"   planted fault, one 64-row tile skipped (S 1024, MHA, "
-              f"bf16 inputs; smallest reading over tiles, hd and causal): "
-              f"{fault}", flush=True)
-        if min(fault.values()) <= FLASH_NORM_REL:
+              f"bf16 inputs; smallest reading over tiles, hd and causal; "
+              f"dk, dv: a q tile of the bf16 backward): {fault}; the bf16 "
+              f"backward's dq partial of one 128-key tile left out: "
+              f"{fault128['dq']!r}", flush=True)
+        if min(fault.values()) <= FLASH_NORM_REL or \
+                fault128["dq"] <= FLASH_NORM_REL:
             raise AssertionError(f"the norm check would miss a skipped "
-                                 f"tile: {fault}")
+                                 f"tile: {fault}, {fault128}")
+        bwd_edges(seeds)
         # the 128-row CTA of the bf16 forward (two consumer warpgroups):
         # H 128 on grids of 132 CTAs or more (B 8 x 8 heads), ragged,
         # causal at offsets d = +-64 that put a key tile past one
@@ -1283,13 +1360,13 @@ def main() -> int:
         early = early_release_readings()
         print(f"   planted faults of the bf16 forward (S 1024, MHA): one "
               f"128-key tile skipped, smallest reading over tiles, hd and "
-              f"causal {min(faults128)!r}; each stage released before its "
+              f"causal {fault128['o']!r}; each stage released before its "
               f"P V completed {early} (limit {FLASH_NORM_REL})",
               flush=True)
-        if min(faults128) <= FLASH_NORM_REL or \
+        if fault128["o"] <= FLASH_NORM_REL or \
                 min(early.values()) <= FLASH_NORM_REL:
             raise AssertionError("the norm check would miss a fault of the "
-                                 f"bf16 forward: {min(faults128)}, {early}")
+                                 f"bf16 forward: {fault128['o']}, {early}")
         # the bf16 forward's layout: the plan's sizes equal fwd_layout's
         lib = ac._flash_lib()
         plans = ((64, 64), (128, 64), (128, 128))
@@ -1303,6 +1380,14 @@ def main() -> int:
         print(f"   bf16 forward's shared memory: attention_cuda.py's sizes "
               f"equal fwd_layout's on the {len(plans)} built plans",
               flush=True)
+        for h in ac.FLASH_HEAD_DIMS:
+            want = ac.flash_bwd_plan(h, 64, 1024)[2]
+            got = lib.hpx_flash_bwd_smem_bytes(h)
+            if got != want or want != ac.flash_bwd_smem_bytes(h):
+                raise AssertionError(f"bf16 backward, H {h}: the plan's "
+                                     f"{want} bytes, bwd_layout's {got}")
+        print("   bf16 backward's shared memory: flash_bwd_plan's sizes "
+              "equal bwd_layout's at H 64 and 128", flush=True)
         # the autograd Function's gradients through the kernels against
         # the same Function over the plain versions, [B, S, N, H]
         for dt, (sq, sk, nq, nkv, h, causal) in (
@@ -1326,10 +1411,11 @@ def main() -> int:
             with plain_flash():
                 want = grads()
             tol = FLASH_TOL["bf16"] if dt == torch.bfloat16 else None
+            bwd = (("flash_attention_bwd",) * 3 if tol else
+                   (FLASH_F32_BWD[0], *FLASH_F32_BWD[1:] * 2))
             for name, g, wt, kern in zip(
                     ("o", "dq", "dk", "dv"), got, want,
-                    ("flash_attention_fwd", "flash_attention_bwd_dq",
-                     "flash_attention_bwd_dkv", "flash_attention_bwd_dkv")):
+                    ("flash_attention_fwd", *bwd)):
                 t = tol or FLASH_TOL["fwd" if name == "o" else "bwd"]
                 sm.expect_close(kern, g, wt,
                                 f"flash_attention {name} {dt} sq {sq} sk "
@@ -1819,7 +1905,11 @@ def main() -> int:
         gen = torch.Generator(device="cuda").manual_seed(1)
         toks, tgts = tf.sample_batch(cfg, 8, 1024, generator=gen)
         step = tf.make_train_step(cfg)
-        flash = [getattr(ac, k) for k in FLASH_KERNELS]
+        names = (*FLASH_KERNELS, *FLASH_F32_BWD)
+        flash = [getattr(ac, k) for k in names]
+        # a layer a step: the forward and the bf16 backward (one kernel);
+        # the f32 backward kernels never
+        want = [cfg.n_layers] * len(FLASH_KERNELS) + [0] * len(FLASH_F32_BWD)
         losses, secs = [], []
         torch.cuda.reset_peak_memory_stats()
         for i in range(10):
@@ -1831,10 +1921,9 @@ def main() -> int:
             secs.append(t.elapsed())
             losses.append(float(loss))
             per = [f.launches - b for f, b in zip(flash, before)]
-            if per != [cfg.n_layers] * len(flash):
+            if per != want:
                 raise AssertionError(f"step {i}: launches {per} of "
-                                     f"{list(FLASH_KERNELS)}, want "
-                                     f"{cfg.n_layers} each")
+                                     f"{list(names)}, want {want}")
         if not all(math.isfinite(x) for x in losses) or \
                 not losses[-1] < losses[0]:
             raise AssertionError(f"bf16 losses did not fall: {losses}")
@@ -1843,8 +1932,9 @@ def main() -> int:
                      step_ms=step_s * 1e3, tokens_per_s=toks.numel() / step_s)
         print(f"   bf16 SGD, 10 steps on the fixed batch: losses {losses}",
               flush=True)
-        print(f"   each step launched each flash kernel {cfg.n_layers} "
-              f"times (once a layer); step times {secs} s; median after 2 "
+        print(f"   each step launched the flash forward and the bf16 "
+              f"backward (kernels 6-7 in one) {cfg.n_layers} times (once a "
+              f"layer), the f32 backward kernels never; step times {secs} s; median after 2 "
               f"warm-ups {step_s * 1e3!r} ms = {toks.numel() / step_s!r} "
               f"tokens/s; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB; on {smi}",
@@ -1896,9 +1986,10 @@ def main() -> int:
         g_kernel, l_kernel = grads()
         with plain_flash():
             g_plain, l_plain = grads()
-            # the planted fault: a dq kernel that writes zeros
-            ac.flash_attention_bwd_dq = (
-                lambda q, *a: torch.zeros(q.shape, device=q.device))
+            # the planted fault: a backward whose dq is zeros
+            ac.flash_attention_bwd = (
+                lambda q, *a: (torch.zeros(q.shape, device=q.device),
+                               *ac.plain_flash_bwd(q, *a)[1:]))
             g_fault, _ = grads()
         rel = abs(l_kernel - l_plain) / abs(l_plain)
         reads = {n: _norm_rel(a, b) for n, a, b in zip(names, g_kernel,
@@ -1938,8 +2029,9 @@ def main() -> int:
                                      "between kernels and plain versions")
         print(f"   f32 SGD step: weights max abs err {err!r} (rtol = atol "
               "= 1e-5)", flush=True)
-    if train:
-        sm.phase("training: f32 kernels against plain", training_gate)
+    if train:   # the f32 training path: the backward's f32 kernels' only
+        sm.phase("main path: training f32, kernels against plain",
+                 lambda: run_path(training_gate))
 
     def gloo_cuda():
         """Every verb that collectives.device.GLOO_CUDA hands to gloo on
@@ -1980,18 +2072,18 @@ def main() -> int:
               f"phase); ranks' devices {[r['device'] for r in res]}, "
               f"coords {[r['coords'] for r in res]}, backend "
               f"{r0['backend']}", flush=True)
-        want = [2 * 4, 2 * 4, 2 * 4, 0]    # sp ring steps x layers; no fwd
+        # sp ring steps x layers; no forward, no f32 backward kernel
+        want = [2 * 4, 2 * 4, 0, 0, 0]
         for r in res:
             if any(p != want for p in r["per_step"]):
                 raise AssertionError(
                     f"rank {r['rank']}: launches a step {r['per_step']} of "
-                    "(flash_attention_chunk, bwd_dq, bwd_dkv, fwd), want "
-                    f"{want}")
+                    "(flash_attention_chunk, bwd, fwd, bwd_dq, bwd_dkv), "
+                    f"want {want}")
             if r["losses"] != r0["losses"]:
                 raise AssertionError(f"rank {r['rank']}'s losses differ "
                                      "from rank 0's")
-            for k in ("flash_attention_chunk", "flash_attention_bwd_dq",
-                      "flash_attention_bwd_dkv"):
+            for k in ("flash_attention_chunk", "flash_attention_bwd"):
                 sm.launches[k] += r["launches"][k]
         losses = r0["losses"]
         if not all(math.isfinite(x) for x in losses) or \
@@ -2008,8 +2100,9 @@ def main() -> int:
         rel_s = abs(r0["striped_loss"] - losses[0]) / abs(losses[0])
         print(f"   bf16 SGD, 10 steps on the fixed batch (8 x 1024): losses "
               f"{losses}", flush=True)
-        print(f"   every rank launched flash_attention_chunk, bwd_dq and "
-              f"bwd_dkv 8 times a step and flash_attention_fwd never: "
+        print(f"   every rank launched flash_attention_chunk and "
+              f"flash_attention_bwd 8 times a step, flash_attention_fwd and "
+              f"the f32 backward kernels never: "
               f"{[r['launches'] for r in res]}; peak memory a rank "
               f"{[r['peak_gib'] for r in res]} GiB", flush=True)
         print(f"   step time (host clock, slowest rank, median after 2 "
@@ -2233,8 +2326,9 @@ def main() -> int:
                   f"({t['by']}) library_ms={t['library']!r} "
                   f"({t.get('library_by')}) "
                   + "".join(f"{x}_ms={t[x]!r} " for x in (
-                      "events", "host", "library_events",
-                      "library_profiler") if x in t)
+                      "events", "host", "route", "route_events",
+                      "bound_split", "library_events", "library_profiler",
+                      "library_autograd") if x in t)
                   + f"launches={sm.launches[k.split()[0]]} on {smi}")
 
     def time_fma():
@@ -2384,9 +2478,13 @@ def main() -> int:
 
     def time_flash():
         """Kernels 5-7 in bf16, causal, at the training shape and at
-        bench.py:448's, beside SDPA (forward) and SDPA's autograd
-        backward (kernels 6 and 7 together)."""
+        bench.py:448's, beside SDPA's forward and its flash backward by
+        the same method (a CUDA graph); then the backward at the ring's
+        shape."""
+        import types
         import torch.nn.functional as F
+        aten = torch.ops.aten
+        bf = FLASH_TOL["bf16"]
         for b, seq, n, h in ((8, 1024, 8, 64), (2, 4096, 8, 128)):
             q, k, v, do = flash_state(b, seq, seq, n, n, h, torch.bfloat16,
                                       seed=11)
@@ -2397,34 +2495,53 @@ def main() -> int:
             what = (f"timed inputs B {b} S {seq} {n} x {h} bf16 causal, "
                     f"block_m {ac.flash_fwd_plan(h, b * n, seq)[0]}")
             err = sm.expect_close("flash_attention_fwd", o, po, f"o {what}",
-                                  quiet=True, tol=FLASH_TOL["bf16"],
-                                  norm=True)
+                                  quiet=True, tol=bf, norm=True)
             sm.expect_close("flash_attention_fwd", lse, plse, f"L {what}",
                             quiet=True, tol=FLASH_TOL["fwd"])
-            print(f"   {what}: o max abs err {err!r}, by the norm "
-                  f"{_norm_rel(o, po)!r}; L within {FLASH_TOL['fwd']}",
-                  flush=True)
+            o_norm = _norm_rel(o, po)
             del po, plse
             delta = ac.bwd_prep(do, o)
             args = (q, k, v, do, delta, lse, 0, True)
-            # operations over the visible (query, key) pairs: 2 per
-            # multiply-add, 2 products forward, 3 in dq, 4 in dk/dv
+            errs = [sm.expect_close("flash_attention_bwd", g, wt,
+                                    f"{name} {what}", quiet=True, tol=bf,
+                                    norm=True)
+                    for name, g, wt in zip(
+                        ("dq", "dk", "dv"), ac.flash_attention_bwd(*args),
+                        ac.plain_flash_bwd(*args))]
+            print(f"   {what}: o max abs err {err!r}, by the norm "
+                  f"{o_norm!r}; L within "
+                  f"{FLASH_TOL['fwd']}; dq, dk, dv max abs err {errs}",
+                  flush=True)
+            # operations over the visible (query, key) pairs, 2 per
+            # multiply-add: 2 products forward; the backward's five (S, dP,
+            # dV, dK, dQ) once each. Bytes: each input read once, each
+            # output written once (the backward's dq, dk, dv in f32)
             pairs = b * n * seq * (seq + 1) // 2
             el, rows = q.numel(), b * n * seq
-            ins = 3 * el * 2
             bounds = {
-                "flash_attention_fwd": _bound(ins + el * 2 + rows * 4,
+                "flash_attention_fwd": _bound(3 * el * 2 + el * 2 + rows * 4,
                                               4 * pairs * h, BF16_OPS_PER_S),
-                "flash_attention_bwd_dq": _bound(
-                    ins + el * 2 + 2 * rows * 4 + el * 4, 6 * pairs * h,
-                    BF16_OPS_PER_S),
-                "flash_attention_bwd_dkv": _bound(
-                    ins + el * 2 + 2 * rows * 4 + 2 * el * 4, 8 * pairs * h,
+                "flash_attention_bwd": _bound(
+                    4 * el * 2 + 2 * rows * 4 + 3 * el * 4, 10 * pairs * h,
                     BF16_OPS_PER_S)}
+            # the split kernels' bounds (S and dP in each: 14 operations a
+            # pair), for the parent's kernels 6 + 7
+            split = sum(_bound(5 * el * 2 + 2 * rows * 4 + x * el * 4,
+                               y * pairs * h, BF16_OPS_PER_S)[0]
+                        for x, y in ((1, 6), (2, 8)))
             q4, k4, v4, do4 = (x.view(b, n, seq, h) for x in (q, k, v, do))
 
             def sdpa_fwd():
                 F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+            # SDPA's flash backward on the saved outputs of its forward:
+            # one graph-capturable call, delta included
+            fo = aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0,
+                                                          True)
+
+            def sdpa_bwd():
+                aten._scaled_dot_product_flash_attention_backward(
+                    do4, q4, k4, v4, fo[0], fo[1], fo[2], fo[3], fo[4],
+                    fo[5], 0.0, True, fo[6], fo[7])
             xs = [x.clone().requires_grad_() for x in (q4, k4, v4)]
 
             def sdpa_fwd_bwd():
@@ -2432,50 +2549,119 @@ def main() -> int:
                 torch.autograd.grad(out, xs, do4)
             lib_fwd, by_fwd = _device_ms(sdpa_fwd, 7)
             lib_graph = _graph_ms([sdpa_fwd] * 20)
+            lib_bwd_graph = _graph_ms([sdpa_bwd] * 20)
             lib_both, by_both = _device_ms(sdpa_fwd_bwd, 7)
             lib_bwd = lib_both - lib_fwd
             by_bwd = by_fwd if by_fwd == by_both else "profiler - events"
-            events = (_cuda_ms(sdpa_fwd, 7), _cuda_ms(sdpa_fwd_bwd, 7))
+            events = (_cuda_ms(sdpa_fwd, 7), _cuda_ms(sdpa_fwd_bwd, 7),
+                      _cuda_ms(sdpa_bwd, 7))
+            # what F.scaled_dot_product_attention's autograd runs: its
+            # backend, and its backward by the graph (forward + backward
+            # less forward)
+            try:
+                from torch.nn.attention import SDPBackend
+                backend = SDPBackend(torch._fused_sdp_choice(
+                    q4, k4, v4, is_causal=True)).name
+            except Exception as e:  # noqa: BLE001 - a reading, not a check
+                backend = f"not read ({type(e).__name__})"
+            try:
+                auto_bwd = _graph_ms([sdpa_fwd_bwd] * 20) - lib_graph
+            except Exception as e:  # noqa: BLE001 - a reading, not a check
+                auto_bwd = f"not measured ({type(e).__name__}: {e})"[:200]
+            # the whole bf16 route of _FlashAttention.backward: the layout
+            # copies, delta, the dq fill, the kernel, the casts
+            pub = [ac._public_layout(x, b) for x in (q, k, v, do)]
+            ctx = types.SimpleNamespace(saved_tensors=(*pub[:3], o, lse),
+                                        causal=True)
+
+            def route():
+                ac._FlashAttention.backward(ctx, pub[3])
             runs = {"flash_attention_fwd": (
                         lambda: ac.flash_attention_fwd(q, k, v, True),
-                        lambda: plain_fwd(q, k, v, True), lib_fwd,
-                        by_fwd),
-                    "flash_attention_bwd_dq": (
-                        lambda: ac.flash_attention_bwd_dq(*args),
-                        lambda: ac.plain_flash_bwd_dq(*args), lib_bwd,
-                        by_bwd),
-                    "flash_attention_bwd_dkv": (
-                        lambda: ac.flash_attention_bwd_dkv(*args),
-                        lambda: ac.plain_flash_bwd_dkv(*args), lib_bwd,
-                        by_bwd)}
+                        lambda: plain_fwd(q, k, v, True)),
+                    "flash_attention_bwd": (
+                        lambda: ac.flash_attention_bwd(*args),
+                        lambda: ac.plain_flash_bwd(*args))}
             shape = f"B={b} S={seq} N={n} H={h} bf16 causal"
-            for kname, (fn, plain, library, library_by) in runs.items():
+            for kname, (fn, plain) in runs.items():
                 bound, by = bounds[kname]
-                t = {"ms": _cuda_ms(fn, 7), "plain": _cuda_ms(plain, 3),
-                     "bound": bound, "by": by, "library": library,
-                     "library_by": library_by, "shape": shape}
+                # the kernel's device time: a CUDA graph of 20 calls (the
+                # wrapper's host work, a plan and tensor maps a call,
+                # stays out), SDPA's by the same method; beside them
+                # events around back-to-back calls and the wrapper's host
+                # time a call
+                t = {"ms": _graph_ms([fn] * 20), "events": _cuda_ms(fn, 7),
+                     "host": _host_ms(fn), "plain": _cuda_ms(plain, 3),
+                     "bound": bound, "by": by, "library_by": "graph",
+                     "shape": shape}
                 if kname == "flash_attention_fwd":
-                    # the kernel's device time: a CUDA graph of 20 calls
-                    # (the wrapper's host work, a plan and three tensor
-                    # maps a call, stays out), SDPA's by the same method;
-                    # beside them events around back-to-back calls and
-                    # the wrapper's host time a call
-                    t.update(events=t["ms"], ms=_graph_ms([fn] * 20),
-                             host=_host_ms(fn), library=lib_graph,
-                             library_by="graph",
-                             library_events=events[0],
+                    t.update(library=lib_graph, library_events=events[0],
                              library_profiler=lib_fwd)
+                else:
+                    t.update(library=lib_bwd_graph, library_events=events[2],
+                             library_profiler=lib_bwd,
+                             route=_graph_ms([route] * 20),
+                             library_autograd=auto_bwd,
+                             route_events=_cuda_ms(route, 7),
+                             bound_split=split)
                 timing[kname if seq == 1024 else f"{kname} S={seq}"] = t
                 torch.cuda.empty_cache()
-            print(f"   SDPA at {shape}, device time ({by_fwd}, {by_both}): "
-                  f"forward {lib_fwd!r} ms, backward (forward + backward less "
-                  f"forward) {lib_bwd!r} ms, the backward yardstick for "
-                  "kernels 6 and 7 together; CUDA events around the calls "
-                  f"(host-bound where autograd runs): forward {events[0]!r}"
-                  f" ms, forward + backward {events[1]!r} ms; the forward "
-                  f"in a CUDA graph of 20 calls {lib_graph!r} ms", flush=True)
-            del q, k, v, do, o, lse, delta, args, xs, q4, k4, v4, do4
+            bt = timing["flash_attention_bwd" if seq == 1024 else
+                        f"flash_attention_bwd S={seq}"]
+            print(f"   SDPA at {shape}: forward {lib_graph!r} ms (graph; "
+                  f"{by_fwd} {lib_fwd!r}, events {events[0]!r}); flash "
+                  f"backward {lib_bwd_graph!r} ms (graph, one aten call with "
+                  f"delta; events {events[2]!r}; {by_bwd} forward + backward "
+                  f"less forward {lib_bwd!r}; events of forward + backward "
+                  f"{events[1]!r}); F.scaled_dot_product_attention's backend "
+                  f"{backend}, its autograd backward in a graph (forward + "
+                  f"backward less forward) {auto_bwd!r} ms. Kernels 6-7 "
+                  f"(one launch) {bt['ms']!r} ms "
+                  f"(graph), the whole route of _FlashAttention.backward "
+                  f"{bt['route']!r} ms (graph), {bt['route'] / lib_bwd_graph!r}"
+                  f" of SDPA's; the bound {bt['bound']!r} ms ({bt['by']}; the "
+                  f"split kernels' {split!r} ms); on {smi}", flush=True)
+            del q, k, v, do, o, lse, delta, args, xs, q4, k4, v4, do4, fo
+            del pub, ctx
             torch.cuda.empty_cache()
+        # the ring's backward step: each rank's q [32, 512, 64] against one
+        # chunk of 512 keys, causal, d = 0 (its own chunk) and 512 (a past
+        # chunk, all visible), each with its own forward's L
+        q, k, v, do = flash_state(8, 512, 512, 4, 4, 64, torch.bfloat16,
+                                  seed=13)
+        bn, sq, h = q.shape
+        el = q.numel()
+        for d in (0, 512):
+            o, lse = ac.flash_attention_fwd(q, k, v, d == 0)
+            args = (q, k, v, do, ac.bwd_prep(do, o), lse, d, True)
+            for name, g, wt in zip(("dq", "dk", "dv"),
+                                   ac.flash_attention_bwd(*args),
+                                   ac.plain_flash_bwd(*args)):
+                sm.expect_close("flash_attention_bwd", g, wt,
+                                f"{name} ring shape d {d}", quiet=True,
+                                tol=bf, norm=True)
+            pairs = bn * sum(min(512, i + d + 1) for i in range(sq))
+            bound, by = _bound(4 * el * 2 + 2 * bn * sq * 4 + 3 * el * 4,
+                               10 * pairs * h, BF16_OPS_PER_S)
+            q4, k4, v4, do4 = (x.view(8, 4, sq, h) for x in (q, k, v, do))
+            fo = aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0,
+                                                          d == 0)
+
+            def sdpa_bwd():
+                aten._scaled_dot_product_flash_attention_backward(
+                    do4, q4, k4, v4, fo[0], fo[1], fo[2], fo[3], fo[4],
+                    fo[5], 0.0, d == 0, fo[6], fo[7])
+
+            def call():
+                ac.flash_attention_bwd(*args)
+            timing[f"flash_attention_bwd ring d={d}"] = {
+                "ms": _graph_ms([call] * 20), "events": _cuda_ms(call, 7),
+                "host": _host_ms(call),
+                "plain": _cuda_ms(lambda: ac.plain_flash_bwd(*args), 3),
+                "bound": bound, "by": by, "library": _graph_ms([sdpa_bwd] * 20),
+                "library_by": "graph",
+                "shape": f"q [{bn}, {sq}, {h}] bf16, causal, d={d}"}
+
     def time_chunk():
         """Kernel 8 at the ring path's shape (each rank's q [32, 512, 64]
         bf16 against one chunk of its kv, causal), d = 0 (its own chunk)
@@ -2508,29 +2694,38 @@ def main() -> int:
         print(f"chip_smoke: FAILED phases: {sm.failures}", flush=True)
         return 1
 
+    # the kernels line: one row a TPU kernel; the bf16 backward's one
+    # kernel stands in the rows of kernels 6 and 7
     replaces = {"heat_step_blocked": "hpx_tpu/ops/stencil.py:110",
                 "multistep_fused": "hpx_tpu/ops/stencil.py:44",
-                **PAGED_KERNELS, **FLASH_KERNELS, **CHUNK_KERNEL,
-                **FMA_KERNEL}
+                **PAGED_KERNELS,
+                "flash_attention_fwd": FLASH_KERNELS["flash_attention_fwd"][0],
+                **dict(zip(BWD_ROWS, FLASH_KERNELS["flash_attention_bwd"])),
+                **CHUNK_KERNEL, **FMA_KERNEL}
+    wrapper = {r: "flash_attention_bwd" for r in BWD_ROWS}
     sources = {"heat_step_blocked": "stencil", "multistep_fused": "stencil",
                "fma_chain": "fma_rate",
                **{k: "paged_attention" for k in PAGED_KERNELS},
-               **{k: "flash_attention" for k in (*FLASH_KERNELS,
-                                                 *CHUNK_KERNEL)}}
+               **{k: "flash_attention" for k in ("flash_attention_fwd",
+                                                 *BWD_ROWS, *CHUNK_KERNEL)}}
     rows = []
-    for k, at in replaces.items():
+    for row, at in replaces.items():
+        k = wrapper.get(row, row)
         t = timing[k]
-        rows.append({"name": k, "route": "cuda",
-                     "source": f"hpx_tpu_torch/csrc/{sources[k]}.cu",
+        rows.append({"name": row, "route": "cuda",
+                     "source": f"hpx_tpu_torch/csrc/{sources[row]}.cu",
                      "replaces": at, "launches": sm.launches[k],
                      "max_abs_err": sm.max_abs_err[k], "ms": t["ms"],
                      "plain_ms": t["plain"], "bound_ms": t["bound"],
                      "bound_by": t["by"], "library_ms": t["library"],
                      "library_by": t.get("library_by"),
+                     **({"kernel": "flash_bwd_wgmma (dq, dk, dv in one "
+                                   "launch)"} if k != row else {}),
                      **{f"{x}_ms": t[x] for x in (
-                         "warm", "events", "host", "bound_all",
-                         "library_warm", "library_events",
-                         "library_profiler") if x in t},
+                         "warm", "events", "host", "bound_all", "route",
+                         "route_events", "bound_split", "library_autograd",
+                         "library_warm",
+                         "library_events", "library_profiler") if x in t},
                      **({"splits": t["splits"]} if "splits" in t else {}),
                      "shape": t["shape"]})
     print(f"training step (bf16, B 8 x S 1024, full width): "

@@ -1,10 +1,11 @@
-// Flash attention for training: the forward kernel, the two backward
-// kernels and the ring's chunk fold, hand-written for Hopper (sm_90a).
+// Flash attention for training: the forward kernel, the backward kernels
+// and the ring's chunk fold, hand-written for Hopper (sm_90a).
 //
 // Replaces the four Pallas kernels of hpx_tpu/ops/attention_pallas.py:
 //   flash_fwd      <- _flash_kernel         (:112)
-//   flash_bwd_dq   <- _flash_bwd_dq_kernel  (:397)
-//   flash_bwd_dkv  <- _flash_bwd_dkv_kernel (:446)
+//   flash_bwd_dq   <- _flash_bwd_dq_kernel  (:397)  f32 operands
+//   flash_bwd_dkv  <- _flash_bwd_dkv_kernel (:446)  f32 operands
+//   flash_bwd_wgmma <- both, in one kernel           bf16 operands
 //   flash_chunk    <- _flash_chunk_kernel   (:618), flash_fwd's tile loop
 //                     with the (acc, m, l) carry read in and written back
 //                     unnormalized, in place (template flag kChunk)
@@ -19,7 +20,8 @@
 //   acc        [BN, sq, H] f32     the chunk fold's carry, with m, l
 //   m, l       [BN, sq] f32        (running max and sum), updated in place
 //   dq         [BN, sq, H] f32
-//   dk, dv     [BN, sk, H] f32     per q row; the wrapper sums each group
+//   dk, dv     [BN, sk, H] f32     f32 kernels: per q row (the wrapper sums
+//                                  each group); bf16: [BNkv, sk, H]
 // Causal: key j is visible to query i iff j <= i + d (d = sk - sq in the
 // forward: bottom-right alignment; the ring's offset for a chunk); keys
 // j >= sk never are.
@@ -32,39 +34,40 @@
 // FLOP an exp, against 4096 FLOP and 16 exp a clock an SM), so the exp
 // unit is a second bound as high. At B 2, S 4096, 8 heads of 128 it does
 // ~69 GFLOP on ~34 MB: operations bound it (~0.070 ms). The backward does
-// 3.5x the forward's operations on about as many bytes. The chunk fold at
-// the ring's shape (32 rows of B.N, 512 x 512, H 64, bf16) moves 14.9 MB,
-// most of it the f32 carry in and out, for at most 2.1 GFLOP: bytes
-// bound it (~4.5 us).
+// 2.5x the forward's operations (five products, 10 operations a visible
+// pair and head element) and writes dq, dk, dv in f32: bytes bound it at
+// the training shape (84 MB, ~0.025 ms), operations at B 2, S 4096
+// (172 GFLOP, ~0.174 ms). The chunk fold at the ring's shape (32 rows of
+// B.N, 512 x 512, H 64, bf16) moves 14.9 MB, most of it the f32 carry in
+// and out, for at most 2.1 GFLOP: bytes bound it (~4.5 us).
 //
-// The bf16 forward and chunk fold (flash_fwd_wgmma) are built for that:
-// wgmma for both products (the only path to the full bf16 rate), K/V
-// tiles of 128 keys brought by TMA into a ring of stages that a producer
-// warpgroup keeps full while the consumer warpgroups compute, so no warp
-// waits on a load it issued; P stays in registers between the products;
-// only tiles that cross the diagonal or the sk edge are masked; one FFMA
-// and one ex2 a score; Q read once a CTA. Where a 64-row CTA and its ring
-// fit twice an SM (H 64), two such CTAs share each SM, so that one's
-// prologue and epilogue overlap the other's products.
-// The backward kernels and the f32 route are the first, simple versions.
-// Each CTA owns one 64-row tile (q rows, or key rows for dk/dv), walks
-// the other operand in 64-row tiles staged in shared memory by 16-byte
-// loads, and skips causal tiles past the diagonal, as at :137 / :410 /
-// :460, with no TMA and no pipelining.
-//   bf16 backward: the tensor cores (mma.sync m16n8k16, f32 accumulate),
-//     4 warps a CTA, 16 rows a warp; p and ds stay in registers between
-//     the two products of a tile.
-//   f32 operands: the FP32 units, full f32 products (TF32 would miss the
-//     plain version's 1e-5), 256 threads a CTA, each computing a 4 x 4
-//     piece of every 64 x 64 product from f32 tiles whose rows are padded
-//     by 4 floats, so the 16-byte shared reads are free of bank conflicts.
+// The bf16 kernels (flash_fwd_wgmma, flash_bwd_wgmma) are built for that:
+// wgmma for every product (the only path to the full bf16 rate), tiles
+// of 128 keys brought by TMA, a producer warpgroup keeping a ring of
+// stages full while the consumer warpgroups compute, so no warp waits on
+// a load it issued; scores stay in registers between the products; only
+// tiles that cross the diagonal or an edge are masked; one FFMA and one
+// ex2 a score. The forward reads Q once a CTA, and where a 64-row CTA and
+// its ring fit twice an SM (H 64), two such CTAs share each SM, so that
+// one's prologue and epilogue overlap the other's products. The
+// backward keeps K and V of its key tile resident, computes each of the
+// five products once, and adds dq by f32 atomics (flash_bwd_wgmma).
+// The f32 route (the FP32 units, full f32 products: TF32 would miss the
+// plain version's 1e-5) is the first, simple version: each CTA owns one
+// 64-row tile (q rows, or key rows for dk/dv), walks the other operand
+// in 64-row tiles staged in shared memory by 16-byte loads, and skips
+// causal tiles past the diagonal, as at :137 / :410 / :460; 256 threads
+// a CTA, each computing a 4 x 4 piece of every 64 x 64 product from f32
+// tiles whose rows are padded by 4 floats, so the 16-byte shared reads
+// are free of bank conflicts.
 //
 // Numerics follow the reference kernels: scores = f32 dot * scale;
 // masked lanes -1e30 and p exactly 0; online softmax in f32; p cast to
 // bf16 before p.V (bf16 inputs), p and ds cast before the backward
 // products; o = acc / l (0 on a row with no visible key), L = m + log l
 // (0 there); p = exp(s - L), ds = p * (dp - delta) * scale; dq, dk, dv
-// in f32. No atomics: dk/dv are written per q row.
+// in f32. The f32 kernels use no atomics (dk/dv per q row); the bf16
+// backward adds its dq partials atomically, in no fixed order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -490,133 +493,12 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
   store_rows<H>(dv + (size_t)bn * sk * H, dva, k0, sk, ty, tx);
 }
 
-// ---------------------------------------------------------------------------
-// bf16 backward on the tensor cores (flash_bwd_dq_mma, flash_bwd_dkv_mma;
-// the forward is flash_fwd_wgmma below): mma.sync m16n8k16, bf16 x bf16
-// with f32 accumulation (bf16 products are exact, sums in f32, as the
-// reference's dots with preferred_element_type=f32). A CTA of 4 warps
-// owns one 64-row tile, each warp 16 rows of it; operand tiles sit in
-// shared memory as bf16, rows padded by 8 elements so that ldmatrix's
-// eight 16-byte rows fall in distinct banks. Fragment layouts (PTX ISA,
-// m16n8k16): lane = 4 g + t; A holds rows g, g+8 at k = 2t, 2t+1 and
-// 2t+8, 2t+9; B holds k = 2t, 2t+1 and 2t+8, 2t+9 at column g; C holds
-// rows g, g+8 at columns 2t, 2t+1. The C fragments of a 16 x 16 score
-// block are, packed to bf16 pairs, the A fragment of the next product,
-// so p and ds never leave registers.
-// ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
-constexpr int kMmaThreads = 128;
-
-// four 8 x 8 bf16 matrices from shared memory; lane l gives the address
-// of row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(hopper::smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(hopper::smem_u32(p)));
-}
-
-// c += a b for one 16 x 8 block
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // two floats rounded to bf16 (astype(bf16)), lo in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <int H>
-struct Mma {
-  static constexpr int LD = H + 8;    // bf16 elements a shared-memory row
-  static constexpr int TILE = kBlock * LD;
-
-  // rows r0 .. r0+63 of src [rows][H] into dst [64][LD]; 0 past `rows`
-  static __device__ void load(bf16* dst, const bf16* __restrict__ src,
-                              int r0, int rows) {
-    constexpr int PER_ROW = H / 8;
-    for (int i = threadIdx.x; i < kBlock * PER_ROW; i += kMmaThreads) {
-      const int r = i / PER_ROW, c = (i - r * PER_ROW) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + r < rows)
-        v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * H + c);
-      *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
-    }
-  }
-  // A fragment: rows row0 .. +15, columns k0 .. +15 of a [64][LD] tile
-  static __device__ void a_frag(uint32_t a[4], const bf16* t, int row0,
-                                int k0, int lane) {
-    ldsm_x4(a, t + (row0 + (lane & 15)) * LD + k0 + (lane >> 4) * 8);
-  }
-  // B fragments of the 8-column blocks n0 and n0+8 (b[0..1], b[2..3]),
-  // depth k0 .. +15, from a tile stored [n][k] (the product a tᵀ)
-  static __device__ void b_frag_nk(uint32_t b[4], const bf16* t, int n0,
-                                   int k0, int lane) {
-    ldsm_x4(b, t + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + k0 +
-                   ((lane >> 3) & 1) * 8);
-  }
-  // the same from a tile stored [k][n] (the product a t)
-  static __device__ void b_frag_kn(uint32_t b[4], const bf16* t, int n0,
-                                   int k0, int lane) {
-    ldsm_x4_t(b, t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + n0 +
-                     (lane >> 4) * 8);
-  }
-  // c[j] (j < 8: columns 8j .. 8j+7) += a(16 x H, from tile a at row0)
-  //   · bᵀ (b a [64][LD] tile: its 64 rows are the columns)
-  static __device__ void dot_t(float c[8][4], const bf16* a, int row0,
-                               const bf16* b, int lane) {
-#pragma unroll
-    for (int kk = 0; kk < H / 16; ++kk) {
-      uint32_t af[4];
-      a_frag(af, a, row0, kk * 16, lane);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        uint32_t bf[4];
-        b_frag_nk(bf, b, jj * 16, kk * 16, lane);
-        mma(c[2 * jj], af, bf[0], bf[1]);
-        mma(c[2 * jj + 1], af, bf[2], bf[3]);
-      }
-    }
-  }
-  // acc[n] (n < H/8: columns 8n ..) += p (16 x 64, A fragments in
-  //   registers) · t (a [64][LD] tile)
-  static __device__ void dot_p(float acc[H / 8][4], const uint32_t p[4][4],
-                               const bf16* t, int lane) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int hp = 0; hp < H / 16; ++hp) {
-        uint32_t bf[4];
-        b_frag_kn(bf, t, hp * 16, kk * 16, lane);
-        mma(acc[2 * hp], p[kk], bf[0], bf[1]);
-        mma(acc[2 * hp + 1], p[kk], bf[2], bf[3]);
-      }
-  }
-};
-
-// the C fragments of a 16 x 64 block as the A fragments of 4 16-deep
-// steps, rounded to bf16
-__device__ __forceinline__ void to_a(uint32_t a[4][4], const float c[8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-  }
 }
 
 // reductions over the 4 lanes (t) that share a row of a C fragment
@@ -934,167 +816,360 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int H>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ delta,
-                 const float* __restrict__ lse, float* __restrict__ dq,
-                 int sq, int sk, int g, int d, int causal, float scale) {
-  using M = Mma<H>;
-  extern __shared__ uint4 smem_u4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_u4);
-  bf16* dos = qs + M::TILE;
-  bf16* ks = dos + M::TILE;
-  bf16* vs = ks + M::TILE;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gr = lane / 4, tq = lane % 4;
-  const int bn = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlock;
-  const int row = q0 + warp * 16 + gr;
-  const bf16* kb = k + (size_t)(bn / g) * sk * H;
-  const bf16* vb = v + (size_t)(bn / g) * sk * H;
+// ---------------------------------------------------------------------------
+// flash_bwd_wgmma: the whole bf16 backward, kernels 6 and 7 in one launch
+// (dq, and dk, dv per K/V row), on Hopper's warpgroup tensor cores fed by
+// TMA, after FlashAttention-3's backward.
+//
+// A CTA owns one tile of kTileN = 128 keys of one K/V row (grid (B·Nkv,
+// key tiles): key tile 0, which the most q tiles see, starts first). It
+// loads its K and V tiles once by TMA and keeps them; at GQA it walks
+// the g q heads of its group, so dk and dv are summed in registers and
+// written once per K/V row. The last warpgroup is the producer: its
+// first warp streams the q tiles that see the key tile (64 rows of Q and
+// dO by TMA; their rows of L and delta, which TMA cannot take from an
+// odd Sq's unaligned rows, by the warp's loads) into a ring of
+// kBwdStages stages, each with a full and an empty mbarrier, from the
+// first q tile that sees key k0 (the reference's `live` test). Two
+// consumer warpgroups take 64 keys each; for every q tile, warpgroup w:
+//   Sᵀ = K_w Qᵀ, dPᵀ = V_w dOᵀ   wgmma m64n64k16, both from shared memory
+//   Pᵀ, dSᵀ                       f32 in registers: p = 2^(s·scale·log2e
+//                                 - L·log2e), one FFMA and one ex2 a
+//                                 score; ds = p (dp - delta) scale; the
+//                                 mask only on tiles that cross the
+//                                 diagonal or an Sq / Sk edge
+//   dV += Pᵀ dO, dK += dSᵀ Q      wgmma m64nHk16, A from registers (the
+//                                 score accumulators repacked as bf16
+//                                 pairs: p and ds cast as the reference
+//                                 casts them), B MN-major; dK and dV stay
+//                                 in registers across every q tile
+//   dSᵀ -> shared memory          bf16, by stmatrix.trans, as dS [64 q]
+//                                 [128 keys] in 128-byte-swizzled boxes
+//                                 (two buffers, one barrier a tile)
+//   dQ += dS K                    wgmma m64n64k16 over the CTA's 128 keys,
+//                                 A and B (MN-major) from shared memory:
+//                                 at H 128 each warpgroup takes 64
+//                                 columns, at H 64 the two take turns;
+//                                 the f32 partial goes to shared memory
+//                                 (128-byte swizzled) and two TMA bulk
+//                                 reduce-adds add it into dq in L2, rows
+//                                 past Sq left out (the wrapper zeroes dq)
+// and it releases the stage once its products have completed. Each of
+// the five products is computed once: 10 operations a visible pair and
+// head element.
+// Keys >= sk and q rows >= sq arrive as zeros from TMA and are masked. A
+// CTA whose keys no q row sees writes zeros to dk and dv.
+// ---------------------------------------------------------------------------
+constexpr int kBwdM = 64;            // q rows of a Q / dO tile
+constexpr int kBwdStages = 2;        // Q / dO stages of the ring
+constexpr int kQBox = kBwdM * 128;   // a [64][64] bf16 box (Q, dO, dS)
 
-  M::load(qs, q + (size_t)bn * sq * H, q0, sq);
-  M::load(dos, dout + (size_t)bn * sq * H, q0, sq);
-  float L[2], D[2], acc[H / 8][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool in = row + 8 * r < sq;
-    L[r] = in ? lse[(size_t)bn * sq + row + 8 * r] : 0.f;
-    D[r] = in ? delta[(size_t)bn * sq + row + 8 * r] : 0.f;
-  }
-#pragma unroll
-  for (int n = 0; n < H / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int nk = key_tiles(q0, sk, d, causal);
-  for (int ik = 0; ik < nk; ++ik) {
-    const int k0 = ik * kBlock;
-    __syncthreads();
-    M::load(ks, kb, k0, sk);
-    M::load(vs, vb, k0, sk);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    M::dot_t(s, qs, warp * 16, ks, lane);
-    M::dot_t(dp, dos, warp * 16, vs, lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const float p = visible(row + 8 * r, k0 + 8 * j + 2 * tq + (e & 1),
-                                sk, d, causal)
-                            ? expf(s[j][e] * scale - L[r])
-                            : 0.f;
-        s[j][e] = p * (dp[j][e] - D[r]) * scale;   // ds
-      }
-    uint32_t ds[4][4];
-    to_a(ds, s);                          // ds cast to k's dtype
-    M::dot_p(acc, ds, ks, lane);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int rr = row + 8 * r;
-    if (rr >= sq) continue;
-#pragma unroll
-    for (int n = 0; n < H / 8; ++n)
-      *reinterpret_cast<float2*>(dq + ((size_t)bn * sq + rr) * H + 8 * n +
-                                 2 * tq) =
-          make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
-  }
+// The bf16 backward's shared memory, byte offsets from a 1024-byte
+// aligned base: K (H/64 boxes of [128][64]) | V | kBwdStages x (Q boxes,
+// dO boxes, L [64] f32, delta [64] f32, padded to 1024) | dS (2 buffers x
+// 2 boxes of [64 q][64 keys]) | dQ (a warpgroup's f32 [64][64] partial
+// each, as 2 boxes of [64][32]) | mbarriers (K/V-full, full[kBwdStages],
+// empty[kBwdStages]). `total` adds the 1024 bytes of room to align the
+// base.
+struct BwdLayout {
+  int v, stage, stage_bytes, ds, dq, bars, total;
+};
+__host__ __device__ inline BwdLayout bwd_layout(int h) {
+  BwdLayout L;
+  L.v = kTileN * h * 2;
+  L.stage = 2 * L.v;
+  L.stage_bytes = 2 * kBwdM * h * 2 + 1024;
+  L.ds = L.stage + kBwdStages * L.stage_bytes;
+  L.dq = L.ds + 4 * kQBox;
+  L.bars = L.dq + 2 * kBwdM * 64 * 4;
+  L.total = 1024 + L.bars + 8 * (1 + 2 * kBwdStages);
+  return L;
 }
 
 template <int H>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                  const float* __restrict__ delta,
-                  const float* __restrict__ lse, float* __restrict__ dk,
-                  float* __restrict__ dv, int sq, int sk, int g, int d,
-                  int causal, float scale) {
-  using M = Mma<H>;
-  extern __shared__ uint4 smem_u4[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_u4);
-  bf16* vs = ks + M::TILE;
-  bf16* qs = vs + M::TILE;
-  bf16* dos = qs + M::TILE;
-  float* lr = reinterpret_cast<float*>(dos + M::TILE);
-  float* dr = lr + kBlock;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gr = lane / 4, tq = lane % 4;
-  const int bn = blockIdx.y;
-  const int k0 = blockIdx.x * kBlock;
-  const int key = k0 + warp * 16 + gr;     // this lane's keys: key, key+8
-  const bf16* qb = q + (size_t)bn * sq * H;
-  const bf16* db = dout + (size_t)bn * sq * H;
+__global__ void __launch_bounds__(3 * 128, 1)
+flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdo,
+                const __grid_constant__ CUtensorMap tdq,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, float* __restrict__ dk,
+                float* __restrict__ dv, int sq, int sk, int g, int d,
+                int causal, float scale) {
+  using namespace hopper;
+  constexpr int KB = H / 64;         // 64-column boxes a row
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const BwdLayout L = bwd_layout(H);
+  auto kbox = [&](int j) { return base + j * kBoxBytes; };
+  auto vbox = [&](int j) { return base + L.v + j * kBoxBytes; };
+  auto qbox = [&](int s, int j) {
+    return base + L.stage + s * L.stage_bytes + j * kQBox;
+  };
+  auto dobox = [&](int s, int j) { return qbox(s, KB + j); };
+  auto lrow = [&](int s) {
+    return reinterpret_cast<float*>(qbox(s, 2 * KB));
+  };
+  auto drow = [&](int s) { return lrow(s) + kBwdM; };
+  auto dsbox = [&](int buf, int w) {
+    return base + L.ds + (2 * buf + w) * kQBox;
+  };
+  auto dqbuf = [&](int w) { return base + L.dq + w * kBwdM * 64 * 4; };
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(base + L.bars);
+  uint64_t* full = kvfull + 1;
+  uint64_t* empty = full + kBwdStages;
 
-  M::load(ks, k + (size_t)(bn / g) * sk * H, k0, sk);
-  M::load(vs, v + (size_t)(bn / g) * sk * H, k0, sk);
-  float dka[H / 8][4], dva[H / 8][4];
-#pragma unroll
-  for (int n = 0; n < H / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  const int bkv = blockIdx.x;
+  const int k0 = blockIdx.y * kTileN;
+  // causal: q tile iq sees key k0 iff k0 <= iq*64 + 63 + d
+  const int nq = (sq + kBwdM - 1) / kBwdM;
+  const int first = k0 - (kBwdM - 1) - d;
+  const int iq0 = causal && first > 0 ? (first + kBwdM - 1) / kBwdM : 0;
+  const int ntq = iq0 < nq ? nq - iq0 : 0;  // q tiles of each q head
+  const int items = g * ntq;                // (q head, q tile) pairs
 
-  const int nq = (sq + kBlock - 1) / kBlock;
-  const int first = k0 - (kBlock - 1) - d;
-  const int iq0 = causal && first > 0 ? (first + kBlock - 1) / kBlock : 0;
-  for (int iq = iq0; iq < nq; ++iq) {
-    const int q0 = iq * kBlock;
-    __syncthreads();
-    M::load(qs, qb, q0, sq);
-    M::load(dos, db, q0, sq);
-    load_rows(lr, lse + (size_t)bn * sq, q0, sq);
-    load_rows(dr, delta + (size_t)bn * sq, q0, sq);
-    __syncthreads();
-    float st[8][4], dpt[8][4];               // sᵀ, dpᵀ: key rows, q columns
+  if (threadIdx.x == 0) {
+    mbar_init(kvfull, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(full + s, 1 + 32);          // TMA's, and the warp's
+      mbar_init(empty + s, 2 * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the warpgroup, warp-uniform to the compiler (lane 0's, shuffled)
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == 2) {                            // the producer
+    regs_dealloc<24>();
+    if (threadIdx.x < 2 * 128 + 32 && items > 0) {   // its first warp
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        mbar_expect_tx(kvfull, 2 * kTileN * H * 2);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < KB; ++j) {
+          tma_load_3d(kbox(j), &tk, kvfull, 64 * j, k0, bkv);
+          tma_load_3d(vbox(j), &tv, kvfull, 64 * j, k0, bkv);
+        }
+      }
+      int s = 0, ph = 0;
+      for (int i = 0; i < items; ++i) {
+        const int bn = bkv * g + i / ntq, q0 = (iq0 + i % ntq) * kBwdM;
+        mbar_wait(empty + s, ph ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(full + s, 2 * kBwdM * H * 2);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-    M::dot_t(st, ks, warp * 16, qs, lane);
-    M::dot_t(dpt, vs, warp * 16, dos, lane);
+          for (int j = 0; j < KB; ++j) {
+            tma_load_3d(qbox(s, j), &tq, full + s, 64 * j, q0, bn);
+            tma_load_3d(dobox(s, j), &tdo, full + s, 64 * j, q0, bn);
+          }
+        }
+        // L and delta of rows q0 .. q0 + 63, 0 past sq; each lane's
+        // arrival releases its stores
+        const size_t at = (size_t)bn * sq + q0;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+        for (int r = lane; r < kBwdM; r += 32) {
+          const bool in = q0 + r < sq;
+          lrow(s)[r] = in ? lse[at + r] : 0.f;
+          drow(s)[r] = in ? delta[at + r] : 0.f;
+        }
+        mbar_arrive(full + s);
+        if (++s == kBwdStages) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: keys kw0 .. kw0 + 63; this thread's keys are
+  // key0 and key0 + 8, its q columns 8j + 2t4 + {0, 1} of each tile (the
+  // accumulator layout, hopper.cuh)
+  regs_alloc<240>();
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int t4 = lane % 4;
+  const int kw0 = k0 + wg * 64;
+  const int key0 = kw0 + warp * 16 + lane / 4;
+  const float sl2 = scale * kLog2e;
+  float dka[H / 2], dva[H / 2], sacc[32], pacc[32], qacc[32];
+#pragma unroll
+  for (int i = 0; i < H / 2; ++i) dka[i] = dva[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = qacc[i] = 0.f;
+
+  if (items > 0) mbar_wait(kvfull, 0);
+  // A of Sᵀ and dPᵀ: this warpgroup's 64 rows of K and of V
+  const uint64_t ka = desc_sw128(kbox(0) + wg * 64 * 128, 16, 1024);
+  const uint64_t va = desc_sw128(vbox(0) + wg * 64 * 128, 16, 1024);
+  int s = 0, ph = 0;
+  for (int i = 0; i < items; ++i) {
+    const int bn = bkv * g + i / ntq, q0 = (iq0 + i % ntq) * kBwdM;
+    mbar_wait(full + s, ph);
+    // Sᵀ = K_w Qᵀ and dPᵀ = V_w dOᵀ, H/16 steps of 16 along the head dim
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < H / 16; ++kk) {
+      const uint32_t off = ((kk / 4) * kBoxBytes + (kk % 4) * 32) >> 4;
+      wgmma_ss_m64n64<0>(sacc, ka + off,
+                         desc_sw128(qbox(s, kk / 4) + (kk % 4) * 32, 16,
+                                    1024),
+                         kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < H / 16; ++kk) {
+      const uint32_t off = ((kk / 4) * kBoxBytes + (kk % 4) * 32) >> 4;
+      wgmma_ss_m64n64<0>(pacc, va + off,
+                         desc_sw128(dobox(s, kk / 4) + (kk % 4) * 32, 16,
+                                    1024),
+                         kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sacc);
+    fence_regs(pacc);
+
+    // Pᵀ and dSᵀ in f32; the mask only where the tile crosses the
+    // diagonal or an edge
+    const bool edge = (causal && kw0 + 63 > q0 + d) || q0 + kBwdM > sq ||
+                      kw0 + 64 > sk;
+    const float* lr = lrow(s);
+    const float* dr = drow(s);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * t4;
+      const float2 lv = *reinterpret_cast<const float2*>(lr + c);
+      const float2 dl = *reinterpret_cast<const float2*>(dr + c);
+      const float lb[2] = {lv.x * kLog2e, lv.y * kLog2e};
+      const float de[2] = {dl.x, dl.y};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int i = 8 * j + 2 * tq + (e & 1), qpos = q0 + i;
-        const float p =
-            qpos < sq && visible(qpos, key + 8 * (e >> 1), sk, d, causal)
-                ? expf(st[j][e] * scale - lr[i])
-                : 0.f;
-        st[j][e] = p;
-        dpt[j][e] = p * (dpt[j][e] - dr[i]) * scale;   // dsᵀ
+        float p = ex2(fmaf(sacc[4 * j + e], sl2, -lb[e & 1]));
+        if (edge) {
+          const int kpos = key0 + 8 * (e >> 1), qpos = q0 + c + (e & 1);
+          if (kpos >= sk || qpos >= sq || (causal && kpos > qpos + d))
+            p = 0.f;
+        }
+        sacc[4 * j + e] = p;
+        pacc[4 * j + e] = p * (pacc[4 * j + e] - de[e & 1]) * scale;
       }
-    uint32_t pa[4][4], dsa[4][4];
-    to_a(pa, st);                         // p cast to do's dtype
-    to_a(dsa, dpt);                       // ds cast to q's dtype
-    M::dot_p(dva, pa, dos, lane);         // dv += pᵀ do
-    M::dot_p(dka, dsa, qs, lane);         // dk += dsᵀ q
+    }
+    uint32_t pa[4][4], da[4][4];            // p and ds cast to bf16
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pa[kk][e] = pack_bf16(sacc[8 * kk + 2 * e], sacc[8 * kk + 2 * e + 1]);
+        da[kk][e] = pack_bf16(pacc[8 * kk + 2 * e], pacc[8 * kk + 2 * e + 1]);
+      }
+
+    // dV += Pᵀ dO and dK += dSᵀ Q, 4 steps of 16 q rows
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bdo = desc_sw128(dobox(s, 0) + kk * 16 * 128, kQBox,
+                                      1024);
+      const uint64_t bq = desc_sw128(qbox(s, 0) + kk * 16 * 128, kQBox,
+                                     1024);
+      if constexpr (H == 64) {
+        wgmma_rs_m64n64_tb(dva, pa[kk], bdo, 1);
+        wgmma_rs_m64n64_tb(dka, da[kk], bq, 1);
+      } else {
+        wgmma_rs_m64n128_tb(dva, pa[kk], bdo, 1);
+        wgmma_rs_m64n128_tb(dka, da[kk], bq, 1);
+      }
+    }
+    wgmma_commit();
+
+    // dSᵀ to shared memory as dS [q][key], this warpgroup's box of the
+    // tile's buffer: the 8 x 8 blocks (q 8j .., keys 16 warp + 8 hh ..)
+    // transposed; register m of da[jj] is block j = 2 jj + m / 2, hh =
+    // m % 2, and lane l gives q row 8j + l % 8 of block m = l / 8, whose
+    // 16-byte chunk 2 warp + hh lands at chunk ^ (row % 8) (the 128-byte
+    // swizzle)
+    unsigned char* dsb = dsbox(i & 1, wg);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int m = lane / 8, row = 8 * (2 * jj + m / 2) + lane % 8;
+      const int chunk = (2 * warp + m % 2) ^ (lane % 8);
+      stsm_x4_t(dsb + row * 128 + chunk * 16, da[jj]);
+    }
+    fence_proxy_async();
+    named_barrier(1, 2 * 128);              // both halves of dS written
+
+    // dQ = dS K over the 128 keys, 8 steps of 16 keys: at H 128 this
+    // warpgroup's 64 columns, at H 64 every column on alternate tiles
+    const bool mine = H == 128 || (i & 1) == wg;
+    const int col = H == 128 ? wg : 0;      // K's box of these columns
+    if (mine) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_ss_m64n64<1>(
+            qacc, desc_sw128(dsbox(i & 1, kk / 4) + (kk % 4) * 32, 16, 1024),
+            desc_sw128(kbox(col) + kk * 16 * 128, kBoxBytes, 1024), kk > 0);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(dka);
+    fence_regs(dva);
+    mbar_arrive(empty + s);                 // Q, dO, L, delta read
+    if (mine) {
+      // the f32 partial to this warpgroup's buffer, once the bulk
+      // reduce that last read it is done: columns 32b .. 32b + 31 as box
+      // b, row r's 16-byte chunk c at c ^ (r % 8) (the 128-byte
+      // swizzle; r % 8 = lane / 4)
+      fence_regs(qacc);
+      unsigned char* qb = dqbuf(wg);
+      if (tid == 0) bulk_wait_read<0>();
+      named_barrier(2 + wg, 128);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = warp * 16 + lane / 4 + 8 * r;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = (8 * j) % 32 + 2 * t4;   // column in box j / 4
+          *reinterpret_cast<float2*>(
+              qb + (j / 4) * kBwdM * 128 + row * 128 +
+              (((c / 4) ^ (lane / 4)) * 16) + (c % 4) * 4) =
+              make_float2(qacc[4 * j + 2 * r], qacc[4 * j + 2 * r + 1]);
+        }
+      }
+      fence_proxy_async();
+      named_barrier(2 + wg, 128);
+      if (tid == 0) {                       // dq += the partial, in L2
+        tma_reduce_add_3d(&tdq, qb, 64 * col, q0, bn);
+        tma_reduce_add_3d(&tdq, qb + kBwdM * 128, 64 * col + 32, q0, bn);
+        bulk_commit();
+      }
+    }
+    if (++s == kBwdStages) {
+      s = 0;
+      ph ^= 1;
+    }
   }
+
+  if (tid == 0) bulk_wait<0>();             // the last reduces done
+  // dk and dv of this warpgroup's keys below sk (zeros where no q row
+  // saw them)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int kk = key + 8 * r;
-    if (kk >= sk) continue;
+    const int key = key0 + 8 * r;
+    if (key >= sk) continue;
+    const size_t at = ((size_t)bkv * sk + key) * H + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < H / 8; ++n) {
-      const size_t at = ((size_t)bn * sk + kk) * H + 8 * n + 2 * tq;
-      *reinterpret_cast<float2*>(dk + at) =
-          make_float2(dka[n][2 * r], dka[n][2 * r + 1]);
-      *reinterpret_cast<float2*>(dv + at) =
-          make_float2(dva[n][2 * r], dva[n][2 * r + 1]);
+    for (int j = 0; j < H / 8; ++j) {
+      *reinterpret_cast<float2*>(dk + at + 8 * j) =
+          make_float2(dka[4 * j + 2 * r], dka[4 * j + 2 * r + 1]);
+      *reinterpret_cast<float2*>(dv + at + 8 * j) =
+          make_float2(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
     }
   }
 }
 
-// shared memory of each kernel at head dim h: f32 tiles for the FP32
-// kernels, bf16 tiles for the tensor-core ones
+// shared memory of each FP32 kernel at head dim h
 constexpr int tile_bytes(int h) { return kBlock * (h + kPad) * 4; }
 constexpr int fwd_smem(int h) { return 3 * tile_bytes(h) + kBlock * kPLd * 4; }
 constexpr int dq_smem(int h) {
@@ -1103,7 +1178,6 @@ constexpr int dq_smem(int h) {
 constexpr int dkv_smem(int h) {
   return 4 * tile_bytes(h) + 2 * kBlock * kPLd * 4 + 2 * kBlock * 4;
 }
-constexpr int mma_tile_bytes(int h) { return kBlock * (h + 8) * 2; }
 
 // Let Kernel take up to a CTA's 227 KB of dynamic shared memory, once a
 // device and instantiation (the attribute belongs to the current device).
@@ -1199,40 +1273,49 @@ int chunk(bool bf, const void* q, const void* k, const void* v, float* acc,
       acc, m, l, sq, sk, bn / bnkv, d, causal, scale);
 }
 
+// the FP32 backward kernels (f32 operands; bf16 runs bwd_wgmma)
 template <int H>
-int bwd_dq(bool bf, const void* q, const void* k, const void* v,
-           const void* dout, const float* delta, const float* lse, float* dq,
-           int bn, int bnkv, int sq, int sk, int d, int causal, float scale,
+int bwd_dq(const float* q, const float* k, const float* v, const float* dout,
+           const float* delta, const float* lse, float* dq, int bn, int bnkv,
+           int sq, int sk, int d, int causal, float scale,
            cudaStream_t stream) {
-  const dim3 grid(tiles(sq), bn);
-  if (bf)
-    return launch<flash_bwd_dq_mma<H>>(
-        grid, kMmaThreads, 4 * mma_tile_bytes(H), stream, (const bf16*)q,
-        (const bf16*)k, (const bf16*)v, (const bf16*)dout, delta, lse, dq,
-        sq, sk, bn / bnkv, d, causal, scale);
-  return launch<flash_bwd_dq<H>>(grid, kThreads, dq_smem(H), stream,
-                                 (const float*)q, (const float*)k,
-                                 (const float*)v, (const float*)dout, delta,
-                                 lse, dq, sq, sk, bn / bnkv, d, causal,
-                                 scale);
+  return launch<flash_bwd_dq<H>>(dim3(tiles(sq), bn), kThreads, dq_smem(H),
+                                 stream, q, k, v, dout, delta, lse, dq, sq, sk,
+                                 bn / bnkv, d, causal, scale);
 }
 
 template <int H>
-int bwd_dkv(bool bf, const void* q, const void* k, const void* v,
-            const void* dout, const float* delta, const float* lse,
+int bwd_dkv(const float* q, const float* k, const float* v,
+            const float* dout, const float* delta, const float* lse,
             float* dk, float* dv, int bn, int bnkv, int sq, int sk, int d,
             int causal, float scale, cudaStream_t stream) {
-  const dim3 grid(tiles(sk), bn);
-  if (bf)
-    return launch<flash_bwd_dkv_mma<H>>(
-        grid, kMmaThreads, 4 * mma_tile_bytes(H) + 2 * kBlock * 4, stream,
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-        delta, lse, dk, dv, sq, sk, bn / bnkv, d, causal, scale);
-  return launch<flash_bwd_dkv<H>>(grid, kThreads, dkv_smem(H), stream,
-                                  (const float*)q, (const float*)k,
-                                  (const float*)v, (const float*)dout, delta,
-                                  lse, dk, dv, sq, sk, bn / bnkv, d, causal,
-                                  scale);
+  return launch<flash_bwd_dkv<H>>(dim3(tiles(sk), bn), kThreads, dkv_smem(H),
+                                  stream, q, k, v, dout, delta, lse, dk, dv,
+                                  sq, sk, bn / bnkv, d, causal, scale);
+}
+
+// The bf16 backward of the wrapper's plan: grid (bnkv, ceil(sk / kTileN)),
+// tensor maps of q, do [bn][sq][H] in boxes of 64 rows, of k, v
+// [bnkv][sk][H] in boxes of kTileN rows. kErrLayout unless `smem` is at
+// least bwd_layout's size and at most a CTA's and sq and sk are not 0.
+// dq must be zero: the kernel adds into it.
+template <int H>
+int bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
+              const float* delta, const float* lse, float* dq, float* dk,
+              float* dv, int bn, int bnkv, int sq, int sk, int d, int causal,
+              float scale, int smem, cudaStream_t stream) {
+  if (smem < bwd_layout(H).total || smem > kMaxSmem || sq == 0 || sk == 0)
+    return kErrLayout;
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  if (!hopper::f32_map_3d(&tdq, dq, H, sq, bn, kBwdM) ||
+      !hopper::bf16_map_3d(&tq, q, H, sq, bn, kBwdM) ||
+      !hopper::bf16_map_3d(&tdo, dout, H, sq, bn, kBwdM) ||
+      !hopper::bf16_map_3d(&tk, k, H, sk, bnkv, kTileN) ||
+      !hopper::bf16_map_3d(&tv, v, H, sk, bnkv, kTileN))
+    return kErrTensorMap;
+  return launch<flash_bwd_wgmma<H>>(
+      dim3(bnkv, (sk + kTileN - 1) / kTileN), 3 * 128, smem, stream, tq, tk,
+      tv, tdo, tdq, lse, delta, dk, dv, sq, sk, bn / bnkv, d, causal, scale);
 }
 
 }  // namespace
@@ -1255,28 +1338,6 @@ int bwd_dkv(bool bf, const void* q, const void* k, const void* v,
         fwd<128>(BF, q, k, v, o, lse, bn, bnkv, sq, sk, causal, scale,       \
                  block_m, smem, stream))                                     \
   }                                                                          \
-  extern "C" int hpx_flash_bwd_dq_##NAME(                                    \
-      const void* q, const void* k, const void* v, const void* dout,         \
-      const float* delta, const float* lse, float* dq, int bn, int bnkv,     \
-      int sq, int sk, int h, int d, int causal, float scale,                 \
-      cudaStream_t stream) {                                                 \
-    HPX_FLASH_BY_HEAD(                                                       \
-        bwd_dq<64>(BF, q, k, v, dout, delta, lse, dq, bn, bnkv, sq, sk, d,   \
-                   causal, scale, stream),                                   \
-        bwd_dq<128>(BF, q, k, v, dout, delta, lse, dq, bn, bnkv, sq, sk, d,  \
-                    causal, scale, stream))                                  \
-  }                                                                          \
-  extern "C" int hpx_flash_bwd_dkv_##NAME(                                   \
-      const void* q, const void* k, const void* v, const void* dout,         \
-      const float* delta, const float* lse, float* dk, float* dv, int bn,    \
-      int bnkv, int sq, int sk, int h, int d, int causal, float scale,       \
-      cudaStream_t stream) {                                                 \
-    HPX_FLASH_BY_HEAD(                                                       \
-        bwd_dkv<64>(BF, q, k, v, dout, delta, lse, dk, dv, bn, bnkv, sq, sk, \
-                    d, causal, scale, stream),                               \
-        bwd_dkv<128>(BF, q, k, v, dout, delta, lse, dk, dv, bn, bnkv, sq,    \
-                     sk, d, causal, scale, stream))                          \
-  }                                                                          \
   extern "C" int hpx_flash_chunk_##NAME(                                     \
       const void* q, const void* k, const void* v, float* acc, float* m,     \
       float* l, int bn, int bnkv, int sq, int sk, int h, int d, int causal,  \
@@ -1291,10 +1352,59 @@ int bwd_dkv(bool bf, const void* q, const void* k, const void* v,
 HPX_FLASH_ENTRY(f32, false)
 HPX_FLASH_ENTRY(bf16, true)
 
+// The backward's f32 kernels, one entry point each (kernels 6 and 7).
+extern "C" int hpx_flash_bwd_dq_f32(const float* q, const float* k,
+                                    const float* v, const float* dout,
+                                    const float* delta, const float* lse,
+                                    float* dq, int bn, int bnkv, int sq,
+                                    int sk, int h, int d, int causal,
+                                    float scale, cudaStream_t stream) {
+  HPX_FLASH_BY_HEAD(bwd_dq<64>(q, k, v, dout, delta, lse, dq, bn, bnkv, sq,
+                               sk, d, causal, scale, stream),
+                    bwd_dq<128>(q, k, v, dout, delta, lse, dq, bn, bnkv, sq,
+                                sk, d, causal, scale, stream))
+}
+
+extern "C" int hpx_flash_bwd_dkv_f32(const float* q, const float* k,
+                                     const float* v, const float* dout,
+                                     const float* delta, const float* lse,
+                                     float* dk, float* dv, int bn, int bnkv,
+                                     int sq, int sk, int h, int d, int causal,
+                                     float scale, cudaStream_t stream) {
+  HPX_FLASH_BY_HEAD(bwd_dkv<64>(q, k, v, dout, delta, lse, dk, dv, bn, bnkv,
+                                sq, sk, d, causal, scale, stream),
+                    bwd_dkv<128>(q, k, v, dout, delta, lse, dk, dv, bn, bnkv,
+                                 sq, sk, d, causal, scale, stream))
+}
+
+// The bf16 backward, kernels 6 and 7 in one launch (flash_bwd_wgmma) by
+// the wrapper's plan (smem): dq [bn][sq][H] f32, zeroed by the caller,
+// and dk, dv [bnkv][sk][H] f32 per K/V row.
+extern "C" int hpx_flash_bwd_bf16(const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const float* delta, const float* lse,
+                                  float* dq, float* dk, float* dv, int bn,
+                                  int bnkv, int sq, int sk, int h, int d,
+                                  int causal, float scale, int smem,
+                                  cudaStream_t stream) {
+  HPX_FLASH_BY_HEAD(bwd_wgmma<64>(q, k, v, dout, delta, lse, dq, dk, dv, bn,
+                                  bnkv, sq, sk, d, causal, scale, smem,
+                                  stream),
+                    bwd_wgmma<128>(q, k, v, dout, delta, lse, dq, dk, dv, bn,
+                                   bnkv, sq, sk, d, causal, scale, smem,
+                                   stream))
+}
+
 // The bf16 forward's shared-memory bytes at head dim h for a plan's
 // block_m (attention_cuda.flash_fwd_smem_bytes mirrors it).
 extern "C" long long hpx_flash_fwd_smem_bytes(int h, int block_m) {
   return fwd_layout(h, block_m).total;
+}
+
+// The bf16 backward's shared-memory bytes at head dim h
+// (attention_cuda.flash_bwd_smem_bytes mirrors it).
+extern "C" long long hpx_flash_bwd_smem_bytes(int h) {
+  return bwd_layout(h).total;
 }
 
 // A planted fault for chip_smoke.py's check, never on a path: the bf16

@@ -14,9 +14,14 @@ which the kernel is held against on the card:
                                 version plain_paged_attention_online)
   flash_attention_fwd           kernel flash_fwd (replaces _flash_kernel;
                                 plain version plain_flash_fwd)
-  flash_attention_bwd_dq        kernel flash_bwd_dq (replaces
+  flash_attention_bwd           bf16: kernel flash_bwd_wgmma, dq, dk and
+                                dv in one launch (replaces
+                                _flash_bwd_dq_kernel and
+                                _flash_bwd_dkv_kernel; plain_flash_bwd);
+                                f32: the two wrappers below
+  flash_attention_bwd_dq        f32: kernel flash_bwd_dq (replaces
                                 _flash_bwd_dq_kernel; plain_flash_bwd_dq)
-  flash_attention_bwd_dkv       kernel flash_bwd_dkv (replaces
+  flash_attention_bwd_dkv       f32: kernel flash_bwd_dkv (replaces
                                 _flash_bwd_dkv_kernel; plain_flash_bwd_dkv)
   flash_attention_chunk         kernel flash_chunk (replaces
                                 _flash_chunk_kernel; plain_flash_chunk):
@@ -26,9 +31,9 @@ which the kernel is held against on the card:
 
 Each flash kernel has two routes in the source, chosen by the operands'
 dtype: bf16 on the tensor cores, f32 on the FP32 units. The bf16
-forward and chunk fold (``flash_fwd_wgmma``) run on Hopper's wgmma fed
-by TMA, one launch plan from ``flash_fwd_plan``; the bf16 backward
-kernels on mma.sync (``*_mma``).
+forward and chunk fold (``flash_fwd_wgmma``) and the bf16 backward
+(``flash_bwd_wgmma``) run on Hopper's wgmma fed by TMA, with launch
+plans from ``flash_fwd_plan`` and ``flash_bwd_plan``.
 ``flash_attention`` (at the end of this file) is the differentiable
 [B, S, N, H] entry point over the forward and backward wrappers; the
 ring (``ops/attention.py``) runs the chunk and backward wrappers.
@@ -87,12 +92,14 @@ __all__ = ["fused_paged_attention", "fused_paged_online_attention",
            "resolve_paged_block_src", "resolve_paged_block",
            "chunk_blocks", "paged_splits", "paged_plan", "paged_runs",
            "flash_fwd_plan", "flash_fwd_smem_bytes", "FLASH_TILE_N",
-           "FLASH_STAGES",
+           "FLASH_STAGES", "flash_bwd_plan", "flash_bwd_smem_bytes",
+           "FLASH_BWD_STAGES",
            "exact_smem_bytes", "online_smem_bytes", "PAGED_STAGES",
            "SMEM_LIMIT", "flash_attention", "flash_attention_fwd",
            "flash_attention_bwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "flash_attention_chunk", "bwd_prep",
-           "plain_flash_fwd", "plain_flash_bwd_dq", "plain_flash_bwd_dkv",
+           "plain_flash_fwd", "plain_flash_bwd", "plain_flash_bwd_dq",
+           "plain_flash_bwd_dkv",
            "plain_flash_chunk", "flash_finish"]
 
 _NEG_INF = -1e30     # the online carry's "minus infinity" (exp stays exact)
@@ -602,11 +609,13 @@ fused_paged_online_attention.launches = 0
 # products, as the reference casts them. f32 operands stay f32 (no TF32).
 
 FLASH_BLOCK = 64           # rows of a q tile and of a key tile (f32
-                           # kernels, the backward kernels)
-FLASH_TILE_N = 128         # keys of a K/V tile of the bf16 forward
+                           # kernels); q rows of a tile of the bf16
+                           # backward
+FLASH_TILE_N = 128         # keys of a K/V tile of the bf16 kernels
 FLASH_HEAD_DIMS = (64, 128)  # head dims the CUDA kernels are built for
 _FLASH_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 FLASH_STAGES = 3           # the bf16 forward's ring of K/V stages
+FLASH_BWD_STAGES = 2       # the bf16 backward's ring of Q/dO stages
 _SMEM_PER_SM = 233472      # an SM's shared memory; 1 KB of it a CTA's own
 
 
@@ -637,6 +646,42 @@ def flash_fwd_plan(h: int, bn: int, sq: int) -> Tuple[int, int]:
         raise ValueError(f"flash_fwd_plan: {smem} bytes at head dim {h}, "
                          f"block_m {block_m}: above {SMEM_LIMIT}")
     return block_m, smem
+
+
+def flash_bwd_smem_bytes(h: int) -> int:
+    """Shared memory of the bf16 backward (kernel ``flash_bwd_wgmma``), as
+    ``bwd_layout`` in ``csrc/flash_attention.cu`` lays it out (that
+    function owns it; the entry point refuses a smaller size): 1024 bytes
+    of room to align the base, K and V tiles of FLASH_TILE_N rows,
+    FLASH_BWD_STAGES stages of Q and dO tiles of FLASH_BLOCK rows with
+    their rows of L and delta (padded to 1024 bytes), two buffers of the
+    [FLASH_BLOCK, FLASH_TILE_N] bf16 dS tile, a [FLASH_BLOCK, 64] f32 dQ
+    partial for each of the two consumer warpgroups, and 8-byte mbarriers
+    (K/V-full and a full and an empty one a stage)."""
+    stage = 2 * FLASH_BLOCK * h * 2 + 1024
+    return (1024 + 2 * FLASH_TILE_N * h * 2 + FLASH_BWD_STAGES * stage
+            + 2 * FLASH_BLOCK * FLASH_TILE_N * 2 + 2 * FLASH_BLOCK * 64 * 4
+            + 8 * (1 + 2 * FLASH_BWD_STAGES))
+
+
+@functools.lru_cache(maxsize=256)
+def flash_bwd_plan(h: int, bnkv: int, sk: int) -> Tuple[int, int, int]:
+    """(key tiles, stages, shared-memory bytes) of a launch of the bf16
+    backward on [bnkv, sk, h] keys: one CTA a tile of FLASH_TILE_N keys of
+    a K/V row (grid (bnkv, key tiles)), two consumer warpgroups of 64
+    keys and a producer warpgroup, FLASH_BWD_STAGES stages of q tiles
+    (FLASH_BLOCK rows), one CTA an SM (the consumers' registers: dK and
+    dV stay in them). Raises where the grid or the shared memory does
+    not fit."""
+    tiles = -(-sk // FLASH_TILE_N)
+    if tiles > 65535 or bnkv > 2**31 - 1:
+        raise ValueError(f"flash_bwd_plan: grid ({bnkv}, {tiles}) of K/V "
+                         "rows and key tiles is above the card's")
+    smem = flash_bwd_smem_bytes(h)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"flash_bwd_plan: {smem} bytes at head dim {h}: "
+                         f"above {SMEM_LIMIT}")
+    return tiles, FLASH_BWD_STAGES, smem
 
 
 def _flash_scale(h: int) -> float:
@@ -767,6 +812,34 @@ def plain_flash_bwd_dkv(q, k, v, do, delta, lse, d: int,
     return dk, dv
 
 
+def plain_flash_bwd(q, k, v, do, delta, lse, d: int, causal: bool = False,
+                    q_heads: int = 1, kv_heads: int = 1):
+    """The bf16 backward kernel's function in PyTorch: dq of
+    ``plain_flash_bwd_dq``, and dk, dv of ``plain_flash_bwd_dkv`` summed
+    over each GQA group (q rows bn of K/V row bn // g, g = B·N / B·Nkv)
+    in f32. Returns (dq [B·N, Sq, H], dk [B·Nkv, Sk, H], dv [B·Nkv, Sk,
+    H]), all f32."""
+    _check_heads(q, k, q_heads, kv_heads)
+    dq = plain_flash_bwd_dq(q, k, v, do, delta, lse, d, causal)
+    dk, dv = plain_flash_bwd_dkv(q, k, v, do, delta, lse, d, causal)
+    return (dq, *_group_sum(dk, dv, k))
+
+
+def _check_heads(q, k, q_heads: int, kv_heads: int) -> None:
+    if q_heads % kv_heads or q.shape[0] * kv_heads != k.shape[0] * q_heads:
+        raise ValueError(f"q_heads={q_heads}, kv_heads={kv_heads} do not "
+                         f"fit q rows {q.shape[0]} and k rows {k.shape[0]}")
+
+
+def _group_sum(dk, dv, k):
+    """Per-q-row dk, dv [B·N, Sk, H] summed to the K/V rows of k."""
+    g = dk.shape[0] // k.shape[0]
+    if g == 1:
+        return dk, dv
+    return tuple(x.reshape(k.shape[0], g, *x.shape[1:]).sum(1)
+                 for x in (dk, dv))
+
+
 def _flash_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     if not getattr(lib, "_hpx_typed", False):
@@ -776,13 +849,15 @@ def _flash_lib() -> ctypes.CDLL:
             fn = getattr(lib, f"hpx_flash_fwd_{name}")
             fn.argtypes = [p] * 5 + [i] * 6 + [f] + [i] * 2 + [p]
             fn.restype = i
+        lib.hpx_flash_bwd_dq_f32.argtypes = [p] * 7 + [i] * 7 + [f, p]
+        lib.hpx_flash_bwd_dq_f32.restype = i
+        lib.hpx_flash_bwd_dkv_f32.argtypes = [p] * 8 + [i] * 7 + [f, p]
+        lib.hpx_flash_bwd_dkv_f32.restype = i
+        lib.hpx_flash_bwd_bf16.argtypes = [p] * 9 + [i] * 7 + [f, i, p]
+        lib.hpx_flash_bwd_bf16.restype = i
+        lib.hpx_flash_bwd_smem_bytes.argtypes = [i]
+        lib.hpx_flash_bwd_smem_bytes.restype = ctypes.c_longlong
         for name in _FLASH_DTYPES.values():
-            fn = getattr(lib, f"hpx_flash_bwd_dq_{name}")
-            fn.argtypes = [p] * 7 + [i] * 7 + [f, p]
-            fn.restype = i
-            fn = getattr(lib, f"hpx_flash_bwd_dkv_{name}")
-            fn.argtypes = [p] * 8 + [i] * 7 + [f, p]
-            fn.restype = i
             fn = getattr(lib, f"hpx_flash_chunk_{name}")
             fn.argtypes = [p] * 6 + [i] * 7 + [f] + [i] * 2 + [p]
             fn.restype = i
@@ -887,18 +962,25 @@ def _fwd_plan_args(q: torch.Tensor) -> Tuple[int, int]:
 flash_attention_fwd.launches = 0
 
 
+def _f32_only(what: str, q: torch.Tensor) -> None:
+    if q.dtype == torch.bfloat16:
+        raise TypeError(f"{what}: bf16 operands on {q.device} run one "
+                        "kernel for dq, dk and dv: call flash_attention_bwd")
+
+
 def flash_attention_bwd_dq(q, k, v, do, delta, lse, d: int,
                            causal: bool = False) -> torch.Tensor:
     """dq [B·N, Sq, H] f32 of the flash backward, in the kernel layout;
     ``d`` is the causal offset (key j visible to query i iff
     j <= i + d; Sk - Sq for plain flash, per chunk on a ring).
 
-    CUDA tensor: kernel ``flash_bwd_dq`` (``flash_bwd_dq_mma`` for
-    bf16), which replaces
-    ``hpx_tpu/ops/attention_pallas.py:_flash_bwd_dq_kernel``. CPU
+    f32 CUDA tensor: kernel ``flash_bwd_dq``, which replaces
+    ``hpx_tpu/ops/attention_pallas.py:_flash_bwd_dq_kernel``; bf16
+    operands raise (``flash_attention_bwd`` runs their one kernel). CPU
     tensor: ``plain_flash_bwd_dq``."""
     if q.device.type == "cpu":
         return plain_flash_bwd_dq(q, k, v, do, delta, lse, d, causal)
+    _f32_only("flash_attention_bwd_dq", q)
     _flash_check("flash_attention_bwd_dq", q, k, v,
                  rows=(("delta", delta), ("lse", lse)),
                  cotangents=(("do", do),))
@@ -908,7 +990,7 @@ def flash_attention_bwd_dq(q, k, v, do, delta, lse, d: int,
         lib = _flash_lib()
         _flash_launch(
             "flash_attention_bwd_dq",
-            getattr(lib, f"hpx_flash_bwd_dq_{_FLASH_DTYPES[q.dtype]}"),
+            lib.hpx_flash_bwd_dq_f32,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             delta.data_ptr(), lse.data_ptr(), dq.data_ptr(), bn, k.shape[0],
             sq, k.shape[1], h, int(d), int(causal), _flash_scale(h))
@@ -925,12 +1007,13 @@ def flash_attention_bwd_dkv(q, k, v, do, delta, lse, d: int,
     """(dk, dv) of the flash backward PER Q ROW, each [B·N, Sk, H] f32
     (``flash_attention_bwd`` group-sums them to the K/V rows).
 
-    CUDA tensor: kernel ``flash_bwd_dkv`` (``flash_bwd_dkv_mma`` for
-    bf16), which replaces
-    ``hpx_tpu/ops/attention_pallas.py:_flash_bwd_dkv_kernel``. CPU
+    f32 CUDA tensor: kernel ``flash_bwd_dkv``, which replaces
+    ``hpx_tpu/ops/attention_pallas.py:_flash_bwd_dkv_kernel``; bf16
+    operands raise (``flash_attention_bwd`` runs their one kernel). CPU
     tensor: ``plain_flash_bwd_dkv``."""
     if q.device.type == "cpu":
         return plain_flash_bwd_dkv(q, k, v, do, delta, lse, d, causal)
+    _f32_only("flash_attention_bwd_dkv", q)
     _flash_check("flash_attention_bwd_dkv", q, k, v,
                  rows=(("delta", delta), ("lse", lse)),
                  cotangents=(("do", do),))
@@ -942,7 +1025,7 @@ def flash_attention_bwd_dkv(q, k, v, do, delta, lse, d: int,
         lib = _flash_lib()
         _flash_launch(
             "flash_attention_bwd_dkv",
-            getattr(lib, f"hpx_flash_bwd_dkv_{_FLASH_DTYPES[q.dtype]}"),
+            lib.hpx_flash_bwd_dkv_f32,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             delta.data_ptr(), lse.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             bn, k.shape[0], sq, sk, h, int(d), int(causal), _flash_scale(h))
@@ -1007,21 +1090,50 @@ def bwd_prep(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
 def flash_attention_bwd(q, k, v, do, delta, lse, d: int,
                         causal: bool = False, q_heads: int = 1,
                         kv_heads: int = 1):
-    """The flash backward in the kernel layout: the dq kernel, then the
-    dk/dv kernel, whose per-q-head partials are summed per GQA group
-    (so neither kernel needs atomics). Returns (dq [B·N, Sq, H],
-    dk [B·Nkv, Sk, H], dv [B·Nkv, Sk, H]), all f32."""
-    if q_heads % kv_heads or q.shape[0] * kv_heads != k.shape[0] * q_heads:
-        raise ValueError(f"q_heads={q_heads}, kv_heads={kv_heads} do not "
-                         f"fit q rows {q.shape[0]} and k rows {k.shape[0]}")
-    dq = flash_attention_bwd_dq(q, k, v, do, delta, lse, d, causal)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, delta, lse, d, causal)
-    g = q_heads // kv_heads
-    if g > 1:
-        sk, h = k.shape[1], k.shape[2]
-        dk = dk.reshape(k.shape[0], g, sk, h).sum(1)
-        dv = dv.reshape(k.shape[0], g, sk, h).sum(1)
+    """The flash backward in the kernel layout: q, do [B·N, Sq, H], k, v
+    [B·Nkv, Sk, H], delta (``bwd_prep``) and lse [B·N, Sq] f32; ``d`` the
+    causal offset. Returns (dq [B·N, Sq, H], dk [B·Nkv, Sk, H], dv
+    [B·Nkv, Sk, H]), all f32.
+
+    bf16 CUDA tensors: kernel ``flash_bwd_wgmma``, one launch by
+    ``flash_bwd_plan`` that computes dq, dk and dv (replaces
+    ``hpx_tpu/ops/attention_pallas.py:_flash_bwd_dq_kernel`` and
+    ``_flash_bwd_dkv_kernel``); it adds dq's partials into a zeroed dq
+    (TMA bulk reduce-adds, in no fixed order) and sums each GQA group
+    itself. f32 CUDA tensors: the dq kernel,
+    then the dk/dv kernel, whose per-q-row partials are summed per
+    group here. CPU tensors: ``plain_flash_bwd``."""
+    if q.device.type == "cpu":
+        return plain_flash_bwd(q, k, v, do, delta, lse, d, causal, q_heads,
+                               kv_heads)
+    _check_heads(q, k, q_heads, kv_heads)
+    if q.dtype != torch.bfloat16:
+        dq = flash_attention_bwd_dq(q, k, v, do, delta, lse, d, causal)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, delta, lse, d, causal)
+        return (dq, *_group_sum(dk, dv, k))
+    _flash_check("flash_attention_bwd", q, k, v,
+                 rows=(("delta", delta), ("lse", lse)),
+                 cotangents=(("do", do),))
+    bn, sq, h = q.shape
+    bnkv, sk = k.shape[0], k.shape[1]
+    dq = torch.zeros((bn, sq, h), dtype=torch.float32, device=q.device)
+    dk = torch.empty((bnkv, sk, h), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    if sq == 0 or sk == 0:
+        return dq, dk.zero_(), dv.zero_()
+    _, _, smem = flash_bwd_plan(h, bnkv, sk)
+    with torch.cuda.device(q.device):
+        _flash_launch(
+            "flash_attention_bwd", _flash_lib().hpx_flash_bwd_bf16,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            delta.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), bn, bnkv, sq, sk, h, int(d), int(causal),
+            _flash_scale(h), smem)
+    flash_attention_bwd.launches += 1
     return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
 
 
 def _kernel_layout(x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the flash forward (kernel 5) and the ring's chunk fold (kernel 8) of
-one checkout on a CUDA card.
+"""Time the flash forward (kernel 5), the flash backward (kernels 6-7) and
+the ring's chunk fold (kernel 8) of one checkout on a CUDA card.
 
     python3 hpx_tpu_torch/tools/flash_ab.py [--root DIR] [--tag NAME]
 
@@ -10,9 +10,15 @@ and spill lines for each kernel, then one JSON line per case, in bf16,
 causal: kernel 5 (``flash_attention_fwd``) at the training shape (B 8,
 S 1024, 8 heads of 64) and at bench.py:448's (B 2, S 4096, 8 heads of
 128), beside ``F.scaled_dot_product_attention`` on the same inputs;
-kernel 8 (``flash_attention_chunk``) at the ring's shape (q [32, 512,
-64] against one chunk of 512 keys) at d = 0 and d = 512, from a carry.
-Inputs are random normal from seed 11 (kernel 5) and 13 (kernel 8), as
+kernels 6-7 (``flash_attention_bwd``, the function the autograd Function
+and the ring call: one kernel, or two and a group sum in older trees) at
+both shapes, from the forward's o and L, beside SDPA's flash backward
+(``aten._scaled_dot_product_flash_attention_backward`` on the saved
+outputs of its forward), and at the ring's shape (q [32, 512, 64]
+against one chunk of 512 keys) at d = 0 and d = 512, each with its own
+forward's L; kernel 8 (``flash_attention_chunk``) at the ring's shape at
+d = 0 and d = 512, from a carry. Inputs are random normal from seed 11
+(kernels 5-7) and 13 (kernel 8 and the ring's backward), as
 ``chip_smoke.py``'s timing. ``ms`` is the milliseconds a call on the
 device: CUDA events around replays of a CUDA graph of 20 calls (the
 wrappers' host work stays out); ``events_ms`` the same around 20
@@ -98,12 +104,13 @@ def host_ms(fn, reps=7):
     return statistics.median(times)
 
 
-def rows(b, s, n, h, seed):
-    """q, k, v [b·n, s, h] bf16 random normal from ``seed``, on the card."""
+def rows(b, s, n, h, seed, count=3):
+    """``count`` tensors [b·n, s, h] (q, k, v, do) bf16 random normal from
+    ``seed``, on the card."""
     import torch
     cpu = torch.Generator().manual_seed(seed)
     return [torch.randn(b * n, s, h, generator=cpu).to(torch.bfloat16).cuda()
-            for _ in range(3)]
+            for _ in range(count)]
 
 
 def main() -> int:
@@ -157,6 +164,40 @@ def main() -> int:
                           "sdpa_ms": graph_ms(sdpa),
                           "sdpa_events_ms": events_ms(sdpa)}), flush=True)
         del q, k, v, q4, k4, v4, o, lse
+    aten = torch.ops.aten
+    for b, s, n, h in ((8, 1024, 8, 64), (2, 4096, 8, 128)):
+        q, k, v, do = rows(b, s, n, h, seed=11, count=4)
+        o, lse = ac.flash_attention_fwd(q, k, v, True)
+        delta = ac.bwd_prep(do, o)
+
+        def bwd():
+            ac.flash_attention_bwd(q, k, v, do, delta, lse, 0, True)
+        q4, k4, v4, do4 = (x.view(b, n, s, h) for x in (q, k, v, do))
+        fo = aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, True)
+
+        def sdpa_bwd():
+            aten._scaled_dot_product_flash_attention_backward(
+                do4, q4, k4, v4, fo[0], fo[1], fo[2], fo[3], fo[4], fo[5],
+                0.0, True, fo[6], fo[7])
+        print(json.dumps({"tree": args.tag, "kernel": "6+7",
+                          "shape": f"B={b} S={s} N={n} H={h}",
+                          "ms": graph_ms(bwd), "events_ms": events_ms(bwd),
+                          "host_ms": host_ms(bwd),
+                          "sdpa_ms": graph_ms(sdpa_bwd),
+                          "sdpa_events_ms": events_ms(sdpa_bwd)}), flush=True)
+        del q, k, v, do, o, lse, delta, q4, k4, v4, do4, fo
+    q, k, v, do = rows(8, 512, 4, 64, seed=13, count=4)
+    for d in (0, 512):
+        o, lse = ac.flash_attention_fwd(q, k, v, d == 0)
+        delta = ac.bwd_prep(do, o)
+
+        def ring_bwd():
+            ac.flash_attention_bwd(q, k, v, do, delta, lse, d, True)
+        print(json.dumps({"tree": args.tag, "kernel": "6+7",
+                          "shape": f"q [32, 512, 64], d={d}",
+                          "ms": graph_ms(ring_bwd),
+                          "events_ms": events_ms(ring_bwd),
+                          "host_ms": host_ms(ring_bwd)}), flush=True)
     q, k, v = rows(8, 512, 4, 64, seed=13)
     acc = torch.zeros(q.shape, device="cuda")
     m = torch.full(q.shape[:2], -1e30, device="cuda")

@@ -9,7 +9,9 @@ on the reference side (the port's plain versions walk keys in blocks of
 - forward: o and the row logsumexp L against ``_flash_fwd_impl(...,
   save_res=True)``;
 - backward: dq, dk, dv against ``flash_attention_bwd`` with explicit
-  causal offsets d, GQA group sums included;
+  causal offsets d, GQA and MQA group sums included (the port's
+  ``flash_attention_bwd`` runs ``plain_flash_bwd`` here, the function of
+  its one bf16 kernel);
 - gradients: ``flash_attention``'s autograd Function against ``jax.grad``
   of the reference ``flash_attention``.
 
@@ -119,7 +121,11 @@ def _ref_bwd(qt, kt, vt, dot, ot, lse, d, causal, nq, nkv):
 BWD_CASES = ([(sq, sk, False, None, 2, 2) for sq, sk in RAGGED]
              + [(sq, sk, True, d, 2, 2) for sq, sk in RAGGED
                 for d in ("sk-sq", 0, -16)]
-             + [(37, 53, True, "sk-sq", 4, 2), (48, 16, False, None, 4, 1)])
+             + [(37, 53, True, "sk-sq", 4, 2), (48, 16, False, None, 4, 1)]
+             # MQA, causal (the bf16 kernel walks the 8 q heads of its K/V
+             # row); one q row that sees no key at d = -16 (dq is 0)
+             + [(37, 53, True, 0, 8, 1), (37, 53, True, -16, 8, 1),
+                (1, 53, True, -16, 2, 2)])
 
 
 @pytest.mark.parametrize("sq,sk,causal,d,nq,nkv", BWD_CASES)
@@ -145,6 +151,8 @@ def test_plain_backward_matches_the_pallas_kernels(sq, sk, causal, d, nq,
         assert tuple(g.shape) == w.shape, name
         np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
                                    **F32_BWD)
+    if causal and sq - 1 + d < 0:        # no row sees a key
+        assert not got[0].any() and not got[1].any() and not got[2].any()
 
 
 GRAD_CASES = ([(sq, sk, causal, 2, 2, "f32") for sq, sk in RAGGED
@@ -188,14 +196,12 @@ def test_flash_attention_agrees_with_the_reference_oracles(causal):
 
 def test_the_cpu_path_launches_nothing_and_a_missing_build_raises():
     q, k, v, do = (torch.from_numpy(x) for x in _inputs(1, 8, 8, 2, 2, 64, 9))
-    counts = [ac.flash_attention_fwd.launches,
-              ac.flash_attention_bwd_dq.launches,
-              ac.flash_attention_bwd_dkv.launches]
+    wrappers = (ac.flash_attention_fwd, ac.flash_attention_bwd,
+                ac.flash_attention_bwd_dq, ac.flash_attention_bwd_dkv)
+    counts = [f.launches for f in wrappers]
     q.requires_grad_()
     ac.flash_attention(q, k, v, True).sum().backward()
-    assert [ac.flash_attention_fwd.launches,
-            ac.flash_attention_bwd_dq.launches,
-            ac.flash_attention_bwd_dkv.launches] == counts
+    assert [f.launches for f in wrappers] == counts
     # without nvcc the kernels' build raises rather than falling back
     try:
         _build._nvcc()
@@ -277,6 +283,23 @@ def test_flash_fwd_plan(h):
                 h == 128 and -(-sq // 128) * bn >= 132)
 
 
+@pytest.mark.parametrize("h", [64, 128])
+def test_flash_bwd_plan(h):
+    """One CTA a tile of FLASH_TILE_N keys of a K/V row (grid (B·Nkv, key
+    tiles)), FLASH_BWD_STAGES stages of Q/dO tiles, the layout's shared
+    memory (K, V, the stages, two dS buffers, two f32 dQ partials:
+    134184 bytes at H 64, 199720 at H 128), never above SMEM_LIMIT; a
+    grid past the card's raises."""
+    for bnkv, sk in ((64, 1024), (16, 4096), (32, 512), (1, 1), (8, 1029)):
+        tiles, stages, smem = ac.flash_bwd_plan(h, bnkv, sk)
+        assert tiles == -(-sk // ac.FLASH_TILE_N)
+        assert stages == ac.FLASH_BWD_STAGES == 2
+        assert smem == ac.flash_bwd_smem_bytes(h) <= ac.SMEM_LIMIT
+    assert ac.flash_bwd_smem_bytes(h) == {64: 134184, 128: 199720}[h]
+    with pytest.raises(ValueError, match="grid"):
+        ac.flash_bwd_plan(h, 8, 65536 * ac.FLASH_TILE_N)
+
+
 def test_library_path_covers_the_headers(tmp_path, monkeypatch):
     """A changed csrc/*.cuh names another build, so a stale library is
     never loaded."""
@@ -301,3 +324,10 @@ def test_arguments_are_checked():
         ac.flash_attention_bwd(*(torch.zeros((4, 8, 16)),) * 4,
                                torch.zeros((4, 8)), torch.zeros((4, 8)), 0,
                                True, 4, 3)
+    # off the CPU, bf16 operands have one backward kernel for dq, dk and
+    # dv: the split wrappers refuse them and name it, before any launch
+    x = torch.zeros((4, 8, 64), dtype=torch.bfloat16, device="meta")
+    rows = torch.zeros((4, 8), device="meta")
+    for split in (ac.flash_attention_bwd_dq, ac.flash_attention_bwd_dkv):
+        with pytest.raises(TypeError, match="flash_attention_bwd"):
+            split(x, x, x, x, rows, rows, 0, True)
