@@ -13,9 +13,22 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    limit (nvidia-smi); the SASS of the bf16 flash forward
    (flash_fwd_wgmma) and of the bf16 flash backward (flash_bwd_wgmma)
    must each hold HGMMA (wgmma) and UTMALDG (TMA loads) instructions
-   (cuobjdump -sass).
+   (cuobjdump -sass). For kernel 1 (multistep_fused_kernel<K>, one
+   instance a K of ops.stencil.CELLS_PER_THREAD) it prints the SHFL,
+   LDS, STS and BAR counts of its SASS, which must hold SHFL; the CUDA
+   runtime's registers, static shared memory and local bytes of each
+   instance: the shared memory must equal ops.stencil.smem_bytes and
+   nothing may spill.
 2. Kernel checks: each kernel against its plain PyTorch version on small
-   and ragged shapes. The stencil kernels bitwise (tolerance 0); the
+   and ragged shapes. The stencil kernels bitwise (tolerance 0): kernel
+   2 at n in {1, 2, 3, 127, 1000, 2^20 + 3}; kernel 1 at n in {1, 5,
+   511 and 513 (around 2S, S = ops.stencil.PASS_STEPS = 256), 4095,
+   4097, 100003, 2^19} and around the tile the plan gives 2^19 (T - 1,
+   T, T + 1), steps in {1, 31, 32, 33, 70, S - 1, S, S + 1, 2S + 3,
+   1024}, by the wrapper's own plan, by each K's plan and by each K's
+   plan with blocks of 2 and 8 warps (runs exchanged between warps), and
+   from a tensor that is not 16-byte aligned (the scalar loads); one
+   pass given a halo one cell short (a planted fault) must differ. The
    paged-attention kernels within rtol = atol = 1e-5 for float32 output
    and rtol = atol = 1e-2 (about one bfloat16 ulp at the outputs'
    magnitude) for bfloat16 output, over every pool type and 18 shapes
@@ -38,10 +51,11 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    1024}, c in {0.9999999, 0.3}.
 3. The main path, through the entry points a user calls, each path with
    the launch counts set to 0 just before it and read just after:
-     fused     stencil_fused -> multistep -> multistep_fused (kernel B),
-               n = 2^27 with nt = 256 in 64-step dispatches, and
+     fused     stencil_fused -> multistep -> multistep_fused (kernel 1:
+               one C call a dispatch, launching its passes of up to 256
+               steps), n = 2^27 with nt = 256 in 64-step dispatches, and
                n = 2^19 with nt = 1024 in one dispatch;
-     unfused   heat_step_best (kernel A) for 16 chained steps at
+     unfused   heat_step_best (kernel 2) for 16 chained steps at
                n = 2^28 and at n = 2^20 + 3;
      dataflow  stencil_dataflow over a CudaExecutor, np = 16 partitions of
                2^20, nt = 32, eager and then watched futures.
@@ -167,7 +181,12 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
 4. Timing: each kernel at its main-path shape, CUDA events around runs
    of back-to-back calls (as many as fill about 2 ms), median of 7 runs
    after warm-up (kernel 9 at 2^17 x 1024, bound by its operations: 24 a
-   step and element at 67 TFLOP/s); its plain version, median of 3; and its bound, the
+   step and element at 67 TFLOP/s; kernel 1 at 2^27 x 64 and 2^19 x
+   1024, with the wrapper's host ms a call (the wall clock of calls made
+   while the card is held busy) and the instruction bound, its 4 FP32
+   instructions a cell update at 33.5 x 10^12 a second (132 SMs x 128
+   lanes x 1.98 GHz), beside the operations bound); its plain version,
+   median of 3; and its bound, the
    larger of bytes moved (input read once, output written once) over
    3.35 TB/s and operations over the peak of their type (H100 SXM data
    sheet: 67 TFLOP/s FP32, 989 TFLOP/s bf16). The paged kernels are
@@ -230,6 +249,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -240,6 +260,10 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM, device memory
 FP32_OPS_PER_S = 67e12        # H100 SXM, FP32 outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM, bf16 tensor cores, dense
 FLOPS_PER_CELL_STEP = 5       # 2u, one add, one sub, one fma (2 operations)
+# FP32 instructions of a cell update of kernel 1 (FMUL, FSUB, FADD, FFMA)
+# and the card's FP32 issue rate: 132 SMs x 128 lanes x 1.98 GHz
+FP32_INSTR_PER_CELL_STEP = 4
+FP32_INSTR_PER_S = 33.5e12
 
 # benchmarks/serving_bench.py:273-277 at --scale 16 (d = 64 * 16)
 SERVE_MODEL = dict(vocab=1024, d_model=1024, n_heads=8, head_dim=128,
@@ -396,7 +420,6 @@ def _ptxas_report(log: str):
     """(kernel, "R registers, S bytes spilled") for each entry function
     in nvcc's -Xptxas -v log; the kernel as its name and template
     arguments, cut out of the mangled symbol."""
-    import re
     kernel, spill = None, "0"
     for line in log.splitlines():
         m = re.search(r"entry function '(\w+)'", line)
@@ -698,7 +721,8 @@ class Smoke:
             self.failures.append(name)
             return False
 
-    def expect_equal(self, kernel: str, got, want, what: str) -> None:
+    def expect_equal(self, kernel: str, got, want, what: str,
+                     quiet: bool = False) -> None:
         import torch
         torch.cuda.synchronize()
         err = (got - want).abs().max().item() if got.numel() else 0.0
@@ -706,7 +730,8 @@ class Smoke:
         if got.shape != want.shape or not torch.equal(got, want):
             raise AssertionError(f"{what}: kernel differs from its plain "
                                  f"version, max abs err {err}")
-        print(f"   {what}: equal (tolerance 0)", flush=True)
+        if not quiet:
+            print(f"   {what}: equal (tolerance 0)", flush=True)
 
     def expect_close(self, kernel: str, got, want, what: str,
                      quiet: bool = False, tol=None, norm: bool = False
@@ -834,6 +859,29 @@ def main() -> int:
             if not all(counts.values()):
                 raise AssertionError(f"{kern} has no wgmma or TMA load: "
                                      f"{counts}")
+        # kernel 1 keeps its cells in registers: warp shuffles each step,
+        # shared memory only for the runs exchanged between warps
+        sass = subprocess.run([cuobjdump, "-sass",
+                               _build.BUILD_INFO["stencil"]["path"]],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        for k in st.CELLS_PER_THREAD:
+            body = "".join(f for f in sass.split("Function : ")[1:]
+                           if f"multistep_fused_kernelILi{k}E"
+                           in f.split("\n", 1)[0])
+            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?"
+                             r"([A-Z][A-Z0-9]*)", body)
+            counts = {op: ops.count(op) for op in ("SHFL", "LDS", "STS",
+                                                    "BAR")}
+            attrs = st.multistep_fused_attrs(k)
+            print(f"   multistep_fused_kernel<{k}> SASS: {counts}; "
+                  f"runtime: {attrs}", flush=True)
+            if not counts["SHFL"] or attrs["local"] \
+                    or attrs["smem"] != st.smem_bytes(k):
+                raise AssertionError(
+                    f"multistep_fused_kernel<{k}>: no SHFL, spilled, or "
+                    f"shared memory {attrs['smem']} != the plan's "
+                    f"{st.smem_bytes(k)}")
     if not sm.phase("build", build):
         return 1
 
@@ -848,14 +896,49 @@ def main() -> int:
             u = rand(n)
             sm.expect_equal("heat_step_blocked", st.heat_step_blocked(u, 0.3),
                             st.plain_heat_step_blocked(u, 0.3),
-                            f"kernel A n={n}")
-        for n in (1, 5, 4095, 4097, 100003):
-            for steps in (1, 31, 32, 33, 70):
+                            f"kernel 2 n={n}")
+        # kernel 1 around 2S, around the tile the plan gives 2^19, over
+        # one and several passes; by the wrapper's plan, each K's plan,
+        # and each K's with blocks of 2 and 8 warps
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        s_ = st.PASS_STEPS
+        tile = st.multistep_plan(1 << 19, s_, sms).tile
+        plans = [(None, None)] + [(k, w) for k in st.CELLS_PER_THREAD
+                                  for w in (None, 2, 8)]
+        for n in (1, 5, 2 * s_ - 1, 2 * s_ + 1, 4095, 4097, 100003,
+                  tile - 1, tile, tile + 1, 1 << 19):
+            for steps in (1, 31, 32, 33, 70, s_ - 1, s_, s_ + 1, 2 * s_ + 3,
+                          1024):
                 u = rand(n)
+                want = st.plain_multistep(u, 0.3, steps)
+                for k, w in plans:
+                    plan = None if k is None else st.multistep_plan(
+                        n, steps, sms, k, w)
+                    sm.expect_equal(
+                        "multistep_fused",
+                        st.multistep_fused(u, 0.3, steps, plan), want,
+                        f"kernel 1 n={n} steps={steps} plan="
+                        f"{plan or st.multistep_plan(n, steps, sms)}",
+                        quiet=True)
+                v = rand(n + 1)[1:]          # 4 bytes off: scalar loads
                 sm.expect_equal("multistep_fused",
-                                st.multistep_fused(u, 0.3, steps),
-                                st.plain_multistep(u, 0.3, steps),
-                                f"kernel B n={n} steps={steps}")
+                                st.multistep_fused(v, 0.3, steps),
+                                st.plain_multistep(v, 0.3, steps),
+                                f"kernel 1 unaligned n={n} steps={steps}",
+                                quiet=True)
+            print(f"   kernel 1 n={n}: {10 * (len(plans) + 1)} cases equal "
+                  f"(tolerance 0)", flush=True)
+        # a planted fault: one pass with a halo one cell short
+        u = rand(100003)
+        plan = st.multistep_plan(100003, s_, sms)
+        got = st.multistep_fused(u, 0.3, s_, plan._replace(halo=plan.halo - 1))
+        torch.cuda.synchronize()
+        if torch.equal(got, st.plain_multistep(u, 0.3, s_)):
+            raise AssertionError("kernel 1 with a halo one cell short equals "
+                                 "its plain version: the check is blind")
+        print(f"   planted fault, halo {plan.halo - 1} for {s_} steps: "
+              f"differs ({int(torch.isnan(got).sum())} NaN cells)",
+              flush=True)
     sm.phase("kernel checks", kernel_checks)
 
     def fma_kernel_checks():
@@ -2306,14 +2389,24 @@ def main() -> int:
         torch.cuda.empty_cache()
         for n, steps in ((1 << 27, 64), (1 << 19, 1024)):
             u = rand(n)
-            ms = _cuda_ms(lambda: st.multistep_fused(u, coef, steps), 7)
+
+            def call():
+                st.multistep_fused(u, coef, steps)
+            ms = _cuda_ms(call, 7)
             plain = _cuda_ms(lambda: st.plain_multistep(u, coef, steps), 3)
             bound, by = _bound(8 * n, FLOPS_PER_CELL_STEP * n * steps)
-            shape = f"n=2^{n.bit_length() - 1} steps={steps}"
+            plan = st.multistep_plan(n, steps, torch.cuda.get_device_properties(
+                0).multi_processor_count)
+            shape = (f"n=2^{n.bit_length() - 1} steps={steps}, plan "
+                     f"k={plan.k} threads={plan.threads} blocks="
+                     f"{plan.blocks} passes={plan.passes}")
             key = ("multistep_fused" if "multistep_fused" not in timing
-                   else f"multistep_fused {shape}")
-            timing[key] = dict(ms=ms, plain=plain, bound=bound, by=by,
-                               library=None, shape=shape)
+                   else f"multistep_fused n=2^{n.bit_length() - 1}")
+            timing[key] = dict(
+                ms=ms, plain=plain, bound=bound, by=by, library=None,
+                shape=shape, host=_host_ms(call),
+                bound_instr=FP32_INSTR_PER_CELL_STEP * n * steps
+                / FP32_INSTR_PER_S * 1e3)
             del u
             torch.cuda.empty_cache()
         time_fma()
@@ -2326,9 +2419,9 @@ def main() -> int:
                   f"({t['by']}) library_ms={t['library']!r} "
                   f"({t.get('library_by')}) "
                   + "".join(f"{x}_ms={t[x]!r} " for x in (
-                      "events", "host", "route", "route_events",
-                      "bound_split", "library_events", "library_profiler",
-                      "library_autograd") if x in t)
+                      "events", "host", "bound_instr", "route",
+                      "route_events", "bound_split", "library_events",
+                      "library_profiler", "library_autograd") if x in t)
                   + f"launches={sm.launches[k.split()[0]]} on {smi}")
 
     def time_fma():
@@ -2722,7 +2815,8 @@ def main() -> int:
                      **({"kernel": "flash_bwd_wgmma (dq, dk, dv in one "
                                    "launch)"} if k != row else {}),
                      **{f"{x}_ms": t[x] for x in (
-                         "warm", "events", "host", "bound_all", "route",
+                         "warm", "events", "host", "bound_instr",
+                         "bound_all", "route",
                          "route_events", "bound_split", "library_autograd",
                          "library_warm",
                          "library_events", "library_profiler") if x in t},

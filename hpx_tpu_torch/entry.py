@@ -4,8 +4,9 @@ Counterpart of ``__graft_entry__.entry``: ``entry()`` returns ``(fn,
 args)``, where ``fn(*args)`` runs 8 periodic heat steps of the fused
 1d_stencil (BASELINE config #2's hot kernel) on a 4096-cell domain
 u[i] = i with coefficient 0.25. On ``cuda:0`` (the default) the steps are
-one launch of the fused CUDA kernel (``ops.stencil.multistep_fused``,
-kernel 1); ``device="cpu"`` runs its plain version.
+one pass of the fused CUDA kernel (``ops.stencil.multistep_fused``,
+kernel 1), launched by one C call; ``device="cpu"`` runs its plain
+version.
 
     from hpx_tpu_torch.entry import entry
     fn, args = entry()

@@ -29,7 +29,8 @@ names, sizes and chains (bench.py:255, :481, :286, :389 and :699-710):
   1d_stencil_cell_updates (headline, last)
                      1024 steps a dispatch at 2^19 through
                      ``ops.stencil.multistep`` (kernel 1,
-                     csrc/stencil.cu:multistep_fused_kernel). Its roof
+                     csrc/stencil.cu:multistep_fused_kernel: one C call
+                     a dispatch launches its 4 passes). Its roof
                      is compute: the measured FP32 instruction rate of
                      the FMA probe (kernel 9, csrc/fma_rate.cu, 2^17
                      elements x 1024 iterations of 16 FP32 instructions)

@@ -115,6 +115,117 @@ def test_multistep_equals_reference(n, steps, coef, use_kernel):
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
+# n and steps of multistep_fused's plan checks; S = PASS_STEPS
+_S = port.PASS_STEPS
+_PLAN_N = (1, 5, 4095, 4097, 100003, 1 << 19, 1 << 27)
+_PLAN_STEPS = (1, _S - 1, _S, _S + 1, 1024)
+
+
+def _pass_steps(plan, steps):
+    """The steps of each pass of ``plan`` for a call of ``steps`` steps,
+    as csrc/stencil.cu:hpx_multistep_fused runs them."""
+    return [min(plan.pass_steps, steps - p * plan.pass_steps)
+            for p in range(plan.passes)]
+
+
+@pytest.mark.parametrize("steps", _PLAN_STEPS)
+@pytest.mark.parametrize("n", _PLAN_N)
+def test_multistep_plan(n, steps):
+    """The plan on a 132-SM card: the passes' steps sum to ``steps`` and
+    none exceeds S or the halo; the tiles cover [0, n) exactly once; each
+    window holds its tile and both halos; the block stays within the
+    kernel's launch bound and the card's limits; 2^19 fills every SM."""
+    plan = port.multistep_plan(n, steps, 132)
+    per_pass = _pass_steps(plan, steps)
+    assert sum(per_pass) == steps and len(per_pass) == plan.passes
+    assert all(1 <= s <= min(_S, plan.halo) for s in per_pass)
+    starts = [b * plan.tile for b in range(plan.blocks)]
+    ends = [min(s0 + plan.tile, n) for s0 in starts]
+    assert starts[0] == 0 and ends[-1] == n
+    assert all(e > s0 for s0, e in zip(starts, ends))
+    assert all(e == s1 for e, s1 in zip(ends, starts[1:]))
+    assert plan.k in port.CELLS_PER_THREAD
+    assert plan.tile + 2 * plan.halo <= port.window(plan.k,
+                                                    plan.threads // 32)
+    assert plan.halo % 4 == 0 and plan.tile % 4 == 0
+    assert plan.threads % 32 == 0
+    assert 32 <= plan.threads <= port.MAX_THREADS <= 1024
+    assert port.smem_bytes(plan.k) <= 48 * 1024
+    assert plan.blocks < 2 ** 31
+    if n >= 1 << 19:
+        assert plan.blocks >= 132
+
+
+def _emulate_passes(u: torch.Tensor, coef, steps, plan) -> torch.Tensor:
+    """multistep_fused's pass decomposition in plain torch, index for
+    index as csrc/stencil.cu computes it: a block's window starts
+    ``halo`` cells left of its tile, modulo n; warp w holds window cells
+    [31kw, 31kw + 32k), its two end cells read NaN, and every k / 2 steps
+    it takes the first and last k / 2 of them from its neighbours; each
+    pass runs heat_step's formula its number of steps, and each warp
+    hands on the cells it owns in the tile."""
+    n, k, warps = u.numel(), plan.k, plan.threads // 32
+    e = k // 2
+    pos = torch.arange(warps)[:, None] * 31 * k + torch.arange(32 * k)
+    starts = torch.arange(plan.blocks) * plan.tile
+    idx = (starts[:, None, None] - plan.halo + pos) % n
+    own = torch.zeros(warps, 32 * k, dtype=torch.bool)
+    own[:, e:31 * k + e] = True
+    own[0, :e] = own[-1, 31 * k + e:] = True
+    nan = torch.full((plan.blocks, warps, 1), float("nan"))
+    for s in _pass_steps(plan, steps):
+        w = u[idx]
+        for j in range(1, s + 1):
+            left = torch.cat([nan, w[..., :-1]], dim=-1)
+            right = torch.cat([w[..., 1:], nan], dim=-1)
+            w = port.fma(coef, left - 2.0 * w + right, w)
+            if j % e == 0 and j < s:
+                x = w.clone()
+                x[:, 1:, :e] = w[:, :-1, 31 * k:31 * k + e]
+                x[:, :-1, 32 * k - e:] = w[:, 1:, e:k]
+                w = x
+        block = torch.empty(plan.blocks, port.window(k, warps))
+        block[:, pos[own]] = w[:, own]
+        u = block[:, plan.halo:plan.halo + plan.tile].reshape(-1)[:n]
+    return u
+
+
+@pytest.mark.parametrize("n,steps,k,warps", [
+    (n, steps, None, None) for n in (1, 5, 127, 4095, 4097)
+    for steps in (1, _S - 1, _S, _S + 1, 2 * _S + 3)]
+    + [(100003, steps, None, None) for steps in (1, _S, _S + 1)]
+    + [(1 << 19, _S + 1, None, None)]
+    + [(n, 1024, None, None) for n in (1, 5, 127, 4095, 4097, 100003,
+                                        1 << 19)]
+    + [(n, steps, k, warps) for k in port.CELLS_PER_THREAD
+       for n, steps, warps in ((1409, _S + 1, 3), (4097, 2 * _S + 3, 8),
+                               (100, 2 * _S + 3, 2), (9, 2 * _S + 3, 4))])
+def test_pass_emulation_equals_plain_and_xla(n, steps, k, warps):
+    """The plan's passes, emulated, equal plain_multistep and the
+    reference's xla_multistep bit for bit, also for n below one tile and
+    below 2S, where a window wraps around the whole array, and for
+    blocks of several warps, which exchange runs; tolerance 0."""
+    coef = 0.3
+    u = _u(n, n + steps)
+    plan = port.multistep_plan(n, steps, 132, k, warps)
+    got = _emulate_passes(_t(u), coef, steps, plan)
+    want = port.plain_multistep(_t(u), coef, steps)
+    assert np.array_equal(got.numpy(), want.numpy())
+    assert np.array_equal(got.numpy(), np.asarray(
+        ref.xla_multistep(jnp.asarray(u), jnp.float32(coef), steps)))
+
+
+def test_short_halo_reads_nan():
+    """A pass given a halo one cell short leaves NaN at the tiles' left
+    edges (what chip_smoke.py plants in the kernel and must see differ
+    from the plain version); with the full halo none is left."""
+    u = _t(_u(100003, 9))
+    plan = port.multistep_plan(100003, _S, 132)
+    assert not torch.isnan(_emulate_passes(u, 0.3, _S, plan)).any()
+    short = _emulate_passes(u, 0.3, _S, plan._replace(halo=plan.halo - 1))
+    assert torch.isnan(short[::plan.tile]).all()
+
+
 def test_wrappers_take_plain_version_on_cpu():
     u = _t(_u(777, 6))
     before = (port.heat_step_blocked.launches, port.multistep_fused.launches)
@@ -123,6 +234,9 @@ def test_wrappers_take_plain_version_on_cpu():
     assert torch.equal(port.multistep_fused(u, 0.3, 40),
                        port.plain_multistep(u, 0.3, 40))
     assert torch.equal(port.multistep_fused(u, 0.3, 0), u)
+    plan = port.multistep_plan(777, 40, 132)
+    assert torch.equal(port.multistep_fused(u, 0.3, 40, plan),
+                       port.plain_multistep(u, 0.3, 40))
     # a CPU call launches no kernel
     assert (port.heat_step_blocked.launches,
             port.multistep_fused.launches) == before
