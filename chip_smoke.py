@@ -73,11 +73,38 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
                returns at once, the future is not ready until the
                device work is done, and z and dot equal the blocking
                run's bit for bit.
-     bench     hpx_tpu_torch/tools/bench.py's four metrics once (one
+     bench     hpx_tpu_torch/tools/bench.py's five metrics once (one
                chain at each end of each slope): the triad and copy
                streams at 2^24, kernel 2 at 2^24 (and its device time
-               by events), kernel 9 at 2^17 x 1024 and kernel 1 at 2^19
-               x 1024, the headline last.
+               by events), the FFT at 2^22, kernel 9 at 2^17 x 1024 and
+               kernel 1 at 2^19 x 1024, the headline last.
+     algorithms
+               senders and the one-device algorithms on cuda:0 (no
+               kernel of the 9: torch's sort, scans, searchsorted, topk
+               and FFT, as the reference uses XLA's):
+               config #3, the STREAM triad a = b + 3*c by
+               hpx.transform(par.on(cuda_executor()), pv_b, f, pv_c)
+               over partitioned_vectors of 2^24 f32 in 4 partitions on
+               the card, enqueued under sync debug mode "error", the
+               result a PartitionedVector with the source's layout
+               within 2.5e-7 relative of float64 numpy, its GB/s by
+               the slope of 64 and 640 dependent dispatches; sort of
+               f32 with NaN of both signs, -0.0 and +0.0 planted, of
+               int32 and with key=abs, partial_sort_copy(k = 1024) by
+               IEEE total order, unique and partition at 2^24, bit for
+               bit against numpy; inclusive and exclusive + scans at
+               2^24 (int32 exact, also by a general op; f32 within
+               i*eps*sum|a[0..i]| of float64); the five set operations
+               on sorted int32 multisets of 2^22 against numpy's
+               counts; unique, partition and each set operation
+               synchronizing exactly once (sync debug mode "warn");
+               fft_sharded / ifft_sharded of 2^22 complex64 on a
+               one-rank mesh (forward within 1e-4 of float64 numpy by
+               the norm, round trip within 1e-5); and sync_wait(
+               schedule(cuda_scheduler()) | then_on_device(f) |
+               bulk(2^22, g)) equal to its CPU run, then_on_device's
+               value delivered by the watcher after its CUDA event
+               (not ready while the card is held busy).
      serving   ContinuousServer(paged=True) on cuda:0 at the full width
                of the repo's serving model (benchmarks/serving_bench.py
                at --scale 16: vocab 1024, d_model 1024, 8 heads of 128,
@@ -177,7 +204,9 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    their plain versions, every weight's gradient within 1e-5 by its norm
    (a dq zeroed on purpose must read above that), and the weights after
    one SGD step each way within rtol = atol = 1e-5.
-   A profiled run of the bf16 training step gives the device busy share.
+   A profiled run of the bf16 training step gives the device busy share,
+   and hpx_tpu_torch/tools/algo_profile.py's profiles give config #3's
+   and the FFT's (kernels by device time, launches a call).
 4. Timing: each kernel at its main-path shape, CUDA events around runs
    of back-to-back calls (as many as fill about 2 ms), median of 7 runs
    after warm-up (kernel 9 at 2^17 x 1024, bound by its operations: 24 a
@@ -223,7 +252,12 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    ring's shape (q [32, 512, 64], d = 0 and 512).
    Kernel 8 is timed the same
    way at the ring's shape (q [32, 512, 64] bf16, causal) at d = 0 and
-   d = 512; no single
+   d = 512. The f32 routes of kernels 5-8 (flash_fwd, flash_bwd_dq,
+   flash_bwd_dkv, flash_fwd<H, 1>: FP32 units, no tensor cores) are
+   timed by the same graph at the training shape and at the ring's (d =
+   0), their bound at 67 TFLOP/s FP32, SDPA's f32 forward and autograd
+   backward beside them; the kernels line carries them as each flash
+   row's "f32". No single
    PyTorch call folds a chunk into a carry, so it has no library
    yardstick. Every other library yardstick (but kernel 5's) is device
    time under
@@ -290,6 +324,11 @@ FLASH_KERNELS = {
 BWD_ROWS = ("flash_attention_bwd (dq)", "flash_attention_bwd (dk, dv)")
 # the backward's f32 route: one wrapper (and FP32 kernel) each
 FLASH_F32_BWD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# a flash row of the kernels line -> the wrapper of its f32 route
+F32_ROUTE = {"flash_attention_fwd": "flash_attention_fwd",
+             "flash_attention_bwd (dq)": "flash_attention_bwd_dq",
+             "flash_attention_bwd (dk, dv)": "flash_attention_bwd_dkv",
+             "flash_attention_chunk": "flash_attention_chunk"}
 # the ring's chunk kernel -> the TPU kernel its CUDA kernel replaces
 CHUNK_KERNEL = {"flash_attention_chunk": "hpx_tpu/ops/attention_pallas.py:618"}
 # the FP32 rate probe -> bench_vpu_rate's Pallas kernel it replaces
@@ -1828,19 +1867,329 @@ def main() -> int:
     bench_lines = []
 
     def bench_path():
-        """hpx_tpu_torch/tools/bench.py's four metrics once (one sample
+        """hpx_tpu_torch/tools/bench.py's five metrics once (one sample
         of one chain at each end of each slope): kernel 9 (the probe),
         kernel 2 and kernel 1 run on this path; the headline last."""
         from hpx_tpu_torch.tools import bench
         lines = bench.run(samples=1, repeats=1, smi=smi)
         got = [line["metric"] for line in lines]
         want = ["stream_triad_gbs", "copy_stream_elems",
-                "1d_stencil_unfused_cell_updates", "1d_stencil_cell_updates"]
+                "1d_stencil_unfused_cell_updates", "fft_1d_gflops",
+                "1d_stencil_cell_updates"]
         if got != want or not all(
                 math.isfinite(line["value"]) and line["value"] > 0
                 for line in lines):
             raise AssertionError(f"bench lines {got}: {lines}")
         bench_lines.extend(lines)
+
+    config3 = {}
+
+    def algorithms_path():
+        """Senders and the one-device algorithms on cuda:0, no fallback:
+        config #3 (the STREAM triad over partitioned_vectors of 2^24 f32,
+        4 partitions on the card) enqueued under sync debug mode "error";
+        sort, scans and set operations at 2^24 / 2^22 against numpy, each
+        data-dependent result with exactly one synchronization; the FFT at
+        2^22; and a sender pipeline against its CPU run."""
+        import threading
+        import warnings
+        from examples_cuda import saxpy_cuda as sx
+        from hpx_tpu_torch import algo as al
+        from hpx_tpu_torch.algo import fft as dfft
+        from hpx_tpu_torch.exec import p2300 as ex
+        from hpx_tpu_torch.parallel.mesh import Mesh
+        from hpx_tpu_torch.tools import bench
+        dev = torch.device("cuda", 0)
+        policy = hpx.par.on(hpx.cuda_executor())
+        rng = np.random.default_rng(7)
+        mode = torch.cuda.get_sync_debug_mode()
+
+        def syncs(fn):
+            """(fn(), the synchronizing CUDA operations it made), read
+            under sync debug mode "warn"."""
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = fn()
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+            return out, sum("synchronizing" in str(w.message)
+                            for w in caught)
+
+        def bits(t):
+            a = t.cpu().numpy() if isinstance(t, torch.Tensor) else t
+            return a.view(f"u{a.dtype.itemsize}") if a.dtype.kind == "f" \
+                else a
+
+        def same(got, want, what):
+            if got.shape != want.shape or not np.array_equal(bits(got),
+                                                             bits(want)):
+                raise AssertionError(f"{what}: differs from numpy")
+
+        # -- config #3: a = b + s*c over partitioned_vectors ---------------
+        n, s_ = 1 << 24, 3.0
+        layout = hpx.container_layout(4)
+        b32 = rng.random(n, np.float32)
+        c32 = rng.random(n, np.float32)
+        pv_b = hpx.partitioned_vector.from_array(torch.from_numpy(b32).to(dev),
+                                                 layout)
+        pv_c = hpx.partitioned_vector.from_array(torch.from_numpy(c32).to(dev),
+                                                 layout)
+
+        def triad(x, y):     # one kernel, as bench.py's via_transform
+            return torch.add(x, y, alpha=s_)
+        torch.cuda.synchronize()
+        t = HighResolutionTimer()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            a = hpx.transform(policy, pv_b, triad, pv_c)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        enqueue = t.elapsed()
+        if not isinstance(a, hpx.PartitionedVector) or a.layout is not \
+                layout or a.size != n or a.data.device != dev:
+            raise AssertionError(f"config #3: {a!r} is not a vector of "
+                                 f"{n} on {dev} with the source's layout")
+        segs = [(g.begin, g.end, g.devices) for g in a.segments()]
+        if segs != [(k * n // 4, (k + 1) * n // 4, (dev,)) for k in range(4)]:
+            raise AssertionError(f"config #3 segments {segs}")
+        want = b32.astype(np.float64) + s_ * c32.astype(np.float64)
+        rel = float(np.max(np.abs(a.to_numpy() - want) / np.abs(want)))
+        if not rel <= sx.Z_RTOL:
+            raise AssertionError(f"config #3 off float64: {rel}")
+
+        def chain(k):
+            x = pv_b
+            t0 = time.perf_counter()
+            for _ in range(k):
+                x = hpx.transform(policy, x, triad, pv_c)
+            float(x.data[0])
+            return time.perf_counter() - t0
+        per, spread = bench.robust(
+            lambda: bench.slope_time(chain, 64, 640, 3), 3)
+        gbs = 3 * n * 4 / per / 1e9
+        config3.update(metric="config3_triad_gbs", value=gbs, unit="GB/s",
+                       vs_baseline=gbs / bench.HBM_PEAK_GBS, spread=spread,
+                       dispatch_ms=per * 1e3, n=n, partitions=4,
+                       max_rel_err=rel, device=smi)
+        triad_line = next((x for x in bench_lines
+                           if x["metric"] == "stream_triad_gbs"), {})
+        print(f"   config #3: 4 partitions of 2^22 f32 on {dev}, a = b + "
+              f"{s_}*c by hpx.transform(par.on(cuda_executor()), pv_b, f, "
+              f"pv_c), f = torch.add(x, y, alpha={s_}): a PartitionedVector with the source's layout, "
+              f"enqueued in {enqueue * 1e3!r} ms with no synchronization; "
+              f"max relative error {rel!r} (<= {sx.Z_RTOL}); {gbs!r} GB/s "
+              f"by the slope of 64 and 640 dependent dispatches (spread "
+              f"{spread!r}), beside stream_triad_gbs "
+              f"{triad_line.get('value')!r} (via_transform_gbs "
+              f"{triad_line.get('via_transform_gbs')!r}); on {smi}",
+              flush=True)
+        del pv_b, pv_c, a
+
+        # -- sorting at 2^24 ---------------------------------------------
+        f = rng.standard_normal(n).astype(np.float32)
+        idx = rng.permutation(n)
+        neg_nan = np.array([0xFFC00001], np.uint32).view(np.float32)[0]
+        f[idx[:n // 64]] = np.nan
+        f[idx[n // 64:n // 32]] = neg_nan
+        f[idx[n // 32:n // 16]] = -0.0
+        f[idx[n // 16:n // 8]] = 0.0
+        ints = rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32)
+        ft, it = torch.from_numpy(f).to(dev), torch.from_numpy(ints).to(dev)
+        times = {}
+
+        def timed(name, fn):
+            times[name] = _cuda_ms(fn, 3)
+            return fn()
+        same(timed("sort f32", lambda: al.sort(policy, ft)),
+             np.sort(f, kind="stable"), "sort f32 with NaN, -0.0, +0.0")
+        same(timed("sort int32", lambda: al.sort(policy, it)),
+             np.sort(ints), "sort int32")
+        same(timed("sort(key=abs) f32", lambda: al.sort(policy, ft,
+                                                        key=torch.abs)),
+             f[np.argsort(np.abs(f), kind="stable")], "sort(key=abs)")
+        # the k smallest by IEEE total order (the reference's
+        # -lax.top_k(-x, k)): -NaN first, -0.0 before +0.0, +NaN last; on
+        # |normal| values with 3 -NaN, 200 -0.0, 300 +0.0 and 300 NaN
+        k = 1024
+        h = np.abs(rng.standard_normal(n)).astype(np.float32)
+        pick = rng.permutation(n)[:803]
+        h[pick[:3]], h[pick[3:203]] = neg_nan, -0.0
+        h[pick[203:503]], h[pick[503:]] = 0.0, np.nan
+        hb = h.view(np.int32)
+        key = np.sort(np.where(hb < 0, hb ^ 0x7FFFFFFF, hb))[:k]
+        ht = torch.from_numpy(h).to(dev)
+        psc = timed("partial_sort_copy k=1024 f32",
+                    lambda: al.partial_sort_copy(policy, ht, k))
+        same(psc, np.where(key < 0, key ^ 0x7FFFFFFF, key).view(np.float32),
+             "partial_sort_copy(k = 1024)")
+        srt = np.sort(rng.integers(0, 1 << 20, n).astype(np.int32))
+        st_ = torch.from_numpy(srt).to(dev)
+        uniq, n_sync = syncs(lambda: al.unique(policy, st_))
+        same(uniq, srt[np.concatenate([[True], srt[1:] != srt[:-1]])],
+             "unique")
+        times["unique int32"] = _cuda_ms(lambda: al.unique(policy, st_), 3)
+        counts = {"unique": n_sync}
+        (part, point), counts["partition"] = syncs(
+            lambda: al.partition(policy, ft, lambda x: x > 0))
+        pos = f > 0
+        same(part, np.concatenate([f[pos], f[~pos]]), "partition")
+        if point != int(pos.sum()):
+            raise AssertionError(f"partition point {point}")
+        times["partition f32"] = _cuda_ms(
+            lambda: al.partition(policy, ft, lambda x: x > 0), 3)
+
+        # -- scans at 2^24 ------------------------------------------------
+        g = rng.standard_normal(n).astype(np.float32)
+        gt = torch.from_numpy(g).to(dev)
+        c64 = np.cumsum(g.astype(np.float64))
+        bound = (np.arange(n) * (np.finfo(np.float32).eps)
+                 * np.cumsum(np.abs(g.astype(np.float64))))
+        worst = {}
+        for name, fn, want_ in (
+                ("inclusive_scan + f32",
+                 lambda: al.inclusive_scan(policy, gt), c64),
+                ("exclusive_scan + f32",
+                 lambda: al.exclusive_scan(policy, gt, 0.0),
+                 np.concatenate([[0.0], c64[:-1]]))):
+            out = timed(name, fn).cpu().numpy()
+            b_ = bound if name.startswith("inclusive") else \
+                np.concatenate([[0.0], bound[:-1]])
+            if out.dtype != np.float32 or not np.all(
+                    np.abs(out - want_) <= b_):
+                raise AssertionError(f"{name}: off float64 beyond "
+                                     "i*eps*sum|a|")
+            worst[name] = float(np.max(np.abs(out - want_)
+                                       / np.maximum(b_, 1e-30)))
+        small = rng.integers(-1000, 1000, n).astype(np.int32)
+        smt = torch.from_numpy(small).to(dev)
+        ci = np.cumsum(small, dtype=np.int32)
+        for name, fn, want_ in (
+                ("inclusive_scan + int32",
+                 lambda: al.inclusive_scan(policy, smt), ci),
+                ("exclusive_scan + int32",
+                 lambda: al.exclusive_scan(policy, smt, 0),
+                 np.concatenate([[0], ci[:-1]]).astype(np.int32)),
+                ("inclusive_scan general op (log2 n rounds) int32",
+                 lambda: al.inclusive_scan(policy, smt, 0,
+                                           lambda x, y: x + y), ci)):
+            same(timed(name, fn), want_, name)
+
+        # -- set operations on sorted int32 multisets of 2^22 -------------
+        m = 1 << 22
+        sa = np.sort(rng.integers(0, 1 << 20, m).astype(np.int32))
+        sb = np.sort(rng.integers(1 << 19, 3 << 19, m).astype(np.int32))
+        ta, tb = torch.from_numpy(sa).to(dev), torch.from_numpy(sb).to(dev)
+        va, na = np.unique(sa, return_counts=True)
+        vb, nb = np.unique(sb, return_counts=True)
+        vals = np.union1d(va, vb)
+        ma = np.zeros(len(vals), np.int64)
+        mb = np.zeros(len(vals), np.int64)
+        ma[np.searchsorted(vals, va)] = na
+        mb[np.searchsorted(vals, vb)] = nb
+        setops = {"set_union": np.maximum(ma, mb),
+                  "set_intersection": np.minimum(ma, mb),
+                  "set_difference": np.maximum(ma - mb, 0),
+                  "set_symmetric_difference": np.abs(ma - mb)}
+        for name, mult in setops.items():
+            fn = functools.partial(getattr(al, name), policy, ta, tb)
+            got, counts[name] = syncs(fn)
+            same(got, np.repeat(vals, mult).astype(np.int32), name)
+            times[f"{name} int32"] = _cuda_ms(fn, 3)
+        inter = torch.from_numpy(np.repeat(vals, setops["set_intersection"])
+                                 .astype(np.int32)).to(dev)
+        got, counts["includes"] = syncs(
+            lambda: al.includes(policy, ta, inter))
+        if got is not True or al.includes(policy, ta, tb) is not False:
+            raise AssertionError("includes: a multiset does not include "
+                                 "its intersection, or includes the other")
+        times["includes int32"] = _cuda_ms(
+            lambda: al.includes(policy, ta, tb), 3)
+        if any(v != 1 for v in counts.values()):
+            raise AssertionError(f"synchronizations a call, want 1 each: "
+                                 f"{counts}")
+        print(f"   sort (f32 with NaN of both signs, -0.0, +0.0 planted; "
+              f"int32; key=abs), partial_sort_copy(k = 1024), unique and "
+              f"partition at 2^24, the five set operations on sorted int32 "
+              f"multisets of 2^22: bitwise equal to numpy; scans at 2^24: "
+              f"int32 exact, f32 within i*eps*sum|a| (worst share of the "
+              f"bound {worst}); synchronizations a call {counts}; ms a call "
+              f"(CUDA events) {times}; on {smi}", flush=True)
+        del ft, it, ht, st_, gt, smt, ta, tb, inter
+
+        # -- the FFT at 2^22 ----------------------------------------------
+        mesh = Mesh((1,), ("x",))
+        v = (rng.standard_normal(m) + 1j * rng.standard_normal(m)).astype(
+            np.complex64)
+        vt = torch.from_numpy(v).to(dev)
+        y = dfft.fft_sharded(vt, mesh)
+        if y.shape != (m,) or y.dtype != torch.complex64 or \
+                not bool(torch.isfinite(torch.view_as_real(y)).all()):
+            raise AssertionError("fft: misshapen or not finite")
+        ref = np.fft.fft(v.astype(np.complex128))
+        fwd = float(np.linalg.norm(y.cpu().numpy() - ref)
+                    / np.linalg.norm(ref))
+        back = dfft.ifft_sharded(y, mesh).cpu().numpy()
+        trip = float(np.linalg.norm(back - v) / np.linalg.norm(v))
+        fft_ms = _cuda_ms(lambda: dfft.fft_sharded(vt, mesh), 5)
+        print(f"   fft_sharded of 2^22 complex64 on a one-rank mesh "
+              f"({dfft._split_n(m, 1)}): forward {fwd!r} by the norm of "
+              f"float64 np.fft.fft (<= 1e-4), round trip {trip!r} (<= "
+              f"1e-5); {fft_ms!r} ms a transform (CUDA events); on {smi}",
+              flush=True)
+        if not (fwd <= 1e-4 and trip <= 1e-5):
+            raise AssertionError(f"fft: forward {fwd}, round trip {trip}")
+        del vt, y
+
+        # -- a sender pipeline --------------------------------------------
+        u = torch.from_numpy(rng.random(m, np.float32))
+        x = u.to(dev)
+
+        def pipeline(sch, then_dev, x_):
+            seen = np.zeros(m, np.uint8)
+
+            def g(i, y_):
+                seen[i] = 1
+            out = ex.sync_wait(ex.schedule(sch)
+                               | then_dev(lambda: x_ * 2.0 + 1.0)
+                               | ex.bulk(m, g), timeout=600)
+            if not seen.all():
+                raise AssertionError("bulk missed an index")
+            return out
+        t = HighResolutionTimer()
+        y_gpu = pipeline(ex.cuda_scheduler(), ex.then_on_device, x)
+        secs = t.elapsed()
+        cpu_ex = hpx.CudaExecutor(device="cpu")
+        y_cpu = pipeline(ex.cuda_scheduler(cpu_ex),
+                         lambda f_: ex.then_on_device(f_, cpu_ex), u)
+        if y_gpu.device != dev or not torch.equal(y_gpu.cpu(), y_cpu):
+            raise AssertionError("the sender pipeline on the card differs "
+                                 "from its CPU run")
+        names = []
+        torch.cuda.synchronize()
+        t = HighResolutionTimer()
+        torch.cuda._sleep(1_000_000_000)    # ~0.5 s of device work ahead
+        fut = ex.as_future(
+            ex.schedule(ex.cuda_scheduler())
+            | ex.then_on_device(lambda: x * 2.0 + 1.0)
+            | ex.then(lambda y_: names.append(
+                threading.current_thread().name) or y_))
+        launched, early = t.elapsed(), fut.is_ready()
+        y2 = fut.get(timeout=60)
+        waited = t.elapsed()
+        print(f"   sync_wait(schedule(cuda_scheduler()) | then_on_device(f) "
+              f"| bulk(2^22, g)): equal to its run on the CPU, {secs!r} s "
+              f"(bulk's 2^22 host calls included); with the card held "
+              f"busy the sender's future was ready at launch: {early} "
+              f"({launched * 1e3!r} ms), ready after {waited * 1e3!r} ms, "
+              f"delivered on {names}", flush=True)
+        if early or launched > 0.05 or waited < 0.1 or not names or \
+                not names[0].startswith("hpx-torch-watcher") or \
+                not torch.equal(y2, y_gpu):
+            raise AssertionError("then_on_device's value did not wait for "
+                                 "its CUDA event on the watcher")
 
     # the serving model at full width; mixes (a) and (b) from seeds
     rng = np.random.default_rng(0)
@@ -2042,6 +2391,8 @@ def main() -> int:
                       ("main path: dataflow", dataflow),
                       ("main path: config #1 (SAXPY + dot)", saxpy_path),
                       ("main path: bench script", bench_path),
+                      ("main path: senders and one-device algorithms",
+                       algorithms_path),
                       ("main path: serving f32", serving_f32),
                       ("main path: serving f32, blocks of 256 rows",
                        serving_long_blocks),
@@ -2373,6 +2724,16 @@ def main() -> int:
     sm.phase("training profile", training_profile)
 
     # -- 4. timing ----------------------------------------------------------------
+    def algorithms_profile():
+        """Where config #3's and the FFT's time goes:
+        hpx_tpu_torch/tools/algo_profile.py's three profiles."""
+        from hpx_tpu_torch.tools import algo_profile
+        for line in algo_profile.run(smi):
+            if not line["device_ms"] > 0:
+                print(f"   {line['profile']}: the profiler recorded no "
+                      "device time (busy share not measured)", flush=True)
+    sm.phase("algorithms profile", algorithms_profile)
+
     timing = {}
 
     def time_kernels():
@@ -2413,6 +2774,7 @@ def main() -> int:
         time_paged()
         time_flash()
         time_chunk()
+        time_flash_f32()
         for k, t in timing.items():
             print(f"   timing {k} [{t['shape']}]: kernel_ms={t['ms']!r} "
                   f"plain_ms={t['plain']!r} bound_ms={t['bound']!r} "
@@ -2781,6 +3143,127 @@ def main() -> int:
                  "shape": f"q [{bn}, {sq}, {h}] bf16, causal, d={d}"}
             timing["flash_attention_chunk" if d == 0
                    else f"flash_attention_chunk d={d}"] = t
+    def time_flash_f32():
+        """The f32 routes of kernels 5-8, on the FP32 units (no tensor
+        cores; TF32 would miss the plain versions' 1e-5): flash_fwd,
+        flash_bwd_dq and flash_bwd_dkv (each alone and both in one graph)
+        and flash_fwd<H, 1> (the chunk fold, from a zero carry), causal,
+        at the training shape (B 8, S 1024, 8 heads of 64) and at the
+        ring's (q [32, 512, 64], d = 0), their inputs first held against
+        the plain versions. Device time by the CUDA graph of 20 calls the
+        bf16 rows use, events and the plain version beside; the bound at
+        67 TFLOP/s FP32; SDPA in f32 by the same graph (its forward; its
+        backward as forward + backward less forward; none for the
+        chunk)."""
+        import torch.nn.functional as F
+        for tag, (b, seq, n, h) in (("", (8, 1024, 8, 64)),
+                                    (" ring", (8, 512, 4, 64))):
+            q, k, v, do = flash_state(b, seq, seq, n, n, h, torch.float32,
+                                      seed=17)
+            o, lse = ac.flash_attention_fwd(q, k, v, True)
+            po, plse = plain_fwd(q, k, v, True)
+            sm.expect_close("flash_attention_fwd", o, po, f"f32 o{tag}",
+                            quiet=True, tol=FLASH_TOL["fwd"])
+            sm.expect_close("flash_attention_fwd", lse, plse, f"f32 L{tag}",
+                            quiet=True, tol=FLASH_TOL["fwd"])
+            args = (q, k, v, do, ac.bwd_prep(do, o), lse, 0, True)
+            want = ac.plain_flash_bwd(*args)
+            for kname, got in (
+                    ("flash_attention_bwd_dq",
+                     (ac.flash_attention_bwd_dq(*args),)),
+                    ("flash_attention_bwd_dkv",
+                     ac.flash_attention_bwd_dkv(*args))):
+                for g, w in zip(got, want[:1] if kname.endswith("dq")
+                                else want[1:]):
+                    sm.expect_close(kname, g, w, f"f32 {kname}{tag}",
+                                    quiet=True, tol=FLASH_TOL["bwd"])
+            carry = (torch.zeros_like(q),
+                     torch.full(q.shape[:2], -1e30, device="cuda"),
+                     torch.zeros(q.shape[:2], device="cuda"))
+            work = tuple(x.clone() for x in carry)
+            for g, w in zip(ac.flash_attention_chunk(q, k, v, *work, 0, True),
+                            plain_chunk(q, k, v, *carry, 0, True)):
+                sm.expect_close("flash_attention_chunk", g, w,
+                                f"f32 chunk{tag}", quiet=True,
+                                tol=FLASH_TOL["fwd"])
+            pairs = b * n * seq * (seq + 1) // 2
+            el, rows = q.numel(), b * n * seq
+            # each input read once, each output written once, all f32;
+            # operations over the visible pairs, 2 a multiply-add: the
+            # forward's 2 products; dq's S, dP and dQ; dk/dv's S, dP, dV
+            # and dK; the backward's least work 5 products
+            bounds = {
+                "flash_attention_fwd": _bound(4 * el * 4 + rows * 4,
+                                              4 * pairs * h),
+                "flash_attention_bwd_dq": _bound(
+                    5 * el * 4 + 2 * rows * 4, 6 * pairs * h),
+                "flash_attention_bwd_dkv": _bound(
+                    6 * el * 4 + 2 * rows * 4, 8 * pairs * h),
+                "f32 backward": _bound(7 * el * 4 + 2 * rows * 4,
+                                       10 * pairs * h),
+                "flash_attention_chunk": _bound(
+                    3 * el * 4 + 2 * (el * 4 + 2 * rows * 4),
+                    4 * pairs * h)}
+            q4, k4, v4, do4 = (x.view(b, n, seq, h) for x in (q, k, v, do))
+
+            def sdpa_fwd():
+                F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+            xs = [x.clone().requires_grad_() for x in (q4, k4, v4)]
+
+            def sdpa_fwd_bwd():
+                out = F.scaled_dot_product_attention(*xs, is_causal=True)
+                torch.autograd.grad(out, xs, do4)
+            lib_fwd = _graph_ms([sdpa_fwd] * 20)
+            try:
+                lib_bwd = _graph_ms([sdpa_fwd_bwd] * 20) - lib_fwd
+                lib_bwd_by = "graph"
+            except Exception as e:  # noqa: BLE001 - a reading, not a check
+                print(f"   SDPA f32 backward in a graph: {type(e).__name__}"
+                      f": {e}; CUDA events instead", flush=True)
+                lib_bwd = _cuda_ms(sdpa_fwd_bwd, 7) - _cuda_ms(sdpa_fwd, 7)
+                lib_bwd_by = "events"
+            work = tuple(x.clone() for x in carry)
+            runs = {
+                "flash_attention_fwd": (
+                    lambda: ac.flash_attention_fwd(q, k, v, True),
+                    lambda: plain_fwd(q, k, v, True), lib_fwd),
+                "flash_attention_bwd_dq": (
+                    lambda: ac.flash_attention_bwd_dq(*args),
+                    lambda: ac.plain_flash_bwd_dq(*args), None),
+                "flash_attention_bwd_dkv": (
+                    lambda: ac.flash_attention_bwd_dkv(*args),
+                    lambda: ac.plain_flash_bwd_dkv(*args), None),
+                "flash_attention_chunk": (
+                    lambda: ac.flash_attention_chunk(q, k, v, *work, 0,
+                                                     True),
+                    lambda: plain_chunk(q, k, v, *carry, 0, True), None)}
+            shape = (f"B={b} S={seq} N={n} H={h} f32 causal" if not tag
+                     else f"q [{b * n}, {seq}, {h}] f32, causal, d=0")
+            for kname, (fn, plain, lib) in runs.items():
+                bound, by = bounds[kname]
+                timing[f"{kname} f32{tag}"] = {
+                    "ms": _graph_ms([fn] * 20), "events": _cuda_ms(fn, 7),
+                    "plain": _cuda_ms(plain, 3), "bound": bound, "by": by,
+                    "library": lib, "library_by": "graph" if lib else None,
+                    "shape": shape}
+            both = _graph_ms([runs["flash_attention_bwd_dq"][0],
+                              runs["flash_attention_bwd_dkv"][0]] * 10) * 2
+            bt = timing[f"flash_attention_bwd_dq f32{tag}"]
+            bt.update(route=both, library=lib_bwd, library_by=lib_bwd_by,
+                      bound_split=bounds["flash_attention_bwd_dq"][0]
+                      + bounds["flash_attention_bwd_dkv"][0],
+                      bound_all=bounds["f32 backward"][0])
+            print(f"   f32 at {shape}: forward "
+                  f"{timing[f'flash_attention_fwd f32{tag}']['ms']!r} ms "
+                  f"(SDPA {lib_fwd!r}); backward dq + dk/dv {both!r} ms "
+                  f"(SDPA {lib_bwd!r}, {lib_bwd_by}; bound "
+                  f"{bounds['f32 backward'][0]!r} ms, "
+                  f"{bounds['f32 backward'][1]}); chunk "
+                  f"{timing[f'flash_attention_chunk f32{tag}']['ms']!r} ms "
+                  f"(CUDA graph); on {smi}", flush=True)
+            del q, k, v, do, o, lse, args, want, carry, work, xs
+            torch.cuda.empty_cache()
+
     sm.phase("timing", time_kernels)
 
     if sm.failures:
@@ -2801,6 +3284,23 @@ def main() -> int:
                **{k: "paged_attention" for k in PAGED_KERNELS},
                **{k: "flash_attention" for k in ("flash_attention_fwd",
                                                  *BWD_ROWS, *CHUNK_KERNEL)}}
+    def f32_routes(row):
+        """The f32 route of a flash row: its wrapper's times at the
+        training and the ring's shape (time_flash_f32)."""
+        out = {}
+        for tag in ("", " ring"):
+            t = timing[f"{F32_ROUTE[row]} f32{tag}"]
+            out[tag.strip() or "training"] = {
+                "wrapper": F32_ROUTE[row], "launches": sm.launches[
+                    F32_ROUTE[row]],
+                "ms": t["ms"],
+                **{f"{x}_ms": t[x] for x in ("events", "plain", "bound",
+                                             "library", "route",
+                                             "bound_split", "bound_all")
+                   if x in t},
+                "bound_by": t["by"], "library_by": t["library_by"],
+                "shape": t["shape"]}
+        return out
     rows = []
     for row, at in replaces.items():
         k = wrapper.get(row, row)
@@ -2821,6 +3321,8 @@ def main() -> int:
                          "library_warm",
                          "library_events", "library_profiler") if x in t},
                      **({"splits": t["splits"]} if "splits" in t else {}),
+                     **({"f32": f32_routes(row)} if row in F32_ROUTE
+                        else {}),
                      "shape": t["shape"]})
     print(f"training step (bf16, B 8 x S 1024, full width): "
           f"{train['step_ms']!r} ms = {train['tokens_per_s']!r} tokens/s; "
@@ -2829,6 +3331,7 @@ def main() -> int:
           f"ms; card: {smi}")
     for line in bench_lines:
         print(f"bench: {json.dumps(line)}")
+    print(f"config #3: {json.dumps(config3)}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

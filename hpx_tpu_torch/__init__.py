@@ -19,6 +19,13 @@ Public API façade mirroring HPX's umbrella headers (hpx/hpx.hpp):
     dot = hpx.transform_reduce(policy, z, 0.0, operator.add,
                                operator.mul, rng2=y)
 
+    # config #3: the STREAM triad over partitioned_vectors (4 partitions
+    # on one device), through the segmented overlay
+    layout = hpx.container_layout(4)
+    b = hpx.partitioned_vector.from_array(x, layout)
+    c = hpx.partitioned_vector.from_array(y, layout)
+    a = hpx.transform(policy, b, lambda bi, ci: bi + s * ci, c)
+
 The device path runs on ``cuda:0`` unless a caller passes
 ``device="cpu"``.
 """
@@ -60,6 +67,11 @@ from .exec import (  # noqa: F401
 # the HPX spelling (hpx::cuda::experimental::cuda_executor)
 cuda_executor = CudaExecutor
 
+# P2300 senders/receivers (hpx::execution::experimental)
+from .exec import p2300  # noqa: F401
+# the reference exposes this under hpx::execution::experimental
+execution_experimental = p2300
+
 # -- parallel algorithms (one device) ----------------------------------------
 from .algo import (  # noqa: F401
     for_each, for_each_n, for_loop, transform, copy, copy_n, copy_if,
@@ -67,5 +79,19 @@ from .algo import (  # noqa: F401
     reduce, transform_reduce, count, count_if,
     all_of, any_of, none_of, min_element, max_element, minmax_element,
     equal, mismatch, find, find_if,
+    inclusive_scan, exclusive_scan, transform_inclusive_scan,
+    transform_exclusive_scan, adjacent_difference, adjacent_find,
+    sort, stable_sort, is_sorted, merge, reverse, rotate, unique, partition,
     induction, reduction,
 )
+
+# -- partitioned data + segmented algorithms (one device) --------------------
+from .containers import (  # noqa: F401
+    PartitionedVector, PartitionedVectorView, Segment,
+)
+from .dist.distribution_policies import (  # noqa: F401
+    ContainerLayout, container_layout, default_layout, target_layout,
+)
+
+# the HPX spelling
+partitioned_vector = PartitionedVector

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Slice-1 benchmarks of hpx_tpu_torch on one CUDA card: one JSON line per
+"""Benchmarks of hpx_tpu_torch on one CUDA card: one JSON line per
 metric, the headline last.
 
     python3 -m hpx_tpu_torch.tools.bench
 
-The port's counterpart of bench.py's slice-1 metrics, under the same
-names, sizes and chains (bench.py:255, :481, :286, :389 and :699-710):
+The port's counterpart of bench.py's one-chip metrics but the
+transformer step, under the same names, sizes and chains (bench.py:255,
+:481, :286, :602, :389 and :699-710):
 
   stream_triad_gbs   b <- x + s*b at 2^24 float32, written into b (the
                      reference donates it): one ``torch.add(x, b,
@@ -26,6 +27,13 @@ names, sizes and chains (bench.py:255, :481, :286, :389 and :699-710):
                      device time a dispatch by CUDA events at the same
                      size (``device_ms``), against ``dispatch_ms``, the
                      slope's.
+  fft_1d_gflops      the 1-D FFT of 2^22 complex64 through
+                     ``algo.fft.fft_sharded`` on a one-rank mesh, the
+                     four-step program (2048 x 2048) bench.py:602 times
+                     on its 1-chip mesh: chains of dependent fft/ifft
+                     pairs, the slope over 8 and 40 pairs halved.
+                     FLOP model 5 n log2 n a transform; roof (bench.py's)
+                     6 passes of 8 bytes a point over 3350 GB/s.
   1d_stencil_cell_updates (headline, last)
                      1024 steps a dispatch at 2^19 through
                      ``ops.stencil.multistep`` (kernel 1,
@@ -198,6 +206,37 @@ def bench_fma_rate(dev, samples: int, repeats: int) -> tuple:
     return fr.N * fr.STEPS * fr.INSTRUCTIONS_PER_STEP / per, spread
 
 
+def bench_fft(dev, samples: int, repeats: int) -> dict:
+    import math
+    from ..algo import fft as dfft
+    from ..parallel.mesh import Mesh
+    n = 1 << 22
+    mesh = Mesh((1,), ("x",), device=dev)
+    rng = np.random.default_rng(0)
+    v = torch.from_numpy((rng.standard_normal(n)
+                          + 1j * rng.standard_normal(n)).astype(np.complex64))
+
+    def pair(x):
+        # alternate directions: dependent dispatches, bounded values
+        return dfft.ifft_sharded(dfft.fft_sharded(x, mesh), mesh)
+    state = [v.to(dev)]
+
+    def chain(k: int) -> float:
+        x = state[0]
+        t0 = time.perf_counter()
+        for _ in range(k):
+            x = pair(x)
+        float(x.abs().sum())
+        state[0] = x
+        return time.perf_counter() - t0
+    per2, spread = robust(lambda: slope_time(chain, 8, 40, repeats), samples)
+    per = per2 / 2.0                 # one transform
+    roof = 6 * n * 8 / (HBM_PEAK_GBS * 1e9)
+    return dict(metric="fft_1d_gflops", value=5 * n * math.log2(n) / per / 1e9,
+                unit="GFLOP/s", vs_baseline=roof / per, spread=spread, n=n,
+                transform_ms=per * 1e3)
+
+
 def bench_stencil_fused(dev, samples: int, repeats: int,
                         fp32_rate: float, fp32_spread: float) -> dict:
     from ..ops import fma_rate as fr
@@ -220,12 +259,13 @@ def bench_stencil_fused(dev, samples: int, repeats: int,
 
 
 def run(samples: int = 3, repeats: int = 5, smi: str = None) -> List[dict]:
-    """The four metrics on ``cuda:0``, in bench.py's order with the
+    """The five metrics on ``cuda:0``, in bench.py's order with the
     headline last, each printed as one JSON line as it is measured and
     returned. ``samples`` is the whole slopes a metric (their median);
     ``repeats`` the chains at each end of a slope over 2^24 elements
-    (bench.py's 5); the fused stencil and the probe take min(3,
-    repeats), as bench.py's 3. chip_smoke.py runs it once with 1 and 1.
+    (bench.py's 5); the FFT, the fused stencil and the probe take
+    min(3, repeats), as bench.py's 3. chip_smoke.py runs it once with 1
+    and 1.
     ``smi`` is the card's name and power limit (nvidia-smi's, read when
     not given)."""
     from ..exec.cuda import resolve_device
@@ -242,6 +282,7 @@ def run(samples: int = 3, repeats: int = 5, smi: str = None) -> List[dict]:
     out(bench_triad(dev, samples, repeats))
     copy = out(bench_copy_stream(dev, samples, repeats))
     out(bench_stencil_unfused(dev, samples, repeats, copy["value"] * 1e6))
+    out(bench_fft(dev, samples, few))
     rate, rate_spread = bench_fma_rate(dev, samples, few)
     out(bench_stencil_fused(dev, samples, few, rate, rate_spread))
     return lines

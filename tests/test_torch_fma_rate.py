@@ -182,12 +182,12 @@ def test_slope_time_takes_the_slope_of_the_minima(k1, k2, per):
 def test_bench_metrics_are_in_bench_py_order_headline_last():
     src = inspect.getsource(port_bench.run)
     order = [src.index(f) for f in ("bench_triad(", "bench_copy_stream(",
-                                    "bench_stencil_unfused(",
+                                    "bench_stencil_unfused(", "bench_fft(",
                                     "bench_stencil_fused(")]
     assert order == sorted(order)
     names = re.findall(r'metric="(\w+)"', inspect.getsource(port_bench))
     assert names == ["stream_triad_gbs", "copy_stream_elems",
-                     "1d_stencil_unfused_cell_updates",
+                     "1d_stencil_unfused_cell_updates", "fft_1d_gflops",
                      "1d_stencil_cell_updates"]
     ref = (ROOT / "bench.py").read_text()
     for name in names:

@@ -183,3 +183,34 @@ def test_the_bench_script_and_tools_load_no_jax_and_no_reference():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_senders_containers_and_the_fft_need_cuda_unless_the_cpu_is_asked_for(
+        monkeypatch):
+    """cuda_scheduler(), then_on_device's own executor, the default layout
+    and the partitioned_vector built on it, and a mesh for the FFT all
+    default to cuda:0 and raise without CUDA; each runs on the CPU when
+    it is asked for."""
+    from hpx_tpu_torch.algo import fft
+    from hpx_tpu_torch.exec import p2300
+    from hpx_tpu_torch.parallel.mesh import Mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (p2300.cuda_scheduler, lambda: p2300.then_on_device(abs),
+                 hpx_tpu_torch.default_layout,
+                 lambda: hpx_tpu_torch.container_layout(4),
+                 lambda: hpx_tpu_torch.partitioned_vector(8),
+                 lambda: hpx_tpu_torch.PartitionedVector.from_array(
+                     torch.zeros(8)),
+                 lambda: Mesh((1,), ("x",))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    ex = CudaExecutor(device="cpu")
+    assert p2300.sync_wait(
+        p2300.schedule(p2300.cuda_scheduler(ex))
+        | p2300.then(lambda: torch.ones(2))
+        | p2300.then_on_device(lambda x: x + 1, ex)).tolist() == [2.0, 2.0]
+    layout = hpx_tpu_torch.container_layout(4, targets=[Target("cpu")])
+    pv = hpx_tpu_torch.partitioned_vector(8, 1.0, layout=layout)
+    assert pv.data.device == torch.device("cpu")
+    out = fft.fft(pv)
+    assert out.data.device == torch.device("cpu") and out.layout is layout
