@@ -12,8 +12,10 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    nvcc's register and spill report, and the card's name and power
    limit (nvidia-smi); the SASS of the bf16 flash forward
    (flash_fwd_wgmma) and of the bf16 flash backward (flash_bwd_wgmma)
-   must each hold HGMMA (wgmma) and UTMALDG (TMA loads) instructions
-   (cuobjdump -sass). For kernel 1 (multistep_fused_kernel<K>, one
+   must each hold HGMMA (wgmma) and UTMALDG (TMA loads) instructions,
+   and that of the f32 flash backward (flash_bwd_tf32x3) HMMA
+   (mma.sync on the tensor cores) (cuobjdump -sass). For kernel 1
+   (multistep_fused_kernel<K>, one
    instance a K of ops.stencil.CELLS_PER_THREAD) it prints the SHFL,
    LDS, STS and BAR counts of its SASS, which must hold SHFL; the CUDA
    runtime's registers, static shared memory and local bytes of each
@@ -104,7 +106,10 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
                schedule(cuda_scheduler()) | then_on_device(f) |
                bulk(2^22, g)) equal to its CPU run, then_on_device's
                value delivered by the watcher after its CUDA event
-               (not ready while the card is held busy).
+               (not ready while the card is held busy); and
+               for_each(seq, pv, f) over a vector of 1000 f32 on the
+               card: a host policy works on a copy, the result bit for
+               bit f over numpy, the vector unchanged on the card.
      serving   ContinuousServer(paged=True) on cuda:0 at the full width
                of the repo's serving model (benchmarks/serving_bench.py
                at --scale 16: vocab 1024, d_model 1024, 8 heads of 128,
@@ -164,9 +169,12 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    200), (1, 200), (300, 129), (1000, 1000), causal or not, MHA and GQA
    (8 q heads over 2), head dims 64 and 128, f32 and bf16, the backward
    at offsets d in {sk - sq, 0, -16}, each given the o and L of the
-   forward at its own offset (so p <= 1, as the ring gives them): in
-   f32 the dq and the dk/dv kernels, in bf16 flash_attention_bwd (one
-   kernel) against plain_flash_bwd; the bf16 backward also at B 8 (grids
+   forward at its own offset (so p <= 1, as the ring gives them):
+   flash_attention_bwd (one kernel: flash_bwd_tf32x3 in f32,
+   flash_bwd_wgmma in bf16) against plain_flash_bwd; the f32 backward
+   built with the big·big product alone (1xTF32) and with the dq partials
+   of key tile 0 left out must each read above 1e-4 on every S 1024
+   case; the bf16 backward also at B 8 (grids
    of 132 CTAs or more), MHA and MQA (8 q heads over 1), on (sq, sk) in
    {(300, 300), (1000, 1000), (257, 1029), (1, 1029)} at every offset;
    rtol = atol = 1e-5 for the f32 forward (o and L), 1e-4 for the
@@ -198,8 +206,9 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    are, every torch.distributed verb that collectives.device.GLOO_CUDA
    hands over unstaged: each must run and agree.
    Then the training width in f32 (batch 2 x 1024), a main path of its
-   own (the f32 route of kernels 6 and 7 runs only there and in the
-   ring's f32 gate), its launches counted with the others':
+   own (flash_bwd_tf32x3, the f32 route of kernels 6 and 7, runs only
+   there, once a layer, and in the ring's f32 gates, 8 times a rank),
+   its launches counted with the others':
    the loss through the kernels within 1e-5 relative of the loss through
    their plain versions, every weight's gradient within 1e-5 by its norm
    (a dq zeroed on purpose must read above that), and the weights after
@@ -252,12 +261,15 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    ring's shape (q [32, 512, 64], d = 0 and 512).
    Kernel 8 is timed the same
    way at the ring's shape (q [32, 512, 64] bf16, causal) at d = 0 and
-   d = 512. The f32 routes of kernels 5-8 (flash_fwd, flash_bwd_dq,
-   flash_bwd_dkv, flash_fwd<H, 1>: FP32 units, no tensor cores) are
+   d = 512. The f32 routes of kernels 5-8 (flash_fwd and flash_fwd<H,
+   1> on the FP32 units; flash_bwd_tf32x3, 3xTF32 on the tensor cores,
+   alone and as the whole f32 route of _FlashAttention.backward) are
    timed by the same graph at the training shape and at the ring's (d =
-   0), their bound at 67 TFLOP/s FP32, SDPA's f32 forward and autograd
-   backward beside them; the kernels line carries them as each flash
-   row's "f32". No single
+   0), their bound at 67 TFLOP/s FP32 (the backward's also at 495
+   TFLOP/s TF32 for its 30 TF32 operations a pair and head element),
+   SDPA's f32 forward and autograd backward beside them, with the
+   library kernels the profiler names; the kernels line carries them as
+   each flash row's "f32". No single
    PyTorch call folds a chunk into a carry, so it has no library
    yardstick. Every other library yardstick (but kernel 5's) is device
    time under
@@ -293,6 +305,7 @@ import traceback
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, device memory
 FP32_OPS_PER_S = 67e12        # H100 SXM, FP32 outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM, bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12       # H100 SXM, TF32 tensor cores, dense
 FLOPS_PER_CELL_STEP = 5       # 2u, one add, one sub, one fma (2 operations)
 # FP32 instructions of a cell update of kernel 1 (FMUL, FSUB, FADD, FFMA)
 # and the card's FP32 issue rate: 132 SMs x 128 lanes x 1.98 GHz
@@ -322,12 +335,12 @@ FLASH_KERNELS = {
 }
 # the kernels line's names of flash_attention_bwd's two rows
 BWD_ROWS = ("flash_attention_bwd (dq)", "flash_attention_bwd (dk, dv)")
-# the backward's f32 route: one wrapper (and FP32 kernel) each
-FLASH_F32_BWD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# the backward's f32 route: its wrapper (kernel flash_bwd_tf32x3)
+FLASH_F32_BWD = ("flash_attention_bwd_f32",)
 # a flash row of the kernels line -> the wrapper of its f32 route
 F32_ROUTE = {"flash_attention_fwd": "flash_attention_fwd",
-             "flash_attention_bwd (dq)": "flash_attention_bwd_dq",
-             "flash_attention_bwd (dk, dv)": "flash_attention_bwd_dkv",
+             "flash_attention_bwd (dq)": "flash_attention_bwd_f32",
+             "flash_attention_bwd (dk, dv)": "flash_attention_bwd_f32",
              "flash_attention_chunk": "flash_attention_chunk"}
 # the ring's chunk kernel -> the TPU kernel its CUDA kernel replaces
 CHUNK_KERNEL = {"flash_attention_chunk": "hpx_tpu/ops/attention_pallas.py:618"}
@@ -572,7 +585,8 @@ def _ring_rank(f32_batch: int) -> dict:
          gradients summed over (dp, sp), gathered over tp, of the
          contiguous ring as it is and with a planted fault (rank sp 1
          leaves out its fold of the past chunk), and of the striped ring
-         as it is and with every chunk's offset 0.
+         as it is and with every chunk's offset 0, the f32 backward
+         kernel's launches counted in each.
     Rank 0 returns the full f32 gradients; every rank its readings."""
     import dataclasses
     import torch
@@ -584,8 +598,7 @@ def _ring_rank(f32_batch: int) -> dict:
     mesh = tf.make_mesh_3d(4)
     dev = mesh.device
     kern = (ac.flash_attention_chunk, ac.flash_attention_bwd,
-            ac.flash_attention_fwd, ac.flash_attention_bwd_dq,
-            ac.flash_attention_bwd_dkv)
+            ac.flash_attention_fwd, ac.flash_attention_bwd_f32)
     out = {"rank": mesh.rank, "coords": mesh.coords, "device": str(dev),
            "backend": mesh.backend}
 
@@ -654,10 +667,12 @@ def _ring_rank(f32_batch: int) -> dict:
         t2, g2 = tf.shard_batch(toks[:f32_batch], tgts[:f32_batch], mesh,
                                 striped=c.striped_ring)
         ac.flash_attention_chunk, ao.ring_offset = fold_fn, offset_fn
+        before = ac.flash_attention_bwd_f32.launches
         try:
             w, grads, loss = tf._loss_and_grads(p32, t2, g2, c, mesh)
         finally:
             ac.flash_attention_chunk, ao.ring_offset = fold, offset
+        out[key + "_launches"] = ac.flash_attention_bwd_f32.launches - before
         full = tf.unshard_params(
             tf._from_named(dict(zip(names, grads)), c.n_layers), c, mesh)
         out[key + "_loss"] = float(loss)
@@ -837,8 +852,8 @@ def main() -> int:
     kernels = (st.heat_step_blocked, st.multistep_fused,
                ac.fused_paged_attention, ac.fused_paged_online_attention,
                ac.flash_attention_fwd, ac.flash_attention_bwd,
-               ac.flash_attention_bwd_dq, ac.flash_attention_bwd_dkv,
-               ac.flash_attention_chunk, fr.fma_chain)
+               ac.flash_attention_bwd_f32, ac.flash_attention_chunk,
+               fr.fma_chain)
 
     def plan_of(kind, q, k_pool, v_pool, table, *_):
         """(P, stages, cb, shared-memory bytes, sub): the wrapper's own
@@ -890,14 +905,16 @@ def main() -> int:
                                _build.BUILD_INFO["flash_attention"]["path"]],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
-        for kern in ("flash_fwd_wgmma", "flash_bwd_wgmma"):
+        for kern, want in (("flash_fwd_wgmma", ("HGMMA", "UTMALDG")),
+                            ("flash_bwd_wgmma", ("HGMMA", "UTMALDG")),
+                            ("flash_bwd_tf32x3", ("HMMA",))):
             body = "".join(f for f in sass.split("Function : ")[1:]
                            if kern in f.split("\n", 1)[0])
-            counts = {op: body.count(op) for op in ("HGMMA", "UTMALDG")}
+            counts = {op: body.count(op) for op in want}
             print(f"   {kern} SASS: {counts}", flush=True)
             if not all(counts.values()):
-                raise AssertionError(f"{kern} has no wgmma or TMA load: "
-                                     f"{counts}")
+                raise AssertionError(f"{kern} has none of the tensor-core "
+                                     f"or TMA instructions {want}: {counts}")
         # kernel 1 keeps its cells in registers: warp shuffles each step,
         # shared memory only for the runs exchanged between warps
         sass = subprocess.run([cuobjdump, "-sass",
@@ -1227,11 +1244,13 @@ def main() -> int:
         on the card: the flash wrappers swapped for their plain versions
         (the forward's in its kernel's tiles) while the block runs (for
         comparisons; nothing is launched)."""
+        plain = {"flash_attention_fwd": plain_fwd,
+                 "flash_attention_bwd": ac.plain_flash_bwd,
+                 "flash_attention_bwd_f32": ac.plain_flash_bwd}
         names = (*FLASH_KERNELS, *FLASH_F32_BWD)
         saved = [getattr(ac, k) for k in names]
         for k in names:
-            setattr(ac, k, plain_fwd if k == "flash_attention_fwd" else
-                    getattr(ac, "plain_" + k.replace("_attention", "")))
+            setattr(ac, k, plain[k])
         try:
             yield
         finally:
@@ -1311,6 +1330,37 @@ def main() -> int:
                 o, plain_fwd(q, k, v, True)[0])
         return out
 
+    def f32_fault_readings(args, want):
+        """The f32 backward built with a planted fault, on the arguments
+        of a check: "1xTF32" (the big·big product alone) and "dq of key
+        tile 0 left out"; each reading the largest |got - want| / (atol
+        + rtol |want|) over dq, dk and dv, against the plain version's
+        ``want``: above 1 fails the check."""
+        q, k, v, do, delta, lse, d, causal = args
+        bn, sq, h = q.shape
+        bnkv, sk = k.shape[0], k.shape[1]
+        rtol, atol = FLASH_TOL["bwd"]
+        lib = ac._flash_lib()
+        out = {}
+        for name, entry in (("1xTF32", lib.hpx_flash_bwd_f32_one_term),
+                            ("dq of key tile 0 left out",
+                             lib.hpx_flash_bwd_f32_drop_tile)):
+            dq = torch.zeros_like(q)
+            dk, dv = torch.empty_like(k), torch.empty_like(v)
+            code = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         do.data_ptr(), delta.data_ptr(), lse.data_ptr(),
+                         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bn,
+                         bnkv, sq, sk, h, d, int(causal), ac._flash_scale(h),
+                         ac.flash_bwd_f32_plan(h, bnkv, sk)[2],
+                         torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            if code != 0:
+                raise AssertionError(f"the f32 backward's {name} build did "
+                                     f"not launch: {code}")
+            out[name] = max(((g - w).abs() / (atol + rtol * w.abs()))
+                            .max().item() for g, w in zip((dq, dk, dv), want))
+        return out
+
     def forward_at(q, k, v, d, causal):
         """(o in q's dtype, L) of the forward at causal offset d: the plain
         fold of every key from an empty carry, finished as the ring
@@ -1360,7 +1410,7 @@ def main() -> int:
     def flash_kernel_checks():
         n = 0
         seeds = itertools.count(1)
-        faults, faults128 = [], []
+        faults, faults128, f32_faults = [], [], []
         for dt in (torch.float32, torch.bfloat16):
             f32 = dt == torch.float32
             tf = FLASH_TOL["fwd" if f32 else "bf16"]
@@ -1399,28 +1449,22 @@ def main() -> int:
                                 args = (q, k, v, do, ac.bwd_prep(do, od), ld,
                                         d, causal)
                                 w = f"{what} d {d}"
-                                if f32:     # the dq, then the dk/dv kernel
-                                    got = (ac.flash_attention_bwd_dq(*args),
-                                           *ac.flash_attention_bwd_dkv(
-                                               *args))
-                                    want = (ac.plain_flash_bwd_dq(*args),
-                                            *ac.plain_flash_bwd_dkv(*args))
-                                    kerns = (FLASH_F32_BWD[0],
-                                             *FLASH_F32_BWD[1:] * 2)
-                                else:       # one kernel, dk/dv per K/V row
-                                    got = ac.flash_attention_bwd(*args, nq,
-                                                                 nkv)
-                                    want = ac.plain_flash_bwd(*args, nq,
-                                                              nkv)
-                                    kerns = ("flash_attention_bwd",) * 3
-                                for name, g, wt, kern in zip(
-                                        ("dq", "dk", "dv"), got, want,
-                                        kerns):
+                                # one kernel, dk/dv per K/V row: f32
+                                # flash_bwd_tf32x3, bf16 flash_bwd_wgmma
+                                got = ac.flash_attention_bwd(*args, nq, nkv)
+                                want = ac.plain_flash_bwd(*args, nq, nkv)
+                                kern = (FLASH_F32_BWD[0] if f32
+                                        else "flash_attention_bwd")
+                                for name, g, wt in zip(("dq", "dk", "dv"),
+                                                       got, want):
                                     err = sm.expect_close(
                                         kern, g, wt, f"{name} {w}",
                                         quiet=True, tol=tb, norm=not f32)
                                     worst[kern] = max(worst.get(kern, 0.0),
                                                       err)
+                                if f32 and sq == sk == 1024 and d == 0:
+                                    f32_faults.append(f32_fault_readings(
+                                        args, want))
                             if sq == sk == 1024 and nq == nkv and not f32:
                                 faults.append(tile_fault_readings(
                                     q, k, v, do, causal))
@@ -1435,6 +1479,15 @@ def main() -> int:
               flush=True)
         print(f"   bf16 norm-relative readings, largest of every case: "
               f"{sm.norm_rel} (limit {FLASH_NORM_REL})", flush=True)
+        f32_fault = {k: min(f[k] for f in f32_faults) for k in f32_faults[0]}
+        print(f"   planted faults of the f32 backward (flash_bwd_tf32x3, S "
+              f"1024, H 64 and 128, MHA and GQA, causal or not; the largest "
+              f"|got - want| / (atol + rtol |want|) over dq, dk, dv, the "
+              f"smallest over {len(f32_faults)} cases; above 1 fails "
+              f"{FLASH_TOL['bwd']}): {f32_fault}", flush=True)
+        if min(f32_fault.values()) <= 1:
+            raise AssertionError(f"the 1e-4 check would miss a fault of the "
+                                 f"f32 backward: {f32_fault}")
         fault = {k: min(f[k] for f in faults) for k in faults[0]}
         fault128 = {k: min(f[k] for f in faults128) for k in ("o", "dq")}
         print(f"   planted fault, one 64-row tile skipped (S 1024, MHA, "
@@ -1533,8 +1586,7 @@ def main() -> int:
             with plain_flash():
                 want = grads()
             tol = FLASH_TOL["bf16"] if dt == torch.bfloat16 else None
-            bwd = (("flash_attention_bwd",) * 3 if tol else
-                   (FLASH_F32_BWD[0], *FLASH_F32_BWD[1:] * 2))
+            bwd = ("flash_attention_bwd" if tol else FLASH_F32_BWD[0],) * 3
             for name, g, wt, kern in zip(
                     ("o", "dq", "dk", "dv"), got, want,
                     ("flash_attention_fwd", *bwd)):
@@ -1988,6 +2040,24 @@ def main() -> int:
               flush=True)
         del pv_b, pv_c, a
 
+        # a host policy given a vector on the card works on a host copy
+        # and leaves the vector as it was, as the reference copies a
+        # device array to the host
+        src = rng.random(1000, np.float32)
+        pv_s = hpx.partitioned_vector.from_array(torch.from_numpy(src).to(dev),
+                                                 layout)
+        got = hpx.for_each(hpx.seq, pv_s, lambda x: x * 2.0 + 1.0)
+        same(torch.from_numpy(got.to_numpy()), src * np.float32(2.0) +
+             np.float32(1.0), "for_each(seq, vector on the card)")
+        same(pv_s.data.cpu()[:1000], src, "the vector after for_each(seq)")
+        if pv_s.data.device != dev:
+            raise AssertionError(f"for_each(seq) moved its source to "
+                                 f"{pv_s.data.device}")
+        print(f"   for_each(seq, pv, f) over 1000 f32 of a vector on {dev}: "
+              f"the result bit for bit f over numpy's copy, the vector "
+              f"unchanged on the card", flush=True)
+        del pv_s, got
+
         # -- sorting at 2^24 ---------------------------------------------
         f = rng.standard_normal(n).astype(np.float32)
         idx = rng.permutation(n)
@@ -2340,7 +2410,7 @@ def main() -> int:
         names = (*FLASH_KERNELS, *FLASH_F32_BWD)
         flash = [getattr(ac, k) for k in names]
         # a layer a step: the forward and the bf16 backward (one kernel);
-        # the f32 backward kernels never
+        # the f32 backward kernel never
         want = [cfg.n_layers] * len(FLASH_KERNELS) + [0] * len(FLASH_F32_BWD)
         losses, secs = [], []
         torch.cuda.reset_peak_memory_stats()
@@ -2366,7 +2436,8 @@ def main() -> int:
               flush=True)
         print(f"   each step launched the flash forward and the bf16 "
               f"backward (kernels 6-7 in one) {cfg.n_layers} times (once a "
-              f"layer), the f32 backward kernels never; step times {secs} s; median after 2 "
+              f"layer), the f32 backward kernel never; step times {secs} s; "
+              f"median after 2 "
               f"warm-ups {step_s * 1e3!r} ms = {toks.numel() / step_s!r} "
               f"tokens/s; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB; on {smi}",
@@ -2417,7 +2488,14 @@ def main() -> int:
             _, g, loss = tf._loss_and_grads(params, toks, tgts, cfg,
                                             tf.make_mesh_3d(1))
             return g, float(loss)
+        before = ac.flash_attention_bwd_f32.launches
         g_kernel, l_kernel = grads()
+        f32_bwd = ac.flash_attention_bwd_f32.launches - before
+        print(f"   f32 gradients: flash_bwd_tf32x3 launched {f32_bwd} times "
+              f"({cfg.n_layers} layers)", flush=True)
+        if f32_bwd != cfg.n_layers:
+            raise AssertionError(f"the f32 backward kernel launched {f32_bwd}"
+                                 f" times, not once a layer")
         with plain_flash():
             g_plain, l_plain = grads()
             # the planted fault: a backward whose dq is zeros
@@ -2463,7 +2541,7 @@ def main() -> int:
                                      "between kernels and plain versions")
         print(f"   f32 SGD step: weights max abs err {err!r} (rtol = atol "
               "= 1e-5)", flush=True)
-    if train:   # the f32 training path: the backward's f32 kernels' only
+    if train:   # the f32 training path: the f32 backward kernel's only
         sm.phase("main path: training f32, kernels against plain",
                  lambda: run_path(training_gate))
 
@@ -2507,13 +2585,20 @@ def main() -> int:
               f"coords {[r['coords'] for r in res]}, backend "
               f"{r0['backend']}", flush=True)
         # sp ring steps x layers; no forward, no f32 backward kernel
-        want = [2 * 4, 2 * 4, 0, 0, 0]
+        want = [2 * 4, 2 * 4, 0, 0]
         for r in res:
             if any(p != want for p in r["per_step"]):
                 raise AssertionError(
                     f"rank {r['rank']}: launches a step {r['per_step']} of "
-                    "(flash_attention_chunk, bwd, fwd, bwd_dq, bwd_dkv), "
+                    "(flash_attention_chunk, bwd, fwd, bwd_f32), "
                     f"want {want}")
+            # the f32 gate: flash_bwd_tf32x3 once a ring step and layer
+            f32_bwd = [r[k + "_launches"] for k in ("f32", "f32_striped")]
+            if f32_bwd != [2 * 4] * 2:
+                raise AssertionError(f"rank {r['rank']}: the f32 backward "
+                                     f"kernel launched {f32_bwd} times in the "
+                                     f"f32 gates, want {[2 * 4] * 2}")
+            sm.launches["flash_attention_bwd_f32"] += sum(f32_bwd)
             if r["losses"] != r0["losses"]:
                 raise AssertionError(f"rank {r['rank']}'s losses differ "
                                      "from rank 0's")
@@ -2536,8 +2621,9 @@ def main() -> int:
               f"{losses}", flush=True)
         print(f"   every rank launched flash_attention_chunk and "
               f"flash_attention_bwd 8 times a step, flash_attention_fwd and "
-              f"the f32 backward kernels never: "
-              f"{[r['launches'] for r in res]}; peak memory a rank "
+              f"the f32 backward kernel never: "
+              f"{[r['launches'] for r in res]}; in each f32 gate "
+              f"flash_bwd_tf32x3 8 times; peak memory a rank "
               f"{[r['peak_gib'] for r in res]} GiB", flush=True)
         print(f"   step time (host clock, slowest rank, median after 2 "
               f"warm-ups): {step_s * 1e3!r} ms; {ring['what']}; step "
@@ -2782,7 +2868,8 @@ def main() -> int:
                   f"({t.get('library_by')}) "
                   + "".join(f"{x}_ms={t[x]!r} " for x in (
                       "events", "host", "bound_instr", "route",
-                      "route_events", "bound_split", "library_events",
+                      "route_events", "bound_split", "bound_tf32x3",
+                      "library_events",
                       "library_profiler", "library_autograd") if x in t)
                   + f"launches={sm.launches[k.split()[0]]} on {smi}")
 
@@ -3144,18 +3231,23 @@ def main() -> int:
             timing["flash_attention_chunk" if d == 0
                    else f"flash_attention_chunk d={d}"] = t
     def time_flash_f32():
-        """The f32 routes of kernels 5-8, on the FP32 units (no tensor
-        cores; TF32 would miss the plain versions' 1e-5): flash_fwd,
-        flash_bwd_dq and flash_bwd_dkv (each alone and both in one graph)
-        and flash_fwd<H, 1> (the chunk fold, from a zero carry), causal,
-        at the training shape (B 8, S 1024, 8 heads of 64) and at the
-        ring's (q [32, 512, 64], d = 0), their inputs first held against
-        the plain versions. Device time by the CUDA graph of 20 calls the
-        bf16 rows use, events and the plain version beside; the bound at
-        67 TFLOP/s FP32; SDPA in f32 by the same graph (its forward; its
-        backward as forward + backward less forward; none for the
-        chunk)."""
+        """The f32 routes of kernels 5-8 at the training shape (B 8, S
+        1024, 8 heads of 64) and at the ring's (q [32, 512, 64], d = 0),
+        causal, their inputs first held against the plain versions:
+        flash_fwd and flash_fwd<H, 1> (the chunk fold, from a zero carry)
+        on the FP32 units, and the backward's one kernel,
+        flash_bwd_tf32x3 (3xTF32 on the tensor cores), alone and as the
+        whole f32 route of _FlashAttention.backward (layout copies,
+        delta, the dq fill, the kernel, the casts). Device time by the
+        CUDA graph of 20 calls the bf16 rows use, events and the plain
+        version beside; the bound at 67 TFLOP/s FP32 (the backward's
+        also at 495 TFLOP/s TF32, its 10 operations a pair and head
+        element 30 as 3xTF32); SDPA in f32 by the same graph (its
+        forward; its backward as forward + backward less forward, with
+        the kernels the profiler names; none for the chunk)."""
+        import types
         import torch.nn.functional as F
+        from torch.profiler import ProfilerActivity, profile
         for tag, (b, seq, n, h) in (("", (8, 1024, 8, 64)),
                                     (" ring", (8, 512, 4, 64))):
             q, k, v, do = flash_state(b, seq, seq, n, n, h, torch.float32,
@@ -3167,16 +3259,11 @@ def main() -> int:
             sm.expect_close("flash_attention_fwd", lse, plse, f"f32 L{tag}",
                             quiet=True, tol=FLASH_TOL["fwd"])
             args = (q, k, v, do, ac.bwd_prep(do, o), lse, 0, True)
-            want = ac.plain_flash_bwd(*args)
-            for kname, got in (
-                    ("flash_attention_bwd_dq",
-                     (ac.flash_attention_bwd_dq(*args),)),
-                    ("flash_attention_bwd_dkv",
-                     ac.flash_attention_bwd_dkv(*args))):
-                for g, w in zip(got, want[:1] if kname.endswith("dq")
-                                else want[1:]):
-                    sm.expect_close(kname, g, w, f"f32 {kname}{tag}",
-                                    quiet=True, tol=FLASH_TOL["bwd"])
+            for name, g, w in zip(("dq", "dk", "dv"),
+                                  ac.flash_attention_bwd_f32(*args),
+                                  ac.plain_flash_bwd(*args)):
+                sm.expect_close(FLASH_F32_BWD[0], g, w, f"f32 {name}{tag}",
+                                quiet=True, tol=FLASH_TOL["bwd"])
             carry = (torch.zeros_like(q),
                      torch.full(q.shape[:2], -1e30, device="cuda"),
                      torch.zeros(q.shape[:2], device="cuda"))
@@ -3190,20 +3277,17 @@ def main() -> int:
             el, rows = q.numel(), b * n * seq
             # each input read once, each output written once, all f32;
             # operations over the visible pairs, 2 a multiply-add: the
-            # forward's 2 products; dq's S, dP and dQ; dk/dv's S, dP, dV
-            # and dK; the backward's least work 5 products
+            # forward's 2 products, the backward's 5 (3 TF32 products
+            # each as 3xTF32)
+            bwd_bytes = 7 * el * 4 + 2 * rows * 4
             bounds = {
                 "flash_attention_fwd": _bound(4 * el * 4 + rows * 4,
                                               4 * pairs * h),
-                "flash_attention_bwd_dq": _bound(
-                    5 * el * 4 + 2 * rows * 4, 6 * pairs * h),
-                "flash_attention_bwd_dkv": _bound(
-                    6 * el * 4 + 2 * rows * 4, 8 * pairs * h),
-                "f32 backward": _bound(7 * el * 4 + 2 * rows * 4,
-                                       10 * pairs * h),
+                FLASH_F32_BWD[0]: _bound(bwd_bytes, 10 * pairs * h),
                 "flash_attention_chunk": _bound(
                     3 * el * 4 + 2 * (el * 4 + 2 * rows * 4),
                     4 * pairs * h)}
+            tf32x3 = _bound(bwd_bytes, 30 * pairs * h, TF32_OPS_PER_S)
             q4, k4, v4, do4 = (x.view(b, n, seq, h) for x in (q, k, v, do))
 
             def sdpa_fwd():
@@ -3222,17 +3306,30 @@ def main() -> int:
                       f": {e}; CUDA events instead", flush=True)
                 lib_bwd = _cuda_ms(sdpa_fwd_bwd, 7) - _cuda_ms(sdpa_fwd, 7)
                 lib_bwd_by = "events"
+            # which library kernels the yardstick runs (a reading)
+            sdpa_fwd_bwd()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                sdpa_fwd_bwd()
+                torch.cuda.synchronize()
+            lib_kernels = sorted({e.key[:120] for e in prof.key_averages()
+                                  if "fmha" in e.key or "attention" in
+                                  e.key.lower()})
             work = tuple(x.clone() for x in carry)
+            # the whole f32 route of _FlashAttention.backward
+            pub = [ac._public_layout(x, b) for x in (q, k, v, do)]
+            ctx = types.SimpleNamespace(saved_tensors=(*pub[:3], o, lse),
+                                        causal=True)
+
+            def route():
+                ac._FlashAttention.backward(ctx, pub[3])
             runs = {
                 "flash_attention_fwd": (
                     lambda: ac.flash_attention_fwd(q, k, v, True),
                     lambda: plain_fwd(q, k, v, True), lib_fwd),
-                "flash_attention_bwd_dq": (
-                    lambda: ac.flash_attention_bwd_dq(*args),
-                    lambda: ac.plain_flash_bwd_dq(*args), None),
-                "flash_attention_bwd_dkv": (
-                    lambda: ac.flash_attention_bwd_dkv(*args),
-                    lambda: ac.plain_flash_bwd_dkv(*args), None),
+                FLASH_F32_BWD[0]: (
+                    lambda: ac.flash_attention_bwd_f32(*args),
+                    lambda: ac.plain_flash_bwd(*args), lib_bwd),
                 "flash_attention_chunk": (
                     lambda: ac.flash_attention_chunk(q, k, v, *work, 0,
                                                      True),
@@ -3244,25 +3341,40 @@ def main() -> int:
                 timing[f"{kname} f32{tag}"] = {
                     "ms": _graph_ms([fn] * 20), "events": _cuda_ms(fn, 7),
                     "plain": _cuda_ms(plain, 3), "bound": bound, "by": by,
-                    "library": lib, "library_by": "graph" if lib else None,
+                    "library": lib,
+                    "library_by": (lib_bwd_by if kname == FLASH_F32_BWD[0]
+                                   else "graph") if lib else None,
                     "shape": shape}
-            both = _graph_ms([runs["flash_attention_bwd_dq"][0],
-                              runs["flash_attention_bwd_dkv"][0]] * 10) * 2
-            bt = timing[f"flash_attention_bwd_dq f32{tag}"]
-            bt.update(route=both, library=lib_bwd, library_by=lib_bwd_by,
-                      bound_split=bounds["flash_attention_bwd_dq"][0]
-                      + bounds["flash_attention_bwd_dkv"][0],
-                      bound_all=bounds["f32 backward"][0])
+            bt = timing[f"{FLASH_F32_BWD[0]} f32{tag}"]
+            bt.update(route=_graph_ms([route] * 20),
+                      bound_tf32x3=tf32x3[0])
             print(f"   f32 at {shape}: forward "
                   f"{timing[f'flash_attention_fwd f32{tag}']['ms']!r} ms "
-                  f"(SDPA {lib_fwd!r}); backward dq + dk/dv {both!r} ms "
-                  f"(SDPA {lib_bwd!r}, {lib_bwd_by}; bound "
-                  f"{bounds['f32 backward'][0]!r} ms, "
-                  f"{bounds['f32 backward'][1]}); chunk "
+                  f"(SDPA {lib_fwd!r}); backward flash_bwd_tf32x3 "
+                  f"{bt['ms']!r} ms, the whole f32 route of "
+                  f"_FlashAttention.backward {bt['route']!r} ms (SDPA "
+                  f"{lib_bwd!r}, {lib_bwd_by}: {bt['ms'] / lib_bwd!r} of "
+                  f"it; its kernels {lib_kernels}); bound FP32 "
+                  f"{bt['bound']!r} ms ({bt['by']}, "
+                  f"{bt['bound'] / bt['ms']!r} of it), 3xTF32 "
+                  f"{tf32x3[0]!r} ms ({tf32x3[1]}, "
+                  f"{tf32x3[0] / bt['ms']!r}); chunk "
                   f"{timing[f'flash_attention_chunk f32{tag}']['ms']!r} ms "
                   f"(CUDA graph); on {smi}", flush=True)
-            del q, k, v, do, o, lse, args, want, carry, work, xs
+            del q, k, v, do, o, lse, args, carry, work, xs, pub, ctx
             torch.cuda.empty_cache()
+        # the yardstick's f32 products: PyTorch's memory-efficient kernel
+        # declares its float GEMMs on sm80+ as OpMultiplyAddFastF32
+        # (3xTF32); read from the installed headers where they ship
+        hdr = os.path.join(os.path.dirname(torch.__file__), "include", "ATen",
+                           "native", "transformers", "cuda",
+                           "mem_eff_attention", "gemm_kernel_utils.h")
+        fast = False
+        if os.path.isfile(hdr):
+            with open(hdr) as f:
+                fast = "OpMultiplyAddFastF32" in f.read()
+        print(f"   SDPA f32 yardstick: the installed {hdr} names "
+              f"OpMultiplyAddFastF32 (3xTF32): {fast}", flush=True)
 
     sm.phase("timing", time_kernels)
 
@@ -3284,20 +3396,27 @@ def main() -> int:
                **{k: "paged_attention" for k in PAGED_KERNELS},
                **{k: "flash_attention" for k in ("flash_attention_fwd",
                                                  *BWD_ROWS, *CHUNK_KERNEL)}}
+    # the kernel of a flash row's f32 route
+    f32_kernel = {"flash_attention_fwd": "flash_fwd (FP32 units)",
+                  **{r: "flash_bwd_tf32x3 (dq, dk, dv in one launch, "
+                        "3xTF32 on the tensor cores)" for r in BWD_ROWS},
+                  "flash_attention_chunk": "flash_fwd<H, 1> (FP32 units)"}
+
     def f32_routes(row):
-        """The f32 route of a flash row: its wrapper's times at the
-        training and the ring's shape (time_flash_f32)."""
+        """The f32 route of a flash row: its wrapper's kernel, launches,
+        error and times at the training and the ring's shape
+        (time_flash_f32)."""
         out = {}
+        k = F32_ROUTE[row]
         for tag in ("", " ring"):
-            t = timing[f"{F32_ROUTE[row]} f32{tag}"]
+            t = timing[f"{k} f32{tag}"]
             out[tag.strip() or "training"] = {
-                "wrapper": F32_ROUTE[row], "launches": sm.launches[
-                    F32_ROUTE[row]],
-                "ms": t["ms"],
+                "wrapper": k, "kernel": f32_kernel[row],
+                "launches": sm.launches[k],
+                "max_abs_err": sm.max_abs_err[k], "ms": t["ms"],
                 **{f"{x}_ms": t[x] for x in ("events", "plain", "bound",
-                                             "library", "route",
-                                             "bound_split", "bound_all")
-                   if x in t},
+                                             "bound_tf32x3", "library",
+                                             "route") if x in t},
                 "bound_by": t["by"], "library_by": t["library_by"],
                 "shape": t["shape"]}
         return out

@@ -112,32 +112,45 @@ def vmap(f: Callable) -> Callable:
     ``jax.vmap`` contract:
 
     * a Python number that f returns is broadcast, as jax.vmap broadcasts
-      an unbatched output;
+      an unbatched output, and a None (a body run for its effects) maps
+      to None;
     * an empty range maps to an empty result of f's output type;
     * what jax.vmap refuses raises its error types (TypeError
       subclasses): branching on an element (TracerBoolConversionError),
-      taking its Python value (ConcretizationTypeError)."""
+      taking its Python value (ConcretizationTypeError), and an operator
+      that torch refuses on bool tensors (TypeError, as jax and numpy
+      raise it)."""
     def tensors(out: Any, like: torch.Tensor) -> Any:
         if isinstance(out, (tuple, list)):
             return type(out)(tensors(o, like) for o in out)
         return out if is_tensor(out) else scalar(out, like.device)
-
-    mapped = torch.func.vmap(lambda *xs: tensors(f(*xs), xs[0]))
 
     def run(*xs: torch.Tensor) -> Any:
         empty = xs[0].shape[0] == 0
         if empty:     # vmap cannot map over 0 elements: map one, keep none
             xs = tuple(torch.zeros((1,), dtype=x.dtype, device=x.device)
                        for x in xs)
+        nothing = []  # f returned None: vmap takes no leaves, (), instead
+
+        def one(*ys):
+            out = f(*ys)
+            if out is None:
+                nothing.append(True)
+                return ()
+            return tensors(out, ys[0])
         try:
-            out = mapped(*xs)
+            out = torch.func.vmap(one)(*xs)
         except RuntimeError as e:
             msg = str(e)
             if "data-dependent control flow" in msg:
                 raise TracerBoolConversionError(msg) from e
             if ".item()" in msg:
                 raise ConcretizationTypeError(msg) from e
+            if "bool tensor" in msg and "is not supported" in msg:
+                raise TypeError(msg) from e
             raise
+        if nothing:
+            return None
         if empty:
             out = tuple(o[:0] for o in out) if isinstance(
                 out, (tuple, list)) else out[:0]
@@ -196,19 +209,17 @@ def host_bulk(policy: ExecutionPolicy, count: int,
 
 
 def to_numpy_view(rng: Any) -> np.ndarray:
-    """The host path works on numpy arrays: numpy input as it is, a CPU
-    tensor as a zero-copy view (mutating algorithms write the tensor, as
-    they write a numpy array), other input through ``np.asarray``
-    (copied when read-only). A tensor on a GPU is refused: the host path
-    moves no data off the card."""
+    """The host path works on numpy arrays: numpy input as it is (mutating
+    algorithms write it), a tensor copied to the host, from the card or
+    from the CPU, as the reference copies a device array (mutating
+    algorithms return the written copy and leave the tensor as it was),
+    other input through ``np.asarray`` (copied when read-only)."""
     if isinstance(rng, np.ndarray):
         return rng
     if is_tensor(rng):
-        if rng.device.type != "cpu":
-            raise ValueError(
-                f"a host policy got a tensor on {rng.device}; use par or "
-                "par.on(cuda_executor()) to run on the card")
-        return rng.detach().numpy()
+        t = rng.detach()
+        return t.numpy().copy() if t.device.type == "cpu" else \
+            t.cpu().numpy()
     arr = np.asarray(rng)
     if not arr.flags.writeable:
         arr = arr.copy()

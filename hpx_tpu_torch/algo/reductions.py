@@ -15,7 +15,9 @@ then reduces — the config #1 (SAXPY+dot) path.
 
 Float sums are taken in torch's order, not XLA's, so a float32
 transform_reduce differs from the reference's in the last bits (within
-n·ε relative); integer and boolean results are exact.
+n·ε relative); integer and boolean results are exact. A + or * fold of
+bools or of integers narrower than 32 bits comes out in int32 (uint32
+from an unsigned type), as jnp.sum's and jnp.prod's do.
 """
 
 from __future__ import annotations
@@ -52,6 +54,15 @@ _KNOWN_FOLDS.update({comb: _KNOWN_FOLDS[op] for op, comb in (
     (min, torch.minimum), (max, torch.maximum))})
 
 
+# the dtype jnp.sum and jnp.prod fold bool and the narrow integers into:
+# int32, or uint32 from an unsigned type. torch's CPU has no uint16 or
+# uint32 sum, so these fold in int64 and are cast down, which wraps as
+# the 32-bit fold wraps
+_WIDE_FOLD = {torch.bool: torch.int32, torch.int8: torch.int32,
+              torch.int16: torch.int32, torch.uint8: torch.uint32,
+              torch.uint16: torch.uint32}
+
+
 def _tree_fold(op: Callable, flat: torch.Tensor) -> torch.Tensor:
     """An associative fold without an identity: pair the halves with the
     vmapped op until one element is left (an odd element waits a round
@@ -81,11 +92,13 @@ def _device_reduce_kernel(op: Callable, init: Any):
         init_t = scalar(init, flat.device, flat.dtype)
         if known is not None:
             fold, combine = known
-            if fold in (torch.sum, torch.prod) and flat.dtype != torch.bool:
-                total = fold(flat, dtype=flat.dtype)
-            else:
-                total = fold(_nonempty(flat, op.__name__))
-            return combine(init_t, total)
+            if fold not in (torch.sum, torch.prod):
+                return combine(init_t, fold(_nonempty(flat, op.__name__)))
+            wide = _WIDE_FOLD.get(flat.dtype)
+            if wide is None:
+                return combine(init_t, fold(flat, dtype=flat.dtype))
+            return combine(init_t.long(), fold(flat, dtype=torch.int64)).to(
+                wide)
         if flat.shape[0] == 0:
             return init_t
         return vmap(op)(init_t.reshape(1), _tree_fold(op, flat).reshape(1))[0]
@@ -231,7 +244,8 @@ def _minmax(policy: ExecutionPolicy, rng: Any, which: str) -> Any:
     range-functional equivalent). minmax returns a (min, max) pair."""
     if is_device_policy(policy, rng):
         fold = {"min": torch.amin, "max": torch.amax,
-                "minmax": lambda a: torch.stack([a.min(), a.max()])}[which]
+                "minmax": lambda a: torch.stack([torch.amin(a),
+                                                 torch.amax(a)])}[which]
 
         def kernel(a):
             return fold(_nonempty(a.reshape(-1), which))

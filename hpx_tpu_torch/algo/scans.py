@@ -38,7 +38,13 @@ from ._core import (
     to_numpy_view,
     vmap,
 )
-from .reductions import _KNOWN_FOLDS
+from .reductions import _KNOWN_FOLDS, _first
+
+
+# integer types torch's CPU has no arithmetic for (add, cumsum, cumprod):
+# they go through int64 and are cast back, which wraps as their own
+# arithmetic would
+_NO_ARITH = (torch.uint16, torch.uint32)
 
 
 def _cum(fold: Callable, flat: torch.Tensor) -> torch.Tensor:
@@ -50,10 +56,11 @@ def _cum(fold: Callable, flat: torch.Tensor) -> torch.Tensor:
         if fold in (torch.sum, torch.amax):
             return torch.cummax(u8, 0).values.bool()
         return torch.cummin(u8, 0).values.bool()
-    if fold is torch.sum:
-        return torch.cumsum(flat, 0, dtype=flat.dtype)
-    if fold is torch.prod:
-        return torch.cumprod(flat, 0, dtype=flat.dtype)
+    if fold in (torch.sum, torch.prod):
+        cum = torch.cumsum if fold is torch.sum else torch.cumprod
+        if flat.dtype in _NO_ARITH:
+            return cum(flat, 0, dtype=torch.int64).to(flat.dtype)
+        return cum(flat, 0, dtype=flat.dtype)
     if fold is torch.amin:
         return torch.cummin(flat, 0).values
     return torch.cummax(flat, 0).values
@@ -78,6 +85,8 @@ def _with_init(op: Callable, init: Any, scanned: torch.Tensor
     reference's jnp.asarray(init, dtype))."""
     init_t = scalar(init, scanned.device, scanned.dtype)
     known = _KNOWN_FOLDS.get(op)
+    if known is not None and scanned.dtype in _NO_ARITH:
+        return known[1](init_t.long(), scanned.long()).to(scanned.dtype)
     if known is not None:
         return known[1](init_t, scanned)
     return vmap(lambda x: op(init_t, x))(scanned)
@@ -194,10 +203,8 @@ def adjacent_find(policy: ExecutionPolicy, rng: Any,
 
         def kernel(a):
             flat = a.reshape(-1)
-            m = hit(flat[:-1], flat[1:])
-            if m.shape[0] == 0:             # fewer than two elements
-                return scalar(-1, flat.device, torch.int64)
-            return torch.where(m.any(), m.to(torch.uint8).argmax(), -1)
+            # fewer than two elements: the reference's argmax of nothing
+            return _first(hit(flat[:-1], flat[1:]))
         return launch(policy, device_executor(policy, rng), kernel, rng,
                       then=int)
     arr = to_numpy_view(rng)

@@ -184,8 +184,11 @@ def unique(policy: ExecutionPolicy, rng: Any) -> Any:
     if is_device_policy(policy, rng):
         def kernel(a):
             flat = a.reshape(-1)
-            if flat.shape[0] == 0:
-                return flat.clone()
+            if flat.shape[0] == 0:          # the reference's host gather
+                raise IndexError("boolean index did not match indexed "
+                                 "array along axis 0; size of axis is 0 "
+                                 "but size of corresponding boolean axis "
+                                 "is 1")
             return flat[torch.cat([
                 torch.ones(1, dtype=torch.bool, device=flat.device),
                 flat[1:] != flat[:-1]])]
@@ -349,8 +352,18 @@ def swap_ranges(policy: ExecutionPolicy, rng: Any, rng2: Any) -> Any:
     (new_rng, new_rng2) pair (std::swap_ranges in the functional data
     model: a swap IS returning the copies crossed over)."""
     from .elementwise import copy as _copy
+    from ..containers.partitioned_vector import (PartitionedVector,
+                                                 PartitionedVectorView)
     if len(rng) != len(rng2):
         raise ValueError("swap_ranges: ranges must have equal length")
+    segmented = (PartitionedVector, PartitionedVectorView)
+    if is_device_policy(policy, rng, rng2) and (
+            isinstance(rng, segmented) or isinstance(rng2, segmented)):
+        # no segmented overlay: the reference's device copy refuses the
+        # container as an argument that is not an array
+        raise TypeError("swap_ranges: a partitioned_vector on the device "
+                        "path is not a tensor (swap_ranges has no "
+                        "segmented overlay)")
     a2 = _copy(policy, rng2)
     b2 = _copy(policy, rng)
     if policy.is_task:

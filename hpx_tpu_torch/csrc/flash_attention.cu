@@ -3,9 +3,9 @@
 //
 // Replaces the four Pallas kernels of hpx_tpu/ops/attention_pallas.py:
 //   flash_fwd      <- _flash_kernel         (:112)
-//   flash_bwd_dq   <- _flash_bwd_dq_kernel  (:397)  f32 operands
-//   flash_bwd_dkv  <- _flash_bwd_dkv_kernel (:446)  f32 operands
-//   flash_bwd_wgmma <- both, in one kernel           bf16 operands
+//   flash_bwd_wgmma <- _flash_bwd_dq_kernel (:397) and
+//                      _flash_bwd_dkv_kernel (:446), in one kernel; bf16
+//   flash_bwd_tf32x3 <- the same two, in one kernel; f32 operands
 //   flash_chunk    <- _flash_chunk_kernel   (:618), flash_fwd's tile loop
 //                     with the (acc, m, l) carry read in and written back
 //                     unnormalized, in place (template flag kChunk)
@@ -19,9 +19,8 @@
 //   lse, delta [BN, sq] f32        one value a row
 //   acc        [BN, sq, H] f32     the chunk fold's carry, with m, l
 //   m, l       [BN, sq] f32        (running max and sum), updated in place
-//   dq         [BN, sq, H] f32
-//   dk, dv     [BN, sk, H] f32     f32 kernels: per q row (the wrapper sums
-//                                  each group); bf16: [BNkv, sk, H]
+//   dq         [BN, sq, H] f32     zeroed by the wrapper; the backward adds
+//   dk, dv     [BNkv, sk, H] f32   per K/V row (each GQA group summed)
 // Causal: key j is visible to query i iff j <= i + d (d = sk - sq in the
 // forward: bottom-right alignment; the ring's offset for a chunk); keys
 // j >= sk never are.
@@ -52,22 +51,24 @@
 // one's prologue and epilogue overlap the other's products. The
 // backward keeps K and V of its key tile resident, computes each of the
 // five products once, and adds dq by f32 atomics (flash_bwd_wgmma).
-// The f32 route (the FP32 units, full f32 products: TF32 would miss the
-// plain version's 1e-5) is the first, simple version: each CTA owns one
-// 64-row tile (q rows, or key rows for dk/dv), walks the other operand
-// in 64-row tiles staged in shared memory by 16-byte loads, and skips
-// causal tiles past the diagonal, as at :137 / :410 / :460; 256 threads
-// a CTA, each computing a 4 x 4 piece of every 64 x 64 product from f32
-// tiles whose rows are padded by 4 floats, so the 16-byte shared reads
-// are free of bank conflicts.
+// The f32 backward (flash_bwd_tf32x3) has the same shape on mma.sync:
+// its products run on the tensor cores as 3xTF32, each operand split
+// into two TF32 halves and three products summed in f32, within the
+// plain version's 1e-4 where one TF32 product alone misses it. The f32
+// forward and chunk fold (flash_fwd) are the first, simple version, on
+// the FP32 units: each CTA owns one 64-row q tile, walks the key tiles
+// staged in shared memory by 16-byte loads, and skips causal tiles past
+// the diagonal, as at :137; 256 threads a CTA, each computing a 4 x 4
+// piece of every 64 x 64 product from f32 tiles whose rows are padded by
+// 4 floats, so the 16-byte shared reads are free of bank conflicts.
 //
 // Numerics follow the reference kernels: scores = f32 dot * scale;
 // masked lanes -1e30 and p exactly 0; online softmax in f32; p cast to
 // bf16 before p.V (bf16 inputs), p and ds cast before the backward
 // products; o = acc / l (0 on a row with no visible key), L = m + log l
 // (0 there); p = exp(s - L), ds = p * (dp - delta) * scale; dq, dk, dv
-// in f32. The f32 kernels use no atomics (dk/dv per q row); the bf16
-// backward adds its dq partials atomically, in no fixed order.
+// in f32. Both backward kernels add their dq partials atomically, in no
+// fixed order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -116,13 +117,6 @@ __device__ void load_tile(float* dst, const float* __restrict__ src, int r0,
                             src + (size_t)(r0 + r) * H + c)
                       : make_float4(0.f, 0.f, 0.f, 0.f);
   }
-}
-
-// Values r0 .. r0+63 of a [rows] f32 vector into dst[64]; 0 past `rows`.
-__device__ void load_rows(float* dst, const float* __restrict__ src, int r0,
-                          int rows) {
-  for (int i = threadIdx.x; i < kBlock; i += kThreads)
-    dst[i] = r0 + i < rows ? src[r0 + i] : 0.f;
 }
 
 // acc[r][c] = sum_d a[ty*4 + r][d] * b[tx + 16c][d]: a 4 x 4 piece of
@@ -348,149 +342,6 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
              acc[r][4 * c] / den, acc[r][4 * c + 1] / den,
              acc[r][4 * c + 2] / den, acc[r][4 * c + 3] / den);
   }
-}
-
-// ---------------------------------------------------------------------------
-// flash_bwd_dq (replaces _flash_bwd_dq_kernel). Grid (q tiles, BN); the
-// CTA walks key tiles. Shared memory: q | do | k | v tiles, ds tile,
-// lse and delta of its rows.
-// ---------------------------------------------------------------------------
-template <int H>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ dout,
-             const float* __restrict__ delta, const float* __restrict__ lse,
-             float* __restrict__ dq, int sq, int sk, int g, int d,
-             int causal, float scale) {
-  extern __shared__ float4 smem4[];
-  constexpr int LD = H + kPad;
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* dos = qs + kBlock * LD;
-  float* ks = dos + kBlock * LD;
-  float* vs = ks + kBlock * LD;
-  float* dss = vs + kBlock * LD;
-  float* lr = dss + kBlock * kPLd;
-  float* dr = lr + kBlock;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int bn = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlock;
-  const float* kb = k + (size_t)(bn / g) * sk * H;
-  const float* vb = v + (size_t)(bn / g) * sk * H;
-
-  load_tile<H>(qs, q + (size_t)bn * sq * H, q0, sq);
-  load_tile<H>(dos, dout + (size_t)bn * sq * H, q0, sq);
-  load_rows(lr, lse + (size_t)bn * sq, q0, sq);
-  load_rows(dr, delta + (size_t)bn * sq, q0, sq);
-  float acc[4][H / 16];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int e = 0; e < H / 16; ++e) acc[r][e] = 0.f;
-
-  const int nk = key_tiles(q0, sk, d, causal);
-  for (int ik = 0; ik < nk; ++ik) {
-    const int k0 = ik * kBlock;
-    __syncthreads();
-    load_tile<H>(ks, kb, k0, sk);
-    load_tile<H>(vs, vb, k0, sk);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot<H>(qs, ks, s, ty, tx);
-    tile_dot<H>(dos, vs, dp, ty, tx);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qpos = q0 + ty * 4 + r;
-      const float L = lr[ty * 4 + r], D = dr[ty * 4 + r];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = visible(qpos, k0 + tx + 16 * c, sk, d, causal)
-                            ? expf(s[r][c] * scale - L)
-                            : 0.f;
-        dss[(ty * 4 + r) * kPLd + tx + 16 * c] = p * (dp[r][c] - D) * scale;
-      }
-    }
-    __syncthreads();
-    tile_pv<H>(dss, ks, acc, ty, tx);
-  }
-  store_rows<H>(dq + (size_t)bn * sq * H, acc, q0, sq, ty, tx);
-}
-
-// ---------------------------------------------------------------------------
-// flash_bwd_dkv (replaces _flash_bwd_dkv_kernel). Grid (key tiles, BN q
-// rows); the CTA walks the q tiles that see its keys. Thread (ty, tx)
-// owns key rows ty*4 .. +3 of pᵀ and dsᵀ, q columns tx + 16c. Shared
-// memory: k | v | q | do tiles, pᵀ and dsᵀ tiles, lse and delta.
-// ---------------------------------------------------------------------------
-template <int H>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ dout,
-              const float* __restrict__ delta,
-              const float* __restrict__ lse, float* __restrict__ dk,
-              float* __restrict__ dv, int sq, int sk, int g, int d,
-              int causal, float scale) {
-  extern __shared__ float4 smem4[];
-  constexpr int LD = H + kPad;
-  float* ks = reinterpret_cast<float*>(smem4);
-  float* vs = ks + kBlock * LD;
-  float* qs = vs + kBlock * LD;
-  float* dos = qs + kBlock * LD;
-  float* pts = dos + kBlock * LD;
-  float* dsts = pts + kBlock * kPLd;
-  float* lr = dsts + kBlock * kPLd;
-  float* dr = lr + kBlock;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int bn = blockIdx.y;
-  const int k0 = blockIdx.x * kBlock;       // causal: the first key tiles
-                                            // see the most q tiles
-  const float* qb = q + (size_t)bn * sq * H;
-  const float* db = dout + (size_t)bn * sq * H;
-
-  load_tile<H>(ks, k + (size_t)(bn / g) * sk * H, k0, sk);
-  load_tile<H>(vs, v + (size_t)(bn / g) * sk * H, k0, sk);
-  float dka[4][H / 16], dva[4][H / 16];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int e = 0; e < H / 16; ++e) {
-      dka[r][e] = 0.f;
-      dva[r][e] = 0.f;
-    }
-
-  // causal: q tile iq sees key k0 iff k0 <= iq*64 + 63 + d
-  const int nq = (sq + kBlock - 1) / kBlock;
-  const int first = k0 - (kBlock - 1) - d;
-  const int iq0 = causal && first > 0 ? (first + kBlock - 1) / kBlock : 0;
-  for (int iq = iq0; iq < nq; ++iq) {
-    const int q0 = iq * kBlock;
-    __syncthreads();
-    load_tile<H>(qs, qb, q0, sq);
-    load_tile<H>(dos, db, q0, sq);
-    load_rows(lr, lse + (size_t)bn * sq, q0, sq);
-    load_rows(dr, delta + (size_t)bn * sq, q0, sq);
-    __syncthreads();
-    float st[4][4], dpt[4][4];
-    tile_dot<H>(ks, qs, st, ty, tx);        // sᵀ: key rows, q columns
-    tile_dot<H>(vs, dos, dpt, ty, tx);      // dpᵀ
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int kpos = k0 + ty * 4 + r;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = tx + 16 * c, qpos = q0 + i;
-        const float p = qpos < sq && visible(qpos, kpos, sk, d, causal)
-                            ? expf(st[r][c] * scale - lr[i])
-                            : 0.f;
-        pts[(ty * 4 + r) * kPLd + i] = p;
-        dsts[(ty * 4 + r) * kPLd + i] = p * (dpt[r][c] - dr[i]) * scale;
-      }
-    }
-    __syncthreads();
-    tile_pv<H>(pts, dos, dva, ty, tx);      // dv += pᵀ do
-    tile_pv<H>(dsts, qs, dka, ty, tx);      // dk += dsᵀ q
-  }
-  store_rows<H>(dk + (size_t)bn * sk * H, dka, k0, sk, ty, tx);
-  store_rows<H>(dv + (size_t)bn * sk * H, dva, k0, sk, ty, tx);
 }
 
 using bf16 = __nv_bfloat16;
@@ -1169,15 +1020,418 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// shared memory of each FP32 kernel at head dim h
+// ---------------------------------------------------------------------------
+// flash_bwd_tf32x3: the whole f32 backward, kernels 6 and 7 in one launch
+// (dq, and dk, dv per K/V row), its five products on the tensor cores in
+// 3xTF32 (after CUTLASS's OpMultiplyAddFastF32): each f32 operand x is
+// split into two TF32 values, big = rna(x) and small = rna(x - big), and
+// a product is big·big + big·small + small·big by mma.sync m16n8k8
+// (small·small, below 2^-22 of it, is dropped), summed in f32 (mma3:
+// dk and dv, long sums, add each step's three products by the FP32
+// units). One TF32 product alone misses the plain version's 1e-4 (the
+// planted fault kOne); the three stay well inside it.
+//
+// What bounds it on this card: 10 f32 operations a visible pair and head
+// element, 30 TF32 ones as 3xTF32: at the training shape 21.5 GFLOP of
+// f32 work, 64.4 GFLOP on the tensor cores (0.130 ms at 495 TFLOP/s,
+// 0.321 ms on the FP32 units at 67).
+//
+// A CTA owns kT3Keys = 128 keys of one K/V row (grid (B·Nkv, key tiles),
+// key tile 0, which the most q tiles see, first): it loads K and V once
+// and keeps them in shared memory, and at GQA it walks the g q heads of
+// its group, so dk and dv are summed in registers and written once per
+// K/V row. Eight warps own 16 keys each. The CTA walks the q tiles of BR
+// rows (64 at H 64, 32 at H 128, for shared memory) that see its keys,
+// Q, dO, L and delta staged by cp.async in a ring of kT3Stages, the
+// next tile's copies in flight while this one is computed. For each q
+// tile, warp w:
+//   Sᵀ = K_w Qᵀ, dPᵀ = V_w dOᵀ   [16 keys, BR q], K_w and V_w the A
+//                                 operand, Q and dO the B operand
+//   Pᵀ, dSᵀ                       in registers: p = 2^(s·scale·log2e -
+//                                 L·log2e), masked only where the tile
+//                                 crosses the diagonal or an edge;
+//                                 ds = p (dp - delta) scale
+//   dV += Pᵀ dO, dK += dSᵀ Q      A from the score accumulators as they
+//                                 are: the k index of a step is taken in
+//                                 the order q 2t, 2t + 1 of the
+//                                 accumulator layout (lane t holds
+//                                 columns 2t, 2t + 1; an A fragment
+//                                 wants t, t + 4), and B read in the
+//                                 same order
+//   dSᵀ -> shared memory          [128 keys][BR q]
+// then the CTA's eight warps take a [16 q, 32 h] piece each of
+//   dQ = dS K                     over the CTA's 128 keys (steps past the
+//                                 diagonal or sk skipped), added into dq
+//                                 by f32x2 reduce-adds (the wrapper
+//                                 zeroes dq; the order of the adds is not
+//                                 fixed, so dq is not bitwise repeatable)
+// Each product is computed once: 10 operations a visible pair and head
+// element. Every shared-memory tile has rows of H + 4 (dSᵀ: BR + 4)
+// floats, so the fragment reads, row across lanes g and column across
+// lanes t (or, in the reordered k, row 2t across t), are free of bank
+// conflicts. A warp whose keys no row of the q tile sees skips its
+// products. Keys >= sk and q rows >= sq arrive as zeros and are masked.
+// A CTA whose keys no q row sees writes zeros to dk and dv.
+// kDrop (a planted fault for chip_smoke.py's check, never on a path):
+// the CTAs of key tile 0 add no dq partial.
+// ---------------------------------------------------------------------------
+constexpr int kT3Keys = 128;     // keys of a CTA
+constexpr int kT3Warps = 8;      // 16 keys each
+constexpr int kT3Stages = 2;     // Q / dO stages of the ring
+
+// q rows of a tile of the f32 backward at head dim h
+__host__ __device__ constexpr int t3_rows(int h) { return h == 64 ? 64 : 32; }
+
+// The f32 backward's shared memory, byte offsets: K [kT3Keys][h + 4] f32
+// | V | kT3Stages x (Q [BR][h + 4], dO [BR][h + 4], L [BR], delta [BR]) |
+// dSᵀ [kT3Keys][BR + 4]
+struct T3Layout {
+  int v, stage, stage_bytes, ds, total;
+};
+__host__ __device__ inline T3Layout t3_layout(int h) {
+  const int br = t3_rows(h);
+  T3Layout L;
+  L.v = kT3Keys * (h + 4) * 4;
+  L.stage = 2 * L.v;
+  L.stage_bytes = 2 * br * (h + 4) * 4 + 2 * br * 4;
+  L.ds = L.stage + kT3Stages * L.stage_bytes;
+  L.total = L.ds + kT3Keys * (br + 4) * 4;
+  return L;
+}
+
+// cp.async of 16 (4) bytes; zeros where !in (nothing is read then)
+__device__ __forceinline__ void cp_async16z(float* dst, const float* src,
+                                            bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4z(float* dst, const float* src,
+                                           bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x rounded to TF32 to nearest, ties away from zero: the value
+// cvt.rna.tf32.f32 gives a finite x, by an integer add into the 13 bits
+// TF32 drops and a mask (nvcc expands the cvt into a guarded sequence
+// about twice as long)
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// An operand fragment as two TF32 values an element: big = rna(x),
+// small = rna(x - big) (x - big is exact)
+template <int N>
+struct Tf32x2 {
+  uint32_t big[N], small[N];
+  __device__ __forceinline__ void set(int i, float x) {
+    big[i] = rna_tf32(x);
+    small[i] = rna_tf32(x - __uint_as_float(big[i]));
+  }
+};
+
+// d = a b + c, m16n8k8, TF32 operands, f32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2],
+                                         const float (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// d += a b in 3xTF32: small·big, big·small and big·big, the small ones
+// first. The tensor core rounds its sums toward zero: carried in d over
+// a long sum (dk and dv over every q row of a K/V row: 4000 at S 1000,
+// GQA 8/2) that bias passed the plain version's 1e-4 on an H100, so
+// there (kStep) each step's three products are summed from zero and
+// added to d by the FP32 units, which round to nearest; the sums of one
+// tile (S, dP over H, dQ over 128 keys) stay in the tensor core. kOne:
+// big·big alone.
+template <bool kOne>
+__device__ __forceinline__ void mma3_onto(float (&d)[4], const Tf32x2<4>& a,
+                                          const Tf32x2<2>& b,
+                                          const float (&c)[4]) {
+  if (kOne) {
+    mma_tf32(d, a.big, b.big, c);
+    return;
+  }
+  mma_tf32(d, a.small, b.big, c);
+  mma_tf32(d, a.big, b.small, d);
+  mma_tf32(d, a.big, b.big, d);
+}
+
+template <bool kOne, bool kStep>
+__device__ __forceinline__ void mma3(float (&d)[4], const Tf32x2<4>& a,
+                                     const Tf32x2<2>& b) {
+  if constexpr (kStep) {
+    const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+    float t[4];
+    mma3_onto<kOne>(t, a, b, zero);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[e] += t[e];
+  } else {
+    mma3_onto<kOne>(d, a, b, d);
+  }
+}
+
+template <int H, bool kOne, bool kDrop>
+__global__ void __launch_bounds__(kT3Warps * 32, 1)
+flash_bwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dq,
+                 float* __restrict__ dk, float* __restrict__ dv, int sq,
+                 int sk, int g, int d, int causal, float scale) {
+  constexpr int BR = t3_rows(H);
+  constexpr int LD = H + 4, LDS = BR + 4;
+  constexpr int NQ = BR / 8;         // n steps of Sᵀ; k steps of dV, dK
+  constexpr int NH = H / 8;          // k steps of Sᵀ; n steps of dV, dK
+  constexpr int MT = BR / 16;        // 16-row pieces of dQ
+  constexpr int NT = kT3Warps * 32;
+  static_assert(MT * NH / 4 == kT3Warps, "dQ: four 8-column steps a warp");
+  extern __shared__ float4 smem4[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem4);
+  const T3Layout L = t3_layout(H);
+  float* ks = reinterpret_cast<float*>(base);
+  float* vs = reinterpret_cast<float*>(base + L.v);
+  auto qs = [&](int s) {
+    return reinterpret_cast<float*>(base + L.stage + s * L.stage_bytes);
+  };
+  auto dos = [&](int s) { return qs(s) + BR * LD; };
+  auto lrow = [&](int s) { return qs(s) + 2 * BR * LD; };
+  auto drow = [&](int s) { return lrow(s) + BR; };
+  float* dss = reinterpret_cast<float*>(base + L.ds);
+
+  const int bkv = blockIdx.x, k0 = blockIdx.y * kT3Keys;
+  // causal: q tile iq sees key k0 iff k0 <= iq*BR + BR - 1 + d
+  const int nq = (sq + BR - 1) / BR;
+  const int first = k0 - (BR - 1) - d;
+  const int iq0 = causal && first > 0 ? (first + BR - 1) / BR : 0;
+  const int ntq = iq0 < nq ? nq - iq0 : 0;  // q tiles of each q head
+  const int items = g * ntq;                // (q head, q tile) pairs
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gr = lane / 4, t4 = lane % 4;
+  constexpr int PER_ROW = H / 4;            // 16-byte chunks a row
+
+  // item i (q head bkv·g + i / ntq, q tile iq0 + i % ntq) into stage s:
+  // Q and dO rows q0 .. q0 + BR - 1, L and delta, zeros past sq
+  auto load_item = [&](int i, int s) {
+    const int bn = bkv * g + i / ntq, q0 = (iq0 + i % ntq) * BR;
+    const float* qb = q + (size_t)bn * sq * H;
+    const float* db = dout + (size_t)bn * sq * H;
+    for (int c = tid; c < BR * PER_ROW; c += NT) {
+      const int r = c / PER_ROW, col = (c % PER_ROW) * 4;
+      const bool in = q0 + r < sq;
+      const size_t at = (size_t)(in ? q0 + r : 0) * H + col;
+      cp_async16z(qs(s) + r * LD + col, qb + at, in);
+      cp_async16z(dos(s) + r * LD + col, db + at, in);
+    }
+    if (tid < BR) {
+      const bool in = q0 + tid < sq;
+      const size_t at = (size_t)bn * sq + (in ? q0 + tid : 0);
+      cp_async4z(lrow(s) + tid, lse + at, in);
+      cp_async4z(drow(s) + tid, delta + at, in);
+    }
+  };
+
+  const int kw = warp * 16;                 // this warp's keys, in the tile
+  const int key0 = k0 + kw + gr;            // this lane's: key0, key0 + 8
+  float dka[NH][4], dva[NH][4];
+#pragma unroll
+  for (int j = 0; j < NH; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  if (items > 0) {                          // K, V and the first item
+    const float* kb = k + (size_t)bkv * sk * H;
+    const float* vb = v + (size_t)bkv * sk * H;
+    for (int c = tid; c < kT3Keys * PER_ROW; c += NT) {
+      const int r = c / PER_ROW, col = (c % PER_ROW) * 4;
+      const bool in = k0 + r < sk;
+      const size_t at = (size_t)(in ? k0 + r : 0) * H + col;
+      cp_async16z(ks + r * LD + col, kb + at, in);
+      cp_async16z(vs + r * LD + col, vb + at, in);
+    }
+    load_item(0, 0);
+  }
+  cp_async_commit();
+  const float sl2 = scale * kLog2e;
+  const int mt = warp % MT, nh0 = (warp / MT) * 4;  // this warp's dQ piece
+  for (int i = 0; i < items; ++i) {
+    const int s = i % kT3Stages;
+    const int bn = bkv * g + i / ntq, q0 = (iq0 + i % ntq) * BR;
+    // the next item into the other stage, whose readers passed the last
+    // item's barrier; then wait for this one
+    if (i + 1 < items) load_item(i + 1, (i + 1) % kT3Stages);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* qt = qs(s);
+    const float* dt = dos(s);
+
+    float sacc[NQ][4], pacc[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[j][e] = pacc[j][e] = 0.f;
+    // does any row of the tile see a key of this warp?
+    const bool live =
+        k0 + kw < sk && (!causal || k0 + kw <= q0 + BR - 1 + d);
+    if (live) {
+      // Sᵀ = K_w Qᵀ and dPᵀ = V_w dOᵀ, H/8 steps of 8 along the head dim
+#pragma unroll
+      for (int kk = 0; kk < NH; ++kk) {
+        Tf32x2<4> ka, va;
+        const int c = 8 * kk + t4;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int at = (kw + gr + 8 * (e & 1)) * LD + c + 4 * (e >> 1);
+          ka.set(e, ks[at]);
+          va.set(e, vs[at]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NQ; ++nt) {
+          Tf32x2<2> qb, db;
+          const int at = (8 * nt + gr) * LD + c;
+          qb.set(0, qt[at]);
+          qb.set(1, qt[at + 4]);
+          db.set(0, dt[at]);
+          db.set(1, dt[at + 4]);
+          mma3<kOne, false>(sacc[nt], ka, qb);
+          mma3<kOne, false>(pacc[nt], va, db);
+        }
+      }
+      // Pᵀ and dSᵀ in f32; the mask only where the tile crosses the
+      // diagonal or an edge
+      const bool edge = (causal && k0 + kw + 15 > q0 + d) ||
+                        q0 + BR > sq || k0 + kw + 16 > sk;
+      const float* lr = lrow(s);
+      const float* dr = drow(s);
+#pragma unroll
+      for (int nt = 0; nt < NQ; ++nt) {
+        const int c = 8 * nt + 2 * t4;
+        const float lb[2] = {lr[c] * kLog2e, lr[c + 1] * kLog2e};
+        const float de[2] = {dr[c], dr[c + 1]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = ex2(fmaf(sacc[nt][e], sl2, -lb[e & 1]));
+          if (edge) {
+            const int kpos = key0 + 8 * (e >> 1), qpos = q0 + c + (e & 1);
+            if (kpos >= sk || qpos >= sq || (causal && kpos > qpos + d))
+              p = 0.f;
+          }
+          sacc[nt][e] = p;
+          pacc[nt][e] = p * (pacc[nt][e] - de[e & 1]) * scale;
+        }
+      }
+      // dV += Pᵀ dO and dK += dSᵀ Q, BR/8 steps of 8 q rows taken in the
+      // accumulators' order: k index t is q row 2t, t + 4 is 2t + 1
+#pragma unroll
+      for (int kq = 0; kq < NQ; ++kq) {
+        Tf32x2<4> pa, da;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {       // a0..a3 <- c0, c2, c1, c3
+          const int from = (e & 1) * 2 + (e >> 1);
+          pa.set(e, sacc[kq][from]);
+          da.set(e, pacc[kq][from]);
+        }
+        const int r = (8 * kq + 2 * t4) * LD + gr;
+#pragma unroll
+        for (int nh = 0; nh < NH; ++nh) {
+          Tf32x2<2> ob, qb;
+          ob.set(0, dt[r + 8 * nh]);
+          ob.set(1, dt[r + LD + 8 * nh]);
+          qb.set(0, qt[r + 8 * nh]);
+          qb.set(1, qt[r + LD + 8 * nh]);
+          mma3<kOne, true>(dva[nh], pa, ob);
+          mma3<kOne, true>(dka[nh], da, qb);
+        }
+      }
+    }
+    // dSᵀ (zeros for a warp no row sees) to shared memory
+#pragma unroll
+    for (int nt = 0; nt < NQ; ++nt) {
+      const int c = 8 * nt + 2 * t4;
+      *reinterpret_cast<float2*>(dss + (kw + gr) * LDS + c) =
+          make_float2(pacc[nt][0], pacc[nt][1]);
+      *reinterpret_cast<float2*>(dss + (kw + gr + 8) * LDS + c) =
+          make_float2(pacc[nt][2], pacc[nt][3]);
+    }
+    __syncthreads();
+
+    // dQ = dS K, this warp's rows 16 mt .. + 15 and columns 8 nh0 .. + 31,
+    // 8 keys a step in the reordered k (key 2t, 2t + 1), steps whose keys
+    // no row of the tile sees skipped
+    int steps = min(kT3Keys, sk - k0);
+    if (causal) steps = min(steps, q0 + BR + d - k0);
+    steps = steps > 0 ? (steps + 7) / 8 : 0;
+    float qacc[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) qacc[j][e] = 0.f;
+    for (int kk = 0; kk < steps; ++kk) {
+      Tf32x2<4> sa;
+      const int r = (8 * kk + 2 * t4) * LDS + 16 * mt + gr;
+      sa.set(0, dss[r]);
+      sa.set(1, dss[r + 8]);
+      sa.set(2, dss[r + LDS]);
+      sa.set(3, dss[r + LDS + 8]);
+      const int rk = (8 * kk + 2 * t4) * LD + 8 * nh0 + gr;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        Tf32x2<2> kb;
+        kb.set(0, ks[rk + 8 * j]);
+        kb.set(1, ks[rk + LD + 8 * j]);
+        mma3<kOne, false>(qacc[j], sa, kb);
+      }
+    }
+    if (!(kDrop && blockIdx.y == 0) && steps > 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + 16 * mt + gr + 8 * r;
+        if (row >= sq) continue;
+        float* at = dq + ((size_t)bn * sq + row) * H + 8 * nh0 + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          atomicAdd(reinterpret_cast<float2*>(at + 8 * j),
+                    make_float2(qacc[j][2 * r], qacc[j][2 * r + 1]));
+      }
+    }
+  }
+
+  // dk and dv of this warp's keys below sk (zeros where no q row saw them)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= sk) continue;
+    const size_t at = ((size_t)bkv * sk + key) * H + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      *reinterpret_cast<float2*>(dk + at + 8 * j) =
+          make_float2(dka[j][2 * r], dka[j][2 * r + 1]);
+      *reinterpret_cast<float2*>(dv + at + 8 * j) =
+          make_float2(dva[j][2 * r], dva[j][2 * r + 1]);
+    }
+  }
+}
+
+// shared memory of the FP32 forward and chunk fold at head dim h
 constexpr int tile_bytes(int h) { return kBlock * (h + kPad) * 4; }
 constexpr int fwd_smem(int h) { return 3 * tile_bytes(h) + kBlock * kPLd * 4; }
-constexpr int dq_smem(int h) {
-  return 4 * tile_bytes(h) + kBlock * kPLd * 4 + 2 * kBlock * 4;
-}
-constexpr int dkv_smem(int h) {
-  return 4 * tile_bytes(h) + 2 * kBlock * kPLd * 4 + 2 * kBlock * 4;
-}
 
 // Let Kernel take up to a CTA's 227 KB of dynamic shared memory, once a
 // device and instantiation (the attribute belongs to the current device).
@@ -1239,9 +1493,9 @@ int fwd_wgmma(const void* q, const void* k, const void* v, bf16* o,
       bn / bnkv, d, causal, scale);
 }
 
-// f32 operands run the FP32 kernels, bf16 operands the tensor-core ones
+// f32 operands run the FP32 forward, bf16 operands the tensor-core one
 // (the forward and the chunk fold by the wrapper's plan: block_m and
-// smem; the FP32 kernels ignore it)
+// smem; the FP32 kernel ignores it)
 template <int H>
 int fwd(bool bf, const void* q, const void* k, const void* v, void* o,
         float* lse, int bn, int bnkv, int sq, int sk, int causal,
@@ -1273,27 +1527,6 @@ int chunk(bool bf, const void* q, const void* k, const void* v, float* acc,
       acc, m, l, sq, sk, bn / bnkv, d, causal, scale);
 }
 
-// the FP32 backward kernels (f32 operands; bf16 runs bwd_wgmma)
-template <int H>
-int bwd_dq(const float* q, const float* k, const float* v, const float* dout,
-           const float* delta, const float* lse, float* dq, int bn, int bnkv,
-           int sq, int sk, int d, int causal, float scale,
-           cudaStream_t stream) {
-  return launch<flash_bwd_dq<H>>(dim3(tiles(sq), bn), kThreads, dq_smem(H),
-                                 stream, q, k, v, dout, delta, lse, dq, sq, sk,
-                                 bn / bnkv, d, causal, scale);
-}
-
-template <int H>
-int bwd_dkv(const float* q, const float* k, const float* v,
-            const float* dout, const float* delta, const float* lse,
-            float* dk, float* dv, int bn, int bnkv, int sq, int sk, int d,
-            int causal, float scale, cudaStream_t stream) {
-  return launch<flash_bwd_dkv<H>>(dim3(tiles(sk), bn), kThreads, dkv_smem(H),
-                                  stream, q, k, v, dout, delta, lse, dk, dv,
-                                  sq, sk, bn / bnkv, d, causal, scale);
-}
-
 // The bf16 backward of the wrapper's plan: grid (bnkv, ceil(sk / kTileN)),
 // tensor maps of q, do [bn][sq][H] in boxes of 64 rows, of k, v
 // [bnkv][sk][H] in boxes of kTileN rows. kErrLayout unless `smem` is at
@@ -1316,6 +1549,24 @@ int bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
   return launch<flash_bwd_wgmma<H>>(
       dim3(bnkv, (sk + kTileN - 1) / kTileN), 3 * 128, smem, stream, tq, tk,
       tv, tdo, tdq, lse, delta, dk, dv, sq, sk, bn / bnkv, d, causal, scale);
+}
+
+// The f32 backward (flash_bwd_tf32x3) of the wrapper's plan: grid (bnkv,
+// ceil(sk / kT3Keys)). kErrLayout unless `smem` is at least t3_layout's
+// size and at most a CTA's and sq and sk are not 0. dq must be zero: the
+// kernel adds into it.
+template <int H, bool kOne = false, bool kDrop = false>
+int bwd_tf32x3(const float* q, const float* k, const float* v,
+               const float* dout, const float* delta, const float* lse,
+               float* dq, float* dk, float* dv, int bn, int bnkv, int sq,
+               int sk, int d, int causal, float scale, int smem,
+               cudaStream_t stream) {
+  if (smem < t3_layout(H).total || smem > kMaxSmem || sq == 0 || sk == 0)
+    return kErrLayout;
+  return launch<flash_bwd_tf32x3<H, kOne, kDrop>>(
+      dim3(bnkv, (sk + kT3Keys - 1) / kT3Keys), kT3Warps * 32, smem, stream,
+      q, k, v, dout, lse, delta, dq, dk, dv, sq, sk, bn / bnkv, d, causal,
+      scale);
 }
 
 }  // namespace
@@ -1352,30 +1603,30 @@ int bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
 HPX_FLASH_ENTRY(f32, false)
 HPX_FLASH_ENTRY(bf16, true)
 
-// The backward's f32 kernels, one entry point each (kernels 6 and 7).
-extern "C" int hpx_flash_bwd_dq_f32(const float* q, const float* k,
-                                    const float* v, const float* dout,
-                                    const float* delta, const float* lse,
-                                    float* dq, int bn, int bnkv, int sq,
-                                    int sk, int h, int d, int causal,
-                                    float scale, cudaStream_t stream) {
-  HPX_FLASH_BY_HEAD(bwd_dq<64>(q, k, v, dout, delta, lse, dq, bn, bnkv, sq,
-                               sk, d, causal, scale, stream),
-                    bwd_dq<128>(q, k, v, dout, delta, lse, dq, bn, bnkv, sq,
-                                sk, d, causal, scale, stream))
-}
+// The f32 backward, kernels 6 and 7 in one launch (flash_bwd_tf32x3) by
+// the wrapper's plan (smem): dq [bn][sq][H] f32, zeroed by the caller,
+// and dk, dv [bnkv][sk][H] f32 per K/V row. _one_term and _drop_tile are
+// planted faults for chip_smoke.py's check, never on a path: the kernel
+// with the big·big product alone (1xTF32), and with the dq partials of
+// key tile 0 left out.
+#define HPX_FLASH_BWD_F32(NAME, ONE, DROP)                                    \
+  extern "C" int hpx_flash_bwd_##NAME(                                       \
+      const float* q, const float* k, const float* v, const float* dout,     \
+      const float* delta, const float* lse, float* dq, float* dk, float* dv, \
+      int bn, int bnkv, int sq, int sk, int h, int d, int causal,            \
+      float scale, int smem, cudaStream_t stream) {                          \
+    HPX_FLASH_BY_HEAD(                                                       \
+        (bwd_tf32x3<64, ONE, DROP>(q, k, v, dout, delta, lse, dq, dk, dv,    \
+                                   bn, bnkv, sq, sk, d, causal, scale, smem, \
+                                   stream)),                                 \
+        (bwd_tf32x3<128, ONE, DROP>(q, k, v, dout, delta, lse, dq, dk, dv,   \
+                                    bn, bnkv, sq, sk, d, causal, scale,      \
+                                    smem, stream)))                          \
+  }
 
-extern "C" int hpx_flash_bwd_dkv_f32(const float* q, const float* k,
-                                     const float* v, const float* dout,
-                                     const float* delta, const float* lse,
-                                     float* dk, float* dv, int bn, int bnkv,
-                                     int sq, int sk, int h, int d, int causal,
-                                     float scale, cudaStream_t stream) {
-  HPX_FLASH_BY_HEAD(bwd_dkv<64>(q, k, v, dout, delta, lse, dk, dv, bn, bnkv,
-                                sq, sk, d, causal, scale, stream),
-                    bwd_dkv<128>(q, k, v, dout, delta, lse, dk, dv, bn, bnkv,
-                                 sq, sk, d, causal, scale, stream))
-}
+HPX_FLASH_BWD_F32(f32, false, false)
+HPX_FLASH_BWD_F32(f32_one_term, true, false)
+HPX_FLASH_BWD_F32(f32_drop_tile, false, true)
 
 // The bf16 backward, kernels 6 and 7 in one launch (flash_bwd_wgmma) by
 // the wrapper's plan (smem): dq [bn][sq][H] f32, zeroed by the caller,
@@ -1405,6 +1656,12 @@ extern "C" long long hpx_flash_fwd_smem_bytes(int h, int block_m) {
 // (attention_cuda.flash_bwd_smem_bytes mirrors it).
 extern "C" long long hpx_flash_bwd_smem_bytes(int h) {
   return bwd_layout(h).total;
+}
+
+// The f32 backward's shared-memory bytes at head dim h
+// (attention_cuda.flash_bwd_f32_smem_bytes mirrors it).
+extern "C" long long hpx_flash_bwd_f32_smem_bytes(int h) {
+  return t3_layout(h).total;
 }
 
 // A planted fault for chip_smoke.py's check, never on a path: the bf16

@@ -18,11 +18,11 @@ which the kernel is held against on the card:
                                 dv in one launch (replaces
                                 _flash_bwd_dq_kernel and
                                 _flash_bwd_dkv_kernel; plain_flash_bwd);
-                                f32: the two wrappers below
-  flash_attention_bwd_dq        f32: kernel flash_bwd_dq (replaces
-                                _flash_bwd_dq_kernel; plain_flash_bwd_dq)
-  flash_attention_bwd_dkv       f32: kernel flash_bwd_dkv (replaces
-                                _flash_bwd_dkv_kernel; plain_flash_bwd_dkv)
+                                f32: the wrapper below
+  flash_attention_bwd_f32       f32: kernel flash_bwd_tf32x3, dq, dk and
+                                dv in one launch on the tensor cores as
+                                3xTF32 (replaces the same two;
+                                plain_flash_bwd)
   flash_attention_chunk         kernel flash_chunk (replaces
                                 _flash_chunk_kernel; plain_flash_chunk):
                                 the ring's fold of one K/V chunk into an
@@ -30,10 +30,12 @@ which the kernel is held against on the card:
                                 loop with the carry in and out
 
 Each flash kernel has two routes in the source, chosen by the operands'
-dtype: bf16 on the tensor cores, f32 on the FP32 units. The bf16
-forward and chunk fold (``flash_fwd_wgmma``) and the bf16 backward
-(``flash_bwd_wgmma``) run on Hopper's wgmma fed by TMA, with launch
-plans from ``flash_fwd_plan`` and ``flash_bwd_plan``.
+dtype. The bf16 forward and chunk fold (``flash_fwd_wgmma``) and the
+bf16 backward (``flash_bwd_wgmma``) run on Hopper's wgmma fed by TMA,
+with launch plans from ``flash_fwd_plan`` and ``flash_bwd_plan``. The
+f32 forward and chunk fold run on the FP32 units; the f32 backward
+(``flash_bwd_tf32x3``) on the tensor cores' mma.sync as 3xTF32, with
+the plan of ``flash_bwd_f32_plan``.
 ``flash_attention`` (at the end of this file) is the differentiable
 [B, S, N, H] entry point over the forward and backward wrappers; the
 ring (``ops/attention.py``) runs the chunk and backward wrappers.
@@ -93,13 +95,13 @@ __all__ = ["fused_paged_attention", "fused_paged_online_attention",
            "chunk_blocks", "paged_splits", "paged_plan", "paged_runs",
            "flash_fwd_plan", "flash_fwd_smem_bytes", "FLASH_TILE_N",
            "FLASH_STAGES", "flash_bwd_plan", "flash_bwd_smem_bytes",
-           "FLASH_BWD_STAGES",
+           "FLASH_BWD_STAGES", "flash_bwd_f32_plan",
+           "flash_bwd_f32_smem_bytes", "FLASH_BWD_F32_KEYS",
            "exact_smem_bytes", "online_smem_bytes", "PAGED_STAGES",
            "SMEM_LIMIT", "flash_attention", "flash_attention_fwd",
-           "flash_attention_bwd", "flash_attention_bwd_dq",
-           "flash_attention_bwd_dkv", "flash_attention_chunk", "bwd_prep",
-           "plain_flash_fwd", "plain_flash_bwd", "plain_flash_bwd_dq",
-           "plain_flash_bwd_dkv",
+           "flash_attention_bwd", "flash_attention_bwd_f32",
+           "flash_attention_chunk", "bwd_prep",
+           "plain_flash_fwd", "plain_flash_bwd",
            "plain_flash_chunk", "flash_finish"]
 
 _NEG_INF = -1e30     # the online carry's "minus infinity" (exp stays exact)
@@ -606,7 +608,10 @@ fused_paged_online_attention.launches = 0
 #             dq = ds k, dk = dsᵀ q, dv = pᵀ do, all f32
 # bf16 operands: every dot accumulates in f32 (bf16 products are exact
 # there); p is cast to bf16 before p·V, and p and ds before the backward
-# products, as the reference casts them. f32 operands stay f32 (no TF32).
+# products, as the reference casts them. f32 operands stay f32: the
+# forward on the FP32 units, the backward in 3xTF32 (each operand as two
+# TF32 halves, three products summed in f32), which the plain versions
+# hold within 1e-4 like FP32 products; they do not emulate the split.
 
 FLASH_BLOCK = 64           # rows of a q tile and of a key tile (f32
                            # kernels); q rows of a tile of the bf16
@@ -616,6 +621,9 @@ FLASH_HEAD_DIMS = (64, 128)  # head dims the CUDA kernels are built for
 _FLASH_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 FLASH_STAGES = 3           # the bf16 forward's ring of K/V stages
 FLASH_BWD_STAGES = 2       # the bf16 backward's ring of Q/dO stages
+FLASH_BWD_F32_KEYS = 128   # keys of a CTA of the f32 backward
+FLASH_BWD_F32_STAGES = 2   # the f32 backward's ring of Q/dO stages
+FLASH_BWD_F32_ROWS = {64: 64, 128: 32}   # its q rows a tile, by head dim
 _SMEM_PER_SM = 233472      # an SM's shared memory; 1 KB of it a CTA's own
 
 
@@ -682,6 +690,41 @@ def flash_bwd_plan(h: int, bnkv: int, sk: int) -> Tuple[int, int, int]:
         raise ValueError(f"flash_bwd_plan: {smem} bytes at head dim {h}: "
                          f"above {SMEM_LIMIT}")
     return tiles, FLASH_BWD_STAGES, smem
+
+
+def flash_bwd_f32_smem_bytes(h: int) -> int:
+    """Shared memory of the f32 backward (kernel ``flash_bwd_tf32x3``),
+    as ``t3_layout`` in ``csrc/flash_attention.cu`` lays it out (that
+    function owns it; the entry point refuses a smaller size): K and V
+    tiles of FLASH_BWD_F32_KEYS rows, FLASH_BWD_F32_STAGES stages of Q
+    and dO tiles of ``flash_bwd_f32_plan``'s q rows with their rows of L
+    and delta, and the dSᵀ tile; every row of h (dSᵀ: q rows) + 4 f32."""
+    rows = FLASH_BWD_F32_ROWS[h]
+    return (2 * FLASH_BWD_F32_KEYS * (h + 4) * 4
+            + FLASH_BWD_F32_STAGES * (2 * rows * (h + 4) * 4 + 2 * rows * 4)
+            + FLASH_BWD_F32_KEYS * (rows + 4) * 4)
+
+
+@functools.lru_cache(maxsize=256)
+def flash_bwd_f32_plan(h: int, bnkv: int, sk: int) -> Tuple[int, int, int]:
+    """(key tiles, q rows of a tile, shared-memory bytes) of a launch of
+    the f32 backward on [bnkv, sk, h] keys: one CTA of 8 warps a tile of
+    FLASH_BWD_F32_KEYS keys of a K/V row (grid (bnkv, key tiles)), q
+    tiles of 64 rows at h 64 and 32 at h 128 (for shared memory), one
+    CTA an SM. Raises for a head dim the kernel is not built for, and
+    where the grid or the shared memory does not fit."""
+    if h not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_bwd_f32_plan: head_dim {h}; the kernel "
+                         f"is built for {FLASH_HEAD_DIMS}")
+    tiles = -(-sk // FLASH_BWD_F32_KEYS)
+    if tiles > 65535 or bnkv > 2**31 - 1:
+        raise ValueError(f"flash_bwd_f32_plan: grid ({bnkv}, {tiles}) of "
+                         "K/V rows and key tiles is above the card's")
+    smem = flash_bwd_f32_smem_bytes(h)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"flash_bwd_f32_plan: {smem} bytes at head dim "
+                         f"{h}: above {SMEM_LIMIT}")
+    return tiles, FLASH_BWD_F32_ROWS[h], smem
 
 
 def _flash_scale(h: int) -> float:
@@ -777,8 +820,15 @@ def plain_flash_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return acc, m[..., 0], lsum[..., 0]
 
 
-def _plain_bwd_common(q, k, v, do, delta, lse, d, causal):
-    """p (masked, f32) and ds of the backward, for every (q, key) pair."""
+def plain_flash_bwd(q, k, v, do, delta, lse, d: int, causal: bool = False,
+                    q_heads: int = 1, kv_heads: int = 1):
+    """The backward kernels' function in PyTorch: p = exp(s - L) (0 on
+    masked pairs), ds = p (do vᵀ - delta) scale, then dq = ds k, dv =
+    pᵀ do and dk = dsᵀ q in f32 (p cast to do's dtype and ds to k's and
+    q's where those are bf16), dk and dv summed over each GQA group (q
+    rows bn of K/V row bn // g, g = B·N / B·Nkv) in f32. Returns (dq
+    [B·N, Sq, H], dk [B·Nkv, Sk, H], dv [B·Nkv, Sk, H]), all f32."""
+    _check_heads(q, k, q_heads, kv_heads)
     bn, sq, h = q.shape
     sk, g = k.shape[1], bn // k.shape[0]
     scale = _flash_scale(h)
@@ -789,39 +839,9 @@ def _plain_bwd_common(q, k, v, do, delta, lse, d, causal):
                     torch.zeros_like(s))
     dp = torch.matmul(do.float(), vr.float().transpose(1, 2))
     ds = p * (dp - delta[..., None]) * scale
-    return kr, p, ds
-
-
-def plain_flash_bwd_dq(q, k, v, do, delta, lse, d: int,
-                       causal: bool = False) -> torch.Tensor:
-    """The dq kernel's function in PyTorch: dq = ds k in f32, ds cast to
-    k's dtype first where that is bf16. Returns dq [B·N, Sq, H] f32."""
-    kr, _, ds = _plain_bwd_common(q, k, v, do, delta, lse, d, causal)
-    return torch.matmul(_bf16_round(ds, k), kr.float())
-
-
-def plain_flash_bwd_dkv(q, k, v, do, delta, lse, d: int,
-                        causal: bool = False
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dk/dv kernel's function in PyTorch: dv = pᵀ do and
-    dk = dsᵀ q in f32 (p cast to do's dtype and ds to q's where bf16),
-    PER Q ROW: (dk, dv) each [B·N, Sk, H] f32, not yet group-summed."""
-    _, p, ds = _plain_bwd_common(q, k, v, do, delta, lse, d, causal)
+    dq = torch.matmul(_bf16_round(ds, k), kr.float())
     dv = torch.matmul(_bf16_round(p, do).transpose(1, 2), do.float())
     dk = torch.matmul(_bf16_round(ds, q).transpose(1, 2), q.float())
-    return dk, dv
-
-
-def plain_flash_bwd(q, k, v, do, delta, lse, d: int, causal: bool = False,
-                    q_heads: int = 1, kv_heads: int = 1):
-    """The bf16 backward kernel's function in PyTorch: dq of
-    ``plain_flash_bwd_dq``, and dk, dv of ``plain_flash_bwd_dkv`` summed
-    over each GQA group (q rows bn of K/V row bn // g, g = B·N / B·Nkv)
-    in f32. Returns (dq [B·N, Sq, H], dk [B·Nkv, Sk, H], dv [B·Nkv, Sk,
-    H]), all f32."""
-    _check_heads(q, k, q_heads, kv_heads)
-    dq = plain_flash_bwd_dq(q, k, v, do, delta, lse, d, causal)
-    dk, dv = plain_flash_bwd_dkv(q, k, v, do, delta, lse, d, causal)
     return (dq, *_group_sum(dk, dv, k))
 
 
@@ -849,14 +869,14 @@ def _flash_lib() -> ctypes.CDLL:
             fn = getattr(lib, f"hpx_flash_fwd_{name}")
             fn.argtypes = [p] * 5 + [i] * 6 + [f] + [i] * 2 + [p]
             fn.restype = i
-        lib.hpx_flash_bwd_dq_f32.argtypes = [p] * 7 + [i] * 7 + [f, p]
-        lib.hpx_flash_bwd_dq_f32.restype = i
-        lib.hpx_flash_bwd_dkv_f32.argtypes = [p] * 8 + [i] * 7 + [f, p]
-        lib.hpx_flash_bwd_dkv_f32.restype = i
-        lib.hpx_flash_bwd_bf16.argtypes = [p] * 9 + [i] * 7 + [f, i, p]
-        lib.hpx_flash_bwd_bf16.restype = i
-        lib.hpx_flash_bwd_smem_bytes.argtypes = [i]
-        lib.hpx_flash_bwd_smem_bytes.restype = ctypes.c_longlong
+        for name in ("bf16", "f32", "f32_one_term", "f32_drop_tile"):
+            fn = getattr(lib, f"hpx_flash_bwd_{name}")
+            fn.argtypes = [p] * 9 + [i] * 7 + [f, i, p]
+            fn.restype = i
+        for name in ("bwd", "bwd_f32"):
+            fn = getattr(lib, f"hpx_flash_{name}_smem_bytes")
+            fn.argtypes = [i]
+            fn.restype = ctypes.c_longlong
         for name in _FLASH_DTYPES.values():
             fn = getattr(lib, f"hpx_flash_chunk_{name}")
             fn.argtypes = [p] * 6 + [i] * 7 + [f] + [i] * 2 + [p]
@@ -962,80 +982,6 @@ def _fwd_plan_args(q: torch.Tensor) -> Tuple[int, int]:
 flash_attention_fwd.launches = 0
 
 
-def _f32_only(what: str, q: torch.Tensor) -> None:
-    if q.dtype == torch.bfloat16:
-        raise TypeError(f"{what}: bf16 operands on {q.device} run one "
-                        "kernel for dq, dk and dv: call flash_attention_bwd")
-
-
-def flash_attention_bwd_dq(q, k, v, do, delta, lse, d: int,
-                           causal: bool = False) -> torch.Tensor:
-    """dq [B·N, Sq, H] f32 of the flash backward, in the kernel layout;
-    ``d`` is the causal offset (key j visible to query i iff
-    j <= i + d; Sk - Sq for plain flash, per chunk on a ring).
-
-    f32 CUDA tensor: kernel ``flash_bwd_dq``, which replaces
-    ``hpx_tpu/ops/attention_pallas.py:_flash_bwd_dq_kernel``; bf16
-    operands raise (``flash_attention_bwd`` runs their one kernel). CPU
-    tensor: ``plain_flash_bwd_dq``."""
-    if q.device.type == "cpu":
-        return plain_flash_bwd_dq(q, k, v, do, delta, lse, d, causal)
-    _f32_only("flash_attention_bwd_dq", q)
-    _flash_check("flash_attention_bwd_dq", q, k, v,
-                 rows=(("delta", delta), ("lse", lse)),
-                 cotangents=(("do", do),))
-    bn, sq, h = q.shape
-    dq = torch.empty((bn, sq, h), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        lib = _flash_lib()
-        _flash_launch(
-            "flash_attention_bwd_dq",
-            lib.hpx_flash_bwd_dq_f32,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            delta.data_ptr(), lse.data_ptr(), dq.data_ptr(), bn, k.shape[0],
-            sq, k.shape[1], h, int(d), int(causal), _flash_scale(h))
-    flash_attention_bwd_dq.launches += 1
-    return dq
-
-
-flash_attention_bwd_dq.launches = 0
-
-
-def flash_attention_bwd_dkv(q, k, v, do, delta, lse, d: int,
-                            causal: bool = False
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) of the flash backward PER Q ROW, each [B·N, Sk, H] f32
-    (``flash_attention_bwd`` group-sums them to the K/V rows).
-
-    f32 CUDA tensor: kernel ``flash_bwd_dkv``, which replaces
-    ``hpx_tpu/ops/attention_pallas.py:_flash_bwd_dkv_kernel``; bf16
-    operands raise (``flash_attention_bwd`` runs their one kernel). CPU
-    tensor: ``plain_flash_bwd_dkv``."""
-    if q.device.type == "cpu":
-        return plain_flash_bwd_dkv(q, k, v, do, delta, lse, d, causal)
-    _f32_only("flash_attention_bwd_dkv", q)
-    _flash_check("flash_attention_bwd_dkv", q, k, v,
-                 rows=(("delta", delta), ("lse", lse)),
-                 cotangents=(("do", do),))
-    bn, sq, h = q.shape
-    sk = k.shape[1]
-    dk = torch.empty((bn, sk, h), dtype=torch.float32, device=q.device)
-    dv = torch.empty_like(dk)
-    with torch.cuda.device(q.device):
-        lib = _flash_lib()
-        _flash_launch(
-            "flash_attention_bwd_dkv",
-            lib.hpx_flash_bwd_dkv_f32,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            delta.data_ptr(), lse.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            bn, k.shape[0], sq, sk, h, int(d), int(causal), _flash_scale(h))
-    flash_attention_bwd_dkv.launches += 1
-    return dk, dv
-
-
-flash_attention_bwd_dkv.launches = 0
-
-
 def flash_attention_chunk(q, k, v, acc, m, l, d: int, causal: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
@@ -1092,27 +1038,70 @@ def flash_attention_bwd(q, k, v, do, delta, lse, d: int,
                         kv_heads: int = 1):
     """The flash backward in the kernel layout: q, do [B·N, Sq, H], k, v
     [B·Nkv, Sk, H], delta (``bwd_prep``) and lse [B·N, Sq] f32; ``d`` the
-    causal offset. Returns (dq [B·N, Sq, H], dk [B·Nkv, Sk, H], dv
-    [B·Nkv, Sk, H]), all f32.
+    causal offset (key j visible to query i iff j <= i + d; Sk - Sq for
+    plain flash, per chunk on a ring). Returns (dq [B·N, Sq, H], dk
+    [B·Nkv, Sk, H], dv [B·Nkv, Sk, H]), all f32.
 
     bf16 CUDA tensors: kernel ``flash_bwd_wgmma``, one launch by
     ``flash_bwd_plan`` that computes dq, dk and dv (replaces
     ``hpx_tpu/ops/attention_pallas.py:_flash_bwd_dq_kernel`` and
     ``_flash_bwd_dkv_kernel``); it adds dq's partials into a zeroed dq
     (TMA bulk reduce-adds, in no fixed order) and sums each GQA group
-    itself. f32 CUDA tensors: the dq kernel,
-    then the dk/dv kernel, whose per-q-row partials are summed per
-    group here. CPU tensors: ``plain_flash_bwd``."""
+    itself. f32 CUDA tensors: ``flash_attention_bwd_f32``. CPU tensors:
+    ``plain_flash_bwd``."""
     if q.device.type == "cpu":
         return plain_flash_bwd(q, k, v, do, delta, lse, d, causal, q_heads,
                                kv_heads)
+    if q.dtype == torch.float32:
+        return flash_attention_bwd_f32(q, k, v, do, delta, lse, d, causal,
+                                       q_heads, kv_heads)
+    return _bwd_launch(flash_attention_bwd, "hpx_flash_bwd_bf16",
+                       flash_bwd_plan, q, k, v, do, delta, lse, d, causal,
+                       q_heads, kv_heads)
+
+
+flash_attention_bwd.launches = 0
+
+
+def flash_attention_bwd_f32(q, k, v, do, delta, lse, d: int,
+                            causal: bool = False, q_heads: int = 1,
+                            kv_heads: int = 1):
+    """``flash_attention_bwd`` for f32 operands, the same arguments and
+    outputs.
+
+    f32 CUDA tensors: kernel ``flash_bwd_tf32x3``, one launch by
+    ``flash_bwd_f32_plan`` that computes dq, dk and dv with its five
+    products on the tensor cores as 3xTF32 (replaces
+    ``hpx_tpu/ops/attention_pallas.py:_flash_bwd_dq_kernel`` and
+    ``_flash_bwd_dkv_kernel``); it adds dq's partials into a zeroed dq
+    (f32 reduce-adds, in no fixed order) and sums each GQA group itself.
+    bf16 operands raise (``flash_attention_bwd`` runs their kernel). CPU
+    tensors: ``plain_flash_bwd``."""
+    if q.device.type == "cpu":
+        return plain_flash_bwd(q, k, v, do, delta, lse, d, causal, q_heads,
+                               kv_heads)
+    if q.dtype == torch.bfloat16:
+        raise TypeError(f"flash_attention_bwd_f32: bf16 operands on "
+                        f"{q.device} run flash_bwd_wgmma: call "
+                        "flash_attention_bwd")
+    return _bwd_launch(flash_attention_bwd_f32, "hpx_flash_bwd_f32",
+                       flash_bwd_f32_plan, q, k, v, do, delta, lse, d,
+                       causal, q_heads, kv_heads)
+
+
+flash_attention_bwd_f32.launches = 0
+
+
+def _bwd_launch(wrapper, entry: str, plan, q, k, v, do, delta, lse,
+                d: int, causal: bool, q_heads: int, kv_heads: int):
+    """Check, allocate and launch one backward kernel for ``wrapper``
+    (C entry point ``entry``, its shared memory from ``plan``), counted
+    in ``wrapper.launches``: dq zeroed for the kernel's adds, dk and dv
+    per K/V row. Returns (dq, dk, dv); with Sq or Sk 0 nothing is
+    launched and the outputs are zeros."""
+    what = wrapper.__name__
     _check_heads(q, k, q_heads, kv_heads)
-    if q.dtype != torch.bfloat16:
-        dq = flash_attention_bwd_dq(q, k, v, do, delta, lse, d, causal)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, do, delta, lse, d, causal)
-        return (dq, *_group_sum(dk, dv, k))
-    _flash_check("flash_attention_bwd", q, k, v,
-                 rows=(("delta", delta), ("lse", lse)),
+    _flash_check(what, q, k, v, rows=(("delta", delta), ("lse", lse)),
                  cotangents=(("do", do),))
     bn, sq, h = q.shape
     bnkv, sk = k.shape[0], k.shape[1]
@@ -1121,19 +1110,16 @@ def flash_attention_bwd(q, k, v, do, delta, lse, d: int,
     dv = torch.empty_like(dk)
     if sq == 0 or sk == 0:
         return dq, dk.zero_(), dv.zero_()
-    _, _, smem = flash_bwd_plan(h, bnkv, sk)
+    smem = plan(h, bnkv, sk)[2]
     with torch.cuda.device(q.device):
         _flash_launch(
-            "flash_attention_bwd", _flash_lib().hpx_flash_bwd_bf16,
+            what, getattr(_flash_lib(), entry),
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             delta.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), bn, bnkv, sq, sk, h, int(d), int(causal),
             _flash_scale(h), smem)
-    flash_attention_bwd.launches += 1
+    wrapper.launches += 1
     return dq, dk, dv
-
-
-flash_attention_bwd.launches = 0
 
 
 def _kernel_layout(x: torch.Tensor) -> torch.Tensor:

@@ -17,9 +17,12 @@ both shapes, from the forward's o and L, beside SDPA's flash backward
 outputs of its forward), and at the ring's shape (q [32, 512, 64]
 against one chunk of 512 keys) at d = 0 and d = 512, each with its own
 forward's L; kernel 8 (``flash_attention_chunk``) at the ring's shape at
-d = 0 and d = 512, from a carry. Inputs are random normal from seed 11
-(kernels 5-7) and 13 (kernel 8 and the ring's backward), as
-``chip_smoke.py``'s timing. ``ms`` is the milliseconds a call on the
+d = 0 and d = 512, from a carry; and in f32, kernels 6-7 (one kernel,
+or two and a group sum in older trees) at the training shape and at the
+ring's (d = 0), beside SDPA's f32 backward (forward + backward less
+forward), with the largest error over 1e-4 against the plain version.
+Inputs are random normal from seed 11 (kernels 5-7), 13 (kernel 8 and
+the ring's backward) and 17 (f32), as ``chip_smoke.py``'s timing. ``ms`` is the milliseconds a call on the
 device: CUDA events around replays of a CUDA graph of 20 calls (the
 wrappers' host work stays out); ``events_ms`` the same around 20
 back-to-back calls, host work included where it outlasts the kernel;
@@ -104,13 +107,13 @@ def host_ms(fn, reps=7):
     return statistics.median(times)
 
 
-def rows(b, s, n, h, seed, count=3):
-    """``count`` tensors [b·n, s, h] (q, k, v, do) bf16 random normal from
-    ``seed``, on the card."""
+def rows(b, s, n, h, seed, count=3, dtype=None):
+    """``count`` tensors [b·n, s, h] (q, k, v, do) random normal from
+    ``seed``, on the card, in ``dtype`` (bf16 by default)."""
     import torch
     cpu = torch.Generator().manual_seed(seed)
-    return [torch.randn(b * n, s, h, generator=cpu).to(torch.bfloat16).cuda()
-            for _ in range(count)]
+    return [torch.randn(b * n, s, h, generator=cpu).to(
+        dtype or torch.bfloat16).cuda() for _ in range(count)]
 
 
 def main() -> int:
@@ -198,6 +201,43 @@ def main() -> int:
                           "ms": graph_ms(ring_bwd),
                           "events_ms": events_ms(ring_bwd),
                           "host_ms": host_ms(ring_bwd)}), flush=True)
+    # the f32 backward (its one kernel, or the split pair and a group sum
+    # in older trees) at the training shape and the ring's (d = 0),
+    # beside SDPA's f32 autograd backward (forward + backward less
+    # forward, by the graph), its largest error over 1e-4 against the
+    # plain version beside
+    for b, s, n, h, shape in ((8, 1024, 8, 64, "B=8 S=1024 N=8 H=64 f32"),
+                              (8, 512, 4, 64, "q [32, 512, 64] f32, d=0")):
+        q, k, v, do = rows(b, s, n, h, seed=17, count=4,
+                           dtype=torch.float32)
+        o, lse = ac.flash_attention_fwd(q, k, v, True)
+        delta = ac.bwd_prep(do, o)
+
+        def bwd32():
+            ac.flash_attention_bwd(q, k, v, do, delta, lse, 0, True)
+        margin = max(((g - w).abs() / (1e-4 + 1e-4 * w.abs())).max().item()
+                     for g, w in zip(
+                         ac.flash_attention_bwd(q, k, v, do, delta, lse, 0,
+                                                True),
+                         ac.plain_flash_bwd(q, k, v, do, delta, lse, 0,
+                                            True)))
+        q4, k4, v4, do4 = (x.view(b, n, s, h) for x in (q, k, v, do))
+        xs = [x.clone().requires_grad_() for x in (q4, k4, v4)]
+
+        def sdpa_fwd():
+            F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(*xs, is_causal=True)
+            torch.autograd.grad(out, xs, do4)
+        print(json.dumps({"tree": args.tag, "kernel": "6+7 f32",
+                          "shape": shape, "ms": graph_ms(bwd32),
+                          "events_ms": events_ms(bwd32),
+                          "host_ms": host_ms(bwd32),
+                          "sdpa_ms": graph_ms(sdpa_fwd_bwd)
+                          - graph_ms(sdpa_fwd),
+                          "margin_1e-4": margin}), flush=True)
+        del q, k, v, do, o, lse, delta, q4, k4, v4, do4, xs
     q, k, v = rows(8, 512, 4, 64, seed=13)
     acc = torch.zeros(q.shape, device="cuda")
     m = torch.full(q.shape[:2], -1e30, device="cuda")

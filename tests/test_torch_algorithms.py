@@ -176,9 +176,15 @@ def test_replace_if_mutates_host_array_in_place(hpx):
 
 
 def test_host_path_on_a_cpu_tensor_writes_the_tensor():
+    """The host path writes a copy of a tensor, as the reference writes a
+    copy of a device array: fill returns the written copy and the tensor
+    keeps its values."""
     t = torch.arange(4, dtype=torch.float32)
-    hpx_tpu_torch.fill(hpx_tpu_torch.seq, t, 5.0)
-    assert t.tolist() == [5.0] * 4
+    ref = jnp.arange(4, dtype=jnp.float32)
+    for hpx, src in ((hpx_tpu_torch, t), (hpx_tpu, ref)):
+        out = hpx.fill(hpx.seq, src, 5.0)
+        assert np.asarray(out).tolist() == [5.0] * 4
+        assert np.asarray(src).tolist() == [0.0, 1.0, 2.0, 3.0]
 
 
 @pytest.mark.parametrize("kind", ["device", "task"])

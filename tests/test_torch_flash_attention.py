@@ -197,7 +197,7 @@ def test_flash_attention_agrees_with_the_reference_oracles(causal):
 def test_the_cpu_path_launches_nothing_and_a_missing_build_raises():
     q, k, v, do = (torch.from_numpy(x) for x in _inputs(1, 8, 8, 2, 2, 64, 9))
     wrappers = (ac.flash_attention_fwd, ac.flash_attention_bwd,
-                ac.flash_attention_bwd_dq, ac.flash_attention_bwd_dkv)
+                ac.flash_attention_bwd_f32)
     counts = [f.launches for f in wrappers]
     q.requires_grad_()
     ac.flash_attention(q, k, v, True).sum().backward()
@@ -300,6 +300,31 @@ def test_flash_bwd_plan(h):
         ac.flash_bwd_plan(h, 8, 65536 * ac.FLASH_TILE_N)
 
 
+@pytest.mark.parametrize("h", [64, 128])
+def test_flash_bwd_f32_plan(h):
+    """The f32 backward: one CTA a tile of FLASH_BWD_F32_KEYS keys of a
+    K/V row (grid (B·Nkv, key tiles)), q tiles of 64 rows at H 64 and 32
+    at H 128, the layout's shared memory (K, V, two stages of Q, dO, L
+    and delta, the dSᵀ tile, rows padded by 4 floats: 175104 bytes at H
+    64, 221696 at H 128), never above SMEM_LIMIT; a grid past the card's
+    raises."""
+    for bnkv, sk in ((64, 1024), (16, 4096), (32, 512), (1, 1), (8, 1029)):
+        tiles, rows, smem = ac.flash_bwd_f32_plan(h, bnkv, sk)
+        assert tiles == -(-sk // ac.FLASH_BWD_F32_KEYS)
+        assert ac.FLASH_BWD_F32_KEYS == 128
+        assert rows == {64: 64, 128: 32}[h]
+        assert smem == ac.flash_bwd_f32_smem_bytes(h) <= ac.SMEM_LIMIT
+    assert ac.flash_bwd_f32_smem_bytes(h) == {64: 175104, 128: 221696}[h]
+    with pytest.raises(ValueError, match="grid"):
+        ac.flash_bwd_f32_plan(h, 8, 65536 * ac.FLASH_BWD_F32_KEYS)
+
+
+@pytest.mark.parametrize("h", [32, 80, 256])
+def test_flash_bwd_f32_plan_refuses_other_head_dims(h):
+    with pytest.raises(ValueError, match="head_dim"):
+        ac.flash_bwd_f32_plan(h, 8, 1024)
+
+
 def test_library_path_covers_the_headers(tmp_path, monkeypatch):
     """A changed csrc/*.cuh names another build, so a stale library is
     never loaded."""
@@ -324,10 +349,9 @@ def test_arguments_are_checked():
         ac.flash_attention_bwd(*(torch.zeros((4, 8, 16)),) * 4,
                                torch.zeros((4, 8)), torch.zeros((4, 8)), 0,
                                True, 4, 3)
-    # off the CPU, bf16 operands have one backward kernel for dq, dk and
-    # dv: the split wrappers refuse them and name it, before any launch
+    # off the CPU, bf16 operands have their own backward kernel: the f32
+    # wrapper refuses them and names the one to call, before any launch
     x = torch.zeros((4, 8, 64), dtype=torch.bfloat16, device="meta")
     rows = torch.zeros((4, 8), device="meta")
-    for split in (ac.flash_attention_bwd_dq, ac.flash_attention_bwd_dkv):
-        with pytest.raises(TypeError, match="flash_attention_bwd"):
-            split(x, x, x, x, rows, rows, 0, True)
+    with pytest.raises(TypeError, match="flash_attention_bwd"):
+        ac.flash_attention_bwd_f32(x, x, x, x, rows, rows, 0, True)
