@@ -13,8 +13,10 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    limit (nvidia-smi); the SASS of the bf16 flash forward
    (flash_fwd_wgmma) and of the bf16 flash backward (flash_bwd_wgmma)
    must each hold HGMMA (wgmma) and UTMALDG (TMA loads) instructions,
-   and that of the f32 flash backward (flash_bwd_tf32x3) HMMA
-   (mma.sync on the tensor cores) (cuobjdump -sass). For kernel 1
+   and those of the f32 flash forward and chunk fold (flash_fwd_tf32x3)
+   and of the f32 flash backward (flash_bwd_tf32x3) HMMA (mma.sync on
+   the tensor cores), their registers and spills printed beside
+   (cuobjdump -sass). For kernel 1
    (multistep_fused_kernel<K>, one
    instance a K of ops.stencil.CELLS_PER_THREAD) it prints the SHFL,
    LDS, STS and BAR counts of its SASS, which must hold SHFL; the CUDA
@@ -167,14 +169,17 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    on (sq, sk) in {(1, 1), (37, 53), (48, 16), (16, 48), (1024, 1024)},
    and, to cross the bf16 forward's 128-row tiles, (129, 129), (200,
    200), (1, 200), (300, 129), (1000, 1000), causal or not, MHA and GQA
-   (8 q heads over 2), head dims 64 and 128, f32 and bf16, the backward
+   (8 q heads over 2), head dims 64 and 128, f32 and bf16 (the forward
+   flash_fwd_tf32x3 in f32, flash_fwd_wgmma in bf16), the backward
    at offsets d in {sk - sq, 0, -16}, each given the o and L of the
    forward at its own offset (so p <= 1, as the ring gives them):
    flash_attention_bwd (one kernel: flash_bwd_tf32x3 in f32,
-   flash_bwd_wgmma in bf16) against plain_flash_bwd; the f32 backward
-   built with the big·big product alone (1xTF32) and with the dq partials
-   of key tile 0 left out must each read above 1e-4 on every S 1024
-   case; the bf16 backward also at B 8 (grids
+   flash_bwd_wgmma in bf16) against plain_flash_bwd; the f32 forward
+   built with the big·big product alone (1xTF32) must read above 1e-5,
+   and the f32 backward built so and with the dq partials of key tile 0
+   left out must each read above 1e-4, on every S 1024 case; the
+   forward's shared-memory sizes in attention_cuda.py must equal the
+   source's; the bf16 backward also at B 8 (grids
    of 132 CTAs or more), MHA and MQA (8 q heads over 1), on (sq, sk) in
    {(300, 300), (1000, 1000), (257, 1029), (1, 1029)} at every offset;
    rtol = atol = 1e-5 for the f32 forward (o and L), 1e-4 for the
@@ -199,16 +204,23 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    (where a skipped key tile of the kernel's must read above the
    limit), in f32 as acc / l (the o the ring makes of the unnormalized
    carry) at 1e-5, its raw elementwise reading printed; m and l at
-   1e-5; at the 128-row CTAs (bf16, H 128, B 8 x 8 heads, (300, 300)
-   and (600, 664), d in {sk, 64, 0, -64, -sq}); and at the ring path's
-   own shape (q [32, 512, 64] bf16, causal) at d in {0, 512, -512}.
+   1e-5; in f32 also at (1024, 1024), H 64 and 128, MHA and GQA,
+   causal at d = 0 and not, where flash_fwd_tf32x3's chunk fold built
+   with the big·big product alone (1xTF32) and with key tile 0 left out
+   must each read above 1e-5; at the 128-row CTAs (bf16, H 128, B 8 x 8
+   heads, (300, 300) and (600, 664), d in {sk, 64, 0, -64, -sq}); and
+   at the ring path's own shape (q [32, 512, 64] bf16, causal) at d in
+   {0, 512, -512}.
    Before the ring path, 2 ranks try over gloo, on CUDA tensors as they
    are, every torch.distributed verb that collectives.device.GLOO_CUDA
    hands over unstaged: each must run and agree.
    Then the training width in f32 (batch 2 x 1024), a main path of its
-   own (flash_bwd_tf32x3, the f32 route of kernels 6 and 7, runs only
-   there, once a layer, and in the ring's f32 gates, 8 times a rank),
-   its launches counted with the others':
+   own (the f32 routes run only there and in the ring's f32 gates:
+   flash_fwd_tf32x3, kernel 5's, once a layer a gradient and a step;
+   flash_bwd_tf32x3, kernels 6 and 7's, once a layer; in each of the
+   ring's f32 gates kernel 8's chunk fold and flash_bwd_tf32x3 8 times
+   a rank), its launches counted with the others' and the f32 forward's
+   and chunk fold's apart from their bf16 ones:
    the loss through the kernels within 1e-5 relative of the loss through
    their plain versions, every weight's gradient within 1e-5 by its norm
    (a dq zeroed on purpose must read above that), and the weights after
@@ -261,12 +273,13 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    ring's shape (q [32, 512, 64], d = 0 and 512).
    Kernel 8 is timed the same
    way at the ring's shape (q [32, 512, 64] bf16, causal) at d = 0 and
-   d = 512. The f32 routes of kernels 5-8 (flash_fwd and flash_fwd<H,
-   1> on the FP32 units; flash_bwd_tf32x3, 3xTF32 on the tensor cores,
-   alone and as the whole f32 route of _FlashAttention.backward) are
-   timed by the same graph at the training shape and at the ring's (d =
-   0), their bound at 67 TFLOP/s FP32 (the backward's also at 495
-   TFLOP/s TF32 for its 30 TF32 operations a pair and head element),
+   d = 512. The f32 routes of kernels 5-8 (flash_fwd_tf32x3, the
+   forward and its chunk fold, and flash_bwd_tf32x3, all 3xTF32 on the
+   tensor cores; the backward alone and as the whole f32 route of
+   _FlashAttention.backward) are timed by the same graph at the
+   training shape and at the ring's (d = 0), their bound at 67 TFLOP/s
+   FP32 and at 495 TFLOP/s TF32 for their TF32 operations (12 a pair
+   and head element in the forward and fold, 30 in the backward),
    SDPA's f32 forward and autograd backward beside them, with the
    library kernels the profiler names; the kernels line carries them as
    each flash row's "f32". No single
@@ -587,7 +600,8 @@ def _ring_rank(f32_batch: int) -> dict:
          leaves out its fold of the past chunk), and of the striped ring
          as it is and with every chunk's offset 0, the f32 backward
          kernel's launches counted in each.
-    Rank 0 returns the full f32 gradients; every rank its readings."""
+    Rank 0 returns the full f32 gradients; every rank its readings and
+    the f32 chunk fold's and backward's launches in each f32 gate."""
     import dataclasses
     import torch
     from hpx_tpu_torch.models import transformer as tf
@@ -668,11 +682,13 @@ def _ring_rank(f32_batch: int) -> dict:
                                 striped=c.striped_ring)
         ac.flash_attention_chunk, ao.ring_offset = fold_fn, offset_fn
         before = ac.flash_attention_bwd_f32.launches
+        before_fold = fold.launches
         try:
             w, grads, loss = tf._loss_and_grads(p32, t2, g2, c, mesh)
         finally:
             ac.flash_attention_chunk, ao.ring_offset = fold, offset
         out[key + "_launches"] = ac.flash_attention_bwd_f32.launches - before
+        out[key + "_chunk_launches"] = fold.launches - before_fold
         full = tf.unshard_params(
             tf._from_named(dict(zip(names, grads)), c.n_layers), c, mesh)
         out[key + "_loss"] = float(loss)
@@ -763,6 +779,11 @@ class Smoke:
         # largest norm-relative reading of a bf16 flash output
         self.norm_rel = {k: 0.0 for k in (*FLASH_KERNELS, *CHUNK_KERNEL)}
         self.launches = {k: 0 for k in names}
+        # the f32 route's launches of the wrappers that take both types
+        # (the f32 training gate's and the ring's f32 gates'), also in
+        # self.launches
+        self.f32_launches = {"flash_attention_fwd": 0,
+                             "flash_attention_chunk": 0}
 
     def phase(self, name, fn) -> bool:
         print(f"== {name}", flush=True)
@@ -788,10 +809,12 @@ class Smoke:
             print(f"   {what}: equal (tolerance 0)", flush=True)
 
     def expect_close(self, kernel: str, got, want, what: str,
-                     quiet: bool = False, tol=None, norm: bool = False
-                     ) -> float:
+                     quiet: bool = False, tol=None, norm: bool = False,
+                     track: str = None) -> float:
         """Elementwise within (rtol, atol); with ``norm``, also within
-        FLASH_NORM_REL by the norm (see _norm_rel)."""
+        FLASH_NORM_REL by the norm (see _norm_rel). The largest error
+        over its tolerance is kept under ``kernel`` and, given one, under
+        ``track`` too (a kernel's route apart)."""
         import torch
         torch.cuda.synchronize()
         if norm and got.shape == want.shape:
@@ -806,8 +829,9 @@ class Smoke:
         err = (g - w).abs().max().item() if got.numel() else 0.0
         self.max_abs_err[kernel] = max(self.max_abs_err[kernel], err)
         if got.shape == want.shape and got.numel():
-            self.margin[kernel] = max(self.margin[kernel], (
-                (g - w).abs() / (atol + rtol * w.abs())).max().item())
+            r = ((g - w).abs() / (atol + rtol * w.abs())).max().item()
+            for k in (kernel, track) if track else (kernel,):
+                self.margin[k] = max(self.margin.get(k, 0.0), r)
         if (got.shape != want.shape or got.dtype != want.dtype
                 or not torch.allclose(g, w, rtol=rtol, atol=atol)):
             raise AssertionError(f"{what}: kernel differs from its plain "
@@ -905,8 +929,11 @@ def main() -> int:
                                _build.BUILD_INFO["flash_attention"]["path"]],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
+        reports = list(_ptxas_report(_build.BUILD_INFO["flash_attention"]
+                                     ["log"]))
         for kern, want in (("flash_fwd_wgmma", ("HGMMA", "UTMALDG")),
                             ("flash_bwd_wgmma", ("HGMMA", "UTMALDG")),
+                            ("flash_fwd_tf32x3", ("HMMA",)),
                             ("flash_bwd_tf32x3", ("HMMA",))):
             body = "".join(f for f in sass.split("Function : ")[1:]
                            if kern in f.split("\n", 1)[0])
@@ -915,6 +942,10 @@ def main() -> int:
             if not all(counts.values()):
                 raise AssertionError(f"{kern} has none of the tensor-core "
                                      f"or TMA instructions {want}: {counts}")
+            if kern.endswith("tf32x3"):     # each instance's registers
+                for k_, r in reports:
+                    if k_.startswith(kern):
+                        print(f"     {k_}: {r}", flush=True)
         # kernel 1 keeps its cells in registers: warp shuffles each step,
         # shared memory only for the runs exchanged between warps
         sass = subprocess.run([cuobjdump, "-sass",
@@ -1330,6 +1361,27 @@ def main() -> int:
                 o, plain_fwd(q, k, v, True)[0])
         return out
 
+    def f32_fwd_fault_reading(q, k, v, causal, want):
+        """The f32 forward (flash_fwd_tf32x3) built with the big·big
+        product alone (1xTF32) on the inputs of a check: the largest
+        |got - want| / (atol + rtol |want|) over o and L against the
+        plain version's ``want``: above 1 fails the check."""
+        bn, sq, h = q.shape
+        o, lse = torch.empty_like(q), torch.empty(q.shape[:2],
+                                                  device=q.device)
+        rtol, atol = FLASH_TOL["fwd"]
+        code = ac._flash_lib().hpx_flash_fwd_f32_one_term(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), bn, k.shape[0], sq, k.shape[1], h, int(causal),
+            ac._flash_scale(h), *ac.flash_fwd_f32_plan(h, bn, sq),
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if code != 0:
+            raise AssertionError(f"the f32 forward's 1xTF32 build did not "
+                                 f"launch: {code}")
+        return max(((g - w).abs() / (atol + rtol * w.abs())).max().item()
+                   for g, w in zip((o, lse), want))
+
     def f32_fault_readings(args, want):
         """The f32 backward built with a planted fault, on the arguments
         of a check: "1xTF32" (the big·big product alone) and "dq of key
@@ -1410,7 +1462,7 @@ def main() -> int:
     def flash_kernel_checks():
         n = 0
         seeds = itertools.count(1)
-        faults, faults128, f32_faults = [], [], []
+        faults, faults128, f32_faults, fwd_faults = [], [], [], []
         for dt in (torch.float32, torch.bfloat16):
             f32 = dt == torch.float32
             tf = FLASH_TOL["fwd" if f32 else "bf16"]
@@ -1428,15 +1480,21 @@ def main() -> int:
                                     f"{causal} heads {nq}/{nkv}")
                             o, lse = ac.flash_attention_fwd(q, k, v, causal)
                             po, plse = plain_fwd(q, k, v, causal)
+                            track = "flash_attention_fwd f32" if f32 \
+                                else None
                             errs = [sm.expect_close(
                                 "flash_attention_fwd", o, po, f"o {what}",
-                                quiet=True, tol=tf, norm=not f32),
+                                quiet=True, tol=tf, norm=not f32,
+                                track=track),
                                 sm.expect_close(
                                 "flash_attention_fwd", lse, plse,
                                 f"L {what}", quiet=True,
-                                tol=FLASH_TOL["fwd"])]
+                                tol=FLASH_TOL["fwd"], track=track)]
                             worst["flash_attention_fwd"] = max(
                                 worst.get("flash_attention_fwd", 0.0), *errs)
+                            if f32 and sq == sk == 1024:
+                                fwd_faults.append(f32_fwd_fault_reading(
+                                    q, k, v, causal, (po, plse)))
                             # the backward (kernels 6-7) at offsets d, each
                             # given the o and L of the forward at its own
                             # offset, so that L covers every key a row
@@ -1488,6 +1546,18 @@ def main() -> int:
         if min(f32_fault.values()) <= 1:
             raise AssertionError(f"the 1e-4 check would miss a fault of the "
                                  f"f32 backward: {f32_fault}")
+        print(f"   f32 forward (flash_fwd_tf32x3): largest error over its "
+              f"tolerance {FLASH_TOL['fwd']} on every f32 case, o and L "
+              f"{sm.margin['flash_attention_fwd f32']!r}", flush=True)
+        print(f"   planted fault of the f32 forward (flash_fwd_tf32x3 with "
+              f"big·big alone, 1xTF32; S 1024, H 64 and 128, MHA and GQA, "
+              f"causal or not; the largest |got - want| / (atol + rtol "
+              f"|want|) over o and L, the smallest over {len(fwd_faults)} "
+              f"cases; above 1 fails {FLASH_TOL['fwd']}): {min(fwd_faults)!r}",
+              flush=True)
+        if min(fwd_faults) <= 1:
+            raise AssertionError(f"the 1e-5 check would miss the f32 "
+                                 f"forward's 1xTF32 build: {fwd_faults}")
         fault = {k: min(f[k] for f in faults) for k in faults[0]}
         fault128 = {k: min(f[k] for f in faults128) for k in ("o", "dq")}
         print(f"   planted fault, one 64-row tile skipped (S 1024, MHA, "
@@ -1563,6 +1633,14 @@ def main() -> int:
                                      f"{want} bytes, bwd_layout's {got}")
         print("   bf16 backward's shared memory: flash_bwd_plan's sizes "
               "equal bwd_layout's at H 64 and 128", flush=True)
+        for h in ac.FLASH_HEAD_DIMS:
+            want = ac.flash_fwd_f32_plan(h, 64, 1024)[1]
+            got = lib.hpx_flash_fwd_f32_smem_bytes(h)
+            if got != want or want != ac.flash_fwd_f32_smem_bytes(h):
+                raise AssertionError(f"f32 forward, H {h}: the plan's "
+                                     f"{want} bytes, f3_layout's {got}")
+        print("   f32 forward's shared memory: flash_fwd_f32_plan's sizes "
+              "equal f3_layout's at H 64 and 128", flush=True)
         # the autograd Function's gradients through the kernels against
         # the same Function over the plain versions, [B, S, N, H]
         for dt, (sq, sk, nq, nkv, h, causal) in (
@@ -1625,6 +1703,36 @@ def main() -> int:
             reads.append(_norm_rel(a[0], want_acc))
         return min(reads)
 
+    def f32_chunk_fault_readings(q, k, v, carry, causal, want):
+        """The f32 chunk fold (flash_fwd_tf32x3, kChunk) built with a
+        planted fault, at d = 0 from ``carry``: "1xTF32" (the big·big
+        product alone) and "key tile 0 left out"; each reading the
+        largest |got - want| / (atol + rtol |want|) over acc / l (l the
+        plain version's), m and l against the plain version's ``want``:
+        above 1 fails the check."""
+        bn, sq, h = q.shape
+        rtol, atol = FLASH_TOL["fwd"]
+        lib = ac._flash_lib()
+        den = want[2].clamp_min(1e-30)[..., None]
+        out = {}
+        for name, entry in (("1xTF32", lib.hpx_flash_chunk_f32_one_term),
+                            ("key tile 0 left out",
+                             lib.hpx_flash_chunk_f32_drop_tile)):
+            acc, m, l = (x.clone() for x in carry)
+            code = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         acc.data_ptr(), m.data_ptr(), l.data_ptr(), bn,
+                         k.shape[0], sq, k.shape[1], h, 0, int(causal),
+                         ac._flash_scale(h), *ac.flash_fwd_f32_plan(h, bn, sq),
+                         torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            if code != 0:
+                raise AssertionError(f"the f32 chunk fold's {name} build did "
+                                     f"not launch: {code}")
+            out[name] = max(((g - w).abs() / (atol + rtol * w.abs())).max()
+                            .item() for g, w in ((acc / den, want[0] / den),
+                                                 (m, want[1]), (l, want[2])))
+        return out
+
     def chunk_kernel_checks():
         """Kernel 8 against plain_flash_chunk from a carry an earlier
         fold left. acc in bf16 at 2e-2 and by the norm; in f32 as acc / l,
@@ -1643,6 +1751,7 @@ def main() -> int:
                                            *(x.clone() for x in carry), d,
                                            causal)
             torch.cuda.synchronize()
+            track = "flash_attention_chunk f32" if f32 else None
             if f32:
                 g, w = got[0], want[0]
                 raw.append(((g - w).abs() / (1e-5 + 1e-5 * w.abs())).max()
@@ -1650,7 +1759,8 @@ def main() -> int:
                 den = want[2].clamp_min(1e-30)[..., None]
                 err = sm.expect_close(
                     "flash_attention_chunk", g / den, w / den,
-                    f"acc / l {what}", quiet=True, tol=FLASH_TOL["fwd"])
+                    f"acc / l {what}", quiet=True, tol=FLASH_TOL["fwd"],
+                    track=track)
             else:
                 err = sm.expect_close(
                     "flash_attention_chunk", got[0], want[0],
@@ -1659,7 +1769,7 @@ def main() -> int:
             for name, g, w in zip("ml", got[1:], want[1:]):
                 sm.expect_close("flash_attention_chunk", g, w,
                                 f"{name} {what}", quiet=True,
-                                tol=FLASH_TOL["fwd"])
+                                tol=FLASH_TOL["fwd"], track=track)
             return err, want
 
         for dt in (torch.float32, torch.bfloat16):
@@ -1688,6 +1798,33 @@ def main() -> int:
                       f"{'acc / l' if f32 else 'acc'} max abs err {worst} "
                       f"(tolerance {FLASH_TOL['fwd' if f32 else 'bf16']}), "
                       f"m and l within {FLASH_TOL['fwd']}", flush=True)
+        # f32 at S 1024 (d = 0): flash_fwd_tf32x3's chunk fold built with
+        # big·big alone (1xTF32) and with key tile 0 left out must each
+        # read above the f32 limit on every case
+        f32_faults = []
+        for h in (64, 128):
+            for nq, nkv in ((8, 8), (8, 2)):
+                for causal in (True, False):
+                    q, k, v, carry = chunk_state(1024, 1024, nq, nkv, h,
+                                                 torch.float32, next(seeds))
+                    _, want = check(q, k, v, carry, 0, causal,
+                                    f"f32 hd {h} sq 1024 sk 1024 heads "
+                                    f"{nq}/{nkv} causal {causal} d 0")
+                    f32_faults.append(f32_chunk_fault_readings(
+                        q, k, v, carry, causal, want))
+                    n += 1
+        f32_fault = {k: min(f[k] for f in f32_faults) for k in f32_faults[0]}
+        print(f"   f32 chunk fold (flash_fwd_tf32x3): largest error over its "
+              f"tolerance {FLASH_TOL['fwd']} on every f32 case, acc / l, m "
+              f"and l {sm.margin['flash_attention_chunk f32']!r}", flush=True)
+        print(f"   {len(f32_faults)} f32 chunk cases at S 1024 passed; planted "
+              f"faults of the f32 chunk fold (flash_fwd_tf32x3; the largest "
+              f"|got - want| / (atol + rtol |want|) over acc / l, m and l, "
+              f"the smallest over the cases; above 1 fails "
+              f"{FLASH_TOL['fwd']}): {f32_fault}", flush=True)
+        if min(f32_fault.values()) <= 1:
+            raise AssertionError(f"the 1e-5 check would miss a fault of the "
+                                 f"f32 chunk fold: {f32_fault}")
         over = sum(r > 1 for r in raw)
         print(f"   f32 acc unnormalized, elementwise against rtol = atol = "
               f"1e-5: largest |got - want| / (1e-5 + 1e-5 |want|) "
@@ -2489,13 +2626,17 @@ def main() -> int:
                                             tf.make_mesh_3d(1))
             return g, float(loss)
         before = ac.flash_attention_bwd_f32.launches
+        fwd_before = ac.flash_attention_fwd.launches
         g_kernel, l_kernel = grads()
         f32_bwd = ac.flash_attention_bwd_f32.launches - before
-        print(f"   f32 gradients: flash_bwd_tf32x3 launched {f32_bwd} times "
-              f"({cfg.n_layers} layers)", flush=True)
-        if f32_bwd != cfg.n_layers:
-            raise AssertionError(f"the f32 backward kernel launched {f32_bwd}"
-                                 f" times, not once a layer")
+        f32_fwd = ac.flash_attention_fwd.launches - fwd_before
+        print(f"   f32 gradients: flash_fwd_tf32x3 launched {f32_fwd} times, "
+              f"flash_bwd_tf32x3 {f32_bwd} ({cfg.n_layers} layers)",
+              flush=True)
+        if f32_bwd != cfg.n_layers or f32_fwd != cfg.n_layers:
+            raise AssertionError(f"the f32 forward and backward kernels "
+                                 f"launched {f32_fwd} and {f32_bwd} times, "
+                                 f"not once a layer")
         with plain_flash():
             g_plain, l_plain = grads()
             # the planted fault: a backward whose dq is zeros
@@ -2532,6 +2673,12 @@ def main() -> int:
         step(params, toks, tgts)
         with plain_flash():
             step(p_plain, toks, tgts)
+        # the f32 route's forward launches: the gradients' and the step's
+        f32_fwd = ac.flash_attention_fwd.launches - fwd_before
+        if f32_fwd != 2 * cfg.n_layers:
+            raise AssertionError(f"the f32 forward kernel launched {f32_fwd} "
+                                 f"times, not once a layer a pass")
+        sm.f32_launches["flash_attention_fwd"] += f32_fwd
         err = 0.0
         for (name, a), (_, b) in zip(params.named_parameters(),
                                      p_plain.named_parameters()):
@@ -2592,13 +2739,19 @@ def main() -> int:
                     f"rank {r['rank']}: launches a step {r['per_step']} of "
                     "(flash_attention_chunk, bwd, fwd, bwd_f32), "
                     f"want {want}")
-            # the f32 gate: flash_bwd_tf32x3 once a ring step and layer
+            # the f32 gates: flash_bwd_tf32x3 and flash_fwd_tf32x3's chunk
+            # fold once a ring step and layer
             f32_bwd = [r[k + "_launches"] for k in ("f32", "f32_striped")]
-            if f32_bwd != [2 * 4] * 2:
+            f32_fold = [r[k + "_chunk_launches"]
+                        for k in ("f32", "f32_striped")]
+            if f32_bwd != [2 * 4] * 2 or f32_fold != [2 * 4] * 2:
                 raise AssertionError(f"rank {r['rank']}: the f32 backward "
-                                     f"kernel launched {f32_bwd} times in the "
-                                     f"f32 gates, want {[2 * 4] * 2}")
+                                     f"and chunk kernels launched {f32_bwd} "
+                                     f"and {f32_fold} times in the f32 gates, "
+                                     f"want {[2 * 4] * 2} each")
             sm.launches["flash_attention_bwd_f32"] += sum(f32_bwd)
+            sm.launches["flash_attention_chunk"] += sum(f32_fold)
+            sm.f32_launches["flash_attention_chunk"] += sum(f32_fold)
             if r["losses"] != r0["losses"]:
                 raise AssertionError(f"rank {r['rank']}'s losses differ "
                                      "from rank 0's")
@@ -2623,7 +2776,8 @@ def main() -> int:
               f"flash_attention_bwd 8 times a step, flash_attention_fwd and "
               f"the f32 backward kernel never: "
               f"{[r['launches'] for r in res]}; in each f32 gate "
-              f"flash_bwd_tf32x3 8 times; peak memory a rank "
+              f"flash_fwd_tf32x3's chunk fold and flash_bwd_tf32x3 8 times "
+              f"each; peak memory a rank "
               f"{[r['peak_gib'] for r in res]} GiB", flush=True)
         print(f"   step time (host clock, slowest rank, median after 2 "
               f"warm-ups): {step_s * 1e3!r} ms; {ring['what']}; step "
@@ -2871,7 +3025,8 @@ def main() -> int:
                       "route_events", "bound_split", "bound_tf32x3",
                       "library_events",
                       "library_profiler", "library_autograd") if x in t)
-                  + f"launches={sm.launches[k.split()[0]]} on {smi}")
+                  + f"launches={sm.launches[k.split()[0]]} (f32 route "
+                  f"{sm.f32_launches.get(k.split()[0], '-')}) on {smi}")
 
     def time_fma():
         """Kernel 9 at bench.py's shape (2^17 elements, 1024 iterations,
@@ -3234,17 +3389,18 @@ def main() -> int:
         """The f32 routes of kernels 5-8 at the training shape (B 8, S
         1024, 8 heads of 64) and at the ring's (q [32, 512, 64], d = 0),
         causal, their inputs first held against the plain versions:
-        flash_fwd and flash_fwd<H, 1> (the chunk fold, from a zero carry)
-        on the FP32 units, and the backward's one kernel,
-        flash_bwd_tf32x3 (3xTF32 on the tensor cores), alone and as the
-        whole f32 route of _FlashAttention.backward (layout copies,
-        delta, the dq fill, the kernel, the casts). Device time by the
-        CUDA graph of 20 calls the bf16 rows use, events and the plain
-        version beside; the bound at 67 TFLOP/s FP32 (the backward's
-        also at 495 TFLOP/s TF32, its 10 operations a pair and head
-        element 30 as 3xTF32); SDPA in f32 by the same graph (its
-        forward; its backward as forward + backward less forward, with
-        the kernels the profiler names; none for the chunk)."""
+        flash_fwd_tf32x3 (the forward, and its chunk fold from a zero
+        carry) and the backward's one kernel, flash_bwd_tf32x3, all
+        3xTF32 on the tensor cores; the backward alone and as the whole
+        f32 route of _FlashAttention.backward (layout copies, delta, the
+        dq fill, the kernel, the casts). Device time by the CUDA graph
+        of 20 calls the bf16 rows use, events and the plain version
+        beside; the bound at 67 TFLOP/s FP32 and at 495 TFLOP/s TF32
+        (the forward's and the fold's 4 operations a pair and head
+        element 12 as 3xTF32, the backward's 10 30); SDPA in f32 by the
+        same graph (its forward; its backward as forward + backward less
+        forward, with the kernels the profiler names; none for the
+        chunk)."""
         import types
         import torch.nn.functional as F
         from torch.profiler import ProfilerActivity, profile
@@ -3288,6 +3444,14 @@ def main() -> int:
                     3 * el * 4 + 2 * (el * 4 + 2 * rows * 4),
                     4 * pairs * h)}
             tf32x3 = _bound(bwd_bytes, 30 * pairs * h, TF32_OPS_PER_S)
+            # the forward and the chunk fold as 3xTF32: 12 TF32 operations
+            # a visible pair and head element (two products, three terms)
+            tf32x3_fwd = {
+                "flash_attention_fwd": _bound(4 * el * 4 + rows * 4,
+                                              12 * pairs * h, TF32_OPS_PER_S),
+                "flash_attention_chunk": _bound(
+                    3 * el * 4 + 2 * (el * 4 + 2 * rows * 4), 12 * pairs * h,
+                    TF32_OPS_PER_S)}
             q4, k4, v4, do4 = (x.view(b, n, seq, h) for x in (q, k, v, do))
 
             def sdpa_fwd():
@@ -3315,6 +3479,12 @@ def main() -> int:
             lib_kernels = sorted({e.key[:120] for e in prof.key_averages()
                                   if "fmha" in e.key or "attention" in
                                   e.key.lower()})
+            # and every kernel of its forward alone (a reading)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                sdpa_fwd()
+                torch.cuda.synchronize()
+            fwd_kernels = sorted({e.key[:120] for e in prof.key_averages()
+                                  if e.self_device_time_total > 0})
             work = tuple(x.clone() for x in carry)
             # the whole f32 route of _FlashAttention.backward
             pub = [ac._public_layout(x, b) for x in (q, k, v, do)]
@@ -3345,12 +3515,21 @@ def main() -> int:
                     "library_by": (lib_bwd_by if kname == FLASH_F32_BWD[0]
                                    else "graph") if lib else None,
                     "shape": shape}
+                if kname in tf32x3_fwd:
+                    timing[f"{kname} f32{tag}"]["bound_tf32x3"] = \
+                        tf32x3_fwd[kname][0]
             bt = timing[f"{FLASH_F32_BWD[0]} f32{tag}"]
+            ft = timing[f"flash_attention_fwd f32{tag}"]
+            ct = timing[f"flash_attention_chunk f32{tag}"]
             bt.update(route=_graph_ms([route] * 20),
                       bound_tf32x3=tf32x3[0])
-            print(f"   f32 at {shape}: forward "
-                  f"{timing[f'flash_attention_fwd f32{tag}']['ms']!r} ms "
-                  f"(SDPA {lib_fwd!r}); backward flash_bwd_tf32x3 "
+            print(f"   f32 at {shape}: forward flash_fwd_tf32x3 "
+                  f"{ft['ms']!r} ms (SDPA {lib_fwd!r}, its kernels "
+                  f"{fwd_kernels}: {ft['ms'] / lib_fwd!r} of it; bound FP32 "
+                  f"{ft['bound']!r} ms, {ft['bound'] / ft['ms']!r} of it, "
+                  f"3xTF32 {ft['bound_tf32x3']!r} ms, "
+                  f"{ft['bound_tf32x3'] / ft['ms']!r}); backward "
+                  f"flash_bwd_tf32x3 "
                   f"{bt['ms']!r} ms, the whole f32 route of "
                   f"_FlashAttention.backward {bt['route']!r} ms (SDPA "
                   f"{lib_bwd!r}, {lib_bwd_by}: {bt['ms'] / lib_bwd!r} of "
@@ -3358,9 +3537,10 @@ def main() -> int:
                   f"{bt['bound']!r} ms ({bt['by']}, "
                   f"{bt['bound'] / bt['ms']!r} of it), 3xTF32 "
                   f"{tf32x3[0]!r} ms ({tf32x3[1]}, "
-                  f"{tf32x3[0] / bt['ms']!r}); chunk "
-                  f"{timing[f'flash_attention_chunk f32{tag}']['ms']!r} ms "
-                  f"(CUDA graph); on {smi}", flush=True)
+                  f"{tf32x3[0] / bt['ms']!r}); chunk fold "
+                  f"{ct['ms']!r} ms (3xTF32 bound {ct['bound_tf32x3']!r} "
+                  f"ms, {ct['bound_tf32x3'] / ct['ms']!r} of it; CUDA "
+                  f"graph); on {smi}", flush=True)
             del q, k, v, do, o, lse, args, carry, work, xs, pub, ctx
             torch.cuda.empty_cache()
         # the yardstick's f32 products: PyTorch's memory-efficient kernel
@@ -3397,14 +3577,17 @@ def main() -> int:
                **{k: "flash_attention" for k in ("flash_attention_fwd",
                                                  *BWD_ROWS, *CHUNK_KERNEL)}}
     # the kernel of a flash row's f32 route
-    f32_kernel = {"flash_attention_fwd": "flash_fwd (FP32 units)",
+    f32_kernel = {"flash_attention_fwd": "flash_fwd_tf32x3 (3xTF32 on the "
+                                         "tensor cores)",
                   **{r: "flash_bwd_tf32x3 (dq, dk, dv in one launch, "
                         "3xTF32 on the tensor cores)" for r in BWD_ROWS},
-                  "flash_attention_chunk": "flash_fwd<H, 1> (FP32 units)"}
+                  "flash_attention_chunk": "flash_fwd_tf32x3<H, kChunk=1> "
+                                           "(3xTF32 on the tensor cores)"}
 
     def f32_routes(row):
-        """The f32 route of a flash row: its wrapper's kernel, launches,
-        error and times at the training and the ring's shape
+        """The f32 route of a flash row: its wrapper's kernel, launches
+        on the f32 main paths (the f32 training gate, the ring's f32
+        gates), error and times at the training and the ring's shape
         (time_flash_f32)."""
         out = {}
         k = F32_ROUTE[row]
@@ -3412,8 +3595,10 @@ def main() -> int:
             t = timing[f"{k} f32{tag}"]
             out[tag.strip() or "training"] = {
                 "wrapper": k, "kernel": f32_kernel[row],
-                "launches": sm.launches[k],
+                "launches": sm.f32_launches.get(k, sm.launches[k]),
                 "max_abs_err": sm.max_abs_err[k], "ms": t["ms"],
+                **({"margin": sm.margin[f"{k} f32"]}
+                   if f"{k} f32" in sm.margin else {}),
                 **{f"{x}_ms": t[x] for x in ("events", "plain", "bound",
                                              "bound_tf32x3", "library",
                                              "route") if x in t},

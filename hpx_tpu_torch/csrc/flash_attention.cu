@@ -2,13 +2,15 @@
 // and the ring's chunk fold, hand-written for Hopper (sm_90a).
 //
 // Replaces the four Pallas kernels of hpx_tpu/ops/attention_pallas.py:
-//   flash_fwd      <- _flash_kernel         (:112)
-//   flash_bwd_wgmma <- _flash_bwd_dq_kernel (:397) and
-//                      _flash_bwd_dkv_kernel (:446), in one kernel; bf16
+//   flash_fwd_wgmma  <- _flash_kernel (:112); bf16 operands
+//   flash_fwd_tf32x3 <- the same; f32 operands
+//   flash_bwd_wgmma  <- _flash_bwd_dq_kernel (:397) and
+//                       _flash_bwd_dkv_kernel (:446), in one kernel; bf16
 //   flash_bwd_tf32x3 <- the same two, in one kernel; f32 operands
-//   flash_chunk    <- _flash_chunk_kernel   (:618), flash_fwd's tile loop
-//                     with the (acc, m, l) carry read in and written back
-//                     unnormalized, in place (template flag kChunk)
+//   the chunk fold   <- _flash_chunk_kernel (:618): each forward kernel's
+//                       tile loop with the (acc, m, l) carry read in and
+//                       written back unnormalized, in place (template
+//                       flag kChunk)
 // Plain C interface (no PyTorch headers), loaded with ctypes by
 // hpx_tpu_torch/ops/attention_cuda.py, which checks shapes, types,
 // devices and alignment and allocates the outputs.
@@ -51,16 +53,15 @@
 // one's prologue and epilogue overlap the other's products. The
 // backward keeps K and V of its key tile resident, computes each of the
 // five products once, and adds dq by f32 atomics (flash_bwd_wgmma).
-// The f32 backward (flash_bwd_tf32x3) has the same shape on mma.sync:
-// its products run on the tensor cores as 3xTF32, each operand split
-// into two TF32 halves and three products summed in f32, within the
-// plain version's 1e-4 where one TF32 product alone misses it. The f32
-// forward and chunk fold (flash_fwd) are the first, simple version, on
-// the FP32 units: each CTA owns one 64-row q tile, walks the key tiles
-// staged in shared memory by 16-byte loads, and skips causal tiles past
-// the diagonal, as at :137; 256 threads a CTA, each computing a 4 x 4
-// piece of every 64 x 64 product from f32 tiles whose rows are padded by
-// 4 floats, so the 16-byte shared reads are free of bank conflicts.
+// The f32 kernels (flash_fwd_tf32x3, flash_bwd_tf32x3) have the same
+// shape on mma.sync: their products run on the tensor cores as 3xTF32,
+// each operand split into two TF32 halves and three products summed in
+// f32, within the plain versions' 1e-5 (forward) and 1e-4 (backward)
+// where one TF32 product alone misses them. The f32 forward and chunk
+// fold keep their 64-row q tile's scores and P in registers, take K and
+// V tiles of 64 keys by cp.async into a ring of two stages, mask only
+// the tiles that cross the diagonal or an edge, and skip causal tiles
+// past it.
 //
 // Numerics follow the reference kernels: scores = f32 dot * scale;
 // masked lanes -1e30 and p exactly 0; online softmax in f32; p cast to
@@ -79,270 +80,7 @@
 
 namespace {
 
-constexpr int kBlock = 64;     // rows of a q tile and of a key tile
-constexpr int kThreads = 256;  // FP32 kernels, 16 x 16: thread (ty, tx)
-                               // owns rows ty*4 .. ty*4+3 of a tile
-constexpr int kPad = 4;        // floats of padding at the end of a row
-constexpr int kPLd = kBlock + kPad;  // row stride of a p / ds tile
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ void store4(float* p, float a, float b, float c,
-                                       float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-
-// reductions over the 16 lanes (tx) that share a row: xor offsets below
-// 16 stay inside each half of the warp
-__device__ __forceinline__ float row_max(float v) {
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Rows r0 .. r0+63 of src [rows][H] into dst [64][H + kPad], by 16-byte
-// loads; rows at or past `rows` are zero.
-template <int H>
-__device__ void load_tile(float* dst, const float* __restrict__ src, int r0,
-                          int rows) {
-  constexpr int PER_ROW = H / 4;
-  constexpr int LD = H + kPad;
-  for (int i = threadIdx.x; i < kBlock * PER_ROW; i += kThreads) {
-    const int r = i / PER_ROW, c = (i - r * PER_ROW) * 4;
-    *reinterpret_cast<float4*>(dst + r * LD + c) =
-        r0 + r < rows ? *reinterpret_cast<const float4*>(
-                            src + (size_t)(r0 + r) * H + c)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// acc[r][c] = sum_d a[ty*4 + r][d] * b[tx + 16c][d]: a 4 x 4 piece of
-// the 64 x 64 product a bᵀ of two [64][H + kPad] tiles, d in order.
-template <int H>
-__device__ __forceinline__ void tile_dot(const float* a, const float* b,
-                                         float acc[4][4], int ty, int tx) {
-  constexpr int LD = H + kPad;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < H; d += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      av[r] = *reinterpret_cast<const float4*>(a + (ty * 4 + r) * LD + d);
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      bv[c] = *reinterpret_cast<const float4*>(b + (tx + 16 * c) * LD + d);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float x = acc[r][c];
-        x = fmaf(av[r].x, bv[c].x, x);
-        x = fmaf(av[r].y, bv[c].y, x);
-        x = fmaf(av[r].z, bv[c].z, x);
-        x = fmaf(av[r].w, bv[c].w, x);
-        acc[r][c] = x;
-      }
-  }
-}
-
-// acc[r][4c + e] += sum_j p[ty*4 + r][j] * v[j][64c + 4tx + e]: rows
-// ty*4 .. +3 and columns {64c + 4tx + e} of the product p v, p a
-// [64][kPLd] tile, v a [64][H + kPad] tile, j in order.
-template <int H>
-__device__ __forceinline__ void tile_pv(const float* p, const float* v,
-                                        float acc[4][H / 16], int ty,
-                                        int tx) {
-  constexpr int LD = H + kPad;
-#pragma unroll 2
-  for (int j = 0; j < kBlock; j += 4) {
-    float pr[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float4 t =
-          *reinterpret_cast<const float4*>(p + (ty * 4 + r) * kPLd + j);
-      pr[r][0] = t.x;
-      pr[r][1] = t.y;
-      pr[r][2] = t.z;
-      pr[r][3] = t.w;
-    }
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-      for (int c = 0; c < H / 64; ++c) {
-        const float4 vv = *reinterpret_cast<const float4*>(
-            v + (j + jj) * LD + 64 * c + 4 * tx);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          acc[r][4 * c + 0] = fmaf(pr[r][jj], vv.x, acc[r][4 * c + 0]);
-          acc[r][4 * c + 1] = fmaf(pr[r][jj], vv.y, acc[r][4 * c + 1]);
-          acc[r][4 * c + 2] = fmaf(pr[r][jj], vv.z, acc[r][4 * c + 2]);
-          acc[r][4 * c + 3] = fmaf(pr[r][jj], vv.w, acc[r][4 * c + 3]);
-        }
-      }
-  }
-}
-
-// Rows ty*4 .. +3 (those of row0 + ty*4 + r below `rows`) of a thread's
-// f32 accumulator acc[4][H/16] (column 64c + 4tx + e) into out [rows][H].
-template <int H>
-__device__ __forceinline__ void store_rows(float* out,
-                                           const float acc[4][H / 16],
-                                           int row0, int rows, int ty,
-                                           int tx) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = row0 + ty * 4 + r;
-    if (row >= rows) continue;
-#pragma unroll
-    for (int c = 0; c < H / 64; ++c)
-      store4(out + (size_t)row * H + 64 * c + 4 * tx, acc[r][4 * c],
-             acc[r][4 * c + 1], acc[r][4 * c + 2], acc[r][4 * c + 3]);
-  }
-}
-
-__device__ __forceinline__ bool visible(int qpos, int kpos, int sk, int d,
-                                        int causal) {
-  return kpos < sk && (!causal || kpos <= qpos + d);
-}
-
-// Key tiles a q tile starting at q0 walks: all of them, or, causal, up
-// to the last one holding a key visible to its last row q0 + 63.
-__device__ __forceinline__ int key_tiles(int q0, int sk, int d, int causal) {
-  const int nk = (sk + kBlock - 1) / kBlock;
-  if (!causal) return nk;
-  const int last = q0 + kBlock - 1 + d;
-  return last < 0 ? 0 : min(nk, last / kBlock + 1);
-}
-
-// ---------------------------------------------------------------------------
-// flash_fwd (replaces _flash_kernel) and, kChunk, flash_chunk (replaces
-// _flash_chunk_kernel). Grid (q tiles, BN); the longest causal rows start
-// first. Shared memory: q | k | v tiles, p tile. The forward starts from
-// (acc, m, l) = (0, -1e30, 0) and writes o = acc / l and L; the chunk
-// fold reads the carry (cacc, cm, cl) and writes it back unnormalized. A
-// chunk CTA whose rows see no key of the chunk (a future chunk on a
-// contiguous causal ring) returns at once, its carry untouched.
-// ---------------------------------------------------------------------------
-template <int H, bool kChunk>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ o,
-          float* __restrict__ lse, float* __restrict__ cacc,
-          float* __restrict__ cm, float* __restrict__ cl, int sq, int sk,
-          int g, int d, int causal, float scale) {
-  extern __shared__ float4 smem4[];
-  constexpr int LD = H + kPad;
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + kBlock * LD;
-  float* vs = ks + kBlock * LD;
-  float* ps = vs + kBlock * LD;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int bn = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlock;
-  const float* kb = k + (size_t)(bn / g) * sk * H;
-  const float* vb = v + (size_t)(bn / g) * sk * H;
-  const int nk = key_tiles(q0, sk, d, causal);
-  if (kChunk && nk == 0) return;            // the whole CTA: carry kept
-
-  load_tile<H>(qs, q + (size_t)bn * sq * H, q0, sq);
-  float m[4], l[4], acc[4][H / 16];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + ty * 4 + r;
-    if (kChunk && row < sq) {
-      const size_t at = (size_t)bn * sq + row;
-      m[r] = cm[at];
-      l[r] = cl[at];
-#pragma unroll
-      for (int c = 0; c < H / 64; ++c) {
-        const float4 a = *reinterpret_cast<const float4*>(
-            cacc + at * H + 64 * c + 4 * tx);
-        acc[r][4 * c] = a.x;
-        acc[r][4 * c + 1] = a.y;
-        acc[r][4 * c + 2] = a.z;
-        acc[r][4 * c + 3] = a.w;
-      }
-      continue;
-    }
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int e = 0; e < H / 16; ++e) acc[r][e] = 0.f;
-  }
-
-  for (int ik = 0; ik < nk; ++ik) {
-    const int k0 = ik * kBlock;
-    __syncthreads();                        // the last tile's readers are done
-    load_tile<H>(ks, kb, k0, sk);
-    load_tile<H>(vs, vb, k0, sk);
-    __syncthreads();
-    float s[4][4];
-    tile_dot<H>(qs, ks, s, ty, tx);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qpos = q0 + ty * 4 + r;
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = visible(qpos, k0 + tx + 16 * c, sk, d, causal)
-                      ? s[r][c] * scale
-                      : kNegInf;
-        mx = fmaxf(mx, s[r][c]);
-      }
-      const float m_new = fmaxf(m[r], row_max(mx));
-      float psum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = visible(qpos, k0 + tx + 16 * c, sk, d, causal)
-                            ? expf(s[r][c] - m_new)
-                            : 0.f;
-        psum += p;
-        ps[(ty * 4 + r) * kPLd + tx + 16 * c] = p;
-      }
-      const float corr = expf(m[r] - m_new);   // 1 where m did not move
-      l[r] = l[r] * corr + row_sum(psum);
-      m[r] = m_new;
-#pragma unroll
-      for (int e = 0; e < H / 16; ++e) acc[r][e] *= corr;
-    }
-    __syncthreads();                        // p visible to every thread
-    tile_pv<H>(ps, vs, acc, ty, tx);
-  }
-
-  if constexpr (kChunk) {                   // the carry out, unnormalized
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = q0 + ty * 4 + r;
-      if (row < sq && tx == 0) {
-        cm[(size_t)bn * sq + row] = m[r];
-        cl[(size_t)bn * sq + row] = l[r];
-      }
-    }
-    store_rows<H>(cacc + (size_t)bn * sq * H, acc, q0, sq, ty, tx);
-    return;
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + ty * 4 + r;
-    if (row >= sq) continue;
-    if (tx == 0)
-      lse[(size_t)bn * sq + row] = l[r] > 0.f ? m[r] + logf(l[r]) : 0.f;
-    // o = acc / l, divided as the reference divides
-    const float den = l[r] > 0.f ? l[r] : 1.f;
-#pragma unroll
-    for (int c = 0; c < H / 64; ++c)
-      store4(o + ((size_t)bn * sq + row) * H + 64 * c + 4 * tx,
-             acc[r][4 * c] / den, acc[r][4 * c + 1] / den,
-             acc[r][4 * c + 2] / den, acc[r][4 * c + 3] / den);
-  }
-}
 
 using bf16 = __nv_bfloat16;
 
@@ -363,8 +101,8 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// flash_fwd_wgmma and, kChunk, its chunk fold: flash_fwd / flash_chunk for
-// bf16 operands on Hopper's warpgroup tensor cores, fed by TMA.
+// flash_fwd_wgmma and, kChunk, its chunk fold: the forward and the chunk
+// fold for bf16 operands on Hopper's warpgroup tensor cores, fed by TMA.
 //
 // A CTA owns kWG * 64 q rows (one consumer warpgroup each: 1, or 2 at H
 // 128 where 128-row CTAs fill the SMs; flash_fwd_plan picks) and
@@ -1429,12 +1167,315 @@ flash_bwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// shared memory of the FP32 forward and chunk fold at head dim h
-constexpr int tile_bytes(int h) { return kBlock * (h + kPad) * 4; }
-constexpr int fwd_smem(int h) { return 3 * tile_bytes(h) + kBlock * kPLd * 4; }
+// ---------------------------------------------------------------------------
+// flash_fwd_tf32x3 (replaces _flash_kernel) and, kChunk, its chunk fold
+// (replaces _flash_chunk_kernel): the f32 forward with both products on
+// the tensor cores in 3xTF32, by the fragment code of flash_bwd_tf32x3
+// (Tf32x2, mma3; mma.sync m16n8k8).
+//
+// What bounds it on this card: 4 f32 operations a visible pair and head
+// element, 12 TF32 ones as 3xTF32 (two products of three terms each): at
+// the training shape 8.6 GFLOP of f32 work, 25.8 GFLOP on the tensor
+// cores (0.052 ms at 495 TFLOP/s; 0.128 ms on the FP32 units at 67). The
+// chunk fold at the ring's shape (q [32, 512, 64]) moves 21 MB, most of
+// it the f32 carry in and out: 0.0064 ms of bytes beside 0.0065 ms of
+// operations.
+//
+// A CTA owns kF3Rows = 64 q rows of one row bn of B·N (grid (q tiles,
+// B·N), the longest causal rows first), four warps of 16 rows; at H 64
+// two CTAs share an SM (100 KB of shared memory each), at H 128 one. Q
+// is split once, into a plane of shared memory that holds each lane's
+// A fragment of each k step as two 16-byte words (big, then small). K
+// and V come in tiles of kF3Keys = 64 keys (the plain version's
+// FLASH_BLOCK) by cp.async into a ring of kF3Stages, rows padded by 4
+// floats (the fragment reads, row across lanes g and column across
+// lanes t, or in P V's reordered k row 2t across t, are then free of
+// bank conflicts), the next tile's copies in flight while this one is
+// computed: one barrier a tile. For each key tile, warp w:
+//   S = Q_w Kᵀ        [16 q, 64 keys]: Q the A operand from the plane,
+//                     K's rows the B operand ("col"), each element split
+//                     as it is read; each k step's three products summed
+//                     from zero in the tensor core and added to S by the
+//                     FP32 units (summed over all of H in the tensor
+//                     core, S carried the tensor core's rounding toward
+//                     zero into every p of a row, and the chunk fold's l
+//                     came near the 1e-5 limit at H 128)
+//   softmax           f32 in registers: masked only where the tile
+//                     crosses the diagonal or the sk edge; the row max
+//                     over 4 lanes; p = 2^(s·scale·log2e - m·log2e), one
+//                     FFMA and one ex2 a score; corr = e^(m - m_new)
+//   O = O·corr + P V  P the A operand straight from S's accumulators:
+//                     the k index of a step is taken in the order key 2t,
+//                     2t + 1 of the accumulator layout, and V read in the
+//                     same order, so P needs no shuffle and no shared
+//                     memory; each 8-column piece of P V is summed over
+//                     the tile from zero in the tensor core and added to
+//                     the rescaled O by one FFMA (the tensor core rounds
+//                     its sums toward zero: over every key that bias
+//                     would add up, so O is carried by the FP32 units)
+// A warp whose rows see no key of the tile skips it. Keys >= sk and q
+// rows >= sq arrive as zeros; keys >= sk are masked, rows >= sq never
+// stored. The forward starts from (0, -1e30, 0) and writes o = acc / l
+// and L = m + log l (both 0 on a row that sees no key); the chunk fold
+// reads the carry (cacc, cm, cl) and writes it back unnormalized, and a
+// CTA whose rows see no key of the chunk returns at once, its carry
+// untouched.
+// kOne (a planted fault for chip_smoke.py's check, never on a path):
+// big·big alone (1xTF32). kDrop (the same; the chunk fold): key tile 0
+// left out.
+// ---------------------------------------------------------------------------
+constexpr int kF3Rows = 64;      // q rows of a CTA, 16 a warp
+constexpr int kF3Keys = 64;      // keys of a K/V tile
+constexpr int kF3Warps = kF3Rows / 16;
+constexpr int kF3Stages = 2;     // K/V stages of the ring
 
-// Let Kernel take up to a CTA's 227 KB of dynamic shared memory, once a
-// device and instantiation (the attribute belongs to the current device).
+// The f32 forward's shared memory, byte offsets: the Q plane (kF3Warps x
+// h/8 k steps x {big, small} x 32 lanes x 4 floats) | kF3Stages x (K
+// [kF3Keys][h + 4] f32, V [kF3Keys][h + 4] f32)
+struct F3Layout {
+  int stage, stage_bytes, total;
+};
+__host__ __device__ inline F3Layout f3_layout(int h) {
+  F3Layout L;
+  L.stage = kF3Rows * h * 2 * 4;
+  L.stage_bytes = 2 * kF3Keys * (h + 4) * 4;
+  L.total = L.stage + kF3Stages * L.stage_bytes;
+  return L;
+}
+
+template <int H, bool kChunk, bool kOne, bool kDrop>
+__global__ void __launch_bounds__(kF3Warps * 32, 2)
+flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, float* __restrict__ cacc,
+                 float* __restrict__ cm, float* __restrict__ cl, int sq,
+                 int sk, int g, int d, int causal, float scale) {
+  constexpr int LD = H + 4;
+  constexpr int NH = H / 8;          // k steps of S; n steps of P V
+  constexpr int NT = kF3Warps * 32;
+  constexpr int PER_ROW = H / 4;     // 16-byte chunks a row
+  extern __shared__ float4 smem4[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem4);
+  const F3Layout L = f3_layout(H);
+  float* qp = reinterpret_cast<float*>(base);
+  auto ks = [&](int s) {
+    return reinterpret_cast<float*>(base + L.stage + s * L.stage_bytes);
+  };
+  auto vs = [&](int s) { return ks(s) + kF3Keys * LD; };
+
+  const int bn = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kF3Rows;  // longest first
+  int nk = (sk + kF3Keys - 1) / kF3Keys;
+  if (causal) {                             // up to the last row's last key
+    const int last = q0 + kF3Rows - 1 + d;
+    nk = last < 0 ? 0 : min(nk, last / kF3Keys + 1);
+  }
+  if (kChunk && nk == 0) return;            // the whole CTA: carry kept
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gr = lane / 4, t4 = lane % 4;
+  const float* kb = k + (size_t)(bn / g) * sk * H;
+  const float* vb = v + (size_t)(bn / g) * sk * H;
+  // key tile i into stage s: rows k0 .. k0 + 63, zeros past sk
+  auto load_kv = [&](int i, int s) {
+    const int k0 = i * kF3Keys;
+    for (int c = tid; c < kF3Keys * PER_ROW; c += NT) {
+      const int r = c / PER_ROW, col = (c % PER_ROW) * 4;
+      const bool in = k0 + r < sk;
+      const size_t at = (size_t)(in ? k0 + r : 0) * H + col;
+      cp_async16z(ks(s) + r * LD + col, kb + at, in);
+      cp_async16z(vs(s) + r * LD + col, vb + at, in);
+    }
+  };
+  if (nk > 0) load_kv(0, 0);
+  cp_async_commit();
+
+  // Q rows q0 .. q0 + 63 (zeros past sq), split once into the plane:
+  // element e of lane (g, t)'s A fragment of k step kk, a_e = Q[16w + g
+  // + 8 (e & 1)][8kk + t + 4 (e >> 1)], at word e of its big (small)
+  // 16-byte word
+  const float* qb = q + (size_t)bn * sq * H;
+  for (int c = tid; c < kF3Rows * H; c += NT) {
+    const int r = c / H, col = c % H;
+    const float x = q0 + r < sq ? qb[(size_t)(q0 + r) * H + col] : 0.f;
+    const int e = (r % 16) / 8 + 2 * ((col % 8) / 4);
+    float* at = qp + ((r / 16) * NH + col / 8) * 256 +
+                ((r % 8) * 4 + col % 4) * 4 + e;
+    const uint32_t big = rna_tf32(x);
+    at[0] = __uint_as_float(big);
+    at[128] = __uint_as_float(rna_tf32(x - __uint_as_float(big)));
+  }
+
+  const int qw0 = q0 + 16 * warp;           // this warp's rows
+  const int row0 = qw0 + gr;                // this lane's: row0, row0 + 8
+  float oacc[NH][4], m[2], l[2];
+#pragma unroll
+  for (int j = 0; j < NH; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[j][e] = 0.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+    const int row = row0 + 8 * r;
+    if (kChunk && row < sq) {
+      const size_t at = (size_t)bn * sq + row;
+      m[r] = cm[at];
+      l[r] = cl[at];
+#pragma unroll
+      for (int j = 0; j < NH; ++j) {
+        const float2 a = *reinterpret_cast<const float2*>(
+            cacc + at * H + 8 * j + 2 * t4);
+        oacc[j][2 * r] = a.x;
+        oacc[j][2 * r + 1] = a.y;
+      }
+    }
+  }
+
+  const float sl2 = scale * kLog2e;
+  const float* qw = qp + warp * NH * 256 + lane * 4;
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % kF3Stages, k0 = i * kF3Keys;
+    // tile i landed for every thread, the Q plane written, and every
+    // warp done with tile i - 1, whose stage the next copies refill
+    cp_async_wait<0>();
+    __syncthreads();
+    if (i + 1 < nk) load_kv(i + 1, (i + 1) % kF3Stages);
+    cp_async_commit();
+    // no row of this warp sees a key of the tile (warp-uniform)
+    if ((kDrop && i == 0) || (causal && k0 > qw0 + 15 + d)) continue;
+    const float* kt = ks(s);
+    const float* vt = vs(s);
+
+    // S = Q_w Kᵀ, H/8 steps of 8 along the head dim, each step's sum
+    // added in f32
+    float sacc[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NH; ++kk) {
+      Tf32x2<4> qa;
+      const float4 hi = *reinterpret_cast<const float4*>(qw + kk * 256);
+      const float4 lo = *reinterpret_cast<const float4*>(qw + kk * 256 + 128);
+      qa.big[0] = __float_as_uint(hi.x);
+      qa.big[1] = __float_as_uint(hi.y);
+      qa.big[2] = __float_as_uint(hi.z);
+      qa.big[3] = __float_as_uint(hi.w);
+      qa.small[0] = __float_as_uint(lo.x);
+      qa.small[1] = __float_as_uint(lo.y);
+      qa.small[2] = __float_as_uint(lo.z);
+      qa.small[3] = __float_as_uint(lo.w);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        Tf32x2<2> kf;
+        const int at = (8 * nt + gr) * LD + 8 * kk + t4;
+        kf.set(0, kt[at]);
+        kf.set(1, kt[at + 4]);
+        mma3<kOne, true>(sacc[nt], qa, kf);
+      }
+    }
+
+    // the online softmax of the tile, in f32; score (nt, e) is row row0
+    // + 8 (e >> 1), key k0 + 8 nt + 2 t + (e & 1)
+    if ((causal && k0 + kF3Keys - 1 > qw0 + d) || k0 + kF3Keys > sk) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + 8 * nt + 2 * t4 + (e & 1);
+          const int qpos = row0 + 8 * (e >> 1);
+          if (kpos >= sk || (causal && kpos > qpos + d))
+            sacc[nt][e] = -INFINITY;
+        }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        mx[e >> 1] = fmaxf(mx[e >> 1], sacc[nt][e]);
+    float corr[2], mb[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]) * scale);
+      corr[r] = expf(m[r] - m_new);         // 1 where m did not move
+      mb[r] = m_new * kLog2e;
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {         // masked lanes: 2^-inf = 0
+        const float p = ex2(fmaf(sacc[nt][e], sl2, -mb[e >> 1]));
+        sacc[nt][e] = p;
+        psum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(psum[r]);
+
+    // O = O·corr + P V: A of step kk from S's accumulators, a0..a3 <- c0,
+    // c2, c1, c3 (k index t is key 2t, t + 4 is 2t + 1); each 8-column
+    // piece of P V summed over the tile's 8 steps from zero
+    Tf32x2<4> pa[8];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[kk].set(e, sacc[kk][(e & 1) * 2 + (e >> 1)]);
+#pragma unroll
+    for (int nj = 0; nj < NH; ++nj) {
+      float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        Tf32x2<2> vf;
+        const int at = (8 * kk + 2 * t4) * LD + 8 * nj + gr;
+        vf.set(0, vt[at]);
+        vf.set(1, vt[at + LD]);
+        mma3_onto<kOne>(t, pa[kk], vf, t);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        oacc[nj][e] = fmaf(oacc[nj][e], corr[e >> 1], t[e]);
+    }
+  }
+
+  if constexpr (kChunk) {                   // the carry out, unnormalized
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= sq) continue;
+      const size_t at = (size_t)bn * sq + row;
+      if (t4 == 0) {
+        cm[at] = m[r];
+        cl[at] = l[r];
+      }
+#pragma unroll
+      for (int j = 0; j < NH; ++j)
+        *reinterpret_cast<float2*>(cacc + at * H + 8 * j + 2 * t4) =
+            make_float2(oacc[j][2 * r], oacc[j][2 * r + 1]);
+    }
+  } else {                                  // o = acc / l and L
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= sq) continue;
+      const size_t at = (size_t)bn * sq + row;
+      if (t4 == 0) lse[at] = l[r] > 0.f ? m[r] + logf(l[r]) : 0.f;
+      // o = acc / l, divided as the reference divides
+      const float den = l[r] > 0.f ? l[r] : 1.f;
+#pragma unroll
+      for (int j = 0; j < NH; ++j)
+        *reinterpret_cast<float2*>(o + at * H + 8 * j + 2 * t4) =
+            make_float2(oacc[j][2 * r] / den, oacc[j][2 * r + 1] / den);
+    }
+  }
+}
+
+// Let Kernel take up to a CTA's 227 KB of dynamic shared memory, from
+// the largest carveout, once a device and instantiation (the attributes
+// belong to the current device).
 template <auto Kernel>
 cudaError_t allow_smem() {
   static bool done[64] = {};
@@ -1443,11 +1484,15 @@ cudaError_t allow_smem() {
   if (e != cudaSuccess || (dev < 64 && done[dev])) return e;
   e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            kMaxSmem);
+  // the most shared memory an SM can give, so that CTAs that fit two an
+  // SM get two
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(Kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
   if (e == cudaSuccess && dev < 64) done[dev] = true;
   return e;
 }
-
-int tiles(int n) { return (n + kBlock - 1) / kBlock; }
 
 template <auto Kernel, typename... Args>
 int launch(dim3 grid, int threads, int smem, cudaStream_t stream,
@@ -1493,9 +1538,26 @@ int fwd_wgmma(const void* q, const void* k, const void* v, bf16* o,
       bn / bnkv, d, causal, scale);
 }
 
-// f32 operands run the FP32 forward, bf16 operands the tensor-core one
-// (the forward and the chunk fold by the wrapper's plan: block_m and
-// smem; the FP32 kernel ignores it)
+// The f32 forward (kChunk: the chunk fold) of the wrapper's plan, by
+// flash_fwd_tf32x3: grid (ceil(sq / kF3Rows), bn). kErrLayout unless
+// block_m is kF3Rows and `smem` at least f3_layout's size and at most a
+// CTA's. Nothing to launch where sq or bn is 0.
+template <int H, bool kChunk, bool kOne = false, bool kDrop = false>
+int fwd_tf32x3(const void* q, const void* k, const void* v, float* o,
+               float* lse, float* acc, float* m, float* l, int bn, int bnkv,
+               int sq, int sk, int d, int causal, float scale, int block_m,
+               int smem, cudaStream_t stream) {
+  if (block_m != kF3Rows || smem < f3_layout(H).total || smem > kMaxSmem)
+    return kErrLayout;
+  if (sq == 0 || bn == 0) return 0;
+  return launch<flash_fwd_tf32x3<H, kChunk, kOne, kDrop>>(
+      dim3((sq + kF3Rows - 1) / kF3Rows, bn), kF3Warps * 32, smem, stream,
+      (const float*)q, (const float*)k, (const float*)v, o, lse, acc, m, l,
+      sq, sk, bn / bnkv, d, causal, scale);
+}
+
+// f32 operands run flash_fwd_tf32x3, bf16 operands flash_fwd_wgmma, each
+// by the wrapper's plan (block_m and smem)
 template <int H>
 int fwd(bool bf, const void* q, const void* k, const void* v, void* o,
         float* lse, int bn, int bnkv, int sq, int sk, int causal,
@@ -1505,10 +1567,9 @@ int fwd(bool bf, const void* q, const void* k, const void* v, void* o,
     return fwd_wgmma<H, false>(q, k, v, (bf16*)o, lse, none, none, none, bn,
                                bnkv, sq, sk, sk - sq, causal, scale, block_m,
                                smem, stream);
-  return launch<flash_fwd<H, false>>(
-      dim3(tiles(sq), bn), kThreads, fwd_smem(H), stream, (const float*)q,
-      (const float*)k, (const float*)v, (float*)o, lse, none, none, none,
-      sq, sk, bn / bnkv, sk - sq, causal, scale);
+  return fwd_tf32x3<H, false>(q, k, v, (float*)o, lse, none, none, none, bn,
+                              bnkv, sq, sk, sk - sq, causal, scale, block_m,
+                              smem, stream);
 }
 
 // the chunk fold: the forward's kernels with the carry in and out
@@ -1521,10 +1582,8 @@ int chunk(bool bf, const void* q, const void* k, const void* v, float* acc,
     return fwd_wgmma<H, true>(q, k, v, nullptr, nullptr, acc, m, l, bn,
                               bnkv, sq, sk, d, causal, scale, block_m, smem,
                               stream);
-  return launch<flash_fwd<H, true>>(
-      dim3(tiles(sq), bn), kThreads, fwd_smem(H), stream, (const float*)q,
-      (const float*)k, (const float*)v, (float*)nullptr, (float*)nullptr,
-      acc, m, l, sq, sk, bn / bnkv, d, causal, scale);
+  return fwd_tf32x3<H, true>(q, k, v, nullptr, nullptr, acc, m, l, bn, bnkv,
+                             sq, sk, d, causal, scale, block_m, smem, stream);
 }
 
 // The bf16 backward of the wrapper's plan: grid (bnkv, ceil(sk / kTileN)),
@@ -1628,6 +1687,42 @@ HPX_FLASH_BWD_F32(f32, false, false)
 HPX_FLASH_BWD_F32(f32_one_term, true, false)
 HPX_FLASH_BWD_F32(f32_drop_tile, false, true)
 
+// The f32 forward and chunk fold (flash_fwd_tf32x3) built with a planted
+// fault, for chip_smoke.py's check, never on a path; the arguments of
+// hpx_flash_fwd_f32 and hpx_flash_chunk_f32: _one_term the big·big
+// product alone (1xTF32), _drop_tile the chunk fold with key tile 0 left
+// out.
+extern "C" int hpx_flash_fwd_f32_one_term(
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int bn, int bnkv, int sq, int sk, int h, int causal, float scale,
+    int block_m, int smem, cudaStream_t stream) {
+  HPX_FLASH_BY_HEAD(
+      (fwd_tf32x3<64, false, true>(q, k, v, (float*)o, lse, nullptr, nullptr,
+                                   nullptr, bn, bnkv, sq, sk, sk - sq,
+                                   causal, scale, block_m, smem, stream)),
+      (fwd_tf32x3<128, false, true>(q, k, v, (float*)o, lse, nullptr,
+                                    nullptr, nullptr, bn, bnkv, sq, sk,
+                                    sk - sq, causal, scale, block_m, smem,
+                                    stream)))
+}
+
+#define HPX_FLASH_CHUNK_F32(NAME, ONE, DROP)                                  \
+  extern "C" int hpx_flash_chunk_##NAME(                                     \
+      const void* q, const void* k, const void* v, float* acc, float* m,     \
+      float* l, int bn, int bnkv, int sq, int sk, int h, int d, int causal,  \
+      float scale, int block_m, int smem, cudaStream_t stream) {             \
+    HPX_FLASH_BY_HEAD(                                                       \
+        (fwd_tf32x3<64, true, ONE, DROP>(q, k, v, nullptr, nullptr, acc, m,  \
+                                         l, bn, bnkv, sq, sk, d, causal,     \
+                                         scale, block_m, smem, stream)),     \
+        (fwd_tf32x3<128, true, ONE, DROP>(q, k, v, nullptr, nullptr, acc, m, \
+                                          l, bn, bnkv, sq, sk, d, causal,    \
+                                          scale, block_m, smem, stream)))    \
+  }
+
+HPX_FLASH_CHUNK_F32(f32_one_term, true, false)
+HPX_FLASH_CHUNK_F32(f32_drop_tile, false, true)
+
 // The bf16 backward, kernels 6 and 7 in one launch (flash_bwd_wgmma) by
 // the wrapper's plan (smem): dq [bn][sq][H] f32, zeroed by the caller,
 // and dk, dv [bnkv][sk][H] f32 per K/V row.
@@ -1650,6 +1745,12 @@ extern "C" int hpx_flash_bwd_bf16(const void* q, const void* k,
 // block_m (attention_cuda.flash_fwd_smem_bytes mirrors it).
 extern "C" long long hpx_flash_fwd_smem_bytes(int h, int block_m) {
   return fwd_layout(h, block_m).total;
+}
+
+// The f32 forward's shared-memory bytes at head dim h
+// (attention_cuda.flash_fwd_f32_smem_bytes mirrors it).
+extern "C" long long hpx_flash_fwd_f32_smem_bytes(int h) {
+  return f3_layout(h).total;
 }
 
 // The bf16 backward's shared-memory bytes at head dim h

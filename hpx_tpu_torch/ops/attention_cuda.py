@@ -12,7 +12,8 @@ which the kernel is held against on the card:
   fused_paged_online_attention  kernel paged_attention_online
                                 (replaces _paged_online_kernel; plain
                                 version plain_paged_attention_online)
-  flash_attention_fwd           kernel flash_fwd (replaces _flash_kernel;
+  flash_attention_fwd           bf16: kernel flash_fwd_wgmma; f32: kernel
+                                flash_fwd_tf32x3 (replaces _flash_kernel;
                                 plain version plain_flash_fwd)
   flash_attention_bwd           bf16: kernel flash_bwd_wgmma, dq, dk and
                                 dv in one launch (replaces
@@ -23,19 +24,21 @@ which the kernel is held against on the card:
                                 dv in one launch on the tensor cores as
                                 3xTF32 (replaces the same two;
                                 plain_flash_bwd)
-  flash_attention_chunk         kernel flash_chunk (replaces
-                                _flash_chunk_kernel; plain_flash_chunk):
-                                the ring's fold of one K/V chunk into an
-                                (acc, m, l) carry, kernel flash_fwd's
-                                loop with the carry in and out
+  flash_attention_chunk         the forward kernels' chunk fold,
+                                flash_fwd_wgmma / flash_fwd_tf32x3 with
+                                kChunk (replaces _flash_chunk_kernel;
+                                plain_flash_chunk): the ring's fold of
+                                one K/V chunk into an (acc, m, l) carry,
+                                the forward's loop with the carry in and
+                                out
 
 Each flash kernel has two routes in the source, chosen by the operands'
 dtype. The bf16 forward and chunk fold (``flash_fwd_wgmma``) and the
 bf16 backward (``flash_bwd_wgmma``) run on Hopper's wgmma fed by TMA,
 with launch plans from ``flash_fwd_plan`` and ``flash_bwd_plan``. The
-f32 forward and chunk fold run on the FP32 units; the f32 backward
-(``flash_bwd_tf32x3``) on the tensor cores' mma.sync as 3xTF32, with
-the plan of ``flash_bwd_f32_plan``.
+f32 forward and chunk fold (``flash_fwd_tf32x3``) and the f32 backward
+(``flash_bwd_tf32x3``) run on the tensor cores' mma.sync as 3xTF32,
+with the plans of ``flash_fwd_f32_plan`` and ``flash_bwd_f32_plan``.
 ``flash_attention`` (at the end of this file) is the differentiable
 [B, S, N, H] entry point over the forward and backward wrappers; the
 ring (``ops/attention.py``) runs the chunk and backward wrappers.
@@ -94,7 +97,8 @@ __all__ = ["fused_paged_attention", "fused_paged_online_attention",
            "resolve_paged_block_src", "resolve_paged_block",
            "chunk_blocks", "paged_splits", "paged_plan", "paged_runs",
            "flash_fwd_plan", "flash_fwd_smem_bytes", "FLASH_TILE_N",
-           "FLASH_STAGES", "flash_bwd_plan", "flash_bwd_smem_bytes",
+           "FLASH_STAGES", "flash_fwd_f32_plan", "flash_fwd_f32_smem_bytes",
+           "FLASH_FWD_F32_STAGES", "flash_bwd_plan", "flash_bwd_smem_bytes",
            "FLASH_BWD_STAGES", "flash_bwd_f32_plan",
            "flash_bwd_f32_smem_bytes", "FLASH_BWD_F32_KEYS",
            "exact_smem_bytes", "online_smem_bytes", "PAGED_STAGES",
@@ -609,18 +613,20 @@ fused_paged_online_attention.launches = 0
 # bf16 operands: every dot accumulates in f32 (bf16 products are exact
 # there); p is cast to bf16 before p·V, and p and ds before the backward
 # products, as the reference casts them. f32 operands stay f32: the
-# forward on the FP32 units, the backward in 3xTF32 (each operand as two
-# TF32 halves, three products summed in f32), which the plain versions
-# hold within 1e-4 like FP32 products; they do not emulate the split.
+# forward, the chunk fold and the backward run their products in 3xTF32
+# (each operand as two TF32 halves, three products summed in f32), which
+# the plain versions hold like FP32 products, within 1e-5 (forward, fold)
+# and 1e-4 (backward); they do not emulate the split.
 
-FLASH_BLOCK = 64           # rows of a q tile and of a key tile (f32
-                           # kernels); q rows of a tile of the bf16
-                           # backward
+FLASH_BLOCK = 64           # q rows of a CTA and keys of a K/V tile of
+                           # the f32 forward; q rows of a tile of the
+                           # bf16 backward
 FLASH_TILE_N = 128         # keys of a K/V tile of the bf16 kernels
 FLASH_HEAD_DIMS = (64, 128)  # head dims the CUDA kernels are built for
 _FLASH_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 FLASH_STAGES = 3           # the bf16 forward's ring of K/V stages
 FLASH_BWD_STAGES = 2       # the bf16 backward's ring of Q/dO stages
+FLASH_FWD_F32_STAGES = 2   # the f32 forward's ring of K/V stages
 FLASH_BWD_F32_KEYS = 128   # keys of a CTA of the f32 backward
 FLASH_BWD_F32_STAGES = 2   # the f32 backward's ring of Q/dO stages
 FLASH_BWD_F32_ROWS = {64: 64, 128: 32}   # its q rows a tile, by head dim
@@ -654,6 +660,34 @@ def flash_fwd_plan(h: int, bn: int, sq: int) -> Tuple[int, int]:
         raise ValueError(f"flash_fwd_plan: {smem} bytes at head dim {h}, "
                          f"block_m {block_m}: above {SMEM_LIMIT}")
     return block_m, smem
+
+
+def flash_fwd_f32_smem_bytes(h: int) -> int:
+    """Shared memory of the f32 forward and chunk fold (kernel
+    ``flash_fwd_tf32x3``), as ``f3_layout`` in ``csrc/flash_attention.cu``
+    lays it out (that function owns it; the entry points refuse a smaller
+    size): the Q plane (FLASH_BLOCK rows of h f32, each split into two
+    TF32 halves) and FLASH_FWD_F32_STAGES stages of K and V tiles of
+    FLASH_BLOCK keys, every row of h + 4 f32."""
+    return (FLASH_BLOCK * h * 2 * 4
+            + FLASH_FWD_F32_STAGES * 2 * FLASH_BLOCK * (h + 4) * 4)
+
+
+@functools.lru_cache(maxsize=256)
+def flash_fwd_f32_plan(h: int, bn: int, sq: int) -> Tuple[int, int]:
+    """(q rows a CTA, shared-memory bytes) of a launch of the f32 forward
+    (and of the f32 chunk fold) on [bn, sq, h] queries: one CTA of 4
+    warps a tile of FLASH_BLOCK q rows (grid (q tiles, bn)); two CTAs an
+    SM at h 64, one at h 128. Raises for a head dim the kernel is not
+    built for, and where the shared memory does not fit."""
+    if h not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_fwd_f32_plan: head_dim {h}; the kernel "
+                         f"is built for {FLASH_HEAD_DIMS}")
+    smem = flash_fwd_f32_smem_bytes(h)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"flash_fwd_f32_plan: {smem} bytes at head dim "
+                         f"{h}: above {SMEM_LIMIT}")
+    return FLASH_BLOCK, smem
 
 
 def flash_bwd_smem_bytes(h: int) -> int:
@@ -865,7 +899,8 @@ def _flash_lib() -> ctypes.CDLL:
     if not getattr(lib, "_hpx_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         f = ctypes.c_float
-        for name in (*_FLASH_DTYPES.values(), "bf16_early_release"):
+        for name in (*_FLASH_DTYPES.values(), "bf16_early_release",
+                     "f32_one_term"):
             fn = getattr(lib, f"hpx_flash_fwd_{name}")
             fn.argtypes = [p] * 5 + [i] * 6 + [f] + [i] * 2 + [p]
             fn.restype = i
@@ -873,11 +908,12 @@ def _flash_lib() -> ctypes.CDLL:
             fn = getattr(lib, f"hpx_flash_bwd_{name}")
             fn.argtypes = [p] * 9 + [i] * 7 + [f, i, p]
             fn.restype = i
-        for name in ("bwd", "bwd_f32"):
+        for name in ("fwd_f32", "bwd", "bwd_f32"):
             fn = getattr(lib, f"hpx_flash_{name}_smem_bytes")
             fn.argtypes = [i]
             fn.restype = ctypes.c_longlong
-        for name in _FLASH_DTYPES.values():
+        for name in (*_FLASH_DTYPES.values(), "f32_one_term",
+                     "f32_drop_tile"):
             fn = getattr(lib, f"hpx_flash_chunk_{name}")
             fn.argtypes = [p] * 6 + [i] * 7 + [f] + [i] * 2 + [p]
             fn.restype = i
@@ -949,8 +985,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Causal masks are bottom-right aligned: query i sees keys
     j <= i + (Sk - Sq).
 
-    CUDA tensor: kernel ``flash_fwd`` (``flash_fwd_wgmma`` for bf16, by
-    ``flash_fwd_plan``), which replaces
+    CUDA tensor: kernel ``flash_fwd_wgmma`` for bf16 (by
+    ``flash_fwd_plan``), ``flash_fwd_tf32x3`` for f32 (by
+    ``flash_fwd_f32_plan``), which replace
     ``hpx_tpu/ops/attention_pallas.py:_flash_kernel``. CPU tensor:
     ``plain_flash_fwd``."""
     if q.device.type == "cpu":
@@ -971,12 +1008,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _fwd_plan_args(q: torch.Tensor) -> Tuple[int, int]:
-    """(block_m, smem) of ``flash_fwd_plan`` for bf16 queries, the
-    forward's and the chunk fold's launch; zeros for f32 (the FP32
-    kernels have one fixed tiling)."""
-    if q.dtype != torch.bfloat16:
-        return 0, 0
-    return flash_fwd_plan(q.shape[2], q.shape[0], q.shape[1])
+    """(q rows a CTA, smem) of the forward's and the chunk fold's launch:
+    ``flash_fwd_plan`` for bf16 queries, ``flash_fwd_f32_plan`` for
+    f32."""
+    plan = flash_fwd_plan if q.dtype == torch.bfloat16 else \
+        flash_fwd_f32_plan
+    return plan(q.shape[2], q.shape[0], q.shape[1])
 
 
 flash_attention_fwd.launches = 0
@@ -992,8 +1029,9 @@ def flash_attention_chunk(q, k, v, acc, m, l, d: int, causal: bool = False
     (where l > 0). ``d`` is the causal offset of this chunk (key j
     visible to query i iff j <= i + d), a host int. Returns (acc, m, l).
 
-    CUDA tensor: kernel flash_chunk (``flash_fwd<H, kChunk=true>``,
-    ``flash_fwd_wgmma<H, kChunk=true>`` for bf16), which replaces
+    CUDA tensor: the forward kernel's chunk fold
+    (``flash_fwd_wgmma<H, kChunk=true>`` for bf16,
+    ``flash_fwd_tf32x3<H, kChunk=true>`` for f32), which replaces
     ``hpx_tpu/ops/attention_pallas.py:_flash_chunk_kernel``;
     a q tile that sees no key of the chunk leaves its carry untouched.
     CPU tensor: ``plain_flash_chunk``, copied into the carry."""

@@ -20,9 +20,13 @@ forward's L; kernel 8 (``flash_attention_chunk``) at the ring's shape at
 d = 0 and d = 512, from a carry; and in f32, kernels 6-7 (one kernel,
 or two and a group sum in older trees) at the training shape and at the
 ring's (d = 0), beside SDPA's f32 backward (forward + backward less
-forward), with the largest error over 1e-4 against the plain version.
-Inputs are random normal from seed 11 (kernels 5-7), 13 (kernel 8 and
-the ring's backward) and 17 (f32), as ``chip_smoke.py``'s timing. ``ms`` is the milliseconds a call on the
+forward), with the largest error over 1e-4 against the plain version,
+and kernels 5 and 8 (``flash_attention_fwd``, and
+``flash_attention_chunk`` from an empty carry at d = 0) at the same two
+shapes, beside SDPA's f32 forward, each with its largest error over
+1e-5 against its plain version. Inputs are random normal from seed 11
+(kernels 5-7), 13 (kernel 8 and the ring's backward) and 17 (f32), as
+``chip_smoke.py``'s timing. ``ms`` is the milliseconds a call on the
 device: CUDA events around replays of a CUDA graph of 20 calls (the
 wrappers' host work stays out); ``events_ms`` the same around 20
 back-to-back calls, host work included where it outlasts the kernel;
@@ -238,6 +242,46 @@ def main() -> int:
                           - graph_ms(sdpa_fwd),
                           "margin_1e-4": margin}), flush=True)
         del q, k, v, do, o, lse, delta, q4, k4, v4, do4, xs
+    # the f32 forward and chunk fold at the same two shapes, causal,
+    # beside SDPA's f32 forward, each with its largest error over 1e-5
+    # against its plain version (the chunk's acc as acc / l)
+    for b, s, n, h, shape in ((8, 1024, 8, 64, "B=8 S=1024 N=8 H=64 f32"),
+                              (8, 512, 4, 64, "q [32, 512, 64] f32, d=0")):
+        q, k, v = rows(b, s, n, h, seed=17, dtype=torch.float32)
+        q4, k4, v4 = (x.view(b, n, s, h) for x in (q, k, v))
+        empty = (torch.zeros(q.shape, device="cuda"),
+                 torch.full(q.shape[:2], -1e30, device="cuda"),
+                 torch.zeros(q.shape[:2], device="cuda"))
+        work = [x.clone() for x in empty]
+
+        def fwd32():
+            ac.flash_attention_fwd(q, k, v, True)
+
+        def chunk32():
+            ac.flash_attention_chunk(q, k, v, *work, 0, True)
+
+        def sdpa32():
+            F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+
+        def over(pairs):
+            return max(((g - w).abs() / (1e-5 + 1e-5 * w.abs())).max().item()
+                       for g, w in pairs)
+        fo = ac.plain_flash_fwd(q, k, v, True)
+        fw = ac.plain_flash_chunk(q, k, v, *empty, 0, True)
+        got = ac.flash_attention_chunk(q, k, v, *(x.clone() for x in empty),
+                                       0, True)
+        den = fw[2].clamp_min(1e-30)[..., None]
+        margins = {5: over(zip(ac.flash_attention_fwd(q, k, v, True), fo)),
+                   8: over(((got[0] / den, fw[0] / den), (got[1], fw[1]),
+                            (got[2], fw[2])))}
+        sdpa_ms = graph_ms(sdpa32)
+        for kern, fn in ((5, fwd32), (8, chunk32)):
+            print(json.dumps({"tree": args.tag, "kernel": f"{kern} f32",
+                              "shape": shape, "ms": graph_ms(fn),
+                              "events_ms": events_ms(fn),
+                              "host_ms": host_ms(fn), "sdpa_ms": sdpa_ms,
+                              "margin_1e-5": margins[kern]}), flush=True)
+        del q, k, v, q4, k4, v4, empty, work, fo, fw, got, den
     q, k, v = rows(8, 512, 4, 64, seed=13)
     acc = torch.zeros(q.shape, device="cuda")
     m = torch.full(q.shape[:2], -1e30, device="cuda")

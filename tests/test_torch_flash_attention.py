@@ -319,6 +319,27 @@ def test_flash_bwd_f32_plan(h):
         ac.flash_bwd_f32_plan(h, 8, 65536 * ac.FLASH_BWD_F32_KEYS)
 
 
+@pytest.mark.parametrize("h", [64, 128])
+def test_flash_fwd_f32_plan(h):
+    """The f32 forward and chunk fold: one CTA of 4 warps a tile of
+    FLASH_BLOCK q rows (grid (q tiles, B·N)), the layout's shared memory
+    (the split Q plane and two stages of K and V tiles of FLASH_BLOCK
+    keys, rows padded by 4 floats: 102400 bytes at H 64, two CTAs an SM;
+    200704 at H 128), never above SMEM_LIMIT; the wrapper passes it for
+    f32 queries; other head dims raise."""
+    for bn, sq in ((64, 1024), (16, 4096), (32, 512), (1, 1), (8, 1029)):
+        rows, smem = ac.flash_fwd_f32_plan(h, bn, sq)
+        assert rows == ac.FLASH_BLOCK == 64
+        assert smem == ac.flash_fwd_f32_smem_bytes(h) <= ac.SMEM_LIMIT
+        q = torch.zeros((bn, sq, h), device="meta")
+        assert ac._fwd_plan_args(q) == (rows, smem)
+    assert ac.flash_fwd_f32_smem_bytes(h) == {64: 102400, 128: 200704}[h]
+    assert (ac.flash_fwd_f32_smem_bytes(h) <= 233472 // 2 - 1024) == (h == 64)
+    for bad in (32, 80, 256):
+        with pytest.raises(ValueError, match="head_dim"):
+            ac.flash_fwd_f32_plan(bad, 8, 1024)
+
+
 @pytest.mark.parametrize("h", [32, 80, 256])
 def test_flash_bwd_f32_plan_refuses_other_head_dims(h):
     with pytest.raises(ValueError, match="head_dim"):
