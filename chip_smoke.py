@@ -23,6 +23,11 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    runtime's registers, static shared memory and local bytes of each
    instance: the shared memory must equal ops.stencil.smem_bytes and
    nothing may spill.
+   Then the native scheduler (hpx_tpu_torch/native/scheduler.cpp),
+   built with g++ into hpx_tpu_torch/_build/: the pool an executor owns
+   under the default configuration must be a NativePool, and
+   examples_cuda/fibonacci.py's fib(15) at threshold 10 must give 610
+   through it, one task a spawn.
 2. Kernel checks: each kernel against its plain PyTorch version on small
    and ragged shapes. The stencil kernels bitwise (tolerance 0): kernel
    2 at n in {1, 2, 3, 127, 1000, 2^20 + 3}; kernel 1 at n in {1, 5,
@@ -225,9 +230,26 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    their plain versions, every weight's gradient within 1e-5 by its norm
    (a dq zeroed on purpose must read above that), and the weights after
    one SGD step each way within rtol = atol = 1e-5.
-   A profiled run of the bf16 training step gives the device busy share,
-   and hpx_tpu_torch/tools/algo_profile.py's profiles give config #3's
-   and the FFT's (kernels by device time, launches a call).
+   The server's decode step (greedy and sampled), its prefill chunk a
+   ladder width and its probe, and the single-device SGD step run as
+   replays of CUDA graphs (core/programs.GraphProgram), captured at the
+   first call of a signature: every serving and training path above
+   runs them so, each server capturing at most a graph a ladder width
+   + 3 (count_captures). Phase "program captures": after mix (a) on f32
+   dense, fused and fused_online servers (whose second run of the same
+   requests captures a graph only at a signature it had not seen, none
+   for the dense server), each captured program and the f32 SGD step
+   (batch 2 x 1024) are replayed on the same inputs and state as their
+   .eager program: tokens equal, every float result (logits, loss, the
+   caches, pools and weights written) within 1e-6 of the eager one's
+   by max |diff| / max |eager|; the bf16 SGD step's readings printed.
+   Profiles: mixes (b) and (a) in bf16 and the bf16 training step, each
+   eager and captured in the order eager, captured, captured, eager (ms
+   a step on the host clock), then each once under torch.profiler
+   (device busy share; host-issued launches a step: kernel and graph
+   launches and copies); and hpx_tpu_torch/tools/algo_profile.py's
+   profiles give config #3's and the FFT's (kernels by device time,
+   launches a call).
 4. Timing: each kernel at its main-path shape, CUDA events around runs
    of back-to-back calls (as many as fill about 2 ms), median of 7 runs
    after warm-up (kernel 9 at 2^17 x 1024, bound by its operations: 24 a
@@ -358,7 +380,7 @@ F32_ROUTE = {"flash_attention_fwd": "flash_attention_fwd",
 # the ring's chunk kernel -> the TPU kernel its CUDA kernel replaces
 CHUNK_KERNEL = {"flash_attention_chunk": "hpx_tpu/ops/attention_pallas.py:618"}
 # the FP32 rate probe -> bench_vpu_rate's Pallas kernel it replaces
-FMA_KERNEL = {"fma_chain": "bench.py:338"}
+FMA_KERNEL = {"fma_chain": "bench.py:339"}
 # config #1 (examples_cuda/saxpy_cuda.py) at the size it runs by default
 SAXPY_LOG2N = 22
 # (rtol, atol) of a flash kernel against its plain version: f32 forward,
@@ -374,6 +396,10 @@ NORM_FLOOR = 1e-4
 # per-leaf ||g_kernels - g_plain|| / ||g_plain|| of the f32 training
 # gradients; a zeroed dq must read above it
 GRAD_NORM_REL = 1e-5
+# a CUDA-graph replay against its eager program, f32: max |replay -
+# eager| / max |eager| of each logit, loss and weight tensor
+CAPTURE_REL = 1e-6
+
 
 
 def _nvidia_smi() -> str:
@@ -861,6 +887,8 @@ def main() -> int:
         from hpx_tpu_torch.ops import paged_attention as pa
         from hpx_tpu_torch.ops import fma_rate as fr
         from hpx_tpu_torch.ops import stencil as st
+        from hpx_tpu_torch.core import programs
+        from hpx_tpu_torch.utils.compilemon import count_captures
     except ImportError as e:
         print(f"chip_smoke: cannot import hpx_tpu_torch: {e}",
               file=sys.stderr)
@@ -971,6 +999,56 @@ def main() -> int:
                     f"{st.smem_bytes(k)}")
     if not sm.phase("build", build):
         return 1
+
+    def native_scheduler():
+        """The native C++ scheduler (hpx_tpu_torch/native/scheduler.cpp),
+        built with g++ at first use into the package's _build/; the pool
+        an executor owns under the default configuration
+        (hpx.scheduler.native = 1) must be a NativePool, and
+        examples_cuda/fibonacci.py's fib(15) at threshold 10 must give 610
+        through it, one task a spawn."""
+        import importlib.util
+        from hpx_tpu_torch.native import loader
+        if loader.native_lib() is None:
+            raise AssertionError(f"the native scheduler did not build: "
+                                 f"{loader.BUILD_INFO.get('error')}")
+        info = loader.BUILD_INFO
+        if os.path.dirname(info["path"]) != str(loader.BUILD_DIR):
+            raise AssertionError(f"loaded {info['path']}, not a build of "
+                                 f"{loader.SOURCE} in {loader.BUILD_DIR}")
+        print(f"   {loader.SOURCE.name} -> {info['path']} "
+              f"(built={info['built']}, {info['seconds']!r} s)", flush=True)
+        spec = importlib.util.spec_from_file_location(
+            "fibonacci", os.path.join(os.path.dirname(os.path.abspath(
+                __file__)), "examples_cuda", "fibonacci.py"))
+        fib = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(fib)
+
+        def spawns(n):
+            return 0 if n < 10 else 1 + spawns(n - 1) + spawns(n - 2)
+        ex = hpx.ThreadPoolExecutor()
+        try:
+            if type(ex.pool).__name__ != "NativePool":
+                raise AssertionError(f"the default own pool is "
+                                     f"{type(ex.pool).__name__}")
+            t = HighResolutionTimer()
+            got = fib.fib_futurized(15, 10, ex)
+            secs = t.elapsed()
+            for _ in range(500):        # executed lands after a task body
+                if ex.pool.stats()["executed"] >= spawns(15):
+                    break
+                time.sleep(0.01)
+            st = ex.pool.stats()
+        finally:
+            ex.shutdown()
+        print(f"   fib(15), threshold 10, on {type(ex.pool).__name__} of "
+              f"{st['threads']} threads: {got} in {secs * 1e3!r} ms; "
+              f"executed {st['executed']} (spawns {spawns(15)}), stolen "
+              f"{st['stolen']}", flush=True)
+        if got != 610 or st["executed"] != spawns(15):
+            raise AssertionError(f"fib(15) = {got}, executed "
+                                 f"{st['executed']}")
+    sm.phase("native scheduler", native_scheduler)
 
     # -- 2. kernel checks on small and ragged shapes ---------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2398,6 +2476,51 @@ def main() -> int:
             raise AssertionError("then_on_device's value did not wait for "
                                  "its CUDA event on the watcher")
 
+    def graph_nodes(what, progs, want=None):
+        """Each CUDA graph captured for ``progs`` (GraphProgram), read
+        back: the kernel nodes of each counted wrapper in it (the nodes
+        whose function the wrapper's pattern names, from the graph
+        itself), held equal to the launches the wrapper made while the
+        graph was captured and, where ``want`` names the program, to
+        want[name] ({wrapper: nodes}). Returns {program: [each graph's
+        {wrapper: nodes}]}."""
+        seen = {}
+        for prog in progs:
+            for g in prog.graphs.values():
+                nodes = {}
+                for w in programs._COUNTED:
+                    n = sum(c for k, c in g.kernels.items()
+                            if w.kernels.search(k))
+                    if n:
+                        nodes[w.__name__] = n
+                expect = (want or {}).get(prog.name, nodes)
+                if nodes != g.wrapper_launches or nodes != expect:
+                    raise AssertionError(
+                        f"{what}: a graph of {prog.name} holds the kernel "
+                        f"nodes {nodes}; its wrappers launched "
+                        f"{g.wrapper_launches} while it was captured; want "
+                        f"{expect}; all its kernel nodes {dict(g.kernels)}")
+                seen.setdefault(prog.name, []).append(nodes)
+        return seen
+
+    def server_nodes(srv):
+        """The counted kernels' nodes a server's graphs must hold: a
+        paged step on the fused kernels one launch a layer; the dense
+        and gather steps, the chunks and the probe none."""
+        step = {"fused": "fused_paged_attention",
+                "fused_online": "fused_paged_online_attention"}.get(
+                    srv._paged_kernel if srv.paged else None)
+        return {"cb_step": {}, "cb_chunk": {}, "cb_probe": {},
+                "pg_step": {step: srv.cfg.n_layers} if step else {}}
+
+    def sgd_nodes(cfg):
+        """The SGD step's graph: the flash forward and the backward of
+        the weights' type (kernels 6-7 in one), once a layer."""
+        bwd = ("flash_attention_bwd_f32" if cfg.dtype == torch.float32
+               else "flash_attention_bwd")
+        return {"sgd_step": {"flash_attention_fwd": cfg.n_layers,
+                             bwd: cfg.n_layers}}
+
     # the serving model at full width; mixes (a) and (b) from seeds
     rng = np.random.default_rng(0)
     shared = rng.integers(1, 1000, 64).tolist()
@@ -2424,9 +2547,20 @@ def main() -> int:
             srv.submit(p, max_new=m)
         torch.cuda.synchronize()
         t = HighResolutionTimer()
-        out = srv.run()
+        with count_captures() as caps:
+            out = srv.run()
         torch.cuda.synchronize()
         secs = t.elapsed()
+        # a chunk program per ladder width, the probe, and the step with
+        # and without sampling
+        if caps.captures > len(srv.prefill_buckets) + 3 or \
+                caps.captures != sum(len(g.graphs)
+                                     for g in srv._graphs.values()):
+            raise AssertionError(f"({mix}) {label}: {caps.captures} "
+                                 f"captures for {len(srv.prefill_buckets)} "
+                                 "ladder widths")
+        nodes = graph_nodes(f"({mix}) {label}", srv._graphs.values(),
+                            server_nodes(srv))
         ntok = sum(len(v) for v in out.values())
         if sorted(out) != list(range(len(reqs))) or any(
                 len(out[i]) != m or not all(0 <= x < cfg.vocab
@@ -2441,7 +2575,10 @@ def main() -> int:
                      f"{st_['hit_rate']!r}, prefill tokens saved "
                      f"{st_['prefill_tokens_saved']}")
         print(f"   ({mix}) {label}: {ntok} tokens in {secs!r} s = "
-              f"{ntok / secs!r} tokens/s{extra}", flush=True)
+              f"{ntok / secs!r} tokens/s{extra}; {caps.captures} CUDA "
+              f"graphs captured; counted kernels' nodes read from each "
+              f"graph (equal to the wrappers' launches in its capture): "
+              f"{nodes}", flush=True)
         return out, srv
 
     def serving_f32():
@@ -2566,6 +2703,8 @@ def main() -> int:
         if not all(math.isfinite(x) for x in losses) or \
                 not losses[-1] < losses[0]:
             raise AssertionError(f"bf16 losses did not fall: {losses}")
+        sgd_graph = graph_nodes("bf16 SGD step", [step.program],
+                                sgd_nodes(cfg))
         step_s = statistics.median(secs[2:])
         train.update(cfg=cfg, params=params, toks=toks, tgts=tgts, step=step,
                      step_ms=step_s * 1e3, tokens_per_s=toks.numel() / step_s)
@@ -2573,7 +2712,9 @@ def main() -> int:
               flush=True)
         print(f"   each step launched the flash forward and the bf16 "
               f"backward (kernels 6-7 in one) {cfg.n_layers} times (once a "
-              f"layer), the f32 backward kernel never; step times {secs} s; "
+              f"layer), the f32 backward kernel never (steps 2-10 as "
+              f"replays of one graph, its counted kernels' nodes "
+              f"{sgd_graph}); step times {secs} s; "
               f"median after 2 "
               f"warm-ups {step_s * 1e3!r} ms = {toks.numel() / step_s!r} "
               f"tokens/s; peak memory "
@@ -2672,7 +2813,7 @@ def main() -> int:
         step = tf.make_train_step(cfg)
         step(params, toks, tgts)
         with plain_flash():
-            step(p_plain, toks, tgts)
+            step.eager(p_plain, toks, tgts)
         # the f32 route's forward launches: the gradients' and the step's
         f32_fwd = ac.flash_attention_fwd.launches - fwd_before
         if f32_fwd != 2 * cfg.n_layers:
@@ -2691,6 +2832,210 @@ def main() -> int:
     if train:   # the f32 training path: the f32 backward kernel's only
         sm.phase("main path: training f32, kernels against plain",
                  lambda: run_path(training_gate))
+
+    def rel_reading(got, want) -> float:
+        """max |got - want| / max |want| (0 for equal tensors)."""
+        g, w = got.double(), want.double()
+        if torch.equal(got, want):
+            return 0.0
+        return (g - w).abs().max().item() / max(w.abs().max().item(),
+                                                1e-30)
+
+    def clones(x):
+        return [t.clone() for t in programs.tensors(x)]
+
+    def restore(x, saved):
+        for t, v in zip(programs.tensors(x), saved):
+            t.copy_(v)
+
+    def run_both(prog, args, state, stale=False):
+        """(replay's results, eager's results): the program replayed on
+        ``args``, then, from the same ``state`` (saved before and
+        restored after the replay), ``.eager`` on them; each the outputs'
+        tensors and then the state's. ``stale`` leaves the replay's
+        input copies out (a planted fault: it runs on the inputs of the
+        call before)."""
+        if prog.signature(args) not in prog.graphs:
+            prog(*args)                  # warm-up run and capture
+        saved = clones(state)
+        copy_in = programs._Graph._copy_in
+        if stale:
+            programs._Graph._copy_in = lambda self, args: None
+        try:
+            got = prog(*args)            # a replay
+        finally:
+            programs._Graph._copy_in = copy_in
+        torch.cuda.synchronize()
+        got = clones(got) + clones(state)
+        restore(state, saved)
+        want = prog.eager(*args)
+        torch.cuda.synchronize()
+        return got, clones(want) + clones(state)
+
+    def readings(got, want):
+        """(largest reading, [(i, reading) over CAPTURE_REL], [i of
+        integer results that differ])."""
+        worst, over, ints = 0.0, [], []
+        for i, (a, b) in enumerate(zip(got, want)):
+            if not a.is_floating_point():
+                if not torch.equal(a, b):
+                    ints.append(i)
+                continue
+            r = rel_reading(a, b)
+            worst = max(worst, r)
+            if r > CAPTURE_REL:
+                over.append((i, r))
+        return worst, over, ints
+
+    def replay_vs_eager(what, prog, args, state, hold=True, stale=None):
+        """One captured program replayed against its ``.eager`` program
+        on the same inputs from the same state: tokens equal, every float
+        result (outputs and the state it wrote) within CAPTURE_REL of the
+        eager one's by max |diff| / max |eager|. With ``hold`` False the
+        readings are printed, not held. ``stale``, other inputs of the
+        same signature: the replay run on them with its input copies
+        left out must differ (the check is not blind)."""
+        before = {k.__name__: k.launches for k in kernels}
+        worst, over, ints = readings(*run_both(prog, args, state))
+        ran = {k.__name__: k.launches - before[k.__name__] for k in kernels
+               if k.launches != before[k.__name__]}
+        print(f"   {what}: replay vs eager, largest reading {worst!r} "
+              f"(limit {CAPTURE_REL}{'' if hold else ', printed only'}); "
+              f"launches {ran}"
+              + (f"; over the limit: {over}" if over else "")
+              + (f"; integer results differ: {ints}" if ints else ""),
+              flush=True)
+        if hold and (over or ints):
+            raise AssertionError(f"{what}: replay differs from eager: "
+                                 f"{over}, integers {ints}")
+        if stale is not None:
+            bad, bad_over, bad_ints = readings(*run_both(prog, stale, state,
+                                                         stale=True))
+            print(f"   {what}, planted fault (input copies left out): "
+                  f"largest reading {bad!r}, integer results differ "
+                  f"{bad_ints}", flush=True)
+            if not bad_over and not bad_ints:
+                raise AssertionError(f"{what}: a replay on stale inputs "
+                                     "passes the check: it is blind")
+
+    def program_captures():
+        """Each captured program, replayed against ``.eager`` on the same
+        inputs: the dense, fused and fused_online f32 servers' steps
+        (greedy and sampled), chunk per ladder width and probe, after
+        mix (a); the f32 SGD step (batch 2 x 1024, kernels 5-7 in f32 in
+        the graph); bf16 (the SGD step, the bf16 server's step), printed
+        only. A server's second run of the same requests captures
+        nothing."""
+        f32 = torch.float32
+        params, cfg = model(f32)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        dev = torch.device("cuda")
+        for label, kw in (("dense", {}),
+                          ("paged fused", dict(paged=True, block_size=16,
+                                               paged_kernel="fused")),
+                          ("paged fused_online",
+                           dict(paged=True, block_size=16,
+                                paged_kernel="fused_online"))):
+            _, srv = serve("a", f"f32 {label} (for the replays)", f32, **kw)
+            seen = sum(len(g.graphs) for g in srv._graphs.values())
+            for p, m in mix_a:
+                srv.submit(p, max_new=m)
+            with count_captures() as caps:
+                again = srv.run()
+            new = sum(len(g.graphs) for g in srv._graphs.values()) - seen
+            # dense: the same chunk widths again; paged: the radix tree
+            # may shorten a prompt's chunks onto another width
+            if caps.captures != new or (not srv.paged and new):
+                raise AssertionError(f"{label}: the second run of the same "
+                                     f"requests captured {caps.captures} "
+                                     f"graphs at {new} new signatures")
+            print(f"   f32 {label}: a second run of (a) captured "
+                  f"{caps.captures} graphs, at {new} signatures not seen "
+                  f"before ({len(again)} requests)", flush=True)
+            slots, smax = srv.slots, srv.smax
+            tok = torch.randint(0, cfg.vocab, (slots,), generator=gen,
+                                device=dev)
+            pos = torch.randint(0, smax, (slots,), generator=gen,
+                                device=dev).int()
+            keys = torch.randint(0, 2**31, (slots, 2), generator=gen,
+                                 device=dev)
+            for sample in (False, True):
+                temp = torch.full((slots,), 0.8 if sample else 0.0,
+                                  device=dev)
+                if srv.paged:
+                    maxb = srv._maxb
+                    tables = (torch.arange(slots * maxb, device=dev,
+                                           dtype=torch.int32)
+                              .reshape(slots, maxb) + 1)
+                    replay_vs_eager(
+                        f"f32 {label} step, sample={sample}",
+                        srv._paged_step_prog(),
+                        (srv.params, srv._pools, srv._scales, tok, pos,
+                         tables, temp, keys, sample),
+                        (srv._pools, srv._scales))
+                else:
+                    replay_vs_eager(
+                        f"f32 {label} step, sample={sample}",
+                        srv._step_prog(),
+                        (srv.params, srv._caches, tok, pos, temp, keys,
+                         sample), srv._caches,
+                        stale=(srv.params, srv._caches, tok.flip(0),
+                               (pos + 1) % smax, temp, keys, sample))
+            # the chunk and probe graphs bind the server's one scratch
+            scratch = srv._scratch
+            for width in srv.prefill_buckets:
+                for t in programs.tensors(scratch):
+                    t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+                toks = torch.randint(0, cfg.vocab, (1, width), generator=gen,
+                                     device=dev)
+                pos0 = torch.tensor(smax - width - 3, device=dev)
+                replay_vs_eager(f"f32 {label} chunk, width {width}",
+                                srv._chunk_prog(width),
+                                (srv.params, scratch, toks, pos0), scratch)
+            replay_vs_eager(f"f32 {label} probe", srv._probe_prog(),
+                            (srv.params, scratch, toks[:, :1],
+                             torch.tensor(smax - 1, device=dev)), scratch)
+            n = sum(len(g.graphs) for g in srv._graphs.values())
+            if n > len(srv.prefill_buckets) + 3:
+                raise AssertionError(f"{label}: {n} graphs")
+            graph_nodes(f"f32 {label}", srv._graphs.values(),
+                        server_nodes(srv))
+            del srv
+        # a capture that cannot be made raises: a program that reads a
+        # value back to the host mid-way (a synchronization, refused
+        # while a stream is captured) must not give way to its eager run
+        x = torch.ones(4, device=dev)
+        bad = programs.GraphProgram(lambda t: t * float(t.sum()), dev)
+        try:
+            bad(x)
+        except RuntimeError as e:
+            print(f"   a capture that synchronizes raised "
+                  f"{type(e).__name__}: {str(e).splitlines()[0][:120]}",
+                  flush=True)
+        else:
+            raise AssertionError("a capture that synchronizes did not "
+                                 "raise")
+        if bad.graphs or float((x * 2).sum()) != 8.0:
+            raise AssertionError("after the failed capture: graphs "
+                                 f"{len(bad.graphs)}, or the card fails")
+        # the SGD step: f32 (held) and bf16 (printed)
+        for dt, hold in ((f32, True), (torch.bfloat16, False)):
+            tcfg = tf.TransformerConfig(**TRAIN_MODEL, dtype=dt)
+            tparams = tf.init_params(tcfg, seed=0)
+            toks, tgts = train["toks"][:2], train["tgts"][:2]
+            step = tf.make_train_step(tcfg)
+            weights = list(tparams.parameters())
+            replay_vs_eager(f"{str(dt)[6:]} SGD step, batch 2 x 1024",
+                            step.program, (tparams, toks, tgts), weights,
+                            hold=hold,
+                            stale=((tparams, toks.flip(1), tgts.flip(1))
+                                   if hold else None))
+            graph_nodes(f"{str(dt)[6:]} SGD step", [step.program],
+                        sgd_nodes(tcfg))
+            del step, tparams, weights
+        torch.cuda.empty_cache()
+    if train:
+        sm.phase("program captures", program_captures)
 
     def gloo_cuda():
         """Every verb that collectives.device.GLOO_CUDA hands to gloo on
@@ -2864,103 +3209,246 @@ def main() -> int:
             print(f"FAIL {k} was not launched on the main path")
     torch.cuda.empty_cache()
 
-    def serving_profile():
-        """Where a decode step's time goes: the bf16 (b) run once more
-        under torch.profiler, stepped by hand. Device busy share = the
-        kernels' summed device time over the wall time of the run."""
-        from torch.profiler import ProfilerActivity, profile
-        params, cfg = model(torch.bfloat16)
-        srv = serving.ContinuousServer(params, cfg, **mixes["b"][1],
-                                       paged=True, block_size=16)
-        for p, m in mix_b:
+    @contextlib.contextmanager
+    def eager_programs():
+        """Servers built inside run their programs eagerly, as before the
+        CUDA-graph captures, for the profiles' before and after."""
+        saved = programs.graphs_enabled
+        programs.graphs_enabled = lambda device: False
+        try:
+            yield
+        finally:
+            programs.graphs_enabled = saved
+
+    def device_events(prof):
+        """(device microseconds, host-issued launches by API call) of a
+        trace: device events only (kernels, copies; a CPU op's own device
+        time already holds its kernels'), and the calls that put work on
+        the device: kernel launches (cudaLaunchKernelExC for the
+        clustered paged-attention launches), graph launches and copies."""
+        ev = prof.key_averages()
+        dev = [e for e in ev if e.key != "decode step" and
+               e.device_type != torch.autograd.DeviceType.CPU]
+        calls = {e.key: e.count for e in ev
+                 if e.key.startswith(("cudaLaunchKernel", "cudaGraphLaunch",
+                                      "cudaMemcpyAsync"))}
+        return sum(e.self_device_time_total for e in dev), calls, dev
+
+    def traced_launches(what, dev, before):
+        """The counted kernels' launches the profiler saw run on the card
+        (its kernel records, which graph replays' kernels are among),
+        against the wrappers' counts since ``before`` ({name: count}),
+        which a replay raises by its graph's nodes: equal, or the run
+        fails. Returns {wrapper: launches traced}."""
+        traced = {}
+        for w in programs._COUNTED:
+            n = sum(e.count for e in dev if w.kernels.search(e.key))
+            counted_ = w.launches - before[w.__name__]
+            if n != counted_:
+                raise AssertionError(
+                    f"{what}: the trace holds {n} runs of {w.__name__}'s "
+                    f"kernel, its count rose by {counted_}")
+            if n:
+                traced[w.__name__] = n
+        return traced
+
+    def serve_steps(srv, reqs, profiled=False):
+        """(steps, wall seconds, host seconds of each decode step, trace)
+        of one run of ``reqs``, stepped by hand, under torch.profiler when
+        ``profiled``. A decode step is one that finds no request queued
+        and no prefill pending (it only decodes); under the profiler it
+        is marked by a "decode step" range."""
+        from torch.profiler import ProfilerActivity, profile, record_function
+        for p, m in reqs:
             srv.submit(p, max_new=m)
-        steps = 0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        ctx = (profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+               if profiled else contextlib.nullcontext())
+        steps, decode = 0, []
+        with ctx as prof:
             torch.cuda.synchronize()
             t = HighResolutionTimer()
-            while srv.step():
+            more = True
+            while more:
+                only = not srv._queue and not srv._pending
+                t0 = time.perf_counter()
+                with (record_function("decode step") if profiled and only
+                      else contextlib.nullcontext()):
+                    more = srv.step()
+                if only:
+                    decode.append(time.perf_counter() - t0)
                 steps += 1
             torch.cuda.synchronize()
             wall = t.elapsed()
-        # device events only (kernels, copies): a CPU op's own device
-        # time already holds its kernels', which are listed beside it
-        ev = prof.key_averages()
-        dev = [e for e in ev
-               if e.device_type != torch.autograd.DeviceType.CPU]
-        dev_us = sum(e.self_device_time_total for e in dev)
-        # kernel launches: cudaLaunchKernel, and cudaLaunchKernelExC for
-        # the clustered paged-attention launches
-        launches = {e.key: e.count for e in ev
-                    if e.key.startswith("cudaLaunchKernel")}
-        total = sum(launches.values())
-        print(f"   profiled (b) bf16 auto: {steps} steps in {wall!r} s "
-              f"({wall / steps * 1e3!r} ms a step, under the profiler); "
-              f"{total} kernel launches {launches} ({total / steps!r} a "
-              "step)", flush=True)
-        if dev_us <= 0:
-            print("   device busy share: not measured (the profiler "
-                  "recorded no device time)", flush=True)
-            return
-        busy = dev_us * 1e-6 / wall
-        exact_us = sum(e.self_device_time_total for e in dev
-                       if "paged_attention_exact" in e.key)
-        print(f"   device busy {dev_us * 1e-6!r} s of {wall!r} s wall: "
-              f"busy share {busy!r}, idle share {1 - busy!r}; "
-              f"paged_attention_exact {exact_us * 1e-3!r} ms device, "
-              f"{exact_us / dev_us!r} of the device time", flush=True)
-        for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:8]:
-            print(f"     {e.key[:70]}: {e.self_device_time_total * 1e-3!r} "
-                  f"ms device, {e.count} calls", flush=True)
+        return steps, wall, decode, prof
+
+    def decode_calls(prof) -> dict:
+        """(host-issued launches inside the trace's "decode step" ranges,
+        by API call; the number of ranges). The ranges are the host's
+        (the profiler also records each as a device annotation)."""
+        import bisect
+        evs = prof.events()
+        spans = sorted((e.time_range.start, e.time_range.end) for e in evs
+                       if e.name == "decode step" and e.device_type
+                       == torch.autograd.DeviceType.CPU)
+        starts = [a for a, _ in spans]
+        out = {}
+        for e in evs:
+            if not e.name.startswith(("cudaLaunchKernel", "cudaGraphLaunch",
+                                      "cudaMemcpyAsync")):
+                continue
+            i = bisect.bisect_right(starts, e.time_range.start) - 1
+            if i >= 0 and e.time_range.start <= spans[i][1]:
+                out[e.name] = out.get(e.name, 0) + 1
+        return out, len(spans)
+
+    def serving_profile():
+        """Where a decode step's time goes, before and after the captures:
+        mixes (b) and (a) in bf16 (auto -> fused) on a server whose
+        programs run eagerly and on one whose step, chunk and probe
+        programs replay CUDA graphs; each server warmed by two runs of
+        the mix (its captures, cuBLAS), then timed unprofiled in the
+        order eager, captured, captured, eager (ms a step: the wall clock
+        of a run over its steps), then run once under torch.profiler.
+        Busy share: the device events' summed time over the wall time,
+        of the profiled run and of the unprofiled ones (device ms a step
+        over ms a step)."""
+        params, cfg = model(torch.bfloat16)
+        for mix in ("b", "a"):
+            reqs, base = mixes[mix]
+            kw = dict(base, paged=True, block_size=16)
+            with eager_programs():
+                eager = serving.ContinuousServer(params, cfg, **kw)
+            runs = {"eager": eager,
+                    "captured": serving.ContinuousServer(params, cfg, **kw)}
+            if runs["eager"]._graphs or runs["eager"]._graph_pool:
+                raise AssertionError("the eager server captures")
+            for srv in runs.values():
+                # twice: the second run's prompts meet the radix tree, so
+                # its chunk widths are the later runs' too
+                for _ in range(2):
+                    serve_steps(srv, reqs)
+            ms = {k: [] for k in runs}
+            dec = {k: [] for k in runs}
+            caught = 0
+            for k in ("eager", "captured", "captured", "eager"):
+                with count_captures() as caps:
+                    steps, wall, decode, _ = serve_steps(runs[k], reqs)
+                caught += caps.captures
+                ms[k].append(wall / steps * 1e3)
+                dec[k].append(statistics.median(decode) * 1e3)
+            print(f"   ({mix}) captures during the timed runs: {caught}",
+                  flush=True)
+            for k, srv in runs.items():
+                before = {w.__name__: w.launches for w in programs._COUNTED}
+                steps, wall, _, prof = serve_steps(srv, reqs, profiled=True)
+                dev_us, calls, dev = device_events(prof)
+                total = sum(calls.values())
+                dcalls, nd = decode_calls(prof)
+                step_ms = statistics.mean(ms[k])
+                print(f"   ({mix}) bf16 {k}: {step_ms!r} ms a step (runs "
+                      f"{ms[k]}, {steps} steps a run); host ms a decode "
+                      f"step (median, runs) {dec[k]}; profiled "
+                      f"{wall / steps * 1e3!r} ms a step; {total / steps!r} "
+                      f"host-issued launches a step {calls}; "
+                      f"{sum(dcalls.values()) / max(nd, 1)!r} a decode step "
+                      f"({nd} decode steps) {dcalls}; on {smi}", flush=True)
+                if dev_us <= 0:
+                    print(f"   ({mix}) {k}: device busy share not measured "
+                          "(the profiler recorded no device time)",
+                          flush=True)
+                    continue
+                traced = traced_launches(f"({mix}) bf16 {k}", dev, before)
+                if not traced.get("fused_paged_attention"):
+                    raise AssertionError(f"({mix}) bf16 {k}: the trace holds "
+                                         "no run of paged_attention_exact")
+                print(f"   ({mix}) bf16 {k}: the counted kernels' runs in the "
+                      f"trace equal the wrappers' counts: {traced}",
+                      flush=True)
+                dev_ms = dev_us * 1e-3 / steps
+                exact_us = sum(e.self_device_time_total for e in dev
+                               if "paged_attention_exact" in e.key)
+                print(f"   ({mix}) bf16 {k}: device {dev_ms!r} ms a step; "
+                      f"busy share {dev_ms / step_ms!r} unprofiled, "
+                      f"{dev_us * 1e-6 / wall!r} profiled; "
+                      f"paged_attention_exact {exact_us / dev_us!r} of the "
+                      "device time", flush=True)
+                for e in sorted(dev, key=lambda e: -e.self_device_time_total
+                                )[:6]:
+                    print(f"     {e.key[:70]}: "
+                          f"{e.self_device_time_total * 1e-3!r} ms device, "
+                          f"{e.count} calls", flush=True)
+            del runs, eager
     sm.phase("serving profile", serving_profile)
 
     def training_profile():
-        """Where a training step's time goes: 3 more bf16 steps of the
-        main path's model under torch.profiler. Device busy share = the
-        device events' summed time over the wall time of the run."""
-        from torch.profiler import ProfilerActivity, profile
+        """Where a training step's time goes, before and after the
+        capture: the main path's bf16 SGD step eagerly (``step.eager``)
+        and as graph replays, 3 steps each in the order eager, captured,
+        captured, eager on the host clock (a synchronization after each
+        step), then 3 more of each under torch.profiler. Device busy
+        share = the device events' summed time over the wall time."""
         if not train:
             raise AssertionError("the training path did not run")
-        params = train["params"]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t = HighResolutionTimer()
+        step = train["step"]
+        runs = {"eager": step.eager, "captured": step}
+        params, toks, tgts = train["params"], train["toks"], train["tgts"]
+        secs = {k: [] for k in runs}
+        for k in ("eager", "captured", "captured", "eager"):
             for _ in range(3):
-                params, _ = train["step"](params, train["toks"],
-                                          train["tgts"])
-            torch.cuda.synchronize()
-            wall = t.elapsed()
-        ev = prof.key_averages()
-        dev = [e for e in ev
-               if e.device_type != torch.autograd.DeviceType.CPU]
-        dev_us = sum(e.self_device_time_total for e in dev)
-        launches = sum(e.count for e in ev if e.key == "cudaLaunchKernel")
-        print(f"   profiled bf16 training: 3 steps in {wall!r} s "
-              f"({wall / 3 * 1e3!r} ms a step, under the profiler); "
-              f"{launches} cudaLaunchKernel calls ({launches / 3!r} a "
-              "step)", flush=True)
-        if dev_us <= 0:
-            print("   device busy share: not measured (the profiler "
-                  "recorded no device time)", flush=True)
-            return
-        busy = dev_us * 1e-6 / wall
-        per_step = dev_us * 1e-3 / 3
-        print(f"   device busy {dev_us * 1e-6!r} s of {wall!r} s wall: "
-              f"busy share {busy!r}, idle share {1 - busy!r} (under the "
-              f"profiler); device time a step {per_step!r} ms, "
-              f"{per_step / train['step_ms']!r} of the unprofiled step's "
-              f"{train['step_ms']!r} ms; on {smi}", flush=True)
-        groups = {"flash kernels": 0.0, "matmuls": 0.0, "other": 0.0}
-        for e in dev:
-            key = ("flash kernels" if "flash_" in e.key else "matmuls"
-                   if any(w in e.key for w in ("nvjet", "gemm", "cutlass"))
-                   else "other")
-            groups[key] += e.self_device_time_total * 1e-3 / 3
-        print(f"   device ms a step by group: {groups}", flush=True)
-        for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:16]:
-            print(f"     {e.key[:70]}: {e.self_device_time_total * 1e-3!r} "
-                  f"ms device, {e.count} calls", flush=True)
+                torch.cuda.synchronize()
+                t = HighResolutionTimer()
+                params, _ = runs[k](params, toks, tgts)
+                torch.cuda.synchronize()
+                secs[k].append(t.elapsed())
+        from torch.profiler import ProfilerActivity, profile
+        for k, fn in runs.items():
+            before = {w.__name__: w.launches for w in programs._COUNTED}
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t = HighResolutionTimer()
+                for _ in range(3):
+                    params, _ = fn(params, toks, tgts)
+                torch.cuda.synchronize()
+                wall = t.elapsed()
+            dev_us, calls, dev = device_events(prof)
+            step_ms = statistics.median(secs[k]) * 1e3
+            print(f"   bf16 training {k}: {step_ms!r} ms a step (median of "
+                  f"{[x * 1e3 for x in secs[k]]}); profiled "
+                  f"{wall / 3 * 1e3!r} ms a step; "
+                  f"{sum(calls.values()) / 3!r} host-issued launches a "
+                  f"step {calls}; on {smi}", flush=True)
+            if dev_us <= 0:
+                print("   device busy share: not measured (the profiler "
+                      "recorded no device time)", flush=True)
+                continue
+            traced = traced_launches(f"bf16 training {k}", dev, before)
+            want = {n: 3 * train["cfg"].n_layers for n in FLASH_KERNELS}
+            if traced != want:
+                raise AssertionError(f"bf16 training {k}: traced kernel runs "
+                                     f"{traced}, want {want}")
+            print(f"   bf16 training {k}: the counted kernels' runs in the "
+                  f"trace of 3 steps equal the wrappers' counts: {traced}",
+                  flush=True)
+            per_step = dev_us * 1e-3 / 3
+            print(f"   bf16 training {k}: device {per_step!r} ms a step; "
+                  f"busy share {per_step / step_ms!r} unprofiled, "
+                  f"{dev_us * 1e-6 / wall!r} profiled", flush=True)
+            groups = {"flash kernels": 0.0, "matmuls": 0.0, "other": 0.0}
+            for e in dev:
+                key = ("flash kernels" if "flash_" in e.key else "matmuls"
+                       if any(w in e.key for w in ("nvjet", "gemm",
+                                                   "cutlass"))
+                       else "other")
+                groups[key] += e.self_device_time_total * 1e-3 / 3
+            print(f"   device ms a step by group: {groups}", flush=True)
+            for e in sorted(dev, key=lambda e: -e.self_device_time_total
+                            )[:8]:
+                print(f"     {e.key[:70]}: "
+                      f"{e.self_device_time_total * 1e-3!r} ms device, "
+                      f"{e.count} calls", flush=True)
+        train["params"] = params
     sm.phase("training profile", training_profile)
 
     # -- 4. timing ----------------------------------------------------------------

@@ -84,6 +84,8 @@ def defaults() -> Dict[str, str]:
 
 # -- core / scheduling ------------------------------------------------------
 declare("hpx.os_threads", "str", "auto", "host worker threads (auto = cores, floor 4)")
+declare("hpx.scheduler.native", "bool", "1",
+        "use the C++ scheduler when available")
 declare("hpx.localities", "int", "1", "number of localities in the launch",
         reserved=True)
 declare("hpx.locality", "int", "0", "this process's locality id",

@@ -7,7 +7,7 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false \
 //        -shared -Xcompiler -fPIC -o libfma_rate.so fma_rate.cu
 //
-// Replaces bench.py:338, the `kernel` closure of bench_vpu_rate, which
+// Replaces bench.py:339, the `kernel` closure of bench_vpu_rate, which
 // held a (2^17 / 128, 128) float32 array in VMEM and ran 1024 iterations
 // of
 //   y_j = u * c_j + c_j,  c_j = f32(c + f32(j * 1e-9)),  j = 0..7

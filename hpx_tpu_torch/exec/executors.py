@@ -11,9 +11,11 @@ is kept verbatim; concrete executors:
   CudaExecutor (exec/cuda.py)  the device executor,
                                hpx::cuda::experimental::cuda_executor
 
-Counterpart of ``hpx_tpu.exec.executors``. The executors run on the
-pure-Python work-stealing pool; the reference's native C++ pool is not
-ported yet.
+Counterpart of ``hpx_tpu.exec.executors``. An executor that owns its
+pool takes the native C++ work-stealing pool (``native/loader.py``)
+where ``hpx.scheduler.native`` is on and the library builds, else the
+pure-Python pool; the shared default pool is the Python one, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -72,12 +74,17 @@ class SequencedExecutor(BaseExecutor):
         return Future(state)
 
 
-def _make_pool(num_threads: Optional[int], name: str) -> WorkStealingPool:
-    """A private Python work-stealing pool. The reference prefers its
-    native C++ pool here; that pool comes to this package in a later
-    slice, with the ``hpx.scheduler.native`` key."""
+def _make_pool(num_threads: Optional[int], name: str):
+    """Native C++ pool when available/enabled, else the Python pool."""
     from ..core.config import runtime_config
-    n = num_threads or runtime_config().os_threads()
+    cfg = runtime_config()
+    n = num_threads or cfg.os_threads()
+    if cfg.get_bool("hpx.scheduler.native", True):
+        try:
+            from ..native.loader import NativePool
+            return NativePool(n, name)
+        except RuntimeError:        # the library did not build or load
+            pass
     return WorkStealingPool(n, name)
 
 

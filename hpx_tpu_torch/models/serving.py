@@ -16,6 +16,17 @@ never wait for long ones. Dead slots compute masked work.
 * ASYNC dispatch: sampled tokens feed back on the device and the host
   reads them only when a token VALUE is needed (eos check, retirement)
   or ``hpx.serving.max_async_steps`` steps are buffered.
+* CUDA GRAPHS (on a CUDA device): the programs are shared by every
+  server of the process (``transformer._PROGRAMS``; ``_prog_hits`` /
+  ``_prog_misses`` count the lookups as the reference does), and each
+  server captures its decode step (greedy and sampled), a chunk a
+  ladder width and its probe into graphs of its own at their first
+  call (``core.programs.GraphProgram``), then replays them: the caches,
+  pools and the one b=1 prefill scratch (which pending prefills take
+  in turn) are written in place, a step's positions go in through
+  pinned host memory, and its tokens are kept in a ring of
+  ``max_async_steps`` buffers. Splice, gather and copy-block run
+  eagerly (once a request or a fork).
 * PAGED KV (``paged=True``): K/V live in one block pool per layer,
   addressed through per-request page tables (``cache/``); retired
   prompts publish their full blocks into a radix tree, so a later
@@ -51,9 +62,9 @@ import torch
 from ..cache.block_allocator import BlockAllocator, CacheOOM, block_bytes
 from ..cache.page_table import PageTable, device_table, occupancy
 from ..cache.radix import RadixCache
+from ..core import programs
 from ..core.config import runtime_config
 from ..core.errors import HpxError, RequestShedError, ServerClosedError
-from ..core.programs import cached_program
 from ..exec.cuda import resolve_device
 from ..models.quant import FP8_DTYPE, as_raw
 from ..ops.attention_cuda import (SMEM_LIMIT, paged_plan,
@@ -61,9 +72,10 @@ from ..ops.attention_cuda import (SMEM_LIMIT, paged_plan,
 from ..ops.paged_attention import (gather_block_kv, paged_decode_attention,
                                    scatter_seq_blocks, scatter_seq_blocks_q)
 from ..utils import prng
-from .transformer import (_PREFILL_CHUNK, TransformerConfig, _attend,
-                          _decode_window, _ffn_tail, _ln, _pick_rows,
-                          _qkv_proj, _rope_angles, _rotate, _sample_row)
+from .transformer import (_PREFILL_CHUNK, _PROGRAMS, TransformerConfig,
+                          _attend, _cached_program, _decode_window,
+                          _ffn_tail, _ln, _pick_rows, _qkv_proj,
+                          _rope_angles, _rotate, _sample_row, _tree_key)
 
 __all__ = ["ContinuousServer", "RequestShedError", "ServerClosedError"]
 
@@ -239,6 +251,22 @@ def _paged_decode_rows(params, pools, scales, tok, table, pos, cfg,
             logits[:, 0, :].float())
 
 
+def _check_in_place(what: str, got, state) -> None:
+    """A step program writes its caches or pools in place and returns
+    the same tensors (a CUDA graph binds their addresses)."""
+    a, b = programs.tensors(got), programs.tensors(state)
+    if len(a) != len(b) or any(x is not y for x, y in zip(a, b)):
+        raise RuntimeError(f"{what} returned new tensors for its state; "
+                           "it must write them in place")
+
+
+def _copy_rows(src, dst) -> None:
+    """Copy b=1 scratch rows (per layer (k, v)) from src into dst."""
+    for a, b in zip(src, dst):
+        for x, y in zip(a, b):
+            y.copy_(x)
+
+
 @dataclasses.dataclass
 class _Request:
     rid: int
@@ -253,14 +281,16 @@ class _Request:
 
 @dataclasses.dataclass
 class _PendingPrefill:
-    """One in-flight chunked prefill: owns a reserved slot and a b=1
-    scratch cache; `done` is the absolute prompt cursor (starts at the
-    radix-matched prefix length in paged mode)."""
+    """One in-flight chunked prefill: owns a reserved slot, and its
+    rows of the server's b=1 scratch cache, which stand there while it
+    is the scratch's resident and in ``saved`` while another is; `done`
+    is the absolute prompt cursor (starts at the radix-matched prefix
+    length in paged mode)."""
     req: _Request
     slot: int
-    caches: Any                    # b=1 [1, smax] scratch, per layer
     done: int                      # prompt tokens already in scratch
     seq: int                       # admission order (FIFO tiebreak)
+    saved: Any = None              # its scratch rows while set aside
     pt: Optional[PageTable] = None  # paged: blocks held for the request
     wrow: Any = None               # paged: splice WRITE row (matched
                                    # prefix entries point at trash)
@@ -318,7 +348,22 @@ class ContinuousServer:
                                             32))
         self._admit_retries = max(0, rc.get_int(
             "hpx.serving.admit_retries", 8))
-        self._programs: Dict[Any, Any] = {}
+        self._tree = _tree_key(self.params)
+        self._prog_hits = 0             # program-cache hits
+        self._prog_misses = 0           # program-cache misses (builds)
+        # CUDA graphs of this server's step programs, by program key,
+        # in one memory pool; the ring its decode tokens are kept in
+        self._graphs: Dict[Any, programs.GraphProgram] = {}
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if programs.graphs_enabled(self.device)
+                            else None)
+        self._ring: List[torch.Tensor] = []
+        self._ring_i = 0
+        # the b=1 prefill scratch (per layer (k, v) [1, rows, Nkv, H]),
+        # made at the first prefill and kept at its address, and the
+        # pending prefill whose rows stand in it
+        self._scratch: Optional[list] = None
+        self._resident: Optional[_PendingPrefill] = None
         if self.paged:
             self._init_paged(block_size, num_blocks, radix_budget_blocks,
                              prefix_reuse, paged_kernel, kv_dtype)
@@ -444,25 +489,46 @@ class ContinuousServer:
     # -- programs (memoized on what they bake in) ---------------------------
 
     def _program(self, ck, build):
-        return cached_program(self._programs, ck, build)
+        """All program lookups go through here, so that the hit and miss
+        counters see every build, as the reference counts them."""
+        if ck in _PROGRAMS:
+            self._prog_hits += 1
+        else:
+            self._prog_misses += 1
+        return _cached_program(ck, build)
+
+    def _captured(self, ck, prog, bound=()):
+        """``prog`` as this server's CUDA-graph program on a CUDA device
+        (``core.programs.GraphProgram``, ``bound`` argument positions
+        written in place), as itself on the CPU."""
+        if self._graph_pool is None:
+            return prog
+        g = self._graphs.get(ck)
+        if g is None:
+            g = self._graphs[ck] = programs.GraphProgram(
+                prog, self.device, self._graph_pool, bound, name=ck[0])
+        return g
 
     def _step_prog(self):
-        cfg = self.cfg
+        cfg, slots, smax = self.cfg, self.slots, self.smax
+        ck = ("cb_step", cfg, slots, smax, self._tree)
 
         def build():
             def step(params, caches, tok, pos, temp, keys, sample):
                 caches, logits = _decode_rows(params, caches, tok, pos, cfg)
                 return caches, _pick_rows(logits, keys, temp, pos, sample)
             return step
-        return self._program(("cb_step",), build)
+        return self._captured(ck, self._program(ck, build), bound=(0, 1))
 
     def _chunk_prog(self, width: int):
         """One bucketed prefill chunk: toks [1, width] (tail-padded with
-        token 0) written into the b=1 scratch at positions pos0 ..
-        pos0 + width - 1. Keyed per LADDER WIDTH, not per prompt length.
-        Pad rows land past the real frontier; they are never attended
-        and are overwritten before their positions go live."""
-        cfg = self.cfg
+        token 0) written into the server's b=1 scratch at positions pos0 ..
+        pos0 + width - 1 (pos0 a 0-d tensor). Keyed per LADDER WIDTH,
+        not per prompt length. Pad rows land past the real frontier;
+        they are never attended and are overwritten before their
+        positions go live."""
+        cfg, smax = self.cfg, self.smax
+        ck = ("cb_chunk", cfg, width, smax, self._tree)
 
         def build():
             def chunk(params, caches, toks, pos0):
@@ -470,12 +536,13 @@ class ContinuousServer:
                                            need_logits=False)
                 return caches
             return chunk
-        return self._program(("cb_chunk", width), build)
+        return self._captured(ck, self._program(ck, build), bound=(0, 1))
 
     def _probe_prog(self):
         """Seed-logits probe: rerun the LAST prompt token at its own
         position (an idempotent K/V rewrite) and return its logits."""
-        cfg = self.cfg
+        cfg, smax = self.cfg, self.smax
+        ck = ("cb_probe", cfg, smax, self._tree)
 
         def build():
             def probe(params, caches, tok, pos):
@@ -483,7 +550,7 @@ class ContinuousServer:
                                             need_logits=True)
                 return caches, lg[:, -1]
             return probe
-        return self._program(("cb_probe",), build)
+        return self._captured(ck, self._program(ck, build), bound=(0, 1))
 
     def _splice_prog(self):
         """Copy the b=1 scratch cache into one slot's rows — all smax
@@ -495,10 +562,17 @@ class ContinuousServer:
                     vc[slot] = v1[0].to(vc.dtype)
                 return caches
             return splice
-        return self._program(("cb_splice",), build)
+        return self._program(("cb_splice", self.cfg, self.slots, self.smax,
+                              self._tree), build)
+
+    def _paged_key(self, name: str) -> tuple:
+        return (name, self.cfg, self.smax, self._alloc.num_blocks,
+                self.block_size, self._kv_dtype)
 
     def _paged_step_prog(self):
         cfg, fused = self.cfg, self._paged_fused
+        ck = (*self._paged_key("pg_step"), self.slots, self._paged_kernel,
+              self._tree)
 
         def build():
             def step(params, pools, scales, tok, pos, tables, temp, keys,
@@ -508,32 +582,32 @@ class ContinuousServer:
                 return pools, scales, _pick_rows(logits, keys, temp, pos,
                                                  sample)
             return step
-        return self._program(("pg_step", self._paged_kernel), build)
+        return self._captured(ck, self._program(ck, build),
+                              bound=(0, 1, 2))
 
     def _paged_gather_prog(self):
         """Materialize one request's (possibly prefix-matched) blocks
-        into a contiguous b=1 scratch cache the chunk/probe programs run
-        over; quantized pools dequantize here. Rows at/past `valid` (the
-        matched prefix length) are zeroed, so the scratch is a function
-        of the matched content, not of allocation history."""
+        into the contiguous b=1 scratch cache (``out``) the chunk/probe
+        programs run over; quantized pools dequantize here. Rows at/past
+        `valid` (the matched prefix length) are zeroed, so the scratch is
+        a function of the matched content, not of allocation history."""
         dt = self.cfg.dtype
         rows = self._maxb * self.block_size
 
         def build():
-            def gather(pools, scales, trow, valid):
+            def gather(pools, scales, trow, valid, out):
                 keep = (torch.arange(rows, device=trow.device)
                         < valid)[None, :, None, None]
                 zero = torch.zeros((), dtype=dt, device=trow.device)
-                out = []
-                for i, (kp, vp) in enumerate(pools):
+                for i, ((kp, vp), (ko, vo)) in enumerate(zip(pools, out)):
                     ks, vs = (None, None) if scales is None else scales[i]
-                    out.append(tuple(
+                    for p, s, o in ((kp, ks, ko), (vp, vs, vo)):
                         torch.where(keep, gather_block_kv(p, trow[None], s,
-                                                          dt), zero)
-                        for p, s in ((kp, ks), (vp, vs))))
+                                                          dt), zero, out=o)
                 return out
             return gather
-        return self._program(("pg_gather",), build)
+        return self._program((*self._paged_key("pg_gather"), self._tree),
+                             build)
 
     def _paged_splice_prog(self):
         """Write the request's padded block row back from the b=1
@@ -558,7 +632,8 @@ class ContinuousServer:
                         scatter_seq_blocks_q(vp, vs, wrow, vseg)
                 return pools, scales
             return splice
-        return self._program(("pg_splice",), build)
+        return self._program((*self._paged_key("pg_splice"), self._tree),
+                             build)
 
     def _copy_block_prog(self):
         """Device side of allocator copy-on-write: duplicate one block's
@@ -573,7 +648,33 @@ class ContinuousServer:
                         s[dst] = s[src]
                 return pools, scales
             return copy
-        return self._program(("pg_copy",), build)
+        return self._program((*self._paged_key("pg_copy"), self._tree),
+                             build)
+
+    def _host(self, values, dtype: torch.dtype) -> torch.Tensor:
+        """A program input from host values: for a CUDA graph a pinned
+        host tensor, which the graph copies into its input
+        asynchronously (the pinned allocator keeps the memory until the
+        copy has run); otherwise a tensor on the device."""
+        if self._graph_pool is not None and self.device.type == "cuda":
+            return torch.tensor(values, dtype=dtype, pin_memory=True)
+        return torch.tensor(values, dtype=dtype, device=self.device)
+
+    def _keep(self, nxt: torch.Tensor) -> torch.Tensor:
+        """A step's token vector, kept until the flush reads it. A
+        replay's vector is its graph's own output, which the next replay
+        rewrites: on a CUDA device it is copied into the next of a ring
+        of ``hpx.serving.max_async_steps`` buffers, one for each step the
+        loop may hold unflushed (the flush runs when that many are
+        buffered)."""
+        if self._graph_pool is None:
+            return nxt
+        if not self._ring:
+            self._ring = [torch.empty_like(nxt)
+                          for _ in range(self._max_async)]
+        buf = self._ring[self._ring_i]
+        self._ring_i = (self._ring_i + 1) % len(self._ring)
+        return buf.copy_(nxt)
 
     # -- paged host-side bookkeeping ----------------------------------------
 
@@ -723,18 +824,46 @@ class ContinuousServer:
                 return w
         return self.prefill_buckets[-1]
 
+    def _scratch_for(self, p: _PendingPrefill) -> list:
+        """The server's b=1 scratch cache with p's rows in it. The chunk
+        and probe programs write it in place (their graphs bind its
+        address), so every pending prefill runs in this one scratch:
+        when p takes it, the resident's rows are set aside into a copy
+        of its own, and p's, if p was set aside, come back. The prefill
+        tick picks the pending with the fewest tokens left, so a prefill
+        is set aside only when a shorter one arrives."""
+        if self._scratch is None:
+            cfg = self.cfg
+            rows = self._maxb * self.block_size if self.paged else self.smax
+            self._scratch = [tuple(
+                torch.zeros((1, rows, cfg.kv_heads, cfg.head_dim),
+                            dtype=cfg.dtype, device=self.device)
+                for _ in range(2)) for _ in range(cfg.n_layers)]
+        r = self._resident
+        if r is not p:
+            if r is not None:
+                if r.saved is None:
+                    r.saved = [tuple(torch.empty_like(t) for t in kv)
+                               for kv in self._scratch]
+                _copy_rows(self._scratch, r.saved)
+            if p.saved is not None:
+                _copy_rows(p.saved, self._scratch)
+            self._resident = p
+        return self._scratch
+
     def _start_prefill(self, req: _Request, slot: int) -> _PendingPrefill:
-        """Reserve `slot` and stand up the b=1 scratch cache (paged:
-        match the radix prefix, hold blocks for the whole prompt, and
-        gather them into the scratch)."""
+        """Reserve `slot` and stand up its rows in the b=1 scratch cache
+        (dense: zeros; paged: match the radix prefix, hold blocks for
+        the whole prompt, and gather them into the scratch)."""
         self._pf_seq += 1
         if self.paged:
             p = self._start_paged(req, slot)
         else:
-            scratch = [(self._zeros(1), self._zeros(1))
-                       for _ in range(self.cfg.n_layers)]
-            p = _PendingPrefill(req=req, slot=slot, caches=scratch, done=0,
+            p = _PendingPrefill(req=req, slot=slot, done=0,
                                 seq=self._pf_seq)
+            for kv in self._scratch_for(p):
+                for t in kv:
+                    t.zero_()
         self._pending[slot] = p
         self._admit_defers.pop(req.rid, None)   # admitted: ladder done
         return p
@@ -765,11 +894,11 @@ class ContinuousServer:
         wnp = row.copy()
         wnp[:matched // self.block_size] = self._trash
         wrow = torch.from_numpy(wnp).to(self.device)
-        caches = self._paged_gather_prog()(self._pools, self._scales, trow,
-                                           matched)
-        return _PendingPrefill(req=req, slot=slot, caches=caches,
-                               done=matched, seq=self._pf_seq, pt=pt,
-                               wrow=wrow)
+        p = _PendingPrefill(req=req, slot=slot, done=matched,
+                            seq=self._pf_seq, pt=pt, wrow=wrow)
+        self._paged_gather_prog()(self._pools, self._scales, trow, matched,
+                                  self._scratch_for(p))
+        return p
 
     def _advance_chunk(self, p: _PendingPrefill) -> None:
         """Run ONE bucketed chunk of p's prompt into its scratch."""
@@ -778,10 +907,11 @@ class ContinuousServer:
         width = self._bucket_width(n)
         toks = req.prompt[p.done:p.done + n] + [0] * (width - n)
         with torch.no_grad():
-            p.caches = self._chunk_prog(width)(
-                self.params, p.caches,
-                torch.tensor([toks], dtype=torch.int64, device=self.device),
-                p.done)
+            scratch = self._scratch_for(p)
+            caches = self._chunk_prog(width)(
+                self.params, scratch, self._host([toks], torch.int64),
+                self._host(p.done, torch.int64))
+        _check_in_place("a prefill chunk", caches, scratch)
         p.done += n
 
     def _finish_prefill(self, p: _PendingPrefill) -> None:
@@ -790,11 +920,11 @@ class ContinuousServer:
         seed the first generated token, go live."""
         req, slot = p.req, p.slot
         plen = len(req.prompt)
-        tok = torch.tensor([[req.prompt[-1]]], dtype=torch.int64,
-                           device=self.device)
+        tok = self._host([[req.prompt[-1]]], torch.int64)
         with torch.no_grad():
-            caches, logits = self._probe_prog()(self.params, p.caches, tok,
-                                                plen - 1)
+            caches, logits = self._probe_prog()(
+                self.params, self._scratch_for(p), tok,
+                self._host(plen - 1, torch.int64))
             if self.paged:
                 self._pools, self._scales = self._paged_splice_prog()(
                     self._pools, self._scales, caches, p.wrow)
@@ -803,6 +933,7 @@ class ContinuousServer:
                 self._caches = self._splice_prog()(self._caches, caches,
                                                    slot)
         del self._pending[slot]
+        self._resident = None
         if req.temperature > 0.0:
             # generate()'s tok0 draw: position plen-1, row 0
             tok0 = int(_sample_row(logits[0], req.temperature,
@@ -878,6 +1009,8 @@ class ContinuousServer:
     def _drop_pending(self, slot: int) -> _PendingPrefill:
         """Tear down one in-flight prefill (blocks decref'd)."""
         p = self._pending.pop(slot)
+        if self._resident is p:
+            self._resident = None
         if p.pt is not None:
             for bid in p.pt.blocks:
                 self._alloc.decref(bid)
@@ -976,9 +1109,9 @@ class ContinuousServer:
         # dense: dead slots re-write their own last position (never
         # read). Paged: dead slots' tables are all-trash. Dead slots'
         # feedback tokens are stale outputs — always valid ids.
-        tok = (torch.tensor(self._cur, dtype=torch.int64, device=dev)
+        tok = (self._host(self._cur, torch.int64)
                if self._cur_dev is None else self._cur_dev)
-        pos = torch.tensor(self._pos, dtype=torch.int32, device=dev)
+        pos = self._host(self._pos, torch.int32)
         if self._temp_dev is None:
             self._temp_dev = torch.tensor(self._temp, dtype=torch.float32,
                                           device=dev)
@@ -988,14 +1121,18 @@ class ContinuousServer:
             if self.paged:
                 for s in live:
                     self._ensure_block(s, self._pos[s])
-                self._pools, self._scales, nxt = self._paged_step_prog()(
+                pools, scales, nxt = self._paged_step_prog()(
                     self.params, self._pools, self._scales, tok, pos,
                     self._tables_dev(), self._temp_dev, self._keys_dev,
                     sample)
+                _check_in_place("the paged step", (pools, scales),
+                                (self._pools, self._scales))
             else:
-                self._caches, nxt = self._step_prog()(
+                caches, nxt = self._step_prog()(
                     self.params, self._caches, tok, pos, self._temp_dev,
                     self._keys_dev, sample)
+                _check_in_place("the dense step", caches, self._caches)
+            nxt = self._keep(nxt)
         self._cur_dev = nxt
         lanes = []
         need_sync = not self._async

@@ -45,6 +45,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..collectives.device import all_gather, all_reduce, copy_to, reduce_from
+from ..core import programs
 from ..core.errors import NotImplementedYet
 from ..exec.cuda import resolve_device
 from ..ops.attention import (ring_attention_sharded, ring_positions,
@@ -267,8 +268,8 @@ def _rope_angles(pos: torch.Tensor, hd: int, cfg: TransformerConfig):
     half = hd // 2
     exps = -torch.arange(0, half, dtype=torch.float32,
                          device=pos.device) / half
-    freq = torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32,
-                                  device=pos.device), exps)
+    freq = torch.pow(torch.full((), cfg.rope_theta, dtype=torch.float32,
+                                device=pos.device), exps)
     return pos.to(torch.float32)[..., None] * freq, half
 
 
@@ -315,12 +316,15 @@ def _ffn_tail(x: torch.Tensor, att: torch.Tensor, lp) -> torch.Tensor:
     return x + h
 
 
-def _block_decode(x, lp, kv, write_at: int, cfg: TransformerConfig):
+def _block_decode(x, lp, kv, write_at, cfg: TransformerConfig):
     """One decoder block for a window of W new tokens at positions
     write_at .. write_at + W - 1, with a KV cache (kc, vc) each
     [B, Smax, Nkv, H] written in place. Window token i attends cache
     positions <= write_at + i. The write start clamps so the window
-    fits, as ``dynamic_update_slice`` clamps it in the reference."""
+    fits, as ``dynamic_update_slice`` clamps it in the reference.
+    ``write_at`` is a host int or a 0-d int64 tensor on x's device (the
+    server's programs take positions as tensors, so that one CUDA graph
+    serves every position)."""
     kc, vc = kv
     h = _ln(x, lp["ln1"])
     q, k, v = _qkv_proj(h, lp)
@@ -329,9 +333,13 @@ def _block_decode(x, lp, kv, write_at: int, cfg: TransformerConfig):
     if cfg.rope:
         pos = write_at + torch.arange(sq, device=dev)
         q, k = _rope(q, pos, cfg), _rope(k, pos, cfg)
-    start = min(max(int(write_at), 0), kc.shape[1] - sq)
-    kc[:, start:start + sq] = k.to(kc.dtype)
-    vc[:, start:start + sq] = v.to(vc.dtype)
+    if isinstance(write_at, torch.Tensor):
+        start = torch.clamp(write_at, 0, kc.shape[1] - sq)
+    else:
+        start = min(max(int(write_at), 0), kc.shape[1] - sq)
+    rows = start + torch.arange(sq, device=dev)
+    kc.index_copy_(1, rows, k.to(kc.dtype))
+    vc.index_copy_(1, rows, v.to(vc.dtype))
     kpos = torch.arange(kc.shape[1], device=dev)
     qpos = write_at + torch.arange(sq, device=dev)
     live = (kpos[None, :] <= qpos[:, None])[None]          # [1, W, S]
@@ -339,11 +347,12 @@ def _block_decode(x, lp, kv, write_at: int, cfg: TransformerConfig):
     return _ffn_tail(x, att, lp), (kc, vc)
 
 
-def _decode_window(params, caches, toks: torch.Tensor, pos0: int,
+def _decode_window(params, caches, toks: torch.Tensor, pos0,
                    cfg: TransformerConfig, need_logits: bool = True):
     """A window of new tokens toks [B, W] at positions pos0 .. pos0+W-1
-    through every cached block. Returns (caches, f32 logits [B, W, V]),
-    or (caches, None) with need_logits=False (the cache-only prefill)."""
+    (pos0 a host int or a 0-d int64 tensor) through every cached block.
+    Returns (caches, f32 logits [B, W, V]), or (caches, None) with
+    need_logits=False (the cache-only prefill)."""
     x = params["emb"][toks]
     new_caches = []
     for lp, kv in zip(params["layers"], caches):
@@ -383,6 +392,27 @@ def _prefill_window(params, cfg, caches, prompt: torch.Tensor,
         if lg is not None:
             last = lg
     return caches, (last[:, -1] if need_logits else None)
+
+
+# Serving programs, keyed by everything their closures bake in (config,
+# shapes, decode options, the weight tree's structure) and shared by
+# every server of the process, as the reference shares its compiled
+# programs. A program is a plain callable; on a CUDA device each server
+# captures the ones it steps into CUDA graphs of its own
+# (``core.programs.GraphProgram``), since a capture binds the server's
+# buffers.
+_PROGRAMS: Dict[Any, Any] = {}
+
+
+def _cached_program(key_, build):
+    return programs.cached_program(_PROGRAMS, key_, build)
+
+
+def _tree_key(params) -> Tuple:
+    """The weight tree's structure: its parameters' and buffers' names
+    (an int8 weight shows as its ``q`` and ``s`` buffers)."""
+    return (tuple(n for n, _ in params.named_parameters()),
+            tuple(n for n, _ in params.named_buffers()))
 
 
 # -- sampling ------------------------------------------------------------------------
@@ -737,6 +767,26 @@ def make_opt_state(params: Transformer, cfg: TransformerConfig, optimizer):
     return optimizer(list(params.parameters()))
 
 
+def _graph_step(step, dev: torch.device):
+    """The single-device SGD ``step`` as replays of a CUDA graph
+    (``core.programs.GraphProgram``), captured at the first call for a
+    weight tree and batch shape: the weights are read and updated in
+    place (a weight moved or swapped is a new signature, a new capture),
+    the batch is copied into the graph's inputs, and the loss, the
+    graph's own f32 scalar, is returned as a copy. ``.eager`` is the
+    uncaptured step."""
+    prog = programs.GraphProgram(step, dev, torch.cuda.graph_pool_handle(),
+                                 bound=(0,), name="sgd_step")
+
+    def graph_step(params, tokens, targets):
+        params, loss = prog(params, _as_tokens(tokens, dev),
+                            _as_tokens(targets, dev))
+        return params, loss.clone()
+    graph_step.eager = step
+    graph_step.program = prog
+    return graph_step
+
+
 def make_train_step(cfg: TransformerConfig, mesh: Optional[Mesh] = None,
                     optimizer=None, device=None):
     """The training step, updating the ``Transformer`` in place.
@@ -759,8 +809,13 @@ def make_train_step(cfg: TransformerConfig, mesh: Optional[Mesh] = None,
     The loss is the mean token NLL over the global batch, a detached f32
     scalar. The weights take ``requires_grad`` only while the step
     computes their gradients, so the serving paths stay free of
-    autograd."""
-    if mesh is None:
+    autograd.
+
+    On one CUDA device (mesh=None) the SGD step runs as replays of a CUDA
+    graph (``_graph_step``); the optimizer step and the sharded step
+    run eagerly."""
+    one_device = mesh is None
+    if one_device:
         mesh = make_mesh_3d(1, device=resolve_device(device))
     elif device is not None and resolve_device(device) != mesh.device:
         raise ValueError(f"device {device} is not the mesh's {mesh.device}")
@@ -779,6 +834,8 @@ def make_train_step(cfg: TransformerConfig, mesh: Optional[Mesh] = None,
                 for w, g in zip(weights, grads):
                     w.sub_(cfg.lr * g.to(w.dtype))
             return params, loss
+        if one_device and programs.graphs_enabled(mesh.device):
+            return _graph_step(step, mesh.device)
         return step
 
     def step_opt(params, opt_state, tokens, targets):

@@ -75,7 +75,9 @@ power of two rows (``paged_plan``'s ``sub``).
 
 A wrapper takes its plain version only for a tensor on the CPU; for a
 CUDA tensor it launches its kernel or raises. Each wrapper counts its
-kernel launches in ``<wrapper>.launches``.
+kernel launches in ``<wrapper>.launches`` (``core.programs.counted``: a
+replay of a CUDA graph adds the graph's nodes of its kernel, read from
+the graph).
 """
 
 from __future__ import annotations
@@ -90,6 +92,7 @@ import numpy as np
 import torch
 
 from ..models.quant import as_raw
+from ..core.programs import counted
 from . import _build
 
 __all__ = ["fused_paged_attention", "fused_paged_online_attention",
@@ -566,7 +569,7 @@ def fused_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
-fused_paged_attention.launches = 0
+counted(fused_paged_attention, "paged_attention_exact")
 
 
 def fused_paged_online_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -591,7 +594,7 @@ def fused_paged_online_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
-fused_paged_online_attention.launches = 0
+counted(fused_paged_online_attention, "paged_attention_online")
 
 
 # -- flash attention: forward and the two backward kernels --------------------
@@ -624,6 +627,15 @@ FLASH_BLOCK = 64           # q rows of a CTA and keys of a K/V tile of
 FLASH_TILE_N = 128         # keys of a K/V tile of the bf16 kernels
 FLASH_HEAD_DIMS = (64, 128)  # head dims the CUDA kernels are built for
 _FLASH_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _flash_fwd_names(chunk: bool) -> str:
+    """The pattern of the forward kernels' names (``counted``) with
+    kChunk, their second template argument, at ``chunk``: mangled
+    (``flash_fwd_wgmmaILi64ELb0E...``) or not (``flash_fwd_wgmma<64,
+    false, ...``)."""
+    return (rf"flash_fwd_(wgmma|tf32x3)(ILi\d+ELb{int(chunk)}E"
+            rf"|<\d+, {str(chunk).lower()}\b)")
 FLASH_STAGES = 3           # the bf16 forward's ring of K/V stages
 FLASH_BWD_STAGES = 2       # the bf16 backward's ring of Q/dO stages
 FLASH_FWD_F32_STAGES = 2   # the f32 forward's ring of K/V stages
@@ -1016,7 +1028,7 @@ def _fwd_plan_args(q: torch.Tensor) -> Tuple[int, int]:
     return plan(q.shape[2], q.shape[0], q.shape[1])
 
 
-flash_attention_fwd.launches = 0
+counted(flash_attention_fwd, _flash_fwd_names(chunk=False))
 
 
 def flash_attention_chunk(q, k, v, acc, m, l, d: int, causal: bool = False
@@ -1061,7 +1073,7 @@ def flash_attention_chunk(q, k, v, acc, m, l, d: int, causal: bool = False
     return acc, m, l
 
 
-flash_attention_chunk.launches = 0
+counted(flash_attention_chunk, _flash_fwd_names(chunk=True))
 
 
 def bwd_prep(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
@@ -1098,7 +1110,7 @@ def flash_attention_bwd(q, k, v, do, delta, lse, d: int,
                        q_heads, kv_heads)
 
 
-flash_attention_bwd.launches = 0
+counted(flash_attention_bwd, "flash_bwd_wgmma")
 
 
 def flash_attention_bwd_f32(q, k, v, do, delta, lse, d: int,
@@ -1127,7 +1139,7 @@ def flash_attention_bwd_f32(q, k, v, do, delta, lse, d: int,
                        causal, q_heads, kv_heads)
 
 
-flash_attention_bwd_f32.launches = 0
+counted(flash_attention_bwd_f32, "flash_bwd_tf32x3")
 
 
 def _bwd_launch(wrapper, entry: str, plan, q, k, v, do, delta, lse,

@@ -1,6 +1,6 @@
 """The FP32 rate probe: a chain of fused multiply-adds, register resident.
 
-Counterpart of ``bench.py``'s ``bench_vpu_rate`` kernel (bench.py:338,
+Counterpart of ``bench.py``'s ``bench_vpu_rate`` kernel (bench.py:339,
 the closure its ``pallas_call`` at bench.py:357 launches), whose measured
 rate is the compute roof of the fused stencil headline. One CUDA kernel
 (``csrc/fma_rate.cu:fma_chain_kernel``) replaces it; ``plain_fma_chain``
@@ -21,7 +21,7 @@ the plain version rounds it once, with ``ops.stencil.fma``.
 
 ``fma_chain`` takes the plain version only for a tensor on the CPU; for a
 CUDA tensor it launches the kernel or raises. It counts its launches in
-``fma_chain.launches``.
+``fma_chain.launches`` (``core.programs.counted``).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..core.programs import counted
 from . import _build
 from .stencil import fma
 
@@ -108,4 +109,4 @@ def fma_chain(u: torch.Tensor, c, steps: int) -> torch.Tensor:
     return out
 
 
-fma_chain.launches = 0
+counted(fma_chain, "fma_chain_kernel")

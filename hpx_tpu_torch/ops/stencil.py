@@ -27,7 +27,9 @@ the exact plain version of that operation.
 
 A wrapper takes its plain version only for a tensor on the CPU; for a
 CUDA tensor it launches its kernel or raises. Each wrapper counts its
-kernel launches in ``<wrapper>.launches``.
+kernel launches in ``<wrapper>.launches`` (``core.programs.counted``: a
+replay of a CUDA graph adds the graph's nodes of its kernel, read from
+the graph).
 
 ``coef`` is rounded to float32 first, as the reference's ``jnp.float32``
 coefficient is, so the products are the same on both sides.
@@ -42,6 +44,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..core.programs import counted
 from . import _build
 
 
@@ -243,7 +246,7 @@ def heat_step_blocked(u: torch.Tensor, coef) -> torch.Tensor:
     return out
 
 
-heat_step_blocked.launches = 0
+counted(heat_step_blocked, "heat_step_blocked_kernel")
 
 
 def multistep_fused(u: torch.Tensor, coef, steps: int,
@@ -282,7 +285,7 @@ def multistep_fused(u: torch.Tensor, coef, steps: int,
     return out
 
 
-multistep_fused.launches = 0
+counted(multistep_fused, "multistep_fused_kernel")
 
 
 def multistep_fused_attrs(k: int) -> dict:

@@ -7,8 +7,9 @@ stealing; default local-priority-queue scheduler).
 Rationale: host tasks here are *orchestration* (building dataflow graphs,
 launching CUDA kernels, IO) — the FLOPs live on the device. The pool
 therefore optimizes for low submit overhead and FIFO fairness rather than
-cache locality. Counterpart of ``hpx_tpu.runtime.threadpool``; the native
-C++ pool of the reference is not ported yet, so this pool is the only one.
+cache locality. Counterpart of ``hpx_tpu.runtime.threadpool``. The default
+pool is this one; executors that own a pool take the native C++ pool
+(``native/loader.NativePool``, same interface) where it builds.
 
 Scheduling: per-worker deques; a worker pops LIFO from its own deque (hot
 cache) and steals FIFO from victims — the classic Arora-Blumofe-Plaxton

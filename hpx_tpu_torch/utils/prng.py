@@ -8,7 +8,9 @@ arithmetic here in torch integer ops. uint32 is emulated in int64 and
 masked after every add and shift. The bit path is the one JAX takes
 with ``jax_threefry_partitionable=True`` (its default): the counters of
 an n-element draw are the 64-bit iota split into (hi, lo) words, and the
-32-bit result is the XOR of the two output words.
+32-bit result is the XOR of the two output words. Constants are fills
+on the device, never host copies, so a draw can be captured in a CUDA
+graph.
 
 Keys are int64 tensors of shape ``[..., 2]`` holding the two uint32
 words of a raw ``jax.random.PRNGKey``. Everything runs on the device of
@@ -79,7 +81,11 @@ def threefry2x32(k1, k2, x1, x2):
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: key [..., 2], data an int or a tensor
     broadcastable to key[..., 0] (taken as uint32)."""
-    d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _M32
+    if isinstance(data, torch.Tensor):
+        d = data.to(device=key.device, dtype=torch.int64) & _M32
+    else:   # a fill, not a host copy: capturable in a CUDA graph
+        d = torch.full((), int(data) & _M32, dtype=torch.int64,
+                       device=key.device)
     a, b = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
     return torch.stack(torch.broadcast_tensors(a, b), dim=-1)
 
@@ -98,8 +104,8 @@ def uniform(key: torch.Tensor, n: int, minval: float = 0.0,
     mantissa of a float in [1, 2), less 1, scaled and clamped below."""
     bits = (random_bits(key, n) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 

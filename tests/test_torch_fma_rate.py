@@ -140,7 +140,7 @@ def test_the_probe_builds_without_contraction():
     body = src[src.index("fma_chain_kernel("):src.index("out[i] = x;")]
     assert body.count("__fmaf_rn(") == 8
     assert body.count("__fadd_rn(") == 7 and body.count("__fmul_rn(") == 1
-    assert "bench.py:338" in src
+    assert "bench.py:339" in src
     assert port.INSTRUCTIONS_PER_STEP == 16
     assert port.OPERATIONS_PER_STEP == 24
 
