@@ -399,6 +399,14 @@ GRAD_NORM_REL = 1e-5
 # a CUDA-graph replay against its eager program, f32: max |replay -
 # eager| / max |eager| of each logit, loss and weight tensor
 CAPTURE_REL = 1e-6
+# f32 tokens of two decoders may differ only at a near-tie: where they
+# do, the top-2 gap of the target's logits at the first differing pick
+# must be below this (the window and the sequential forwards round
+# apart by ~1e-6 of the logits)
+TIE_GAP = 1e-4
+# speculative serving: draft tokens a slot and step (verify width: the
+# ladder's rung for 1 + SPEC_K, 8)
+SPEC_K = 4
 
 
 
@@ -879,6 +887,7 @@ def main() -> int:
         import numpy as np
         import hpx_tpu_torch as hpx
         from hpx_tpu_torch import CudaExecutor, HighResolutionTimer
+        from hpx_tpu_torch.models import quant
         from hpx_tpu_torch.models import serving
         from hpx_tpu_torch.models import stencil1d as s1
         from hpx_tpu_torch.models import transformer as tf
@@ -888,6 +897,7 @@ def main() -> int:
         from hpx_tpu_torch.ops import fma_rate as fr
         from hpx_tpu_torch.ops import stencil as st
         from hpx_tpu_torch.core import programs
+        from hpx_tpu_torch.utils import prng
         from hpx_tpu_torch.utils.compilemon import count_captures
     except ImportError as e:
         print(f"chip_smoke: cannot import hpx_tpu_torch: {e}",
@@ -1199,7 +1209,8 @@ def main() -> int:
         # refused: blocks of 256 rows (f32: both kernels walk each block in
         # 2 parts) and of 128 rows at hd 224 (f32: parts; bf16 exact:
         # parts), and blocks of one row at hd 336, W*g 20 (f32 online: a
-        # chunk of fewer blocks)
+        # chunk of fewer blocks); 19-20 the speculative verify windows of
+        # the serving mixes (b) and (a) (W 8 at S 1024 and 160)
         shapes = ((3, 4, 8, 2, 1, 64, 1), (3, 3, 16, 2, 2, 128, 2),
                   (2, 3, 32, 1, 4, 64, 5), (5, 7, 16, 2, 1, 128, 1),
                   (4, 2, 8, 3, 4, 128, 2), (1, 5, 32, 2, 2, 64, 5),
@@ -1208,7 +1219,8 @@ def main() -> int:
                   (2, 6, 16, 2, 2, 80, 2), (2, 5, 8, 2, 1, 40, 3),
                   (3, 4, 16, 1, 2, 36, 1), (1, 4, 16, 1, 4, 256, 5),
                   (2, 3, 16, 1, 1, 384, 1), (2, 4, 256, 1, 1, 128, 1),
-                  (2, 3, 128, 2, 1, 224, 1), (1, 256, 1, 1, 4, 336, 5))
+                  (2, 3, 128, 2, 1, 224, 1), (1, 256, 1, 1, 4, 336, 5),
+                  (8, 64, 16, 8, 1, 128, 8), (4, 10, 16, 8, 1, 128, 8))
         n = dead_total = 0
         plans = set()
         for pool_dt, q_dt in pool_types:
@@ -2505,13 +2517,16 @@ def main() -> int:
 
     def server_nodes(srv):
         """The counted kernels' nodes a server's graphs must hold: a
-        paged step on the fused kernels one launch a layer; the dense
-        and gather steps, the chunks and the probe none."""
+        paged step or verify on the fused kernels one launch a layer; the
+        dense and gather steps and verifies, the chunks, the probe and
+        the draft model's programs none."""
         step = {"fused": "fused_paged_attention",
                 "fused_online": "fused_paged_online_attention"}.get(
                     srv._paged_kernel if srv.paged else None)
+        paged_ = {step: srv.cfg.n_layers} if step else {}
         return {"cb_step": {}, "cb_chunk": {}, "cb_probe": {},
-                "pg_step": {step: srv.cfg.n_layers} if step else {}}
+                "cb_verify": {}, "cb_draft": {}, "cb_dchunk": {},
+                "pg_step": paged_, "pg_verify": paged_}
 
     def sgd_nodes(cfg):
         """The SGD step's graph: the flash forward and the backward of
@@ -2552,13 +2567,17 @@ def main() -> int:
         torch.cuda.synchronize()
         secs = t.elapsed()
         # a chunk program per ladder width, the probe, and the step with
-        # and without sampling
-        if caps.captures > len(srv.prefill_buckets) + 3 or \
+        # and without sampling; speculative: a verify program per width
+        # in place of the step and, with a draft model, its step and a
+        # draft chunk per width
+        ladder = len(srv.prefill_buckets)
+        limit = ((2 + (srv._draft_params is not None)) * ladder + 2
+                 if srv._spec else ladder + 3)
+        if caps.captures > limit or \
                 caps.captures != sum(len(g.graphs)
                                      for g in srv._graphs.values()):
             raise AssertionError(f"({mix}) {label}: {caps.captures} "
-                                 f"captures for {len(srv.prefill_buckets)} "
-                                 "ladder widths")
+                                 f"captures for {ladder} ladder widths")
         nodes = graph_nodes(f"({mix}) {label}", srv._graphs.values(),
                             server_nodes(srv))
         ntok = sum(len(v) for v in out.values())
@@ -2579,7 +2598,12 @@ def main() -> int:
               f"graphs captured; counted kernels' nodes read from each "
               f"graph (equal to the wrappers' launches in its capture): "
               f"{nodes}", flush=True)
+        rates[mix, label] = ntok / secs
         return out, srv
+
+    # the non-spec servers' tokens, and every server run's tokens/s, by
+    # (mix, run), for the speculative phase
+    plain_runs, rates = {}, {}
 
     def serving_f32():
         f32 = torch.float32
@@ -2587,6 +2611,7 @@ def main() -> int:
         serve("a", "warm-up (dense)", f32)
         for mix in ("a", "b"):
             dense, _ = serve(mix, "f32 dense", f32)
+            plain_runs[mix, "f32 dense"] = dense
             gather, _ = serve(mix, "f32 paged gather", f32, paged=True,
                               block_size=16, paged_kernel="gather")
             fused, srv = serve(mix, "f32 paged fused", f32, paged=True,
@@ -2664,12 +2689,233 @@ def main() -> int:
             raise AssertionError(f"auto resolved to {srv._paged_kernel}")
         gather, _ = serve("b", "bf16 paged gather", bf16, paged=True,
                           block_size=16, paged_kernel="gather")
+        plain_runs["b", "bf16 paged gather"] = gather
         same = sum(a == b for r in gather for a, b in zip(fused[r], gather[r]))
         total = sum(len(v) for v in gather.values())
         whole = sum(fused[r] == gather[r] for r in gather)
         print(f"   (b) bf16 auto vs bf16 gather: {same}/{total} tokens and "
               f"{whole}/{len(gather)} requests equal", flush=True)
         bf16_pools.extend(srv._pools)
+
+    def tie_gap(params, cfg, seq):
+        """The top-2 gap of the f32 logits after the tokens ``seq``: how
+        near a tie the pick at the next position is."""
+        caches = [tuple(torch.zeros((1, len(seq), cfg.kv_heads,
+                                     cfg.head_dim), dtype=cfg.dtype,
+                                    device="cuda") for _ in range(2))
+                  for _ in range(cfg.n_layers)]
+        with torch.no_grad():
+            _, last = tf._prefill_window(params, cfg, caches, torch.tensor(
+                [seq], device="cuda"))
+        top = last[0].topk(2).values
+        return float(top[0] - top[1])
+
+    def same_tokens(what, got, want, prompts, params, cfg):
+        """got == want ({request: tokens}); where a request differs, the
+        first differing pick must be a near-tie (its top-2 logit gap below
+        TIE_GAP), printed either way. Returns the differing requests."""
+        ties = []
+        for r, w in want.items():
+            g = list(got[r])
+            if g == list(w):
+                continue
+            i = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b),
+                     min(len(g), len(w)))
+            ties.append((r, i, tie_gap(params, cfg, list(prompts[r])
+                                       + list(w[:i]))))
+        if ties:
+            print(f"   {what}: {len(ties)} of {len(want)} requests differ; "
+                  f"(request, first differing pick, top-2 logit gap there) "
+                  f"{ties}", flush=True)
+        if any(gap > TIE_GAP for *_, gap in ties) or len(got) != len(want):
+            raise AssertionError(f"{what}: tokens differ beyond a near-tie "
+                                 f"(gap above {TIE_GAP}): {ties}")
+        return ties
+
+    spec_launches = {k: 0 for k in PAGED_KERNELS}
+
+    def serving_spec():
+        """Speculative serving at full width in f32 on mixes (a) and (b),
+        prompt-lookup drafts at k = SPEC_K (verify width 8): the dense
+        server and the paged server on gather, fused and fused_online,
+        each server's tokens against the non-spec f32 dense server's;
+        then a self-draft (draft = target: every draft accepted but at
+        near-ties) and a small random draft model of the same width and
+        one layer (most drafts rejected), both on the fused kernel. Each
+        verify graph holds one node of its kernel a layer (serve's
+        graph_nodes); the launches of kernels 3-4 in these runs are the
+        verify windows' (``spec_launches``). Then (b) in bf16, fused,
+        against the non-spec bf16 gather server: agreement printed."""
+        f32 = torch.float32
+        params, cfg = model(f32)
+        dcfg = tf.TransformerConfig(**dict(SERVE_MODEL, n_layers=1),
+                                    dtype=f32)
+        dparams = tf.init_params(dcfg, seed=1)
+        paged_kw = dict(paged=True, block_size=16)
+        for mix in ("a", "b"):
+            want = plain_runs[mix, "f32 dense"]
+            prompts = {i: p for i, (p, _) in enumerate(mixes[mix][0])}
+            runs = [("dense", {}),
+                    *((f"paged {k}", dict(paged_kw, paged_kernel=k))
+                      for k in ("gather", "fused", "fused_online")),
+                    ("self-draft, paged fused",
+                     dict(paged_kw, paged_kernel="fused",
+                          draft_params=params, draft_cfg=cfg)),
+                    ("random 1-layer draft, paged fused",
+                     dict(paged_kw, paged_kernel="fused",
+                          draft_params=dparams, draft_cfg=dcfg))]
+            for label, kw in runs:
+                before = {k: getattr(ac, k).launches for k in PAGED_KERNELS}
+                label = f"f32 spec k={SPEC_K}, {label}"
+                out, srv = serve(mix, label, f32, spec=True, spec_k=SPEC_K,
+                                 **kw)
+                for k in PAGED_KERNELS:
+                    spec_launches[k] += getattr(ac, k).launches - before[k]
+                ties = same_tokens(f"({mix}) {label}", out, want, prompts,
+                                   params, cfg)
+                st_ = srv.spec_stats()
+                print(f"   ({mix}) {label}: tokens == the non-spec f32 dense "
+                      f"server's ({len(ties)} near-ties); "
+                      f"{rates[mix, label]!r} tokens/s against "
+                      f"{rates[mix, 'f32 dense']!r} non-spec dense; spec "
+                      f"stats {st_}; slots' k {srv._slot_k}", flush=True)
+                if "self-draft" in label and st_["acceptance_rate"] < 0.9:
+                    raise AssertionError(f"({mix}) self-draft accepted "
+                                         f"{st_['acceptance_rate']}")
+                if "random" in label and st_["acceptance_rate"] > 0.5:
+                    raise AssertionError(f"({mix}) a random draft accepted "
+                                         f"{st_['acceptance_rate']}")
+        if not all(spec_launches.values()):
+            raise AssertionError(f"kernels 3-4 never ran a verify window: "
+                                 f"{spec_launches}")
+        bf16 = torch.bfloat16
+        out, srv = serve("b", f"bf16 spec k={SPEC_K}, paged auto", bf16,
+                         spec=True, spec_k=SPEC_K, **paged_kw)
+        gather = plain_runs["b", "bf16 paged gather"]
+        same = sum(a == b for r in gather for a, b in zip(out[r], gather[r]))
+        total = sum(len(v) for v in gather.values())
+        print(f"   (b) bf16 spec (kernel {srv.paged_kernel}) vs bf16 non-spec "
+              f"gather: {same}/{total} tokens and "
+              f"{sum(out[r] == gather[r] for r in gather)}/{len(gather)} "
+              f"requests equal; spec stats {srv.spec_stats()}; kernels 3-4 "
+              f"launches in the f32 verify windows {spec_launches}; on "
+              f"{smi}", flush=True)
+
+    def decoders():
+        """The other decoders at the serving width in f32, 4 prompts of 64
+        tokens, 32 new: speculative_generate (the 1-layer random draft,
+        and the target as its own draft), beam_search(beam_width=1) and
+        top_k=1 sampling, each against greedy generate (near-ties
+        allowed, as ``same_tokens``); beams of 4 sorted and finite;
+        speculative_sample twice under one key, the same tokens; top_k 8
+        draws in the vocabulary; packed int4 weights within half a scale
+        step of the dense ones (the reference test's bound), their logits
+        finite beside the dense ones."""
+        f32 = torch.float32
+        params, cfg = model(f32)
+        dcfg = tf.TransformerConfig(**dict(SERVE_MODEL, n_layers=1),
+                                    dtype=f32)
+        dparams = tf.init_params(dcfg, seed=1)
+        prompt = np.random.default_rng(2).integers(1, cfg.vocab,
+                                                   (4, 64)).tolist()
+        prompts = dict(enumerate(prompt))
+        n = 32
+
+        def rows(t):
+            return dict(enumerate(t.tolist()))
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t = HighResolutionTimer()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, t.elapsed()
+        greedy, g_s = timed(lambda: tf.generate(params, cfg, prompt,
+                                                max_new=n))
+        want = rows(greedy)
+        runs = {
+            "speculative_generate, 1-layer draft": lambda: (
+                tf.speculative_generate(params, cfg, dparams, dcfg, prompt,
+                                        max_new=n, k=SPEC_K,
+                                        return_stats=True)),
+            "speculative_generate, self-draft": lambda: (
+                tf.speculative_generate(params, cfg, params, cfg, prompt,
+                                        max_new=n, k=SPEC_K,
+                                        return_stats=True)),
+            "beam_search(beam_width=1)": lambda: (tf.beam_search(
+                params, cfg, prompt, max_new=n, beam_width=1), None),
+            "generate(top_k=1)": lambda: (tf.generate(
+                params, cfg, prompt, max_new=n, temperature=0.7, top_k=1,
+                key=prng.PRNGKey(3)), None)}
+        for what, fn in runs.items():
+            (out, rounds), secs = timed(fn)
+            ties = same_tokens(what, rows(out), want, prompts, params, cfg)
+            print(f"   {what}: tokens == greedy generate's ({len(ties)} "
+                  f"near-ties); {secs!r} s against greedy's {g_s!r} s"
+                  + (f"; {rounds} rounds for {n - 1} tokens after the first"
+                     if rounds is not None else ""), flush=True)
+        beams, scores = tf.beam_search(params, cfg, prompt, max_new=n,
+                                       beam_width=4, return_all=True)
+        if not bool(torch.isfinite(scores).all()) or \
+                bool((scores[:, :-1] < scores[:, 1:]).any()):
+            raise AssertionError(f"beams of 4: scores {scores.tolist()}")
+        s1 = tf.speculative_sample(params, cfg, dparams, dcfg, prompt[:1],
+                                   max_new=n, k=SPEC_K, key=prng.PRNGKey(5))
+        s2 = tf.speculative_sample(params, cfg, dparams, dcfg, prompt[:1],
+                                   max_new=n, k=SPEC_K, key=prng.PRNGKey(5))
+        tk8 = tf.generate(params, cfg, prompt, max_new=n, temperature=0.8,
+                          top_k=8, key=prng.PRNGKey(4))
+        if not torch.equal(s1, s2) or int(s1.min()) < 0 or \
+                int(s1.max()) >= cfg.vocab or int(tk8.min()) < 0 or \
+                int(tk8.max()) >= cfg.vocab:
+            raise AssertionError("speculative_sample is not deterministic "
+                                 "under one key, or a draw is out of range")
+        print(f"   beams of 4: scores sorted, finite (best {scores[:, 0]}); "
+              f"speculative_sample deterministic under one key; top_k=8 "
+              f"draws in range", flush=True)
+        q4 = quant.quantize_params(params, bits=4)
+        worst = 0.0
+        for lp, lq in zip(params["layers"], q4["layers"]):
+            for name, w in lp.named_parameters():
+                t4 = lq[name]
+                if not hasattr(t4, "axis"):
+                    continue
+                err = (quant.dequant(t4, f32) - w).abs() - t4.s / 2
+                worst = max(worst, float(err.max()))
+        if worst > 1e-6:
+            raise AssertionError(f"int4 round trip above s/2 by {worst}")
+        toks = torch.tensor(prompt, device="cuda")
+
+        def logits(p):
+            caches = [tuple(torch.zeros((4, 64, cfg.kv_heads, cfg.head_dim),
+                                        device="cuda") for _ in range(2))
+                      for _ in range(cfg.n_layers)]
+            with torch.no_grad():
+                return tf._decode_window(p, caches, toks, 0, cfg)[1]
+        dense_l, q4_l = logits(params), logits(q4)
+        rel = float((q4_l - dense_l).norm() / dense_l.norm())
+        out4 = tf.generate(q4, cfg, prompt, max_new=8)
+        if not bool(torch.isfinite(q4_l).all()) or int(out4.max()) >= \
+                cfg.vocab:
+            raise AssertionError("int4 logits not finite")
+        print(f"   int4: every weight within s/2 of the dense one (worst "
+              f"excess {worst!r}); logits ||int4 - dense|| / ||dense|| = "
+              f"{rel!r}; weights {quant.quantized_bytes(params['layers'])}"
+              f" -> {quant.quantized_bytes(q4['layers'])} bytes; on {smi}",
+              flush=True)
+
+    def serving_demo():
+        """examples_cuda/serving_demo.py on the card: it prints OK."""
+        proc = subprocess.run(
+            [sys.executable, os.path.join(os.path.dirname(os.path.abspath(
+                __file__)), "examples_cuda", "serving_demo.py")],
+            capture_output=True, text=True, timeout=600)
+        print("\n".join(f"   {x}" for x in proc.stdout.splitlines()),
+              flush=True)
+        if proc.returncode != 0 or \
+                proc.stdout.strip().splitlines()[-1:] != ["OK"]:
+            raise AssertionError(f"serving_demo.py: rc {proc.returncode}, "
+                                 f"{proc.stderr[-2000:]}")
 
     train = {}
 
@@ -2746,6 +2992,9 @@ def main() -> int:
                       ("main path: serving f32, blocks of 256 rows",
                        serving_long_blocks),
                       ("main path: serving bf16", serving_bf16),
+                      ("main path: serving speculative", serving_spec),
+                      ("main path: decoders", decoders),
+                      ("examples_cuda/serving_demo.py", serving_demo),
                       ("main path: training", training)):
         sm.phase(name_, lambda fn=fn: run_path(fn))
 
@@ -3381,6 +3630,66 @@ def main() -> int:
             del runs, eager
     sm.phase("serving profile", serving_profile)
 
+    def spec_profile():
+        """A speculative step's time, calls and busy share beside the
+        plain step's: mix (b) in f32 on the fused kernel, a non-spec and
+        a spec server (prompt-lookup drafts, k = SPEC_K), each warmed by
+        one run, timed unprofiled in the order plain, spec, spec, plain
+        (tokens/s, ms a step), then run once under torch.profiler
+        (host-issued launches a step, device ms a step, busy share; the
+        counted kernels' runs in the trace equal the wrappers' counts)."""
+        params, cfg = model(torch.float32)
+        reqs, base = mixes["b"]
+        kw = dict(base, paged=True, block_size=16, paged_kernel="fused")
+        runs = {"plain": serving.ContinuousServer(params, cfg, **kw),
+                "spec": serving.ContinuousServer(params, cfg, spec=True,
+                                                 spec_k=SPEC_K, **kw)}
+        ntok = sum(m for _, m in reqs)
+        for srv in runs.values():
+            serve_steps(srv, reqs)
+        # the host's share of a spec step spent mining drafts
+        drafts_s = []
+        mine = runs["spec"]._prompt_drafts
+
+        def timed_drafts(*a):
+            t0 = time.perf_counter()
+            out = mine(*a)
+            drafts_s.append(time.perf_counter() - t0)
+            return out
+        runs["spec"]._prompt_drafts = timed_drafts
+        tps, ms = {k: [] for k in runs}, {k: [] for k in runs}
+        for k in ("plain", "spec", "spec", "plain"):
+            steps, wall, _, _ = serve_steps(runs[k], reqs)
+            tps[k].append(ntok / wall)
+            ms[k].append(wall / steps * 1e3)
+        for k, srv in runs.items():
+            before = {w.__name__: w.launches for w in programs._COUNTED}
+            steps, wall, _, prof = serve_steps(srv, reqs, profiled=True)
+            dev_us, calls, dev = device_events(prof)
+            step_ms = statistics.mean(ms[k])
+            print(f"   (b) f32 fused {k}: {tps[k]} tokens/s (runs), "
+                  f"{step_ms!r} ms a step ({steps} steps a run, "
+                  f"{ntok / steps!r} tokens a step); profiled: "
+                  f"{sum(calls.values()) / steps!r} host-issued launches a "
+                  f"step {calls}; on {smi}", flush=True)
+            if dev_us <= 0:
+                print(f"   (b) {k}: device busy share not measured (the "
+                      "profiler recorded no device time)", flush=True)
+                continue
+            traced = traced_launches(f"(b) f32 fused {k}", dev, before)
+            dev_ms = dev_us * 1e-3 / steps
+            print(f"   (b) f32 fused {k}: device {dev_ms!r} ms a step, busy "
+                  f"share {dev_ms / step_ms!r} unprofiled, "
+                  f"{dev_us * 1e-6 / wall!r} profiled; counted kernels in "
+                  f"the trace {traced}", flush=True)
+        print(f"   (b) spec stats over these runs: "
+              f"{runs['spec'].spec_stats()}; host ms a spec step mining "
+              f"prompt-lookup drafts (n-gram, radix peek): median "
+              f"{statistics.median(drafts_s) * 1e3!r}, mean "
+              f"{statistics.mean(drafts_s) * 1e3!r} over {len(drafts_s)} "
+              "steps", flush=True)
+    sm.phase("speculative serving profile", spec_profile)
+
     def training_profile():
         """Where a training step's time goes, before and after the
         capture: the main path's bf16 SGD step eagerly (``step.eager``)
@@ -3548,9 +3857,12 @@ def main() -> int:
         on one copy. The bound counts the live blocks these inputs need;
         the bound over every block of the table is printed beside it."""
         import torch.nn.functional as F
-        b, w, nh, hd, bs = 8, 1, 8, 128, 16
-        for seq, pool_dt in ((1024, torch.bfloat16), (1024, torch.int8),
-                             (8192, torch.bfloat16)):
+        b, nh, hd, bs = 8, 8, 128, 16
+        for seq, pool_dt, w in ((1024, torch.bfloat16, 1),
+                                (1024, torch.int8, 1),
+                                (8192, torch.bfloat16, 1),
+                                (1024, torch.bfloat16, 8),
+                                (1024, torch.int8, 8)):
             maxb = seq // bs
             args = paged_state(b, maxb, bs, nh, 1, hd, w, pool_dt,
                                torch.bfloat16, seed=3)
@@ -3566,10 +3878,13 @@ def main() -> int:
                         + (2 * blocks * nh * 4 if ks is not None else 0)
                         + blocks * 4 + 2 * q.numel() * q.element_size()
                         + pos.numel() * 4)
-            # the live rows: positions up to pos0 + W - 1 of each slot
+            # the live rows: positions up to pos0 + W - 1 of each slot;
+            # window row i attends pos0 + i + 1 of them
             live_keys = int((pos.long() + w).clamp(max=seq).sum())
+            pairs = int(sum((pos.long() + i + 1).clamp(max=seq).sum()
+                            for i in range(w)))
             bound, by = _bound(nbytes(live_keys, nlive),
-                               4 * nh * w * live_keys * hd, BF16_OPS_PER_S)
+                               4 * nh * pairs * hd, BF16_OPS_PER_S)
             bound_all, by_all = _bound(nbytes(b * seq, b * maxb),
                                        4 * b * nh * w * seq * hd,
                                        BF16_OPS_PER_S)
@@ -3579,9 +3894,11 @@ def main() -> int:
                                 None if ks is None else ks.clone(),
                                 None if vs is None else vs.clone()]
                                for _ in range(n_copies - 1)]
-            # the yardstick: one library call on K/V gathered beforehand
-            live = (torch.arange(seq, device="cuda")[None, :]
-                    <= pos.long()[:, None])[:, None, None, :]
+            # the yardstick: one library call on K/V gathered beforehand,
+            # window row i masked to positions <= pos0 + i
+            live = (torch.arange(seq, device="cuda")[None, None, :]
+                    <= (pos.long()[:, None] + torch.arange(
+                        w, device="cuda"))[:, :, None])[:, None]
             qs = q.transpose(1, 2)
             kc = pa.gather_block_kv(kp, table, ks, q.dtype).transpose(1, 2)
             vc = pa.gather_block_kv(vp, table, vs, q.dtype).transpose(1, 2)
@@ -3597,7 +3914,8 @@ def main() -> int:
                                  for i in range(n_calls)])
             library_warm = _graph_ms([sdpa(kc, vc)] * n_calls)
             dt = str(pool_dt).split(".")[-1]
-            print(f"   paged timing S={seq} {dt} pools: P={splits}, {nlive} "
+            print(f"   paged timing W={w} S={seq} {dt} pools: P={splits}, "
+                  f"{nlive} "
                   f"of {b * maxb} blocks live, {live_keys} of {b * seq} "
                   f"rows; cold over {n_copies} copies "
                   f"of the pools ({n_lib} of the gathered K/V for SDPA); "
@@ -3625,16 +3943,17 @@ def main() -> int:
                      "shape": f"B={b} W={w} nq=nkv={nh} hd={hd} bs={bs} "
                               f"S={seq} {dt} pools, bf16 q, P={splits}, "
                               "cold L2, CUDA graph"}
-                print(f"   {k} S={seq} {dt}: cold {t['ms']!r} ms, warm "
+                print(f"   {k} W={w} S={seq} {dt}: cold {t['ms']!r} ms, warm "
                       f"{t['warm']!r} ms (CUDA graph); CUDA events around "
                       f"back-to-back cold calls {t['events']!r} ms; host "
                       f"enqueue {host!r} ms a call; "
                       f"{bound / t['ms'] * 100!r} % of the live-block "
                       f"bound, P={splits}", flush=True)
-                key = (k if (seq, pool_dt) == (1024, torch.bfloat16)
-                       else f"{k} {dt}" if seq == 1024 else f"{k} S={seq}")
+                key = (k if (seq, pool_dt, w) == (1024, torch.bfloat16, 1)
+                       else f"{k} {dt}" if (seq, w) == (1024, 1)
+                       else f"{k} S={seq}" if w == 1 else f"{k} W={w} {dt}")
                 timing[key] = t
-            if (seq, pool_dt) == (1024, torch.bfloat16):
+            if (seq, pool_dt, w) == (1024, torch.bfloat16, 1):
                 paged_breakdown(args)
             del args, copies, gathered, kc, vc
             torch.cuda.empty_cache()
@@ -4113,6 +4432,16 @@ def main() -> int:
                          "library_warm",
                          "library_events", "library_profiler") if x in t},
                      **({"splits": t["splits"]} if "splits" in t else {}),
+                     **({"verify_window": {
+                         dt: {"ms": timing[f"{k} W=8 {dt}"]["ms"],
+                              "bound_ms": timing[f"{k} W=8 {dt}"]["bound"],
+                              "bound_by": timing[f"{k} W=8 {dt}"]["by"],
+                              "library_ms":
+                                  timing[f"{k} W=8 {dt}"]["library"],
+                              "shape": timing[f"{k} W=8 {dt}"]["shape"]}
+                         for dt in ("bfloat16", "int8")},
+                         "verify_launches": spec_launches[k]}
+                        if k in PAGED_KERNELS else {}),
                      **({"f32": f32_routes(row)} if row in F32_ROUTE
                         else {}),
                      "shape": t["shape"]})

@@ -137,3 +137,16 @@ declare("hpx.serving.max_async_steps", "int", "32",
         "buffered steps before a sync")
 declare("hpx.serving.admit_retries", "int", "8",
         "admission OOM deferrals before a request is shed")
+declare("hpx.serving.default_deadline_s", "float", "0",
+        "per-request deadline in seconds (0 = none)")
+declare("hpx.serving.spec.enable", "bool", "0",
+        "speculative decode in serving")
+declare("hpx.serving.spec.k", "int", "4", "draft tokens per slot per step")
+declare("hpx.serving.spec.draft", "str", "prompt",
+        "draft source: prompt | model")
+declare("hpx.serving.spec.ngram", "int", "3",
+        "max n-gram for prompt lookup")
+declare("hpx.serving.spec.min_accept", "float", "0.3",
+        "adaptive-k backoff threshold")
+declare("hpx.serving.spec.adapt", "bool", "1",
+        "per-slot adaptive k on/off")

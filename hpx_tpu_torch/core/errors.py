@@ -205,6 +205,19 @@ class RequestShedError(HpxError):
         self.reason = reason
 
 
+class DeadlineExceededError(RequestShedError):
+    """Shed because the submit()-time deadline lapsed while the request
+    was still queued or prefilling: the overload fail-fast path (a
+    starving queue sheds instead of aging out)."""
+
+    def __init__(self, rid: int, deadline_s: Optional[float]):
+        RequestShedError.__init__(
+            self, rid,
+            f"deadline of {deadline_s or 0.0:g}s lapsed before the "
+            "request went live")
+        self.deadline_s = deadline_s
+
+
 class ConcretizationTypeError(TypeError):
     """A function mapped over a range on the device path (the algorithms'
     ``vmap``) asked for the Python value of an element (``float(x)``,

@@ -1,12 +1,19 @@
-"""Symmetric-absmax int8/fp8 quantizers: serving weights and paged KV blocks.
+"""Symmetric-absmax int8/int4/fp8 quantizers: serving weights and paged KV blocks.
 
-Counterpart of ``hpx_tpu.models.quant``, cut to what the serving path
-reads: ``QTensor`` (int8 or fp8 values beside broadcastable f32 scales),
-the two quantizers and ``dequant``. Weights quantize per output channel
-(scales over the contraction axes); the paged KV pools quantize per
-(block, kv-head) through ``ops.paged_attention.quantize_blocks``.
+Counterpart of ``hpx_tpu.models.quant`` on one device: ``QTensor`` (int8
+or fp8 values beside broadcastable f32 scales), ``QTensor4`` (int4
+values packed two to a byte along a contraction axis), the quantizers,
+``dequant``, and the weight-tree entry points ``quantize_params``,
+``quantized_bits`` and ``quantized_bytes``. Weights quantize per output
+channel (scales over the contraction axes, ``_CONTRACT_AXES``); the
+paged KV pools quantize per (block, kv-head) through
+``ops.paged_attention.quantize_blocks``. The sharded placements
+(``shard_quantized``, ``quantized_param_specs``) wait for the
+multi-device serving slice.
 
-int8 rounds onto the 127-level integer ladder; fp8 (e4m3) maps the group
+int8 rounds onto the 127-level integer ladder, int4 onto the 7-level
+one (element 2i in a byte's low nibble, 2i+1 in its high one, unpacked
+by arithmetic shifts on int8, which sign-extend); fp8 (e4m3) maps the group
 absmax onto ±448 (the format's largest finite value) and lets the cast
 round. Zero groups get scale 1.0, so fresh pools round-trip exactly.
 Both quantizers and ``dequant`` do the reference's arithmetic in the
@@ -19,13 +26,36 @@ from typing import Any, NamedTuple
 
 import torch
 
-__all__ = ["QTensor", "dequant", "as_raw", "FP8_DTYPE", "FP8_MAX"]
+from ..core.errors import NotImplementedYet
+
+__all__ = ["QTensor", "QTensor4", "quantize_params", "dequant",
+           "quantized_bytes", "quantized_bits", "as_raw", "FP8_DTYPE",
+           "FP8_MAX"]
 
 
 class QTensor(NamedTuple):
     """Quantized values + broadcastable f32 scales."""
     q: torch.Tensor
     s: torch.Tensor
+
+
+class QTensor4(NamedTuple):
+    """Packed int4 values + broadcastable f32 scales. Adjacent pairs
+    along ``axis`` (a contraction axis, ``_PACK_AXES``) share one int8
+    byte: element 2i in the low nibble, 2i+1 in the high one."""
+    q: torch.Tensor
+    s: torch.Tensor
+    axis: int
+
+
+# contraction axes per layer weight (the einsums of the decode blocks):
+#   wqkv [3, d, nh, hd] contracts d; wq [d, nh, hd] d; wkv [2, d, nkv, hd]
+#   d; wo [nh, hd, d] (nh, hd); w1 [d, f] d; w2 [f, d] f
+_CONTRACT_AXES = {"wqkv": (1,), "wq": (0,), "wkv": (1,),
+                  "wo": (0, 1), "w1": (0,), "w2": (0,)}
+# int4 packing axis per weight: a contraction axis (the scales have size
+# 1 there, so a nibble pair shares one scale), the reference's choice
+_PACK_AXES = {"wqkv": 1, "wq": 0, "wkv": 1, "wo": 1, "w1": 0, "w2": 0}
 
 
 FP8_DTYPE = torch.float8_e4m3fn
@@ -49,12 +79,86 @@ def _quantize_fp8(w: torch.Tensor, axes) -> QTensor:
     return QTensor(q=q, s=s)
 
 
+def _pack4(q: torch.Tensor, axis: int) -> torch.Tensor:
+    """int8 values in [-7, 7] -> packed nibbles along ``axis``."""
+    n = q.shape[axis]
+    if n % 2:
+        raise ValueError(
+            f"int4 pack axis {axis} must be even-sized; got {n}")
+    pre = q.shape[:axis] + (n // 2, 2) + q.shape[axis + 1:]
+    qr = q.reshape(pre)
+    lo = qr.select(axis + 1, 0)
+    hi = qr.select(axis + 1, 1)
+    return ((lo & 0x0F) | (hi << 4)).to(torch.int8)
+
+
+def _unpack4(p: torch.Tensor, axis: int) -> torch.Tensor:
+    """packed nibbles -> int8 values, sign-extended by arithmetic
+    shifts: ``(p << 4) >> 4`` for the low nibble, ``p >> 4`` for the
+    high one."""
+    lo = (p << 4) >> 4
+    hi = p >> 4
+    st = torch.stack([lo, hi], dim=axis + 1)
+    shape = p.shape[:axis] + (p.shape[axis] * 2,) + p.shape[axis + 1:]
+    return st.reshape(shape)
+
+
+def _quantize4(w: torch.Tensor, axes, pack_axis: int) -> QTensor4:
+    s = _absmax_scale(w, axes, 7.0)
+    q = torch.clamp(torch.round(w.float() / s), -7, 7).to(torch.int8)
+    return QTensor4(_pack4(q, pack_axis), s, pack_axis)
+
+
 def dequant(x: Any, dtype: torch.dtype = torch.bfloat16) -> Any:
-    """QTensor -> dense ``(q * s).to(dtype)``; anything else passes
-    through."""
+    """QTensor / QTensor4 -> dense ``(q * s).to(dtype)``; anything else
+    passes through."""
+    if isinstance(x, QTensor4):
+        return (_unpack4(x.q, x.axis).float() * x.s).to(dtype)
     if isinstance(x, QTensor):
         return (x.q.float() * x.s).to(dtype)
     return x
+
+
+def quantize_params(params, bits: int = 8):
+    """Quantize every layer matmul weight of a ``Transformer``
+    (``models.transformer``): bits=8 stores int8 ``QWeight``s, bits=4
+    packed int4 ones (two values a byte); layer norms, biases and the
+    embedding stay dense (copied). Returns a new ``Transformer`` on the
+    weights' device. Mixture-of-experts layers are not ported."""
+    from .transformer import Transformer
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+
+    def qz(w, name):
+        w = w.detach()
+        if bits == 8:
+            return _quantize(w, _CONTRACT_AXES[name])
+        return _quantize4(w, _CONTRACT_AXES[name], _PACK_AXES[name])
+
+    layers = []
+    for lp in params["layers"]:
+        if "moe" in lp:
+            raise NotImplementedYet("mixture-of-experts layers are not "
+                                    "ported yet", "quantize_params")
+        layers.append({name: (qz(w, name) if name in _CONTRACT_AXES
+                              else w.detach().clone())
+                       for name, w in lp.named_parameters()})
+    return Transformer(params["emb"].detach().clone(),
+                       params["ln_f"].detach().clone(), layers)
+
+
+def quantized_bits(tree: torch.nn.Module) -> int:
+    """4 when the weight tree (a ``Transformer`` or a part of one) holds
+    packed int4 weights, else 8."""
+    from .transformer import QWeight4
+    return 4 if any(isinstance(m, QWeight4) for m in tree.modules()) else 8
+
+
+def quantized_bytes(tree: torch.nn.Module) -> int:
+    """Weight bytes of a weight tree as stored (int8 or packed int4 q and
+    f32 scales for quantized weights)."""
+    return sum(t.numel() * t.element_size()
+               for t in (*tree.parameters(), *tree.buffers()))
 
 
 def as_raw(t: torch.Tensor) -> torch.Tensor:

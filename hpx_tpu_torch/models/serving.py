@@ -37,6 +37,21 @@ never wait for long ones. Dead slots compute masked work.
   means ``fused`` on a CUDA device and ``gather`` on the CPU.
   ``kv_dtype`` stores the pools as the compute dtype (``bf16``) or as
   int8/fp8 blocks with per-(block, head) scales.
+* SPECULATIVE decoding (``spec=True``): each step drafts up to k tokens
+  a live slot (``spec_draft='prompt'``: n-gram lookup in the slot's own
+  history, then the radix tree's cached continuations; ``'model'``: a
+  draft model's greedy steps over dense draft caches), verifies every
+  slot's window [cur, drafts] in ONE forward at per-slot positions
+  (``_verify_prog`` / ``_paged_verify_prog``, width from the prefill
+  ladder, on the paged kernels at W = width) and commits the longest
+  prefix agreeing with the targets the sequential step would have
+  picked (same ``_pick_rows`` at the same (key, position)), plus the
+  target after it; one packed host read a step. Rejected rows are dead
+  under the mask (dense) or rolled back and their blocks dropped
+  (paged).
+* DEADLINES: ``submit(..., deadline_s=)`` (or
+  ``hpx.serving.default_deadline_s``) sheds a request still queued or
+  prefilling when its deadline lapses, with ``DeadlineExceededError``.
 
 Differential contract: every request's tokens are EXACTLY what
 ``transformer.generate`` emits for that prompt alone, greedy or sampled
@@ -44,32 +59,37 @@ Differential contract: every request's tokens are EXACTLY what
 content — and, on the CPU, exactly what the reference server emits.
 
 Left for later slices (the constructor takes none of their arguments):
-speculative decoding and draft models, the mesh, mixture-of-experts,
-the host KV tier, disaggregated prefill, resiliency (checkpoints,
-replay, fault injection, deadlines), metrics and live tuning. Without
-the replay ladder, a decode step that runs out of KV blocks sheds every
-in-flight request with ``RequestShedError``.
+the mesh, mixture-of-experts, the host KV tier, disaggregated prefill,
+resiliency (checkpoints, replay, fault injection, the verify-fault
+ladder), tracing, metrics and live tuning. Without the replay ladder, a
+decode step that runs out of KV blocks sheds every in-flight request
+with ``RequestShedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..cache.block_allocator import BlockAllocator, CacheOOM, block_bytes
+from ..cache.ngram import propose as _ngram_propose
 from ..cache.page_table import PageTable, device_table, occupancy
 from ..cache.radix import RadixCache
 from ..core import programs
 from ..core.config import runtime_config
-from ..core.errors import HpxError, RequestShedError, ServerClosedError
+from ..core.errors import (DeadlineExceededError, HpxError,
+                           RequestShedError, ServerClosedError)
 from ..exec.cuda import resolve_device
 from ..models.quant import FP8_DTYPE, as_raw
 from ..ops.attention_cuda import (SMEM_LIMIT, paged_plan,
                                   resolve_paged_block_src)
 from ..ops.paged_attention import (gather_block_kv, paged_decode_attention,
+                                   paged_window_attention,
                                    scatter_seq_blocks, scatter_seq_blocks_q)
 from ..utils import prng
 from .transformer import (_PREFILL_CHUNK, _PROGRAMS, TransformerConfig,
@@ -77,7 +97,8 @@ from .transformer import (_PREFILL_CHUNK, _PROGRAMS, TransformerConfig,
                           _ffn_tail, _ln, _pick_rows, _qkv_proj,
                           _rope_angles, _rotate, _sample_row, _tree_key)
 
-__all__ = ["ContinuousServer", "RequestShedError", "ServerClosedError"]
+__all__ = ["ContinuousServer", "RequestShedError", "ServerClosedError",
+           "DeadlineExceededError"]
 
 
 def _resolve_buckets(spec, chunk: int) -> Tuple[int, ...]:
@@ -126,7 +147,8 @@ def _resolve_paged_kernel(paged_kernel, rc, device: torch.device,
                           hd: int, elem: int) -> str:
     """hpx.serving.paged_kernel for a server of this shape (``slots``
     rows a decode step, ``nkv`` kv heads, ``wg`` = W·g query rows a
-    (slot, kv-head), the widest it passes a kernel, ``maxb`` table
+    (slot, kv-head), the widest it passes a kernel (W = 1 for decode,
+    the widest verify window under speculation), ``maxb`` table
     blocks of ``bs`` rows, head_dim ``hd``, ``elem``-byte pool
     elements). auto -> gather off a CUDA device (the plain versions are
     a test vehicle, not a serving path); on a CUDA device fused (the
@@ -163,21 +185,23 @@ def _resolve_paged_kernel(paged_kernel, rc, device: torch.device,
 
 # -- per-row-position forwards -------------------------------------------------
 
-def _rope_rows(x: torch.Tensor, pos: torch.Tensor, cfg: TransformerConfig):
-    """Rotate-half RoPE with per-row positions: x [B, 1, N, H], pos
-    [B]."""
-    ang, half = _rope_angles(pos[:, None], x.shape[-1], cfg)  # [B, 1, half]
+def _rope_win(x: torch.Tensor, posw: torch.Tensor, cfg: TransformerConfig):
+    """Rotate-half RoPE over a per-row position grid: x [B, W, N, H],
+    posw [B, W]; each (row, window column) rotates at its own absolute
+    position."""
+    ang, half = _rope_angles(posw, x.shape[-1], cfg)        # [B, W, half]
     cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
     sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
     return _rotate(x, cos, sin, half)
 
 
-def _project_rows(x, lp, pos, cfg):
+def _project_rows(x, lp, posw, cfg):
+    """ln1, the q/k/v projections and RoPE of x [B, W, D] at per-row
+    positions posw [B, W]."""
     h = _ln(x, lp["ln1"])
     q, k, v = _qkv_proj(h, lp)
     if cfg.rope:
-        q = _rope_rows(q, pos, cfg)
-        k = _rope_rows(k, pos, cfg)
+        q, k = _rope_win(q, posw, cfg), _rope_win(k, posw, cfg)
     return q, k, v
 
 
@@ -187,7 +211,7 @@ def _block_decode_rows(x, lp, kv, pos, cfg: TransformerConfig):
     written in place (row b at pos[b]); pos [B]. Slot b attends cache
     positions <= pos[b]."""
     kc, vc = kv
-    q, k, v = _project_rows(x, lp, pos, cfg)
+    q, k, v = _project_rows(x, lp, pos[:, None], cfg)
     rows = torch.arange(x.shape[0], device=x.device)
     p = pos.long()
     kc[rows, p] = k[:, 0].to(kc.dtype)
@@ -220,7 +244,7 @@ def _paged_block_rows(x, lp, pools, scales, table, pos,
     rope and the MLP are the dense path's; only the cache write and
     read differ, which keeps paged == dense token-exact."""
     kp, vp = pools
-    q, k, v = _project_rows(x, lp, pos, cfg)
+    q, k, v = _project_rows(x, lp, pos[:, None], cfg)
     if scales is None:
         att, kp, vp = paged_decode_attention(q, k[:, 0], v[:, 0], kp, vp,
                                              table, pos, fused=fused)
@@ -251,6 +275,119 @@ def _paged_decode_rows(params, pools, scales, tok, table, pos, cfg,
             logits[:, 0, :].float())
 
 
+def _window_posw(pos0: torch.Tensor, w: int) -> torch.Tensor:
+    """[B, W] positions of a verify window: pos0[b] + i."""
+    return pos0.long()[:, None] + torch.arange(w, device=pos0.device)
+
+
+def _window_write(c: torch.Tensor, posw: torch.Tensor,
+                  val: torch.Tensor) -> None:
+    """Write window rows val [B, W, N, H] into a dense cache c [B, S, N,
+    H] at posw [B, W], in place. Rows at or past S are DROPPED, never
+    clamped (row S-1 may hold live K/V), without a data-dependent shape,
+    so that a CUDA graph can capture the write: a dropped row rewrites
+    column 0's target with the value that target gets (column 0's new
+    row, or where column 0 is dropped too its current content)."""
+    s = c.shape[1]
+    rows = torch.arange(c.shape[0], device=c.device)[:, None]
+    valid = posw < s
+    p0 = torch.clamp_max(posw[:, :1], s - 1)
+    val = val.to(c.dtype)
+    v0 = torch.where(valid[:, :1, None, None], val[:, :1], c[rows, p0])
+    c[rows, torch.where(valid, posw, p0)] = torch.where(
+        valid[..., None, None], val, v0)
+
+
+def _window_rows(x, lp, kv, pos0, cfg: TransformerConfig):
+    """One decoder block for a W-token verify window per slot at
+    per-slot positions: x [B, W, D]; slot b's window row i lands at
+    cache position pos0[b] + i and attends positions <= pos0[b] + i.
+    ``_block_decode_rows`` stretched to W columns: the same projections,
+    contractions over the same smax rows, -inf mask and f32 softmax, so
+    column i computes what the i-th sequential step would."""
+    kc, vc = kv
+    posw = _window_posw(pos0, x.shape[1])
+    q, k, v = _project_rows(x, lp, posw, cfg)
+    _window_write(kc, posw, k)
+    _window_write(vc, posw, v)
+    kpos = torch.arange(kc.shape[1], device=x.device)
+    live = kpos[None, None, :] <= posw[:, :, None]          # [B, W, S]
+    att = _attend(q, kc, vc, live, x.dtype)
+    return _ffn_tail(x, att, lp), (kc, vc)
+
+
+def _decode_window_rows(params, caches, toks, pos0, cfg):
+    """W tokens per slot through every block at per-slot positions (the
+    speculative verify forward): toks [B, W], pos0 [B]. Returns (caches,
+    f32 logits [B, W, V])."""
+    x = params["emb"][toks]
+    new_caches = []
+    for lp, kv in zip(params["layers"], caches):
+        x, kv = _window_rows(x, lp, kv, pos0, cfg)
+        new_caches.append(kv)
+    x = _ln(x, params["ln_f"])
+    return new_caches, torch.einsum("bsd,vd->bsv", x, params["emb"]).float()
+
+
+def _paged_window_rows(x, lp, pools, scales, table, pos0,
+                       cfg: TransformerConfig, fused=False):
+    """``_window_rows`` over paged pools: the pool writes and the
+    per-query horizon live in ``ops.paged_attention.
+    paged_window_attention`` (the fused modes: kernels 3-4 at W = the
+    window), the projections, rope and MLP are the dense window's."""
+    kp, vp = pools
+    q, k, v = _project_rows(x, lp, _window_posw(pos0, x.shape[1]), cfg)
+    if scales is None:
+        att, kp, vp = paged_window_attention(q, k, v, kp, vp, table, pos0,
+                                             fused=fused)
+    else:
+        ks, vs = scales
+        att, kp, vp, ks, vs = paged_window_attention(
+            q, k, v, kp, vp, table, pos0, k_scale=ks, v_scale=vs,
+            fused=fused)
+        scales = (ks, vs)
+    return _ffn_tail(x, att, lp), (kp, vp), scales
+
+
+def _paged_decode_window_rows(params, pools, scales, toks, table, pos0, cfg,
+                              fused=False):
+    """W tokens per slot over paged pools; returns (pools, scales, f32
+    logits [B, W, V])."""
+    x = params["emb"][toks]
+    new_pools, new_scales = [], []
+    for i, (lp, pl) in enumerate(zip(params["layers"], pools)):
+        sc = None if scales is None else scales[i]
+        x, pl, sc = _paged_window_rows(x, lp, pl, sc, table, pos0, cfg,
+                                       fused)
+        new_pools.append(pl)
+        new_scales.append(sc)
+    x = _ln(x, params["ln_f"])
+    return (new_pools, None if scales is None else new_scales,
+            torch.einsum("bsd,vd->bsv", x, params["emb"]).float())
+
+
+def _verify_tail(logits, toks, kvec, temp, keys, pos0, width: int,
+                 sample: bool) -> torch.Tensor:
+    """The device-side tail of both verify programs: the target at every
+    window column i, picked by the sequential step's ``_pick_rows`` at
+    position pos0 + i, then the count of leading drafts that agree with
+    them. Column i holds draft d_i (column 0 the committed cur token);
+    d_i is accepted iff d_i == t_{i-1} and every earlier draft was
+    (cumprod), capped by the slot's draft count kvec. One packed [B,
+    width + 1] int32 tensor (targets, then the count): one host read a
+    spec step."""
+    b = logits.shape[0]
+    offs = torch.arange(width, device=logits.device)
+    posw = (pos0.long()[:, None] + offs).reshape(-1)
+    tgt = _pick_rows(logits.reshape(b * width, -1),
+                     keys.repeat_interleave(width, dim=0),
+                     temp.repeat_interleave(width), posw,
+                     sample).reshape(b, width)
+    match = (toks[:, 1:] == tgt[:, :-1]) & (offs[None, 1:] <= kvec[:, None])
+    acc = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+    return torch.cat([tgt, acc[:, None]], dim=1).to(torch.int32)
+
+
 def _check_in_place(what: str, got, state) -> None:
     """A step program writes its caches or pools in place and returns
     the same tensors (a CUDA graph binds their addresses)."""
@@ -277,6 +414,8 @@ class _Request:
     key: Any = None                # int64 [2] raw PRNG key (host)
     tokens: List[int] = dataclasses.field(default_factory=list)
     sent: int = 0                  # tokens DISPATCHED (>= len(tokens))
+    deadline_s: Optional[float] = None   # submit()-time budget
+    t_deadline: Optional[float] = None   # absolute monotonic deadline
 
 
 @dataclasses.dataclass
@@ -312,7 +451,13 @@ class ContinuousServer:
 
     ``params`` is a ``models.transformer.Transformer``; it is moved to
     ``device`` (None means ``cuda:0``; pass ``device="cpu"`` for the
-    CPU)."""
+    CPU), as are ``draft_params``.
+
+    ``spec=True`` turns each decode step speculative: per-slot drafts
+    (``spec_draft='prompt'`` mines the slot's token history; ``'model'``
+    runs ``draft_params`` / ``draft_cfg``) are verified by one window
+    forward and committed only where they match the sequential pick:
+    the same tokens, fewer host syncs a token. See ``spec_stats()``."""
 
     def __init__(self, params, cfg: TransformerConfig, slots: int = 4,
                  smax: int = 512, paged: bool = False,
@@ -323,8 +468,13 @@ class ContinuousServer:
                  prefill_chunk: Optional[int] = None,
                  prefill_buckets: Optional[str] = None,
                  async_dispatch: Optional[bool] = None,
+                 spec: Optional[bool] = None,
+                 spec_k: Optional[int] = None,
+                 spec_draft: Optional[str] = None,
                  paged_kernel: Optional[str] = None,
                  kv_dtype: Optional[str] = None,
+                 draft_params=None,
+                 draft_cfg: Optional[TransformerConfig] = None,
                  device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -348,7 +498,11 @@ class ContinuousServer:
                                             32))
         self._admit_retries = max(0, rc.get_int(
             "hpx.serving.admit_retries", 8))
+        self._default_deadline_s = rc.get_float(
+            "hpx.serving.default_deadline_s", 0.0)
         self._tree = _tree_key(self.params)
+        self._init_spec(rc, spec, spec_k, spec_draft, draft_params,
+                        draft_cfg)
         self._prog_hits = 0             # program-cache hits
         self._prog_misses = 0           # program-cache misses (builds)
         # CUDA graphs of this server's step programs, by program key,
@@ -397,10 +551,71 @@ class ContinuousServer:
         self.failed: Dict[int, HpxError] = {}
         self._admit_defers: Dict[int, int] = {}  # rid -> OOM deferrals
 
-    def _zeros(self, rows: int) -> torch.Tensor:
-        cfg = self.cfg
+    def _zeros(self, rows: int, cfg: Optional[TransformerConfig] = None
+               ) -> torch.Tensor:
+        cfg = cfg or self.cfg
         return torch.zeros((rows, self.smax, cfg.kv_heads, cfg.head_dim),
                            dtype=cfg.dtype, device=self.device)
+
+    def _init_spec(self, rc, spec, spec_k, spec_draft, draft_params,
+                   draft_cfg) -> None:
+        """Resolve the hpx.serving.spec.* knobs: draft k tokens a slot,
+        verify the window in one forward. Spec steps read the device
+        once a step (the packed targets and counts): they raise tokens
+        per host read instead of deferring the read. The reference's
+        learned k (its perf database's ``spec_k``) waits for that
+        database's port; k comes from the argument or the config."""
+        if spec is None:
+            spec = rc.get_bool("hpx.serving.spec.enable", False)
+        self._spec = bool(spec)
+        if spec_draft is None:
+            spec_draft = rc.get("hpx.serving.spec.draft", "prompt")
+            if draft_params is not None:
+                spec_draft = "model"  # a checkpoint implies the source
+        if spec_draft not in ("prompt", "model"):
+            raise ValueError(
+                "hpx.serving.spec.draft must be 'prompt' or 'model', "
+                f"got {spec_draft!r}")
+        self._spec_source = spec_draft
+        if spec_k is None:
+            spec_k = rc.get_int("hpx.serving.spec.k", 4)
+        if spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        # the verify window (k drafts + the current token) rides the
+        # prefill ladder, so k is capped at the widest rung - 1
+        self._spec_k = min(int(spec_k), self.prefill_buckets[-1] - 1)
+        self._spec_ngram = max(1, rc.get_int("hpx.serving.spec.ngram", 3))
+        self._spec_min_accept = rc.get_float("hpx.serving.spec.min_accept",
+                                             0.3)
+        self._spec_adapt = rc.get_bool("hpx.serving.spec.adapt", True)
+        self._slot_k = [self._spec_k] * self.slots   # per-slot adaptive k
+        self._slot_acc = [1.0] * self.slots          # acceptance EMA
+        self._spec_drafted = 0
+        self._spec_accepted = 0
+        self._spec_steps = 0
+        self._spec_emitted = 0
+        self._draft_params = None
+        self._draft_cfg = None
+        self._draft_caches = None
+        self._draft_tree = None
+        if self._spec and self._spec_source == "model":
+            if draft_params is None or draft_cfg is None:
+                raise ValueError(
+                    "spec draft source 'model' needs draft_params and "
+                    "draft_cfg (or use spec_draft='prompt' for "
+                    "zero-model prompt-lookup drafting)")
+            if draft_cfg.vocab != self.cfg.vocab:
+                raise ValueError(
+                    f"draft vocab {draft_cfg.vocab} != target vocab "
+                    f"{self.cfg.vocab}")
+            self._draft_params = draft_params.to(self.device)
+            self._draft_cfg = draft_cfg
+            self._draft_tree = _tree_key(self._draft_params)
+            self._draft_caches = [
+                (self._zeros(self.slots, draft_cfg),
+                 self._zeros(self.slots, draft_cfg))
+                for _ in range(draft_cfg.n_layers)]
+
 
     def _init_paged(self, block_size, num_blocks, radix_budget_blocks,
                     prefix_reuse, paged_kernel=None, kv_dtype=None) -> None:
@@ -458,10 +673,13 @@ class ContinuousServer:
         self._radix = RadixCache(self._alloc, radix_budget_blocks)
         dt = {"int8": torch.int8,
               "fp8": FP8_DTYPE}.get(self._kv_dtype, cfg.dtype)
-        # a decode step passes the kernels every slot, W = 1
+        # a decode step passes the kernels every slot, W = 1; a verify
+        # step at most the ladder's rung for 1 + k
+        width = self._bucket_width(1 + self._spec_k) if self._spec else 1
         self._paged_kernel = _resolve_paged_kernel(
             paged_kernel, rc, self.device, slots, cfg.kv_heads,
-            cfg.n_heads // cfg.kv_heads, self._maxb, bs, cfg.head_dim,
+            width * (cfg.n_heads // cfg.kv_heads),
+            self._maxb, bs, cfg.head_dim,
             torch.empty((), dtype=dt).element_size())
         # the `fused=` mode of ops.paged_attention: False -> gather
         # oracle, True -> exact kernel, "online" -> online kernel
@@ -651,6 +869,80 @@ class ContinuousServer:
         return self._program((*self._paged_key("pg_copy"), self._tree),
                              build)
 
+    # -- speculative programs (verify windows and the draft model) ---------
+
+    def _verify_prog(self, width: int):
+        """Dense verify: one forward over a width-W window at per-slot
+        positions, returning the packed targets and counts. Keyed per
+        LADDER WIDTH (the prefill chunks' ladder), so the programs stay
+        O(buckets) however adaptive k wanders."""
+        cfg, slots, smax = self.cfg, self.slots, self.smax
+        ck = ("cb_verify", cfg, slots, smax, width, self._tree)
+
+        def build():
+            def verify(params, caches, toks, pos0, kvec, temp, keys,
+                       sample):
+                caches, logits = _decode_window_rows(params, caches, toks,
+                                                     pos0, cfg)
+                return caches, _verify_tail(logits, toks, kvec, temp, keys,
+                                            pos0, width, sample)
+            return verify
+        return self._captured(ck, self._program(ck, build), bound=(0, 1))
+
+    def _paged_verify_prog(self, width: int):
+        """``_verify_prog`` over the paged pools: the fused modes run
+        kernels 3-4 at W = width, a launch a layer."""
+        cfg, fused = self.cfg, self._paged_fused
+        ck = (*self._paged_key("pg_verify"), self.slots, width,
+              self._paged_kernel, self._tree)
+
+        def build():
+            def verify(params, pools, scales, toks, pos0, tables, kvec,
+                       temp, keys, sample):
+                pools, scales, logits = _paged_decode_window_rows(
+                    params, pools, scales, toks, tables, pos0, cfg, fused)
+                return pools, scales, _verify_tail(
+                    logits, toks, kvec, temp, keys, pos0, width, sample)
+            return verify
+        return self._captured(ck, self._program(ck, build),
+                              bound=(0, 1, 2))
+
+    def _draft_step_prog(self):
+        """One greedy draft-model step at per-slot positions. The draft
+        always proposes greedily: its quality moves the acceptance rate,
+        never the emitted tokens."""
+        dcfg = self._draft_cfg
+        ck = ("cb_draft", dcfg, self.slots, self.smax, self._draft_tree)
+
+        def build():
+            def step(params, caches, tok, pos):
+                caches, logits = _decode_rows(params, caches, tok, pos, dcfg)
+                return caches, torch.argmax(logits, dim=-1)
+            return step
+        return self._captured(ck, self._program(ck, build), bound=(0, 1))
+
+    def _draft_chunk_prog(self, width: int):
+        """One bucketed prefill chunk into ONE slot's rows of the draft
+        cache (``slot`` a [1] tensor): the slot's rows are taken out,
+        run through the shared window forward and put back. The target's
+        ladder widths: O(buckets) draft programs."""
+        dcfg = self._draft_cfg
+        ck = ("cb_dchunk", dcfg, width, self.smax, self.slots,
+              self._draft_tree)
+
+        def build():
+            def chunk(params, caches, toks, pos0, slot):
+                one = [(kc.index_select(0, slot), vc.index_select(0, slot))
+                       for kc, vc in caches]
+                one, _ = _decode_window(params, one, toks, pos0, dcfg,
+                                        need_logits=False)
+                for (kc, vc), (k1, v1) in zip(caches, one):
+                    kc.index_copy_(0, slot, k1)
+                    vc.index_copy_(0, slot, v1)
+                return caches
+            return chunk
+        return self._captured(ck, self._program(ck, build), bound=(0, 1))
+
     def _host(self, values, dtype: torch.dtype) -> torch.Tensor:
         """A program input from host values: for a CUDA graph a pinned
         host tensor, which the graph copies into its input
@@ -707,6 +999,21 @@ class ContinuousServer:
         while pt.capacity <= pos:
             pt.append_block(self._alloc_block())
         self._cow_guard(pt, pos // self.block_size)
+
+    def _ensure_window(self, slot: int, pos0: int, last: int) -> None:
+        """``_ensure_block`` for a verify window: cover every write
+        position in [pos0, last] and copy-on-write guard each covered
+        block, so that draft rows never land in a radix-shared block.
+        Window columns past ``last`` need no cover: the table row pads
+        with the trash block."""
+        last = min(last, self.smax - 1)
+        pt = self._tables[slot]
+        assert pt is not None
+        while pt.capacity <= last:
+            pt.append_block(self._alloc_block())
+        for bi in range(pos0 // self.block_size,
+                        last // self.block_size + 1):
+            self._cow_guard(pt, bi)
 
     def _tables_dev(self) -> torch.Tensor:
         """The [slots, maxb] int32 device map for one decode step,
@@ -776,12 +1083,31 @@ class ContinuousServer:
             "block_size_source": self._block_size_src,
         }
 
+    def spec_stats(self) -> Dict[str, float]:
+        """Speculation snapshot: draft tokens proposed and accepted,
+        spec steps and the tokens they emitted."""
+        drafted, steps = self._spec_drafted, self._spec_steps
+        return {
+            "drafted": float(drafted),
+            "accepted": float(self._spec_accepted),
+            "acceptance_rate": (self._spec_accepted / drafted)
+                               if drafted else 0.0,
+            "steps": float(steps),
+            "emitted": float(self._spec_emitted),
+            "tokens_per_step": (self._spec_emitted / steps)
+                               if steps else 0.0,
+        }
+
     # -- public API -----------------------------------------------------------
 
     def submit(self, prompt, max_new: int, eos_id: Optional[int] = None,
-               temperature: float = 0.0, key=None) -> int:
+               temperature: float = 0.0, key=None,
+               deadline_s: Optional[float] = None) -> int:
         """Queue one request; returns its id. ``key`` is a raw PRNG key
-        (``utils.prng.PRNGKey(seed)``, or a uint32[2] array)."""
+        (``utils.prng.PRNGKey(seed)``, or a uint32[2] array).
+        ``deadline_s`` (default ``hpx.serving.default_deadline_s``, 0:
+        none) sheds the request with ``DeadlineExceededError`` if it is
+        still queued or prefilling that many seconds after submit."""
         if self._closed:
             raise ServerClosedError()
         prompt = [int(t) for t in prompt]
@@ -804,10 +1130,19 @@ class ContinuousServer:
                 "temperature > 0 to sample")
         if key is not None:
             key = prng.as_key(key, "cpu")
+        if deadline_s is None:
+            deadline_s = self._default_deadline_s or None
+        if deadline_s is not None and deadline_s <= 0:
+            raise ValueError(
+                f"deadline_s must be > 0 (got {deadline_s}); omit it "
+                "for no deadline")
         rid = self._next_rid
         self._next_rid += 1
-        self._queue.append(_Request(rid, prompt, max_new, eos_id,
-                                    temperature, key))
+        now = time.monotonic()
+        self._queue.append(_Request(
+            rid, prompt, max_new, eos_id, temperature, key,
+            deadline_s=deadline_s,
+            t_deadline=(now + deadline_s) if deadline_s else None))
         return rid
 
     def shutdown(self) -> None:
@@ -953,6 +1288,11 @@ class ContinuousServer:
         self._key[slot] = (req.key if req.key is not None
                            else prng.PRNGKey(0))
         self._temp_dev = None          # rebuilt with keys next step
+        if self._spec:
+            self._slot_k[slot] = self._spec_k     # fresh adaptive k
+            self._slot_acc[slot] = 1.0
+            if self._draft_params is not None:
+                self._draft_prefill(slot, req.prompt)
         self._maybe_retire(slot)
 
     def _admit(self) -> None:
@@ -1017,6 +1357,169 @@ class ContinuousServer:
             p.pt = None
         return p
 
+    # -- speculative decode ------------------------------------------------------
+
+    def _draft_prefill(self, slot: int, prompt: List[int]) -> None:
+        """The draft model's K/V rows 0..plen-1 for a freshly admitted
+        slot: bucketed chunks over the whole prompt (the target's
+        ladder, so the draft's chunk programs are O(buckets) too)."""
+        done, plen = 0, len(prompt)
+        with torch.no_grad():
+            while done < plen:
+                n = min(self.prefill_chunk, plen - done)
+                width = self._bucket_width(n)
+                toks = prompt[done:done + n] + [0] * (width - n)
+                caches = self._draft_chunk_prog(width)(
+                    self._draft_params, self._draft_caches,
+                    self._host([toks], torch.int64),
+                    self._host(done, torch.int64),
+                    self._host([slot], torch.int64))
+                _check_in_place("a draft prefill chunk", caches,
+                                self._draft_caches)
+                done += n
+
+    def _prompt_drafts(self, live: List[int],
+                       kcap: Dict[int, int]) -> Dict[int, List[int]]:
+        """Zero-model draft proposals per live slot: n-gram continuation
+        mining over the slot's own history (prompt + tokens so far),
+        then, where the history has no recurring suffix, the radix
+        tree's cached continuations (paged with prefix reuse;
+        ``RadixCache.peek`` takes no leases)."""
+        drafts: Dict[int, List[int]] = {}
+        for s in live:
+            req = self._slot_req[s]
+            k = kcap[s]
+            hist = req.prompt + req.tokens
+            d = _ngram_propose(hist, k, self._spec_ngram) if k else []
+            if not d and k and self.paged and self._prefix_reuse:
+                d = self._radix.peek(hist, k)
+            drafts[s] = d[:k]
+        return drafts
+
+    def _draft_model_tokens(self, kbatch: int, width: int) -> torch.Tensor:
+        """kbatch + 1 chained greedy draft-model steps on the device. The
+        extra step lands the last draft's K/V rows, so the next round's
+        draft attention never reads a position never written; its
+        proposal is dropped. Positions clamp at smax - 1 on the device
+        (rows past a short slot's budget are rewritten by the real feed
+        at that position before the mask exposes them). Returns the
+        verify window [slots, width] (column 0 the committed cur tokens,
+        columns past kbatch zero)."""
+        prog = self._draft_step_prog()
+        dev = self.device
+        tok = self._host(self._cur, torch.int64).to(dev, non_blocking=True)
+        pos = self._host(self._pos, torch.int32).to(dev, non_blocking=True)
+        toks = torch.zeros((self.slots, width), dtype=torch.int64,
+                           device=dev)
+        toks[:, 0] = tok
+        with torch.no_grad():
+            for i in range(kbatch + 1):
+                caches, tok = prog(self._draft_params, self._draft_caches,
+                                   tok, torch.clamp_max(pos + i,
+                                                        self.smax - 1))
+                _check_in_place("the draft step", caches,
+                                self._draft_caches)
+                if i < kbatch:
+                    # a copy: a replay rewrites its graph's output
+                    toks[:, i + 1] = tok
+        return toks
+
+    def _spec_adapt_k(self, slot: int, accepted: int, drafted: int) -> None:
+        """Per-slot adaptive k: an EMA of the acceptance rate; back off
+        below hpx.serving.spec.min_accept, creep back toward the
+        configured k above 0.8. The EMA resets on a change, so each
+        adjustment gets a fresh measurement window."""
+        if not drafted or not self._spec_adapt:
+            return
+        ema = 0.5 * self._slot_acc[slot] + 0.5 * (accepted / drafted)
+        self._slot_acc[slot] = ema
+        if ema < self._spec_min_accept and self._slot_k[slot] > 1:
+            self._slot_k[slot] -= 1
+            self._slot_acc[slot] = 1.0
+        elif ema > 0.8 and self._slot_k[slot] < self._spec_k:
+            self._slot_k[slot] += 1
+            self._slot_acc[slot] = 1.0
+
+    def _spec_step(self, live: List[int]) -> None:
+        """One speculative decode step: draft up to k tokens a live slot,
+        verify every slot's window with ONE forward at per-slot
+        positions, commit the longest target-agreeing prefix plus the
+        target after it. The tokens are the sequential loop's (see
+        ``_verify_tail``); only tokens per host read change. Dense rows
+        past the committed frontier are dead under the mask; paged
+        tables roll back and drop the window's extra blocks."""
+        self._flush()              # spec commits synchronously
+        kcap: Dict[int, int] = {}
+        for s in live:
+            req = self._slot_req[s]
+            remaining = req.max_new - len(req.tokens)
+            kcap[s] = max(0, min(self._slot_k[s], remaining - 1))
+        kbatch = max(kcap.values())
+        width = self._bucket_width(1 + kbatch)
+        kvec_host = [0] * self.slots
+        if self._draft_params is not None:
+            toks = self._draft_model_tokens(kbatch, width)
+            for s in live:
+                kvec_host[s] = kcap[s]
+        else:
+            mat = np.zeros((self.slots, width), np.int64)
+            mat[:, 0] = self._cur
+            for s, d in self._prompt_drafts(live, kcap).items():
+                mat[s, 1:1 + len(d)] = d
+                kvec_host[s] = len(d)
+            toks = self._host(mat.tolist(), torch.int64)
+        pos = self._host(self._pos, torch.int32)
+        kvec = self._host(kvec_host, torch.int32)
+        if self._temp_dev is None:
+            self._temp_dev = torch.tensor(self._temp, dtype=torch.float32,
+                                          device=self.device)
+            self._keys_dev = torch.stack(self._key).to(self.device)
+        sample = any(t > 0.0 for t in self._temp)
+        with torch.no_grad():
+            if self.paged:
+                for s in live:
+                    self._ensure_window(s, self._pos[s],
+                                        self._pos[s] + kvec_host[s])
+                pools, scales, packed = self._paged_verify_prog(width)(
+                    self.params, self._pools, self._scales, toks, pos,
+                    self._tables_dev(), kvec, self._temp_dev,
+                    self._keys_dev, sample)
+                _check_in_place("the paged verify", (pools, scales),
+                                (self._pools, self._scales))
+            else:
+                caches, packed = self._verify_prog(width)(
+                    self.params, self._caches, toks, pos, kvec,
+                    self._temp_dev, self._keys_dev, sample)
+                _check_in_place("the dense verify", caches, self._caches)
+            # the spec step's one host read: every slot's targets and
+            # count, read before the next replay rewrites them
+            vals = packed.cpu().numpy()
+        emitted_total = 0
+        for s in live:
+            req = self._slot_req[s]
+            acc = int(vals[s, width])
+            m = min(acc + 1, req.max_new - len(req.tokens))
+            emis = [int(t) for t in vals[s, :m]]
+            if req.eos_id is not None and req.eos_id in emis:
+                emis = emis[:emis.index(req.eos_id) + 1]
+            req.tokens.extend(emis)
+            req.sent = len(req.tokens)
+            self._pos[s] += len(emis)
+            self._cur[s] = emis[-1]
+            emitted_total += len(emis)
+            self._spec_drafted += kvec_host[s]
+            self._spec_accepted += min(acc, kvec_host[s])
+            self._spec_adapt_k(s, min(acc, kvec_host[s]), kvec_host[s])
+            if self.paged:
+                # rewind past the rejected draft rows before a retire
+                # releases the table
+                for bid in self._tables[s].rollback(self._pos[s]):
+                    self._alloc.decref(bid)
+            self._maybe_retire(s)
+        self._spec_steps += 1
+        self._spec_emitted += emitted_total
+        self._cur_dev = None
+
     # -- shedding and retirement ----------------------------------------------
 
     def _shed_req(self, req: _Request, err: HpxError) -> None:
@@ -1024,6 +1527,29 @@ class ContinuousServer:
         (run() returns successes only)."""
         self.failed[req.rid] = err
         self._admit_defers.pop(req.rid, None)
+
+    def _shed_expired(self) -> None:
+        """Deadline policy: a queued or still-prefilling request whose
+        submit()-time deadline lapsed sheds now, with a typed error.
+        Live slots are exempt: they hold device state already, and their
+        remaining tokens are the cheapest in the system."""
+        now = time.monotonic()
+        if any(r.t_deadline is not None for r in self._queue):
+            keep: deque = deque()
+            while self._queue:
+                req = self._queue.popleft()
+                if req.t_deadline is not None and now >= req.t_deadline:
+                    self._shed_req(req, DeadlineExceededError(
+                        req.rid, req.deadline_s))
+                else:
+                    keep.append(req)
+            self._queue = keep
+        for s, p in list(self._pending.items()):
+            req = p.req
+            if req.t_deadline is not None and now >= req.t_deadline:
+                self._drop_pending(s)
+                self._shed_req(req, DeadlineExceededError(
+                    req.rid, req.deadline_s))
 
     def _shed_everything(self, exc: BaseException) -> None:
         """A decode step ran out of KV blocks: completed requests keep
@@ -1090,7 +1616,9 @@ class ContinuousServer:
     def step(self) -> bool:
         """Admit + one prefill chunk + one decode step for every live
         slot. Returns True while any work remains (live slots, pending
-        prefills, or queued requests)."""
+        prefills, or queued requests). Requests whose deadline lapsed
+        while queued or prefilling shed first."""
+        self._shed_expired()
         try:
             return self._step_inner()
         except CacheOOM as e:
@@ -1105,6 +1633,9 @@ class ContinuousServer:
         if not live:
             self._flush()
             return bool(self._queue or self._pending)
+        if self._spec:
+            self._spec_step(live)
+            return True
         dev = self.device
         # dense: dead slots re-write their own last position (never
         # read). Paged: dead slots' tables are all-trash. Dead slots'

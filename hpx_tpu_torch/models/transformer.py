@@ -6,7 +6,10 @@ the weight tree, the KV-cached forward (``_block_decode`` /
 per-row sampling contract (``_sample_row`` / ``_pick_row``), and the
 training step (``_block`` / ``_nll_head`` / ``_local_loss`` /
 ``make_train_step``). On one device its attention is flash attention
-with the flash backward (``ops/attention_cuda.flash_attention``).
+with the flash backward (``ops/attention_cuda.flash_attention``). The
+other decoders: ``speculative_generate`` (greedy, a draft model's k
+proposals verified by one target window), ``speculative_sample`` (the
+exact acceptance-rejection algorithm, batch 1) and ``beam_search``.
 
 Over a (dp, sp, tp) mesh (``make_mesh_3d``, one process per rank) the
 same step is the reference's sharded step: tokens split over dp (batch)
@@ -21,7 +24,8 @@ the weights and the batch. Mixture-of-experts waits for a later slice.
 The weights live in an ``nn.Module`` (``Transformer``) whose parameter
 names follow the reference's tree: ``emb``, ``ln_f`` and
 ``layers.{i}.{ln1,wqkv | wq+wkv,wo,ln2,w1,b1,w2}``; an int8 weight is a
-``QWeight`` with buffers ``q`` and ``s``. Both classes answer
+``QWeight`` with buffers ``q`` and ``s``, a packed int4 one a
+``QWeight4`` (the same buffers and its packing ``axis``). Both classes answer
 ``params["name"]`` as the reference's dicts do, so the decode functions
 read like the reference's and stay plain functions on tensors.
 
@@ -53,10 +57,12 @@ from ..ops.attention import (ring_attention_sharded, ring_positions,
 from ..ops.attention_cuda import flash_attention
 from ..parallel.mesh import Mesh
 from ..utils import prng
-from .quant import QTensor, dequant
+from .quant import QTensor, QTensor4, dequant
 
-__all__ = ["TransformerConfig", "Transformer", "QWeight", "init_params",
-           "params_from_reference", "generate", "sample_batch",
+__all__ = ["TransformerConfig", "Transformer", "QWeight", "QWeight4",
+           "init_params", "params_from_reference", "generate",
+           "speculative_generate", "speculative_sample", "beam_search",
+           "sample_batch",
            "make_train_step", "make_opt_state", "make_mesh_3d",
            "mesh_3d_shape", "param_specs", "shard_params",
            "unshard_params", "shard_batch"]
@@ -104,12 +110,25 @@ class QWeight(nn.Module):
         self.register_buffer("s", s)
 
 
+class QWeight4(QWeight):
+    """A packed int4 serving weight (the reference's ``QTensor4`` leaf):
+    ``q`` holds two values a byte along ``axis``, ``s`` the f32
+    scales."""
+
+    def __init__(self, q: torch.Tensor, s: torch.Tensor, axis: int) -> None:
+        super().__init__(q, s)
+        self.axis = int(axis)
+
+
 class _Tree(nn.Module):
     """A module that answers ``tree["name"]`` like the reference's dict:
-    a parameter, a ``QTensor`` view of a ``QWeight``, or a submodule."""
+    a parameter, a ``QTensor`` / ``QTensor4`` view of a ``QWeight`` /
+    ``QWeight4``, or a submodule."""
 
     def _put(self, name: str, value: Any) -> None:
-        if isinstance(value, QTensor):
+        if isinstance(value, QTensor4):
+            self.add_module(name, QWeight4(value.q, value.s, value.axis))
+        elif isinstance(value, QTensor):
             self.add_module(name, QWeight(value.q, value.s))
         elif isinstance(value, nn.Module):
             self.add_module(name, value)
@@ -123,6 +142,8 @@ class _Tree(nn.Module):
         m = self._modules.get(name)
         if m is None:
             raise KeyError(name)
+        if isinstance(m, QWeight4):
+            return QTensor4(m.q, m.s, m.axis)
         return QTensor(m.q, m.s) if isinstance(m, QWeight) else m
 
     def __contains__(self, name: str) -> bool:
@@ -212,16 +233,16 @@ def params_from_reference(np_tree: Dict[str, Any], device=None
     """The reference's parameter tree, as numpy arrays
     (``jax.tree.map(np.asarray, params)``), as a ``Transformer`` on
     ``device`` (None means ``cuda:0``). int8 ``QTensor`` leaves (from
-    ``quantize_params(bits=8)``) become ``QWeight``s."""
+    ``quantize_params(bits=8)``) become ``QWeight``s, packed int4
+    ``QTensor4`` leaves (``bits=4``) ``QWeight4``s."""
     dev = resolve_device(device)
 
     def leaf(v):
-        if isinstance(v, tuple) and hasattr(v, "q") and hasattr(v, "s"):
-            if len(v) != 2:
-                raise NotImplementedYet(
-                    "packed int4 weights are not ported yet",
-                    "params_from_reference")
-            return QTensor(_from_numpy(v.q, dev), _from_numpy(v.s, dev))
+        if hasattr(v, "q") and hasattr(v, "s"):
+            q, s = _from_numpy(v.q, dev), _from_numpy(v.s, dev)
+            if hasattr(v, "axis"):
+                return QTensor4(q, s, int(v.axis))
+            return QTensor(q, s)
         return _from_numpy(v, dev)
 
     layers = []
@@ -242,8 +263,8 @@ def _ln(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def _dq(w, like: torch.Tensor):
-    """Dequantize an int8 serving weight at use; dense weights pass
-    through."""
+    """Dequantize an int8 or packed int4 serving weight at use; dense
+    weights pass through."""
     return dequant(w, like.dtype)
 
 
@@ -473,7 +494,9 @@ def generate(params, cfg: TransformerConfig, prompt, max_new: int = 32,
 
     temperature=0: greedy argmax. temperature>0: sample with ``key``
     (a raw PRNG key, see ``utils.prng``), folding in (position, row) as
-    the reference does, so the draws equal its draws. eos_id: rows that
+    the reference does, so the draws equal its draws; top_k>0 first
+    masks every raw logit below the row's k-th largest value to -inf
+    (by value, so ties at the threshold stay in). eos_id: rows that
     emit it keep emitting it. ``device=None`` means ``cuda:0``; the
     weights must be there."""
     if temperature > 0.0 and key is None:
@@ -482,9 +505,6 @@ def generate(params, cfg: TransformerConfig, prompt, max_new: int = 32,
         raise ValueError(
             "top_k/key have no effect at temperature=0 (greedy); pass "
             "temperature > 0 to sample")
-    if top_k > 0:
-        raise NotImplementedYet("top_k sampling is not ported yet",
-                                "generate")
     dev = resolve_device(device)
     if params.device != dev:
         raise ValueError(f"params live on {params.device}, not {dev}")
@@ -498,7 +518,13 @@ def generate(params, cfg: TransformerConfig, prompt, max_new: int = 32,
     def select(logits, pos):
         if temperature <= 0.0:
             return torch.argmax(logits, dim=-1)
-        return _sample_rows(logits, temperature, karg, pos, rows)
+        raw = logits.float()
+        if top_k > 0:
+            # the top-k set is scale-invariant: mask the raw logits, the
+            # shared sampler scales after
+            thr = torch.topk(raw, top_k, dim=-1).values[..., -1:]
+            raw = raw.masked_fill(raw < thr, float("-inf"))
+        return _sample_rows(raw, temperature, karg, pos, rows)
 
     with torch.no_grad():
         caches = [tuple(torch.zeros((b, smax, cfg.kv_heads, cfg.head_dim),
@@ -525,6 +551,265 @@ def generate(params, cfg: TransformerConfig, prompt, max_new: int = 32,
     if not out:
         return torch.zeros((b, 0), dtype=torch.int32, device=dev)
     return torch.stack(out, dim=1).to(torch.int32)
+
+
+# -- speculative decoding and beam search -------------------------------------
+
+def _pin_after_eos(out: torch.Tensor, eos_id: int) -> torch.Tensor:
+    """Pin every position after a row's first eos to eos: generate()'s
+    done-row pinning as a post-pass, so the speculative loops stay
+    eos-free inside."""
+    after = torch.cumsum((out == eos_id).to(torch.int32), dim=1) >= 1
+    prev = torch.cat([torch.zeros_like(after[:, :1]), after[:, :-1]], dim=1)
+    return out.masked_fill(prev, eos_id)
+
+
+def _accept_scatter(out: torch.Tensor, m: int, a: int, emis: torch.Tensor,
+                    max_new: int) -> Tuple[torch.Tensor, int]:
+    """The accept-and-emit step of both speculative decoders: write
+    emissions 0..a (emis [B, k+1]) at columns m..m+a of ``out`` (those
+    past max_new dropped); returns (the new cursor token [B], the
+    advanced count)."""
+    n = min(a + 1, max_new - m)
+    out[:, m:m + n] = emis[:, :n]
+    return emis[:, a], min(m + a + 1, max_new)
+
+
+def _spec_args(params, cfg, draft_params, draft_cfg, prompt, k: int,
+               what: str, device):
+    if k < 1:
+        raise ValueError(f"{what}: k must be >= 1, got {k}")
+    if draft_cfg.vocab != cfg.vocab:
+        raise ValueError(
+            f"draft vocab {draft_cfg.vocab} != target vocab {cfg.vocab}")
+    dev = resolve_device(device)
+    for name, p in (("params", params), ("draft_params", draft_params)):
+        if p.device != dev:
+            raise ValueError(f"{name} live on {p.device}, not {dev}")
+    return dev, _as_tokens(prompt, dev)
+
+
+def _fresh_caches(cfg: TransformerConfig, b: int, smax: int, dev):
+    return [tuple(torch.zeros((b, smax, cfg.kv_heads, cfg.head_dim),
+                              dtype=cfg.dtype, device=dev)
+                  for _ in range(2)) for _ in range(cfg.n_layers)]
+
+
+def speculative_generate(params, cfg: TransformerConfig, draft_params,
+                         draft_cfg: TransformerConfig, prompt,
+                         max_new: int = 32, k: int = 4, mesh=None,
+                         eos_id: Optional[int] = None,
+                         return_stats: bool = False, device=None):
+    """Greedy speculative decoding: each round the draft model proposes
+    k tokens (k + 1 greedy draft steps: the extra one lands the last
+    proposal's K/V, so a fully accepted round leaves no hole in the
+    draft cache), the target scores the window [cur, d_0 .. d_{k-1}] in
+    one ``_decode_window``, and the longest prefix on which every row's
+    draft agrees with the target's argmax is accepted, plus the
+    target's token after it. Every emitted token is a target argmax, so
+    the output is ``generate(temperature=0)``'s (up to argmax near-ties
+    between the window and the sequential forwards).
+
+    Returns int32 [B, max_new], with ``return_stats`` also the number of
+    rounds (target windows run). One host read a round (the accepted
+    count, which sets the next round's positions). ``mesh=`` (sharded
+    decode) is not ported; ``device=None`` means ``cuda:0``."""
+    if mesh is not None:
+        raise NotImplementedYet("sharded speculative decoding is not "
+                                "ported yet", "speculative_generate")
+    dev, prompt = _spec_args(params, cfg, draft_params, draft_cfg, prompt,
+                             k, "speculative_generate", device)
+    b, plen = prompt.shape
+    if max_new <= 0:
+        empty = torch.zeros((b, 0), dtype=torch.int32, device=dev)
+        return (empty, 0) if return_stats else empty
+    # target windows start at plen + m - 1 (m <= max_new - 1), k + 1 wide
+    smax = plen + max_new + k
+    with torch.no_grad():
+        t_caches, t_last = _prefill_window(
+            params, cfg, _fresh_caches(cfg, b, smax, dev), prompt,
+            logits0=torch.zeros((b, cfg.vocab), device=dev))
+        d_caches, _ = _prefill_window(
+            draft_params, draft_cfg, _fresh_caches(draft_cfg, b, smax, dev),
+            prompt, need_logits=False)
+        cur = torch.argmax(t_last, dim=-1)
+        out = torch.zeros((b, max_new), dtype=torch.int64, device=dev)
+        out[:, 0] = cur
+        m, rounds = 1, 0
+        while m < max_new:
+            pos0 = plen + m - 1                # cur's position
+            tok, d = cur, []
+            for j in range(k + 1):
+                d_caches, lg = _decode_forward(draft_params, d_caches, tok,
+                                               pos0 + j, draft_cfg)
+                tok = torch.argmax(lg, dim=-1)
+                if j < k:
+                    d.append(tok)
+            d = torch.stack(d, dim=1)                       # [B, k]
+            window = torch.cat([cur[:, None], d], dim=1)
+            t_caches, lg = _decode_window(params, t_caches, window, pos0,
+                                          cfg)
+            t = torch.argmax(lg, dim=-1)                    # [B, k + 1]
+            matches = (d == t[:, :k]).to(torch.int64)
+            a = int(torch.cumprod(matches, dim=1).sum(dim=1).min())
+            cur, m = _accept_scatter(out, m, a, t, max_new)
+            rounds += 1
+    if eos_id is not None:
+        out = _pin_after_eos(out, eos_id)
+    out = out.to(torch.int32)
+    return (out, rounds) if return_stats else out
+
+
+def speculative_sample(params, cfg: TransformerConfig, draft_params,
+                       draft_cfg: TransformerConfig, prompt,
+                       max_new: int = 32, k: int = 4,
+                       temperature: float = 1.0, key=None,
+                       eos_id: Optional[int] = None,
+                       return_stats: bool = False, device=None):
+    """Sampled speculative decoding, the exact acceptance-rejection
+    algorithm: draft j proposes d_j ~ q_j, the target scores the window
+    in one forward, d_j is accepted when u_j < p_j(d_j) / q_j(d_j), and
+    the first rejection a draws from norm(relu(p_a - q_a)) (with q a
+    zero row past the proposals, an all-accepted round draws the bonus
+    token from p_k by the same formula). Round r draws from
+    fold_in(key, r + 1): draft j from fold_in(fold_in(., 1), j), the u's
+    from fold_in(., 2), the resample from fold_in(., 3), as the
+    reference does, so the tokens equal its tokens.
+
+    Batch 1. Returns int32 [1, max_new] (and the round count with
+    ``return_stats``). Two host reads a round: the acceptances and the
+    resampled token. ``device=None`` means ``cuda:0``."""
+    if key is None:
+        raise ValueError("speculative_sample needs a PRNG key")
+    if temperature <= 0.0:
+        raise ValueError(
+            "speculative_sample is the sampled algorithm; temperature "
+            "must be > 0 (greedy: speculative_generate)")
+    dev, prompt = _spec_args(params, cfg, draft_params, draft_cfg, prompt,
+                             k, "speculative_sample", device)
+    if prompt.shape[0] != 1:
+        raise ValueError(
+            f"speculative_sample is single-stream (batch == 1); got "
+            f"batch {prompt.shape[0]}")
+    plen = prompt.shape[1]
+    if max_new <= 0:
+        empty = torch.zeros((1, 0), dtype=torch.int32, device=dev)
+        return (empty, 0) if return_stats else empty
+    smax = plen + max_new + k
+    karg = prng.as_key(key, dev)
+
+    def probs(logits):
+        return _softmax_f32(logits.float() / temperature)
+
+    with torch.no_grad():
+        t_caches, t_last = _prefill_window(
+            params, cfg, _fresh_caches(cfg, 1, smax, dev), prompt,
+            logits0=torch.zeros((1, cfg.vocab), device=dev))
+        d_caches, _ = _prefill_window(
+            draft_params, draft_cfg, _fresh_caches(draft_cfg, 1, smax, dev),
+            prompt, need_logits=False)
+        cur = prng.categorical(prng.fold_in(karg, 0),
+                               t_last[0] / temperature)[None]
+        out = torch.zeros((1, max_new), dtype=torch.int64, device=dev)
+        out[:, 0] = cur
+        m, rounds = 1, 0
+        ar = torch.arange(k, device=dev)
+        while m < max_new:
+            pos0 = plen + m - 1
+            kr = prng.fold_in(karg, rounds + 1)     # fresh per round
+            kd = prng.fold_in(kr, 1)
+            tok, d, dlogits = cur, [], []
+            for j in range(k + 1):
+                d_caches, lg = _decode_forward(draft_params, d_caches, tok,
+                                               pos0 + j, draft_cfg)
+                tok = prng.categorical(prng.fold_in(kd, j),
+                                       lg[0] / temperature)[None]
+                if j < k:
+                    d.append(tok)
+                    dlogits.append(lg[0])
+            d = torch.cat(d)                                # [k]
+            q = probs(torch.stack(dlogits))                 # [k, V]
+            window = torch.cat([cur, d])[None]
+            t_caches, lg = _decode_window(params, t_caches, window, pos0,
+                                          cfg)
+            p = probs(lg[0])                                # [k + 1, V]
+            u = prng.uniform(prng.fold_in(kr, 2), k)
+            one = torch.ones((), device=dev)
+            accept = (u < torch.minimum(one, p[ar, d] / q[ar, d])).tolist()
+            a = accept.index(False) if False in accept else k
+            # the rejection's residual; a == k reads q's zero row
+            qa = q[a] if a < k else torch.zeros_like(p[a])
+            resid = torch.clamp_min(p[a] - qa, 0.0)
+            z = resid.sum()
+            dist = torch.where(z > 0, resid / torch.clamp_min(z, 1e-30),
+                               p[a])
+            e_a = int(prng.categorical(prng.fold_in(kr, 3),
+                                       torch.log(dist)))
+            emis = torch.cat([d[:a], torch.full((k + 1 - a,), e_a,
+                                                dtype=d.dtype,
+                                                device=dev)])[None]
+            cur, m = _accept_scatter(out, m, a, emis, max_new)
+            rounds += 1
+    if eos_id is not None:
+        out = _pin_after_eos(out, eos_id)
+    out = out.to(torch.int32)
+    return (out, rounds) if return_stats else out
+
+
+def beam_search(params, cfg: TransformerConfig, prompt, max_new: int = 32,
+                beam_width: int = 4, return_all: bool = False, device=None):
+    """Beam-search decode: keep the beam_width highest total
+    log-probability continuations per row. The prompt prefills once at
+    batch B, then the beams run flat at B·W, each step's caches gathered
+    by surviving parent. Candidates are ordered by a stable descending
+    sort of the flattened [B, W·V] scores, so ties go to the lower index
+    as ``lax.top_k`` breaks them. Returns the best [B, max_new] int32
+    sequences, or (tokens [B, W, max_new], f32 scores [B, W]) sorted
+    best first with ``return_all``. beam_width=1 is greedy decode. No
+    host reads; ``device=None`` means ``cuda:0``."""
+    if beam_width < 1:
+        raise ValueError("beam_width >= 1")
+    dev = resolve_device(device)
+    if params.device != dev:
+        raise ValueError(f"params live on {params.device}, not {dev}")
+    prompt = _as_tokens(prompt, dev)
+    b, plen = prompt.shape
+    w, v = beam_width, cfg.vocab
+    with torch.no_grad():
+        caches, logits = _prefill_window(
+            params, cfg, _fresh_caches(cfg, b, plen + max_new, dev), prompt,
+            logits0=torch.zeros((b, v), device=dev))
+        # tile beams: all start identical; only beam 0 is live so the
+        # duplicates cannot multiply into the top w
+        caches = [tuple(c.repeat_interleave(w, dim=0) for c in kv)
+                  for kv in caches]
+        scores = torch.full((b, w), float("-inf"), device=dev)
+        scores[:, 0] = 0.0
+        logits = logits.repeat_interleave(w, dim=0)             # [B*W, V]
+        hist = torch.zeros((b, w, max_new), dtype=torch.int64, device=dev)
+        rows = torch.arange(b, device=dev)[:, None] * w
+        for t in range(max_new):
+            logp = torch.log_softmax(logits.float(), dim=-1).reshape(b, w, v)
+            cand = (scores[:, :, None] + logp).reshape(b, -1)
+            top, idx = torch.sort(cand, dim=1, descending=True, stable=True)
+            scores, idx = top[:, :w], idx[:, :w]
+            parent = idx // v                                   # [B, W]
+            tok = idx % v
+            flat = (rows + parent).reshape(-1)
+            hist = torch.take_along_dim(hist, parent[..., None], dim=1)
+            hist[:, :, t] = tok
+            if t == max_new - 1:
+                break           # the last step's logits are unused
+            caches = [tuple(c[flat] for c in kv) for kv in caches]
+            caches, logits = _decode_forward(params, caches, tok.reshape(-1),
+                                             plen + t, cfg)
+        order = torch.argsort(-scores, dim=1, stable=True)
+        hist = torch.take_along_dim(hist, order[..., None], dim=1)
+        scores = torch.take_along_dim(scores, order, dim=1)
+    hist = hist.to(torch.int32)
+    if return_all:
+        return hist, scores
+    return hist[:, 0, :]
 
 
 # -- the (dp, sp, tp) mesh and its shards -------------------------------------

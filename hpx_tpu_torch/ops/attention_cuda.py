@@ -1173,9 +1173,11 @@ def _bwd_launch(wrapper, entry: str, plan, q, k, v, do, delta, lse,
 
 
 def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
-    """[B, S, N, H] -> [B·N, S, H], contiguous."""
+    """[B, S, N, H] -> [B·N, S, H], contiguous (a reshape alone may
+    return a strided view: k and v unbound from one einsum's output, as
+    the GQA projection makes them, are not)."""
     b, s, n, h = x.shape
-    return x.transpose(1, 2).reshape(b * n, s, h)
+    return x.transpose(1, 2).reshape(b * n, s, h).contiguous()
 
 
 def _public_layout(x: torch.Tensor, b: int) -> torch.Tensor:

@@ -26,8 +26,9 @@ absmax), and reads dequantize as ``(q * scale).to(compute dtype)``.
 
 Out-of-range writes DROP, never clamp: a clamped table lookup lands on
 the row's last column, which for a full table is a real block. Window
-writes (``scatter_window``) filter the out-of-range rows away; the
-quantized writes (``scatter_token_q``) write an out-of-range row's block
+writes (``scatter_window``) redirect the out-of-range rows onto the
+slot's first row with the same value (no data-dependent shape, so a
+CUDA graph captures them); the quantized writes (``scatter_token_q``) write an out-of-range row's block
 back unchanged, a no-op (a slot's blocks are its own, or the trash).
 """
 
@@ -124,10 +125,18 @@ def scatter_window(pool: torch.Tensor, table: torch.Tensor,
                    pos0: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """Write a W-token window per slot: vals [B, W, n_kv, head_dim], row
     i of slot b at logical position pos0[b] + i. Rows past the table's
-    extent are dropped."""
+    extent are dropped without a data-dependent shape, so that a CUDA
+    graph can capture the write: a dropped row rewrites the target of
+    the slot's column 0 with the value that target gets (column 0's new
+    row, or where column 0 is dropped too its current content)."""
     bidx, off, valid = _window_index(table, pos0, vals.shape[1],
                                      pool.shape[1])
-    _put(pool, (bidx[valid], off[valid]), vals[valid])
+    raw = as_raw(pool)
+    b0, o0 = bidx[:, :1], off[:, :1]
+    vals = as_raw(vals.to(pool.dtype))
+    v0 = torch.where(valid[:, :1, None, None], vals[:, :1], raw[b0, o0])
+    raw[torch.where(valid, bidx, b0), torch.where(valid, off, o0)] = \
+        torch.where(valid[..., None, None], vals, v0)
     return pool
 
 

@@ -376,3 +376,17 @@ def test_arguments_are_checked():
     rows = torch.zeros((4, 8), device="meta")
     with pytest.raises(TypeError, match="flash_attention_bwd"):
         ac.flash_attention_bwd_f32(x, x, x, x, rows, rows, 0, True)
+
+
+@pytest.mark.parametrize("n_kv", [1, 2])
+def test_kernel_layout_is_contiguous_for_gqa_k_and_v(n_kv):
+    """k and v unbound from the GQA projection's one einsum are strided
+    views; the kernels' layout copies them contiguous (a reshape alone
+    kept the view, and the card's entry points refused it), and the
+    layout round-trips."""
+    h = torch.randn(2, 24, 64)
+    k, v = torch.einsum("bsd,cdnh->cbsnh", h, torch.randn(2, 64, n_kv, 64))
+    for t in (k, v):
+        x = ac._kernel_layout(t)
+        assert x.is_contiguous() and tuple(x.shape) == (2 * n_kv, 24, 64)
+        assert torch.equal(ac._public_layout(x, 2), t)

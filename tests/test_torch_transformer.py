@@ -17,7 +17,6 @@ import torch
 
 from hpx_tpu.models import quant as ref_quant
 from hpx_tpu.models import transformer as rt
-from hpx_tpu_torch.core.errors import NotImplementedYet
 from hpx_tpu_torch.models import transformer as pt
 from hpx_tpu_torch.models.quant import QTensor
 from hpx_tpu_torch.utils import prng
@@ -158,9 +157,13 @@ def test_generate_pins_eos(model):
 def test_generate_arguments():
     cfg = pt.TransformerConfig(**SMALL)
     params = pt.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedYet, match="top_k"):
-        pt.generate(params, cfg, [[1, 2]], temperature=1.0, top_k=5,
-                    key=prng.PRNGKey(0), device="cpu")
+    # top_k runs (tests/test_torch_decoders.py holds its draws to the
+    # reference's); without sampling it has no effect and is refused
+    out = pt.generate(params, cfg, [[1, 2]], temperature=1.0, top_k=5,
+                      key=prng.PRNGKey(0), device="cpu")
+    assert tuple(out.shape) == (1, 32)
+    with pytest.raises(ValueError, match="no effect"):
+        pt.generate(params, cfg, [[1, 2]], top_k=5, device="cpu")
     with pytest.raises(ValueError, match="needs a PRNG key"):
         pt.generate(params, cfg, [[1, 2]], temperature=1.0, device="cpu")
     with pytest.raises(ValueError, match="no effect"):
