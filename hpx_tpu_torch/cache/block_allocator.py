@@ -1,7 +1,7 @@
 """Fixed-size KV-block allocator: the AGAS move applied to decode memory.
 
-Counterpart of ``hpx_tpu.cache.block_allocator`` (the fault-injection
-site at ``alloc`` comes with the resiliency slice).
+Counterpart of ``hpx_tpu.cache.block_allocator``, with its
+fault-injection site at ``alloc``.
 
 Reference analog: `containers/partitioned_vector.py` stores data at
 rest as fixed-size segments behind an address map; this module is the
@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import Dict, List
 
 from ..core.errors import CacheOOM
+from ..svc import faultinject
 from ..synchronization import Mutex
 
 __all__ = ["BlockAllocator", "CacheOOM", "block_bytes",
@@ -120,7 +121,11 @@ class BlockAllocator:
 
     def alloc(self) -> int:
         """One fresh block at refcount 1, or CacheOOM when the pool is
-        exhausted (callers evict-and-retry; see serving._alloc_block)."""
+        exhausted (callers evict-and-retry; see serving._alloc_block).
+        An installed fault injector can raise InjectedOOM here — a
+        CacheOOM subclass, so it walks the same evict→retry→shed
+        ladder a genuinely exhausted pool does."""
+        faultinject.check("alloc")
         with self._lock:
             if not self._free:
                 raise CacheOOM(

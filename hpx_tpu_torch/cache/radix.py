@@ -20,10 +20,11 @@ when the allocator reports OOM (serving's OOM→evict→retry path). A
 logical clock orders recency — deterministic replay matters more here
 than wall time.
 
-Counterpart of ``hpx_tpu.cache.radix`` without the tracing instants and
-without the host-tier hooks (``demote_hook``, ``match_tiered``), which
-come with later slices: here an evicted block is dropped, so
-``evict`` always reports ``(0, dropped)``.
+Counterpart of ``hpx_tpu.cache.radix``, with its ``cache.match`` and
+``cache.evict`` tracing instants, without the host-tier hooks
+(``demote_hook``, ``match_tiered``), which come with a later slice:
+here an evicted block is dropped, so ``evict`` always reports
+``(0, dropped)``.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from __future__ import annotations
 import hashlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from ..svc import tracing
 from ..synchronization import Mutex
 from .block_allocator import BlockAllocator
 
@@ -145,6 +147,9 @@ class RadixCache:
                 node = child
             matched = len(bids) * self.block_size
             self.tokens_matched += matched
+        if tracing.active_tracer() is not None:
+            tracing.instant("cache.match", "cache", matched=matched,
+                            requested=len(tokens), blocks=len(bids))
         return matched, bids
 
     def peek(self, tokens: Sequence[int], k: int) -> List[int]:
@@ -279,6 +284,9 @@ class RadixCache:
             self.total_evictions += 1
             self.total_dropped += 1
             dropped += 1
+        if dropped and tracing.active_tracer() is not None:
+            tracing.instant("cache.evict", "cache", freed=dropped,
+                            demoted=0, requested=n, held=self._blocks_held)
         return 0, dropped
 
     def stats(self) -> Dict[str, float]:

@@ -150,3 +150,46 @@ declare("hpx.serving.spec.min_accept", "float", "0.3",
         "adaptive-k backoff threshold")
 declare("hpx.serving.spec.adapt", "bool", "1",
         "per-slot adaptive k on/off")
+declare("hpx.serving.spec.max_verify_faults", "int", "2",
+        "verify faults before speculation self-disables")
+declare("hpx.serving.ckpt_every", "int", "16",
+        "tokens between slot checkpoints")
+declare("hpx.serving.step_retries", "int", "4",
+        "step attempts before shedding")
+declare("hpx.serving.retry_backoff_s", "float", "0.005",
+        "base step-retry backoff")
+
+# -- resiliency -------------------------------------------------------------
+declare("hpx.resiliency.replay_default_n", "int", "3",
+        "attempts for a replay API called with n=None")
+
+# -- fault injection (svc/faultinject) --------------------------------------
+declare("hpx.fault.enable", "bool", "0", "svc/faultinject master switch")
+declare("hpx.fault.seed", "int", "0", "rate-mode RNG seed")
+declare("hpx.fault.rate", "float", "0.0", "per-check fault probability")
+declare("hpx.fault.sites", "str", "", "csv armed sites ('' = all)")
+declare("hpx.fault.max", "int", "0", "total fault cap (0 = unlimited)")
+declare("hpx.fault.schedule", "str", "", "csv 'site:nth' exact schedule")
+
+# -- tracing (svc/tracing) --------------------------------------------------
+declare("hpx.trace.enabled", "bool", "0", "svc/tracing off by default")
+declare("hpx.trace.buffer_events", "int", "65536",
+        "ring capacity (drop-oldest)")
+declare("hpx.trace.counter_interval", "float", "0.05",
+        "s between counter samples")
+declare("hpx.trace.counters", "str", "/serving*,/cache*,/threads*,/programs*",
+        "csv counter patterns sampled into the trace")
+
+# -- metrics (svc/metrics histograms + timelines) ---------------------------
+declare("hpx.metrics.hist_lo", "float", "1e-6",
+        "latency histogram lowest bucket bound, seconds (values below "
+        "land in the underflow bucket)")
+declare("hpx.metrics.hist_hi", "float", "1e4",
+        "latency histogram highest bucket bound, seconds")
+declare("hpx.metrics.hist_subbuckets", "int", "8",
+        "histogram buckets per octave (gamma = 2**(1/n); 8 bounds "
+        "quantile relative error at ~4.4%)")
+declare("hpx.metrics.quantiles", "str", "0.5,0.95,0.99",
+        "csv quantiles derived as .../pNN counters per histogram")
+declare("hpx.metrics.timeline_capacity", "int", "1024",
+        "rids retained per RequestTimeline (drop-oldest)")

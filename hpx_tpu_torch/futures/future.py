@@ -26,6 +26,20 @@ T = TypeVar("T")
 
 _NOT_SET = object()
 
+# Causal-trace continuation hook (svc/tracing): when a tracer is
+# active, _trace_continuation(run, user_fn) wraps a then-continuation
+# so its execution records a span parented to the ATTACHING context
+# (plus a flow arrow). None when tracing is off — then() pays one
+# global load + is-None test.
+_trace_continuation: Optional[Callable[..., Any]] = None
+
+
+def set_trace_continuation_hook(hook: Optional[Callable[..., Any]]
+                                ) -> None:
+    global _trace_continuation
+    _trace_continuation = hook
+
+
 def _run_callback(cb: Callable[["SharedState"], None],
                   st: "SharedState") -> None:
     """Continuations are isolated: one raising callback must not poison the
@@ -208,6 +222,10 @@ class Future(Generic[T]):
                 next_state.set_value(fn(self))
             except BaseException as e:  # noqa: BLE001 — propagate into future
                 next_state.set_exception(e)
+
+        wrap = _trace_continuation
+        if wrap is not None:
+            run = wrap(run, fn)
 
         if executor is None:
             self._state.add_callback(run)

@@ -58,12 +58,36 @@ Differential contract: every request's tokens are EXACTLY what
 (keys fold position, then row 0) — batching changes throughput, never
 content — and, on the CPU, exactly what the reference server emits.
 
+RESILIENCY: the step loop runs under a bounded
+``svc.resiliency.sync_replay``. Every live slot keeps a host-side
+``SlotCheckpoint`` (tokens, position, feedback token, paged block pins)
+captured at flush boundaries every ``hpx.serving.ckpt_every`` tokens; a
+step-level fault (injected through ``svc.faultinject`` at the
+``decode``, ``prefill``, ``verify`` and ``alloc`` sites, each checked
+before its graph replay and before any host bookkeeping commits, or a
+KV-pool OOM that eviction could not clear) flushes the completed steps,
+rewinds live slots to their checkpoints and replays only the lost
+suffix, through the graphs already captured. Replayed steps re-emit the
+same tokens (the differential contract), so a faulted run's tokens equal
+the fault-free run's. Paged restores re-enter from still-resident pinned
+blocks (host work only); dense restores re-prefill prompt ++
+emitted[:-1] through the chunk programs in the b=1 scratch. Repeated
+verify faults (``hpx.serving.spec.max_verify_faults``) turn speculation
+off. Retry exhaustion (``hpx.serving.step_retries``), admission OOM that
+outlives ``hpx.serving.admit_retries``, and lapsed deadlines shed
+requests with typed errors into ``failed``; ``fault_stats()`` counts it
+all.
+
+OBSERVABILITY: host spans, flows and instants for ``svc.tracing``
+(``serving.admit`` / ``prefill`` / ``prefill_chunk`` / ``decode`` /
+``spec.draft`` / ``spec.verify`` / ``restore`` / ``shed`` / ``retire``,
+outside every captured graph), latency histograms (``self.hist``:
+ttft, queue_wait, decode_stall, e2e; restores behind
+``fault_stats()["restore_p99_s"]``) and a per-request ``timeline``.
+
 Left for later slices (the constructor takes none of their arguments):
 the mesh, mixture-of-experts, the host KV tier, disaggregated prefill,
-resiliency (checkpoints, replay, fault injection, the verify-fault
-ladder), tracing, metrics and live tuning. Without the replay ladder, a
-decode step that runs out of KV blocks sheds every in-flight request
-with ``RequestShedError``.
+the ``/serving{...}`` counters, the flight recorder and live tuning.
 """
 
 from __future__ import annotations
@@ -86,6 +110,9 @@ from ..core.errors import (DeadlineExceededError, HpxError,
                            RequestShedError, ServerClosedError)
 from ..exec.cuda import resolve_device
 from ..models.quant import FP8_DTYPE, as_raw
+from ..svc import faultinject, tracing
+from ..svc import metrics as _metrics
+from ..svc.resiliency import sync_replay
 from ..ops.attention_cuda import (SMEM_LIMIT, paged_plan,
                                   resolve_paged_block_src)
 from ..ops.paged_attention import (gather_block_kv, paged_decode_attention,
@@ -98,7 +125,7 @@ from .transformer import (_PREFILL_CHUNK, _PROGRAMS, TransformerConfig,
                           _rope_angles, _rotate, _sample_row, _tree_key)
 
 __all__ = ["ContinuousServer", "RequestShedError", "ServerClosedError",
-           "DeadlineExceededError"]
+           "DeadlineExceededError", "SlotCheckpoint"]
 
 
 def _resolve_buckets(spec, chunk: int) -> Tuple[int, ...]:
@@ -405,6 +432,37 @@ def _copy_rows(src, dst) -> None:
 
 
 @dataclasses.dataclass
+class SlotCheckpoint:
+    """Host-side restore point for one LIVE slot, captured at flush
+    boundaries (host and device agree there: ``pos = plen +
+    len(tokens) - 1``, cache rows [0, pos) hold prompt ++ tokens[:-1],
+    and ``cur = tokens[-1]`` is the next feedback token) every
+    ``hpx.serving.ckpt_every`` emitted tokens.
+
+    ``pins`` (paged mode) hold ONE extra allocator reference per FULL
+    block below pos (rows [0, pos - pos % block_size)): the pin keeps
+    eviction and slot-retire from recycling the block, and a full block
+    is append-complete — this slot never writes it again, so the extra
+    ref never provokes a ``_cow_guard`` fork (pinning the partial
+    frontier block would: refcount >= 2 makes the very next token write
+    fork and copy, one extra block per live slot — fatal in a
+    barely-sized pool). The frontier block's rows [0, pos % bs) need no
+    pin: KV rows are append-only and a COW fork copies every row
+    written so far, so the slot's CURRENT table always holds them.
+    Restore rebuilds the PageTable from pins ++ the live table's
+    frontier block. Dense mode pins nothing and restores by
+    re-prefilling prompt ++ tokens[:-1]."""
+
+    rid: int
+    tokens: List[int]              # emitted tokens at capture (copy)
+    pos: int                       # next write position per invariant
+    cur: int                       # feedback token (= tokens[-1])
+    slot_k: int                    # spec adaptive-k at capture
+    slot_acc: float                # spec acceptance EMA at capture
+    pins: List[int] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
 class _Request:
     rid: int
     prompt: List[int]
@@ -414,6 +472,7 @@ class _Request:
     key: Any = None                # int64 [2] raw PRNG key (host)
     tokens: List[int] = dataclasses.field(default_factory=list)
     sent: int = 0                  # tokens DISPATCHED (>= len(tokens))
+    t_submit: float = 0.0          # monotonic submit time (TTFT)
     deadline_s: Optional[float] = None   # submit()-time budget
     t_deadline: Optional[float] = None   # absolute monotonic deadline
 
@@ -433,6 +492,7 @@ class _PendingPrefill:
     pt: Optional[PageTable] = None  # paged: blocks held for the request
     wrow: Any = None               # paged: splice WRITE row (matched
                                    # prefix entries point at trash)
+    flow: Optional[int] = None     # tracing flow id chaining the chunks
 
     @property
     def remaining(self) -> int:
@@ -496,10 +556,20 @@ class ContinuousServer:
         self._async = bool(async_dispatch)
         self._max_async = max(1, rc.get_int("hpx.serving.max_async_steps",
                                             32))
+        # resiliency: checkpoint cadence, step-retry policy, deadline
+        # and shed accounting. `failed` is the typed failure surface —
+        # run() keeps returning successes only.
+        self._ckpt_every = max(1, rc.get_int("hpx.serving.ckpt_every", 16))
+        self._step_retries = max(1, rc.get_int("hpx.serving.step_retries",
+                                               4))
+        self._retry_backoff_s = max(0.0, rc.get_float(
+            "hpx.serving.retry_backoff_s", 0.005))
         self._admit_retries = max(0, rc.get_int(
             "hpx.serving.admit_retries", 8))
         self._default_deadline_s = rc.get_float(
             "hpx.serving.default_deadline_s", 0.0)
+        self._max_verify_faults = max(1, rc.get_int(
+            "hpx.serving.spec.max_verify_faults", 2))
         self._tree = _tree_key(self.params)
         self._init_spec(rc, spec, spec_k, spec_draft, draft_params,
                         draft_cfg)
@@ -550,6 +620,30 @@ class ContinuousServer:
         self._closed = False
         self.failed: Dict[int, HpxError] = {}
         self._admit_defers: Dict[int, int] = {}  # rid -> OOM deferrals
+        self._ckpt: Dict[int, SlotCheckpoint] = {}
+        # (step, (the live slots' restore points, free blocks, pending
+        # prefills)) at the last recovery from a real (not injected)
+        # KV-pool OOM: see _recover
+        self._steps = 0
+        self._oom_state: Optional[tuple] = None
+        self._verify_faults = 0     # consecutive verify-site faults
+        self._spec_degraded = False
+        # fault_stats() feed
+        self._flt_injected = 0
+        self._flt_retried = 0
+        self._flt_restored = 0
+        self._flt_shed = 0
+        self._flt_degraded = 0
+        self._restored_by_site: Dict[str, int] = {}
+        # latency distributions (svc.metrics): one log-bucketed
+        # histogram per family, the per-request lifecycle timeline and
+        # the checkpoint-restore timings (fault_stats' restore_p99_s)
+        self.hist: Dict[str, _metrics.HistogramCounter] = \
+            _metrics.latency_histograms()
+        self._restore_hist = _metrics.HistogramCounter()
+        self.timeline = _metrics.RequestTimeline()
+        self._last_step_t: Optional[float] = None
+        self._stall_live = False
 
     def _zeros(self, rows: int, cfg: Optional[TransformerConfig] = None
                ) -> torch.Tensor:
@@ -972,12 +1066,21 @@ class ContinuousServer:
 
     def _alloc_block(self) -> int:
         """allocator.alloc with OOM -> evict -> retry: a full pool first
-        evicts the least-recently-used idle radix chain."""
+        evicts the least-recently-used idle radix chain. Injected OOM
+        faults (site "alloc") walk the SAME ladder — counted, evicted
+        against, retried — and escalate (to the step-level restore path
+        or the admission defer/shed ladder) only when eviction has
+        nothing left to give."""
         try:
             return self._alloc.alloc()
-        except CacheOOM:
+        except CacheOOM as e:
+            injected = isinstance(e, faultinject.InjectedFault)
+            if injected:
+                self._flt_injected += 1
             if not sum(self._radix.evict(1)):
                 raise
+            if injected:
+                self._flt_retried += 1
             return self._alloc.alloc()
 
     def _cow_guard(self, pt: PageTable, bi: int) -> None:
@@ -1098,6 +1201,21 @@ class ContinuousServer:
                                if steps else 0.0,
         }
 
+    def fault_stats(self) -> Dict[str, Any]:
+        """Resiliency snapshot: faults injected, step retries, slot
+        restores, requests shed, speculation degradations, restores by
+        fault site, and the restores' p99 seconds (a histogram quantile,
+        bounded relative error)."""
+        return {
+            "injected": self._flt_injected,
+            "retried": self._flt_retried,
+            "restored": self._flt_restored,
+            "shed": self._flt_shed,
+            "degraded": self._flt_degraded,
+            "restore_p99_s": self._restore_hist.quantile(0.99),
+            "restored_by_site": dict(self._restored_by_site),
+        }
+
     # -- public API -----------------------------------------------------------
 
     def submit(self, prompt, max_new: int, eos_id: Optional[int] = None,
@@ -1141,8 +1259,9 @@ class ContinuousServer:
         now = time.monotonic()
         self._queue.append(_Request(
             rid, prompt, max_new, eos_id, temperature, key,
-            deadline_s=deadline_s,
+            t_submit=now, deadline_s=deadline_s,
             t_deadline=(now + deadline_s) if deadline_s else None))
+        self.timeline.event(rid, "submit", t=now, plen=len(prompt))
         return rid
 
     def shutdown(self) -> None:
@@ -1236,18 +1355,33 @@ class ContinuousServer:
         return p
 
     def _advance_chunk(self, p: _PendingPrefill) -> None:
-        """Run ONE bucketed chunk of p's prompt into its scratch."""
+        """Run ONE bucketed chunk of p's prompt into its scratch.
+
+        Fault site "prefill": the check fires BEFORE the scratch is
+        taken, the chunk replays and any host state moves, so a fault
+        here leaves the pending consistent — recovery restarts it from
+        the prompt (``_restart_pending``; paged restarts re-match the
+        radix prefix, so already-resident blocks are not recomputed)."""
+        faultinject.check("prefill")
         req, plen = p.req, len(p.req.prompt)
         n = min(self.prefill_chunk, plen - p.done)
         width = self._bucket_width(n)
         toks = req.prompt[p.done:p.done + n] + [0] * (width - n)
-        with torch.no_grad():
-            scratch = self._scratch_for(p)
-            caches = self._chunk_prog(width)(
-                self.params, scratch, self._host([toks], torch.int64),
-                self._host(p.done, torch.int64))
-        _check_in_place("a prefill chunk", caches, scratch)
-        p.done += n
+        with tracing.span("serving.prefill_chunk", "serving",
+                          rid=req.rid, pos0=p.done, tokens=n,
+                          width=width):
+            if p.flow is not None:
+                tracing.flow_end(p.flow, "serving.prefill_chunks")
+                p.flow = None
+            with torch.no_grad():
+                scratch = self._scratch_for(p)
+                caches = self._chunk_prog(width)(
+                    self.params, scratch, self._host([toks], torch.int64),
+                    self._host(p.done, torch.int64))
+            _check_in_place("a prefill chunk", caches, scratch)
+            p.done += n
+            if p.done < plen:
+                p.flow = tracing.flow_begin("serving.prefill_chunks")
 
     def _finish_prefill(self, p: _PendingPrefill) -> None:
         """Prompt fully chunked: probe the last position's logits,
@@ -1260,6 +1394,9 @@ class ContinuousServer:
             caches, logits = self._probe_prog()(
                 self.params, self._scratch_for(p), tok,
                 self._host(plen - 1, torch.int64))
+            if p.flow is not None:
+                tracing.flow_end(p.flow, "serving.prefill_chunks")
+                p.flow = None
             if self.paged:
                 self._pools, self._scales = self._paged_splice_prog()(
                     self._pools, self._scales, caches, p.wrow)
@@ -1293,6 +1430,12 @@ class ContinuousServer:
             self._slot_acc[slot] = 1.0
             if self._draft_params is not None:
                 self._draft_prefill(slot, req.prompt)
+        self.hist["ttft"].record(time.monotonic() - req.t_submit)
+        self.timeline.event(req.rid, "first_token", slot=slot)
+        # seed checkpoint: a fault before the first cadence capture
+        # restores to the freshly-admitted state instead of losing the
+        # slot (the seed token is already part of the checkpoint)
+        self._capture(slot)
         self._maybe_retire(slot)
 
     def _admit(self) -> None:
@@ -1307,11 +1450,28 @@ class ContinuousServer:
             while (self._slot_req[slot] is None
                    and slot not in self._pending and self._queue):
                 req = self._queue.popleft()
+                plen = len(req.prompt)
+                # queue wait = submit -> first admission attempt (an
+                # OOM-deferred request re-dequeues but records once)
+                if req.rid not in self._admit_defers:
+                    self.hist["queue_wait"].record(
+                        time.monotonic() - req.t_submit)
+                    self.timeline.event(req.rid, "prefill_start",
+                                        slot=slot)
                 try:
-                    p = self._start_prefill(req, slot)
-                    if p.remaining <= self.prefill_chunk:
-                        self._advance_chunk(p)
-                        self._finish_prefill(p)
+                    with tracing.span("serving.admit", "serving",
+                                      rid=req.rid, slot=slot, plen=plen):
+                        p = self._start_prefill(req, slot)
+                        if p.remaining <= self.prefill_chunk:
+                            with tracing.span("serving.prefill", "serving",
+                                              rid=req.rid, plen=plen,
+                                              matched=p.done,
+                                              suffix=p.remaining):
+                                self._advance_chunk(p)
+                                self._finish_prefill(p)
+                        else:
+                            p.flow = tracing.flow_begin(
+                                "serving.prefill_chunks")
                 except CacheOOM as e:
                     if slot in self._pending:
                         self._drop_pending(slot)
@@ -1331,6 +1491,7 @@ class ContinuousServer:
                 f"admission OOM persisted through {n} attempts ({exc})"))
             return True
         self._admit_defers[req.rid] = n
+        self._flt_retried += 1
         self._queue.appendleft(req)
         return False
 
@@ -1344,11 +1505,17 @@ class ContinuousServer:
         p = min(self._pending.values(), key=lambda q: (q.remaining, q.seq))
         self._advance_chunk(p)
         if p.remaining == 0:
-            self._finish_prefill(p)
+            with tracing.span("serving.prefill", "serving", rid=p.req.rid,
+                              plen=len(p.req.prompt), chunked=True):
+                self._finish_prefill(p)
 
     def _drop_pending(self, slot: int) -> _PendingPrefill:
-        """Tear down one in-flight prefill (blocks decref'd)."""
+        """Tear down one in-flight prefill (blocks decref'd, trace flow
+        closed) and return it for requeue/restart."""
         p = self._pending.pop(slot)
+        if p.flow is not None:
+            tracing.flow_end(p.flow, "serving.prefill_chunks")
+            p.flow = None
         if self._resident is p:
             self._resident = None
         if p.pt is not None:
@@ -1457,43 +1624,60 @@ class ContinuousServer:
         kbatch = max(kcap.values())
         width = self._bucket_width(1 + kbatch)
         kvec_host = [0] * self.slots
-        if self._draft_params is not None:
-            toks = self._draft_model_tokens(kbatch, width)
-            for s in live:
-                kvec_host[s] = kcap[s]
-        else:
-            mat = np.zeros((self.slots, width), np.int64)
-            mat[:, 0] = self._cur
-            for s, d in self._prompt_drafts(live, kcap).items():
-                mat[s, 1:1 + len(d)] = d
-                kvec_host[s] = len(d)
-            toks = self._host(mat.tolist(), torch.int64)
-        pos = self._host(self._pos, torch.int32)
-        kvec = self._host(kvec_host, torch.int32)
-        if self._temp_dev is None:
-            self._temp_dev = torch.tensor(self._temp, dtype=torch.float32,
-                                          device=self.device)
-            self._keys_dev = torch.stack(self._key).to(self.device)
-        sample = any(t > 0.0 for t in self._temp)
-        with torch.no_grad():
-            if self.paged:
+        f_draft = tracing.flow_begin("serving.spec")
+        with tracing.span("serving.spec.draft", "serving",
+                          source=self._spec_source, k=kbatch,
+                          slots=len(live)):
+            tracing.flow_end(f_draft, "serving.spec.draft")
+            f_verify = tracing.flow_begin("serving.spec")
+            if self._draft_params is not None:
+                toks = self._draft_model_tokens(kbatch, width)
                 for s in live:
-                    self._ensure_window(s, self._pos[s],
-                                        self._pos[s] + kvec_host[s])
-                pools, scales, packed = self._paged_verify_prog(width)(
-                    self.params, self._pools, self._scales, toks, pos,
-                    self._tables_dev(), kvec, self._temp_dev,
-                    self._keys_dev, sample)
-                _check_in_place("the paged verify", (pools, scales),
-                                (self._pools, self._scales))
+                    kvec_host[s] = kcap[s]
             else:
-                caches, packed = self._verify_prog(width)(
-                    self.params, self._caches, toks, pos, kvec,
-                    self._temp_dev, self._keys_dev, sample)
-                _check_in_place("the dense verify", caches, self._caches)
-            # the spec step's one host read: every slot's targets and
-            # count, read before the next replay rewrites them
-            vals = packed.cpu().numpy()
+                mat = np.zeros((self.slots, width), np.int64)
+                mat[:, 0] = self._cur
+                for s, d in self._prompt_drafts(live, kcap).items():
+                    mat[s, 1:1 + len(d)] = d
+                    kvec_host[s] = len(d)
+                toks = self._host(mat.tolist(), torch.int64)
+        drafted = sum(kvec_host[s] for s in live)
+        with tracing.span("serving.spec.verify", "serving", width=width,
+                          drafted=drafted, slots=len(live)):
+            tracing.flow_end(f_verify, "serving.spec.verify")
+            # fault site "verify": before the window replay and before
+            # any host commit — a fault here costs only the (restorable)
+            # draft-cache advance; repeated ones walk the degradation
+            # ladder in _recover and turn speculation off
+            faultinject.check("verify")
+            pos = self._host(self._pos, torch.int32)
+            kvec = self._host(kvec_host, torch.int32)
+            if self._temp_dev is None:
+                self._temp_dev = torch.tensor(self._temp,
+                                              dtype=torch.float32,
+                                              device=self.device)
+                self._keys_dev = torch.stack(self._key).to(self.device)
+            sample = any(t > 0.0 for t in self._temp)
+            with torch.no_grad():
+                if self.paged:
+                    for s in live:
+                        self._ensure_window(s, self._pos[s],
+                                            self._pos[s] + kvec_host[s])
+                    pools, scales, packed = self._paged_verify_prog(width)(
+                        self.params, self._pools, self._scales, toks, pos,
+                        self._tables_dev(), kvec, self._temp_dev,
+                        self._keys_dev, sample)
+                    _check_in_place("the paged verify", (pools, scales),
+                                    (self._pools, self._scales))
+                else:
+                    caches, packed = self._verify_prog(width)(
+                        self.params, self._caches, toks, pos, kvec,
+                        self._temp_dev, self._keys_dev, sample)
+                    _check_in_place("the dense verify", caches,
+                                    self._caches)
+                # the spec step's one host read: every slot's targets
+                # and count, read before the next replay rewrites them
+                vals = packed.cpu().numpy()
         emitted_total = 0
         for s in live:
             req = self._slot_req[s]
@@ -1519,14 +1703,223 @@ class ContinuousServer:
         self._spec_steps += 1
         self._spec_emitted += emitted_total
         self._cur_dev = None
+        self._verify_faults = 0    # a committed verify resets the
+                                   # degradation ladder
+        self._ckpt_sweep()         # spec commits are flush boundaries
+
+    # -- checkpoint / restore ------------------------------------------------
+
+    def _capture(self, slot: int) -> None:
+        """Snapshot one live slot's restore point. Callers guarantee
+        flush-consistency (``req.sent == len(req.tokens)``); paged pins
+        take one extra ref per FULL block below pos — never the partial
+        frontier block, whose pin would force a COW fork on the next
+        token write (see SlotCheckpoint)."""
+        req = self._slot_req[slot]
+        pos = self._pos[slot]
+        pins: List[int] = []
+        if self.paged:
+            pins = list(self._tables[slot].blocks[:pos // self.block_size])
+            for bid in pins:
+                self._alloc.incref(bid)
+        old = self._ckpt.get(slot)
+        self._ckpt[slot] = SlotCheckpoint(
+            rid=req.rid, tokens=list(req.tokens), pos=pos,
+            cur=self._cur[slot], slot_k=self._slot_k[slot],
+            slot_acc=self._slot_acc[slot], pins=pins)
+        if old is not None:
+            for bid in old.pins:
+                self._alloc.decref(bid)
+
+    def _drop_ckpt(self, slot: int) -> None:
+        ck = self._ckpt.pop(slot, None)
+        if ck is not None:
+            for bid in ck.pins:
+                self._alloc.decref(bid)
+
+    def _ckpt_sweep(self) -> None:
+        """Advance checkpoints at a flush boundary: every live slot
+        whose emissions grew by >= hpx.serving.ckpt_every since its last
+        capture (or whose checkpoint is missing or stale) captures now.
+        Runs at the end of _flush and after spec commits, the two points
+        where host and device state agree."""
+        for s in range(self.slots):
+            req = self._slot_req[s]
+            if req is None or req.sent != len(req.tokens):
+                continue
+            ck = self._ckpt.get(s)
+            if (ck is None or ck.rid != req.rid
+                    or len(req.tokens) - len(ck.tokens)
+                    >= self._ckpt_every):
+                self._capture(s)
+
+    def _restore_slot(self, slot: int) -> None:
+        """Rewind one live slot to its last checkpoint; the decode loop
+        then replays ONLY the lost suffix. Paged: a new table (a fresh
+        uid, so ``_tables_dev`` rebuilds the device map) from the pinned
+        full blocks plus the live table's frontier block, whose rows
+        [0, pos % bs) are exact because KV rows are append-only and COW
+        forks copy every row written so far; host work only. Dense:
+        re-prefill prompt ++ tokens[:-1] through the chunk programs."""
+        ck = self._ckpt[slot]
+        req = self._slot_req[slot]
+        with tracing.span("serving.restore", "serving", rid=req.rid,
+                          slot=slot, pos=ck.pos,
+                          replayed=len(req.tokens) - len(ck.tokens)):
+            req.tokens = list(ck.tokens)
+            req.sent = len(req.tokens)
+            self._pos[slot] = ck.pos
+            self._cur[slot] = ck.cur
+            self._slot_k[slot] = ck.slot_k
+            self._slot_acc[slot] = ck.slot_acc
+            if self.paged:
+                pt = self._tables[slot]
+                # pins cover the full blocks; the frontier block (if
+                # ck.pos is not block-aligned) rides over from the
+                # current table — it covered ck.pos at capture and
+                # tables only grow, so it is still there
+                keep = list(ck.pins)
+                if pt is not None and ck.pos % self.block_size:
+                    keep.append(pt.blocks[ck.pos // self.block_size])
+                npt = PageTable(self.block_size)
+                for bid in keep:
+                    self._alloc.incref(bid)   # the new table's refs
+                npt.extend_blocks(keep)
+                npt.tokens = ck.pos
+                if pt is not None:            # AFTER increfs: shared
+                    for bid in pt.blocks:     # bids must not hit 0
+                        self._alloc.decref(bid)
+                self._tables[slot] = npt
+            else:
+                self._reprefill_dense(slot, req.prompt + req.tokens[:-1])
+            if self._spec and self._draft_params is not None:
+                self._draft_prefill(slot, req.prompt + req.tokens[:-1])
+        self._flt_restored += 1
+
+    def _reprefill_dense(self, slot: int, seq: List[int]) -> None:
+        """Dense restore: rebuild the slot's cache rows [0, len(seq)) by
+        re-running the chunk programs over the known tokens in the b=1
+        scratch, then splice. The scratch is taken like a pending
+        prefill takes it (``_scratch_for``): a pending prefill standing
+        there is set aside, not overwritten. No probe: the checkpoint
+        knows the feedback token."""
+        holder = _PendingPrefill(req=self._slot_req[slot], slot=slot,
+                                 done=0, seq=-1)
+        with torch.no_grad():
+            scratch = self._scratch_for(holder)
+            for kv in scratch:
+                for t in kv:
+                    t.zero_()
+            done = 0
+            while done < len(seq):
+                n = min(self.prefill_chunk, len(seq) - done)
+                width = self._bucket_width(n)
+                toks = seq[done:done + n] + [0] * (width - n)
+                caches = self._chunk_prog(width)(
+                    self.params, scratch, self._host([toks], torch.int64),
+                    self._host(done, torch.int64))
+                _check_in_place("a restore chunk", caches, scratch)
+                done += n
+            self._caches = self._splice_prog()(self._caches, scratch, slot)
+        self._resident = None
+
+    def _restart_pending(self, slot: int) -> None:
+        """Faulted mid-chunked-prefill: drop the pending's scratch rows
+        and blocks and start over from the prompt — ``_start_prefill``
+        re-matches the radix prefix, so the paged restart recomputes
+        only what was never resident. OOM on the restart requeues the
+        request instead of failing recovery."""
+        p = self._drop_pending(slot)
+        try:
+            self._start_prefill(p.req, slot)
+        except CacheOOM:
+            self._queue.appendleft(p.req)
+
+    def _recover(self, attempt: int, exc: BaseException) -> None:
+        """sync_replay's on_retry hook: repair serving state after a
+        step-level fault so the retry runs against a consistent world.
+        Every injection site raises BEFORE its graph replay, so each
+        BUFFERED step is a completed device op: flush first (those
+        tokens are real), then rewind live slots to their checkpoints
+        and restart in-flight prefills. The device mirrors of the
+        per-slot host vectors are dropped; the next step feeds the
+        existing graphs' inputs from the host again (no new capture)."""
+        t0 = time.monotonic()
+        site = getattr(exc, "site", type(exc).__name__)
+        if isinstance(exc, faultinject.InjectedFault) \
+                and not isinstance(exc, faultinject.InjectedOOM):
+            self._flt_injected += 1   # OOMs were counted at the ladder
+        self._flt_retried += 1
+        if site == "verify":
+            self._verify_faults += 1
+            if (self._spec and not self._spec_degraded
+                    and self._verify_faults >= self._max_verify_faults):
+                # degradation ladder: repeated verify faults turn
+                # speculation OFF — sequential steps emit the same
+                # tokens, only the tokens-per-read multiplier is lost
+                self._spec = False
+                self._spec_degraded = True
+                self._flt_degraded += 1
+                tracing.instant("serving.spec_degraded", "serving",
+                                faults=self._verify_faults)
+        self._flush()
+        if isinstance(exc, CacheOOM) \
+                and not isinstance(exc, faultinject.InjectedFault):
+            # a real OOM that recurs in a later step with nothing changed
+            # (the same restore points: no request retired, no checkpoint
+            # moved; the same free blocks and pending prefills: nothing
+            # shed or restarted in between) would replay forever: the
+            # live slots outgrow the pool together. Raising ends the
+            # replay; step() sheds as when the retry budget is spent.
+            # (The reference's server replays forever here; retries
+            # within one step stay as there.)
+            state = (tuple((s, ck.rid, ck.pos) for s, ck in
+                           sorted(self._ckpt.items())
+                           if self._slot_req[s] is not None),
+                     self._alloc.free_count, len(self._pending))
+            last = self._oom_state
+            if last is not None and last[1] == state \
+                    and last[0] != self._steps:
+                raise exc
+            self._oom_state = (self._steps, state)
+        restored = 0
+        for s in range(self.slots):
+            req = self._slot_req[s]
+            if req is None:
+                continue
+            ck = self._ckpt.get(s)
+            if ck is not None and ck.rid == req.rid:
+                self._restore_slot(s)
+                restored += 1
+            else:
+                # unreachable while admission seeds a checkpoint, but
+                # shedding beats decoding from corrupt state
+                self._slot_req[s] = None
+                self._drop_ckpt(s)
+                if self.paged:
+                    self._release_slot(s, req)
+                self._shed_req(req, RequestShedError(
+                    req.rid, "no checkpoint to restore from"))
+        for s in list(self._pending):
+            self._restart_pending(s)
+        self._cur_dev = None
+        self._temp_dev = None
+        self._keys_dev = None
+        if restored:
+            self._restored_by_site[site] = \
+                self._restored_by_site.get(site, 0) + 1
+            self._restore_hist.record(time.monotonic() - t0)
 
     # -- shedding and retirement ----------------------------------------------
 
     def _shed_req(self, req: _Request, err: HpxError) -> None:
         """Fail one request with a typed error, surfaced via `failed`
         (run() returns successes only)."""
-        self.failed[req.rid] = err
-        self._admit_defers.pop(req.rid, None)
+        with tracing.span("serving.shed", "serving", rid=req.rid,
+                          reason=type(err).__name__):
+            self.failed[req.rid] = err
+            self._admit_defers.pop(req.rid, None)
+            self._flt_shed += 1
 
     def _shed_expired(self) -> None:
         """Deadline policy: a queued or still-prefilling request whose
@@ -1552,16 +1945,20 @@ class ContinuousServer:
                     req.rid, req.deadline_s))
 
     def _shed_everything(self, exc: BaseException) -> None:
-        """A decode step ran out of KV blocks: completed requests keep
-        their results (the flush finalizes buffered tokens); every
-        in-flight and queued request sheds into `failed`."""
+        """The step-retry budget (hpx.serving.step_retries) is exhausted:
+        fail FAST and typed. Completed requests keep their results (the
+        flush finalizes any whose tokens were still buffered); every
+        in-flight and queued request sheds into `failed`, and run()
+        terminates instead of spinning on a fault that recovery could
+        not clear."""
         self._flush()
-        reason = f"decode step out of KV blocks ({exc})"
+        reason = f"step retries exhausted ({exc})"
         for s in range(self.slots):
             req = self._slot_req[s]
             if req is None:
                 continue
             self._slot_req[s] = None
+            self._drop_ckpt(s)
             if self.paged:
                 self._release_slot(s, req)
             self._shed_req(req, RequestShedError(req.rid, reason))
@@ -1590,11 +1987,16 @@ class ContinuousServer:
         if hit_eos:
             req.tokens = req.tokens + [req.eos_id] * (
                 req.max_new - len(req.tokens))
-        self._done[req.rid] = req.tokens
-        if self._slot_req[slot] is req:
-            self._slot_req[slot] = None
-            if self.paged:
-                self._release_slot(slot, req)
+        with tracing.span("serving.retire", "serving", rid=req.rid,
+                          slot=slot, tokens=len(req.tokens), eos=hit_eos):
+            self._done[req.rid] = req.tokens
+            self.hist["e2e"].record(time.monotonic() - req.t_submit)
+            self.timeline.event(req.rid, "retire", tokens=len(req.tokens))
+            if self._slot_req[slot] is req:
+                self._slot_req[slot] = None
+                self._drop_ckpt(slot)
+                if self.paged:
+                    self._release_slot(slot, req)
 
     def _flush(self) -> None:
         """Materialize every buffered step's token vector and replay the
@@ -1610,20 +2012,44 @@ class ContinuousServer:
                 hit_eos = req.eos_id is not None and t == req.eos_id
                 if hit_eos or len(req.tokens) >= req.max_new:
                     self._finalize(s, req, hit_eos)
+        self._ckpt_sweep()
 
     # -- the step loop ----------------------------------------------------------
 
     def step(self) -> bool:
         """Admit + one prefill chunk + one decode step for every live
-        slot. Returns True while any work remains (live slots, pending
-        prefills, or queued requests). Requests whose deadline lapsed
-        while queued or prefilling shed first."""
+        slot, wrapped in the recovery ladder. Returns True while any
+        work remains (live slots, pending prefills, or queued requests).
+        Requests whose deadline lapsed while queued or prefilling shed
+        first.
+
+        An injected fault or a KV-pool OOM in the step body replays it
+        up to ``hpx.serving.step_retries`` times through
+        ``sync_replay``; ``_recover`` runs before each retry (flush,
+        restore slots from checkpoints, restart pendings), so the replay
+        decodes the lost suffix against intact KV state and emits the
+        tokens the fault-free run would. If the budget exhausts, every
+        in-flight request sheds with a typed error into `failed`."""
         self._shed_expired()
+        self._steps += 1
+        # decode-stall feed: the gap between consecutive step() entries
+        # while the PREVIOUS step left live slots — the inter-token
+        # latency a streaming client would observe
+        now = time.monotonic()
+        if self._stall_live and self._last_step_t is not None:
+            self.hist["decode_stall"].record(now - self._last_step_t)
+        self._last_step_t = now
         try:
-            return self._step_inner()
-        except CacheOOM as e:
+            return sync_replay(
+                self._step_retries, self._step_inner,
+                retry_on=(faultinject.InjectedFault, CacheOOM),
+                on_retry=self._recover,
+                backoff_s=self._retry_backoff_s)
+        except (faultinject.InjectedFault, CacheOOM) as e:
             self._shed_everything(e)
             return bool(self._queue or self._pending)
+        finally:
+            self._stall_live = any(r is not None for r in self._slot_req)
 
     def _step_inner(self) -> bool:
         self._admit()
@@ -1633,9 +2059,22 @@ class ContinuousServer:
         if not live:
             self._flush()
             return bool(self._queue or self._pending)
+        rids = [self._slot_req[s].rid for s in live]
         if self._spec:
-            self._spec_step(live)
+            with tracing.span("serving.decode", "serving", live=len(live),
+                              spec=True, rids=rids):
+                self._spec_step(live)
             return True
+        with tracing.span("serving.decode", "serving", live=len(live),
+                          rids=rids):
+            self._decode_step(live)
+        return True
+
+    def _decode_step(self, live: List[int]) -> None:
+        # fault site "decode": before the step replay and before any
+        # host bookkeeping commits — every BUFFERED step has been issued
+        # whole, so recovery's flush-then-restore loses nothing
+        faultinject.check("decode")
         dev = self.device
         # dense: dead slots re-write their own last position (never
         # read). Paged: dead slots' tables are all-trash. Dead slots'
@@ -1681,13 +2120,13 @@ class ContinuousServer:
                 # bookkeeping retire at dispatch: the slot frees NOW;
                 # token values land at the flush this triggers
                 self._slot_req[s] = None
+                self._drop_ckpt(s)
                 if self.paged:
                     self._release_slot(s, req)
                 need_sync = True
         self._buf.append((nxt, lanes))
         if need_sync or len(self._buf) >= self._max_async:
             self._flush()
-        return True
 
     def run(self) -> Dict[int, List[int]]:
         """Drive step() until every submitted request finishes; returns

@@ -27,6 +27,8 @@ import threading
 import time
 from typing import Any, Callable, Deque, List, Optional, Tuple
 
+# (fn, args, kwargs) — with an optional 4th slot carrying the causal
+# trace context (svc/tracing TaskCtx) while a tracer is active
 _Task = Tuple[Callable[..., Any], tuple, dict]
 
 # APEX-style external-timer hook: called with (event, fn,
@@ -39,6 +41,25 @@ _task_observer: Optional[Callable[..., None]] = None
 def set_task_observer(obs: Optional[Callable[..., None]]) -> None:
     global _task_observer
     _task_observer = obs
+
+
+# Causal-trace capture (svc/tracing): when a tracer is active,
+# _trace_submit(fn, args) runs on the SUBMITTING thread and returns the
+# span context to thread through to execution (or None); _trace_pending
+# parks that context in the worker's thread-local just before the
+# observer's start event fires. Both are None when tracing is off — the
+# submit hot path pays one global load + is-None test. The native pool
+# carries no context: as in the reference, its tasks record spans
+# without a causal parent.
+_trace_submit: Optional[Callable[..., Any]] = None
+_trace_pending: Optional[Callable[..., None]] = None
+
+
+def set_trace_hooks(submit: Optional[Callable[..., Any]],
+                    pending: Optional[Callable[..., None]]) -> None:
+    global _trace_submit, _trace_pending
+    _trace_submit = submit
+    _trace_pending = pending
 
 
 # Work-helping recursion bound, enforced INSIDE help_one, so every help
@@ -82,7 +103,9 @@ _observer_errors_lock = threading.Lock()
 
 def _note_observer_error() -> None:
     """Swallowed observer exceptions are counted, not lost: a broken
-    hook shows in observer_errors()."""
+    hook shows in observer_errors(), which svc/profiling's
+    dropped_callbacks() and the /runtime dropped-observer-callbacks
+    counter read."""
     global _observer_errors
     with _observer_errors_lock:
         _observer_errors += 1
@@ -91,6 +114,12 @@ def _note_observer_error() -> None:
 def observer_errors() -> int:
     """How many observer calls raised (and were swallowed) so far."""
     return _observer_errors
+
+
+def reset_observer_errors() -> None:
+    global _observer_errors
+    with _observer_errors_lock:
+        _observer_errors = 0
 
 
 def notify_submit(fn_args_pairs) -> None:
@@ -147,7 +176,10 @@ class WorkStealingPool:
         thread_queue does the same); external threads round-robin across
         queues."""
         notify_submit([(fn, args)])
-        task = (fn, args, kwargs)
+        cap = _trace_submit
+        tctx = cap(fn, args) if cap is not None else None
+        task = (fn, args, kwargs) if tctx is None \
+            else (fn, args, kwargs, tctx)
         wid = getattr(self._tls, "wid", None)
         if wid is None:
             wid = next(self._rr) % len(self._queues)
@@ -168,6 +200,16 @@ class WorkStealingPool:
         if not tasks:
             return
         notify_submit((fn, args) for fn, args, _ in tasks)
+        cap = _trace_submit
+        if cap is not None:
+            # one capture for the whole batch: every task in a fan-out
+            # shares the submitting span as its causal parent (the flow
+            # arrow lands on the first to run)
+            tctx = cap(tasks[0][0], tasks[0][1])
+            if tctx is not None:
+                rest = type(tctx)(tctx.parent, None, tctx.name)
+                tasks = [(fn, args, kw, tctx if i == 0 else rest)
+                         for i, (fn, args, kw) in enumerate(tasks)]
         wid = getattr(self._tls, "wid", None)
         if wid is None:
             wid = next(self._rr) % len(self._queues)
@@ -200,9 +242,16 @@ class WorkStealingPool:
         return None
 
     def _run_task(self, task: _Task) -> None:
-        fn, args, kwargs = task
+        fn, args, kwargs = task[0], task[1], task[2]
         obs = _task_observer
         if obs is not None:
+            pend = _trace_pending
+            if pend is not None:
+                # park (or clear) the captured causal context so the
+                # tracer's start hook parents this task correctly —
+                # always called while tracing is on, so a stale ctx
+                # from a previous task can never leak forward
+                pend(task[3] if len(task) > 3 else None)
             try:  # observers must never break tasks or kill workers
                 obs("start", fn, None, args)
             except BaseException:  # noqa: BLE001

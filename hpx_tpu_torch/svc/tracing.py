@@ -1,0 +1,527 @@
+"""Causal task tracer — ring-buffered spans with parentage across futures.
+
+Counterpart of ``hpx_tpu.svc.tracing``, the same module over the port's
+pool and futures. Device work is not in this ring: it is host spans
+around kernel launches and graph replays; ``svc/profiling.
+profile_trace`` records the kernels themselves.
+
+Reference analog: APEX's task-dependency capture over the HPX external
+timer hooks (libs/core/threading_base fires task create/start/stop into
+`util::external_timer`; APEX reconstructs the task DAG and emits OTF2 /
+Google-trace timelines). Here the same hook plumbing
+(`svc/profiling.register_external_timer`) feeds a :class:`Tracer` that
+records, into a bounded drop-oldest ring:
+
+  * B/E duration spans for every pool task (named via profiling's
+    ``_unwrap`` attribution), every ``.then()`` continuation, and every
+    explicitly annotated region (:func:`span`);
+  * the CAUSAL parent of each span — the span that was live on the
+    submitting thread when the work was scheduled — threaded through
+    ``runtime/threadpool.py`` (a fourth task-tuple slot) and
+    ``futures/future.py`` (continuation wrapping), so ``post``/
+    ``async_`` fan-outs, ``.then()`` chains and ``when_all`` joins form
+    a reconstructable DAG;
+  * flow events (the Chrome ``s``/``f`` arrow pair) for every
+    submit→run and future→continuation edge;
+  * periodic performance-counter samples (``/serving``, ``/cache``,
+    ``/threads`` queue depth, …) interleaved on the same timeline.
+
+`svc/trace_export.py` turns the ring into Chrome trace-event JSON that
+loads directly in ``chrome://tracing`` / Perfetto.
+
+Zero-overhead discipline: everything is OFF by default. The
+instrumented hot paths (pool submit, ``Future.then``, serving steps,
+radix match) each pay one module-global load plus an ``is None`` test
+when no tracer is active — no allocation, no lock, no call. The ring
+itself is append-only under the GIL (no lock on the event path); the
+drop counter is best-effort under concurrent appends.
+
+Config (``core/config_schema.py``, all under ``hpx.trace.*``)::
+
+    hpx.trace.enabled          0        start_if_configured() gate
+    hpx.trace.buffer_events    65536    ring capacity (drop-oldest)
+    hpx.trace.counter_interval 0.05     seconds between counter samples
+    hpx.trace.counters         /serving*,/cache*,/threads*,/programs*
+"""
+
+from __future__ import annotations
+
+import contextlib
+import itertools
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional, Tuple
+
+__all__ = [
+    "Tracer", "TaskCtx", "active_tracer", "start_tracing",
+    "stop_tracing", "start_if_configured", "trace", "span", "instant",
+    "current_span_id", "flow_begin", "flow_end",
+]
+
+# Ring entries are flat 8-tuples — the cheapest thing CPython can
+# append — decoded only at export time:
+#   (ph, name, cat, ts, tid, id, parent, args)
+# ph: "B"/"E" span begin/end (id = span id), "i" instant,
+#     "s"/"f" flow start/finish (id = flow id), "C" counter sample
+#     (args = value).
+_Event = Tuple[str, str, str, float, int, Optional[int], Optional[int],
+               Any]
+
+
+class TaskCtx:
+    """Causal context captured on the submitting thread: the parent
+    span id plus a pre-allocated flow-arrow id (None when the submit
+    happened outside any span — there is no slice to anchor the
+    arrow)."""
+
+    __slots__ = ("parent", "flow", "name")
+
+    def __init__(self, parent: Optional[int], flow: Optional[int],
+                 name: str) -> None:
+        self.parent = parent
+        self.flow = flow
+        self.name = name
+
+
+class _NullSpan:
+    """The shared no-op returned by module-level span() when tracing is
+    off — one immortal object, so the disabled path allocates nothing."""
+
+    __slots__ = ()
+    id = None
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc: Any) -> bool:
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    """Context manager recording one B/E pair; nesting via the
+    tracer's per-thread span stack gives the parent id."""
+
+    __slots__ = ("_tr", "name", "cat", "args", "id")
+
+    def __init__(self, tr: "Tracer", name: str, cat: str,
+                 args: Optional[dict]) -> None:
+        self._tr = tr
+        self.name = name
+        self.cat = cat
+        self.args = args
+        self.id: Optional[int] = None
+
+    def __enter__(self) -> "_Span":
+        self.id = self._tr._begin(self.name, self.cat, self.args)
+        return self
+
+    def __exit__(self, *exc: Any) -> bool:
+        self._tr._end(self.name, self.cat, self.id)
+        return False
+
+
+def _qualname(fn: Any) -> str:
+    return getattr(fn, "__qualname__", None) or repr(fn)
+
+
+class Tracer:
+    """Lock-cheap ring-buffered event tracer.
+
+    One instance is active process-wide (module slot ``_active``);
+    :meth:`start` installs it into the external-timer registry (pool
+    task spans), the threadpool submit capture (causal parents + flow
+    arrows) and the future continuation hook, and starts the counter
+    sampler; :meth:`stop` removes every hook. Recording methods are
+    safe to call from any thread.
+    """
+
+    def __init__(self, capacity: int = 65536,
+                 counter_interval: float = 0.05,
+                 counter_patterns: Optional[List[str]] = None,
+                 sample_counters: bool = True) -> None:
+        if capacity < 2:
+            raise ValueError(f"capacity must be >= 2, got {capacity}")
+        self.capacity = int(capacity)
+        self._buf: deque = deque(maxlen=self.capacity)
+        self.dropped = 0           # best-effort under concurrent appends
+        self._ids = itertools.count(1)     # span AND flow ids (shared)
+        self._tls = threading.local()
+        self._threads: Dict[int, str] = {}   # ident -> thread name
+        self.t0 = time.perf_counter()
+        # wall anchor taken at the same instant as t0: trace_export
+        # merge_traces aligns rings born at different times by shifting
+        # each doc's monotonic timestamps with the wall-anchor delta
+        self.t0_wall = time.time()
+        self.counter_interval = float(counter_interval)
+        self.counter_patterns = list(counter_patterns or [])
+        self._sample_counters = bool(sample_counters)
+        self._sampler_stop: Optional[threading.Event] = None
+        self._sampler: Optional[threading.Thread] = None
+        self._started = False
+
+    # -- event path (hot; no locks) -------------------------------------
+
+    def _record(self, ev: _Event) -> None:
+        buf = self._buf
+        if len(buf) == self.capacity:
+            self.dropped += 1      # deque(maxlen) drops the oldest
+        buf.append(ev)
+
+    def _tid(self) -> int:
+        ident = threading.get_ident()
+        if ident not in self._threads:
+            self._threads[ident] = threading.current_thread().name
+        return ident
+
+    def _stack(self) -> list:
+        st = getattr(self._tls, "stack", None)
+        if st is None:
+            st = self._tls.stack = []
+        return st
+
+    def _begin(self, name: str, cat: str, args: Optional[dict],
+               parent: Optional[int] = None,
+               flow: Optional[int] = None,
+               flow_name: str = "") -> int:
+        st = self._stack()
+        if parent is None and st:
+            parent = st[-1]
+        sid = next(self._ids)
+        tid = self._tid()
+        ts = time.perf_counter()
+        self._record(("B", name, cat, ts, tid, sid, parent, args))
+        if flow is not None:
+            # the arrow head binds to the slice just opened (same ts)
+            self._record(("f", flow_name or name, "flow", ts, tid,
+                          flow, None, None))
+        st.append(sid)
+        return sid
+
+    def _end(self, name: str, cat: str, sid: Optional[int]) -> None:
+        if sid is None:
+            return
+        st = self._stack()
+        if st:
+            if st[-1] == sid:
+                st.pop()
+            elif sid in st:        # misnested exit: drop it anyway
+                st.remove(sid)
+        self._record(("E", name, cat, time.perf_counter(), self._tid(),
+                      sid, None, None))
+
+    # -- public recording API -------------------------------------------
+
+    def span(self, name: str, cat: str = "user", **args: Any) -> _Span:
+        """``with tracer.span("phase"): ...`` — records a B/E pair;
+        nested spans parent automatically."""
+        return _Span(self, name, cat, args or None)
+
+    def instant(self, name: str, cat: str = "user", **args: Any) -> None:
+        """Point event, parented to the enclosing span (if any)."""
+        st = self._stack()
+        parent = st[-1] if st else None
+        self._record(("i", name, cat, time.perf_counter(), self._tid(),
+                      None, parent, args or None))
+
+    def counter(self, name: str, value: float) -> None:
+        """One counter sample on the shared timeline."""
+        self._record(("C", name, "counter", time.perf_counter(), 0,
+                      None, None, float(value)))
+
+    def current_span_id(self) -> Optional[int]:
+        st = self._stack()
+        return st[-1] if st else None
+
+    def flow_begin(self, name: str, cat: str = "flow") -> Optional[int]:
+        """Emit the source half of a flow arrow anchored at the
+        current slice; returns the flow id for :meth:`flow_end`.
+        Returns None outside any span (no slice to anchor to) — the
+        export janitor would drop a danging arrow anyway."""
+        st = self._stack()
+        if not st:
+            return None
+        fid = next(self._ids)
+        self._record(("s", name, cat, time.perf_counter(), self._tid(),
+                      fid, None, None))
+        return fid
+
+    def flow_end(self, fid: Optional[int], name: str,
+                 cat: str = "flow") -> None:
+        """Bind the arrow head of flow `fid` to the current slice.
+        No-op for fid None (flow_begin outside a span) — callers can
+        thread the id through unconditionally."""
+        if fid is None or not self._stack():
+            return
+        self._record(("f", name, cat, time.perf_counter(), self._tid(),
+                      fid, None, None))
+
+    # -- causal capture (submit side) -----------------------------------
+
+    def capture(self, fn: Any = None, args: tuple = ()) -> Optional[TaskCtx]:
+        """Called on the SUBMITTING thread (threadpool submit hook /
+        ``Future.then``): snapshot the current span as the causal
+        parent and emit the flow-arrow tail inside it. Returns None
+        when no span is live — nothing to parent to."""
+        st = self._stack()
+        if not st:
+            return None
+        parent = st[-1]
+        from .profiling import _unwrap
+        name = _qualname(_unwrap(fn, args)) if fn is not None else "task"
+        fid = next(self._ids)
+        self._record(("s", name, "flow", time.perf_counter(),
+                      self._tid(), fid, None, None))
+        return TaskCtx(parent, fid, name)
+
+    # -- external-timer hook (pool task spans) --------------------------
+    # profiling._emit calls these with the _unwrap'ed user function.
+
+    def on_start(self, fn: Any) -> None:
+        ctx = getattr(self._tls, "pending", None)
+        if ctx is not None:
+            self._tls.pending = None
+        self._begin(_qualname(fn), "task", None,
+                    parent=ctx.parent if ctx else None,
+                    flow=ctx.flow if ctx else None,
+                    flow_name=ctx.name if ctx else "")
+
+    def on_stop(self, fn: Any, seconds: float) -> None:
+        st = self._stack()
+        if not st:
+            return                 # started before the tracer attached
+        self._end(_qualname(fn), "task", st[-1])
+
+    def _set_pending(self, ctx: Optional[TaskCtx]) -> None:
+        """Worker side of the handoff: the threadpool parks the task's
+        captured ctx here just before the start event fires."""
+        self._tls.pending = ctx
+
+    # -- continuation wrapping (futures side) ---------------------------
+
+    def wrap_continuation(self, run: Any, user_fn: Any) -> Any:
+        """Wrap a ``Future.then`` continuation so its execution records
+        a span parented to the ATTACHING context with a flow arrow from
+        the attach site to the run site."""
+        ctx = self.capture(user_fn)
+        name = f"then:{_qualname(user_fn)}"
+
+        def traced(st: Any) -> None:
+            tr = _active
+            if tr is not self:     # tracer stopped in the meantime
+                run(st)
+                return
+            sid = self._begin(name, "continuation", None,
+                              parent=ctx.parent if ctx else None,
+                              flow=ctx.flow if ctx else None,
+                              flow_name=ctx.name if ctx else "")
+            try:
+                run(st)
+            finally:
+                self._end(name, "continuation", sid)
+        return traced
+
+    # -- counter sampler -------------------------------------------------
+
+    def _sample_once(self) -> None:
+        from .performance_counters import query_counters
+        for pattern in self.counter_patterns:
+            try:
+                for name, cv in query_counters(pattern).items():
+                    self.counter(name, cv.value)
+            except Exception:  # noqa: BLE001 — sampling must never die
+                pass
+
+    def _sampler_loop(self, stop: threading.Event) -> None:
+        while not stop.wait(self.counter_interval):
+            self._sample_once()
+
+    # -- lifecycle -------------------------------------------------------
+
+    def start(self) -> "Tracer":
+        """Install every hook; idempotent."""
+        if self._started:
+            return self
+        self._started = True
+        from . import profiling
+        from ..futures import future as _future
+        from ..runtime import threadpool as _tp
+        # spans for pool tasks ride the EXISTING external-timer
+        # plumbing (this also flips pool instrumentation on)
+        profiling.register_external_timer(self)
+        # causal parents + flow arrows need the submit-side capture
+        _tp.set_trace_hooks(self.capture, self._set_pending)
+        _future.set_trace_continuation_hook(self.wrap_continuation)
+        if self._sample_counters and self.counter_patterns \
+                and self.counter_interval > 0:
+            self._sampler_stop = threading.Event()
+            self._sampler = threading.Thread(
+                target=self._sampler_loop, args=(self._sampler_stop,),
+                name="hpx-trace-sampler", daemon=True)
+            self._sampler.start()
+        return self
+
+    def stop(self) -> "Tracer":
+        """Remove every hook and stop the sampler; the buffer stays
+        readable (snapshot/export after stop is the normal flow)."""
+        if not self._started:
+            return self
+        self._started = False
+        from . import profiling
+        from ..futures import future as _future
+        from ..runtime import threadpool as _tp
+        profiling.unregister_external_timer(self)
+        _tp.set_trace_hooks(None, None)
+        _future.set_trace_continuation_hook(None)
+        if self._sampler_stop is not None:
+            self._sampler_stop.set()
+            self._sampler.join(timeout=2.0)
+            self._sampler_stop = None
+            self._sampler = None
+            self._sample_once()    # one final sample closes the tracks
+        return self
+
+    # -- inspection / export ---------------------------------------------
+
+    def snapshot(self) -> List[_Event]:
+        """Copy of the ring in record order. Safe after stop(); under
+        live concurrent appends the copy retries (deque iteration
+        raises if mutated mid-copy)."""
+        for _ in range(8):
+            try:
+                return list(self._buf)
+            except RuntimeError:   # mutated during iteration
+                continue
+        return list(self._buf)     # last try propagates if still racing
+
+    def thread_names(self) -> Dict[int, str]:
+        return dict(self._threads)
+
+    def export(self, path: str) -> dict:
+        """Write Chrome trace-event JSON; returns the document."""
+        from .trace_export import write_chrome_trace
+        return write_chrome_trace(path, self)
+
+
+# ---------------------------------------------------------------------------
+# module-level active tracer + convenience API
+# ---------------------------------------------------------------------------
+
+_active: Optional[Tracer] = None
+
+
+def active_tracer() -> Optional[Tracer]:
+    """The live tracer, or None — the ONE check every instrumentation
+    point makes before doing any work."""
+    return _active
+
+
+def current_span_id() -> Optional[int]:
+    tr = _active
+    return tr.current_span_id() if tr is not None else None
+
+
+def start_tracing(capacity: Optional[int] = None,
+                  counter_interval: Optional[float] = None,
+                  counter_patterns: Optional[List[str]] = None,
+                  sample_counters: bool = True) -> Tracer:
+    """Create, install and return the process tracer. Defaults come
+    from the ``hpx.trace.*`` config keys. Raises if one is active."""
+    global _active
+    if _active is not None:
+        raise RuntimeError("tracing already active; stop_tracing() first")
+    from ..core.config import runtime_config
+    rc = runtime_config()
+    if capacity is None:
+        capacity = rc.get_int("hpx.trace.buffer_events", 65536)
+    if counter_interval is None:
+        counter_interval = rc.get_float("hpx.trace.counter_interval",
+                                        0.05)
+    if counter_patterns is None:
+        raw = rc.get("hpx.trace.counters",
+                     "/serving*,/cache*,/threads*,/programs*") or ""
+        counter_patterns = [p.strip() for p in raw.split(",")
+                            if p.strip()]
+    tr = Tracer(capacity=capacity, counter_interval=counter_interval,
+                counter_patterns=counter_patterns,
+                sample_counters=sample_counters)
+    _active = tr
+    tr.start()
+    return tr
+
+
+def stop_tracing() -> Optional[Tracer]:
+    """Stop and detach the active tracer (returned for export)."""
+    global _active
+    tr = _active
+    _active = None
+    if tr is not None:
+        tr.stop()
+    return tr
+
+
+def start_if_configured() -> Optional[Tracer]:
+    """Start tracing iff ``hpx.trace.enabled`` is truthy and no tracer
+    is active — the config-gated entry point bench harnesses use."""
+    from ..core.config import runtime_config
+    if _active is not None:
+        return _active
+    if not runtime_config().get_bool("hpx.trace.enabled", False):
+        return None
+    return start_tracing()
+
+
+@contextlib.contextmanager
+def trace(capacity: Optional[int] = None,
+          counter_interval: Optional[float] = None,
+          counter_patterns: Optional[List[str]] = None,
+          sample_counters: bool = True):
+    """Scoped tracing: ``with trace() as tr: ...; tr.export(path)``."""
+    tr = start_tracing(capacity, counter_interval, counter_patterns,
+                       sample_counters)
+    try:
+        yield tr
+    finally:
+        stop_tracing()
+
+
+def span(name: str, cat: str = "user", **args: Any):
+    """Module-level span: a real span under an active tracer, the
+    shared no-op object otherwise (the instrumentation call sites'
+    single entry point)."""
+    tr = _active
+    if tr is None:
+        return _NULL_SPAN
+    return tr.span(name, cat, **args)
+
+
+def null_span() -> _NullSpan:
+    """The shared no-op span, for instrumentation that keeps its OWN
+    ring (disagg worker rings) and needs the do-nothing branch when
+    process tracing is off."""
+    return _NULL_SPAN
+
+
+def instant(name: str, cat: str = "user", **args: Any) -> None:
+    tr = _active
+    if tr is not None:
+        tr.instant(name, cat, **args)
+
+
+def flow_begin(name: str, cat: str = "flow") -> Optional[int]:
+    """Module-level flow-arrow tail: links the current slice to a later
+    one across steps/threads (serving uses it to tie an admit span to
+    the chunked-prefill spans it scheduled). None when tracing is off
+    or no span is live; feed the result to :func:`flow_end` as-is."""
+    tr = _active
+    return tr.flow_begin(name, cat) if tr is not None else None
+
+
+def flow_end(fid: Optional[int], name: str, cat: str = "flow") -> None:
+    """Module-level flow-arrow head; no-op when off or fid is None."""
+    tr = _active
+    if tr is not None:
+        tr.flow_end(fid, name, cat)

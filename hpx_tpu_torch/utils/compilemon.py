@@ -24,6 +24,8 @@ __all__ = ["count_captures"]
 
 _lock = threading.Lock()
 _active: List["_Tally"] = []
+# process-wide total (the /cuda{...}/count/captures counter's feed)
+_captures = 0
 
 
 class _Tally:
@@ -43,7 +45,9 @@ class _Tally:
 
 def note_capture() -> None:
     """One CUDA graph was captured (``core.programs``)."""
+    global _captures
     with _lock:
+        _captures += 1
         for t in _active:
             t.captures += 1
 
@@ -53,6 +57,11 @@ def note_build() -> None:
     with _lock:
         for t in _active:
             t.builds += 1
+
+
+def total_captures() -> int:
+    """CUDA graphs captured in this process so far."""
+    return _captures
 
 
 @contextlib.contextmanager

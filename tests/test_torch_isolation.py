@@ -214,3 +214,35 @@ def test_senders_containers_and_the_fft_need_cuda_unless_the_cpu_is_asked_for(
     assert pv.data.device == torch.device("cpu")
     out = fft.fft(pv)
     assert out.data.device == torch.device("cpu") and out.layout is layout
+
+
+def test_the_services_load_no_jax_and_profile_the_card_unless_the_cpu_is_asked_for(
+        monkeypatch, tmp_path):
+    """svc/ (fault injection, resiliency, counters, histograms, the
+    profiler bridge, the tracer and its export) loads neither JAX nor the
+    reference; profile_trace records the card's kernels on cuda:0 and
+    raises without CUDA, and traces the host when the CPU is asked for."""
+    from hpx_tpu_torch.svc import profiling
+    mods = ("faultinject", "resiliency", "performance_counters", "metrics",
+            "profiling", "tracing", "trace_export")
+    code = ("import sys\n"
+            + "".join(f"import hpx_tpu_torch.svc.{m}\n" for m in mods)
+            + "from hpx_tpu_torch.svc import performance_counters as pc\n"
+            "pc.query_counters('/*')\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('jax', 'jaxlib', 'hpx_tpu'))\n"
+            "sys.exit('loaded: %s' % bad if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        with profiling.profile_trace(str(tmp_path / "card")):
+            pass
+    with profiling.profile_trace(str(tmp_path / "cpu"), device="cpu"):
+        with profiling.annotate("add"):
+            torch.ones(4) + 1
+    trace = (tmp_path / "cpu" / "trace.json").read_text()
+    assert '"add"' in trace
+    assert profiling.device_memory_stats() == {}

@@ -307,7 +307,9 @@ def test_knob_validation(models):
 def test_decode_oom_sheds_every_request_with_a_typed_error(models):
     _, _, pcfg, pp = models["mha"]
     # two requests fit at admission, then outgrow a 5-block pool
-    # together; without the reference's replay ladder both are shed
+    # together: restoring both to their checkpoints frees nothing for
+    # good, the OOM recurs at the same restore points, and both are shed
+    # (the reference's server replays them forever here)
     srv = ContinuousServer(pp, pcfg, slots=2, smax=16, paged=True,
                            block_size=4, num_blocks=5, device="cpu")
     for _ in range(2):
@@ -317,3 +319,5 @@ def test_decode_oom_sheds_every_request_with_a_typed_error(models):
     for rid, err in srv.failed.items():
         assert isinstance(err, RequestShedError) and err.rid == rid
     assert srv.cache_stats()["in_use"] == 1      # only the trash block
+    st = srv.fault_stats()
+    assert st["shed"] == 2 and st["restored_by_site"] == {"CacheOOM": 1}
