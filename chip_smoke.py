@@ -177,6 +177,60 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
                reading above that limit. On one card the step's host
                time is four processes time-slicing it: not a training
                rate.
+     MoE serving
+               the repo's MoE model (benchmarks/serving_bench.py:633-637
+               at --scale 16: vocab 1024, d_model 1024, 8 heads of 128,
+               2 layers, d_ff 2048, 4 experts, top-2, moe_capacity 4.0;
+               random weights from seed 4) on ContinuousServer(slots=4,
+               smax=128): 8 requests of 24 seeded prompt tokens and 48
+               new ones, in f32 dense and paged through gather, fused
+               (kernel 3) and fused_online (kernel 4), and in bf16
+               fused and gather, each server run twice (graphs captured,
+               then replayed; tokens/s of both). The f32 tokens of all
+               four equal each other and generate()'s (the 8 prompts in
+               one batch, two alone); every run drop-free (0 claims
+               dropped, the server's _moe_routed / _moe_dropped /
+               _moe_occ printed); kernels 3-4 against their plain
+               versions on each server's pools at its decode shape; a
+               captured decode step's time (events around replays)
+               beside the MoE FFN's and the dense MLP's (one expert's
+               width) a layer at its 4 rows, in a graph; once more with
+               hpx.serving.moe.capacity_factor = 100 (cf 1.0), which
+               must drop claims.
+     MoE training
+               the training model with 4 experts, top-2, capacity 4.0
+               (__graft_entry__.py:262-263), bf16, batch 8 x 1024
+               through make_train_step(cfg), captured: the [T, E, C]
+               tensors' bytes reckoned first (T 8192, C 16384; the phase
+               fails, saying what it needs, if they do not fit: no
+               smaller batch); 3 SGD steps whose loss falls, each
+               launching the flash forward and backward once a layer;
+               step ms, peak memory; the MoE FFN's forward at T 8192
+               beside the dense MLP's, each in a graph.
+     expert parallelism
+               the same MoE model in f32, batch 2 x 1024, on 4 ranks
+               (gloo on one card, nccl with a card a rank) over Mesh((2,
+               1, 2)) and Mesh((2, 2, 1)) of ("dp", "sp", "tp"): experts
+               over dp, each expert's d_ff over tp; the loss within 1e-5
+               relative and every gradient, unsharded, within 1e-5 by
+               the norm of the single-device step's (aux weight 0: the
+               Switch aux is a per-rank statistic; drop-free on both
+               sides); flash forward and f32 backward a layer on (2, 1,
+               2), the chunk fold (kernel 8) and the f32 backward sp
+               times a layer on (2, 2, 1); a planted fault (every
+               gradient summed over dp and sp, the experts' too) must
+               read above the limit; collectives' share of 3 more steps.
+     Ulysses and the sharded stencil
+               4 ranks: ulysses_attention over sp 4 at the ring path's
+               shape ([8, 1024, 8, 64], causal), forward and backward in
+               f32 and bf16, flash (kernels 5-7) on each head group,
+               against one-rank flash_attention on the card (f32 1e-5
+               forward, 1e-4 backward; bf16 2e-2 and 5e-3 by the norm);
+               kernels 5-7 against their plain versions at the head
+               group's shape; the exchanges' ms beside the flash
+               forward's; sharded_multistep at 2^24 cells, 16 steps,
+               halo_steps 1 and 4, coef 0.3, bitwise equal to its run on
+               make_mesh((1,)).
    Each stencil kernel's output must equal its plain version on the same
    inputs bit for bit; the dataflow result must equal stencil_serial;
    the fused result must conserve the sum, and a small run must agree
@@ -330,8 +384,10 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    library_by says which ("profiler" or "events"). The
    training step is timed on the host clock (median of the
    bf16 steps after 2 warm-ups).
-5. Prints the bench lines ("bench: {...}"), {"kernels": [...]} and,
-   last, {"ok": true, "device": ...}.
+5. Prints the bench lines ("bench: {...}"), the resilience and MoE
+   numbers ("resilience: {...}", "moe: {...}": the MoE, expert-parallel,
+   Ulysses and stencil phases' readings, times and stats), {"kernels":
+   [...]} and, last, {"ok": true, "device": ...}.
 
 Exits non-zero, and prints no result line, if CUDA is absent, if the
 package cannot be imported, or if any phase fails.
@@ -341,6 +397,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import functools
 import itertools
 import json
@@ -378,8 +435,20 @@ TRACE_ATTEMPTS = 3
 # records it places inside its window, and it has placed kernels
 # milliseconds before their own launches (H100, torch 2.11 + CUDA 12.8),
 # which dropped the first kernels of a trace whose work began at its
-# start
-TRACE_MARGIN_S = 0.25
+# start; late in a whole run it also held no record of the first 2.5 ms
+# of work that began 0.25 s into its window (the eager training trace's
+# first 15 launches, in every attempt; NVIDIA H100 80GB HBM3, 700.00 W),
+# so the margin is 1 s
+TRACE_MARGIN_S = 1.0
+# uncounted launches of the spin kernel (torch.cuda._sleep) that open the
+# work of every such trace, after its margin, under a "trace lead-in"
+# range: late in a whole run the profiler held no device record of the
+# first 15-17 launches of a trace's work, margin or not (252-254 ms after
+# a 0.25 s margin, 1002-1004 ms after a 1 s one, in every attempt;
+# NVIDIA H100 80GB HBM3, 700.00 W), so the lead-in takes their place;
+# the lead-in's records and launches are left out of every figure, and
+# each counted trace prints how many of its launches lost their record
+TRACE_LEAD_IN = 2000
 # bench.py:516-528, the repo's training model
 TRAIN_MODEL = dict(vocab=32768, d_model=512, n_heads=8, head_dim=64,
                    n_layers=4, d_ff=2048, lr=0.01)
@@ -435,6 +504,23 @@ FAULT_SITES = ("decode", "prefill", "verify", "alloc")
 FAULT_SEED = 15
 FAULT_RATE = 0.05
 FAULT_MAX = 8
+# benchmarks/serving_bench.py:633-637 at its default --scale 16: the
+# repo's MoE model, and its load (8 requests, 24-token prompts from a
+# seed, 48 new tokens each) on ContinuousServer(slots=4, smax=128)
+MOE_MODEL = dict(vocab=1024, d_model=1024, n_heads=8, head_dim=128,
+                 n_layers=2, d_ff=2048, n_experts=4, moe_top_k=2,
+                 moe_capacity=4.0)
+MOE_REQS, MOE_PROMPT, MOE_NEW, MOE_SEED = 8, 24, 48, 4
+MOE_SERVER = dict(slots=4, smax=128)
+# the MoE knobs of __graft_entry__.py:262-263 on the training model
+TRAIN_MOE = dict(n_experts=4, moe_top_k=2, moe_capacity=4.0)
+# the expert-parallel f32 gate: batch rows, and the meshes (dp, sp, tp)
+EP_BATCH = 2
+EP_MESHES = ((2, 1, 2), (2, 2, 1))
+# Ulysses at the ring path's shape [B, S, N, H] over sp = 4; the sharded
+# stencil's cells and steps over 4 ranks
+ULYSSES_SHAPE = (8, 1024, 8, 64)
+STENCIL_CELLS, STENCIL_STEPS = 1 << 24, 16
 
 
 
@@ -827,6 +913,201 @@ def _gloo_cuda_rank(verbs) -> dict:
               f"{res[fn.__name__] or 'ran and agreed'}", flush=True)
         dist.barrier(group=g)
     return res
+
+
+# -- mixture-of-experts, expert parallelism, Ulysses and the sharded stencil ---
+
+def _uncounted(kernels):
+    """A context in which the kernels' launches (a comparison with their
+    plain versions) are not counted: their counters are put back as they
+    were on leaving it."""
+    @contextlib.contextmanager
+    def ctx():
+        saved = [k.launches for k in kernels]
+        try:
+            yield
+        finally:
+            for k, n in zip(kernels, saved):
+                k.launches = n
+    return ctx()
+
+
+def _moe_requests(vocab: int):
+    """serving_bench.py's MoE load: 8 requests of 24 seeded prompt tokens
+    (ids 1..999) and 48 new tokens each."""
+    import numpy as np
+    rng = np.random.default_rng(MOE_SEED)
+    return [(rng.integers(1, min(1000, vocab), MOE_PROMPT).tolist(),
+             MOE_NEW) for _ in range(MOE_REQS)]
+
+
+def _moe_serve(serving, params, cfg, reqs, **kw):
+    """One MoE server run (graphs captured as it goes), then the same
+    requests again on the same server (graphs replayed; a paged server's
+    radix tree may hold their prompts by then): (tokens, server, first
+    run's s, second run's s, the MoE stats of the first run)."""
+    import torch
+    srv = serving.ContinuousServer(params, cfg, **kw)
+    secs, outs, stats = [], [], None
+    for _ in range(2):
+        for p, m in reqs:
+            srv.submit(p, max_new=m)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = srv.run()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        outs.append([out[r] for r in sorted(out)])
+        if stats is None:
+            stats = (srv._moe_routed, srv._moe_dropped, list(srv._moe_occ))
+    if outs[0] != outs[1]:
+        raise AssertionError("a MoE server's second run of the same "
+                             "requests emitted other tokens")
+    return outs[0], srv, secs[0], secs[1], stats
+
+
+def _ep_rank(shape: tuple, batch: int, fault: bool) -> dict:
+    """One rank of the expert-parallel path (spawned by hpx_tpu_torch's
+    launcher): the training model with 4 experts (TRAIN_MOE) in f32,
+    weights from seed 0 and the batch's first ``batch`` rows from seed 1,
+    on Mesh(shape, ("dp", "sp", "tp")): experts over dp, each expert's
+    d_ff over tp. The loss and the gradients (unsharded) of one step,
+    each flash kernel's launches, and the step's host time split into
+    collectives and staging copies over 3 more SGD steps. ``fault``:
+    also the gradients with every weight's gradient summed over dp and
+    sp (the experts' too, which must be summed over sp only)."""
+    import torch
+    from hpx_tpu_torch.models import transformer as tf
+    from hpx_tpu_torch.ops import attention_cuda as ac
+    from hpx_tpu_torch.parallel.mesh import Mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = Mesh(shape, ("dp", "sp", "tp"))
+    dev = mesh.device
+    cfg = tf.TransformerConfig(**TRAIN_MODEL, **TRAIN_MOE,
+                               moe_aux_weight=0.0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks, tgts = tf.sample_batch(cfg, 8, 1024, generator=gen, device=dev)
+    t, g = tf.shard_batch(toks[:batch], tgts[:batch], mesh)
+    params = tf.shard_params(tf.init_params(cfg, seed=0, device=dev), cfg,
+                             mesh)
+    names = [n for n, _ in params.named_parameters()]
+    kern = (ac.flash_attention_fwd, ac.flash_attention_bwd_f32,
+            ac.flash_attention_chunk, ac.flash_attention_bwd)
+    out = {"rank": mesh.rank, "coords": mesh.coords, "device": str(dev),
+           "backend": mesh.backend,
+           "shards": {n: tuple(w.shape) for n, w in params.named_parameters()
+                      if ".moe." in n and n.startswith("layers.0.")}}
+    runs = [("f32", tf._grad_axes)]
+    if fault:
+        runs.append(("f32_fault", lambda spec: tf._DATA_AXES))
+    for key, axes in runs:
+        for k in kern:
+            k.launches = 0
+        real, tf._grad_axes = tf._grad_axes, axes
+        try:
+            _, grads, loss = tf._loss_and_grads(params, t, g, cfg, mesh)
+        finally:
+            tf._grad_axes = real
+        out[key + "_launches"] = {k.__name__: k.launches for k in kern}
+        full = tf.unshard_params(
+            tf._from_named(dict(zip(names, grads)), cfg.n_layers), cfg, mesh)
+        out[key + "_loss"] = float(loss)
+        if mesh.rank == 0:
+            out[key + "_grads"] = {n: x.detach().cpu() for n, x in
+                                   full.named_parameters()}
+        del grads, full
+    step = tf.make_train_step(cfg, mesh)
+    step(params, t, g)
+    out["split"] = _comm_split(lambda: step(params, t, g), dev, 3)
+    return out
+
+
+def _ulysses_rank(shape: tuple, steps: int, cells: int) -> dict:
+    """One rank of the Ulysses and stencil path: ``ulysses_attention``
+    over an "sp" axis of 4 at the ring path's shape ([B, S, N, H] =
+    ``shape``, causal), forward and backward, in f32 and bf16, this
+    rank's chunk of the output and of dq, dk, dv (flash, kernels 5-7, on
+    the head group), each kernel's launches, and the median ms of the
+    two exchanges beside that of the flash forward; then
+    ``sharded_multistep`` on this rank's block of ``cells`` cells,
+    halo_steps 1 and 4, coef 0.3, ``steps`` steps, and its ms."""
+    import torch
+    from hpx_tpu_torch.collectives.device import all_to_all
+    from hpx_tpu_torch.ops import attention as ao
+    from hpx_tpu_torch.ops import attention_cuda as ac
+    from hpx_tpu_torch.parallel import halo
+    from hpx_tpu_torch.parallel.mesh import Mesh, shard_1d
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = Mesh((4,), ("sp",))
+    dev, r = mesh.device, mesh.axis_index("sp")
+    kern = (ac.flash_attention_fwd, ac.flash_attention_bwd,
+            ac.flash_attention_bwd_f32)
+    out = {"rank": mesh.rank, "device": str(dev), "backend": mesh.backend}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, w = _ulysses_inputs(shape, dt)
+        ts = [x.chunk(4, 1)[r].contiguous().to(dev).requires_grad_(True)
+              for x in (q, k, v)]
+        wc = w.chunk(4, 1)[r].to(dev)
+        for kk in kern:
+            kk.launches = 0
+        o = ao.ulysses_attention_sharded(*ts, mesh, "sp", causal=True)
+        grads = torch.autograd.grad(torch.sum(o.float() * wc), ts)
+        torch.cuda.synchronize(dev)
+        tag = str(dt).split(".")[-1]
+        out[tag] = {"o": o.detach().cpu(),
+                    "grads": [x.cpu() for x in grads],
+                    "launches": {kk.__name__: kk.launches for kk in kern}}
+
+        def timed(fn, n=5):
+            secs = []
+            for _ in range(n):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize(dev)
+                secs.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(secs)
+        with torch.no_grad():
+            qc, kc, vc = (x.detach() for x in ts)
+            heads = [all_to_all(x, mesh, "sp", split_axis=2, concat_axis=1)
+                     for x in (qc, kc, vc)]
+            launches = [kk.launches for kk in kern]
+            out[tag]["a2a_ms"] = timed(lambda: [
+                all_to_all(x, mesh, "sp", split_axis=2, concat_axis=1)
+                for x in (qc, kc, vc)] + [all_to_all(
+                    heads[0], mesh, "sp", split_axis=1, concat_axis=2)])
+            out[tag]["flash_ms"] = timed(
+                lambda: ac.flash_attention(*heads, True))
+            for kk, n in zip(kern, launches):     # timing runs: uncounted
+                kk.launches = n
+        out[tag]["head_group"] = tuple(heads[0].shape)
+    xmesh = Mesh((4,), ("x",))
+    local = shard_1d(_stencil_input(cells), xmesh, "x")
+    for w_ in (1, 4):
+        run = halo.sharded_multistep(xmesh, "x", steps, w_)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = run(local, 0.3)
+        torch.cuda.synchronize(dev)
+        out[f"stencil_h{w_}"] = res.cpu()
+        out[f"stencil_h{w_}_ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def _ulysses_inputs(shape: tuple, dt):
+    """q, k, v and the cotangent weights w, [B, S, N, H] on the CPU from
+    seed 21, in ``dt`` (w in f32)."""
+    import torch
+    cpu = torch.Generator().manual_seed(21)
+    q, k, v, w = (torch.randn(shape, generator=cpu) for _ in range(4))
+    return q.to(dt), k.to(dt), v.to(dt), w
+
+
+def _stencil_input(cells: int):
+    import torch
+    return torch.rand(cells, generator=torch.Generator().manual_seed(5))
 
 
 class Smoke:
@@ -2156,11 +2437,16 @@ def main() -> int:
             if not rel <= sx.DOT_RTOL:
                 raise AssertionError(f"config #1 {name_} off float64: {rel}")
         task = policy.task
+        torch.cuda._sleep(1)    # the spin kernel loaded before any clock
         torch.cuda.synchronize()
         t = HighResolutionTimer()
         torch.cuda._sleep(1_000_000_000)    # ~0.5 s of device work ahead
+        ahead = t.elapsed()
+        # the launch's own time: the spin kernel's launch before it once
+        # took 130 ms of host time (the device work then ended as late)
+        t_launch = HighResolutionTimer()
         f1 = hpx.transform(task, x, lambda xi: a * xi)
-        launched = t.elapsed()
+        launched = t_launch.elapsed()
         early = f1.is_ready()
         z1 = f1.get(timeout=60)
         waited = t.elapsed()
@@ -2170,7 +2456,8 @@ def main() -> int:
         if not isinstance(fd, hpx.Future):
             raise AssertionError(f"par.task returned {type(fd)}")
         dot_t = fd.get(timeout=60)
-        print(f"   par.task: launch returned after {launched * 1e3!r} ms, "
+        print(f"   par.task: launch returned after {launched * 1e3!r} ms "
+              f"(the device work ahead launched in {ahead * 1e3!r} ms), "
               f"future ready then: {early}; ready after {waited * 1e3!r} "
               f"ms; dot {float(dot_t)!r}", flush=True)
         if early or launched > 0.05 or waited < 0.1:
@@ -3358,6 +3645,248 @@ def main() -> int:
                       ("main path: training", training)):
         sm.phase(name_, lambda fn=fn: run_path(fn))
 
+    # -- mixture-of-experts through the server and the training step --------
+    moe = {}
+    moe_knob = "hpx.serving.moe.capacity_factor"
+
+    def moe_paged_check(srv, what):
+        """Kernels 3-4 against their plain versions on a MoE server's
+        pools at its own decode shape (slots, W 1, its heads and
+        blocks), through random tables over its blocks; uncounted."""
+        cpu = torch.Generator().manual_seed(9)
+        slots, maxb = srv.slots, srv._maxb
+        with _uncounted(kernels):
+            for layer, (kp, vp) in enumerate(srv._pools):
+                nb, bs = kp.shape[0], kp.shape[1]
+                table = torch.randint(0, nb, (slots, maxb),
+                                      generator=cpu).int()
+                pos = torch.randint(0, maxb * bs, (slots,),
+                                    generator=cpu).int()
+                pos[0], pos[-1] = 0, maxb * bs - 1
+                q = torch.randn(slots, 1, srv.cfg.n_heads, srv.cfg.head_dim,
+                                generator=cpu).to(kp.dtype)
+                args = [q.cuda(), kp, vp, table.cuda(), pos.cuda()]
+                for k, (fn, plain) in paged.items():
+                    sm.expect_close(
+                        k, fn(*args), plain(*args),
+                        f"{k} on the MoE {what} server's layer-{layer} "
+                        f"pools (B {slots}, W 1, {srv.cfg.n_heads} heads of "
+                        f"{srv.cfg.head_dim}, blocks of {bs}, {maxb} a "
+                        "slot)")
+
+    def moe_ffn_ms(cfg, params, t, cf):
+        """(MoE FFN ms, dense MLP ms) a layer on t tokens in cfg.dtype:
+        moe_ffn at capacity factor ``cf`` on layer 0's experts, and the
+        dense MLP of one expert's width (d_ff), each in a CUDA graph."""
+        from hpx_tpu_torch.models import moe as pm
+        g = torch.Generator(device="cuda").manual_seed(3)
+        h = torch.randn(t, cfg.d_model, generator=g,
+                        device="cuda").to(cfg.dtype)
+        lp = params["layers"][0]["moe"]
+        mcfg = dataclasses.replace(tf._moe_cfg(cfg), capacity_factor=cf)
+        w1, b1, w2 = lp["w1"][0], lp["b1"][0], lp["w2"][0]
+        with torch.no_grad():
+            moe_ms = _graph_ms([lambda: pm.moe_ffn(h, lp, mcfg,
+                                                   return_stats=True)], 5)
+            dense_ms = _graph_ms([lambda: tf._gelu(h @ w1 + b1) @ w2], 5)
+        return moe_ms, dense_ms
+
+    def moe_serving():
+        """The repo's MoE model (MOE_MODEL), random weights from seed 4,
+        on ContinuousServer(slots=4, smax=128): dense and paged through
+        gather, fused and fused_online in f32, fused and gather in bf16,
+        8 seeded requests of 24 + 48 tokens; f32 tokens all equal and
+        equal generate()'s (batched and alone), drop-free (no claim
+        dropped); kernels 3-4 against their plain versions at this
+        shape; the MoE FFN's share of a captured step; the knob at 100
+        (cf 1.0) drops."""
+        from hpx_tpu_torch.core.config import runtime_config
+        reqs = _moe_requests(MOE_MODEL["vocab"])
+        ntok = sum(m for _, m in reqs)
+        print(f"   card: {smi}", flush=True)
+        paged_kw = {k: dict(paged=True, paged_kernel=k)
+                    for k in ("gather", "fused", "fused_online")}
+        for dt in (torch.float32, torch.bfloat16):
+            tag = str(dt).split(".")[-1]
+            cfg = tf.TransformerConfig(**MOE_MODEL, dtype=dt)
+            params = tf.init_params(cfg, seed=MOE_SEED)
+            modes = ({"dense": {}, **paged_kw} if dt == torch.float32
+                     else {k: paged_kw[k] for k in ("fused", "gather")})
+            runs = {}
+            for label, kw in modes.items():
+                before = {k.__name__: k.launches for k in kernels}
+                toks, srv, s1, s2, st = _moe_serve(serving, params, cfg,
+                                                   reqs, **MOE_SERVER, **kw)
+                ran = {k.__name__: k.launches - before[k.__name__]
+                       for k in kernels if k.launches != before[k.__name__]}
+                runs[label] = (toks, srv)
+                moe[f"{tag} {label}"] = dict(
+                    first_tokens_per_s=ntok / s1, tokens_per_s=ntok / s2,
+                    routed=st[0], dropped=st[1], occupancy=st[2])
+                print(f"   {tag} {label}{', kernel ' + srv.paged_kernel if srv.paged else ''}"
+                      f": {ntok} tokens in {s1!r} s = {ntok / s1!r} "
+                      f"tokens/s (first run, graphs captured), again in "
+                      f"{s2!r} s = {ntok / s2!r} tokens/s (replays); MoE "
+                      f"claims routed {st[0]!r}, dropped {st[1]!r}, "
+                      f"occupancy {st[2]}; launches {ran}", flush=True)
+                if st[1] != 0.0 or st[0] <= 0:
+                    raise AssertionError(f"{tag} {label}: the drop-free "
+                                         f"server dropped {st[1]} claims")
+            if dt == torch.float32:
+                want = runs["dense"][0]
+                bad = [k for k, (t_, _) in runs.items() if t_ != want]
+                if bad:
+                    raise AssertionError(f"f32 MoE tokens of {bad} differ "
+                                         "from the dense server's")
+                batch = tf.generate(params, cfg, [p for p, _ in reqs],
+                                    max_new=MOE_NEW)
+                solo = [tf.generate(params, cfg, [reqs[i][0]],
+                                    max_new=MOE_NEW)[0].tolist()
+                        for i in (0, MOE_REQS - 1)]
+                if batch.tolist() != want or solo != [want[0], want[-1]]:
+                    raise AssertionError("f32 MoE server tokens differ from "
+                                         "generate()'s")
+                print("   f32 tokens: fused == fused_online == gather == "
+                      "dense == generate() (the 8 prompts in one batch, and "
+                      "requests 0 and 7 alone)", flush=True)
+                srv = runs["fused"][1]
+                moe_paged_check(srv, "f32")
+                # a captured decode step against its MoE FFNs alone
+                maxb = srv._maxb
+                args = (srv.params, srv._pools, srv._scales,
+                        torch.randint(0, cfg.vocab, (srv.slots,),
+                                      device="cuda"),
+                        torch.full((srv.slots,), MOE_PROMPT + MOE_NEW // 2,
+                                   dtype=torch.int32, device="cuda"),
+                        (torch.arange(srv.slots * maxb, dtype=torch.int32,
+                                      device="cuda").reshape(srv.slots, maxb)
+                         % srv._alloc.num_blocks),
+                        srv._temp_dev, srv._keys_dev, False)
+                prog = srv._paged_step_prog()
+                with _uncounted(kernels):
+                    step_ms = _cuda_ms(lambda: prog(*args), 7)
+                    moe_ms, dense_ms = moe_ffn_ms(cfg, params, srv.slots,
+                                                  float(cfg.n_experts))
+                share = cfg.n_layers * moe_ms / step_ms
+                moe.update(step_ms=step_ms, decode_moe_ms=moe_ms,
+                           decode_dense_ms=dense_ms, decode_share=share)
+                print(f"   f32 fused decode step (a replay of its CUDA "
+                      f"graph, events): {step_ms!r} ms; the MoE FFN alone "
+                      f"(B {srv.slots} rows, drop-free, in a graph) "
+                      f"{moe_ms!r} ms a layer beside the dense MLP of one "
+                      f"expert's width {dense_ms!r} ms: {cfg.n_layers} MoE "
+                      f"layers are {share!r} of the step; {smi}", flush=True)
+                rc = runtime_config()
+                old = rc.get(moe_knob)
+                rc.set(moe_knob, "100")
+                try:
+                    toks100, srv100, _, s100, st100 = _moe_serve(
+                        serving, params, cfg, reqs, **MOE_SERVER,
+                        **paged_kw["fused"])
+                finally:
+                    rc.set(moe_knob, old)
+                agree = sum(a == b for r, w in zip(toks100, want)
+                            for a, b in zip(r, w)) / ntok
+                moe["knob100"] = dict(routed=st100[0], dropped=st100[1],
+                                      agreement=agree,
+                                      tokens_per_s=ntok / s100)
+                print(f"   f32 fused with {moe_knob} = 100 (cf 1.0, C = "
+                      f"ceil(4 * 2 / 4) = 2 a step): claims routed "
+                      f"{st100[0]!r}, dropped {st100[1]!r}; tokens equal to "
+                      f"the drop-free run's: {agree!r}; {ntok / s100!r} "
+                      f"tokens/s (replays)", flush=True)
+                if st100[1] <= 0 or srv100._moe_capacity_pct != 100:
+                    raise AssertionError(f"the knob at 100 dropped nothing: "
+                                         f"{st100}")
+            else:
+                fused, gather = runs["fused"][0], runs["gather"][0]
+                agree = sum(a == b for r, w in zip(fused, gather)
+                            for a, b in zip(r, w)) / ntok
+                moe["bf16 agreement"] = agree
+                print(f"   bf16 fused tokens equal to the bf16 gather "
+                      f"server's: {agree!r} (rounding; f32 is held equal)",
+                      flush=True)
+                moe_paged_check(runs["fused"][1], "bf16")
+            del runs, params
+            torch.cuda.empty_cache()
+
+    def moe_training():
+        """make_train_step at the training model's full width with 4
+        experts (TRAIN_MOE), bf16, batch 8 x 1024, captured: the bytes
+        reckoned first, 3 SGD steps whose loss falls, each launching the
+        flash forward and backward once a layer; step ms, peak memory;
+        the MoE layer's forward beside the dense MLP's at T = 8192."""
+        cfg = tf.TransformerConfig(**TRAIN_MODEL, **TRAIN_MOE,
+                                   dtype=torch.bfloat16)
+        b, s = 8, 1024
+        t_, e = b * s, cfg.n_experts
+        cap = max(1, math.ceil(t_ * cfg.moe_top_k * cfg.moe_capacity / e))
+        tec = t_ * e * cap
+        # kept for the backward a layer: each round's f32 claim one-hots
+        # (the combine's product) and the bf16 dispatch and combine (the
+        # two einsums)
+        keep = cfg.n_layers * tec * (4 * cfg.moe_top_k + 2 + 2)
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        print(f"   reckoned: T {t_}, C = ceil(T k cf / E) = {cap}: each f32 "
+              f"[T, E, C] tensor is {tec * 4 / 2**30!r} GiB; kept for the "
+              f"backward about {keep / 2**30!r} GiB over {cfg.n_layers} "
+              f"layers, plus a few such tensors in flight; free on the "
+              f"card {free / 2**30!r} of {total / 2**30!r} GiB; {smi}",
+              flush=True)
+        if keep + 4 * tec * 4 > free:
+            raise AssertionError(
+                f"the MoE step at batch {b} x {s} needs about "
+                f"{(keep + 4 * tec * 4) / 2**30:.1f} GiB and the card has "
+                f"{free / 2**30:.1f} GiB free: it does not fit (not run at "
+                "a smaller batch)")
+        params = tf.init_params(cfg, seed=0)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        toks, tgts = tf.sample_batch(cfg, b, s, generator=gen)
+        step = tf.make_train_step(cfg)
+        flash = (ac.flash_attention_fwd, ac.flash_attention_bwd)
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs, per = [], [], []
+        for _ in range(3):
+            before = [f.launches for f in flash]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, loss = step(params, toks, tgts)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            per.append([f.launches - x for f, x in zip(flash, before)])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if any(p != [cfg.n_layers] * 2 for p in per):
+            raise AssertionError(f"flash launches a step {per} of "
+                                 f"(fwd, bwd), want {cfg.n_layers} each")
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"MoE bf16 losses did not fall: {losses}")
+        moe.update(train_step_ms=statistics.median(secs[1:]) * 1e3,
+                   train_first_ms=secs[0] * 1e3, train_peak_gib=peak,
+                   train_losses=losses)
+        print(f"   bf16 MoE SGD, 3 steps on the fixed batch (8 x 1024): "
+              f"losses {losses}; each step launched flash_attention_fwd and "
+              f"flash_attention_bwd {per[0]} times (once a layer); step "
+              f"times {[x * 1e3 for x in secs]} ms (the first eager and "
+              f"captured, then replays); peak memory {peak!r} GiB; {smi}",
+              flush=True)
+        del step, toks, tgts
+        torch.cuda.empty_cache()
+        with _uncounted(kernels):
+            moe_ms, dense_ms = moe_ffn_ms(cfg, params, t_,
+                                          float(cfg.moe_capacity))
+        moe.update(train_moe_ms=moe_ms, train_dense_ms=dense_ms)
+        print(f"   the MoE FFN's forward at T {t_} (cf {cfg.moe_capacity}, "
+              f"bf16, in a graph) {moe_ms!r} ms a layer beside the dense "
+              f"MLP of one expert's width {dense_ms!r} ms; {smi}", flush=True)
+        del params
+        torch.cuda.empty_cache()
+
+    sm.phase("main path: MoE serving", lambda: run_path(moe_serving))
+    sm.phase("main path: MoE training", lambda: run_path(moe_training))
+
     def training_gate():
         """The training width in f32, batch 2 x 1024, from the same
         weights on the same tokens: the loss and every weight's gradient
@@ -3794,6 +4323,213 @@ def main() -> int:
     if train:
         sm.phase("main path: ring training (4 ranks)", ring_path)
 
+    def ep_path():
+        """The f32 MoE step with its experts over dp (EP_MESHES, 4 ranks
+        through the port's launcher), the loss and every gradient,
+        unsharded, within 1e-5 by the norm of the single-device step at
+        the same batch (moe_capacity 4.0 >= E / k: both drop-free; the
+        aux weight 0, since the Switch aux is a per-rank statistic);
+        on (2, 1, 2) a planted fault, experts' gradients summed over dp
+        too, reads above that limit."""
+        from hpx_tpu_torch.parallel.mesh import launch
+        torch.cuda.empty_cache()
+        print(f"   card: {smi}", flush=True)
+        cfg = tf.TransformerConfig(**TRAIN_MODEL, **TRAIN_MOE,
+                                   moe_aux_weight=0.0)
+        params = tf.init_params(cfg, seed=0)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        toks, tgts = tf.sample_batch(cfg, 8, 1024, generator=gen)
+        with _uncounted(kernels):
+            _, g_one, l_one = tf._loss_and_grads(
+                params, toks[:EP_BATCH], tgts[:EP_BATCH], cfg,
+                tf.make_mesh_3d(1))
+        names = [k for k, _ in params.named_parameters()]
+        g_one = dict(zip(names, (g.cpu() for g in g_one)))
+        l_one = float(l_one)
+        del params
+        for shape in EP_MESHES:
+            t = HighResolutionTimer()
+            res = launch(_ep_rank, 4, shape, EP_BATCH,
+                         shape == EP_MESHES[0], timeout=900)
+            r0 = res[0]
+            dp, sp, tp = shape
+            print(f"   mesh (dp, sp, tp) = {shape}: 4 ranks in "
+                  f"{t.elapsed()!r} s, backend {r0['backend']}, devices "
+                  f"{[r['device'] for r in res]}; layer 0's expert shards "
+                  f"{r0['shards']}", flush=True)
+            for r in res:
+                n = r["f32_launches"]
+                want = ({"flash_attention_fwd": cfg.n_layers,
+                         "flash_attention_bwd_f32": cfg.n_layers,
+                         "flash_attention_chunk": 0} if sp == 1 else
+                        {"flash_attention_fwd": 0,
+                         "flash_attention_bwd_f32": sp * cfg.n_layers,
+                         "flash_attention_chunk": sp * cfg.n_layers})
+                if any(n[k] != v for k, v in want.items()):
+                    raise AssertionError(f"rank {r['rank']} on {shape}: "
+                                         f"launches {n}, want {want}")
+                for k in want:
+                    sm.launches[k] += n[k]
+                    if k in sm.f32_launches:
+                        sm.f32_launches[k] += n[k]
+                if r["f32_loss"] != r0["f32_loss"]:
+                    raise AssertionError("ranks' losses differ")
+            rel = abs(r0["f32_loss"] - l_one) / abs(l_one)
+            reads = {n: _norm_rel(r0["f32_grads"][n], g_one[n])
+                     for n in names}
+            worst = max(reads, key=reads.get)
+            moe[f"ep {shape}"] = dict(rel=rel, grad_read=reads[worst],
+                                      split=[r["split"] for r in res])
+            print(f"   f32 EP step on {shape}, batch {EP_BATCH} x 1024: "
+                  f"loss {r0['f32_loss']!r} vs {l_one!r} on one device, "
+                  f"relative {rel!r} (<= 1e-5); gradients' largest "
+                  f"norm-relative reading {reads[worst]!r} ({worst}; limit "
+                  f"{GRAD_NORM_REL}); launches a rank "
+                  f"{r0['f32_launches']}", flush=True)
+            for r in res:
+                sp_ = r["split"]
+                print(f"   rank {r['rank']}, 3 f32 SGD steps with every "
+                      f"collective and staging copy fenced and timed: step "
+                      f"{sp_['step_ms']!r} ms, in torch.distributed's verbs "
+                      f"{sp_['comm_ms']!r} ms, in staging copies "
+                      f"{sp_['copies_ms']!r} ms (ranks time-slice one "
+                      f"card: not a training rate)", flush=True)
+            if rel > 1e-5 or reads[worst] > GRAD_NORM_REL:
+                raise AssertionError(f"EP step on {shape}: loss relative "
+                                     f"{rel}, gradient of {worst} "
+                                     f"{reads[worst]}")
+            if "f32_fault_grads" in r0:
+                faults = {n: _norm_rel(r0["f32_fault_grads"][n], g_one[n])
+                          for n in names}
+                caught = max(faults, key=faults.get)
+                print(f"   planted fault (every gradient summed over dp and "
+                      f"sp, the experts' too) reads {faults[caught]!r} "
+                      f"({caught})", flush=True)
+                if faults[caught] <= GRAD_NORM_REL:
+                    raise AssertionError("the EP gradient check would miss "
+                                         "experts' gradients summed over dp")
+
+    def ulysses_path():
+        """ulysses_attention over sp = 4 at ULYSSES_SHAPE (4 ranks),
+        forward and backward in f32 and bf16, against one-rank
+        flash_attention on the card at the flash contracts; kernels 5-7
+        against their plain versions at the head-group shape; the
+        sharded stencil at 2^24 cells bitwise equal to its one-rank run."""
+        from hpx_tpu_torch.parallel import halo
+        from hpx_tpu_torch.parallel.mesh import launch, make_mesh
+        torch.cuda.empty_cache()
+        t = HighResolutionTimer()
+        res = launch(_ulysses_rank, 4, ULYSSES_SHAPE, STENCIL_STEPS,
+                     STENCIL_CELLS, timeout=900)
+        print(f"   4 ranks in {t.elapsed()!r} s, backend "
+              f"{res[0]['backend']}, devices {[r['device'] for r in res]}; "
+              f"{smi}", flush=True)
+        for dt in (torch.float32, torch.bfloat16):
+            tag = str(dt).split(".")[-1]
+            f32 = dt == torch.float32
+            bwd = "flash_attention_bwd_f32" if f32 else "flash_attention_bwd"
+            for r in res:
+                n = r[tag]["launches"]
+                if n["flash_attention_fwd"] != 1 or n[bwd] != 1:
+                    raise AssertionError(f"rank {r['rank']} {tag}: "
+                                         f"launches {n}, want fwd and {bwd} "
+                                         "once")
+                sm.launches["flash_attention_fwd"] += 1
+                sm.launches[bwd] += 1
+                if f32:
+                    sm.f32_launches["flash_attention_fwd"] += 1
+            q, k, v, w = (x.cuda() for x in _ulysses_inputs(ULYSSES_SHAPE,
+                                                            dt))
+            ts = [x.requires_grad_(True) for x in (q, k, v)]
+            with _uncounted(kernels):
+                o = ac.flash_attention(*ts, True)
+                grads = torch.autograd.grad(torch.sum(o.float() * w), ts)
+            got = [torch.cat([r[tag]["o"] for r in res], 1)] + [
+                torch.cat([r[tag]["grads"][i] for r in res], 1)
+                for i in range(3)]
+            reads = {}
+            for name, g, want_ in zip(("o", "dq", "dk", "dv"), got,
+                                      [o.detach(), *grads]):
+                g, want_ = g.float().cuda(), want_.float()
+                tol = (FLASH_TOL["fwd" if name == "o" else "bwd"] if f32
+                       else FLASH_TOL["bf16"])
+                err = (g - want_).abs().max().item()
+                ok = torch.allclose(g, want_, rtol=tol[0], atol=tol[1])
+                nr = _norm_rel(g, want_)
+                reads[name] = (err, nr)
+                if not ok or (not f32 and nr > FLASH_NORM_REL):
+                    raise AssertionError(f"ulysses {tag} {name}: max abs "
+                                         f"err {err}, norm {nr} (tol {tol})")
+            moe[f"ulysses {tag}"] = dict(
+                reads=reads, a2a_ms=[r[tag]["a2a_ms"] for r in res],
+                flash_ms=[r[tag]["flash_ms"] for r in res])
+            print(f"   ulysses {tag} (causal, {ULYSSES_SHAPE} over sp 4, head "
+                  f"group {res[0][tag]['head_group']}) against one-rank "
+                  f"flash_attention: (max abs err, norm-relative) {reads}; "
+                  f"the four exchanges of a forward "
+                  f"{[r[tag]['a2a_ms'] for r in res]} ms beside the head "
+                  f"group's flash forward {[r[tag]['flash_ms'] for r in res]}"
+                  f" ms a rank (host clock, fenced; gloo stages through the "
+                  f"host: not a scaling number)", flush=True)
+        # kernels 5-7 against their plain versions at the head-group shape
+        b, s_, n_, h = ULYSSES_SHAPE
+        with _uncounted(kernels):
+            for dt in (torch.float32, torch.bfloat16):
+                f32 = dt == torch.float32
+                q, k, v, do = flash_state(b, s_, s_, n_ // 4, n_ // 4, h, dt,
+                                          seed=31)
+                what = f"{dt} head group [{b * n_ // 4}, {s_}, {h}] causal"
+                track = "flash_attention_fwd f32" if f32 else None
+                o, lse = ac.flash_attention_fwd(q, k, v, True)
+                po, plse = plain_fwd(q, k, v, True)
+                sm.expect_close("flash_attention_fwd", o, po, f"o {what}",
+                                tol=FLASH_TOL["fwd" if f32 else "bf16"],
+                                norm=not f32, track=track)
+                sm.expect_close("flash_attention_fwd", lse, plse,
+                                f"L {what}", tol=FLASH_TOL["fwd"],
+                                track=track)
+                args = (q, k, v, do, ac.bwd_prep(do, o), lse, 0, True,
+                        n_ // 4, n_ // 4)
+                got = ac.flash_attention_bwd(*args)
+                want = ac.plain_flash_bwd(*args)
+                bk = "flash_attention_bwd_f32" if f32 \
+                    else "flash_attention_bwd"
+                for name, g, w_ in zip(("dq", "dk", "dv"), got, want):
+                    sm.expect_close(bk, g, w_, f"{name} {what}",
+                                    tol=FLASH_TOL["bwd" if f32 else "bf16"],
+                                    norm=not f32,
+                                    track=f"{bk} f32" if f32 else None)
+        # the sharded stencil against its run on one rank
+        u = _stencil_input(STENCIL_CELLS).cuda()
+        one = make_mesh((1,), ("x",))
+        outs = {}
+        for w_ in (1, 4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = halo.sharded_multistep(one, "x", STENCIL_STEPS, w_)(u, 0.3)
+            torch.cuda.synchronize()
+            one_ms = (time.perf_counter() - t0) * 1e3
+            got = torch.cat([r[f"stencil_h{w_}"] for r in res])
+            outs[w_] = got
+            if not torch.equal(got, want.cpu()):
+                raise AssertionError(f"sharded stencil, halo {w_}: not "
+                                     "bitwise the one-rank run")
+            ms = [r[f"stencil_h{w_}_ms"] for r in res]
+            moe[f"stencil h{w_}"] = dict(ms=ms, one_rank_ms=one_ms)
+            print(f"   sharded_multistep, {STENCIL_CELLS} cells over 4 "
+                  f"ranks, {STENCIL_STEPS} steps, halo_steps {w_}, coef "
+                  f"0.3: bitwise equal to make_mesh((1,))'s run; {ms} ms a "
+                  f"rank (host clock; ghosts staged through pinned host "
+                  f"memory under gloo), one rank {one_ms!r} ms", flush=True)
+        if not torch.equal(outs[1], outs[4]):
+            raise AssertionError("halo_steps 4 differs from halo_steps 1")
+
+    if train:
+        sm.phase("main path: expert parallelism (4 ranks)",
+                 lambda: run_path(ep_path))
+        sm.phase("Ulysses and the sharded stencil (4 ranks)",
+                 lambda: run_path(ulysses_path))
+
     def bf16_pool_gate():
         """Both kernels against their plain versions on the pools the
         bf16 run left, through random tables over its blocks."""
@@ -3836,12 +4572,46 @@ def main() -> int:
         the device: kernel launches (cudaLaunchKernelExC for the
         clustered paged-attention launches), graph launches and copies."""
         ev = prof.key_averages()
-        dev = [e for e in ev if e.key != "decode step" and
+        dev = [e for e in ev if e.key not in ("decode step", "trace lead-in")
+               and "spin_kernel" not in e.key and
                e.device_type != torch.autograd.DeviceType.CPU]
         calls = {e.key: e.count for e in ev
                  if e.key.startswith(("cudaLaunchKernel", "cudaGraphLaunch",
                                       "cudaMemcpyAsync"))}
+        for e in lead_in_launches(prof):
+            calls[e.name] -= 1
         return sum(e.self_device_time_total for e in dev), calls, dev
+
+    def trace_lead_in():
+        """The head of a trace whose kernel records are held to the
+        wrappers' counts, inside its window: TRACE_MARGIN_S of host-only
+        time, then TRACE_LEAD_IN launches of the spin kernel under a
+        "trace lead-in" range, and a synchronization, so that the counted
+        work is not the first the window holds."""
+        from torch.profiler import record_function
+        time.sleep(TRACE_MARGIN_S)
+        with record_function("trace lead-in"):
+            for _ in range(TRACE_LEAD_IN):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+
+    def lead_in_launches(prof):
+        """The host launches inside a trace's "trace lead-in" range."""
+        evs = prof.events()
+        spans = [(e.time_range.start, e.time_range.end) for e in evs
+                 if e.name == "trace lead-in"
+                 and e.device_type == torch.autograd.DeviceType.CPU]
+        return [e for e in evs if e.name.startswith(
+                    ("cudaLaunchKernel", "cudaGraphLaunch"))
+                and any(a <= e.time_range.start <= b for a, b in spans)]
+
+    def lead_in_lost(prof) -> str:
+        """How many of a trace's lead-in launches have no device record."""
+        recorded = {e.id for e in prof.events()
+                    if e.device_type != torch.autograd.DeviceType.CPU}
+        lead = lead_in_launches(prof)
+        lost = sum(e.id not in recorded for e in lead)
+        return f"{lost} of the {len(lead)} lead-in launches"
 
     def launch_skew_us(prof):
         """The least (start of a device record - start of the host call
@@ -3853,6 +4623,19 @@ def main() -> int:
         return min((e.time_range.start - launch[e.id] for e in evs
                     if e.device_type != torch.autograd.DeviceType.CPU
                     and e.id in launch), default=None)
+
+    def unrecorded_launches(prof):
+        """The host launches after a trace's lead-in whose device record
+        the profiler does not hold: (API call, ms after the trace's first
+        event) of each, to place a record the trace lost."""
+        evs = prof.events()
+        recorded = {e.id for e in evs
+                    if e.device_type != torch.autograd.DeviceType.CPU}
+        lead = {e.id for e in lead_in_launches(prof)}
+        t0 = min((e.time_range.start for e in evs), default=0)
+        return [(e.name, (e.time_range.start - t0) * 1e-3) for e in evs
+                if e.name.startswith(("cudaLaunchKernel", "cudaGraphLaunch"))
+                and e.id not in recorded and e.id not in lead]
 
     def traced_launches(what, prof, dev, before):
         """The counted kernels' launches the profiler saw run on the card
@@ -3868,7 +4651,9 @@ def main() -> int:
                 raise AssertionError(
                     f"{what}: the trace holds {n} runs of {w.__name__}'s "
                     f"kernel, its count rose by {counted_} (least launch "
-                    f"skew {launch_skew_us(prof)} us)")
+                    f"skew {launch_skew_us(prof)} us; launches without a "
+                    f"device record {unrecorded_launches(prof)}; "
+                    f"{lead_in_lost(prof)} without one)")
             if n:
                 traced[w.__name__] = n
         return traced
@@ -3879,7 +4664,9 @@ def main() -> int:
         attempt left; such a trace is taken again, up to TRACE_ATTEMPTS
         times, and traced_launches holds the last one exactly. The
         profiler drops device records that it places before its window
-        (TRACE_MARGIN_S keeps the counted work away from both ends)."""
+        (TRACE_MARGIN_S keeps the counted work away from both ends) and
+        has dropped the first records of a window's work (the lead-in's
+        now)."""
         short = {}
         for w in programs._COUNTED:
             n = sum(e.count for e in dev if w.kernels.search(e.key))
@@ -3892,7 +4679,10 @@ def main() -> int:
             return False
         print(f"   {what}: the trace is short of the wrappers' counts "
               f"(traced, counted) {short}, least launch skew "
-              f"{launch_skew_us(prof)} us; traced again", flush=True)
+              f"{launch_skew_us(prof)} us, launches without a device "
+              f"record {unrecorded_launches(prof)} ({lead_in_lost(prof)} "
+              "without one); traced again",
+              flush=True)
         return True
 
     def serve_steps(srv, reqs, profiled=False):
@@ -3911,7 +4701,7 @@ def main() -> int:
         with ctx as prof:
             torch.cuda.synchronize()
             if profiled:
-                time.sleep(TRACE_MARGIN_S)
+                trace_lead_in()
             t = HighResolutionTimer()
             more = True
             while more:
@@ -4018,7 +4808,9 @@ def main() -> int:
                                          "no run of paged_attention_exact")
                 print(f"   ({mix}) bf16 {k}: the counted kernels' runs in the "
                       f"trace equal the wrappers' counts: {traced}; least "
-                      f"launch skew {launch_skew_us(prof)!r} us", flush=True)
+                      f"launch skew {launch_skew_us(prof)!r} us; "
+                      f"{lead_in_lost(prof)} without a device record",
+                      flush=True)
                 dev_ms = dev_us * 1e-3 / steps
                 exact_us = sum(e.self_device_time_total for e in dev
                                if "paged_attention_exact" in e.key)
@@ -4091,7 +4883,8 @@ def main() -> int:
                   f"share {dev_ms / step_ms!r} unprofiled, "
                   f"{dev_us * 1e-6 / wall!r} profiled; counted kernels in "
                   f"the trace {traced}; least launch skew "
-                  f"{launch_skew_us(prof)!r} us", flush=True)
+                  f"{launch_skew_us(prof)!r} us; {lead_in_lost(prof)} "
+                  "without a device record", flush=True)
         print(f"   (b) spec stats over these runs: "
               f"{runs['spec'].spec_stats()}; host ms a spec step mining "
               f"prompt-lookup drafts (n-gram, radix peek): median "
@@ -4127,7 +4920,7 @@ def main() -> int:
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
                     torch.cuda.synchronize()
-                    time.sleep(TRACE_MARGIN_S)
+                    trace_lead_in()
                     t = HighResolutionTimer()
                     for _ in range(3):
                         params, _ = fn(params, toks, tgts)
@@ -4155,7 +4948,8 @@ def main() -> int:
                                      f"{traced}, want {want}")
             print(f"   bf16 training {k}: the counted kernels' runs in the "
                   f"trace of 3 steps equal the wrappers' counts: {traced}; "
-                  f"least launch skew {launch_skew_us(prof)!r} us",
+                  f"least launch skew {launch_skew_us(prof)!r} us; "
+                  f"{lead_in_lost(prof)} without a device record",
                   flush=True)
             per_step = dev_us * 1e-3 / 3
             print(f"   bf16 training {k}: device {per_step!r} ms a step; "
@@ -4872,6 +5666,7 @@ def main() -> int:
     print(f"config #3: {json.dumps(config3)}")
     print("resilience: " + json.dumps(
         {f"({m}) {k}": v for (m, k), v in resilience.items()}))
+    print("moe: " + json.dumps({**moe, "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -11,7 +11,10 @@ member makes every verb the identity.
     all_reduce(x, mesh, axis, op)   psum / pmax / pmin / pmean
     all_gather(x, mesh, axis, dim)  lax.all_gather(tiled=True) along dim
     broadcast(x, mesh, axis, root)  the root member's x
-    all_to_all(x, mesh, axis)       block j of x to member j
+    all_to_all(x, mesh, axis,       block j of x (cut along split_axis) to
+               split_axis,          member j, the blocks received joined
+               concat_axis)         along concat_axis: lax.all_to_all
+                                    (tiled=True), differentiable
     reduce_scatter(x, mesh, axis)   psum_scatter(tiled=True) along dim 0
     ppermute(xs, mesh, axis, shift) member i's tensors to member i+shift
     ring_shift                      ppermute of one tensor
@@ -115,20 +118,59 @@ def broadcast(x: torch.Tensor, mesh, axis="x", root: int = 0
     return _home(buf, x)
 
 
-def all_to_all(x: torch.Tensor, mesh, axis="x") -> torch.Tensor:
-    """x cut into n blocks along dim 0; block j goes to member j, and
-    the result is the blocks received, in member order."""
+def _exchange(x: torch.Tensor, mesh, axis, split_axis: int,
+              concat_axis: int) -> torch.Tensor:
+    """The forward of ``all_to_all``: one ``all_to_all_single`` over the
+    blocks laid out member-major."""
     n = mesh.axis_size(axis)
-    if x.shape[0] % n:
-        raise ValueError(f"all_to_all: leading dim {x.shape[0]} does not "
-                         f"divide into {n} blocks")
     g = mesh.group(axis)
     if g is None:
         return x
-    buf = _host(mesh, "all_to_all", x, fresh=False)
+    sa, ca = split_axis % x.dim(), concat_axis % x.dim()
+    shape = x.shape
+    blocks = x.reshape(*shape[:sa], n, shape[sa] // n,
+                       *shape[sa + 1:]).movedim(sa, 0)
+    buf = _host(mesh, "all_to_all", blocks, fresh=False)
     out = torch.empty_like(buf)
     dist.all_to_all_single(out, buf, group=g)
-    return _home(out, x)
+    out = _home(out, x)                        # [n, *block]: member j's
+    block = out.shape[1:]
+    return out.movedim(0, ca).reshape(*block[:ca], n * block[ca],
+                                      *block[ca + 1:])
+
+
+class _AllToAll(torch.autograd.Function):
+    """The exchange, whose transpose is the inverse exchange: the
+    gradient of the blocks received goes back to the members they came
+    from (the axes swapped)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_axis, concat_axis):
+        ctx.args = (mesh, axis, split_axis, concat_axis)
+        return _exchange(x, mesh, axis, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split_axis, concat_axis = ctx.args
+        return (_AllToAll.apply(g, mesh, axis, concat_axis, split_axis),
+                None, None, None, None)
+
+
+def all_to_all(x: torch.Tensor, mesh, axis="x", split_axis: int = 0,
+               concat_axis: int = 0) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)``:
+    x cut into n blocks along ``split_axis``; block j goes to member j,
+    and the blocks received are joined along ``concat_axis`` in member
+    order. Differentiable (the backward is the inverse exchange). The
+    defaults exchange blocks of dim 0 in place."""
+    n = mesh.axis_size(axis)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dim {split_axis} of "
+                         f"{tuple(x.shape)} does not divide into {n} "
+                         "blocks")
+    if n == 1:
+        return x
+    return _AllToAll.apply(x, mesh, axis, split_axis, concat_axis)
 
 
 def reduce_scatter(x: torch.Tensor, mesh, axis="x", op: str = "add"

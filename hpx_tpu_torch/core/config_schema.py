@@ -152,6 +152,11 @@ declare("hpx.serving.spec.adapt", "bool", "1",
         "per-slot adaptive k on/off")
 declare("hpx.serving.spec.max_verify_faults", "int", "2",
         "verify faults before speculation self-disables")
+declare("hpx.serving.moe.capacity_factor", "int", "0",
+        "MoE decode expert capacity factor as an integer PERCENT "
+        "(100 = GShard cf 1.0; C = ceil(T*k*pct/100 / E)); 0 = auto = "
+        "drop-free (cf = n_experts), the token-identity default. Read "
+        "when a server is built")
 declare("hpx.serving.ckpt_every", "int", "16",
         "tokens between slot checkpoints")
 declare("hpx.serving.step_retries", "int", "4",

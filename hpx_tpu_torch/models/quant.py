@@ -26,8 +26,6 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ..core.errors import NotImplementedYet
-
 __all__ = ["QTensor", "QTensor4", "quantize_params", "dequant",
            "quantized_bytes", "quantized_bits", "as_raw", "FP8_DTYPE",
            "FP8_MAX"]
@@ -56,6 +54,11 @@ _CONTRACT_AXES = {"wqkv": (1,), "wq": (0,), "wkv": (1,),
 # int4 packing axis per weight: a contraction axis (the scales have size
 # 1 there, so a nibble pair shares one scale), the reference's choice
 _PACK_AXES = {"wqkv": 1, "wq": 0, "wkv": 1, "wo": 1, "w1": 0, "w2": 0}
+# MoE expert weights (the einsums of moe.moe_ffn) quantize per (expert,
+# output channel): w1 [E, d, f] contracts d, w2 [E, f, d] contracts f;
+# the router wg and b1 stay dense
+_MOE_CONTRACT_AXES = {"w1": (1,), "w2": (1,)}
+_MOE_PACK_AXES = {"w1": 1, "w2": 1}
 
 
 FP8_DTYPE = torch.float8_e4m3fn
@@ -122,27 +125,31 @@ def dequant(x: Any, dtype: torch.dtype = torch.bfloat16) -> Any:
 def quantize_params(params, bits: int = 8):
     """Quantize every layer matmul weight of a ``Transformer``
     (``models.transformer``): bits=8 stores int8 ``QWeight``s, bits=4
-    packed int4 ones (two values a byte); layer norms, biases and the
-    embedding stay dense (copied). Returns a new ``Transformer`` on the
-    weights' device. Mixture-of-experts layers are not ported."""
+    packed int4 ones (two values a byte); layer norms, biases, the
+    embedding and a MoE layer's router stay dense (copied), its expert
+    weights quantize per (expert, output channel). Returns a new
+    ``Transformer`` on the weights' device."""
     from .transformer import Transformer
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
 
-    def qz(w, name):
+    def qz(w, axes, pack_axis):
         w = w.detach()
         if bits == 8:
-            return _quantize(w, _CONTRACT_AXES[name])
-        return _quantize4(w, _CONTRACT_AXES[name], _PACK_AXES[name])
+            return _quantize(w, axes)
+        return _quantize4(w, axes, pack_axis)
+
+    def tree(module, contract, pack):
+        return {name: (qz(w, contract[name], pack[name])
+                       if name in contract else w.detach().clone())
+                for name, w in module.named_parameters(recurse=False)}
 
     layers = []
     for lp in params["layers"]:
+        qlp = tree(lp, _CONTRACT_AXES, _PACK_AXES)
         if "moe" in lp:
-            raise NotImplementedYet("mixture-of-experts layers are not "
-                                    "ported yet", "quantize_params")
-        layers.append({name: (qz(w, name) if name in _CONTRACT_AXES
-                              else w.detach().clone())
-                       for name, w in lp.named_parameters()})
+            qlp["moe"] = tree(lp["moe"], _MOE_CONTRACT_AXES, _MOE_PACK_AXES)
+        layers.append(qlp)
     return Transformer(params["emb"].detach().clone(),
                        params["ln_f"].detach().clone(), layers)
 

@@ -85,8 +85,16 @@ outside every captured graph), latency histograms (``self.hist``:
 ttft, queue_wait, decode_stall, e2e; restores behind
 ``fault_stats()["restore_p99_s"]``) and a per-request ``timeline``.
 
+MIXTURE-OF-EXPERTS: a MoE model's step and verify programs route each
+layer's rows through ``moe_ffn`` at the capacity factor of
+``hpx.serving.moe.capacity_factor`` (a percent, read when the server is
+built and part of those programs' keys; 0 = drop-free), and return the
+layers' folded stats vector beside their tokens; the flush adds it into
+``_moe_routed`` / ``_moe_dropped`` and keeps the last ``_moe_occ``.
+Prefill chunks and probes route drop-free, as ``generate`` does.
+
 Left for later slices (the constructor takes none of their arguments):
-the mesh, mixture-of-experts, the host KV tier, disaggregated prefill,
+the mesh, the host KV tier, disaggregated prefill,
 the ``/serving{...}`` counters, the flight recorder and live tuning.
 """
 
@@ -232,11 +240,25 @@ def _project_rows(x, lp, posw, cfg):
     return q, k, v
 
 
-def _block_decode_rows(x, lp, kv, pos, cfg: TransformerConfig):
+def _moe_fold(sink: list) -> Optional[torch.Tensor]:
+    """The per-layer MoE stats vectors as one [2 + E] f32 output:
+    routed and dropped claims summed over the layers, each expert's
+    occupancy averaged; None for a dense model."""
+    if not sink:
+        return None
+    s = torch.sum(torch.stack(sink), dim=0)
+    return torch.cat([s[:2], s[2:] / len(sink)])
+
+
+def _block_decode_rows(x, lp, kv, pos, cfg: TransformerConfig,
+                       moe_cf=None, sink=None):
     """One decoder block for ONE new token per slot at per-slot
     positions: x [B, 1, D]; kv (k_cache, v_cache) [B, Smax, Nkv, H],
     written in place (row b at pos[b]); pos [B]. Slot b attends cache
-    positions <= pos[b]."""
+    positions <= pos[b]. A MoE layer routes the B rows at the capacity
+    factor ``moe_cf`` (None: drop-free), its stats into ``sink``; dead
+    slots' rows route and count like live ones, as in the
+    reference."""
     kc, vc = kv
     q, k, v = _project_rows(x, lp, pos[:, None], cfg)
     rows = torch.arange(x.shape[0], device=x.device)
@@ -246,24 +268,26 @@ def _block_decode_rows(x, lp, kv, pos, cfg: TransformerConfig):
     kpos = torch.arange(kc.shape[1], device=x.device)
     live = (kpos[None, :] <= p[:, None])[:, None]              # [B, 1, S]
     att = _attend(q, kc, vc, live, x.dtype)
-    return _ffn_tail(x, att, lp), (kc, vc)
+    return _ffn_tail(x, att, lp, cfg, moe_cf, sink), (kc, vc)
 
 
-def _decode_rows(params, caches, tok, pos, cfg):
+def _decode_rows(params, caches, tok, pos, cfg, moe_cf=None):
     """One token per slot through every block at per-slot positions;
-    returns (caches, f32 logits [B, V])."""
+    returns (caches, f32 logits [B, V], the folded MoE stats or
+    None)."""
     x = params["emb"][tok][:, None, :]
-    new_caches = []
+    new_caches, sink = [], []
     for lp, kv in zip(params["layers"], caches):
-        x, kv = _block_decode_rows(x, lp, kv, pos, cfg)
+        x, kv = _block_decode_rows(x, lp, kv, pos, cfg, moe_cf, sink)
         new_caches.append(kv)
     x = _ln(x, params["ln_f"])
     logits = torch.einsum("bsd,vd->bsv", x, params["emb"])
-    return new_caches, logits[:, 0, :].float()
+    return new_caches, logits[:, 0, :].float(), _moe_fold(sink)
 
 
 def _paged_block_rows(x, lp, pools, scales, table, pos,
-                      cfg: TransformerConfig, fused=False):
+                      cfg: TransformerConfig, fused=False, moe_cf=None,
+                      sink=None):
     """``_block_decode_rows`` with the K/V rows in a shared block pool:
     pools (k_pool, v_pool) [num_blocks, block_size, Nkv, H]; scales
     (k_scale, v_scale) [num_blocks, Nkv] f32 for int8/fp8 pools, or
@@ -281,25 +305,25 @@ def _paged_block_rows(x, lp, pools, scales, table, pos,
             q, k[:, 0], v[:, 0], kp, vp, table, pos, k_scale=ks,
             v_scale=vs, fused=fused)
         scales = (ks, vs)
-    return _ffn_tail(x, att, lp), (kp, vp), scales
+    return _ffn_tail(x, att, lp, cfg, moe_cf, sink), (kp, vp), scales
 
 
 def _paged_decode_rows(params, pools, scales, tok, table, pos, cfg,
-                       fused=False):
+                       fused=False, moe_cf=None):
     """One token per slot through every block over paged pools;
-    returns (pools, scales, f32 logits [B, V])."""
+    returns (pools, scales, f32 logits [B, V], MoE stats or None)."""
     x = params["emb"][tok][:, None, :]
-    new_pools, new_scales = [], []
+    new_pools, new_scales, sink = [], [], []
     for i, (lp, pl) in enumerate(zip(params["layers"], pools)):
         sc = None if scales is None else scales[i]
         x, pl, sc = _paged_block_rows(x, lp, pl, sc, table, pos, cfg,
-                                      fused)
+                                      fused, moe_cf, sink)
         new_pools.append(pl)
         new_scales.append(sc)
     x = _ln(x, params["ln_f"])
     logits = torch.einsum("bsd,vd->bsv", x, params["emb"])
     return (new_pools, None if scales is None else new_scales,
-            logits[:, 0, :].float())
+            logits[:, 0, :].float(), _moe_fold(sink))
 
 
 def _window_posw(pos0: torch.Tensor, w: int) -> torch.Tensor:
@@ -325,7 +349,8 @@ def _window_write(c: torch.Tensor, posw: torch.Tensor,
         valid[..., None, None], val, v0)
 
 
-def _window_rows(x, lp, kv, pos0, cfg: TransformerConfig):
+def _window_rows(x, lp, kv, pos0, cfg: TransformerConfig, moe_cf=None,
+                 sink=None):
     """One decoder block for a W-token verify window per slot at
     per-slot positions: x [B, W, D]; slot b's window row i lands at
     cache position pos0[b] + i and attends positions <= pos0[b] + i.
@@ -340,24 +365,27 @@ def _window_rows(x, lp, kv, pos0, cfg: TransformerConfig):
     kpos = torch.arange(kc.shape[1], device=x.device)
     live = kpos[None, None, :] <= posw[:, :, None]          # [B, W, S]
     att = _attend(q, kc, vc, live, x.dtype)
-    return _ffn_tail(x, att, lp), (kc, vc)
+    return _ffn_tail(x, att, lp, cfg, moe_cf, sink), (kc, vc)
 
 
-def _decode_window_rows(params, caches, toks, pos0, cfg):
+def _decode_window_rows(params, caches, toks, pos0, cfg, moe_cf=None):
     """W tokens per slot through every block at per-slot positions (the
     speculative verify forward): toks [B, W], pos0 [B]. Returns (caches,
-    f32 logits [B, W, V])."""
+    f32 logits [B, W, V], MoE stats or None)."""
     x = params["emb"][toks]
-    new_caches = []
+    new_caches, sink = [], []
     for lp, kv in zip(params["layers"], caches):
-        x, kv = _window_rows(x, lp, kv, pos0, cfg)
+        x, kv = _window_rows(x, lp, kv, pos0, cfg, moe_cf, sink)
         new_caches.append(kv)
     x = _ln(x, params["ln_f"])
-    return new_caches, torch.einsum("bsd,vd->bsv", x, params["emb"]).float()
+    return (new_caches,
+            torch.einsum("bsd,vd->bsv", x, params["emb"]).float(),
+            _moe_fold(sink))
 
 
 def _paged_window_rows(x, lp, pools, scales, table, pos0,
-                       cfg: TransformerConfig, fused=False):
+                       cfg: TransformerConfig, fused=False, moe_cf=None,
+                       sink=None):
     """``_window_rows`` over paged pools: the pool writes and the
     per-query horizon live in ``ops.paged_attention.
     paged_window_attention`` (the fused modes: kernels 3-4 at W = the
@@ -373,24 +401,25 @@ def _paged_window_rows(x, lp, pools, scales, table, pos0,
             q, k, v, kp, vp, table, pos0, k_scale=ks, v_scale=vs,
             fused=fused)
         scales = (ks, vs)
-    return _ffn_tail(x, att, lp), (kp, vp), scales
+    return _ffn_tail(x, att, lp, cfg, moe_cf, sink), (kp, vp), scales
 
 
 def _paged_decode_window_rows(params, pools, scales, toks, table, pos0, cfg,
-                              fused=False):
+                              fused=False, moe_cf=None):
     """W tokens per slot over paged pools; returns (pools, scales, f32
-    logits [B, W, V])."""
+    logits [B, W, V], MoE stats or None)."""
     x = params["emb"][toks]
-    new_pools, new_scales = [], []
+    new_pools, new_scales, sink = [], [], []
     for i, (lp, pl) in enumerate(zip(params["layers"], pools)):
         sc = None if scales is None else scales[i]
         x, pl, sc = _paged_window_rows(x, lp, pl, sc, table, pos0, cfg,
-                                       fused)
+                                       fused, moe_cf, sink)
         new_pools.append(pl)
         new_scales.append(sc)
     x = _ln(x, params["ln_f"])
     return (new_pools, None if scales is None else new_scales,
-            torch.einsum("bsd,vd->bsv", x, params["emb"]).float())
+            torch.einsum("bsd,vd->bsv", x, params["emb"]).float(),
+            _moe_fold(sink))
 
 
 def _verify_tail(logits, toks, kvec, temp, keys, pos0, width: int,
@@ -571,6 +600,21 @@ class ContinuousServer:
         self._max_verify_faults = max(1, rc.get_int(
             "hpx.serving.spec.max_verify_faults", 2))
         self._tree = _tree_key(self.params)
+        # MoE decode: the capacity-factor knob is an integer percent (100
+        # = GShard cf 1.0); 0 = drop-free (cf = n_experts). Routed and
+        # dropped claims and each expert's occupancy come back as one
+        # [2 + E] vector a step and drain at flush boundaries
+        pct = rc.get_int("hpx.serving.moe.capacity_factor", 0)
+        self._moe_capacity_pct = (cfg.n_experts * 100 if pct <= 0
+                                  else max(1, int(pct)))
+        # the step and verify programs a MoE model keys on the knob (a
+        # dense model's never read it)
+        self._moe_key = ((self._moe_capacity_pct,) if cfg.n_experts > 0
+                         else ())
+        self._moe_routed = 0.0
+        self._moe_dropped = 0.0
+        self._moe_occ = [0.0] * max(0, cfg.n_experts)
+        self._moe_buf: deque = deque()
         self._init_spec(rc, spec, spec_k, spec_draft, draft_params,
                         draft_cfg)
         self._prog_hits = 0             # program-cache hits
@@ -821,14 +865,25 @@ class ContinuousServer:
                 prog, self.device, self._graph_pool, bound, name=ck[0])
         return g
 
+    def _moe_cf(self) -> Optional[float]:
+        """The decode capacity factor from the knob's percent (None for a
+        dense model, whose programs never see the knob)."""
+        if self.cfg.n_experts <= 0:
+            return None
+        return self._moe_capacity_pct / 100.0
+
     def _step_prog(self):
         cfg, slots, smax = self.cfg, self.slots, self.smax
-        ck = ("cb_step", cfg, slots, smax, self._tree)
+        ck = ("cb_step", cfg, slots, smax, *self._moe_key, self._tree)
 
         def build():
+            moe_cf = self._moe_cf()
+
             def step(params, caches, tok, pos, temp, keys, sample):
-                caches, logits = _decode_rows(params, caches, tok, pos, cfg)
-                return caches, _pick_rows(logits, keys, temp, pos, sample)
+                caches, logits, ms = _decode_rows(params, caches, tok, pos,
+                                                  cfg, moe_cf)
+                return (caches, _pick_rows(logits, keys, temp, pos, sample),
+                        ms)
             return step
         return self._captured(ck, self._program(ck, build), bound=(0, 1))
 
@@ -884,15 +939,18 @@ class ContinuousServer:
     def _paged_step_prog(self):
         cfg, fused = self.cfg, self._paged_fused
         ck = (*self._paged_key("pg_step"), self.slots, self._paged_kernel,
-              self._tree)
+              *self._moe_key, self._tree)
 
         def build():
+            moe_cf = self._moe_cf()
+
             def step(params, pools, scales, tok, pos, tables, temp, keys,
                      sample):
-                pools, scales, logits = _paged_decode_rows(
-                    params, pools, scales, tok, tables, pos, cfg, fused)
+                pools, scales, logits, ms = _paged_decode_rows(
+                    params, pools, scales, tok, tables, pos, cfg, fused,
+                    moe_cf)
                 return pools, scales, _pick_rows(logits, keys, temp, pos,
-                                                 sample)
+                                                 sample), ms
             return step
         return self._captured(ck, self._program(ck, build),
                               bound=(0, 1, 2))
@@ -971,15 +1029,18 @@ class ContinuousServer:
         LADDER WIDTH (the prefill chunks' ladder), so the programs stay
         O(buckets) however adaptive k wanders."""
         cfg, slots, smax = self.cfg, self.slots, self.smax
-        ck = ("cb_verify", cfg, slots, smax, width, self._tree)
+        ck = ("cb_verify", cfg, slots, smax, width, *self._moe_key,
+              self._tree)
 
         def build():
+            moe_cf = self._moe_cf()
+
             def verify(params, caches, toks, pos0, kvec, temp, keys,
                        sample):
-                caches, logits = _decode_window_rows(params, caches, toks,
-                                                     pos0, cfg)
+                caches, logits, ms = _decode_window_rows(
+                    params, caches, toks, pos0, cfg, moe_cf)
                 return caches, _verify_tail(logits, toks, kvec, temp, keys,
-                                            pos0, width, sample)
+                                            pos0, width, sample), ms
             return verify
         return self._captured(ck, self._program(ck, build), bound=(0, 1))
 
@@ -988,15 +1049,19 @@ class ContinuousServer:
         kernels 3-4 at W = width, a launch a layer."""
         cfg, fused = self.cfg, self._paged_fused
         ck = (*self._paged_key("pg_verify"), self.slots, width,
-              self._paged_kernel, self._tree)
+              self._paged_kernel, *self._moe_key, self._tree)
 
         def build():
+            moe_cf = self._moe_cf()
+
             def verify(params, pools, scales, toks, pos0, tables, kvec,
                        temp, keys, sample):
-                pools, scales, logits = _paged_decode_window_rows(
-                    params, pools, scales, toks, tables, pos0, cfg, fused)
+                pools, scales, logits, ms = _paged_decode_window_rows(
+                    params, pools, scales, toks, tables, pos0, cfg, fused,
+                    moe_cf)
                 return pools, scales, _verify_tail(
-                    logits, toks, kvec, temp, keys, pos0, width, sample)
+                    logits, toks, kvec, temp, keys, pos0, width,
+                    sample), ms
             return verify
         return self._captured(ck, self._program(ck, build),
                               bound=(0, 1, 2))
@@ -1010,7 +1075,8 @@ class ContinuousServer:
 
         def build():
             def step(params, caches, tok, pos):
-                caches, logits = _decode_rows(params, caches, tok, pos, dcfg)
+                caches, logits, _ = _decode_rows(params, caches, tok, pos,
+                                                 dcfg)
                 return caches, torch.argmax(logits, dim=-1)
             return step
         return self._captured(ck, self._program(ck, build), bound=(0, 1))
@@ -1045,6 +1111,13 @@ class ContinuousServer:
         if self._graph_pool is not None and self.device.type == "cuda":
             return torch.tensor(values, dtype=dtype, pin_memory=True)
         return torch.tensor(values, dtype=dtype, device=self.device)
+
+    def _keep_moe(self, ms: Optional[torch.Tensor]) -> None:
+        """Buffer a step's MoE stats vector (a copy: a replay's output is
+        rewritten by the next replay) for the flush to read; no host
+        read here."""
+        if ms is not None:
+            self._moe_buf.append(ms.clone())
 
     def _keep(self, nxt: torch.Tensor) -> torch.Tensor:
         """A step's token vector, kept until the flush reads it. A
@@ -1663,18 +1736,19 @@ class ContinuousServer:
                     for s in live:
                         self._ensure_window(s, self._pos[s],
                                             self._pos[s] + kvec_host[s])
-                    pools, scales, packed = self._paged_verify_prog(width)(
-                        self.params, self._pools, self._scales, toks, pos,
-                        self._tables_dev(), kvec, self._temp_dev,
-                        self._keys_dev, sample)
+                    pools, scales, packed, ms = self._paged_verify_prog(
+                        width)(self.params, self._pools, self._scales, toks,
+                               pos, self._tables_dev(), kvec, self._temp_dev,
+                               self._keys_dev, sample)
                     _check_in_place("the paged verify", (pools, scales),
                                     (self._pools, self._scales))
                 else:
-                    caches, packed = self._verify_prog(width)(
+                    caches, packed, ms = self._verify_prog(width)(
                         self.params, self._caches, toks, pos, kvec,
                         self._temp_dev, self._keys_dev, sample)
                     _check_in_place("the dense verify", caches,
                                     self._caches)
+                self._keep_moe(ms)
                 # the spec step's one host read: every slot's targets
                 # and count, read before the next replay rewrites them
                 vals = packed.cpu().numpy()
@@ -2012,6 +2086,13 @@ class ContinuousServer:
                 hit_eos = req.eos_id is not None and t == req.eos_id
                 if hit_eos or len(req.tokens) >= req.max_new:
                     self._finalize(s, req, hit_eos)
+        # the MoE stats the step and verify programs buffered, one [2 + E]
+        # vector a step, read here so the step loop gains no host read
+        while self._moe_buf:
+            ms = self._moe_buf.popleft().cpu().numpy()
+            self._moe_routed += float(ms[0])
+            self._moe_dropped += float(ms[1])
+            self._moe_occ = [float(v) for v in ms[2:]]
         self._ckpt_sweep()
 
     # -- the step loop ----------------------------------------------------------
@@ -2091,18 +2172,19 @@ class ContinuousServer:
             if self.paged:
                 for s in live:
                     self._ensure_block(s, self._pos[s])
-                pools, scales, nxt = self._paged_step_prog()(
+                pools, scales, nxt, ms = self._paged_step_prog()(
                     self.params, self._pools, self._scales, tok, pos,
                     self._tables_dev(), self._temp_dev, self._keys_dev,
                     sample)
                 _check_in_place("the paged step", (pools, scales),
                                 (self._pools, self._scales))
             else:
-                caches, nxt = self._step_prog()(
+                caches, nxt, ms = self._step_prog()(
                     self.params, self._caches, tok, pos, self._temp_dev,
                     self._keys_dev, sample)
                 _check_in_place("the dense step", caches, self._caches)
             nxt = self._keep(nxt)
+            self._keep_moe(ms)
         self._cur_dev = nxt
         lanes = []
         need_sync = not self._async

@@ -19,7 +19,16 @@ and sp (sequence), attention walking the sp ring
 before the column-parallel products, ``reduce_from`` after ``wo`` and
 ``w2``), every gradient summed over the (dp, sp) group of its tp index.
 ``shard_params`` / ``unshard_params`` / ``shard_batch`` cut and rejoin
-the weights and the batch. Mixture-of-experts waits for a later slice.
+the weights and the batch.
+
+Mixture-of-experts (``n_experts > 0``): every block's MLP is a MoE FFN
+(``models/moe.py``, weights ``layers.{i}.moe.{wg,w1,b1,w2}``). Training
+routes with the capacity factor ``moe_capacity``, the experts sharded
+over dp (the GShard layout: dp's tokens exchange by all-to-all) and each
+expert's d_ff over tp, and adds ``moe_aux_weight`` times the mean
+load-balance term to the loss; decode routes drop-free (capacity factor
+``n_experts``), so a prompt's tokens do not depend on the rest of its
+batch.
 
 The weights live in an ``nn.Module`` (``Transformer``) whose parameter
 names follow the reference's tree: ``emb``, ``ln_f`` and
@@ -57,6 +66,7 @@ from ..ops.attention import (ring_attention_sharded, ring_positions,
 from ..ops.attention_cuda import flash_attention
 from ..parallel.mesh import Mesh
 from ..utils import prng
+from .moe import MoeConfig, init_moe_params, moe_ffn, moe_param_specs
 from .quant import QTensor, QTensor4, dequant
 
 __all__ = ["TransformerConfig", "Transformer", "QWeight", "QWeight4",
@@ -65,7 +75,7 @@ __all__ = ["TransformerConfig", "Transformer", "QWeight", "QWeight4",
            "sample_batch",
            "make_train_step", "make_opt_state", "make_mesh_3d",
            "mesh_3d_shape", "param_specs", "shard_params",
-           "unshard_params", "shard_batch"]
+           "unshard_params", "shard_batch", "forward"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +89,12 @@ class TransformerConfig:
     dtype: torch.dtype = torch.float32
     # SGD learning rate of make_train_step (no optimizer given)
     lr: float = 1e-2
+    # mixture-of-experts: n_experts > 0 makes every block's MLP a MoE FFN
+    # (models/moe.py), its experts sharded over dp in the sharded step
+    n_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity: float = 2.0
+    moe_aux_weight: float = 0.01
     # grouped-query attention: 0 < n_kv_heads < n_heads shares each K/V
     # head across n_heads / n_kv_heads query heads; 0 means n_heads
     n_kv_heads: int = 0
@@ -96,6 +112,12 @@ class TransformerConfig:
     @property
     def kv_heads(self) -> int:
         return self.n_kv_heads or self.n_heads
+
+
+def _moe_cfg(cfg: TransformerConfig) -> MoeConfig:
+    return MoeConfig(n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
+                     capacity_factor=cfg.moe_capacity, d_model=cfg.d_model,
+                     d_ff=cfg.d_ff, dtype=cfg.dtype)
 
 
 # -- the weight tree ------------------------------------------------------------
@@ -123,10 +145,13 @@ class QWeight4(QWeight):
 class _Tree(nn.Module):
     """A module that answers ``tree["name"]`` like the reference's dict:
     a parameter, a ``QTensor`` / ``QTensor4`` view of a ``QWeight`` /
-    ``QWeight4``, or a submodule."""
+    ``QWeight4``, or a submodule (a dict of weights, such as a layer's
+    ``moe``, becomes one)."""
 
     def _put(self, name: str, value: Any) -> None:
-        if isinstance(value, QTensor4):
+        if isinstance(value, dict):
+            self.add_module(name, Layer(value))
+        elif isinstance(value, QTensor4):
             self.add_module(name, QWeight4(value.q, value.s, value.axis))
         elif isinstance(value, QTensor):
             self.add_module(name, QWeight(value.q, value.s))
@@ -177,8 +202,9 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None,
                 generator: Optional[torch.Generator] = None) -> Transformer:
     """Random weights, the reference's init scheme (normal scaled by
     1/sqrt(d_model), w2 by 1/sqrt(d_ff); layer-norm scales 1, biases
-    0), drawn from ``generator`` or from a generator seeded with
-    ``seed`` on the target device. ``device=None`` means ``cuda:0``."""
+    0; MoE layers ``init_moe_params``' scheme), drawn from
+    ``generator`` or from a generator seeded with ``seed`` on the target
+    device. ``device=None`` means ``cuda:0``."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(int(seed))
@@ -204,9 +230,13 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None,
             t["wkv"] = normal((2, d, nkv, hd), s)
         t["wo"] = normal((nh, hd, d), s)
         t["ln2"] = torch.ones(d, dtype=cfg.dtype, device=dev)
-        t["w1"] = normal((d, f), s)
-        t["b1"] = torch.zeros(f, dtype=cfg.dtype, device=dev)
-        t["w2"] = normal((f, d), 1.0 / math.sqrt(f))
+        if cfg.n_experts > 0:
+            t["moe"] = init_moe_params(_moe_cfg(cfg), device=dev,
+                                       generator=generator)
+        else:
+            t["w1"] = normal((d, f), s)
+            t["b1"] = torch.zeros(f, dtype=cfg.dtype, device=dev)
+            t["w2"] = normal((f, d), 1.0 / math.sqrt(f))
         layers.append(t)
     emb = normal((cfg.vocab, d), s)
     return Transformer(emb, torch.ones(d, dtype=cfg.dtype, device=dev),
@@ -234,10 +264,13 @@ def params_from_reference(np_tree: Dict[str, Any], device=None
     (``jax.tree.map(np.asarray, params)``), as a ``Transformer`` on
     ``device`` (None means ``cuda:0``). int8 ``QTensor`` leaves (from
     ``quantize_params(bits=8)``) become ``QWeight``s, packed int4
-    ``QTensor4`` leaves (``bits=4``) ``QWeight4``s."""
+    ``QTensor4`` leaves (``bits=4``) ``QWeight4``s; a layer's ``moe``
+    dict a submodule of its own."""
     dev = resolve_device(device)
 
     def leaf(v):
+        if isinstance(v, dict):
+            return {k: leaf(x) for k, x in v.items()}
         if hasattr(v, "q") and hasattr(v, "s"):
             q, s = _from_numpy(v.q, dev), _from_numpy(v.s, dev)
             if hasattr(v, "axis"):
@@ -245,12 +278,8 @@ def params_from_reference(np_tree: Dict[str, Any], device=None
             return QTensor(q, s)
         return _from_numpy(v, dev)
 
-    layers = []
-    for lp in np_tree["layers"]:
-        if "moe" in lp:
-            raise NotImplementedYet("mixture-of-experts layers are not "
-                                    "ported yet", "params_from_reference")
-        layers.append({k: leaf(v) for k, v in lp.items()})
+    layers = [{k: leaf(v) for k, v in lp.items()}
+              for lp in np_tree["layers"]]
     return Transformer(leaf(np_tree["emb"]), leaf(np_tree["ln_f"]), layers)
 
 
@@ -329,10 +358,24 @@ def _attend(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     return torch.einsum("bngqk,bknh->bqngh", p, vc).reshape(b, w, nq, hd)
 
 
-def _ffn_tail(x: torch.Tensor, att: torch.Tensor, lp) -> torch.Tensor:
-    """Output projection, residual, second norm and the MLP."""
+def _ffn_tail(x: torch.Tensor, att: torch.Tensor, lp,
+              cfg: TransformerConfig, moe_cf: Optional[float] = None,
+              sink: Optional[list] = None) -> torch.Tensor:
+    """Output projection, residual, second norm and the MLP. A MoE layer
+    routes its [B·W, D] rows through ``moe_ffn`` at the capacity factor
+    ``moe_cf`` (None: drop-free, ``n_experts``); ``sink`` (a list)
+    collects each MoE layer's stats vector."""
     x = x + torch.einsum("bsnh,nhd->bsd", att, _dq(lp["wo"], att))
     h = _ln(x, lp["ln2"])
+    if "moe" in lp:
+        mcfg = dataclasses.replace(
+            _moe_cfg(cfg), capacity_factor=float(
+                cfg.n_experts if moe_cf is None else moe_cf))
+        res = moe_ffn(h.reshape(-1, h.shape[-1]), lp["moe"], mcfg,
+                      return_stats=sink is not None)
+        if sink is not None:
+            sink.append(res[2])
+        return x + res[0].reshape(h.shape)
     h = _gelu(h @ _dq(lp["w1"], h) + lp["b1"]) @ _dq(lp["w2"], h)
     return x + h
 
@@ -365,7 +408,7 @@ def _block_decode(x, lp, kv, write_at, cfg: TransformerConfig):
     qpos = write_at + torch.arange(sq, device=dev)
     live = (kpos[None, :] <= qpos[:, None])[None]          # [1, W, S]
     att = _attend(q, kc, vc, live, x.dtype)
-    return _ffn_tail(x, att, lp), (kc, vc)
+    return _ffn_tail(x, att, lp, cfg), (kc, vc)
 
 
 def _decode_window(params, caches, toks: torch.Tensor, pos0,
@@ -834,32 +877,45 @@ def make_mesh_3d(n: int, device=None) -> Mesh:
 
 def param_specs(cfg: TransformerConfig) -> Dict[str, Tuple]:
     """Parameter name -> its sharding, the reference's PartitionSpecs as
-    data: the mesh axis (or None) of each leading dim, () replicated.
-    Heads and d_ff go over tp; everything else is replicated."""
+    data: the mesh axis (or None) of each dim, () replicated. Heads and
+    d_ff go over tp; MoE experts over dp and each expert's d_ff over tp
+    (``moe_param_specs("dp", tp_axis="tp")``); everything else is
+    replicated."""
     if cfg.kv_heads == cfg.n_heads:
         qkv = {"wqkv": (None, None, "tp", None)}
     else:
         qkv = {"wq": (None, "tp", None), "wkv": (None, None, "tp", None)}
-    layer = {"ln1": (), **qkv, "wo": ("tp", None, None), "ln2": (),
-             "w1": (None, "tp"), "b1": ("tp",), "w2": ("tp", None)}
+    layer = {"ln1": (), **qkv, "wo": ("tp", None, None), "ln2": ()}
+    if cfg.n_experts > 0:
+        layer.update({f"moe.{k}": v for k, v in
+                      moe_param_specs("dp", tp_axis="tp").items()})
+    else:
+        layer.update({"w1": (None, "tp"), "b1": ("tp",),
+                      "w2": ("tp", None)})
     specs = {"emb": (), "ln_f": ()}
     for i in range(cfg.n_layers):
         specs.update({f"layers.{i}.{k}": v for k, v in layer.items()})
     return specs
 
 
-def _tp_dim(spec: Tuple) -> Optional[int]:
-    return spec.index("tp") if "tp" in spec else None
+def _sharded_dims(spec: Tuple) -> List[Tuple[int, str]]:
+    """(dim, mesh axis) of each sharded dim of a spec."""
+    return [(d, a) for d, a in enumerate(spec) if a is not None]
 
 
 def _from_named(tensors: Dict[str, torch.Tensor], n_layers: int
                 ) -> Transformer:
-    """A ``Transformer`` from named tensors in ``named_parameters`` order."""
+    """A ``Transformer`` from named tensors in ``named_parameters`` order
+    (``layers.{i}.moe.w1`` into the layer's ``moe`` dict)."""
     layers: List[Dict[str, Any]] = [{} for _ in range(n_layers)]
     for name, t in tensors.items():
         if name.startswith("layers."):
             _, i, key = name.split(".", 2)
-            layers[int(i)][key] = t
+            *path, leaf = key.split(".")
+            node = layers[int(i)]
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = t
     return Transformer(tensors["emb"], tensors["ln_f"], layers)
 
 
@@ -873,34 +929,33 @@ def shard_params(params: Transformer, cfg: TransformerConfig,
                  mesh: Mesh) -> Transformer:
     """This rank's shard of full weights (the reference's
     ``shard_params``), copied to the rank's device: wqkv / wq / wkv and
-    wo cut by heads, w1 / b1 by columns, w2 by rows over tp; the rest
-    whole."""
-    tp, i = mesh.shape["tp"], mesh.axis_index("tp")
+    wo cut by heads, w1 / b1 by columns, w2 by rows over tp; MoE experts
+    by experts over dp and by d_ff over tp; the rest whole."""
     specs = param_specs(cfg)
     out = {}
     for name, w in _dense_named(params).items():
-        dim = _tp_dim(specs[name])
-        if dim is not None:
-            if w.shape[dim] % tp:
+        for dim, axis in _sharded_dims(specs[name]):
+            n = mesh.shape[axis]
+            if w.shape[dim] % n:
                 raise ValueError(f"{name}: dim {dim} of {tuple(w.shape)} "
-                                 f"does not divide over tp={tp}")
-            w = w.chunk(tp, dim)[i]
+                                 f"does not divide over {axis}={n}")
+            w = w.chunk(n, dim)[mesh.axis_index(axis)]
         out[name] = w.detach().to(mesh.device, copy=True).contiguous()
     return _from_named(out, cfg.n_layers)
 
 
 def unshard_params(params: Transformer, cfg: TransformerConfig,
                    mesh: Mesh) -> Transformer:
-    """The full weights from every rank's shard (all-gathered over tp),
-    on the rank's device: the counterpart of reading a global array.
-    Every rank of a tp group calls it together."""
+    """The full weights from every rank's shard (all-gathered over the
+    axes each is sharded over), on the rank's device: the counterpart of
+    reading a global array. Every rank of the mesh calls it together."""
     specs = param_specs(cfg)
     out = {}
     for name, w in _dense_named(params).items():
-        dim = _tp_dim(specs[name])
-        w = w.detach()
-        out[name] = (all_gather(w, mesh, "tp", dim) if dim is not None
-                     else w.clone())
+        w = w.detach().clone()
+        for dim, axis in _sharded_dims(specs[name]):
+            w = all_gather(w, mesh, axis, dim)
+        out[name] = w
     return _from_named(out, cfg.n_layers)
 
 
@@ -941,12 +996,15 @@ def sample_batch(cfg: TransformerConfig, batch: int, seq: int,
 
 
 def _block(x: torch.Tensor, lp, cfg: TransformerConfig,
-           mesh: Mesh) -> torch.Tensor:
+           mesh: Mesh) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decoder block over this rank's [B/dp, S/sp, D] shard of a
     sequence, with the weights' tp shard: causal attention walking the
     sp ring (flash attention where sp is 1), RoPE at the shard's global
     positions, the Megatron pair closing each tp-split half. On a mesh
-    of one rank that is flash attention over the whole sequence."""
+    of one rank that is flash attention over the whole sequence. A MoE
+    layer's experts exchange this rank's tokens over dp, and its output
+    closes over tp like the dense MLP's. Returns (x, the MoE layer's
+    aux loss, None for a dense one)."""
     h = copy_to(_ln(x, lp["ln1"]), mesh)
     q, k, v = _qkv_proj(h, lp)
     if cfg.rope:
@@ -956,9 +1014,16 @@ def _block(x: torch.Tensor, lp, cfg: TransformerConfig,
     att = ring_attention_sharded(q, k, v, mesh, "sp", causal=True,
                                  striped=cfg.striped_ring)
     x = x + reduce_from(torch.einsum("bsnh,nhd->bsd", att, lp["wo"]), mesh)
+    if "moe" in lp:
+        b, s, d = x.shape
+        h, aux = moe_ffn(_ln(x, lp["ln2"]).reshape(b * s, d), lp["moe"],
+                         _moe_cfg(cfg), axis="dp",
+                         axis_size=mesh.shape["dp"], mesh=mesh,
+                         tp_axis="tp")
+        return x + reduce_from(h, mesh).reshape(b, s, d), aux
     h = copy_to(_ln(x, lp["ln2"]), mesh)
     h = _gelu(h @ lp["w1"] + lp["b1"]) @ lp["w2"]
-    return x + reduce_from(h, mesh)
+    return x + reduce_from(h, mesh), None
 
 
 def _nll_head(params, x: torch.Tensor, targets: torch.Tensor):
@@ -976,17 +1041,43 @@ def _nll_head(params, x: torch.Tensor, targets: torch.Tensor):
     return nll.sum(), nll.numel()
 
 
-def _local_loss(params, tokens: torch.Tensor, targets: torch.Tensor,
-                cfg: TransformerConfig, mesh: Mesh):
-    """Token loss sum and count over this rank's batch; with
-    ``cfg.remat`` each block is recomputed in the backward pass."""
+def _hidden(params, tokens: torch.Tensor, cfg: TransformerConfig,
+            mesh: Mesh):
+    """The embedding and every block over this rank's tokens: (x [B, S,
+    D], the sum of the MoE layers' aux losses, None for a dense model);
+    with ``cfg.remat`` each block is recomputed in the backward pass."""
     x = params["emb"][tokens]
+    aux = None
     for lp in params["layers"]:
         if cfg.remat:
-            x = checkpoint(_block, x, lp, cfg, mesh, use_reentrant=False)
+            x, a = checkpoint(_block, x, lp, cfg, mesh, use_reentrant=False)
         else:
-            x = _block(x, lp, cfg, mesh)
-    return _nll_head(params, x, targets)
+            x, a = _block(x, lp, cfg, mesh)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
+
+
+def _local_loss(params, tokens: torch.Tensor, targets: torch.Tensor,
+                cfg: TransformerConfig, mesh: Mesh):
+    """Token loss sum, count and the MoE aux sum (None for a dense
+    model) over this rank's batch."""
+    x, aux = _hidden(params, tokens, cfg, mesh)
+    s, n = _nll_head(params, x, targets)
+    return s, n, aux
+
+
+def forward(params, tokens, cfg: TransformerConfig, device=None
+            ) -> torch.Tensor:
+    """The training forward on a mesh of one: the embedding, every block
+    over the whole sequence (flash attention, causal), ``ln_f`` and the
+    tied unembedding. Returns the logits [B, S, V]; ``device=None``
+    means ``cuda:0``. No gradient is taken."""
+    mesh = make_mesh_3d(1, device=resolve_device(device))
+    with torch.no_grad():
+        x, _ = _hidden(params, _as_tokens(tokens, mesh.device), cfg, mesh)
+        x = _ln(x, params["ln_f"])
+        return torch.einsum("bsd,vd->bsv", x, params["emb"])
 
 
 def _as_tokens(t, dev: torch.device) -> torch.Tensor:
@@ -998,16 +1089,26 @@ def _as_tokens(t, dev: torch.device) -> torch.Tensor:
 _DATA_AXES = ("dp", "sp")
 
 
-def _sum_grads(grads, mesh: Mesh) -> List[torch.Tensor]:
-    """Every gradient summed over the (dp, sp) group of its tp index,
-    one all-reduce per dtype over the gradients laid end to end."""
+def _grad_axes(spec: Tuple) -> Tuple[str, ...]:
+    """The data axes a weight's gradient is summed over: those it is not
+    sharded over (MoE experts, sharded over dp, sum over sp only)."""
+    return tuple(a for a in _DATA_AXES if a not in spec)
+
+
+def _sum_grads(grads, mesh: Mesh, axes: Sequence[Tuple[str, ...]]
+               ) -> List[torch.Tensor]:
+    """Each gradient summed over ``axes[i]``, the data axes of its
+    weight (``_grad_axes``), within its tp index: one all-reduce per
+    (axes, dtype) over the gradients laid end to end."""
     grads = list(grads)
-    if mesh.axis_size(_DATA_AXES) == 1:
-        return grads
-    for dtype in dict.fromkeys(g.dtype for g in grads):   # rank order
-        idx = [i for i, g in enumerate(grads) if g.dtype == dtype]
+    for ax, dtype in dict.fromkeys((a, g.dtype)                # rank order
+                                   for a, g in zip(axes, grads)):
+        if not ax or mesh.axis_size(ax) == 1:
+            continue
+        idx = [i for i, g in enumerate(grads)
+               if axes[i] == ax and g.dtype == dtype]
         flat = all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]),
-                          mesh, _DATA_AXES)
+                          mesh, ax)
         for i, part in zip(idx, flat.split([grads[i].numel()
                                             for i in idx])):
             grads[i] = part.view_as(grads[i])
@@ -1016,32 +1117,44 @@ def _sum_grads(grads, mesh: Mesh) -> List[torch.Tensor]:
 
 def _loss_and_grads(params: Transformer, tokens, targets,
                     cfg: TransformerConfig, mesh: Mesh):
-    """(weights, their gradients, detached mean token NLL) of one batch
-    on the mesh's device; tokens and targets are this rank's shard. The
-    rank backpropagates its loss sum over the global token count, the
-    gradients are summed over (dp, sp), and the loss is the global mean
-    (on a mesh of one rank: the batch's own). The weights take
-    ``requires_grad`` only while the gradients are computed, so the
-    serving paths stay free of autograd."""
+    """(weights, their gradients, detached loss) of one batch on the
+    mesh's device; tokens and targets are this rank's shard. The rank
+    backpropagates its loss sum over the global token count (plus, with
+    MoE, ``moe_aux_weight`` times its aux sum over dp · sp · n_layers),
+    the gradients are summed over the data axes each weight is not
+    sharded over, and the loss is the global mean token NLL plus the
+    weighted mean aux term (on a mesh of one rank: the batch's own). The
+    weights take ``requires_grad`` only while the gradients are
+    computed, so the serving paths stay free of autograd."""
     dev = mesh.device
     if params.device != dev:
         raise ValueError(f"params live on {params.device}, not {dev}")
     if any(isinstance(m, QWeight) for m in params.modules()):
         raise ValueError("int8 serving weights cannot be trained")
     tokens, targets = _as_tokens(tokens, dev), _as_tokens(targets, dev)
-    weights = list(params.parameters())
+    named = list(params.named_parameters())
+    weights = [w for _, w in named]
+    specs = param_specs(cfg)
+    axes = [_grad_axes(specs[name]) for name, _ in named]
+    moe_div = mesh.axis_size(_DATA_AXES) * cfg.n_layers
     for w in weights:
         w.requires_grad_(True)
     try:
         with torch.enable_grad():
-            s, n = _local_loss(params, tokens, targets, cfg, mesh)
+            s, n, aux = _local_loss(params, tokens, targets, cfg, mesh)
             n *= mesh.axis_size(_DATA_AXES)
-            grads = torch.autograd.grad(s / n, weights)
+            obj = s / n
+            if cfg.n_experts > 0:
+                obj = obj + cfg.moe_aux_weight * aux / moe_div
+            grads = torch.autograd.grad(obj, weights)
     finally:
         for w in weights:
             w.requires_grad_(False)
-    return (weights, _sum_grads(grads, mesh),
-            all_reduce(s.detach(), mesh, _DATA_AXES) / n)
+    loss = all_reduce(s.detach(), mesh, _DATA_AXES) / n
+    if cfg.n_experts > 0:
+        loss = loss + cfg.moe_aux_weight * (
+            all_reduce(aux.detach(), mesh, _DATA_AXES) / moe_div)
+    return weights, _sum_grads(grads, mesh, axes), loss
 
 
 def make_opt_state(params: Transformer, cfg: TransformerConfig, optimizer):
@@ -1105,6 +1218,9 @@ def make_train_step(cfg: TransformerConfig, mesh: Optional[Mesh] = None,
     elif device is not None and resolve_device(device) != mesh.device:
         raise ValueError(f"device {device} is not the mesh's {mesh.device}")
     tp = mesh.shape["tp"]
+    if cfg.n_experts > 0 and cfg.n_experts % mesh.shape["dp"]:
+        raise ValueError(f"n_experts ({cfg.n_experts}) not divisible by "
+                         f"ep=dp={mesh.shape['dp']}")
     if cfg.n_heads % tp or cfg.kv_heads % tp or cfg.d_ff % tp:
         raise ValueError(
             f"heads (q={cfg.n_heads}, kv={cfg.kv_heads}) and d_ff "

@@ -16,6 +16,11 @@ A group is a ``torch.distributed`` process group, made the first time
 any rank asks for it; every rank runs the same code, so all of them ask
 in the same order, as ``new_group`` needs.
 
+``make_mesh(shape, axis_names)`` is the reference's constructor over the
+current world (all of it on one axis by default); ``shard_1d`` and
+``replicated`` are its placements as a rank sees them: its own slice of
+a 1-D array, or the whole array, on its device.
+
 ``launch(fn, world, *args)`` starts ``world`` ranks (start method
 ``spawn``), joins them through a ``file://`` store in a fresh temporary
 directory (no port to collide on), runs ``fn(*args)`` on each and
@@ -37,13 +42,14 @@ import tempfile
 import time
 import traceback
 from collections import OrderedDict
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "launch", "pick_backend"]
+__all__ = ["Mesh", "make_mesh", "shard_1d", "replicated", "launch",
+           "pick_backend"]
 
 
 class Mesh:
@@ -128,6 +134,45 @@ class Mesh:
                     mine = g
             self._groups[axes] = mine
         return self._groups[axes]
+
+
+def _world_size() -> int:
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def make_mesh(shape: Optional[Sequence[int]] = None,
+              axis_names: Sequence[str] = ("x",), device=None) -> Mesh:
+    """A ``Mesh`` over the current world: ``shape`` (default: every rank
+    on one axis) named by ``axis_names``, which fall back to ``ax0``,
+    ``ax1``, ... where their count differs from the shape's, as the
+    reference's ``make_mesh`` names them. ``device``: as ``Mesh``'s."""
+    shape = (_world_size(),) if shape is None else tuple(shape)
+    names = tuple(axis_names)
+    if len(names) != len(shape):
+        names = tuple(f"ax{i}" for i in range(len(shape)))
+    return Mesh(shape, names, device)
+
+
+def shard_1d(arr, mesh: Mesh, axis: str = "x") -> torch.Tensor:
+    """This rank's block of a 1-D array split evenly over ``axis`` (the
+    reference's ``device_put(arr, NamedSharding(mesh, P(axis)))`` as one
+    rank holds it), on the rank's device."""
+    t = torch.as_tensor(np.asarray(arr) if not isinstance(arr, torch.Tensor)
+                        else arr)
+    n = mesh.shape[axis]
+    if t.shape[0] % n:
+        raise ValueError(f"shard_1d: length {t.shape[0]} does not divide "
+                         f"over {axis}={n}")
+    return t.chunk(n, 0)[mesh.axis_index(axis)].to(mesh.device).clone()
+
+
+def replicated(arr, mesh: Mesh) -> torch.Tensor:
+    """The whole array on the rank's device (every rank holds it)."""
+    t = torch.as_tensor(np.asarray(arr) if not isinstance(arr, torch.Tensor)
+                        else arr)
+    return t.to(mesh.device).clone()
 
 
 def _rank_device(rank: int, device) -> torch.device:

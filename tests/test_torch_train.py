@@ -21,7 +21,6 @@ import pytest
 import torch
 
 from hpx_tpu.models import transformer as rt
-from hpx_tpu_torch.core.errors import NotImplementedYet
 from hpx_tpu_torch.models import transformer as pt
 from hpx_tpu_torch.models.quant import QTensor
 from hpx_tpu_torch.ops import attention_cuda as ac
@@ -188,11 +187,12 @@ def test_the_step_goes_through_flash_attention(monkeypatch):
 def test_step_arguments():
     cfg = pt.TransformerConfig(**SMALL)
     params = pt.init_params(cfg, seed=0, device="cpu")
-    # mixture-of-experts layers are refused where weights come in
-    with pytest.raises(NotImplementedYet, match="mixture-of-experts"):
-        pt.params_from_reference({"emb": np.zeros((4, 2), np.float32),
-                                  "ln_f": np.ones(2, np.float32),
-                                  "layers": [{"moe": {}}]}, "cpu")
+    # a mixture-of-experts layer comes in as a submodule of its own
+    moe = pt.params_from_reference(
+        {"emb": np.zeros((4, 2), np.float32), "ln_f": np.ones(2, np.float32),
+         "layers": [{"moe": {"wg": np.ones((2, 2), np.float32)}}]}, "cpu")
+    assert [n for n, _ in moe.named_parameters()] == [
+        "emb", "ln_f", "layers.0.moe.wg"]
     toks, tgts = _batch(1)
     with pytest.raises(ValueError, match="params live on"):
         pt.make_train_step(cfg, device="meta")(params, toks, tgts)
