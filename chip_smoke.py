@@ -231,6 +231,33 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
                forward's; sharded_multistep at 2^24 cells, 16 steps,
                halo_steps 1 and 4, coef 0.3, bitwise equal to its run on
                make_mesh((1,)).
+     pipelined training
+               make_pipelined_train_step on 4 ranks (gloo on one card,
+               nccl with a card a rank) over ("dp", "pp") (1, 4) and
+               (2, 2) interleaved 2, and ("dp", "pp", "tp") (1, 2, 2), M
+               4 microbatches: the training model at full width in bf16,
+               8 x 1024, PP_STEPS steps whose loss falls, each rank's
+               launches a step equal to the schedule's (kernel 5 2 M L/pp:
+               the forward and the backward walk's remat; kernels 6-7 M
+               L/pp), the step's host ms and its share in
+               torch.distributed's verbs; then f32 at 4 x 1024: the loss
+               within PP_LOSS_REL relative and the updated weights,
+               unstacked and deinterleaved, within PP_WEIGHT_REL by the
+               norm of the single-device step's on the same weights and
+               batch, and two planted faults (the backward hop sent to
+               the next member, the embedding's gradient unsummed over
+               pp) reading above PP_FAULT_READ; kernels 5-7 against their
+               plain versions at a stage's microbatch shape.
+     Jacobi    config #5 at 8192^2 f32, 100 sweeps: jacobi_serial,
+               jacobi_dataflow over 8 row blocks on a BlockExecutor of the
+               card's targets and jacobi_sharded on a 2 x 2 mesh of 4
+               ranks (100 and 25 sweeps a dispatch), bitwise equal (the
+               ranks' blocks by SHA-256), the residual within n eps,
+               Mcells/s of each; ghosts that never arrive must differ.
+     FFT       fft_sharded / ifft_sharded of 2^22 complex64 over 4 ranks
+               and fft2_sharded_2d of 2048^2 on a 2 x 2 mesh, within
+               1e-4 of float64 numpy and of the one-rank transform; ms a
+               transform and the exchanges' share.
    Each stencil kernel's output must equal its plain version on the same
    inputs bit for bit; the dataflow result must equal stencil_serial;
    the fused result must conserve the sum, and a small run must agree
@@ -386,8 +413,10 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
    bf16 steps after 2 warm-ups).
 5. Prints the bench lines ("bench: {...}"), the resilience and MoE
    numbers ("resilience: {...}", "moe: {...}": the MoE, expert-parallel,
-   Ulysses and stencil phases' readings, times and stats), {"kernels":
-   [...]} and, last, {"ok": true, "device": ...}.
+   Ulysses and stencil phases' readings, times and stats), the
+   pipelined, Jacobi and FFT phases' ("multirank: {...}"), {"kernels":
+   [...]} (the flash rows with their launches on the pipelined path
+   beside) and, last, {"ok": true, "device": ...}.
 
 Exits non-zero, and prints no result line, if CUDA is absent, if the
 package cannot be imported, or if any phase fails.
@@ -521,6 +550,23 @@ EP_MESHES = ((2, 1, 2), (2, 2, 1))
 # stencil's cells and steps over 4 ranks
 ULYSSES_SHAPE = (8, 1024, 8, 64)
 STENCIL_CELLS, STENCIL_STEPS = 1 << 24, 16
+# the pipelined step on 4 ranks: (mesh shape, axis names, microbatches M,
+# interleave V); bf16 steps a mesh; the f32 gate's batch rows (the
+# interleaved gate on dp 2 needs M = pp = 2 rows a dp shard)
+PP_MESHES = (((1, 4), ("dp", "pp"), 4, 1), ((2, 2), ("dp", "pp"), 4, 2),
+             ((1, 2, 2), ("dp", "pp", "tp"), 4, 1))
+PP_STEPS = 4
+PP_F32_BATCH = 4
+PP_LOSS_REL = 1e-6          # the f32 loss against the single-device step's
+PP_WEIGHT_REL = 1e-5        # the updated weights, by the norm
+PP_FAULT_READ = 0.1         # a planted fault's update reading must pass it
+# config #5: the 2-D Jacobi grid, sweeps and row blocks; the sharded
+# variant's sweeps a dispatch
+JACOBI = dict(nx=8192, ny=8192, nb=8, iterations=100)
+JACOBI_SPD = (100, 25)
+# the multi-rank FFT: the 1-D length and the 2-D side
+FFT_N, FFT2_SIDE = 1 << 22, 2048
+FFT_TOL = 1e-4
 
 
 
@@ -1108,6 +1154,198 @@ def _ulysses_inputs(shape: tuple, dt):
 def _stencil_input(cells: int):
     import torch
     return torch.rand(cells, generator=torch.Generator().manual_seed(5))
+
+
+def _pp_rank(path: str, f32_batch: int) -> dict:
+    """One rank of the pipelined path (spawned by hpx_tpu_torch's
+    launcher), on each mesh of PP_MESHES in turn:
+      1. the training model in bf16, weights from seed 0, the batch of
+         8 x 1024 from seed 1 (as the single-device path makes them):
+         PP_STEPS pipelined SGD steps, each step's kernel launches
+         counted and its host time taken; then 2 with every collective
+         and staging copy timed (``_comm_split``);
+      2. f32 from the weights in ``path`` (the single-device step's
+         start), the batch's first ``f32_batch`` rows: one pipelined SGD
+         step, its loss, launches and, per weight (unstacked and
+         deinterleaved), ||w - w1|| / ||w1|| and the update's reading
+         ||(w0 - w) - (w0 - w1)|| / ||w0 - w1|| against the
+         single-device step's w1 in ``path``;
+      3. the planted faults (the backward walk's hop sent to the next
+         member; the embedding's gradient left unsummed over pp) on
+         the first mesh: their updates' readings."""
+    import torch
+    from hpx_tpu_torch.models import transformer as tf
+    from hpx_tpu_torch.ops import attention_cuda as ac
+    from hpx_tpu_torch.parallel import pipeline_spmd as ps
+    from hpx_tpu_torch.parallel.mesh import Mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ref = torch.load(path, map_location=dev)
+    w0, w1 = ref["w0"], ref["w1"]
+    kern = (ac.flash_attention_fwd, ac.flash_attention_bwd,
+            ac.flash_attention_bwd_f32, ac.flash_attention_chunk)
+    cfg = tf.TransformerConfig(**TRAIN_MODEL, dtype=torch.bfloat16)
+    cfg32 = tf.TransformerConfig(**TRAIN_MODEL)
+    real_hop, real_axes = ps._hop, tf._pp_grad_axes
+
+    def forward_hop(x, mesh, axis, shift, periodic):
+        # planted fault: the backward walk's hop to the next member
+        return real_hop(x, mesh, axis, abs(shift), periodic)
+    faults = {"hop": lambda: setattr(ps, "_hop", forward_hop),
+              "emb": lambda: setattr(tf, "_pp_grad_axes",
+                                     lambda name: ("dp",))}
+    out = []
+    for i, (shape, names, m, v) in enumerate(PP_MESHES):
+        mesh = Mesh(shape, names)
+        r = {"shape": shape, "rank": mesh.rank, "coords": mesh.coords,
+             "device": str(mesh.device), "backend": mesh.backend}
+        gen = torch.Generator(device=dev).manual_seed(1)
+        toks, tgts = tf.sample_batch(cfg, 8, 1024, generator=gen, device=dev)
+        params = tf.prepare_pipeline_params(
+            tf.init_params(cfg, seed=0, device=dev), mesh, v)
+        t, g = tf.shard_batch(toks, tgts, mesh)
+        step = tf.make_pipelined_train_step(cfg, mesh, m, interleave=v)
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, secs, per_step = [], [], []
+        for _ in range(PP_STEPS):
+            for k in kern:
+                k.launches = 0
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            params, loss = step(params, t, g)
+            torch.cuda.synchronize(dev)
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            per_step.append({k.__name__: k.launches for k in kern})
+        r.update(losses=losses, secs=secs, per_step=per_step,
+                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+        r["split"] = _comm_split(lambda: step(params, t, g), dev, 2)
+        del params, step
+        m32 = min(m, f32_batch // mesh.shape["dp"])
+        t2, g2 = tf.shard_batch(toks[:f32_batch], tgts[:f32_batch], mesh)
+        # the faults on the first mesh: on a ring of 2 (the interleaved
+        # mesh) the next member is the previous one, and the hop fault
+        # could not show
+        runs = [None] + (["hop", "emb"] if i == 0 else [])
+        for fault in runs:
+            p32 = tf.prepare_pipeline_params(
+                tf._from_named(dict(w0), cfg32.n_layers), mesh, v)
+            step32 = tf.make_pipelined_train_step(cfg32, mesh, m32,
+                                                  interleave=v)
+            for k in kern:
+                k.launches = 0
+            if fault:
+                faults[fault]()
+            try:
+                p32, loss = step32(p32, t2, g2)
+            finally:
+                ps._hop, tf._pp_grad_axes = real_hop, real_axes
+            key = f"f32_{fault}" if fault else "f32"
+            r[key + "_launches"] = {k.__name__: k.launches for k in kern}
+            r[key + "_loss"] = float(loss)
+            whole = tf.unstack_pipeline_params(
+                tf.deinterleave_pipeline_params(
+                    tf.unshard_pipeline_params(p32, mesh),
+                    mesh.shape["pp"], v))
+            reads = {}
+            for n, x in whole.named_parameters():
+                upd = (w0[n] - w1[n]).double()
+                reads[n] = (((x - w1[n]).double().norm()
+                             / w1[n].double().norm()).item(),
+                            (((w0[n] - x).double() - upd).norm()
+                             / upd.norm().clamp_min(1e-30)).item())
+            r[key + "_reads"] = reads
+            r["m32"] = m32
+            del p32, step32, whole
+        out.append(r)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _digest(t) -> str:
+    """The SHA-256 of a tensor's bytes (a bitwise comparison across
+    processes without moving the tensor)."""
+    import hashlib
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _jacobi_rank(spds) -> dict:
+    """One of 4 ranks of config #5's sharded variant: ``jacobi_sharded``
+    on Mesh((2, 2), ("x", "y")) at JACOBI, once for each sweeps-a-dispatch
+    of ``spds``: its block's digest, the last residual and the host
+    seconds; then, as a planted fault, the run with ghosts that never
+    arrive (zeros at every rank boundary), its digest."""
+    import torch
+    from hpx_tpu_torch.models import jacobi2d as jm
+    from hpx_tpu_torch.parallel import halo2d
+    from hpx_tpu_torch.parallel.mesh import Mesh
+    mesh = Mesh((2, 2), ("x", "y"))
+    dev = mesh.device
+    p = jm.JacobiParams(**JACOBI)
+    out = {"rank": mesh.rank, "coords": mesh.coords, "device": str(dev),
+           "backend": mesh.backend}
+    for spd in spds:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        u, res = jm.jacobi_sharded(p, mesh, steps_per_dispatch=spd)
+        torch.cuda.synchronize(dev)
+        out[f"secs_{spd}"] = time.perf_counter() - t0
+        out[f"digest_{spd}"] = _digest(u)
+        out[f"res_{spd}"] = float(res)
+        del u
+    real = halo2d.edge_shift
+    halo2d.edge_shift = lambda x, mesh_, axis, shift: torch.zeros_like(x)
+    try:
+        u, _ = jm.jacobi_sharded(p, mesh)
+    finally:
+        halo2d.edge_shift = real
+    out["digest_unexchanged"] = _digest(u)
+    return out
+
+
+def _fft_signal(shape, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape)
+            + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+def _fft_rank(n: int, side: int) -> dict:
+    """One of 4 ranks of the multi-rank FFT: ``fft_sharded`` and
+    ``ifft_sharded`` of this rank's chunk of FFT_N complex64 (seed 41)
+    over Mesh((4,), ("x",)), ``fft2_sharded_2d`` of its block of a
+    side x side complex64 array (seed 42) over Mesh((2, 2), ("x", "y")):
+    the results, the median ms of 5 calls of each, and the time inside
+    torch.distributed's verbs and staging copies (``_comm_split``)."""
+    import torch
+    from hpx_tpu_torch.algo import fft as dfft
+    from hpx_tpu_torch.parallel.mesh import Mesh
+    line, grid = Mesh((4,), ("x",)), Mesh((2, 2), ("x", "y"))
+    dev = line.device
+    r = line.axis_index("x")
+    gi, gj = grid.coords
+    v = torch.from_numpy(_fft_signal(n, 41)).chunk(4)[r].to(dev)
+    a = torch.from_numpy(_fft_signal((side, side), 42)).chunk(2, 0)[gi] \
+        .chunk(2, 1)[gj].contiguous().to(dev)
+    out = {"rank": line.rank, "coords": grid.coords, "device": str(dev),
+           "backend": line.backend}
+    calls = {"fft": lambda: dfft.fft_sharded(v, line),
+             "ifft": lambda: dfft.ifft_sharded(v, line),
+             "fft2_2d": lambda: dfft.fft2_sharded_2d(a, grid)}
+    for name, fn in calls.items():
+        out[name] = fn().cpu()
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[name + "_ms"] = statistics.median(ms)
+        out[name + "_split"] = _comm_split(fn, dev, 3)
+    out["round"] = dfft.ifft_sharded(dfft.fft_sharded(v, line), line).cpu()
+    return out
 
 
 class Smoke:
@@ -4144,6 +4382,7 @@ def main() -> int:
         # while a stream is captured) must not give way to its eager run
         x = torch.ones(4, device=dev)
         bad = programs.GraphProgram(lambda t: t * float(t.sum()), dev)
+        before = torch.cuda.current_stream(dev)
         try:
             bad(x)
         except RuntimeError as e:
@@ -4156,6 +4395,9 @@ def main() -> int:
         if bad.graphs or float((x * 2).sum()) != 8.0:
             raise AssertionError("after the failed capture: graphs "
                                  f"{len(bad.graphs)}, or the card fails")
+        if torch.cuda.current_stream(dev) != before:
+            raise AssertionError("the failed capture left its capture "
+                                 "stream current")
         # the SGD step: f32 (held) and bf16 (printed)
         for dt, hold in ((f32, True), (torch.bfloat16, False)):
             tcfg = tf.TransformerConfig(**TRAIN_MODEL, dtype=dt)
@@ -4529,6 +4771,311 @@ def main() -> int:
                  lambda: run_path(ep_path))
         sm.phase("Ulysses and the sharded stencil (4 ranks)",
                  lambda: run_path(ulysses_path))
+
+    multi = {}
+
+    def pipeline_path():
+        """make_pipelined_train_step on 4 ranks (gloo on one card, nccl
+        with a card a rank) over PP_MESHES: bf16 steps whose loss falls,
+        each rank's flash launches a step held to the schedule's count;
+        the f32 gate against the single-device step on the same weights
+        and batch (its loss within PP_LOSS_REL relative, the updated
+        weights within PP_WEIGHT_REL by the norm), planted faults
+        reading above PP_FAULT_READ; kernels 5-7 against their plain
+        versions at a stage's microbatch shape."""
+        import tempfile
+        from hpx_tpu_torch.parallel.mesh import launch
+        torch.cuda.empty_cache()
+        print(f"   card: {smi}", flush=True)
+        cfg32 = tf.TransformerConfig(**TRAIN_MODEL)
+        p0 = tf.init_params(cfg32, seed=0)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        toks, tgts = tf.sample_batch(cfg32, 8, 1024, generator=gen)
+        w0 = {n: x.detach().clone() for n, x in p0.named_parameters()}
+        one = tf.make_train_step(cfg32)
+        with _uncounted(kernels):       # the single-device step, uncaptured
+            p1, l_one = getattr(one, "eager", one)(
+                p0, toks[:PP_F32_BATCH], tgts[:PP_F32_BATCH])
+        l_one = float(l_one)
+        w1 = {n: x.detach().clone() for n, x in p1.named_parameters()}
+        del p0, p1, one
+        tmp = tempfile.mkdtemp(prefix="pp_gate_")
+        path = os.path.join(tmp, "w.pt")
+        torch.save({"w0": {n: x.cpu() for n, x in w0.items()},
+                    "w1": {n: x.cpu() for n, x in w1.items()}}, path)
+        del w0, w1
+        torch.cuda.empty_cache()
+        try:
+            t = HighResolutionTimer()
+            res = launch(_pp_rank, 4, path, PP_F32_BATCH, timeout=900)
+        finally:
+            import shutil
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(f"   4 ranks, 3 meshes in {t.elapsed()!r} s, backend "
+              f"{res[0][0]['backend']}, devices "
+              f"{[r[0]['device'] for r in res]}", flush=True)
+        n_layers = cfg32.n_layers
+        for i, (shape, names, m, v) in enumerate(PP_MESHES):
+            rs = [r[i] for r in res]
+            pp = dict(zip(names, shape))["pp"]
+            m32 = rs[0]["m32"]
+            # each live step of a stage runs L/(pp V) blocks, a stage has
+            # M V live steps: the forward and the backward walk's remat
+            # launch kernel 5 M L/pp times each, kernels 6-7 M L/pp times
+            want = {"flash_attention_fwd": 2 * m * n_layers // pp,
+                    "flash_attention_bwd": m * n_layers // pp,
+                    "flash_attention_bwd_f32": 0,
+                    "flash_attention_chunk": 0}
+            want32 = {"flash_attention_fwd": 2 * m32 * n_layers // pp,
+                      "flash_attention_bwd": 0,
+                      "flash_attention_bwd_f32": m32 * n_layers // pp,
+                      "flash_attention_chunk": 0}
+            for r in rs:
+                for j, n in enumerate(r["per_step"]):
+                    if n != want:
+                        raise AssertionError(
+                            f"{shape} rank {r['rank']} step {j}: launches "
+                            f"{n}, want {want} (fwd 2 M L/pp, bwd M L/pp)")
+                if r["f32_launches"] != want32:
+                    raise AssertionError(
+                        f"{shape} rank {r['rank']} f32: launches "
+                        f"{r['f32_launches']}, want {want32}")
+                for k in want:
+                    sm.launches[k] += PP_STEPS * want[k] + want32[k]
+                    pp_launches[k] += PP_STEPS * want[k] + want32[k]
+                sm.f32_launches["flash_attention_fwd"] += \
+                    want32["flash_attention_fwd"]
+                if r["losses"] != rs[0]["losses"] or \
+                        r["f32_loss"] != rs[0]["f32_loss"]:
+                    raise AssertionError(f"{shape}: ranks' losses differ")
+            r0 = rs[0]
+            if not r0["losses"][-1] < r0["losses"][0]:
+                raise AssertionError(f"{shape}: the loss did not fall: "
+                                     f"{r0['losses']}")
+            step_ms = [max(r["secs"][j] for r in rs) * 1e3
+                       for j in range(PP_STEPS)]
+            splits = [r["split"] for r in rs]
+            share = [sp_["comm_ms"] / sp_["step_ms"] for sp_ in splits]
+            rel = abs(r0["f32_loss"] - l_one) / abs(l_one)
+            wr = {n: x[0] for n, x in r0["f32_reads"].items()}
+            ur = {n: x[1] for n, x in r0["f32_reads"].items()}
+            worst_w = max(wr, key=wr.get)
+            worst_u = max(ur, key=ur.get)
+            tag = f"pp {'x'.join(map(str, shape))} M{m} V{v}"
+            multi[tag] = dict(
+                step_ms=step_ms, losses=r0["losses"],
+                peak_gib=max(r["peak_gib"] for r in rs), split=splits,
+                comm_share=share, f32_loss_rel=rel,
+                f32_weight_read=wr[worst_w], f32_update_read=ur[worst_u],
+                launches_a_step=want, f32_launches=want32)
+            print(f"   {dict(zip(names, shape))}, M {m}, interleave {v}: "
+                  f"bf16 steps {step_ms} ms (slowest rank, host clock; 4 "
+                  f"ranks time-slice one card: not a training rate), loss "
+                  f"{r0['losses']}, peak {multi[tag]['peak_gib']!r} GiB; "
+                  f"launches a rank and step {want} = fwd 2 M L/pp, bwd "
+                  f"M L/pp (L {n_layers}, pp {pp}); 2 more steps fenced: "
+                  f"{[sp_['step_ms'] for sp_ in splits]} ms, in "
+                  f"torch.distributed's verbs "
+                  f"{[sp_['comm_ms'] for sp_ in splits]} ms (share "
+                  f"{share}), staging copies "
+                  f"{[sp_['copies_ms'] for sp_ in splits]} ms", flush=True)
+            print(f"   f32 gate, batch {PP_F32_BATCH} x 1024, M {m32}: loss "
+                  f"{r0['f32_loss']!r} vs one device {l_one!r}, relative "
+                  f"{rel!r} (<= {PP_LOSS_REL}); updated weights' largest "
+                  f"norm-relative reading {wr[worst_w]!r} ({worst_w}; <= "
+                  f"{PP_WEIGHT_REL}); the update's {ur[worst_u]!r} "
+                  f"({worst_u}); launches a rank {want32}", flush=True)
+            if rel > PP_LOSS_REL or wr[worst_w] > PP_WEIGHT_REL:
+                raise AssertionError(f"{shape} f32 gate: loss {rel}, "
+                                     f"{worst_w} {wr[worst_w]}")
+            for fault in ("hop", "emb"):
+                key = f"f32_{fault}_reads"
+                if key not in r0:
+                    continue
+                fr_ = {n: x[1] for n, x in r0[key].items()}
+                caught = max(fr_, key=fr_.get)
+                multi[tag][f"fault_{fault}"] = fr_[caught]
+                print(f"   planted fault ({'the backward hop to the next '
+                      'member' if fault == 'hop' else 'emb unsummed over '
+                      'pp'}) reads {fr_[caught]!r} ({caught}; must pass "
+                      f"{PP_FAULT_READ})", flush=True)
+                if fr_[caught] <= PP_FAULT_READ:
+                    raise AssertionError(f"{shape}: the gate would miss "
+                                         f"the {fault} fault")
+        # kernels 5-7 against their plain versions at a stage's
+        # microbatch shape: bf16 mb 2 of (1, 4), f32 mb 1 of the gate
+        with _uncounted(kernels):
+            for dt, b in ((torch.bfloat16, 2), (torch.float32, 1)):
+                f32 = dt == torch.float32
+                nh, hd = TRAIN_MODEL["n_heads"], TRAIN_MODEL["head_dim"]
+                q, k, v_, do = flash_state(b, 1024, 1024, nh, nh, hd, dt,
+                                           seed=33)
+                what = f"{dt} stage microbatch [{b * nh}, 1024, {hd}] causal"
+                track = "flash_attention_fwd f32" if f32 else None
+                o, lse = ac.flash_attention_fwd(q, k, v_, True)
+                po, plse = plain_fwd(q, k, v_, True)
+                sm.expect_close("flash_attention_fwd", o, po, f"o {what}",
+                                tol=FLASH_TOL["fwd" if f32 else "bf16"],
+                                norm=not f32, track=track)
+                sm.expect_close("flash_attention_fwd", lse, plse,
+                                f"L {what}", tol=FLASH_TOL["fwd"],
+                                track=track)
+                args = (q, k, v_, do, ac.bwd_prep(do, o), lse, 0, True,
+                        nh, nh)
+                got = ac.flash_attention_bwd(*args)
+                want_ = ac.plain_flash_bwd(*args)
+                bk = "flash_attention_bwd_f32" if f32 \
+                    else "flash_attention_bwd"
+                for nm, g_, w_ in zip(("dq", "dk", "dv"), got, want_):
+                    sm.expect_close(bk, g_, w_, f"{nm} {what}",
+                                    tol=FLASH_TOL["bwd" if f32 else "bf16"],
+                                    norm=not f32,
+                                    track=f"{bk} f32" if f32 else None)
+
+    pp_launches = {k: 0 for k in ("flash_attention_fwd",
+                                  "flash_attention_bwd",
+                                  "flash_attention_bwd_f32",
+                                  "flash_attention_chunk")}
+    if train:
+        sm.phase("main path: pipelined training (4 ranks)", pipeline_path)
+
+    def jacobi_path():
+        """Config #5 at JACOBI: jacobi_serial, jacobi_dataflow over the
+        row blocks on a BlockExecutor of the card's targets, and
+        jacobi_sharded on a 2 x 2 mesh of 4 ranks (JACOBI_SPD sweeps a
+        dispatch): bitwise equal grids, the residual within n eps, Mcells/s
+        of each; a planted fault (ghosts that never arrive) must differ."""
+        from hpx_tpu_torch.exec.block import BlockExecutor
+        from hpx_tpu_torch.models import jacobi2d as jm
+        from hpx_tpu_torch.parallel.mesh import launch
+        torch.cuda.empty_cache()
+        p = jm.JacobiParams(**JACOBI)
+        n, it = p.nx, p.iterations
+        mcells = p.nx * p.ny * it / 1e6
+        torch.cuda.synchronize()
+        t = HighResolutionTimer()
+        serial = jm.jacobi_serial(p)
+        torch.cuda.synchronize()
+        t_serial = t.elapsed()
+        ex = BlockExecutor()
+        t.restart()
+        df = jm.gather_blocks(jm.jacobi_dataflow(p, ex))
+        torch.cuda.synchronize()
+        t_df = t.elapsed()
+        if not torch.equal(df, serial):
+            bad = (df != serial).nonzero()
+            raise AssertionError(
+                f"jacobi_dataflow differs from jacobi_serial at {len(bad)} "
+                f"cells, first {bad[:4].tolist()}, max "
+                f"{(df - serial).abs().max().item()}")
+        del df
+        u99 = jm.jacobi_serial(dataclasses.replace(p, iterations=it - 1))
+        u100 = jm.jacobi_serial(dataclasses.replace(p, iterations=1), u99)
+        if not torch.equal(u100, serial):
+            raise AssertionError("99 + 1 sweeps differ from 100")
+        res = float(jm.residual(u99, u100))
+        del u99, u100
+        torch.cuda.empty_cache()
+        t.restart()
+        rs = launch(_jacobi_rank, 4, JACOBI_SPD, timeout=900)
+        print(f"   4 ranks in {t.elapsed()!r} s, backend {rs[0]['backend']}, "
+              f"devices {[r['device'] for r in rs]}; {smi}", flush=True)
+        h, w = n // 2, p.ny // 2
+        out = dict(serial_mcells_s=mcells / t_serial,
+                   dataflow_mcells_s=mcells / t_df, residual=res)
+        for r in rs:
+            i, j = r["coords"]
+            want = _digest(serial[i * h:(i + 1) * h, j * w:(j + 1) * w])
+            for spd in JACOBI_SPD:
+                if r[f"digest_{spd}"] != want:
+                    raise AssertionError(f"jacobi_sharded block {(i, j)}, "
+                                         f"{spd} sweeps a dispatch: not "
+                                         "bitwise the serial grid")
+                got = r[f"res_{spd}"]
+                if abs(got - res) > p.nx * p.ny * 1.1920929e-07 * abs(res):
+                    raise AssertionError(f"residual {got} vs {res}")
+            r["fault_differs"] = r["digest_unexchanged"] != want
+        # the heat spreads from the top edge: the top blocks meet at the
+        # vertical cut, where ghosts that never arrive must show
+        if not any(r["fault_differs"] for r in rs):
+            raise AssertionError("the planted fault (ghosts that never "
+                                 "arrive) reads equal")
+        for spd in JACOBI_SPD:
+            secs = max(r[f"secs_{spd}"] for r in rs)
+            out[f"sharded_spd{spd}_mcells_s"] = mcells / secs
+            out[f"sharded_spd{spd}_residual_rel"] = max(
+                abs(r[f"res_{spd}"] - res) / abs(res) for r in rs)
+        multi["jacobi"] = out
+        print(f"   config #5, {n}x{p.ny} f32, {it} sweeps: serial "
+              f"{out['serial_mcells_s']!r} Mcells/s, dataflow ({p.nb} row "
+              f"blocks on {ex.num_workers} target(s)) "
+              f"{out['dataflow_mcells_s']!r} Mcells/s, sharded 2 x 2 "
+              f"{[out[f'sharded_spd{s_}_mcells_s'] for s_ in JACOBI_SPD]} "
+              f"Mcells/s at {JACOBI_SPD} sweeps a dispatch (slowest rank; "
+              f"4 processes share one card and the host: not a scaling "
+              f"number); all three grids bitwise equal; residual {res!r}, "
+              f"the sharded one's relative difference "
+              f"{[out[f'sharded_spd{s_}_residual_rel'] for s_ in JACOBI_SPD]}"
+              f" (<= n eps); ghosts that never arrive: blocks "
+              f"{[r['coords'] for r in rs if r['fault_differs']]} differ",
+              flush=True)
+
+    sm.phase("Jacobi (config #5)", jacobi_path)
+
+    def fft_path():
+        """fft_sharded / ifft_sharded of FFT_N complex64 over 4 ranks and
+        fft2_sharded_2d of FFT2_SIDE^2 on a 2 x 2 mesh: within FFT_TOL of
+        float64 numpy and of the one-rank transform on the card, by the
+        norm; ms a transform and the exchanges' share."""
+        from hpx_tpu_torch.algo import fft as dfft
+        from hpx_tpu_torch.parallel.mesh import Mesh, launch
+        torch.cuda.empty_cache()
+        t = HighResolutionTimer()
+        rs = launch(_fft_rank, 4, FFT_N, FFT2_SIDE, timeout=900)
+        print(f"   4 ranks in {t.elapsed()!r} s, backend {rs[0]['backend']}, "
+              f"devices {[r['device'] for r in rs]}; {smi}", flush=True)
+        v = _fft_signal(FFT_N, 41)
+        a = _fft_signal((FFT2_SIDE, FFT2_SIDE), 42)
+        one, one2 = Mesh((1,), ("x",)), Mesh((1, 1), ("x", "y"))
+        vc, ac_ = torch.from_numpy(v).cuda(), torch.from_numpy(a).cuda()
+        want = {"fft": (np.fft.fft(v.astype(np.complex128)),
+                        dfft.fft_sharded(vc, one).cpu().numpy()),
+                "ifft": (np.fft.ifft(v.astype(np.complex128)),
+                         dfft.ifft_sharded(vc, one).cpu().numpy()),
+                "fft2_2d": (np.fft.fft2(a.astype(np.complex128)),
+                            dfft.fft2_sharded_2d(ac_, one2).cpu().numpy())}
+
+        def rel(x, y):
+            return float(np.linalg.norm(x - y) / np.linalg.norm(y))
+        out = {}
+        for name, (ref64, ref1) in want.items():
+            if name == "fft2_2d":
+                got = torch.cat([torch.cat([rs[2 * i + j][name]
+                                            for j in range(2)], 1)
+                                 for i in range(2)]).numpy()
+            else:
+                got = torch.cat([r[name] for r in rs]).numpy()
+            r64, r1 = rel(got, ref64), rel(got, ref1)
+            ms = max(r[name + "_ms"] for r in rs)
+            share = [r[name + "_split"]["comm_ms"]
+                     / r[name + "_split"]["step_ms"] for r in rs]
+            out[name] = dict(rel_numpy=r64, rel_one_rank=r1, ms=ms,
+                             a2a_share=share)
+            print(f"   {name} ({'2^22' if name != 'fft2_2d' else '2048^2'} "
+                  f"complex64, 4 ranks): within {r64!r} of float64 numpy and "
+                  f"{r1!r} of the one-rank transform (<= {FFT_TOL}); "
+                  f"{ms!r} ms a transform (slowest rank, median of 5, host "
+                  f"clock); the exchanges' share of fenced calls {share}",
+                  flush=True)
+            if r64 > FFT_TOL or r1 > FFT_TOL:
+                raise AssertionError(f"multi-rank {name}: {r64}, {r1}")
+        back = torch.cat([r["round"] for r in rs]).numpy()
+        out["round_trip"] = rel(back, v)
+        if out["round_trip"] > 1e-5:
+            raise AssertionError(f"round trip {out['round_trip']}")
+        multi["fft"] = out
+
+    sm.phase("multi-rank FFT (4 ranks)", fft_path)
 
     def bf16_pool_gate():
         """Both kernels against their plain versions on the pools the
@@ -5655,6 +6202,8 @@ def main() -> int:
                         if k in PAGED_KERNELS else {}),
                      **({"f32": f32_routes(row)} if row in F32_ROUTE
                         else {}),
+                     **({"pipeline_launches": pp_launches[k]}
+                        if k in pp_launches and pp_launches[k] else {}),
                      "shape": t["shape"]})
     print(f"training step (bf16, B 8 x S 1024, full width): "
           f"{train['step_ms']!r} ms = {train['tokens_per_s']!r} tokens/s; "
@@ -5667,6 +6216,7 @@ def main() -> int:
     print("resilience: " + json.dumps(
         {f"({m}) {k}": v for (m, k), v in resilience.items()}))
     print("moe: " + json.dumps({**moe, "card": smi}))
+    print("multirank: " + json.dumps({**multi, "card": smi}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

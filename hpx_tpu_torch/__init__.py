@@ -95,3 +95,14 @@ from .dist.distribution_policies import (  # noqa: F401
 
 # the HPX spelling
 partitioned_vector = PartitionedVector
+
+# -- SPMD blocks (host plane + device/mesh plane) -----------------------------
+from .parallel.spmd import (  # noqa: F401
+    SpmdBlock, define_spmd_block, device_spmd_block,
+)
+
+# -- pipeline parallelism (GPipe-style microbatched stages) -------------------
+from .parallel.pipeline import Pipeline, PipelineStage  # noqa: F401
+
+# -- block executor (config #5's block_executor) ------------------------------
+from .exec.block import BlockExecutor, place_blocks  # noqa: F401

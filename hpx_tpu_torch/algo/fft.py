@@ -1,23 +1,28 @@
-"""FFT over a mesh axis: the four-step (Bailey) transform, on one device.
+"""FFT over a mesh axis of ranks: the four-step (Bailey) transform and
+the pencil 2-D transforms.
 
 Reference analog: HPX ships no FFT in-tree, but the distributed FFT
 built from `hpx::collectives::all_to_all` over `partitioned_vector` data
 is its published flagship collectives workload. Counterpart of
-``hpx_tpu.algo.fft`` on a mesh of one rank: the program is the
-reference's, step for step, with its all_to_all exchanges the identity
-(one member), and torch.fft's transforms where the reference calls
-jnp.fft's. A mesh of more than one rank waits for the multi-device
-slice.
+``hpx_tpu.algo.fft``: the program is the reference's, step for step,
+with its `lax.all_to_all(tiled=True)` exchanges
+``collectives.device.all_to_all`` over the mesh axis (the identity on a
+mesh of one rank), and torch.fft's transforms where the reference calls
+jnp.fft's. Every rank of the axis runs the same body on its own piece
+(one process a rank, ``parallel.mesh.launch``).
 
 Two surfaces, as the reference's:
-  * whole-array helpers (`fft2_sharded`, `fft_sharded`, and inverses):
-    take a tensor laid out over a mesh axis, return the result laid out
-    the same way in natural order;
+  * whole-array helpers (`fft2_sharded`, `fft_sharded`,
+    `fft2_sharded_2d`, and inverses): each rank passes its piece of an
+    array laid out over the mesh (on a mesh of one rank, the whole
+    array) and gets its piece of the result, laid out the same way in
+    natural order; every rank of the mesh calls them together;
   * `fft2_body` / `fft1d_body`, the per-rank bodies (a rank's piece of
     the array and the mesh it runs in).
 
 1-D algorithm (Bailey four-step), for a row-major matrix view
-A[n1, n2] = v[n1*N2 + n2] with N = N1*N2:
+A[n1, n2] = v[n1*N2 + n2] with N = N1*N2 and the vector cut into
+contiguous chunks (= whole rows of A):
 
     X[k2*N1 + k1] = FFT_axis1( FFT_axis0(A)[k1, n2] * w(k1, n2) )[k1, k2]
     with twiddle w(k1, n2) = exp(-2*pi*i * k1 * n2 / N)
@@ -38,26 +43,19 @@ from typing import Any, Tuple
 
 import torch
 
-from ..core.errors import NotImplementedYet
+from ..collectives.device import all_to_all
 
 __all__ = ["fft", "ifft", "fft2_sharded", "ifft2_sharded", "fft_sharded",
            "ifft_sharded", "fft2_sharded_2d", "ifft2_sharded_2d",
            "fft2_body", "fft1d_body"]
 
 
-def _one_rank(mesh, axis: str) -> None:
-    if mesh.axis_size(axis) != 1:
-        raise NotImplementedYet(
-            f"an FFT over {mesh.axis_size(axis)} ranks of axis {axis!r} "
-            "waits for the multi-device slice (ROADMAP queue 1, item 5)",
-            "fft")
-
-
 def _a2a(x: torch.Tensor, mesh, axis: str, split: int, concat: int
          ) -> torch.Tensor:
-    """lax.all_to_all(tiled=True) over one member: the identity."""
-    _one_rank(mesh, axis)
-    return x
+    """lax.all_to_all(tiled=True) over ``axis``: x cut into P blocks
+    along ``split``, block j to member j, the blocks received joined
+    along ``concat`` (the identity with one member)."""
+    return all_to_all(x, mesh, axis, split_axis=split, concat_axis=concat)
 
 
 def _on_mesh(x: torch.Tensor, mesh) -> None:
@@ -138,15 +136,14 @@ def fft1d_body(a: torch.Tensor, mesh, axis: str, n: int,
 
 def fft2_sharded(x: torch.Tensor, mesh, axis: str = "x",
                  inverse: bool = False) -> torch.Tensor:
-    """2-D FFT of a [N0, N1] tensor laid out over rows (dim 0 on mesh
-    axis `axis`); both dims' per-rank extents must divide evenly. Local
-    row FFTs, all_to_all transpose, column FFTs, all_to_all back."""
+    """2-D FFT of a [N0, N1] array laid out over rows (dim 0 on mesh
+    axis `axis`): ``x`` is this rank's [N0/P, N1] piece; both dims'
+    per-rank extents must divide evenly. Local row FFTs, all_to_all
+    transpose, column FFTs, all_to_all back."""
     p = mesh.shape[axis]
-    n0, n1 = x.shape
+    n0, n1 = x.shape[0] * p, x.shape[1]
     if n0 % p or n1 % p:
-        raise ValueError(f"shape {tuple(x.shape)} not tileable over {p} "
-                         "shards")
-    _one_rank(mesh, axis)
+        raise ValueError(f"shape {(n0, n1)} not tileable over {p} shards")
     _on_mesh(x, mesh)
     return fft2_body(x, mesh, axis, inverse=inverse)
 
@@ -155,16 +152,39 @@ def ifft2_sharded(x: torch.Tensor, mesh, axis: str = "x") -> torch.Tensor:
     return fft2_sharded(x, mesh, axis, inverse=True)
 
 
-def fft2_sharded_2d(x: Any, mesh, axes: Tuple[str, str] = ("x", "y"),
-                    inverse: bool = False):
-    """2-D FFT of an array laid out over BOTH dims of a 2-D mesh: not
-    ported yet."""
-    raise NotImplementedYet(
-        "fft2_sharded_2d (a 2-D mesh) waits for the multi-device slice "
-        "(ROADMAP queue 1, item 5)", "fft2_sharded_2d")
+def fft2_sharded_2d(x: torch.Tensor, mesh, axes: Tuple[str, str] = ("x", "y"),
+                    inverse: bool = False) -> torch.Tensor:
+    """2-D FFT of an [N0, N1] array laid out over BOTH dims of a 2-D
+    mesh (dim 0 over axes[0], dim 1 over axes[1]): ``x`` is this rank's
+    [N0/Px, N1/Py] block. Pencil schedule:
+
+        a2a over axes[1] (rows whole)  -> row FFTs   -> a2a back
+        a2a over axes[0] (cols whole)  -> column FFTs -> a2a back
+
+    Each transpose stays INSIDE one mesh axis, and the other axis's
+    layout is untouched. Per-rank extents must tile: N0 % (Px*Py) == 0
+    and N1 % (Px*Py) == 0."""
+    ax0, ax1 = axes
+    px, py = mesh.shape[ax0], mesh.shape[ax1]
+    n0, n1 = x.shape[0] * px, x.shape[1] * py
+    if n0 % (px * py) or n1 % (px * py):
+        raise ValueError(
+            f"shape {(n0, n1)} not tileable by Px*Py = {px}*{py} on both "
+            f"dims (the intra-axis transposes re-split each dim)")
+    _on_mesh(x, mesh)
+    f = torch.fft.ifft if inverse else torch.fft.fft
+    # rows whole: redistribute dim 0 over the y axis too
+    t = _a2a(x, mesh, ax1, split=0, concat=1)     # [N0/(PxPy), N1]
+    t = f(t, dim=1)
+    a = _a2a(t, mesh, ax1, split=1, concat=0)     # [N0/Px, N1/Py]
+    # columns whole: redistribute dim 1 over the x axis
+    t = _a2a(a, mesh, ax0, split=1, concat=0)     # [N0, N1/(PxPy)]
+    t = f(t, dim=0)
+    return _a2a(t, mesh, ax0, split=0, concat=1)
 
 
-def ifft2_sharded_2d(x: Any, mesh, axes: Tuple[str, str] = ("x", "y")):
+def ifft2_sharded_2d(x: torch.Tensor, mesh,
+                     axes: Tuple[str, str] = ("x", "y")) -> torch.Tensor:
     return fft2_sharded_2d(x, mesh, axes, inverse=True)
 
 
@@ -192,12 +212,12 @@ def _split_n(n: int, p: int) -> Tuple[int, int]:
 def fft_sharded(v: torch.Tensor, mesh, axis: str = "x",
                 inverse: bool = False) -> torch.Tensor:
     """1-D FFT of a length-N vector laid out in contiguous chunks over
-    mesh axis `axis` (Bailey four-step; output in natural order, laid
-    out the same way)."""
+    mesh axis `axis`: ``v`` is this rank's chunk of N/P (Bailey
+    four-step; three all_to_alls; output in natural order, laid out the
+    same way)."""
     p = mesh.shape[axis]
-    (n,) = v.shape
+    n = v.shape[0] * p
     n1, n2 = _split_n(n, p)
-    _one_rank(mesh, axis)
     _on_mesh(v, mesh)
     return fft1d_body(v.reshape(n1 // p, n2), mesh, axis, n,
                       inverse=inverse)

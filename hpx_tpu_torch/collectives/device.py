@@ -18,6 +18,11 @@ member makes every verb the identity.
     reduce_scatter(x, mesh, axis)   psum_scatter(tiled=True) along dim 0
     ppermute(xs, mesh, axis, shift) member i's tensors to member i+shift
     ring_shift                      ppermute of one tensor
+    edge_shift(x, mesh, axis,       member i's x to member i+shift where
+               shift)               that member exists (no wrap); the
+                                    members with no source get zeros;
+                                    differentiable (the backward is the
+                                    inverse hop)
     barrier(mesh, axis)
 
 and the two Megatron operators of tensor parallelism, autograd
@@ -44,8 +49,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["all_reduce", "all_gather", "broadcast", "all_to_all",
-           "reduce_scatter", "ppermute", "ring_shift", "barrier", "copy_to",
-           "reduce_from"]
+           "reduce_scatter", "ppermute", "ring_shift", "edge_shift",
+           "barrier", "copy_to", "reduce_from"]
 
 _OPS = {"add": dist.ReduceOp.SUM, "sum": dist.ReduceOp.SUM,
         "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN,
@@ -221,6 +226,66 @@ def ring_shift(x: torch.Tensor, mesh, axis="x", shift: int = 1
                ) -> torch.Tensor:
     """Member i receives member (i - shift) mod n's x."""
     return ppermute(x, mesh, axis, shift)
+
+
+def _edge_exchange(x: torch.Tensor, mesh, axis, shift: int
+                   ) -> torch.Tensor:
+    """The forward of ``edge_shift``: one ``batch_isend_irecv`` of this
+    member's send (where its target exists) and receive (where its
+    source exists)."""
+    n = mesh.axis_size(axis)
+    ranks = mesh.group_ranks(axis)
+    i = ranks.index(mesh.rank)
+    dst, src = i + shift, i - shift
+    g = mesh.group(axis)
+    ops, out = [], None
+    if 0 <= dst < n:
+        buf = _host(mesh, "ppermute", x, fresh=False)
+        ops.append(dist.P2POp(dist.isend, buf, ranks[dst], group=g))
+    if 0 <= src < n:
+        if mesh.backend == "gloo" and x.is_cuda:
+            out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        else:
+            out = torch.empty_like(x)
+        ops.append(dist.P2POp(dist.irecv, out, ranks[src], group=g))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    if out is None:
+        return torch.zeros_like(x)
+    return _home(out, x)
+
+
+class _EdgeShift(torch.autograd.Function):
+    """The non-periodic hop, whose transpose is the inverse hop: the
+    gradient of what a member received goes back to the member it came
+    from, and the edge member that sent nothing gets zeros."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, shift):
+        ctx.args = (mesh, axis, shift)
+        return _edge_exchange(x, mesh, axis, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, shift = ctx.args
+        return _EdgeShift.apply(g, mesh, axis, -shift), None, None, None
+
+
+def edge_shift(x: torch.Tensor, mesh, axis="x", shift: int = 1
+               ) -> torch.Tensor:
+    """Non-periodic neighbour shift along ``axis`` (the reference's
+    ``parallel.halo2d.edge_shift``): member i's x goes to member
+    i + shift where that member exists; a member with no source (the
+    low edge for shift +1, the high edge for -1) receives zeros, and
+    the edge member's send has no target. Differentiable: the backward
+    sends the cotangent the inverse way, to the member the value came
+    from. Every member of the axis calls it together."""
+    n = mesh.axis_size(axis)
+    if shift == 0:
+        return x
+    if n == 1 or abs(shift) >= n:
+        return torch.zeros_like(x)
+    return _EdgeShift.apply(x, mesh, axis, int(shift))
 
 
 def barrier(mesh, axis="x") -> None:

@@ -201,10 +201,19 @@ def _capture_graph(fn: Callable[..., Any], args: list, pool, device):
     outputs, which each replay rewrites, and the graph's kernel nodes by
     function name (``graph_kernels``). A failed capture raises."""
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.device(device), \
-            torch.cuda.graph(graph, pool=pool,
-                             capture_error_mode="thread_local"):
-        out = fn(*args)
+    caller = torch.cuda.current_stream(device)
+    try:
+        with torch.cuda.device(device), \
+                torch.cuda.graph(graph, pool=pool,
+                                 capture_error_mode="thread_local"):
+            out = fn(*args)
+    except BaseException:
+        # torch.cuda.graph leaves its capture stream current when the
+        # capture fails (capture_end raises before the stream is
+        # restored): put the caller's stream back, or its later work runs
+        # on the capture stream, unordered with the default stream's
+        torch.cuda.set_stream(caller)
+        raise
     kernels = graph_kernels(graph.raw_cuda_graph())
     graph.instantiate()
     return graph.replay, out, kernels

@@ -27,5 +27,7 @@ from .policies import (  # noqa: F401
     simd,
     unseq,
 )
-from .cuda import CudaExecutor, Target, get_future  # noqa: F401
+from .cuda import (  # noqa: F401
+    CudaExecutor, Target, default_target, get_future, get_targets,
+)
 from .execution_base import AgentRef, this_task, yield_while  # noqa: F401

@@ -45,6 +45,7 @@ the CPU is used only when the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import queue as _queue
 import threading
 from typing import Any, Callable, Optional
@@ -109,6 +110,22 @@ class Target:
 
     def __repr__(self) -> str:
         return f"<Target {self.device}>"
+
+
+@functools.lru_cache(maxsize=None)
+def get_targets() -> tuple:
+    """One ``Target`` a CUDA device (hpx::compute::host::get_targets);
+    raises where CUDA is absent (a CPU target is ``Target("cpu")``,
+    asked for by name)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("get_targets: CUDA is not available; pass "
+                           "Target('cpu') targets to run on the CPU")
+    return tuple(Target(torch.device("cuda", i))
+                 for i in range(torch.cuda.device_count()))
+
+
+def default_target() -> Target:
+    return get_targets()[0]
 
 
 class _Watcher:
@@ -227,6 +244,12 @@ class CudaExecutor(BaseExecutor):
     def async_execute(self, fn: Callable[..., Any], *args: Any,
                       **kwargs: Any) -> Future:
         return self._submit(fn, args, kwargs, watch=not self.eager)
+
+    def async_execute_raw(self, fn: Callable[..., Any], *args: Any,
+                          **kwargs: Any) -> Future:
+        """The reference's dispatch of an arbitrary callable with no jit
+        wrap: here every call is that, so it is ``async_execute``."""
+        return self.async_execute(fn, *args, **kwargs)
 
     def _submit(self, fn: Callable[..., Any], args: tuple, kwargs: dict,
                 watch: bool) -> Future:

@@ -21,6 +21,12 @@ before the column-parallel products, ``reduce_from`` after ``wo`` and
 ``shard_params`` / ``unshard_params`` / ``shard_batch`` cut and rejoin
 the weights and the batch.
 
+Over a ("dp", "pp"[, "tp"]) mesh, ``make_pipelined_train_step`` is the
+reference's pipelined step: the layers stacked (``PipelineParams``,
+``stack_pipeline_params``) and cut over pp, microbatches marched through
+the stages by ``parallel/pipeline_spmd.py`` (GPipe, or interleaved
+virtual stages), the backward walked in reverse there.
+
 Mixture-of-experts (``n_experts > 0``): every block's MLP is a MoE FFN
 (``models/moe.py``, weights ``layers.{i}.moe.{wg,w1,b1,w2}``). Training
 routes with the capacity factor ``moe_capacity``, the experts sharded
@@ -61,7 +67,8 @@ from ..collectives.device import all_gather, all_reduce, copy_to, reduce_from
 from ..core import programs
 from ..core.errors import NotImplementedYet
 from ..exec.cuda import resolve_device
-from ..ops.attention import (ring_attention_sharded, ring_positions,
+from ..ops.attention import (auto_attention, ring_attention_sharded,
+                             ring_positions,
                              stripe_sequence)
 from ..ops.attention_cuda import flash_attention
 from ..parallel.mesh import Mesh
@@ -75,7 +82,13 @@ __all__ = ["TransformerConfig", "Transformer", "QWeight", "QWeight4",
            "sample_batch",
            "make_train_step", "make_opt_state", "make_mesh_3d",
            "mesh_3d_shape", "param_specs", "shard_params",
-           "unshard_params", "shard_batch", "forward"]
+           "unshard_params", "shard_batch", "forward", "PipelineParams",
+           "stack_pipeline_params", "unstack_pipeline_params",
+           "interleave_pipeline_params", "deinterleave_pipeline_params",
+           "pipelined_param_specs", "shard_pipeline_params",
+           "unshard_pipeline_params", "prepare_pipeline_params",
+           "pipeline_params_from_reference", "pipeline_params_to_reference",
+           "make_pipelined_opt_state", "make_pipelined_train_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -965,8 +978,9 @@ def shard_batch(tokens, targets, mesh: Mesh, striped: bool = False
     targets (int64, on the rank's device). ``striped`` (pass
     ``cfg.striped_ring``) stripes the sequence over the sp ring first,
     the reference's ``_jit_maybe_striped`` done where the shard is
-    cut."""
-    dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+    cut. A mesh without an "sp" axis (the pipelined step's ("dp", "pp")
+    mesh) cuts the batch over dp only."""
+    dp, sp = mesh.shape["dp"], mesh.shape.get("sp", 1)
 
     def cut(x):
         x = _as_tokens(x, mesh.device)
@@ -976,7 +990,9 @@ def shard_batch(tokens, targets, mesh: Mesh, striped: bool = False
         if striped and sp > 1:
             x = stripe_sequence(x, sp, 1)
         x = x.chunk(dp, 0)[mesh.axis_index("dp")]
-        return x.chunk(sp, 1)[mesh.axis_index("sp")].contiguous()
+        if sp > 1:
+            x = x.chunk(sp, 1)[mesh.axis_index("sp")]
+        return x.contiguous()
     return cut(tokens), cut(targets)
 
 
@@ -1242,6 +1258,423 @@ def make_train_step(cfg: TransformerConfig, mesh: Optional[Mesh] = None,
     def step_opt(params, opt_state, tokens, targets):
         weights, grads, loss = _loss_and_grads(params, tokens, targets,
                                                 cfg, mesh)
+        for w, g in zip(weights, grads):
+            w.grad = g.to(w.dtype)
+        opt_state.step()
+        for w in weights:
+            w.grad = None
+        return params, opt_state, loss
+    return step_opt
+
+
+# -- pipeline parallelism (the pp axis) ---------------------------------------
+
+class PipelineParams(_Tree):
+    """The stacked layout of the pipelined step: ``emb`` [vocab, d],
+    ``ln_f`` [d] and ``layers``, one ``Layer`` whose tensors carry a
+    leading layer axis (``layers.wqkv`` [L, 3, d, n, h], ...), the
+    reference's ``stack_pipeline_params`` tree. On a rank of a
+    ("dp", "pp"[, "tp"]) mesh it holds that rank's shard
+    (``shard_pipeline_params``): its stage's L/pp layers, cut over tp."""
+
+    def __init__(self, emb: torch.Tensor, ln_f: torch.Tensor,
+                 layers: Dict[str, torch.Tensor]) -> None:
+        super().__init__()
+        self._put("emb", emb)
+        self._put("ln_f", ln_f)
+        self._put("layers", dict(layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.emb.device
+
+
+def _stacked(stacked: PipelineParams) -> Dict[str, torch.Tensor]:
+    return dict(stacked["layers"].named_parameters())
+
+
+def stack_pipeline_params(params: Transformer) -> PipelineParams:
+    """Restack the per-layer weights into leading-axis tensors, so the
+    layer dimension can be cut over the "pp" axis (each stage holds
+    n_layers/pp layers). Dense float layers only, as the pipelined step
+    takes."""
+    layers = [dict(lp.named_parameters()) for lp in params["layers"]]
+    if any("moe" in lp for lp in params["layers"]) or any(
+            isinstance(m, QWeight) for m in params.modules()):
+        raise ValueError("stack_pipeline_params: dense float layers only")
+    return PipelineParams(
+        params["emb"].detach(), params["ln_f"].detach(),
+        {k: torch.stack([lp[k].detach() for lp in layers])
+         for k in layers[0]})
+
+
+def unstack_pipeline_params(stacked: PipelineParams) -> Transformer:
+    """The per-layer ``Transformer`` of a whole stacked tree (inverse of
+    ``stack_pipeline_params``; deinterleave an interleaved tree first)."""
+    layers = _stacked(stacked)
+    n = next(iter(layers.values())).shape[0]
+    return Transformer(stacked["emb"].detach(), stacked["ln_f"].detach(),
+                       [{k: t[i].detach() for k, t in layers.items()}
+                        for i in range(n)])
+
+
+def _interleave_order(n_layers: int, pp: int, v: int) -> List[int]:
+    """Layer permutation for the interleaved schedule: device d's
+    contiguous pp-slab holds its round-robin stage chunks
+    [d, d+pp, d+2*pp, ...] (stage s = chunk*pp + d, chunk-major within
+    the slab)."""
+    if v < 1 or n_layers % (pp * v):
+        raise ValueError(
+            f"n_layers={n_layers} not divisible by pp*interleave="
+            f"{pp}*{v}")
+    ls = n_layers // (pp * v)
+    order = []
+    for d in range(pp):
+        for chunk in range(v):
+            s = chunk * pp + d
+            order.extend(range(s * ls, (s + 1) * ls))
+    return order
+
+
+def _permute_layers(stacked: PipelineParams, order: List[int]
+                    ) -> PipelineParams:
+    idx = torch.tensor(order, device=stacked.device)
+    return PipelineParams(
+        stacked["emb"].detach(), stacked["ln_f"].detach(),
+        {k: t.detach().index_select(0, idx)
+         for k, t in _stacked(stacked).items()})
+
+
+def interleave_pipeline_params(stacked: PipelineParams, pp: int, v: int
+                               ) -> PipelineParams:
+    """Reorder the stacked layer axis for make_pipelined_train_step's
+    interleave=v schedule (the same tree when v == 1)."""
+    if v == 1:
+        return stacked
+    n = next(iter(_stacked(stacked).values())).shape[0]
+    return _permute_layers(stacked, _interleave_order(n, pp, v))
+
+
+def deinterleave_pipeline_params(stacked: PipelineParams, pp: int, v: int
+                                 ) -> PipelineParams:
+    """Inverse of interleave_pipeline_params (back to layer order)."""
+    if v == 1:
+        return stacked
+    n = next(iter(_stacked(stacked).values())).shape[0]
+    order = _interleave_order(n, pp, v)
+    inv = [0] * n
+    for i, o in enumerate(order):
+        inv[o] = i
+    return _permute_layers(stacked, inv)
+
+
+def pipelined_param_specs(tp_axis: Optional[str] = None, *,
+                          gqa: bool = False) -> Dict[str, Tuple]:
+    """Parameter name -> sharding of the stacked layout, as data (see
+    ``param_specs``): the layer axis over "pp", heads and d_ff over tp
+    (when there is one), the embedding and final norm replicated."""
+    t = tp_axis
+    if gqa:
+        qkv = {"wq": ("pp", None, t, None),
+               "wkv": ("pp", None, None, t, None)}
+    else:
+        qkv = {"wqkv": ("pp", None, None, t, None)}
+    layer = {"ln1": ("pp", None), **qkv, "wo": ("pp", t, None, None),
+             "ln2": ("pp", None), "w1": ("pp", None, t), "b1": ("pp", t),
+             "w2": ("pp", t, None)}
+    return {"emb": (), "ln_f": (),
+            **{f"layers.{k}": v for k, v in layer.items()}}
+
+
+def _pp_specs(stacked: PipelineParams, mesh: Mesh) -> Dict[str, Tuple]:
+    tp_axis = "tp" if "tp" in mesh.axis_names else None
+    return pipelined_param_specs(tp_axis,
+                                 gqa="wq" in _stacked(stacked))
+
+
+def _from_stacked_named(named: Dict[str, torch.Tensor]) -> PipelineParams:
+    return PipelineParams(named["emb"], named["ln_f"],
+                          {k.split(".", 1)[1]: t for k, t in named.items()
+                           if k.startswith("layers.")})
+
+
+def shard_pipeline_params(stacked: PipelineParams, mesh: Mesh
+                          ) -> PipelineParams:
+    """This rank's shard of a whole stacked tree (the reference's
+    ``shard_pipeline_params``), copied to the rank's device: its stage's
+    slab of the layer axis, and heads / d_ff cut over tp."""
+    specs = _pp_specs(stacked, mesh)
+    out = {}
+    for name, w in stacked.named_parameters():
+        for dim, axis in _sharded_dims(specs[name]):
+            n = mesh.shape[axis]
+            if w.shape[dim] % n:
+                raise ValueError(f"{name}: dim {dim} of {tuple(w.shape)} "
+                                 f"does not divide over {axis}={n}")
+            w = w.chunk(n, dim)[mesh.axis_index(axis)]
+        out[name] = w.detach().to(mesh.device, copy=True).contiguous()
+    return _from_stacked_named(out)
+
+
+def unshard_pipeline_params(stacked: PipelineParams, mesh: Mesh
+                            ) -> PipelineParams:
+    """The whole stacked tree from every rank's shard (all-gathered over
+    pp and tp), on the rank's device. Every rank of the mesh calls it
+    together."""
+    specs = _pp_specs(stacked, mesh)
+    out = {}
+    for name, w in stacked.named_parameters():
+        w = w.detach().clone()
+        for dim, axis in _sharded_dims(specs[name]):
+            w = all_gather(w, mesh, axis, dim)
+        out[name] = w
+    return _from_stacked_named(out)
+
+
+def prepare_pipeline_params(params: Transformer, mesh: Mesh,
+                            interleave: int = 1) -> PipelineParams:
+    """One-stop: stack the per-layer weights, apply the interleaved layer
+    permutation when interleave > 1, and take this rank's shard. Use it
+    with make_pipelined_train_step(..., interleave=V): the layer LAYOUT
+    must match the step's interleave or training silently runs a
+    layer-permuted network (nothing in the tensors records the layout,
+    so the pairing is the API's job; this helper makes the pairing a
+    single argument)."""
+    pp = mesh.shape["pp"]
+    stacked = interleave_pipeline_params(
+        stack_pipeline_params(params), pp, interleave)
+    return shard_pipeline_params(stacked, mesh)
+
+
+def pipeline_params_from_reference(np_tree: Dict[str, Any], device=None
+                                   ) -> PipelineParams:
+    """The reference's stacked tree (``stack_pipeline_params`` or
+    ``prepare_pipeline_params``, as numpy arrays: ``jax.tree.map(
+    np.asarray, stacked)``) as a whole ``PipelineParams`` on ``device``
+    (None means ``cuda:0``)."""
+    dev = resolve_device(device)
+    return PipelineParams(
+        _from_numpy(np_tree["emb"], dev), _from_numpy(np_tree["ln_f"], dev),
+        {k: _from_numpy(v, dev) for k, v in np_tree["layers"].items()})
+
+
+def pipeline_params_to_reference(stacked: PipelineParams) -> Dict[str, Any]:
+    """A whole stacked tree back as the reference's numpy tree
+    ({"emb", "ln_f", "layers": {name: [L, ...]}}); bfloat16 tensors
+    widen to float32, which numpy can hold."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return {"emb": leaf(stacked["emb"]), "ln_f": leaf(stacked["ln_f"]),
+            "layers": {k: leaf(t) for k, t in _stacked(stacked).items()}}
+
+
+def _pp_block(x: torch.Tensor, lp, cfg: TransformerConfig,
+              tp_axis: Optional[str] = None, mesh: Optional[Mesh] = None
+              ) -> torch.Tensor:
+    """One decoder block on a [mb, S, D] microbatch inside the pipeline:
+    attention is sequence-LOCAL (``auto_attention``: flash attention,
+    kernel 5 forward and kernels 6-7 backward, on the card), heads and
+    d_ff tp-cut when a tp axis exists (``copy_to`` before the column
+    products, ``reduce_from`` after ``wo`` and ``w2``)."""
+    def tp_in(h):
+        return copy_to(h, mesh, tp_axis) if tp_axis else h
+
+    def tp_out(h):
+        return reduce_from(h, mesh, tp_axis) if tp_axis else h
+    h = tp_in(_ln(x, lp["ln1"]))
+    q, k, v = _qkv_proj(h, lp)
+    if cfg.rope:
+        pos = torch.arange(q.shape[1], device=x.device)
+        q, k = _rope(q, pos, cfg), _rope(k, pos, cfg)
+    att = auto_attention(q, k, v, causal=True)
+    x = x + tp_out(torch.einsum("bsnh,nhd->bsd", att, lp["wo"]))
+    h = tp_in(_ln(x, lp["ln2"]))
+    h = _gelu(h @ lp["w1"] + lp["b1"]) @ lp["w2"]
+    return x + tp_out(h)
+
+
+def make_pipelined_opt_state(stacked: PipelineParams,
+                             cfg: TransformerConfig, mesh: Mesh, optimizer):
+    """The state of ``optimizer`` (a ``torch.optim`` factory) over this
+    rank's stacked shard: its moments are cut like the weights."""
+    return optimizer(list(stacked.parameters()))
+
+
+def _pp_grad_axes(name: str) -> Tuple[str, ...]:
+    """The axes a stacked weight's gradient is summed over: the
+    embedding (stage 0's feed and the last stage's head) and the final
+    norm over ("dp", "pp"), the layers over "dp". The tp-replicated
+    norms need no tp sum: ``copy_to`` already all-reduces their
+    activations' gradients."""
+    return ("dp", "pp") if name in ("emb", "ln_f") else ("dp",)
+
+
+def _pp_loss_and_grads(params: PipelineParams, tokens, targets,
+                       cfg: TransformerConfig, mesh: Mesh, m: int, v: int,
+                       tp_axis: Optional[str]):
+    """(weights, gradients summed over their axes, the loss) of one
+    pipelined step on this rank. The last stage runs the loss head once
+    on its collected outputs and backpropagates its token-loss sum over
+    the global token count; the other ranks' gradients come through the
+    reverse walk."""
+    from ..parallel.pipeline_spmd import (PipelineTape, pipeline_run,
+                                          pipeline_run_interleaved)
+    dev = mesh.device
+    if params.device != dev:
+        raise ValueError(f"params live on {params.device}, not {dev}")
+    tokens, targets = _as_tokens(tokens, dev), _as_tokens(targets, dev)
+    bl, s = tokens.shape
+    if bl % m:
+        raise ValueError(f"per-dp-shard batch {bl} not divisible by "
+                         f"n_microbatches={m}")
+    mb = bl // m
+    toks = tokens.reshape(m, mb, s)
+    pp, idx = mesh.shape["pp"], mesh.axis_index("pp")
+    named = list(params.named_parameters())
+    weights = [w for _, w in named]
+    layers = _stacked(params)
+    ls = next(iter(layers.values())).shape[0] // v
+
+    def chunk_apply(c, x):
+        for i in range(c * ls, (c + 1) * ls):
+            lp = {k: t[i] for k, t in layers.items()}
+            x = checkpoint(_pp_block, x, lp, cfg, tp_axis, mesh,
+                           use_reentrant=False)
+        return x
+
+    def feed(t):
+        return params["emb"][toks[t]]
+
+    def collect(buf, y, t_out, valid):
+        buf[t_out] = y
+        return buf
+    tape = PipelineTape()
+    x0 = torch.zeros((mb, s, cfg.d_model), dtype=cfg.dtype, device=dev)
+    for w in weights:
+        w.requires_grad_(True)
+    try:
+        if v == 1:
+            buf = pipeline_run("pp", pp, m, lambda x: chunk_apply(0, x),
+                               feed, collect, [None] * m, x0, mesh=mesh,
+                               tape=tape)
+        else:
+            buf = pipeline_run_interleaved(
+                "pp", pp, v, m, chunk_apply, feed, collect, [None] * m,
+                x0.expand(v, *x0.shape), mesh=mesh, tape=tape)
+        n_glob = mesh.shape["dp"] * bl * s
+        obj, ssum, n = None, torch.zeros((), device=dev), 0
+        if idx == pp - 1:
+            with torch.enable_grad():
+                ssum, n = _nll_head(params, torch.cat(buf),
+                                    targets.reshape(m * mb, s))
+                obj = ssum / n_glob
+        grads = tape.backward(obj, weights)
+    finally:
+        for w in weights:
+            w.requires_grad_(False)
+    grads = [torch.zeros_like(w) if g is None else g
+             for w, g in zip(weights, grads)]
+    grads = _sum_grads(grads, mesh, [_pp_grad_axes(k) for k, _ in named])
+    tot = all_reduce(torch.stack([ssum.detach().float(),
+                                  torch.tensor(float(n), device=dev)]),
+                     mesh, ("dp", "pp"))
+    return weights, grads, tot[0] / tot[1]
+
+
+def make_pipelined_train_step(cfg: TransformerConfig, mesh: Mesh,
+                              n_microbatches: int, optimizer=None,
+                              interleave: int = 1):
+    """Train step with pipeline parallelism: the stacked layers cut over
+    the mesh's "pp" axis, microbatches handed stage to stage by one hop
+    a schedule step (``parallel.pipeline_spmd.pipeline_run``), the batch
+    over "dp", heads and d_ff over "tp" when present. Every rank of the
+    mesh runs it together on its shard of the stacked weights
+    (``prepare_pipeline_params`` / ``shard_pipeline_params``) and its dp
+    shard of the batch (``shard_batch``); the weights are updated in
+    place.
+
+    optimizer=None: SGD, ``p - lr * g`` in p's dtype;
+    ``step(params, tokens, targets) -> (params, loss)``.
+    optimizer=<torch.optim factory>: ``step(params, opt_state, tokens,
+    targets) -> (params, opt_state, loss)`` with ``opt_state`` from
+    ``make_pipelined_opt_state``.
+
+    The loss is the mean token NLL over the global batch, the same f32
+    scalar on every rank. Each block runs under ``torch.utils.
+    checkpoint`` (the reference's ``jax.checkpoint``): on the card a
+    live step of a stage launches the flash forward (kernel 5) once a
+    block, and the backward walk launches it again (the remat) and the
+    flash backward (kernels 6-7) once a block. A stage computes only at
+    the steps where it holds a microbatch: M·V steps, each 1/(pp·V) of
+    the layers, so n_layers/pp blocks' worth of each kernel a
+    microbatch.
+
+    interleave=V > 1 runs the interleaved schedule (virtual stages,
+    ``pipeline_run_interleaved``): bubble (pp-1)/(M·V + pp-1) instead of
+    (pp-1)/(M + pp-1); M must divide by pp. The weights must be in the
+    MATCHING interleaved layout (``prepare_pipeline_params(params, mesh,
+    interleave=V)``); updates come back in that layout (invert with
+    ``deinterleave_pipeline_params``).
+
+    striped_ring is not wired here (no sp axis to stripe) and MoE takes
+    the dp/ep step: both raise ``NotImplementedError``."""
+    if cfg.striped_ring:
+        raise NotImplementedError(
+            "striped_ring is wired for make_train_step's sp ring; the "
+            "pipelined step has no sp axis to stripe")
+    if cfg.n_experts > 0:
+        raise NotImplementedError(
+            "pipeline-parallel MoE is not supported; use make_train_step "
+            "with the dp/ep layout")
+    axes = mesh.axis_names
+    if "pp" not in axes or "dp" not in axes:
+        raise ValueError(f"mesh must carry ('dp', 'pp'); has {axes}")
+    tp_axis = "tp" if "tp" in axes else None
+    pp = mesh.shape["pp"]
+    v = interleave
+    if v < 1 or cfg.n_layers % (pp * v):
+        raise ValueError(f"n_layers={cfg.n_layers} not divisible by "
+                         f"pp*interleave={pp}*{v}")
+    if tp_axis:
+        tp_size = mesh.shape["tp"]
+        if cfg.n_heads % tp_size or cfg.kv_heads % tp_size:
+            raise ValueError(
+                f"heads (q={cfg.n_heads}, kv={cfg.kv_heads}) must "
+                f"divide by tp={tp_size}")
+        if cfg.d_ff % tp_size:
+            raise ValueError(f"d_ff ({cfg.d_ff}) must divide by "
+                             f"tp={tp_size}")
+    m = n_microbatches
+    # every rank makes the groups in one order before any stage's own
+    # collectives (a stage skips the steps where it holds no microbatch)
+    for ax in ("pp", "tp", "dp", ("dp", "pp")):
+        if ax == "tp" and not tp_axis:
+            continue
+        mesh.group(ax)
+    # a process's first non-reentrant checkpoint imports torch._dynamo
+    # (some 800 modules, seconds): here every rank pays it at once, not
+    # inside the schedule, where each stage would wait for the one
+    # before it to import
+    with torch.enable_grad():
+        checkpoint(torch.neg, torch.zeros(1, requires_grad=True),
+                   use_reentrant=False)
+
+    def grads_of(params, tokens, targets):
+        return _pp_loss_and_grads(params, tokens, targets, cfg, mesh, m, v,
+                                  tp_axis)
+
+    if optimizer is None:
+        def step(params, tokens, targets):
+            weights, grads, loss = grads_of(params, tokens, targets)
+            with torch.no_grad():
+                for w, g in zip(weights, grads):
+                    w.sub_(cfg.lr * g.to(w.dtype))
+            return params, loss
+        return step
+
+    def step_opt(params, opt_state, tokens, targets):
+        weights, grads, loss = grads_of(params, tokens, targets)
         for w, g in zip(weights, grads):
             w.grad = g.to(w.dtype)
         opt_state.step()
