@@ -258,6 +258,30 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
                and fft2_sharded_2d of 2048^2 on a 2 x 2 mesh, within
                1e-4 of float64 numpy and of the one-rank transform; ms a
                transform and the exchanges' share.
+     sharded serving
+               ContinuousServer(mesh=Mesh((2, 2), ("dp", "tp"))) on 4
+               ranks (gloo on one card, nccl with a card a rank) at the
+               serving model's full width, every rank building the same
+               server and submitting the same requests: mix (a) f32
+               dense, fused (kernel 3), fused_online (kernel 4) and int8
+               pools, (b) f32 fused and n-gram speculative (k SPEC_K),
+               (a) and (b) bf16 fused, and the MoE model dense and fused
+               with its experts over tp. Every rank's f32 tokens equal
+               the one-rank server's on this card (bf16: how many are
+               equal is printed), the MoE claims routed and dropped
+               equal, no CUDA graph captured (gloo); kernels 3-4 launched
+               n_layers times a decode step and a verify window on every
+               rank (2 or 4 slots and 4 kv heads of 128 a rank), the
+               profiler's records of kernel 3 (device records only, after
+               TRACE_LEAD_IN spin launches and a TRACE_MARGIN_S margin)
+               equal to its count on each rank; both kernels against
+               their plain versions on the int8 and bf16 runs' pools at
+               the rank's shape; tokens/s, and over a fenced run of (a)
+               the share in torch.distributed's verbs and host ms a
+               decode step (4 gloo ranks sharing one card: not a
+               scaling number); the tp close after wo left out and dp
+               rank 1's table rows shifted by a slot must each change
+               tokens.
    Each stencil kernel's output must equal its plain version on the same
    inputs bit for bit; the dataflow result must equal stencil_serial;
    the fused result must conserve the sum, and a small run must agree
@@ -414,9 +438,10 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
 5. Prints the bench lines ("bench: {...}"), the resilience and MoE
    numbers ("resilience: {...}", "moe: {...}": the MoE, expert-parallel,
    Ulysses and stencil phases' readings, times and stats), the
-   pipelined, Jacobi and FFT phases' ("multirank: {...}"), {"kernels":
-   [...]} (the flash rows with their launches on the pipelined path
-   beside) and, last, {"ok": true, "device": ...}.
+   pipelined, Jacobi and FFT phases' ("multirank: {...}"), the sharded
+   serving phase's ("sharded: {...}"), {"kernels": [...]} (the flash rows
+   with their launches on the pipelined path beside, the paged rows with
+   theirs on the sharded server) and, last, {"ok": true, "device": ...}.
 
 Exits non-zero, and prints no result line, if CUDA is absent, if the
 package cannot be imported, or if any phase fails.
@@ -1348,6 +1373,265 @@ def _fft_rank(n: int, side: int) -> dict:
     return out
 
 
+def _paged_plan_of(kind, q, k_pool, v_pool, table, *_):
+    """(P, stages, cb, shared-memory bytes, sub): the wrapper's own plan of
+    a launch of kernel ``kind`` ("exact" or "online") on these inputs."""
+    from hpx_tpu_torch.ops import attention_cuda as ac
+    b, w, nq, hd = q.shape
+    nkv = k_pool.shape[2]
+    return ac.paged_plan(kind == "exact", b, nkv, w * (nq // nkv),
+                         table.shape[1], k_pool.shape[1], hd,
+                         k_pool.element_size())
+
+
+def _plain_online(*args):
+    """The online kernel's plain version in the kernel's order: the same P
+    runs, merged in rank order, and the same chunk of cb blocks or of a
+    part of a block (cb * bs / sub rows)."""
+    from hpx_tpu_torch.ops import attention_cuda as ac
+    p, _, cb, _, sub = _paged_plan_of("online", *args)
+    return ac.plain_paged_attention_online(
+        *args, splits=p, chunk_rows=cb * (args[1].shape[1] // sub))
+
+
+def _paged_pairs():
+    """{wrapper name: (the kernel's wrapper, its plain version)} of
+    kernels 3-4."""
+    from hpx_tpu_torch.ops import attention_cuda as ac
+    return {"fused_paged_attention": (ac.fused_paged_attention,
+                                      ac.plain_paged_attention_exact),
+            "fused_paged_online_attention": (ac.fused_paged_online_attention,
+                                             _plain_online)}
+
+
+def _sharded_serve_rank() -> dict:
+    """One rank of the sharded-serving path (spawned by hpx_tpu_torch's
+    launcher): ContinuousServer(mesh=Mesh((2, 2), ("dp", "tp"))) at the
+    serving model's full width (SERVE_MODEL, weights from seed 0 made on
+    the rank's card as the one-rank path makes them) on mixes (a) and (b):
+    f32 dense, paged fused (kernel 3) and fused_online (kernel 4) on (a),
+    fused on (b), int8 pools (fused) on (a), n-gram speculation (fused, k
+    SPEC_K) on (b),
+    bf16 fused on both, and MOE_MODEL (weights from seed 4, its 8
+    requests) dense and paged fused in f32, its experts over tp. Each run
+    returns its tokens (by request id), wall seconds, the steps and
+    verify windows its paged programs ran and each kernel's launches
+    (held to n_layers a step and a window); (a) f32 fused once more under
+    torch.profiler, its kernel records held to the wrapper's count; once
+    with every verb and staging copy fenced and timed (``_comm_split``);
+    two planted faults: the tp close after wo left out, and dp rank 1's
+    table rows shifted by one slot. Kernels 3-4 against their plain
+    versions at the rank's shape on the bf16 and int8 runs' pools."""
+    t_start = time.perf_counter()
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from hpx_tpu_torch.models import serving
+    from hpx_tpu_torch.models import transformer as tf
+    from hpx_tpu_torch.parallel.mesh import Mesh
+    from hpx_tpu_torch.tools.serving_ab import SERVE_MODEL, mixes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = Mesh((2, 2), ("dp", "tp"))
+    dev = mesh.device
+    pairs = _paged_pairs()
+    kern = {k: w for k, (w, _) in pairs.items()}
+    wrapper = {"fused": "fused_paged_attention",
+               "fused_online": "fused_paged_online_attention"}
+    mx = mixes()
+    mx["moe"] = (_moe_requests(MOE_MODEL["vocab"]), MOE_SERVER)
+    models = {}
+
+    def model(which, dtype):
+        if (which, dtype) not in models:
+            spec, seed = ((MOE_MODEL, MOE_SEED) if which == "moe"
+                          else (SERVE_MODEL, 0))
+            cfg = tf.TransformerConfig(**spec, dtype=dtype)
+            models[which, dtype] = (tf.init_params(cfg, seed=seed,
+                                                   device=dev), cfg)
+        return models[which, dtype]
+
+    def counting(srv, calls):
+        """The server's paged step and verify programs, each call
+        counted."""
+        for name in ("_paged_step_prog", "_paged_verify_prog"):
+            orig = getattr(srv, name)
+
+            def get(*a, orig=orig, name=name):
+                prog = orig(*a)
+
+                def call(*x, **y):
+                    calls[name] += 1
+                    return prog(*x, **y)
+                return call
+            setattr(srv, name, get)
+
+    def submit(srv, reqs):
+        for p, m in reqs:
+            srv.submit(p, max_new=m)
+
+    out = {"rank": mesh.rank, "coords": mesh.coords, "device": str(dev),
+           "backend": mesh.backend, "runs": {}, "checks": []}
+
+    def run(label, mix, dtype, which="serve", **kw):
+        params, cfg = model(which, dtype)
+        reqs, base = mx[mix]
+        srv = serving.ContinuousServer(params, cfg, mesh=mesh, **base, **kw)
+        calls = {"_paged_step_prog": 0, "_paged_verify_prog": 0}
+        counting(srv, calls)
+        before = {k: w.launches for k, w in kern.items()}
+        submit(srv, reqs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = srv.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: w.launches - before[k] for k, w in kern.items()}
+        windows = calls["_paged_step_prog"] + calls["_paged_verify_prog"]
+        if mesh.rank == 0:
+            print(f"   rank 0: {label} in {wall!r} s (at "
+                  f"{time.perf_counter() - t_start!r} s)", flush=True)
+        want = {k: (cfg.n_layers * windows
+                    if wrapper.get(srv.paged_kernel) == k else 0)
+                for k in kern}
+        if launches != want:
+            raise AssertionError(f"rank {mesh.rank} {label} ({mix}): "
+                                 f"launches {launches}, the schedule's "
+                                 f"{want}")
+        out["runs"][label] = dict(
+            tokens=[res[r] for r in sorted(res)], wall=wall,
+            steps=calls["_paged_step_prog"],
+            windows=calls["_paged_verify_prog"], launches=launches,
+            graphs=len(srv._graphs), moe=(srv._moe_routed,
+                                          srv._moe_dropped),
+            spec=srv.spec_stats() if srv._spec else None,
+            kernel=srv.paged_kernel, rows=srv._rows,
+            heads=srv.cfg.kv_heads // srv._tp)
+        return srv
+
+    def check(srv, what):
+        """Kernels 3-4 against their plain versions on the server's pools
+        at its decode shape on this rank (its slots, W 1, its kv heads),
+        through random tables over its blocks; uncounted."""
+        cpu = torch.Generator().manual_seed(9)
+        rows, maxb = srv._rows, srv._maxb
+        with _uncounted([w for w, _ in pairs.values()]):
+            for layer, (kp, vp) in enumerate(srv._pools):
+                sc = () if srv._scales is None else srv._scales[layer]
+                nb, bs = kp.shape[0], kp.shape[1]
+                table = torch.randint(0, nb, (rows, maxb),
+                                      generator=cpu).int()
+                pos = torch.randint(0, maxb * bs, (rows,),
+                                    generator=cpu).int()
+                pos[0], pos[-1] = 0, maxb * bs - 1
+                q = torch.randn(rows, 1, srv.cfg.n_heads // srv._tp,
+                                srv.cfg.head_dim, generator=cpu).to(
+                                    srv.cfg.dtype)
+                args = [q.to(dev), kp, vp, table.to(dev), pos.to(dev), *sc]
+                for k, (fn, plain) in pairs.items():
+                    got, want = fn(*args), plain(*args)
+                    torch.cuda.synchronize()
+                    rtol, atol = PAGED_TOL[str(want.dtype).split(".")[-1]]
+                    g, w = got.float(), want.float()
+                    err = (g - w).abs().max().item()
+                    margin = ((g - w).abs() / (atol + rtol * w.abs())
+                              ).max().item()
+                    out["checks"].append(dict(
+                        kernel=k, what=f"{what} layer {layer}", err=err,
+                        margin=margin, shape=tuple(kp.shape),
+                        ok=bool(got.shape == want.shape and torch.allclose(
+                            g, w, rtol=rtol, atol=atol))))
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    fused = dict(paged=True, paged_kernel="fused")
+    online = dict(paged=True, paged_kernel="fused_online")
+    run("(a) f32 dense", "a", f32)
+    run("(a) f32 fused", "a", f32, **fused)
+    run("(a) f32 fused_online", "a", f32, **online)
+    run("(b) f32 fused", "b", f32, **fused)
+    srv = run("(a) f32 fused int8 pools", "a", f32, kv_dtype="int8", **fused)
+    check(srv, "(a) int8 pools")
+    run("(b) f32 fused spec", "b", f32, spec=True, spec_k=SPEC_K, **fused)
+    for mix in ("a", "b"):
+        srv = run(f"({mix}) bf16 fused", mix, bf16, **fused)
+    check(srv, "(b) bf16 pools")
+    del srv
+    run("MoE f32 dense", "moe", f32, which="moe")
+    run("MoE f32 fused", "moe", f32, which="moe", **fused)
+    models.pop(("moe", f32))
+
+    if mesh.rank == 0:
+        print(f"   rank 0: runs done at {time.perf_counter() - t_start!r} s",
+              flush=True)
+    # (a) f32 fused under the profiler: kernel records against the count
+    params, cfg = model("serve", f32)
+    reqs, base = mx["a"]
+    w = kern["fused_paged_attention"]
+    for attempt in range(TRACE_ATTEMPTS):
+        srv = serving.ContinuousServer(params, cfg, mesh=mesh, **base,
+                                       **fused)
+        submit(srv, reqs)
+        # device records only: the eager programs' host ops, recorded on
+        # 4 processes sharing the host, would cost the trace tens of s
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(TRACE_MARGIN_S)
+            for _ in range(TRACE_LEAD_IN):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            before = w.launches
+            srv.run()
+            torch.cuda.synchronize()
+            counted_ = w.launches - before
+            time.sleep(TRACE_MARGIN_S)
+        traced = sum(e.count for e in prof.key_averages()
+                     if e.device_type != torch.autograd.DeviceType.CPU
+                     and w.kernels.search(e.key))
+        out["profiled"] = dict(traced=traced, counted=counted_,
+                               attempt=attempt)
+        if traced >= counted_:
+            break
+
+    # every verb and staging copy fenced and timed, over one run of (a)
+    srv = serving.ContinuousServer(params, cfg, mesh=mesh, **base, **fused)
+    calls = {"_paged_step_prog": 0, "_paged_verify_prog": 0}
+    counting(srv, calls)
+    ntok = sum(m for _, m in reqs)
+
+    def once():
+        submit(srv, reqs)
+        srv.run()
+    out["split"] = dict(_comm_split(once, dev, 1), tokens=ntok,
+                        steps=calls["_paged_step_prog"])
+    if mesh.rank == 0:
+        print(f"   rank 0: profile and split done at "
+              f"{time.perf_counter() - t_start!r} s", flush=True)
+
+    # planted faults, each on (a) f32 fused
+    real = tf.reduce_from
+    closes = {"n": 0}
+
+    def no_wo_close(x, mesh_, axis="tp"):
+        closes["n"] += 1            # a dense layer closes wo, then w2
+        return x if closes["n"] % 2 else real(x, mesh_, axis)
+    tf.reduce_from = no_wo_close
+    try:
+        run("fault: wo close left out", "a", f32, **fused)
+    finally:
+        tf.reduce_from = real
+    table = serving.device_table
+
+    def shifted(*a, **k):
+        t = table(*a, **k)
+        return torch.roll(t, 1, 0) if mesh.axis_index("dp") == 1 else t
+    serving.device_table = shifted
+    try:
+        run("fault: dp rank 1's table rows shifted", "a", f32, **fused)
+    finally:
+        serving.device_table = table
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
 class Smoke:
     def __init__(self) -> None:
         self.failures = []
@@ -1473,32 +1757,13 @@ def main() -> int:
                ac.flash_attention_bwd_f32, ac.flash_attention_chunk,
                fr.fma_chain)
 
-    def plan_of(kind, q, k_pool, v_pool, table, *_):
-        """(P, stages, cb, shared-memory bytes, sub): the wrapper's own
-        plan of a launch of kernel ``kind`` ("exact" or "online") on these
-        inputs."""
-        b, w, nq, hd = q.shape
-        nkv = k_pool.shape[2]
-        return ac.paged_plan(kind == "exact", b, nkv, w * (nq // nkv),
-                             table.shape[1], k_pool.shape[1], hd,
-                             k_pool.element_size())
+    plan_of, plain_online = _paged_plan_of, _plain_online
 
     def splits_of(*args):
         """P, the CTAs the online kernel gives each (slot, kv-head) on
         these inputs."""
         return plan_of("online", *args)[0]
-
-    def plain_online(*args):
-        """The online kernel's plain version in the kernel's order: the
-        same P runs, merged in rank order, and the same chunk of cb
-        blocks or of a part of a block (cb * bs / sub rows)."""
-        p, _, cb, _, sub = plan_of("online", *args)
-        return ac.plain_paged_attention_online(
-            *args, splits=p, chunk_rows=cb * (args[1].shape[1] // sub))
-    paged = {"fused_paged_attention": (ac.fused_paged_attention,
-                                       ac.plain_paged_attention_exact),
-             "fused_paged_online_attention": (
-                 ac.fused_paged_online_attention, plain_online)}
+    paged = _paged_pairs()
     kind_of = {"fused_paged_attention": "exact",
                "fused_paged_online_attention": "online"}
 
@@ -5077,6 +5342,161 @@ def main() -> int:
 
     sm.phase("multi-rank FFT (4 ranks)", fft_path)
 
+    sharded = {}
+    sharded_launches = {k: 0 for k in PAGED_KERNELS}
+
+    def sharded_path():
+        """ContinuousServer(mesh=) on 4 ranks (gloo on one card, nccl with
+        a card a rank), Mesh((2, 2), ("dp", "tp")), at the serving
+        model's full width (_sharded_serve_rank): every rank's f32 tokens
+        equal the one-rank server's on this card (dense, fused,
+        fused_online, int8 pools, n-gram speculation, MoE); kernels 3-4
+        launched n_layers times a decode step and a verify window on
+        every rank, the profiler's records of kernel 3 equal to its
+        count, and both kernels within their contract of their plain
+        versions at the rank's shape; both planted faults differ."""
+        from hpx_tpu_torch.parallel.mesh import launch
+        torch.cuda.empty_cache()
+        print(f"   card: {smi}", flush=True)
+        f32 = torch.float32
+        fused = dict(paged=True, paged_kernel="fused")
+        online = dict(paged=True, paged_kernel="fused_online")
+        one = {}
+
+        def one_rank(label, mix, params, cfg, reqs, base, **kw):
+            srv = serving.ContinuousServer(params, cfg, **base, **kw)
+            for p, m in reqs:
+                srv.submit(p, max_new=m)
+            res = srv.run()
+            one[label] = ([res[r] for r in sorted(res)],
+                          (srv._moe_routed, srv._moe_dropped))
+        with _uncounted(kernels):
+            for mix in ("a", "b"):
+                reqs, base = mixes[mix]
+                for dt, tag in ((f32, "f32"), (torch.bfloat16, "bf16")):
+                    params, cfg = model(dt)
+                    one_rank(f"({mix}) {tag} fused", mix, params, cfg, reqs,
+                             base, **fused)
+            params, cfg = model(f32)
+            reqs, base = mixes["a"]
+            one_rank("(a) f32 dense", "a", params, cfg, reqs, base)
+            one_rank("(a) f32 fused_online", "a", params, cfg, reqs, base,
+                     **online)
+            one_rank("(a) f32 fused int8 pools", "a", params, cfg, reqs,
+                     base, kv_dtype="int8", **fused)
+            reqs, base = mixes["b"]
+            one_rank("(b) f32 fused spec", "b", params, cfg, reqs, base,
+                     spec=True, spec_k=SPEC_K, **fused)
+            mcfg = tf.TransformerConfig(**MOE_MODEL)
+            mparams = tf.init_params(mcfg, seed=MOE_SEED)
+            mreqs = _moe_requests(mcfg.vocab)
+            one_rank("MoE f32 dense", "moe", mparams, mcfg, mreqs,
+                     MOE_SERVER)
+            del mparams
+        one["MoE f32 fused"] = one["MoE f32 dense"]
+        for k in ("fault: wo close left out",
+                  "fault: dp rank 1's table rows shifted"):
+            one[k] = one["(a) f32 fused"]
+        torch.cuda.empty_cache()
+        t = HighResolutionTimer()
+        rs = launch(_sharded_serve_rank, 4, timeout=900)
+        print(f"   4 ranks in {t.elapsed()!r} s ({[r['seconds'] for r in rs]} "
+              f"s inside the ranks), backend {rs[0]['backend']}, devices "
+              f"{[r['device'] for r in rs]}, coords "
+              f"{[r['coords'] for r in rs]}", flush=True)
+        runs = rs[0]["runs"]
+        for label, r0 in runs.items():
+            want, moe_want = one[label]
+            total = sum(len(x) for x in want)
+            fault = label.startswith("fault")
+            # a fault may part the ranks' tokens: it reads on the rank
+            # that agrees least with the one-rank server
+            same = min(sum(a == b for x, y in zip(r["runs"][label]["tokens"],
+                                                  want)
+                           for a, b in zip(x, y)) for r in rs)
+            for r in rs[1:]:
+                if r["runs"][label]["launches"] != r0["launches"] or (
+                        not fault
+                        and r["runs"][label]["tokens"] != r0["tokens"]):
+                    raise AssertionError(f"{label}: rank {r['rank']}'s "
+                                         "tokens or launches differ from "
+                                         "rank 0's")
+            for k, n in r0["launches"].items():
+                if not fault:
+                    sm.launches[k] += 4 * n
+                    sharded_launches[k] += 4 * n
+            print(f"   {label}: {same} of {total} tokens equal the one-rank "
+                  f"server's; {r0['steps']} decode steps and {r0['windows']} "
+                  f"verify windows on kernel {r0['kernel']}, launches a rank "
+                  f"{r0['launches']} ({r0['rows']} slots and "
+                  f"{r0['heads']} kv heads a rank); "
+                  f"{sum(len(x) for x in r0['tokens']) / r0['wall']!r} "
+                  f"tokens/s; CUDA graphs {r0['graphs']}"
+                  + (f"; MoE (routed, dropped) {r0['moe']}, one rank "
+                     f"{moe_want}" if label.startswith("MoE") else "")
+                  + (f"; spec {r0['spec']}" if r0["spec"] else ""),
+                  flush=True)
+            sharded[label] = dict(equal=same, tokens=total,
+                                  tokens_per_s=sum(len(x) for x in
+                                                   r0["tokens"]) / r0["wall"],
+                                  launches=r0["launches"], steps=r0["steps"],
+                                  windows=r0["windows"])
+            if fault:
+                if same == total:
+                    raise AssertionError(f"planted {label} reads as a pass")
+            elif "bf16" not in label and same != total:
+                raise AssertionError(f"{label}: {total - same} f32 tokens "
+                                     "differ from the one-rank server's")
+            if label.startswith("MoE") and r0["moe"] != moe_want:
+                raise AssertionError(f"{label}: MoE claims {r0['moe']}, one "
+                                     f"rank {moe_want}")
+            if r0["graphs"]:
+                raise AssertionError(f"{label}: a gloo mesh captured "
+                                     f"{r0['graphs']} graphs")
+        for r in rs:
+            p_ = r["profiled"]
+            print(f"   rank {r['rank']}: torch.profiler holds "
+                  f"{p_['traced']} runs of kernel 3 in (a) f32 fused, its "
+                  f"wrapper counted {p_['counted']} (attempt "
+                  f"{p_['attempt'] + 1}, after {TRACE_LEAD_IN} lead-in "
+                  f"launches and a {TRACE_MARGIN_S} s margin)", flush=True)
+            if p_["traced"] != p_["counted"] or not p_["counted"]:
+                raise AssertionError(f"rank {r['rank']}: the trace holds "
+                                     f"{p_['traced']} runs of kernel 3, "
+                                     f"the wrapper counted {p_['counted']}")
+            for c in r["checks"]:
+                k = c["kernel"]
+                sm.max_abs_err[k] = max(sm.max_abs_err[k], c["err"])
+                sm.margin[k] = max(sm.margin[k], c["margin"])
+                if not c["ok"]:
+                    raise AssertionError(f"rank {r['rank']}: {k} on the "
+                                         f"{c['what']} pools {c['shape']}: "
+                                         f"max abs err {c['err']}")
+        worst = {}
+        for c in (c for r in rs for c in r["checks"]):
+            worst[c["kernel"], c["shape"]] = max(
+                worst.get((c["kernel"], c["shape"]), 0.0), c["err"])
+        print(f"   kernels 3-4 against their plain versions at the rank's "
+              f"shape, every rank and layer, largest max abs err by pool "
+              f"shape: {worst}", flush=True)
+        split = [r["split"] for r in rs]
+        for r, sp_ in zip(rs, split):
+            print(f"   rank {r['rank']}, (a) f32 fused with every verb and "
+                  f"staging copy fenced and timed: "
+                  f"{sp_['tokens'] / sp_['step_ms'] * 1e3!r} tokens/s, "
+                  f"{sp_['step_ms'] / sp_['steps']!r} host ms a decode "
+                  f"step (the run over its {sp_['steps']} decode steps, "
+                  f"prefill included), {sp_['comm_ms'] / sp_['step_ms']!r} "
+                  f"of the run in "
+                  f"torch.distributed's verbs, "
+                  f"{sp_['copies_ms'] / sp_['step_ms']!r} in staging copies "
+                  f"(4 gloo ranks sharing one card: not a scaling number)",
+                  flush=True)
+        sharded["split"] = split
+        sharded["card"] = smi
+
+    sm.phase("main path: sharded serving (4 ranks)", sharded_path)
+
     def bf16_pool_gate():
         """Both kernels against their plain versions on the pools the
         bf16 run left, through random tables over its blocks."""
@@ -6198,7 +6618,8 @@ def main() -> int:
                                   timing[f"{k} W=8 {dt}"]["library"],
                               "shape": timing[f"{k} W=8 {dt}"]["shape"]}
                          for dt in ("bfloat16", "int8")},
-                         "verify_launches": spec_launches[k]}
+                         "verify_launches": spec_launches[k],
+                         "sharded_launches": sharded_launches[k]}
                         if k in PAGED_KERNELS else {}),
                      **({"f32": f32_routes(row)} if row in F32_ROUTE
                         else {}),
@@ -6217,6 +6638,7 @@ def main() -> int:
         {f"({m}) {k}": v for (m, k), v in resilience.items()}))
     print("moe: " + json.dumps({**moe, "card": smi}))
     print("multirank: " + json.dumps({**multi, "card": smi}))
+    print("sharded: " + json.dumps(sharded))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

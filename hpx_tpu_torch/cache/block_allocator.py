@@ -22,7 +22,7 @@ fresh exclusive block (and the caller copies the device rows).
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from ..core.errors import CacheOOM
 from ..svc import faultinject
@@ -184,6 +184,21 @@ class BlockAllocator:
             self.total_allocs += 1
             self.total_cow_copies += 1
             return new, True
+
+    def pool_pspec(self, tp_axis: Optional[str] = None) -> tuple:
+        """The sharding of the `[num_blocks, block_size, n_kv, head_dim]`
+        pools this allocator's ids index on a (dp, tp) mesh, as a tuple
+        of axis names: kv-heads over `tp_axis`, the BLOCK AXIS never
+        sharded. Every dp rank holds every block id for its heads, so a
+        rank's table rows never name a block it lacks, and a whole-block
+        splice writes the same bytes on every dp replica."""
+        return (None, None, tp_axis, None)
+
+    def scale_pspec(self, tp_axis: Optional[str] = None) -> tuple:
+        """The sharding of the `[num_blocks, n_kv]` int8/fp8 scale
+        sidecars: `pool_pspec`'s rule (blocks whole, kv-heads over
+        tp)."""
+        return (None, tp_axis)
 
     def pool_bytes(self, n_kv: int, head_dim: int,
                    layers: int = 1) -> int:

@@ -6,8 +6,9 @@ positions `[0, tokens)`. Logical block ``i`` holds token rows
 ``[i*block_size, (i+1)*block_size)``; position ``p`` lives at physical
 row ``(table[p // block_size], p % block_size)``.
 
-Counterpart of ``hpx_tpu.cache.page_table`` (one device; the
-dp-sharded table residency comes with the mesh slice).
+Counterpart of ``hpx_tpu.cache.page_table``; on a (dp, tp) mesh
+``device_table`` places a rank's rows (``hpx.serving.mesh.
+table_residency``).
 
 `as_row` / `materialize` turn host tables into padded int32 arrays the
 step/prefill programs index with — the analog of
@@ -125,9 +126,29 @@ def materialize(tables: Sequence[Optional[PageTable]], max_blocks: int,
 
 
 def device_table(tables: Sequence[Optional[PageTable]],
-                 max_blocks: int, pad: int, device=None):
+                 max_blocks: int, pad: int, device=None, mesh=None,
+                 dp_axis: str = "dp", residency: str = "sharded"):
     """Materialize the `[slots, max_blocks]` table as an int32 tensor on
-    ``device`` for the decode step (one host-to-device copy)."""
+    ``device`` for the decode step (one host-to-device copy). On a
+    ``mesh`` (on its device) the block ids stay GLOBAL (the pools hold
+    every block id on every dp rank) and ``residency`` places the slot
+    rows:
+
+    * ``"sharded"``: this rank's rows, the slots of its ``dp_axis``
+      index (``[d*S/dp, (d+1)*S/dp)``);
+    * ``"replicated"``: every row on every rank; the step programs
+      slice their rows at entry.
+    """
     import torch
     arr = materialize(tables, max_blocks, pad)
-    return torch.from_numpy(arr).to(device)
+    if mesh is None:
+        return torch.from_numpy(arr).to(device)
+    if residency not in ("sharded", "replicated"):
+        raise ValueError(
+            "hpx.serving.mesh.table_residency must be 'sharded' or "
+            f"'replicated', got {residency!r}")
+    if residency == "sharded":
+        per = len(tables) // mesh.shape[dp_axis]
+        lo = mesh.axis_index(dp_axis) * per
+        arr = arr[lo:lo + per]
+    return torch.from_numpy(arr).to(mesh.device)

@@ -157,6 +157,10 @@ declare("hpx.serving.moe.capacity_factor", "int", "0",
         "(100 = GShard cf 1.0; C = ceil(T*k*pct/100 / E)); 0 = auto = "
         "drop-free (cf = n_experts), the token-identity default. Read "
         "when a server is built")
+declare("hpx.serving.mesh.paged", "bool", "1",
+        "sharded paged serving (0 restores the single-device refusal)")
+declare("hpx.serving.mesh.table_residency", "str", "sharded",
+        "device block-table placement on mesh: sharded | replicated")
 declare("hpx.serving.ckpt_every", "int", "16",
         "tokens between slot checkpoints")
 declare("hpx.serving.step_retries", "int", "4",

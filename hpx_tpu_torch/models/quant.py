@@ -7,9 +7,11 @@ values packed two to a byte along a contraction axis), the quantizers,
 ``quantized_bits`` and ``quantized_bytes``. Weights quantize per output
 channel (scales over the contraction axes, ``_CONTRACT_AXES``); the
 paged KV pools quantize per (block, kv-head) through
-``ops.paged_attention.quantize_blocks``. The sharded placements
-(``shard_quantized``, ``quantized_param_specs``) wait for the
-multi-device serving slice.
+``ops.paged_attention.quantize_blocks``. On a (dp, tp) mesh
+``quantized_param_specs`` gives each quantized leaf's sharding (its
+``.q`` as the dense weight's, its ``.s`` with the contracted axes
+unsharded, so the scales follow their output channels over tp) and
+``shard_quantized`` cuts this rank's shard by them.
 
 int8 rounds onto the 127-level integer ladder, int4 onto the 7-level
 one (element 2i in a byte's low nibble, 2i+1 in its high one, unpacked
@@ -27,8 +29,8 @@ from typing import Any, NamedTuple
 import torch
 
 __all__ = ["QTensor", "QTensor4", "quantize_params", "dequant",
-           "quantized_bytes", "quantized_bits", "as_raw", "FP8_DTYPE",
-           "FP8_MAX"]
+           "quantized_bytes", "quantized_bits", "quantized_param_specs",
+           "shard_quantized", "as_raw", "FP8_DTYPE", "FP8_MAX"]
 
 
 class QTensor(NamedTuple):
@@ -159,6 +161,63 @@ def quantized_bits(tree: torch.nn.Module) -> int:
     packed int4 weights, else 8."""
     from .transformer import QWeight4
     return 4 if any(isinstance(m, QWeight4) for m in tree.modules()) else 8
+
+
+def quantized_param_specs(cfg, bits: int = 8) -> dict:
+    """The shardings of ``quantize_params``' tree as data, leaf name ->
+    the mesh axis (or None) of each dim: a quantized weight's ``.q``
+    takes the dense weight's spec (``transformer.param_specs``; the
+    packed int4 axis keeps it, ``shard_quantized`` checks that it
+    divides), its ``.s`` that spec with the contracted axes unsharded
+    (the scales have size 1 there); every other leaf its dense spec.
+    ``bits`` is 8 or 4 (the same specs: packing halves an axis, never
+    moves one)."""
+    from .transformer import param_specs
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    out = {}
+    for name, spec in param_specs(cfg).items():
+        leaf = name.rsplit(".", 1)[-1]
+        axes = (_MOE_CONTRACT_AXES if ".moe." in name
+                else _CONTRACT_AXES).get(leaf)
+        if axes is None:
+            out[name] = spec
+            continue
+        out[name + ".q"] = spec
+        out[name + ".s"] = tuple(None if d in axes else a
+                                 for d, a in enumerate(spec))
+    return out
+
+
+def shard_quantized(qparams, cfg, mesh):
+    """This rank's shard of a quantized weight tree, cut by
+    ``quantized_param_specs`` and copied to the mesh's device (the
+    reference's ``shard_quantized``). int4: where a packed axis is also
+    sharded (w2's d_ff over tp) every shard must hold whole nibble
+    pairs, refused here with a ValueError."""
+    from .transformer import QWeight4, _cut, _leaves, _mesh_sig, \
+        _with_leaves
+    specs = quantized_param_specs(cfg, quantized_bits(qparams))
+    for name, m in qparams.named_modules():
+        if not isinstance(m, QWeight4):
+            continue
+        spec = specs[name + ".q"]
+        axis = spec[m.axis] if m.axis < len(spec) else None
+        if axis is None:
+            continue
+        shards = mesh.shape[axis]
+        if m.q.shape[m.axis] % shards:
+            raise ValueError(
+                f"int4 packed axis {m.axis} (sharded over '{axis}'="
+                f"{shards}) holds {m.q.shape[m.axis]} nibble pairs — not "
+                f"divisible; the original dim must be a multiple of "
+                f"2*{shards} for int4 + tp")
+    out = {name: _cut(w, specs[name], mesh, name).to(
+        mesh.device, copy=True).contiguous()
+        for name, w in _leaves(qparams)}
+    placed = _with_leaves(qparams, out)
+    placed.placement = ("specs", _mesh_sig(mesh))
+    return placed
 
 
 def quantized_bytes(tree: torch.nn.Module) -> int:

@@ -1,11 +1,12 @@
 """Continuous batching: slot-based serving with per-slot positions.
 
-Counterpart of ``hpx_tpu.models.serving`` on one device: a FIXED batch of
-decode slots, each at its OWN sequence position, stepping together.
-Requests admit into free slots between steps (their prompt prefills on
-the side in BUCKETED CHUNKS on a b=1 scratch cache, then SPLICES into
-the slot's cache rows) and retire on eos/max_new, so short requests
-never wait for long ones. Dead slots compute masked work.
+Counterpart of ``hpx_tpu.models.serving``, on one device or a ("dp",
+"tp") mesh (SHARDED SERVING below): a FIXED batch of decode slots, each
+at its OWN sequence position, stepping together. Requests admit into
+free slots between steps (their prompt prefills on the side in BUCKETED
+CHUNKS on a b=1 scratch cache, then SPLICES into the slot's cache rows)
+and retire on eos/max_new, so short requests never wait for long ones.
+Dead slots compute masked work.
 
 * BUCKETED prefill: prompts run through fixed-width chunk programs
   (widths from the ``hpx.serving.prefill_buckets`` ladder, padded then
@@ -93,8 +94,56 @@ layers' folded stats vector beside their tokens; the flush adds it into
 ``_moe_routed`` / ``_moe_dropped`` and keeps the last ``_moe_occ``.
 Prefill chunks and probes route drop-free, as ``generate`` does.
 
+SHARDED SERVING (``mesh=``, a ("dp", "tp") ``parallel.mesh.Mesh``): one
+process a rank, SPMD, the reference's sharded decode plane.
+
+* Same host state on every rank. Every rank builds the same server with
+  the same arguments and submits the same requests in the same order, so
+  the queue, allocator, radix tree, page tables, spec counters, fault
+  injector (seeded: deterministic) and checkpoints evolve alike, and
+  ``run()`` returns the same dict everywhere. Where that breaks, a host
+  state parts and the next collective hangs or pairs the wrong tensors.
+* Slot ownership: dp rank d owns slots [d·S/dp, (d+1)·S/dp), as the
+  reference's P("dp") slot axis; its caches, draft caches, table rows
+  and step inputs are those rows only, its weights, caches and pools its
+  tp share of the heads (``transformer._decode_place``), the Megatron
+  pair around them in the rows (``copy_to`` / ``reduce_from``).
+* Next tokens: after each step one ``all_gather`` over dp brings every
+  slot's token (a verify step's packed targets) to every rank; the tp
+  members of a dp group agree without it, after the row-parallel close.
+* Prefill: every rank runs every prefill chunk and probe on its heads
+  (the b=1 scratch is not a slot's), so every rank reads the same seed
+  token; the dense splice writes the owner's rows only, the paged splice
+  every rank's pools. A draft model's prefill runs in the owner's dp
+  group alone.
+* Pools: each rank's pools hold EVERY block id for its kv heads
+  (``BlockAllocator.pool_pspec``: the block axis never shards). A
+  whole-block splice writes the same bytes on every replica, so a radix
+  chain published by a slot of one dp rank is sound for a slot of
+  another; decode writes land only on the owner's replica, in blocks no
+  other rank's slot can map (the radix tree holds full prompt blocks
+  only). Tables hold global block ids; ``hpx.serving.mesh.
+  table_residency`` gives a rank its rows ("sharded") or the whole
+  table, sliced at the program's entry ("replicated").
+* Clock decisions are made once: a deadline shed reads
+  ``time.monotonic()``, so rank 0 decides and a small broadcast carries
+  its answer (``_expired``). Nothing else that parts host state reads a
+  clock: async dispatch buffers by counts, the injector by its seed.
+* CUDA graphs: under gloo (ranks sharing a card) a server whose programs
+  hold a collective (tp > 1, or experts over several ranks) captures no
+  graph (``capture_allowed``): a gloo verb is host work, and a failed
+  capture leaves its stream current. Under NCCL they are captured.
+* MoE: layers route through ``moe_ffn_decode`` over the expert axis
+  ("ep" if the mesh has one, else "tp"), dead and padded rows routing
+  and counting as on one device; the stats vectors are summed over the
+  expert axis in the program and folded over dp at the flush, so
+  ``_moe_routed`` / ``_moe_dropped`` count every slot's claims.
+* Refusals (the reference's types and messages): slots not divisible by
+  dp, heads by tp, n_experts by the expert axis, a bogus residency,
+  ``hpx.serving.mesh.paged=0`` with ``paged=True``.
+
 Left for later slices (the constructor takes none of their arguments):
-the mesh, the host KV tier, disaggregated prefill,
+the host KV tier, disaggregated prefill,
 the ``/serving{...}`` counters, the flight recorder and live tuning.
 """
 
@@ -109,6 +158,7 @@ import numpy as np
 import torch
 
 from ..cache.block_allocator import BlockAllocator, CacheOOM, block_bytes
+from ..collectives.device import all_reduce, broadcast, copy_to
 from ..cache.ngram import propose as _ngram_propose
 from ..cache.page_table import PageTable, device_table, occupancy
 from ..cache.radix import RadixCache
@@ -128,9 +178,11 @@ from ..ops.paged_attention import (gather_block_kv, paged_decode_attention,
                                    scatter_seq_blocks, scatter_seq_blocks_q)
 from ..utils import prng
 from .transformer import (_PREFILL_CHUNK, _PROGRAMS, TransformerConfig,
-                          _attend, _cached_program, _decode_window,
-                          _ffn_tail, _ln, _pick_rows, _qkv_proj,
-                          _rope_angles, _rotate, _sample_row, _tree_key)
+                          _attend, _cached_program, _decode_ep,
+                          _decode_mesh_check, _decode_place, _decode_window,
+                          _ffn_tail, _gather_rows, _ln, _mesh_device,
+                          _pick_rows, _qkv_proj, _rope_angles, _rotate,
+                          _sample_row, _tree_key)
 
 __all__ = ["ContinuousServer", "RequestShedError", "ServerClosedError",
            "DeadlineExceededError", "SlotCheckpoint"]
@@ -230,10 +282,13 @@ def _rope_win(x: torch.Tensor, posw: torch.Tensor, cfg: TransformerConfig):
     return _rotate(x, cos, sin, half)
 
 
-def _project_rows(x, lp, posw, cfg):
+def _project_rows(x, lp, posw, cfg, mesh=None):
     """ln1, the q/k/v projections and RoPE of x [B, W, D] at per-row
-    positions posw [B, W]."""
+    positions posw [B, W]; on a mesh, this rank's heads (``copy_to``
+    opens the tp-split half)."""
     h = _ln(x, lp["ln1"])
+    if mesh is not None:
+        h = copy_to(h, mesh, "tp")
     q, k, v = _qkv_proj(h, lp)
     if cfg.rope:
         q, k = _rope_win(q, posw, cfg), _rope_win(k, posw, cfg)
@@ -251,7 +306,7 @@ def _moe_fold(sink: list) -> Optional[torch.Tensor]:
 
 
 def _block_decode_rows(x, lp, kv, pos, cfg: TransformerConfig,
-                       moe_cf=None, sink=None):
+                       moe_cf=None, sink=None, mesh=None):
     """One decoder block for ONE new token per slot at per-slot
     positions: x [B, 1, D]; kv (k_cache, v_cache) [B, Smax, Nkv, H],
     written in place (row b at pos[b]); pos [B]. Slot b attends cache
@@ -260,7 +315,7 @@ def _block_decode_rows(x, lp, kv, pos, cfg: TransformerConfig,
     slots' rows route and count like live ones, as in the
     reference."""
     kc, vc = kv
-    q, k, v = _project_rows(x, lp, pos[:, None], cfg)
+    q, k, v = _project_rows(x, lp, pos[:, None], cfg, mesh)
     rows = torch.arange(x.shape[0], device=x.device)
     p = pos.long()
     kc[rows, p] = k[:, 0].to(kc.dtype)
@@ -268,17 +323,18 @@ def _block_decode_rows(x, lp, kv, pos, cfg: TransformerConfig,
     kpos = torch.arange(kc.shape[1], device=x.device)
     live = (kpos[None, :] <= p[:, None])[:, None]              # [B, 1, S]
     att = _attend(q, kc, vc, live, x.dtype)
-    return _ffn_tail(x, att, lp, cfg, moe_cf, sink), (kc, vc)
+    return _ffn_tail(x, att, lp, cfg, moe_cf, sink, mesh), (kc, vc)
 
 
-def _decode_rows(params, caches, tok, pos, cfg, moe_cf=None):
+def _decode_rows(params, caches, tok, pos, cfg, moe_cf=None, mesh=None):
     """One token per slot through every block at per-slot positions;
     returns (caches, f32 logits [B, V], the folded MoE stats or
-    None)."""
+    None). ``mesh``: the rows are this dp rank's slots, the weights and
+    caches its heads (the Megatron pair of ``transformer._ffn_tail``)."""
     x = params["emb"][tok][:, None, :]
     new_caches, sink = [], []
     for lp, kv in zip(params["layers"], caches):
-        x, kv = _block_decode_rows(x, lp, kv, pos, cfg, moe_cf, sink)
+        x, kv = _block_decode_rows(x, lp, kv, pos, cfg, moe_cf, sink, mesh)
         new_caches.append(kv)
     x = _ln(x, params["ln_f"])
     logits = torch.einsum("bsd,vd->bsv", x, params["emb"])
@@ -287,7 +343,7 @@ def _decode_rows(params, caches, tok, pos, cfg, moe_cf=None):
 
 def _paged_block_rows(x, lp, pools, scales, table, pos,
                       cfg: TransformerConfig, fused=False, moe_cf=None,
-                      sink=None):
+                      sink=None, mesh=None):
     """``_block_decode_rows`` with the K/V rows in a shared block pool:
     pools (k_pool, v_pool) [num_blocks, block_size, Nkv, H]; scales
     (k_scale, v_scale) [num_blocks, Nkv] f32 for int8/fp8 pools, or
@@ -295,7 +351,7 @@ def _paged_block_rows(x, lp, pools, scales, table, pos,
     rope and the MLP are the dense path's; only the cache write and
     read differ, which keeps paged == dense token-exact."""
     kp, vp = pools
-    q, k, v = _project_rows(x, lp, pos[:, None], cfg)
+    q, k, v = _project_rows(x, lp, pos[:, None], cfg, mesh)
     if scales is None:
         att, kp, vp = paged_decode_attention(q, k[:, 0], v[:, 0], kp, vp,
                                              table, pos, fused=fused)
@@ -305,19 +361,21 @@ def _paged_block_rows(x, lp, pools, scales, table, pos,
             q, k[:, 0], v[:, 0], kp, vp, table, pos, k_scale=ks,
             v_scale=vs, fused=fused)
         scales = (ks, vs)
-    return _ffn_tail(x, att, lp, cfg, moe_cf, sink), (kp, vp), scales
+    return _ffn_tail(x, att, lp, cfg, moe_cf, sink, mesh), (kp, vp), scales
 
 
 def _paged_decode_rows(params, pools, scales, tok, table, pos, cfg,
-                       fused=False, moe_cf=None):
+                       fused=False, moe_cf=None, mesh=None):
     """One token per slot through every block over paged pools;
-    returns (pools, scales, f32 logits [B, V], MoE stats or None)."""
+    returns (pools, scales, f32 logits [B, V], MoE stats or None). On a
+    ``mesh`` the pools hold this rank's kv heads of every block and the
+    table its slots' rows: kernels 3-4 walk them as they are."""
     x = params["emb"][tok][:, None, :]
     new_pools, new_scales, sink = [], [], []
     for i, (lp, pl) in enumerate(zip(params["layers"], pools)):
         sc = None if scales is None else scales[i]
         x, pl, sc = _paged_block_rows(x, lp, pl, sc, table, pos, cfg,
-                                      fused, moe_cf, sink)
+                                      fused, moe_cf, sink, mesh)
         new_pools.append(pl)
         new_scales.append(sc)
     x = _ln(x, params["ln_f"])
@@ -350,7 +408,7 @@ def _window_write(c: torch.Tensor, posw: torch.Tensor,
 
 
 def _window_rows(x, lp, kv, pos0, cfg: TransformerConfig, moe_cf=None,
-                 sink=None):
+                 sink=None, mesh=None):
     """One decoder block for a W-token verify window per slot at
     per-slot positions: x [B, W, D]; slot b's window row i lands at
     cache position pos0[b] + i and attends positions <= pos0[b] + i.
@@ -359,23 +417,24 @@ def _window_rows(x, lp, kv, pos0, cfg: TransformerConfig, moe_cf=None,
     column i computes what the i-th sequential step would."""
     kc, vc = kv
     posw = _window_posw(pos0, x.shape[1])
-    q, k, v = _project_rows(x, lp, posw, cfg)
+    q, k, v = _project_rows(x, lp, posw, cfg, mesh)
     _window_write(kc, posw, k)
     _window_write(vc, posw, v)
     kpos = torch.arange(kc.shape[1], device=x.device)
     live = kpos[None, None, :] <= posw[:, :, None]          # [B, W, S]
     att = _attend(q, kc, vc, live, x.dtype)
-    return _ffn_tail(x, att, lp, cfg, moe_cf, sink), (kc, vc)
+    return _ffn_tail(x, att, lp, cfg, moe_cf, sink, mesh), (kc, vc)
 
 
-def _decode_window_rows(params, caches, toks, pos0, cfg, moe_cf=None):
+def _decode_window_rows(params, caches, toks, pos0, cfg, moe_cf=None,
+                        mesh=None):
     """W tokens per slot through every block at per-slot positions (the
     speculative verify forward): toks [B, W], pos0 [B]. Returns (caches,
     f32 logits [B, W, V], MoE stats or None)."""
     x = params["emb"][toks]
     new_caches, sink = [], []
     for lp, kv in zip(params["layers"], caches):
-        x, kv = _window_rows(x, lp, kv, pos0, cfg, moe_cf, sink)
+        x, kv = _window_rows(x, lp, kv, pos0, cfg, moe_cf, sink, mesh)
         new_caches.append(kv)
     x = _ln(x, params["ln_f"])
     return (new_caches,
@@ -385,13 +444,14 @@ def _decode_window_rows(params, caches, toks, pos0, cfg, moe_cf=None):
 
 def _paged_window_rows(x, lp, pools, scales, table, pos0,
                        cfg: TransformerConfig, fused=False, moe_cf=None,
-                       sink=None):
+                       sink=None, mesh=None):
     """``_window_rows`` over paged pools: the pool writes and the
     per-query horizon live in ``ops.paged_attention.
     paged_window_attention`` (the fused modes: kernels 3-4 at W = the
     window), the projections, rope and MLP are the dense window's."""
     kp, vp = pools
-    q, k, v = _project_rows(x, lp, _window_posw(pos0, x.shape[1]), cfg)
+    q, k, v = _project_rows(x, lp, _window_posw(pos0, x.shape[1]), cfg,
+                            mesh)
     if scales is None:
         att, kp, vp = paged_window_attention(q, k, v, kp, vp, table, pos0,
                                              fused=fused)
@@ -401,11 +461,11 @@ def _paged_window_rows(x, lp, pools, scales, table, pos0,
             q, k, v, kp, vp, table, pos0, k_scale=ks, v_scale=vs,
             fused=fused)
         scales = (ks, vs)
-    return _ffn_tail(x, att, lp, cfg, moe_cf, sink), (kp, vp), scales
+    return _ffn_tail(x, att, lp, cfg, moe_cf, sink, mesh), (kp, vp), scales
 
 
 def _paged_decode_window_rows(params, pools, scales, toks, table, pos0, cfg,
-                              fused=False, moe_cf=None):
+                              fused=False, moe_cf=None, mesh=None):
     """W tokens per slot over paged pools; returns (pools, scales, f32
     logits [B, W, V], MoE stats or None)."""
     x = params["emb"][toks]
@@ -413,7 +473,7 @@ def _paged_decode_window_rows(params, pools, scales, toks, table, pos0, cfg,
     for i, (lp, pl) in enumerate(zip(params["layers"], pools)):
         sc = None if scales is None else scales[i]
         x, pl, sc = _paged_window_rows(x, lp, pl, sc, table, pos0, cfg,
-                                       fused, moe_cf, sink)
+                                       fused, moe_cf, sink, mesh)
         new_pools.append(pl)
         new_scales.append(sc)
     x = _ln(x, params["ln_f"])
@@ -442,6 +502,15 @@ def _verify_tail(logits, toks, kvec, temp, keys, pos0, width: int,
     match = (toks[:, 1:] == tgt[:, :-1]) & (offs[None, 1:] <= kvec[:, None])
     acc = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
     return torch.cat([tgt, acc[:, None]], dim=1).to(torch.int32)
+
+
+def capture_allowed(mesh, holds_collective: bool) -> bool:
+    """Whether a server's programs may be captured into CUDA graphs: not
+    on a gloo mesh where they hold a collective (a gloo verb is host
+    work, which a graph cannot hold; a failed capture leaves its stream
+    current). Under NCCL (a card a rank) they are captured."""
+    return not (holds_collective and mesh is not None
+                and mesh.backend == "gloo")
 
 
 def _check_in_place(what: str, got, state) -> None:
@@ -542,6 +611,12 @@ class ContinuousServer:
     ``device`` (None means ``cuda:0``; pass ``device="cpu"`` for the
     CPU), as are ``draft_params``.
 
+    ``mesh``: a ("dp", "tp") ``parallel.mesh.Mesh``; every rank of it
+    builds the same server (global weights, or as ``shard_params`` /
+    ``shard_quantized`` placed them) and submits the same requests in
+    the same order, and ``run()`` returns the same dict on every rank
+    (see the module's SHARDED SERVING).
+
     ``spec=True`` turns each decode step speculative: per-slot drafts
     (``spec_draft='prompt'`` mines the slot's token history; ``'model'``
     runs ``draft_params`` / ``draft_cfg``) are verified by one window
@@ -564,14 +639,34 @@ class ContinuousServer:
                  kv_dtype: Optional[str] = None,
                  draft_params=None,
                  draft_cfg: Optional[TransformerConfig] = None,
-                 device=None):
-        self.device = resolve_device(device)
+                 device=None, mesh=None):
         self.cfg = cfg
         self.slots = slots
         self.smax = smax
         self.paged = bool(paged)
-        self.params = params.to(self.device)
+        self.mesh = mesh
+        # the programs of a mesh server bake its groups in: keyed on it
+        self._mesh_key = () if mesh is None else (mesh,)
         rc = runtime_config()
+        # this rank's slots [lo, lo + rows) and its share of the heads
+        self._lo, self._rows, self._tp = 0, slots, 1
+        self._ep_axis, self._ep_size = None, 1
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            if self.paged and not rc.get_bool("hpx.serving.mesh.paged",
+                                              True):
+                raise ValueError(
+                    "sharded paged serving is disabled "
+                    "(hpx.serving.mesh.paged=0): shard the dense path "
+                    "(mesh=...) or run one paged server per replica")
+            dp, self._tp = _decode_mesh_check(cfg, mesh, slots, "slots")
+            self._ep_axis, self._ep_size = _decode_ep(cfg, mesh)
+            self.device = _mesh_device(mesh, device)
+            self._rows = slots // dp
+            self._lo = mesh.axis_index("dp") * self._rows
+            params = _decode_place(params, cfg, mesh)
+        self.params = params.to(self.device)
         if prefill_chunk is None:
             prefill_chunk = rc.get_int("hpx.serving.prefill_chunk",
                                        _PREFILL_CHUNK)
@@ -620,10 +715,14 @@ class ContinuousServer:
         self._prog_hits = 0             # program-cache hits
         self._prog_misses = 0           # program-cache misses (builds)
         # CUDA graphs of this server's step programs, by program key,
-        # in one memory pool; the ring its decode tokens are kept in
+        # in one memory pool; the ring its decode tokens are kept in.
+        # Under gloo a mesh server whose programs hold a collective
+        # captures none (a gloo verb cannot be captured): they run as
+        # the eager programs they are
         self._graphs: Dict[Any, programs.GraphProgram] = {}
         self._graph_pool = (torch.cuda.graph_pool_handle()
                             if programs.graphs_enabled(self.device)
+                            and capture_allowed(mesh, self._collective())
                             else None)
         self._ring: List[torch.Tensor] = []
         self._ring_i = 0
@@ -641,7 +740,8 @@ class ContinuousServer:
                 raise ValueError(
                     "paged_kernel / kv_dtype are paged-mode knobs; "
                     "pass paged=True to use them")
-            self._caches = [(self._zeros(slots), self._zeros(slots))
+            self._caches = [(self._zeros(self._rows),
+                             self._zeros(self._rows))
                             for _ in range(cfg.n_layers)]
         # host-side slot state
         self._slot_req: List[Optional[_Request]] = [None] * slots
@@ -691,9 +791,23 @@ class ContinuousServer:
 
     def _zeros(self, rows: int, cfg: Optional[TransformerConfig] = None
                ) -> torch.Tensor:
+        """A dense cache of ``rows`` slots: this rank's kv heads."""
         cfg = cfg or self.cfg
-        return torch.zeros((rows, self.smax, cfg.kv_heads, cfg.head_dim),
-                           dtype=cfg.dtype, device=self.device)
+        return torch.zeros((rows, self.smax, cfg.kv_heads // self._tp,
+                            cfg.head_dim), dtype=cfg.dtype,
+                           device=self.device)
+
+    def _collective(self) -> bool:
+        """Whether the model's programs hold a collective: tp > 1 (the
+        Megatron pair) or experts over more than one rank."""
+        return self.mesh is not None and (self._tp > 1 or self._ep_size > 1)
+
+    def _local(self, values: list) -> list:
+        """This rank's slots of a per-slot host list."""
+        return values[self._lo:self._lo + self._rows]
+
+    def _owns(self, slot: int) -> bool:
+        return self._lo <= slot < self._lo + self._rows
 
     def _init_spec(self, rc, spec, spec_k, spec_draft, draft_params,
                    draft_cfg) -> None:
@@ -746,12 +860,23 @@ class ContinuousServer:
                 raise ValueError(
                     f"draft vocab {draft_cfg.vocab} != target vocab "
                     f"{self.cfg.vocab}")
+            if self.mesh is not None:
+                # the draft shares the serving mesh: its heads over tp,
+                # the slots' rows over dp
+                try:
+                    _decode_mesh_check(draft_cfg, self.mesh, self.slots,
+                                       "slots")
+                except ValueError as e:
+                    raise ValueError("draft model cannot share the "
+                                     "serving mesh: " + str(e)) from None
+                draft_params = _decode_place(draft_params, draft_cfg,
+                                             self.mesh)
             self._draft_params = draft_params.to(self.device)
             self._draft_cfg = draft_cfg
             self._draft_tree = _tree_key(self._draft_params)
             self._draft_caches = [
-                (self._zeros(self.slots, draft_cfg),
-                 self._zeros(self.slots, draft_cfg))
+                (self._zeros(self._rows, draft_cfg),
+                 self._zeros(self._rows, draft_cfg))
                 for _ in range(draft_cfg.n_layers)]
 
 
@@ -811,11 +936,31 @@ class ContinuousServer:
         self._radix = RadixCache(self._alloc, radix_budget_blocks)
         dt = {"int8": torch.int8,
               "fp8": FP8_DTYPE}.get(self._kv_dtype, cfg.dtype)
-        # a decode step passes the kernels every slot, W = 1; a verify
-        # step at most the ladder's rung for 1 + k
+        # on a mesh the pools hold every block id (the block axis never
+        # shards) and this rank's kv heads (pool_pspec); the table rows
+        # are its slots', resident as hpx.serving.mesh.table_residency
+        # says
+        self._table_residency = "sharded"
+        tp_axis = None
+        if self.mesh is not None:
+            tp_axis = "tp"
+            self._table_residency = rc.get(
+                "hpx.serving.mesh.table_residency", "sharded")
+            if self._table_residency not in ("sharded", "replicated"):
+                raise ValueError(
+                    "hpx.serving.mesh.table_residency must be "
+                    "'sharded' or 'replicated', got "
+                    f"{self._table_residency!r}")
+        shape = self._local_shape(
+            (num_blocks, bs, cfg.kv_heads, cfg.head_dim),
+            self._alloc.pool_pspec(tp_axis))
+        sshape = self._local_shape((num_blocks, cfg.kv_heads),
+                                   self._alloc.scale_pspec(tp_axis))
+        # a decode step passes the kernels this rank's slots, W = 1; a
+        # verify step at most the ladder's rung for 1 + k
         width = self._bucket_width(1 + self._spec_k) if self._spec else 1
         self._paged_kernel = _resolve_paged_kernel(
-            paged_kernel, rc, self.device, slots, cfg.kv_heads,
+            paged_kernel, rc, self.device, self._rows, shape[2],
             width * (cfg.n_heads // cfg.kv_heads),
             self._maxb, bs, cfg.head_dim,
             torch.empty((), dtype=dt).element_size())
@@ -823,14 +968,12 @@ class ContinuousServer:
         # oracle, True -> exact kernel, "online" -> online kernel
         self._paged_fused = {"gather": False, "fused": True,
                              "fused_online": "online"}[self._paged_kernel]
-        shape = (num_blocks, bs, cfg.kv_heads, cfg.head_dim)
         self._pools = [tuple(torch.zeros(shape, dtype=dt, device=self.device)
                              for _ in range(2))
                        for _ in range(cfg.n_layers)]
         if self._kv_dtype in ("int8", "fp8"):
             # scale 1.0: fresh pools dequantize to exact zeros
-            self._scales = [tuple(torch.ones((num_blocks, cfg.kv_heads),
-                                             dtype=torch.float32,
+            self._scales = [tuple(torch.ones(sshape, dtype=torch.float32,
                                              device=self.device)
                                   for _ in range(2))
                             for _ in range(cfg.n_layers)]
@@ -841,6 +984,11 @@ class ContinuousServer:
         self._tables_arr = None     # cached device [slots, maxb] map
         self._prefill_saved = 0
         self._prefill_computed = 0
+
+    def _local_shape(self, shape: tuple, spec: tuple) -> tuple:
+        """A global shape cut by a spec of mesh axis names (or None)."""
+        return tuple(n // (self.mesh.shape[a] if a else 1)
+                     for n, a in zip(shape, spec))
 
     # -- programs (memoized on what they bake in) ---------------------------
 
@@ -874,14 +1022,16 @@ class ContinuousServer:
 
     def _step_prog(self):
         cfg, slots, smax = self.cfg, self.slots, self.smax
-        ck = ("cb_step", cfg, slots, smax, *self._moe_key, self._tree)
+        mesh = self.mesh
+        ck = ("cb_step", cfg, slots, smax, *self._moe_key, self._tree,
+              *self._mesh_key)
 
         def build():
             moe_cf = self._moe_cf()
 
             def step(params, caches, tok, pos, temp, keys, sample):
                 caches, logits, ms = _decode_rows(params, caches, tok, pos,
-                                                  cfg, moe_cf)
+                                                  cfg, moe_cf, mesh)
                 return (caches, _pick_rows(logits, keys, temp, pos, sample),
                         ms)
             return step
@@ -894,13 +1044,13 @@ class ContinuousServer:
         not per prompt length. Pad rows land past the real frontier;
         they are never attended and are overwritten before their
         positions go live."""
-        cfg, smax = self.cfg, self.smax
-        ck = ("cb_chunk", cfg, width, smax, self._tree)
+        cfg, smax, mesh = self.cfg, self.smax, self.mesh
+        ck = ("cb_chunk", cfg, width, smax, self._tree, *self._mesh_key)
 
         def build():
             def chunk(params, caches, toks, pos0):
                 caches, _ = _decode_window(params, caches, toks, pos0, cfg,
-                                           need_logits=False)
+                                           need_logits=False, mesh=mesh)
                 return caches
             return chunk
         return self._captured(ck, self._program(ck, build), bound=(0, 1))
@@ -908,13 +1058,13 @@ class ContinuousServer:
     def _probe_prog(self):
         """Seed-logits probe: rerun the LAST prompt token at its own
         position (an idempotent K/V rewrite) and return its logits."""
-        cfg, smax = self.cfg, self.smax
-        ck = ("cb_probe", cfg, smax, self._tree)
+        cfg, smax, mesh = self.cfg, self.smax, self.mesh
+        ck = ("cb_probe", cfg, smax, self._tree, *self._mesh_key)
 
         def build():
             def probe(params, caches, tok, pos):
                 caches, lg = _decode_window(params, caches, tok, pos, cfg,
-                                            need_logits=True)
+                                            need_logits=True, mesh=mesh)
                 return caches, lg[:, -1]
             return probe
         return self._captured(ck, self._program(ck, build), bound=(0, 1))
@@ -934,12 +1084,28 @@ class ContinuousServer:
 
     def _paged_key(self, name: str) -> tuple:
         return (name, self.cfg, self.smax, self._alloc.num_blocks,
-                self.block_size, self._kv_dtype)
+                self.block_size, self._kv_dtype, *self._mesh_key)
+
+    def _rows_key(self) -> tuple:
+        """The program-key part of a paged program's table rows: none on
+        one device (its keys stay the single-device ones)."""
+        if self.mesh is None:
+            return ()
+        return (self.mesh, self._table_residency)
+
+    def _table_rows(self):
+        """The slice of the device table that is this rank's rows: all
+        of it but under replicated residency, where the programs cut
+        their rows at entry."""
+        if self.mesh is None or self._table_residency == "sharded":
+            return slice(None)
+        return slice(self._lo, self._lo + self._rows)
 
     def _paged_step_prog(self):
-        cfg, fused = self.cfg, self._paged_fused
+        cfg, fused, mesh = self.cfg, self._paged_fused, self.mesh
+        rows = self._table_rows()
         ck = (*self._paged_key("pg_step"), self.slots, self._paged_kernel,
-              *self._moe_key, self._tree)
+              *self._moe_key, self._tree, *self._rows_key())
 
         def build():
             moe_cf = self._moe_cf()
@@ -947,8 +1113,8 @@ class ContinuousServer:
             def step(params, pools, scales, tok, pos, tables, temp, keys,
                      sample):
                 pools, scales, logits, ms = _paged_decode_rows(
-                    params, pools, scales, tok, tables, pos, cfg, fused,
-                    moe_cf)
+                    params, pools, scales, tok, tables[rows], pos, cfg,
+                    fused, moe_cf, mesh)
                 return pools, scales, _pick_rows(logits, keys, temp, pos,
                                                  sample), ms
             return step
@@ -1028,9 +1194,9 @@ class ContinuousServer:
         positions, returning the packed targets and counts. Keyed per
         LADDER WIDTH (the prefill chunks' ladder), so the programs stay
         O(buckets) however adaptive k wanders."""
-        cfg, slots, smax = self.cfg, self.slots, self.smax
+        cfg, slots, smax, mesh = self.cfg, self.slots, self.smax, self.mesh
         ck = ("cb_verify", cfg, slots, smax, width, *self._moe_key,
-              self._tree)
+              self._tree, *self._mesh_key)
 
         def build():
             moe_cf = self._moe_cf()
@@ -1038,7 +1204,7 @@ class ContinuousServer:
             def verify(params, caches, toks, pos0, kvec, temp, keys,
                        sample):
                 caches, logits, ms = _decode_window_rows(
-                    params, caches, toks, pos0, cfg, moe_cf)
+                    params, caches, toks, pos0, cfg, moe_cf, mesh)
                 return caches, _verify_tail(logits, toks, kvec, temp, keys,
                                             pos0, width, sample), ms
             return verify
@@ -1047,9 +1213,11 @@ class ContinuousServer:
     def _paged_verify_prog(self, width: int):
         """``_verify_prog`` over the paged pools: the fused modes run
         kernels 3-4 at W = width, a launch a layer."""
-        cfg, fused = self.cfg, self._paged_fused
+        cfg, fused, mesh = self.cfg, self._paged_fused, self.mesh
+        rows = self._table_rows()
         ck = (*self._paged_key("pg_verify"), self.slots, width,
-              self._paged_kernel, *self._moe_key, self._tree)
+              self._paged_kernel, *self._moe_key, self._tree,
+              *self._rows_key())
 
         def build():
             moe_cf = self._moe_cf()
@@ -1057,8 +1225,8 @@ class ContinuousServer:
             def verify(params, pools, scales, toks, pos0, tables, kvec,
                        temp, keys, sample):
                 pools, scales, logits, ms = _paged_decode_window_rows(
-                    params, pools, scales, toks, tables, pos0, cfg, fused,
-                    moe_cf)
+                    params, pools, scales, toks, tables[rows], pos0, cfg,
+                    fused, moe_cf, mesh)
                 return pools, scales, _verify_tail(
                     logits, toks, kvec, temp, keys, pos0, width,
                     sample), ms
@@ -1070,13 +1238,14 @@ class ContinuousServer:
         """One greedy draft-model step at per-slot positions. The draft
         always proposes greedily: its quality moves the acceptance rate,
         never the emitted tokens."""
-        dcfg = self._draft_cfg
-        ck = ("cb_draft", dcfg, self.slots, self.smax, self._draft_tree)
+        dcfg, mesh = self._draft_cfg, self.mesh
+        ck = ("cb_draft", dcfg, self.slots, self.smax, self._draft_tree,
+              *self._mesh_key)
 
         def build():
             def step(params, caches, tok, pos):
                 caches, logits, _ = _decode_rows(params, caches, tok, pos,
-                                                 dcfg)
+                                                 dcfg, mesh=mesh)
                 return caches, torch.argmax(logits, dim=-1)
             return step
         return self._captured(ck, self._program(ck, build), bound=(0, 1))
@@ -1086,16 +1255,16 @@ class ContinuousServer:
         cache (``slot`` a [1] tensor): the slot's rows are taken out,
         run through the shared window forward and put back. The target's
         ladder widths: O(buckets) draft programs."""
-        dcfg = self._draft_cfg
+        dcfg, mesh = self._draft_cfg, self.mesh
         ck = ("cb_dchunk", dcfg, width, self.smax, self.slots,
-              self._draft_tree)
+              self._draft_tree, *self._mesh_key)
 
         def build():
             def chunk(params, caches, toks, pos0, slot):
                 one = [(kc.index_select(0, slot), vc.index_select(0, slot))
                        for kc, vc in caches]
                 one, _ = _decode_window(params, one, toks, pos0, dcfg,
-                                        need_logits=False)
+                                        need_logits=False, mesh=mesh)
                 for (kc, vc), (k1, v1) in zip(caches, one):
                     kc.index_copy_(0, slot, k1)
                     vc.index_copy_(0, slot, v1)
@@ -1111,6 +1280,16 @@ class ContinuousServer:
         if self._graph_pool is not None and self.device.type == "cuda":
             return torch.tensor(values, dtype=dtype, pin_memory=True)
         return torch.tensor(values, dtype=dtype, device=self.device)
+
+    def _slot_vectors(self) -> None:
+        """The device mirrors of this rank's slots' temperatures and keys,
+        made when a slot's request changed."""
+        if self._temp_dev is None:
+            self._temp_dev = torch.tensor(self._local(self._temp),
+                                          dtype=torch.float32,
+                                          device=self.device)
+            self._keys_dev = torch.stack(self._local(self._key)).to(
+                self.device)
 
     def _keep_moe(self, ms: Optional[torch.Tensor]) -> None:
         """Buffer a step's MoE stats vector (a copy: a replay's output is
@@ -1197,8 +1376,9 @@ class ContinuousServer:
         sig = tuple((pt.uid, pt.version) if pt is not None else None
                     for pt in self._tables)
         if sig != self._tables_sig or self._tables_arr is None:
-            self._tables_arr = device_table(self._tables, self._maxb,
-                                            self._trash, self.device)
+            self._tables_arr = device_table(
+                self._tables, self._maxb, self._trash, self.device,
+                mesh=self.mesh, residency=self._table_residency)
             self._tables_sig = sig
         return self._tables_arr
 
@@ -1234,6 +1414,12 @@ class ContinuousServer:
         st["prefill_tokens_saved"] = self._prefill_saved
         st["prefill_tokens_computed"] = self._prefill_computed
         st.update(self.hbm_read_stats())
+        if self.mesh is not None:
+            # per-dp-rank accounting: dp rank d's decode reads exactly
+            # its slots' mapped blocks
+            for d in range(self.slots // self._rows):
+                st[f"occupancy_dp{d}"] = occupancy(
+                    self._tables[d * self._rows:(d + 1) * self._rows])
         return st
 
     def _kv_acct_dtype(self) -> str:
@@ -1363,8 +1549,9 @@ class ContinuousServer:
             cfg = self.cfg
             rows = self._maxb * self.block_size if self.paged else self.smax
             self._scratch = [tuple(
-                torch.zeros((1, rows, cfg.kv_heads, cfg.head_dim),
-                            dtype=cfg.dtype, device=self.device)
+                torch.zeros((1, rows, cfg.kv_heads // self._tp,
+                             cfg.head_dim), dtype=cfg.dtype,
+                            device=self.device)
                 for _ in range(2)) for _ in range(cfg.n_layers)]
         r = self._resident
         if r is not p:
@@ -1474,9 +1661,9 @@ class ContinuousServer:
                 self._pools, self._scales = self._paged_splice_prog()(
                     self._pools, self._scales, caches, p.wrow)
                 self._tables[slot] = p.pt
-            else:
+            elif self._owns(slot):
                 self._caches = self._splice_prog()(self._caches, caches,
-                                                   slot)
+                                                   slot - self._lo)
         del self._pending[slot]
         self._resident = None
         if req.temperature > 0.0:
@@ -1490,10 +1677,10 @@ class ContinuousServer:
         self._slot_req[slot] = req
         self._pos[slot] = plen
         self._cur[slot] = tok0
-        if self._cur_dev is not None:
+        if self._cur_dev is not None and self._owns(slot):
             # a copy: the buffered steps still hold the old tensor
             self._cur_dev = self._cur_dev.clone()
-            self._cur_dev[slot] = tok0
+            self._cur_dev[slot - self._lo] = tok0
         self._temp[slot] = req.temperature
         self._key[slot] = (req.key if req.key is not None
                            else prng.PRNGKey(0))
@@ -1602,7 +1789,11 @@ class ContinuousServer:
     def _draft_prefill(self, slot: int, prompt: List[int]) -> None:
         """The draft model's K/V rows 0..plen-1 for a freshly admitted
         slot: bucketed chunks over the whole prompt (the target's
-        ladder, so the draft's chunk programs are O(buckets) too)."""
+        ladder, so the draft's chunk programs are O(buckets) too). On a
+        mesh only the slot's dp group holds its rows, and only it runs
+        them (its collectives stay inside the group)."""
+        if not self._owns(slot):
+            return
         done, plen = 0, len(prompt)
         with torch.no_grad():
             while done < plen:
@@ -1613,7 +1804,7 @@ class ContinuousServer:
                     self._draft_params, self._draft_caches,
                     self._host([toks], torch.int64),
                     self._host(done, torch.int64),
-                    self._host([slot], torch.int64))
+                    self._host([slot - self._lo], torch.int64))
                 _check_in_place("a draft prefill chunk", caches,
                                 self._draft_caches)
                 done += n
@@ -1647,9 +1838,11 @@ class ContinuousServer:
         columns past kbatch zero)."""
         prog = self._draft_step_prog()
         dev = self.device
-        tok = self._host(self._cur, torch.int64).to(dev, non_blocking=True)
-        pos = self._host(self._pos, torch.int32).to(dev, non_blocking=True)
-        toks = torch.zeros((self.slots, width), dtype=torch.int64,
+        tok = self._host(self._local(self._cur), torch.int64).to(
+            dev, non_blocking=True)
+        pos = self._host(self._local(self._pos), torch.int32).to(
+            dev, non_blocking=True)
+        toks = torch.zeros((self._rows, width), dtype=torch.int64,
                            device=dev)
         toks[:, 0] = tok
         with torch.no_grad():
@@ -1713,7 +1906,7 @@ class ContinuousServer:
                 for s, d in self._prompt_drafts(live, kcap).items():
                     mat[s, 1:1 + len(d)] = d
                     kvec_host[s] = len(d)
-                toks = self._host(mat.tolist(), torch.int64)
+                toks = self._host(self._local(mat.tolist()), torch.int64)
         drafted = sum(kvec_host[s] for s in live)
         with tracing.span("serving.spec.verify", "serving", width=width,
                           drafted=drafted, slots=len(live)):
@@ -1723,13 +1916,9 @@ class ContinuousServer:
             # draft-cache advance; repeated ones walk the degradation
             # ladder in _recover and turn speculation off
             faultinject.check("verify")
-            pos = self._host(self._pos, torch.int32)
-            kvec = self._host(kvec_host, torch.int32)
-            if self._temp_dev is None:
-                self._temp_dev = torch.tensor(self._temp,
-                                              dtype=torch.float32,
-                                              device=self.device)
-                self._keys_dev = torch.stack(self._key).to(self.device)
+            pos = self._host(self._local(self._pos), torch.int32)
+            kvec = self._host(self._local(kvec_host), torch.int32)
+            self._slot_vectors()
             sample = any(t > 0.0 for t in self._temp)
             with torch.no_grad():
                 if self.paged:
@@ -1750,8 +1939,9 @@ class ContinuousServer:
                                     self._caches)
                 self._keep_moe(ms)
                 # the spec step's one host read: every slot's targets
-                # and count, read before the next replay rewrites them
-                vals = packed.cpu().numpy()
+                # and count (all dp ranks' rows), read before the next
+                # replay rewrites them
+                vals = _gather_rows(packed, self.mesh).cpu().numpy()
         emitted_total = 0
         for s in live:
             req = self._slot_req[s]
@@ -1894,7 +2084,9 @@ class ContinuousServer:
                     self._host(done, torch.int64))
                 _check_in_place("a restore chunk", caches, scratch)
                 done += n
-            self._caches = self._splice_prog()(self._caches, scratch, slot)
+            if self._owns(slot):
+                self._caches = self._splice_prog()(self._caches, scratch,
+                                                   slot - self._lo)
         self._resident = None
 
     def _restart_pending(self, slot: int) -> None:
@@ -2000,23 +2192,43 @@ class ContinuousServer:
         submit()-time deadline lapsed sheds now, with a typed error.
         Live slots are exempt: they hold device state already, and their
         remaining tokens are the cheapest in the system."""
-        now = time.monotonic()
-        if any(r.t_deadline is not None for r in self._queue):
+        pend = [(s, p.req) for s, p in self._pending.items()
+                if p.req.t_deadline is not None]
+        queued = [r for r in self._queue if r.t_deadline is not None]
+        if not pend and not queued:
+            return
+        expired = self._expired([r for _, r in pend] + queued)
+        if any(expired[len(pend):]):
+            gone = {r.rid for r, e in zip(queued, expired[len(pend):]) if e}
             keep: deque = deque()
             while self._queue:
                 req = self._queue.popleft()
-                if req.t_deadline is not None and now >= req.t_deadline:
+                if req.rid in gone:
                     self._shed_req(req, DeadlineExceededError(
                         req.rid, req.deadline_s))
                 else:
                     keep.append(req)
             self._queue = keep
-        for s, p in list(self._pending.items()):
-            req = p.req
-            if req.t_deadline is not None and now >= req.t_deadline:
+        for (s, req), e in zip(pend, expired):
+            if e:
                 self._drop_pending(s)
                 self._shed_req(req, DeadlineExceededError(
                     req.rid, req.deadline_s))
+
+    def _expired(self, reqs: List[_Request]) -> List[bool]:
+        """Whether each request's deadline has lapsed. On a mesh the
+        clock is read once: rank 0 decides and its answer reaches every
+        rank in one small broadcast, so that ranks whose clocks read
+        apart shed alike (host states that part would pair the wrong
+        tensors in the next collective, or hang it)."""
+        now = time.monotonic()
+        mine = [now >= r.t_deadline for r in reqs]
+        if self.mesh is None or self.mesh.axis_size(
+                self.mesh.axis_names) == 1:
+            return mine
+        t = torch.tensor(mine, dtype=torch.uint8, device=self.device)
+        t = broadcast(t, self.mesh, self.mesh.axis_names, 0)
+        return [bool(v) for v in t.tolist()]
 
     def _shed_everything(self, exc: BaseException) -> None:
         """The step-retry budget (hpx.serving.step_retries) is exhausted:
@@ -2087,12 +2299,20 @@ class ContinuousServer:
                 if hit_eos or len(req.tokens) >= req.max_new:
                     self._finalize(s, req, hit_eos)
         # the MoE stats the step and verify programs buffered, one [2 + E]
-        # vector a step, read here so the step loop gains no host read
-        while self._moe_buf:
-            ms = self._moe_buf.popleft().cpu().numpy()
-            self._moe_routed += float(ms[0])
-            self._moe_dropped += float(ms[1])
-            self._moe_occ = [float(v) for v in ms[2:]]
+        # vector a step, read here so the step loop gains no host read;
+        # on a mesh each is a dp rank's (summed over the expert axis),
+        # folded over dp in one all_reduce a flush: claims summed,
+        # occupancies averaged
+        if self._moe_buf:
+            buf = torch.stack(list(self._moe_buf))
+            self._moe_buf.clear()
+            if self.mesh is not None:
+                buf = all_reduce(buf, self.mesh, "dp")
+                buf[:, 2:] /= self.mesh.shape["dp"]
+            for ms in buf.cpu().numpy():
+                self._moe_routed += float(ms[0])
+                self._moe_dropped += float(ms[1])
+                self._moe_occ = [float(v) for v in ms[2:]]
         self._ckpt_sweep()
 
     # -- the step loop ----------------------------------------------------------
@@ -2160,13 +2380,10 @@ class ContinuousServer:
         # dense: dead slots re-write their own last position (never
         # read). Paged: dead slots' tables are all-trash. Dead slots'
         # feedback tokens are stale outputs — always valid ids.
-        tok = (self._host(self._cur, torch.int64)
+        tok = (self._host(self._local(self._cur), torch.int64)
                if self._cur_dev is None else self._cur_dev)
-        pos = self._host(self._pos, torch.int32)
-        if self._temp_dev is None:
-            self._temp_dev = torch.tensor(self._temp, dtype=torch.float32,
-                                          device=dev)
-            self._keys_dev = torch.stack(self._key).to(dev)
+        pos = self._host(self._local(self._pos), torch.int32)
+        self._slot_vectors()
         sample = any(t > 0.0 for t in self._temp)
         with torch.no_grad():
             if self.paged:
@@ -2186,6 +2403,8 @@ class ContinuousServer:
             nxt = self._keep(nxt)
             self._keep_moe(ms)
         self._cur_dev = nxt
+        # every slot's next token on every rank: one all_gather over dp
+        nxt = _gather_rows(nxt, self.mesh)
         lanes = []
         need_sync = not self._async
         for s in live:

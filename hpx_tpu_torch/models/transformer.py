@@ -11,6 +11,21 @@ other decoders: ``speculative_generate`` (greedy, a draft model's k
 proposals verified by one target window), ``speculative_sample`` (the
 exact acceptance-rejection algorithm, batch 1) and ``beam_search``.
 
+Over a ("dp", "tp") decode mesh (one process per rank, every rank
+calling together) ``generate`` and ``speculative_generate`` take
+``mesh=``: the reference's sharded decode. Every rank passes the whole
+prompt and gets the whole result; each dp rank decodes its B/dp rows
+(sampling keys fold in the global row), heads, d_ff and the KV caches
+split over tp (Megatron: ``copy_to`` before the qkv and MLP-up products,
+``reduce_from`` after ``wo`` and ``w2``), a MoE model's experts over
+"ep" where the mesh has that axis and over "tp" otherwise, each expert's
+d_ff whole (``moe_ffn_decode``), and one ``all_gather`` over dp puts the
+rows together. The weights are placed by ``_decode_place``: global
+weights are cut to the rank's shard, and weights that ``shard_params``
+or ``quant.shard_quantized`` placed are re-cut where the decode layout
+differs (a MoE model's experts). ``Transformer.placement`` records which
+layout a tree holds, as a ``jax.Array`` carries its sharding.
+
 Over a (dp, sp, tp) mesh (``make_mesh_3d``, one process per rank) the
 same step is the reference's sharded step: tokens split over dp (batch)
 and sp (sequence), attention walking the sp ring
@@ -65,7 +80,6 @@ from torch.utils.checkpoint import checkpoint
 
 from ..collectives.device import all_gather, all_reduce, copy_to, reduce_from
 from ..core import programs
-from ..core.errors import NotImplementedYet
 from ..exec.cuda import resolve_device
 from ..ops.attention import (auto_attention, ring_attention_sharded,
                              ring_positions,
@@ -73,7 +87,8 @@ from ..ops.attention import (auto_attention, ring_attention_sharded,
 from ..ops.attention_cuda import flash_attention
 from ..parallel.mesh import Mesh
 from ..utils import prng
-from .moe import MoeConfig, init_moe_params, moe_ffn, moe_param_specs
+from .moe import (MoeConfig, init_moe_params, moe_ffn, moe_ffn_decode,
+                  moe_param_specs)
 from .quant import QTensor, QTensor4, dequant
 
 __all__ = ["TransformerConfig", "Transformer", "QWeight", "QWeight4",
@@ -197,7 +212,10 @@ class Layer(_Tree):
 
 class Transformer(_Tree):
     """``emb`` [vocab, d], ``ln_f`` [d] and ``layers`` (one ``Layer``
-    each)."""
+    each). ``placement``: None for global weights, else (layout, mesh
+    signature) of the shard this rank holds, layout "specs" (placed by
+    ``shard_params`` / ``quant.shard_quantized``) or "decode" (the
+    decode layout, ``_decode_place``)."""
 
     def __init__(self, emb: torch.Tensor, ln_f: torch.Tensor,
                  layers: Sequence[Dict[str, Any]]) -> None:
@@ -205,6 +223,7 @@ class Transformer(_Tree):
         self._put("emb", emb)
         self._put("ln_f", ln_f)
         self.add_module("layers", nn.ModuleList(Layer(t) for t in layers))
+        self.placement: Optional[Tuple] = None
 
     @property
     def device(self) -> torch.device:
@@ -373,27 +392,45 @@ def _attend(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
 
 def _ffn_tail(x: torch.Tensor, att: torch.Tensor, lp,
               cfg: TransformerConfig, moe_cf: Optional[float] = None,
-              sink: Optional[list] = None) -> torch.Tensor:
+              sink: Optional[list] = None,
+              mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Output projection, residual, second norm and the MLP. A MoE layer
     routes its [B·W, D] rows through ``moe_ffn`` at the capacity factor
     ``moe_cf`` (None: drop-free, ``n_experts``); ``sink`` (a list)
-    collects each MoE layer's stats vector."""
-    x = x + torch.einsum("bsnh,nhd->bsd", att, _dq(lp["wo"], att))
+    collects each MoE layer's stats vector. On a decode ``mesh`` att
+    holds this rank's heads and the MLP its d_ff columns: ``wo`` and
+    ``w2`` close with ``reduce_from`` over tp, and a MoE layer routes
+    through ``moe_ffn_decode`` over the expert axis (``_decode_ep``),
+    its stats summed over that axis."""
+    o = torch.einsum("bsnh,nhd->bsd", att, _dq(lp["wo"], att))
+    if mesh is not None:
+        o = reduce_from(o, mesh, "tp")
+    x = x + o
     h = _ln(x, lp["ln2"])
     if "moe" in lp:
         mcfg = dataclasses.replace(
             _moe_cfg(cfg), capacity_factor=float(
                 cfg.n_experts if moe_cf is None else moe_cf))
-        res = moe_ffn(h.reshape(-1, h.shape[-1]), lp["moe"], mcfg,
-                      return_stats=sink is not None)
+        ep_axis, ep = _decode_ep(cfg, mesh)
+        if ep > 1:
+            res = moe_ffn_decode(h.reshape(-1, h.shape[-1]), lp["moe"],
+                                 mcfg, ep_axis, ep, mesh)
+        else:
+            res = moe_ffn(h.reshape(-1, h.shape[-1]), lp["moe"], mcfg,
+                          return_stats=sink is not None)
         if sink is not None:
             sink.append(res[2])
         return x + res[0].reshape(h.shape)
+    if mesh is not None:
+        h = copy_to(h, mesh, "tp")
     h = _gelu(h @ _dq(lp["w1"], h) + lp["b1"]) @ _dq(lp["w2"], h)
+    if mesh is not None:
+        h = reduce_from(h, mesh, "tp")
     return x + h
 
 
-def _block_decode(x, lp, kv, write_at, cfg: TransformerConfig):
+def _block_decode(x, lp, kv, write_at, cfg: TransformerConfig,
+                  mesh: Optional[Mesh] = None):
     """One decoder block for a window of W new tokens at positions
     write_at .. write_at + W - 1, with a KV cache (kc, vc) each
     [B, Smax, Nkv, H] written in place. Window token i attends cache
@@ -401,9 +438,13 @@ def _block_decode(x, lp, kv, write_at, cfg: TransformerConfig):
     fits, as ``dynamic_update_slice`` clamps it in the reference.
     ``write_at`` is a host int or a 0-d int64 tensor on x's device (the
     server's programs take positions as tensors, so that one CUDA graph
-    serves every position)."""
+    serves every position). On a decode ``mesh`` the weights and the
+    caches hold this rank's heads (Nkv = its kv heads) and the block is
+    the Megatron pair around them (``_ffn_tail``)."""
     kc, vc = kv
     h = _ln(x, lp["ln1"])
+    if mesh is not None:
+        h = copy_to(h, mesh, "tp")
     q, k, v = _qkv_proj(h, lp)
     sq = x.shape[1]
     dev = x.device
@@ -421,19 +462,21 @@ def _block_decode(x, lp, kv, write_at, cfg: TransformerConfig):
     qpos = write_at + torch.arange(sq, device=dev)
     live = (kpos[None, :] <= qpos[:, None])[None]          # [1, W, S]
     att = _attend(q, kc, vc, live, x.dtype)
-    return _ffn_tail(x, att, lp, cfg), (kc, vc)
+    return _ffn_tail(x, att, lp, cfg, mesh=mesh), (kc, vc)
 
 
 def _decode_window(params, caches, toks: torch.Tensor, pos0,
-                   cfg: TransformerConfig, need_logits: bool = True):
+                   cfg: TransformerConfig, need_logits: bool = True,
+                   mesh: Optional[Mesh] = None):
     """A window of new tokens toks [B, W] at positions pos0 .. pos0+W-1
     (pos0 a host int or a 0-d int64 tensor) through every cached block.
     Returns (caches, f32 logits [B, W, V]), or (caches, None) with
-    need_logits=False (the cache-only prefill)."""
+    need_logits=False (the cache-only prefill). ``mesh``: as
+    ``_block_decode``'s."""
     x = params["emb"][toks]
     new_caches = []
     for lp, kv in zip(params["layers"], caches):
-        x, kv = _block_decode(x, lp, kv, pos0, cfg)
+        x, kv = _block_decode(x, lp, kv, pos0, cfg, mesh)
         new_caches.append(kv)
     if not need_logits:
         return new_caches, None
@@ -442,10 +485,12 @@ def _decode_window(params, caches, toks: torch.Tensor, pos0,
     return new_caches, logits.float()
 
 
-def _decode_forward(params, caches, tok: torch.Tensor, pos: int, cfg):
+def _decode_forward(params, caches, tok: torch.Tensor, pos: int, cfg,
+                    mesh: Optional[Mesh] = None):
     """One decode token per row: the W == 1 case of _decode_window.
     Returns (caches, f32 logits [B, V])."""
-    caches, logits = _decode_window(params, caches, tok[:, None], pos, cfg)
+    caches, logits = _decode_window(params, caches, tok[:, None], pos, cfg,
+                                    mesh=mesh)
     return caches, logits[:, 0, :]
 
 
@@ -455,7 +500,8 @@ _PREFILL_CHUNK = 128
 
 def _prefill_window(params, cfg, caches, prompt: torch.Tensor,
                     chunk: int = _PREFILL_CHUNK, need_logits: bool = True,
-                    logits0: Optional[torch.Tensor] = None):
+                    logits0: Optional[torch.Tensor] = None,
+                    mesh: Optional[Mesh] = None):
     """Feed the prompt [B, plen] into the caches in windowed chunks of up
     to ``chunk`` tokens. Returns (caches, logits after the last prompt
     token); intermediate chunks run cache-only. ``logits0`` is the
@@ -465,7 +511,8 @@ def _prefill_window(params, cfg, caches, prompt: torch.Tensor,
     for s in range(0, plen, chunk):
         e = min(plen, s + chunk)
         caches, lg = _decode_window(params, caches, prompt[:, s:e], s, cfg,
-                                    need_logits=need_logits and e == plen)
+                                    need_logits=need_logits and e == plen,
+                                    mesh=mesh)
         if lg is not None:
             last = lg
     return caches, (last[:, -1] if need_logits else None)
@@ -544,32 +591,51 @@ def _pick_row(logits_row, key, temperature, pos) -> torch.Tensor:
 def generate(params, cfg: TransformerConfig, prompt, max_new: int = 32,
              temperature: float = 0.0, top_k: int = 0,
              eos_id: Optional[int] = None, key=None,
-             device=None) -> torch.Tensor:
+             device=None, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Decode: prefill the prompt [B, plen] into KV caches in chunks, then
     emit max_new tokens per row; returns int32 [B, max_new].
 
     temperature=0: greedy argmax. temperature>0: sample with ``key``
-    (a raw PRNG key, see ``utils.prng``), folding in (position, row) as
-    the reference does, so the draws equal its draws; top_k>0 first
-    masks every raw logit below the row's k-th largest value to -inf
-    (by value, so ties at the threshold stay in). eos_id: rows that
-    emit it keep emitting it. ``device=None`` means ``cuda:0``; the
-    weights must be there."""
+    (a raw PRNG key, see ``utils.prng``), folding in (position, GLOBAL
+    row) as the reference does, so the draws equal its draws, sharded or
+    not; top_k>0 first masks every raw logit below the row's k-th
+    largest value to -inf (by value, so ties at the threshold stay in).
+    eos_id: rows that emit it keep emitting it. ``device=None`` means
+    ``cuda:0``; the weights must be there.
+
+    ``mesh``: a ("dp", "tp") Mesh (either size may be 1; ``_decode_mesh_
+    check``) over which every rank calls together with the same prompt:
+    the batch splits over dp, heads, d_ff and the caches over tp, a MoE
+    model's experts over the expert axis; the weights are global or as
+    ``shard_params`` / ``quant.shard_quantized`` placed them
+    (``_decode_place``), the device is the mesh's, and every rank
+    returns the whole [B, max_new]."""
     if temperature > 0.0 and key is None:
         raise ValueError("temperature > 0 needs a PRNG key")
     if temperature <= 0.0 and (top_k > 0 or key is not None):
         raise ValueError(
             "top_k/key have no effect at temperature=0 (greedy); pass "
             "temperature > 0 to sample")
-    dev = resolve_device(device)
+    prompt = np.asarray(prompt)
+    b, plen = prompt.shape
+    base = 0
+    if mesh is not None:
+        dp, _tp = _decode_mesh_check(cfg, mesh, b)
+        dev = _mesh_device(mesh, device)
+        params = _decode_place(params, cfg, mesh)
+        bl = b // dp
+        base = mesh.axis_index("dp") * bl
+        prompt = prompt[base:base + bl]
+        b = bl
+    else:
+        dev = resolve_device(device)
     if params.device != dev:
         raise ValueError(f"params live on {params.device}, not {dev}")
-    prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int64,
-                             device=dev)
-    b, plen = prompt.shape
+    prompt = torch.as_tensor(prompt, dtype=torch.int64, device=dev)
     smax = plen + max_new
     karg = prng.as_key(key, dev) if key is not None else None
-    rows = torch.arange(b, device=dev)
+    rows = base + torch.arange(b, device=dev)
+    nkv = cfg.kv_heads // (mesh.shape["tp"] if mesh is not None else 1)
 
     def select(logits, pos):
         if temperature <= 0.0:
@@ -583,13 +649,13 @@ def generate(params, cfg: TransformerConfig, prompt, max_new: int = 32,
         return _sample_rows(raw, temperature, karg, pos, rows)
 
     with torch.no_grad():
-        caches = [tuple(torch.zeros((b, smax, cfg.kv_heads, cfg.head_dim),
+        caches = [tuple(torch.zeros((b, smax, nkv, cfg.head_dim),
                                     dtype=cfg.dtype, device=dev)
                         for _ in range(2)) for _ in range(cfg.n_layers)]
         logits0 = torch.zeros((b, cfg.vocab), dtype=torch.float32,
                               device=dev)
         caches, last = _prefill_window(params, cfg, caches, prompt,
-                                       logits0=logits0)
+                                       logits0=logits0, mesh=mesh)
         tok = select(last, plen - 1)
         done = torch.zeros(b, dtype=torch.bool, device=dev)
         out: List[torch.Tensor] = []
@@ -599,14 +665,180 @@ def generate(params, cfg: TransformerConfig, prompt, max_new: int = 32,
             out.append(tok)
             if i == max_new - 1:
                 break           # the last step's prediction is unused
-            caches, logits = _decode_forward(params, caches, tok, pos, cfg)
+            caches, logits = _decode_forward(params, caches, tok, pos, cfg,
+                                             mesh)
             nxt = select(logits, pos)
             if eos_id is not None:
                 done = done | (tok == eos_id)
             tok = nxt
-    if not out:
-        return torch.zeros((b, 0), dtype=torch.int32, device=dev)
-    return torch.stack(out, dim=1).to(torch.int32)
+    res = (torch.stack(out, dim=1).to(torch.int32) if out else
+           torch.zeros((b, 0), dtype=torch.int32, device=dev))
+    return _gather_rows(res, mesh)
+
+
+# -- the decode mesh -------------------------------------------------------------
+
+def _decode_ep(cfg: TransformerConfig, mesh: Optional[Mesh]
+               ) -> Tuple[Optional[str], int]:
+    """The expert axis of sharded MoE decode: "ep" where the mesh has
+    that axis, "tp" otherwise; (None, 1) for a dense model or no
+    mesh."""
+    if mesh is None or cfg.n_experts <= 0:
+        return None, 1
+    name = "ep" if "ep" in mesh.axis_names else "tp"
+    return name, mesh.shape[name]
+
+
+def _decode_mesh_check(cfg: TransformerConfig, mesh: Mesh, batch: int,
+                       rows: str = "batch") -> Tuple[int, int]:
+    """The decode-mesh contract of ``generate``, ``speculative_generate``
+    and the server (``rows`` names what splits over dp there): ("dp",
+    "tp") axes, heads divisible by tp, the batch by dp, and n_experts by
+    the expert axis. Returns (dp, tp)."""
+    names = mesh.axis_names
+    if "dp" not in names or "tp" not in names:
+        raise ValueError(f"decode mesh needs ('dp','tp'); has {names}")
+    dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+    if cfg.n_heads % tp or cfg.kv_heads % tp:
+        raise ValueError(
+            f"heads (q={cfg.n_heads}, kv={cfg.kv_heads}) not divisible "
+            f"by tp={tp}")
+    if batch % dp:
+        raise ValueError(f"{rows} {batch} not divisible by dp={dp}")
+    if cfg.n_experts > 0:
+        ep_axis, ep = _decode_ep(cfg, mesh)
+        if cfg.n_experts % ep:
+            raise ValueError(
+                f"n_experts ({cfg.n_experts}) not divisible by "
+                f"{ep_axis}={ep}; shrink {ep_axis} to a divisor of "
+                f"n_experts, or declare a dedicated 'ep' mesh axis "
+                f"that divides it")
+    return dp, tp
+
+
+def _mesh_device(mesh: Mesh, device) -> torch.device:
+    if device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    return mesh.device
+
+
+def _mesh_sig(mesh: Mesh) -> Tuple:
+    return tuple(mesh.axis_names), tuple(mesh.shape.values())
+
+
+def _gather_rows(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """Every dp rank's rows of x, in dp order (the global array)."""
+    if mesh is None:
+        return x
+    return all_gather(x.contiguous(), mesh, "dp", 0)
+
+
+def _leaves(params: Transformer) -> List[Tuple[str, torch.Tensor]]:
+    """(name, tensor) of every weight, an int8 / int4 weight as its
+    ``.q`` and ``.s``, in ``named_parameters`` then buffer order."""
+    return [(n, t.detach()) for n, t in
+            (*params.named_parameters(), *params.named_buffers())]
+
+
+def _with_leaves(params: Transformer, new: Dict[str, torch.Tensor]
+                 ) -> Transformer:
+    """A ``Transformer`` of params' structure (int8 / int4 weights
+    kept, an int4 one with its packing axis) holding ``new[name]``."""
+    def tree(module, prefix):
+        out: Dict[str, Any] = {}
+        for name, _ in module.named_parameters(recurse=False):
+            out[name] = new[prefix + name]
+        for name, m in module.named_children():
+            at = prefix + name
+            if isinstance(m, QWeight4):
+                out[name] = QTensor4(new[at + ".q"], new[at + ".s"], m.axis)
+            elif isinstance(m, QWeight):
+                out[name] = QTensor(new[at + ".q"], new[at + ".s"])
+            else:
+                out[name] = tree(m, at + ".")
+        return out
+    return Transformer(new["emb"], new["ln_f"],
+                       [tree(lp, f"layers.{i}.")
+                        for i, lp in enumerate(params.layers)])
+
+
+def _cut(w: torch.Tensor, spec: Tuple, mesh: Mesh, name: str
+         ) -> torch.Tensor:
+    """This rank's block of w under spec."""
+    for dim, axis in _sharded_dims(spec):
+        n = mesh.shape[axis]
+        if w.shape[dim] % n:
+            raise ValueError(f"{name}: dim {dim} of {tuple(w.shape)} "
+                             f"does not divide over {axis}={n}")
+        w = w.chunk(n, dim)[mesh.axis_index(axis)]
+    return w
+
+
+def _is_quantized(params: Transformer) -> bool:
+    return any(isinstance(m, QWeight) for m in params.modules())
+
+
+def _placed_specs(params: Transformer, cfg: TransformerConfig
+                  ) -> Dict[str, Tuple]:
+    """The specs ``shard_params`` / ``shard_quantized`` place params'
+    leaves by."""
+    if _is_quantized(params):
+        from .quant import quantized_bits, quantized_param_specs
+        return quantized_param_specs(cfg, quantized_bits(params))
+    return param_specs(cfg)
+
+
+def _decode_specs(params: Transformer, cfg: TransformerConfig,
+                  mesh: Mesh) -> Dict[str, Tuple]:
+    """Leaf name -> its decode-layout spec (the reference's
+    ``_decode_pspecs``): the training layout with a quantized weight's
+    scales following their channels, and a MoE model's experts over the
+    expert axis with each expert's d_ff unsharded (the decode closes
+    over the expert axis; experts occupying tp cannot split d_ff
+    there)."""
+    specs = dict(_placed_specs(params, cfg))
+    if cfg.n_experts > 0:
+        ep_axis = _decode_ep(cfg, mesh)[0]
+        m = moe_param_specs(ep_axis, tp_axis=None)
+        for i in range(cfg.n_layers):
+            for k, v in m.items():
+                name = f"layers.{i}.moe.{k}"
+                for n in (name, name + ".q", name + ".s"):
+                    if n in specs:
+                        specs[n] = v
+    return specs
+
+
+def _decode_place(params: Transformer, cfg: TransformerConfig,
+                  mesh: Mesh) -> Transformer:
+    """This rank's shard of the weights in the decode layout
+    (``_decode_specs``), on the mesh's device. Global weights are cut;
+    weights ``shard_params`` / ``quant.shard_quantized`` placed on this
+    mesh are all-gathered and re-cut where the layouts differ (every
+    rank calls together); weights already in the decode layout pass
+    through."""
+    sig = _mesh_sig(mesh)
+    have = params.placement
+    if have == ("decode", sig):
+        return params
+    if have is not None and have != ("specs", sig):
+        raise ValueError(f"params were placed as {have}; the mesh is "
+                         f"{sig}")
+    want = _decode_specs(params, cfg, mesh)
+    src = _placed_specs(params, cfg) if have is not None else None
+    out = {}
+    for name, w in _leaves(params):
+        if src is not None:
+            if src[name] == want[name]:
+                out[name] = w.to(mesh.device)
+                continue
+            for dim, axis in _sharded_dims(src[name]):
+                w = all_gather(w.contiguous(), mesh, axis, dim)
+        out[name] = _cut(w, want[name], mesh, name).to(
+            mesh.device, copy=True).contiguous()
+    placed = _with_leaves(params, out)
+    placed.placement = ("decode", sig)
+    return placed
 
 
 # -- speculative decoding and beam search -------------------------------------
@@ -631,22 +863,27 @@ def _accept_scatter(out: torch.Tensor, m: int, a: int, emis: torch.Tensor,
     return emis[:, a], min(m + a + 1, max_new)
 
 
-def _spec_args(params, cfg, draft_params, draft_cfg, prompt, k: int,
-               what: str, device):
+def _spec_check(cfg, draft_cfg, k: int, what: str) -> None:
     if k < 1:
         raise ValueError(f"{what}: k must be >= 1, got {k}")
     if draft_cfg.vocab != cfg.vocab:
         raise ValueError(
             f"draft vocab {draft_cfg.vocab} != target vocab {cfg.vocab}")
-    dev = resolve_device(device)
+
+
+def _spec_args(params, cfg, draft_params, draft_cfg, prompt, k: int,
+               what: str, device, dev=None):
+    _spec_check(cfg, draft_cfg, k, what)
+    dev = dev or resolve_device(device)
     for name, p in (("params", params), ("draft_params", draft_params)):
         if p.device != dev:
             raise ValueError(f"{name} live on {p.device}, not {dev}")
     return dev, _as_tokens(prompt, dev)
 
 
-def _fresh_caches(cfg: TransformerConfig, b: int, smax: int, dev):
-    return [tuple(torch.zeros((b, smax, cfg.kv_heads, cfg.head_dim),
+def _fresh_caches(cfg: TransformerConfig, b: int, smax: int, dev,
+                  tp: int = 1):
+    return [tuple(torch.zeros((b, smax, cfg.kv_heads // tp, cfg.head_dim),
                               dtype=cfg.dtype, device=dev)
                   for _ in range(2)) for _ in range(cfg.n_layers)]
 
@@ -668,23 +905,41 @@ def speculative_generate(params, cfg: TransformerConfig, draft_params,
 
     Returns int32 [B, max_new], with ``return_stats`` also the number of
     rounds (target windows run). One host read a round (the accepted
-    count, which sets the next round's positions). ``mesh=`` (sharded
-    decode) is not ported; ``device=None`` means ``cuda:0``."""
+    count, which sets the next round's positions). ``device=None``
+    means ``cuda:0``.
+
+    ``mesh``: the ("dp", "tp") layout of ``generate(mesh=)``, every rank
+    calling together with the whole prompt; the target is placed by
+    ``_decode_place``, the draft is replicated (global weights on the
+    mesh's device; each tp member drafts the same tokens). Acceptance is
+    the minimum over a dp shard's rows, so the shards' round counts may
+    differ: no collective crosses dp inside the loop, and a dp group's
+    tp members stay in step, their logits closed over tp alike. With
+    ``return_stats`` the rounds are an int64 [B], each row its shard's
+    count."""
+    tp, dev = 1, None
     if mesh is not None:
-        raise NotImplementedYet("sharded speculative decoding is not "
-                                "ported yet", "speculative_generate")
+        _spec_check(cfg, draft_cfg, k, "speculative_generate")
+        prompt = np.asarray(prompt)
+        b = prompt.shape[0]
+        dp, tp = _decode_mesh_check(cfg, mesh, b)
+        dev = _mesh_device(mesh, device)
+        params = _decode_place(params, cfg, mesh)
+        base = mesh.axis_index("dp") * (b // dp)
+        prompt = prompt[base:base + b // dp]
     dev, prompt = _spec_args(params, cfg, draft_params, draft_cfg, prompt,
-                             k, "speculative_generate", device)
+                             k, "speculative_generate", device, dev)
     b, plen = prompt.shape
     if max_new <= 0:
-        empty = torch.zeros((b, 0), dtype=torch.int32, device=dev)
+        empty = _gather_rows(torch.zeros((b, 0), dtype=torch.int32,
+                                         device=dev), mesh)
         return (empty, 0) if return_stats else empty
     # target windows start at plen + m - 1 (m <= max_new - 1), k + 1 wide
     smax = plen + max_new + k
     with torch.no_grad():
         t_caches, t_last = _prefill_window(
-            params, cfg, _fresh_caches(cfg, b, smax, dev), prompt,
-            logits0=torch.zeros((b, cfg.vocab), device=dev))
+            params, cfg, _fresh_caches(cfg, b, smax, dev, tp), prompt,
+            logits0=torch.zeros((b, cfg.vocab), device=dev), mesh=mesh)
         d_caches, _ = _prefill_window(
             draft_params, draft_cfg, _fresh_caches(draft_cfg, b, smax, dev),
             prompt, need_logits=False)
@@ -704,7 +959,7 @@ def speculative_generate(params, cfg: TransformerConfig, draft_params,
             d = torch.stack(d, dim=1)                       # [B, k]
             window = torch.cat([cur[:, None], d], dim=1)
             t_caches, lg = _decode_window(params, t_caches, window, pos0,
-                                          cfg)
+                                          cfg, mesh=mesh)
             t = torch.argmax(lg, dim=-1)                    # [B, k + 1]
             matches = (d == t[:, :k]).to(torch.int64)
             a = int(torch.cumprod(matches, dim=1).sum(dim=1).min())
@@ -712,7 +967,10 @@ def speculative_generate(params, cfg: TransformerConfig, draft_params,
             rounds += 1
     if eos_id is not None:
         out = _pin_after_eos(out, eos_id)
-    out = out.to(torch.int32)
+    out = _gather_rows(out.to(torch.int32), mesh)
+    if mesh is not None and return_stats:
+        rounds = _gather_rows(torch.full((b,), rounds, dtype=torch.int64,
+                                         device=dev), mesh)
     return (out, rounds) if return_stats else out
 
 
@@ -954,7 +1212,9 @@ def shard_params(params: Transformer, cfg: TransformerConfig,
                                  f"does not divide over {axis}={n}")
             w = w.chunk(n, dim)[mesh.axis_index(axis)]
         out[name] = w.detach().to(mesh.device, copy=True).contiguous()
-    return _from_named(out, cfg.n_layers)
+    placed = _from_named(out, cfg.n_layers)
+    placed.placement = ("specs", _mesh_sig(mesh))
+    return placed
 
 
 def unshard_params(params: Transformer, cfg: TransformerConfig,

@@ -27,7 +27,6 @@ import torch
 
 from hpx_tpu.models import quant as rq
 from hpx_tpu.models import transformer as rt
-from hpx_tpu_torch.core.errors import NotImplementedYet
 from hpx_tpu_torch.models import quant as pq
 from hpx_tpu_torch.models import transformer as pt
 from hpx_tpu_torch.utils import prng
@@ -152,9 +151,12 @@ def test_speculative_generate_rejects_bad_args():
     with pytest.raises(ValueError, match="vocab"):
         pt.speculative_generate(pp, pcfg, pd, bad, [[1, 2]], max_new=4,
                                 device="cpu")
-    with pytest.raises(NotImplementedYet, match="sharded"):
+    # a mesh without the decode axes: the reference's refusal
+    from hpx_tpu_torch.parallel.mesh import Mesh
+    with pytest.raises(ValueError, match="decode mesh needs"):
         pt.speculative_generate(pp, pcfg, pd, pdc, [[1, 2]], max_new=4,
-                                mesh=object(), device="cpu")
+                                mesh=Mesh((1,), ("x",), "cpu"),
+                                device="cpu")
     out, rounds = pt.speculative_generate(pp, pcfg, pd, pdc, [[1, 2]],
                                           max_new=0, return_stats=True,
                                           device="cpu")

@@ -526,7 +526,7 @@ def test_serving_config_keys_match_the_reference():
             if k.split(".")[1] in ("serving", "fault", "trace", "metrics")]
     assert {k.split(".")[1] for k in keys} == {"serving", "fault", "trace",
                                                "metrics"}
-    assert "hpx.serving.ckpt_every" in keys and len(keys) == 33
+    assert "hpx.serving.ckpt_every" in keys and len(keys) == 35
     assert "hpx.serving.moe.capacity_factor" in keys
     for k in keys:
         mine, theirs = config_schema.lookup(k), ref_schema.lookup(k)
