@@ -1,4 +1,4 @@
-"""Parallel algorithms on one device (local + segmented surface).
+"""Parallel algorithms (local + segmented surface).
 
 Reference analog: libs/core/algorithms — the CPO set over execution
 policies — plus libs/full/segmented_algorithms: the SAME entry points
@@ -6,8 +6,12 @@ accept partitioned_vector arguments and dispatch the segmented overlay
 (segmented.py), exactly as HPX routes segmented iterators through
 segmented_iterator_traits. `preserves_shape` marks the algorithms whose
 result is a same-length range (rewrapped in the source's layout).
-Counterpart of ``hpx_tpu.algo``, every name of its ``__all__``; the
-sharded sorts raise ``NotImplementedYet`` until the multi-device slice.
+Counterpart of ``hpx_tpu.algo``, every name of its ``__all__``. A
+partitioned_vector over more than one rank goes through the overlay's
+four classes (local, combine, sort, gather; segmented.py), and
+``sort_sharded`` / ``sort_sharded_by_key`` are the explicit distributed
+surface: each rank passes its chunk of a vector laid out over a mesh
+axis (sorting.py).
 """
 
 from . import elementwise as _ew

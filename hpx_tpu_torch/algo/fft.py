@@ -237,13 +237,13 @@ def fft(v: Any, mesh=None, axis: str = "x", inverse: bool = False):
             raise ValueError(
                 "fft(pv, mesh=...): the layout's mesh governs; drop the "
                 "mesh argument or pass the plain tensor")
-        if v.data.shape[0] != v.size:
+        if v.padded_size != v.size:
             raise ValueError(
                 f"fft over a padded partitioned_vector (size {v.size}, "
-                f"padded {v.data.shape[0]}): resize so the axis divides "
+                f"padded {v.padded_size}): resize so the axis divides "
                 f"the length")
         out = fft_sharded(v.data, v.mesh, v.layout.axis, inverse)
-        return PartitionedVector.from_array(out, layout=v.layout)
+        return PartitionedVector._from_block(out, v.size, v.layout)
     if mesh is None:
         raise ValueError("pass mesh= for a plain tensor")
     return fft_sharded(v, mesh, axis, inverse)

@@ -10,6 +10,9 @@ member makes every verb the identity.
 
     all_reduce(x, mesh, axis, op)   psum / pmax / pmin / pmean
     all_gather(x, mesh, axis, dim)  lax.all_gather(tiled=True) along dim
+    all_gather_bits(x, mesh, axis)  all_gather of a 1-D x's bytes: any
+                                    dtype (bool, bfloat16, complex) on
+                                    any backend, bit for bit
     broadcast(x, mesh, axis, root)  the root member's x
     all_to_all(x, mesh, axis,       block j of x (cut along split_axis) to
                split_axis,          member j, the blocks received joined
@@ -17,6 +20,8 @@ member makes every verb the identity.
                                     (tiled=True), differentiable
     reduce_scatter(x, mesh, axis)   psum_scatter(tiled=True) along dim 0
     ppermute(xs, mesh, axis, shift) member i's tensors to member i+shift
+             or perm=[(src, dst)]   (or along the pairs of ``perm``, as
+                                    lax.ppermute's: no source, zeros)
     ring_shift                      ppermute of one tensor
     edge_shift(x, mesh, axis,       member i's x to member i+shift where
                shift)               that member exists (no wrap); the
@@ -48,7 +53,7 @@ from typing import List, Sequence, Union
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_reduce", "all_gather", "broadcast", "all_to_all",
+__all__ = ["all_reduce", "all_gather", "all_gather_bits", "broadcast", "all_to_all",
            "reduce_scatter", "ppermute", "ring_shift", "edge_shift",
            "barrier", "copy_to", "reduce_from"]
 
@@ -109,6 +114,16 @@ def all_gather(x: torch.Tensor, mesh, axis="x", dim: int = 0
     outs = [torch.empty_like(buf) for _ in range(mesh.axis_size(axis))]
     dist.all_gather(outs, buf, group=g)
     return _home(torch.cat(outs, dim), x)
+
+
+def all_gather_bits(x: torch.Tensor, mesh, axis="x") -> torch.Tensor:
+    """Every member's 1-D x joined in member order, moved as bytes (gloo
+    takes no bool, bfloat16 or complex tensor in every verb): the bits
+    arrive as they left."""
+    if mesh.axis_size(axis) == 1:
+        return x
+    raw = all_gather(x.contiguous().view(torch.uint8), mesh, axis)
+    return raw.view(x.dtype)
 
 
 def broadcast(x: torch.Tensor, mesh, axis="x", root: int = 0
@@ -198,26 +213,37 @@ def reduce_scatter(x: torch.Tensor, mesh, axis="x", op: str = "add"
 
 
 def ppermute(xs: Union[torch.Tensor, Sequence[torch.Tensor]], mesh,
-             axis="x", shift: int = 1):
+             axis="x", shift: int = 1, perm=None):
     """Member i's tensors go to member (i + shift) mod n; returns what
-    arrived from member (i - shift) mod n. All sends and receives are
-    one ``batch_isend_irecv``: with two members the send and receive
-    peers are the same rank, where blocking sends would deadlock."""
+    arrived from member (i - shift) mod n. With ``perm``, a list of
+    (source, destination) member pairs as ``lax.ppermute`` takes, each
+    member sends along its pair and receives along its own, and a member
+    that no pair sends to gets zeros. All sends and receives are one
+    ``batch_isend_irecv``: with two members the send and receive peers
+    are the same rank, where blocking sends would deadlock."""
     one = isinstance(xs, torch.Tensor)
     xs: List[torch.Tensor] = [xs] if one else list(xs)
     n = mesh.axis_size(axis)
-    if n == 1 or shift % n == 0:
-        return xs[0] if one else xs
+    if perm is None:
+        if n == 1 or shift % n == 0:
+            return xs[0] if one else xs
+        perm = [(j, (j + shift) % n) for j in range(n)]
     g = mesh.group(axis)
     ranks = mesh.group_ranks(axis)
     i = ranks.index(mesh.rank)
-    dst, src = ranks[(i + shift) % n], ranks[(i - shift) % n]
+    dst = [ranks[d] for s_, d in perm if s_ == i]
+    src = [ranks[s_] for s_, d in perm if d == i]
+    if len(dst) > 1 or len(src) > 1:
+        raise ValueError(f"ppermute: perm {perm} is not a permutation")
     bufs = [_host(mesh, "ppermute", x, fresh=False) for x in xs]
-    outs = [torch.empty_like(b) for b in bufs]
-    ops = ([dist.P2POp(dist.isend, b, dst, group=g) for b in bufs]
-           + [dist.P2POp(dist.irecv, o, src, group=g) for o in outs])
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+    outs = [(torch.empty_like if src else torch.zeros_like)(b)
+            for b in bufs]
+    ops = ([dist.P2POp(dist.isend, b, d, group=g) for d in dst for b in bufs]
+           + [dist.P2POp(dist.irecv, o, s_, group=g) for s_ in src
+              for o in outs])
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
     outs = [_home(o, x) for o, x in zip(outs, xs)]
     return outs[0] if one else outs
 

@@ -7,12 +7,21 @@ Reference analog: libs/full/distribution_policies — `hpx::container_layout
 plane's placement policies (``Binpacked``, ``Colocated``) wait for the
 host distribution plane.
 
-A ContainerLayout names the mesh axis a container is partitioned over.
-The port's mesh here is one rank (``parallel.mesh.Mesh`` of one
-position): every partition lives on that rank's device, and
-``num_partitions`` may be any count of partitions on it (HPX's
-`container_layout(n, localities)` with several partitions a locality).
-A mesh of more than one rank waits for the multi-device slice.
+A ContainerLayout names the axis of a ``parallel.mesh.Mesh`` a container
+is partitioned over. Each rank of the torch.distributed world is one
+process on one device (SPMD): the ranks along the axis hold contiguous
+blocks of the padded container, in axis order, as ``NamedSharding``
+places the reference's blocks; the container is replicated over the
+mesh's other axes. ``num_partitions`` (default: the axis size) must be a
+multiple or a divisor of the axis size, as in the reference, except on
+an axis of one rank, where any count of partitions shares that rank's
+device (HPX's `container_layout(n, localities)` with several partitions
+a locality).
+
+With neither a mesh nor targets the mesh is every rank of the current
+world on one axis (one rank, on ``cuda:0``, outside a world). Targets
+(``exec.cuda.Target``) name one device a rank, in rank order: the list
+has one entry outside a world and one a rank inside one.
 """
 
 from __future__ import annotations
@@ -20,43 +29,47 @@ from __future__ import annotations
 from typing import Any, Optional, Sequence
 
 import torch
-
-from ..core.errors import NotImplementedYet
+import torch.distributed
 
 
 class ContainerLayout:
-    """Maps a 1-D container onto a mesh axis of one rank.
+    """Maps a 1-D container onto a mesh axis.
 
-    ``num_partitions`` defaults to the axis size (one partition on the
-    device). ``targets`` (``exec.cuda.Target``s, at most one) give the
-    device instead of a mesh; with neither, the mesh is one rank on
-    ``cuda:0`` (raises without CUDA)."""
+    ``num_partitions`` defaults to the axis size (one partition a rank).
+    ``targets`` give the devices instead of a mesh (one a rank of the
+    world, in rank order); with neither, the mesh is the whole world on
+    one axis (raises without CUDA)."""
 
     def __init__(self, num_partitions: Optional[int] = None,
                  mesh: Any = None, axis: str = "x",
                  targets: Optional[Sequence[Any]] = None) -> None:
-        from ..parallel.mesh import Mesh
+        from ..parallel.mesh import Mesh, _world_size
         if mesh is None:
-            devs = [t.device for t in targets] if targets else [None]
-            if len(devs) != 1:
-                raise NotImplementedYet(
-                    f"a layout over {len(devs)} targets waits for the "
-                    "multi-device slice (ROADMAP queue 1, item 5)",
-                    "container_layout")
-            mesh = Mesh((1,), (axis,), device=devs[0])
+            world = _world_size()
+            device = None
+            if targets:
+                if len(targets) != world:
+                    raise ValueError(
+                        f"target_layout: {len(targets)} targets for a world "
+                        f"of {world} ranks (one target a rank, in rank "
+                        "order)")
+                rank = torch.distributed.get_rank() if world > 1 else 0
+                device = targets[rank].device
+            mesh = Mesh((world,), (axis,), device=device)
         if axis not in mesh.shape:
             raise ValueError(f"no axis {axis!r} in mesh {dict(mesh.shape)}")
-        if mesh.axis_size(axis) != 1:
-            raise NotImplementedYet(
-                f"a layout over {mesh.axis_size(axis)} ranks waits for "
-                "the multi-device slice (ROADMAP queue 1, item 5)",
-                "container_layout")
         self.mesh = mesh
         self.axis = axis
         self.num_partitions = int(num_partitions or self.axis_size)
         if self.num_partitions < 1:
             raise ValueError(f"num_partitions={self.num_partitions} must be "
                              "at least 1")
+        size = self.axis_size
+        if size > 1 and self.num_partitions % size and \
+                size % self.num_partitions:
+            raise ValueError(
+                f"num_partitions={self.num_partitions} incompatible with "
+                f"mesh axis '{axis}' of size {size}")
 
     @property
     def axis_size(self) -> int:
@@ -64,8 +77,14 @@ class ContainerLayout:
 
     @property
     def device(self) -> torch.device:
-        """The device every partition lives on."""
+        """This rank's device: where its block of every partition it
+        holds lives."""
         return self.mesh.device
+
+    @property
+    def rank_index(self) -> int:
+        """This rank's index along the axis: the block it holds."""
+        return self.mesh.axis_index(self.axis)
 
     def __repr__(self) -> str:
         return (f"<ContainerLayout {self.num_partitions} partitions over "
@@ -83,7 +102,7 @@ def container_layout(num_partitions: Optional[int] = None,
 
 def default_layout(mesh: Any = None) -> ContainerLayout:
     """hpx::container_layout() / default_distribution_policy analog: one
-    partition a device over the whole default mesh (one rank)."""
+    partition a rank over the whole default mesh (the world)."""
     return ContainerLayout(mesh=mesh)
 
 

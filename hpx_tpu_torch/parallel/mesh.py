@@ -86,6 +86,7 @@ class Mesh:
         self.coords = tuple(int(c) for c in
                             np.unravel_index(self.rank, shape))
         self.device = _rank_device(self.rank, device)
+        self._device_spec = device
         self._groups: Dict[Tuple[str, ...], Any] = {}
 
     def __repr__(self) -> str:
@@ -102,6 +103,11 @@ class Mesh:
             if a not in self.shape:
                 raise ValueError(f"no axis {a!r} in mesh {dict(self.shape)}")
         return tuple(a for a in self.axis_names if a in axes)
+
+    def device_of(self, rank: int) -> torch.device:
+        """The device rank ``rank`` of this mesh computes on, by the rule
+        that gave this rank its own."""
+        return _rank_device(rank, self._device_spec)
 
     def axis_size(self, axes) -> int:
         return math.prod(self.shape[a] for a in self._axes(axes))

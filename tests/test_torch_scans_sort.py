@@ -26,7 +26,6 @@ import torch
 
 import hpx_tpu
 import hpx_tpu_torch
-from hpx_tpu_torch.core.errors import NotImplementedYet
 
 KINDS = ["seq", "par", "device", "task"]
 DEVICE = ("device", "task")
@@ -434,12 +433,21 @@ def test_is_heap_and_until(kind):
 
 
 def test_sort_sharded_waits_for_the_multi_device_slice():
+    """The multi-device slice has come: on a mesh of one rank the sharded
+    sorts are a stable local sort (tests/test_torch_distributed_sort.py
+    holds them over 3 and 4 ranks), and an unknown method is refused."""
     al = _algo(hpx_tpu_torch)
-    for fn, args in ((al.sort_sharded, (torch.zeros(8), None)),
-                     (al.sort_sharded_by_key,
-                      (torch.zeros(8), torch.zeros(8), None))):
-        with pytest.raises(NotImplementedYet, match="item 5"):
-            fn(*args)
+    one = hpx_tpu_torch.parallel.mesh.Mesh((1,), ("x",), "cpu")
+    v = torch.tensor([3.0, -0.0, float("nan"), 0.0, -1.0])
+    got = al.sort_sharded(v, one)
+    want = np.sort(v.numpy(), kind="stable")
+    assert got.numpy().tobytes() == want.tobytes()
+    keys = torch.tensor([2, 1, 2, 0], dtype=torch.int32)
+    vals = torch.tensor([10.0, 11.0, 12.0, 13.0])
+    assert al.sort_sharded_by_key(keys, vals, one).tolist() == [
+        13.0, 11.0, 10.0, 12.0]
+    with pytest.raises(ValueError, match="unknown method"):
+        al.sort_sharded(v, one, method="bitonic")
 
 
 # -- set operations -----------------------------------------------------------
