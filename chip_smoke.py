@@ -150,7 +150,53 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
                the tracer's cost on (b) (tokens/s, A B B A) and a rate-0
                injector's (host ms a decode step); profile_trace's
                trace naming kernel 3. The numbers print as one
-               "resilience: {...}" line before the kernels line.
+               "resilience: {...}" line before the kernels line. The
+               flight recorder: a fault-free run captures no bundle,
+               and a forced shed (an admission OOM ladder run out)
+               writes one bundle that validate_bundle accepts, into a
+               temporary hpx.flight.dir.
+     disagg    models.disagg.DisaggRouter(prefill_workers=2,
+               decode_workers=2) in float32 on (a) and (b) with the
+               mix's slots and smax, its decode workers on fused and on
+               fused_online: tokens equal to the colocated paged fused
+               server's exactly; kernel 3 (or 4) launched n_layers times
+               a decode step of each decode worker (the steps counted at
+               the step program); no block leaked; every shipped segment
+               verifies. On (a) with fused: a seeded kill of a decode
+               worker and of a prefill worker (failovers counted), the
+               loss of both decode workers (degraded to a local server),
+               and one corrupted byte in two shipped segments (refused
+               with TransferCorruptError at the receiver and resent),
+               each with the fault-free tokens; a planted fault (a
+               decode worker admitting its rows shifted by one token
+               row) must change the tokens. Prints router tokens/s
+               against the colocated server's and bytes and ms shipped
+               a request.
+     tier      the host KV tier (hpx.cache.tier.enable) on (a)'s requests,
+               every other one under a second seeded 64-token prefix
+               (two tenants' system prompts), on one slot (smax 160,
+               blocks of 16) with a radix budget of 2 blocks, under the
+               64-token prefix, so that each retire's budget sweep
+               demotes the other prefix and the next admission promotes
+               it; kv_dtype bf16 (pools in the compute dtype, f32) and
+               fp8, tier on and off, and with no budget (the prefixes
+               kept hot): in bf16 tier-on tokens equal tier-off and hot
+               tokens; every restored block reads back equal to the
+               bytes shipped (in fp8 a decode write requantizes its
+               block under an absmax over rows a previous owner left, so
+               tokens hang on which blocks were free and the equal
+               requests are counted), blocks demoted and promoted, more
+               prefill
+               tokens saved with the tier on, no device block and no
+               host buffer leaked, the tier's buffers pinned, kernel 3
+               launched n_layers times a decode step; a planted fault
+               (a restore written into the neighbouring block) must
+               change the tokens. Prints the restore gate's measured
+               copy bandwidth (pinned host to the card) and the
+               restores' ms (_tier_hist: the median, which takes in the
+               read-back check, and the mean without it). The numbers
+               of both phases print as "disagg: {...}" and "tier:
+               {...}" lines before the kernels line.
      training  make_train_step at the full width of the repo's training
                model (bench.py:516-528: vocab 32768, d_model 512, 8 heads
                of 64, 4 layers, d_ff 2048, MHA, no rope; random weights
@@ -470,6 +516,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -1640,6 +1687,22 @@ def _paged_pairs():
                                              _plain_online)}
 
 
+def _counting(srv, calls: dict) -> None:
+    """Count each call of a server's paged step and verify programs into
+    ``calls[name]``."""
+    for name in ("_paged_step_prog", "_paged_verify_prog"):
+        orig = getattr(srv, name)
+
+        def get(*a, orig=orig, name=name):
+            prog = orig(*a)
+
+            def call(*x, **y):
+                calls[name] = calls.get(name, 0) + 1
+                return prog(*x, **y)
+            return call
+        setattr(srv, name, get)
+
+
 def _sharded_serve_rank() -> dict:
     """One rank of the sharded-serving path (spawned by hpx_tpu_torch's
     launcher): ContinuousServer(mesh=Mesh((2, 2), ("dp", "tp"))) at the
@@ -1686,21 +1749,6 @@ def _sharded_serve_rank() -> dict:
                                                    device=dev), cfg)
         return models[which, dtype]
 
-    def counting(srv, calls):
-        """The server's paged step and verify programs, each call
-        counted."""
-        for name in ("_paged_step_prog", "_paged_verify_prog"):
-            orig = getattr(srv, name)
-
-            def get(*a, orig=orig, name=name):
-                prog = orig(*a)
-
-                def call(*x, **y):
-                    calls[name] += 1
-                    return prog(*x, **y)
-                return call
-            setattr(srv, name, get)
-
     def submit(srv, reqs):
         for p, m in reqs:
             srv.submit(p, max_new=m)
@@ -1713,7 +1761,7 @@ def _sharded_serve_rank() -> dict:
         reqs, base = mx[mix]
         srv = serving.ContinuousServer(params, cfg, mesh=mesh, **base, **kw)
         calls = {"_paged_step_prog": 0, "_paged_verify_prog": 0}
-        counting(srv, calls)
+        _counting(srv, calls)
         before = {k: w.launches for k, w in kern.items()}
         submit(srv, reqs)
         torch.cuda.synchronize()
@@ -1830,7 +1878,7 @@ def _sharded_serve_rank() -> dict:
     # every verb and staging copy fenced and timed, over one run of (a)
     srv = serving.ContinuousServer(params, cfg, mesh=mesh, **base, **fused)
     calls = {"_paged_step_prog": 0, "_paged_verify_prog": 0}
-    counting(srv, calls)
+    _counting(srv, calls)
     ntok = sum(m for _, m in reqs)
 
     def once():
@@ -4011,7 +4059,13 @@ def main() -> int:
             prompts = {i: p for i, (p, _) in enumerate(mixes[mix][0])}
             for label, kw in modes:
                 before = paged_launches()
+                flight.reset_counts()
                 base, bsrv = serve(mix, f"f32 {label}, fault-free", f32, **kw)
+                if flight.capture_count() or flight.dropped_count():
+                    raise AssertionError(
+                        f"({mix}) f32 {label}, fault-free: the flight "
+                        f"recorder captured {flight.capture_count()} "
+                        f"bundles ({flight.dropped_count()} dropped)")
                 ran0 = {k: n - before[k]
                         for k, n in paged_launches().items()}
                 # (b)'s admissions make hundreds of alloc checks, whose
@@ -4098,6 +4152,46 @@ def main() -> int:
               f"completed == the non-spec dense server's; fault_stats "
               f"{st}", flush=True)
         resilience["a", "admission OOM"] = {"fault_stats": st}
+        print("   the flight recorder: every fault-free run above captured "
+              "no bundle", flush=True)
+        # a forced shed: every alloc check faults, so the admission OOM
+        # ladder runs out and sheds the request, which records one bundle
+        with tempfile.TemporaryDirectory() as d:
+            old_dir = rc.get("hpx.flight.dir", "auto")
+            rc.set("hpx.flight.dir", d)
+            flight.reset_counts()
+            # built before the injector: the server's trash block is an
+            # alloc too
+            srv = serving.ContinuousServer(
+                params, cfg, slots=2, smax=160, paged=True, block_size=16,
+                paged_kernel="fused", prefix_reuse=False)
+            rid = srv.submit(mix_a[0][0], max_new=4)
+            faultinject.install(faultinject.FaultInjector(
+                rate=1.0, sites=["alloc"], seed=1))
+            try:
+                out = srv.run()
+            finally:
+                faultinject.uninstall()
+                rc.set("hpx.flight.dir", old_dir)
+            names = sorted(n for n in os.listdir(d)
+                           if n.startswith("flight-"))
+            docs = []
+            for n in names:
+                with open(os.path.join(d, n)) as f:
+                    docs.append(json.load(f))
+            problems = [flight.validate_bundle(doc) for doc in docs]
+            if out or rid not in srv.failed or len(docs) != 1 or \
+                    flight.capture_count() != 1 or problems != [[]] or \
+                    docs[0]["trigger"]["kind"] != "shed":
+                raise AssertionError(f"forced shed: out {out}, failed "
+                                     f"{srv.failed}, bundles {names}, "
+                                     f"problems {problems}")
+        print(f"   forced shed (every alloc check faulted): one bundle "
+              f"{names[0]}, trigger {docs[0]['trigger']['kind']} at "
+              f"{docs[0]['trigger']['site']} "
+              f"({docs[0]['trigger']['error_type']}), validate_bundle == "
+              "[]", flush=True)
+        resilience["a", "flight"] = {"bundle_keys": sorted(docs[0])}
 
     def traced_serving():
         """svc.tracing on the main path: mix (a) in f32 on paged fused
@@ -4370,6 +4464,349 @@ def main() -> int:
         print(f"   bf16 Adam (lr 1e-3), 3 steps: losses {alosses}", flush=True)
         del p_adam, state
 
+    # -- disaggregated serving and the host KV tier -----------------------
+    from hpx_tpu_torch.cache.tier import RestoreGate
+    from hpx_tpu_torch.cache.transfer import TransferCorruptError
+    from hpx_tpu_torch.models import disagg
+    from hpx_tpu_torch.svc import flight
+
+    class Corrupting(disagg.InProcHandle):
+        """Flips one payload byte of the first ``n`` segment deliveries
+        (the checksum left as framed)."""
+
+        def __init__(self, worker, n):
+            super().__init__("decode", worker)
+            self.n, self.corrupted = n, 0
+
+        def call(self, method, *args, **kwargs):
+            if method == "ingest" and self.corrupted < self.n:
+                raw = args[0].payload.clone()
+                raw.reshape(-1).view(torch.uint8)[7] ^= 0x10
+                self.corrupted += 1
+                args = (dataclasses.replace(args[0], payload=raw),)
+            return super().call(method, *args, **kwargs)
+
+    disagg_report = {}
+
+    def route(mix, label, kernel, schedule=None, handles=None, plant=False):
+        """One DisaggRouter run of a mix in f32: (tokens, router, decode
+        steps a worker, kernel launches, seconds, segments shipped)."""
+        reqs, base = mixes[mix]
+        params, cfg = model(torch.float32)
+        kw = dict(paged_kernel=kernel, block_size=16)
+        if handles is not None:
+            handles = [handles(disagg.DecodeWorker(params, cfg, **base, **kw))
+                       for _ in range(2)]
+        r = disagg.DisaggRouter(params, cfg, prefill_workers=2,
+                                decode_workers=2, **base,
+                                decode_handles=handles, server_kwargs=kw)
+        calls = {i: {} for i in range(len(r._decode))}
+        for i, h in enumerate(r._decode):
+            _counting(h.worker.srv, calls[i])
+            if plant:
+                srv_ = h.worker.srv
+                real = srv_.admit_prefilled
+
+                def shifted(prompt, rows, *a, real=real, **k):
+                    # row i gets row i - 1's K/V, row 0 stays: not a
+                    # permutation (attention without rope would not see
+                    # a cyclic roll)
+                    return real(prompt, torch.cat(
+                        [rows[:, :, :1], rows[:, :, :-1]], dim=2), *a, **k)
+                srv_.admit_prefilled = shifted
+        shipped = []
+        ship = r._ship
+
+        def keep(req, seg):
+            ship(req, seg)
+            shipped.append(seg)
+        r._ship = keep
+        before = paged_launches()
+        if schedule is not None:
+            faultinject.install(faultinject.FaultInjector(schedule=schedule))
+        try:
+            for p, m in reqs:
+                r.submit(p, max_new=m)
+            torch.cuda.synchronize()
+            t = HighResolutionTimer()
+            out = r.run()
+            torch.cuda.synchronize()
+            secs = t.elapsed()
+        finally:
+            faultinject.uninstall()
+        ran = {k: n - before[k] for k, n in paged_launches().items()}
+        rates[mix, f"f32 disagg {label}"] = sum(
+            len(v) for v in out.values()) / secs
+        steps = {i: sum(c.values()) for i, c in calls.items()}
+        return out, r, steps, ran, secs, shipped
+
+    def disagg_serving():
+        """Disaggregated prefill/decode serving at full width (see the
+        module docstring, "disagg")."""
+        params, cfg = model(torch.float32)
+        wrapper = {"fused": "fused_paged_attention",
+                   "fused_online": "fused_paged_online_attention"}
+        for mix in ("a", "b"):
+            reqs = mixes[mix][0]
+            colo, _ = serve(mix, "f32 paged fused (colocated, for disagg)",
+                            torch.float32, paged=True, block_size=16,
+                            paged_kernel="fused")
+            for kernel in ("fused", "fused_online"):
+                out, r, steps, ran, secs, shipped = route(mix, kernel,
+                                                          kernel)
+                what = f"({mix}) f32 disagg, decode on {kernel}"
+                if out != colo:
+                    bad = [i for i in colo if out.get(i) != colo[i]]
+                    raise AssertionError(f"{what}: tokens of requests {bad} "
+                                         "differ from the colocated server's")
+                want = {k: (cfg.n_layers * sum(steps.values())
+                            if k == wrapper[kernel] else 0) for k in ran}
+                if ran != want or not all(steps.values()):
+                    raise AssertionError(f"{what}: launches {ran}, decode "
+                                         f"steps {steps}: want {want}")
+                bad = [s_.key for s_ in shipped if not s_.verify()]
+                st_ = r.stats()
+                r.close()
+                leak = r.leaked_blocks()
+                if leak or bad or st_["failovers"] != {"prefill": 0,
+                                                        "decode": 0}:
+                    raise AssertionError(f"{what}: leaked {leak}, segments "
+                                         f"that fail to verify {bad}, "
+                                         f"stats {st_}")
+                n = len(reqs)
+                xfer = r.merged_hist()["transfer"]
+                row = {"tokens_per_s": rates[mix, f"f32 disagg {kernel}"],
+                       "colocated_tokens_per_s":
+                           rates[mix, "f32 paged fused (colocated, for "
+                                      "disagg)"],
+                       "seconds": secs, "decode_steps": steps,
+                       "launches": ran,
+                       "segments": len(shipped),
+                       "bytes_shipped_a_request": r.shipped_bytes / n,
+                       "ship_ms_a_request": xfer.sum * 1e3 / n,
+                       "ship_ms_median_a_segment": xfer.quantile(0.5) * 1e3}
+                disagg_report[mix, kernel] = row
+                print(f"   {what}: tokens == the colocated paged fused "
+                      f"server's; {row['tokens_per_s']!r} tokens/s against "
+                      f"{row['colocated_tokens_per_s']!r} colocated; decode "
+                      f"steps {steps}, launches {ran} (= {cfg.n_layers} x "
+                      f"steps); {len(shipped)} segments, all verify; "
+                      f"{row['bytes_shipped_a_request']!r} bytes and "
+                      f"{row['ship_ms_a_request']!r} ms shipped a request; "
+                      f"on {smi}", flush=True)
+            if mix != "a":
+                continue
+            # faults on (a): a seeded kill of each role, the loss of every
+            # decode worker, a corrupted byte, and the planted fault
+            for label, schedule, check in (
+                    ("decode worker killed", {"disagg.decode": {5}},
+                     lambda st: st["failovers"]["decode"] >= 1
+                     and not st["degraded"]),
+                    ("prefill worker killed", {"disagg.prefill": {7}},
+                     lambda st: st["failovers"]["prefill"] >= 1
+                     and not st["degraded"]),
+                    ("every decode worker lost", {"disagg.decode": {1, 3}},
+                     lambda st: st["degraded"])):
+                out, r, _, _, secs, _ = route(mix, label, "fused", schedule)
+                st_ = r.stats()
+                r.close()
+                leak = r.leaked_blocks()
+                if out != colo or not check(st_) or leak:
+                    raise AssertionError(f"(a) disagg, {label}: tokens equal "
+                                         f"{out == colo}, stats {st_}, "
+                                         f"leaked {leak}")
+                disagg_report[mix, label] = {"failovers": st_["failovers"],
+                                             "degraded": st_["degraded"],
+                                             "seconds": secs}
+                print(f"   (a) disagg, {label} ({schedule}): tokens == the "
+                      f"fault-free run's; failovers {st_['failovers']}, "
+                      f"degraded {st_['degraded']}; {secs!r} s", flush=True)
+            out, r, _, _, _, _ = route(mix, "corrupted segments", "fused",
+                                       handles=lambda w: Corrupting(w, 2))
+            hs = r._decode
+            refused = sum(h.worker.recv.stats()["corrupt"] for h in hs)
+            corrupted = sum(h.corrupted for h in hs)
+            st_ = r.stats()
+            r.close()
+            if out != colo or refused != corrupted or corrupted != 4 or \
+                    st_["failovers"] != {"prefill": 0, "decode": 0}:
+                raise AssertionError(f"(a) disagg, corrupted segments: "
+                                     f"tokens equal {out == colo}, "
+                                     f"corrupted {corrupted}, refused "
+                                     f"{refused}, stats {st_}")
+            disagg_report[mix, "corrupted segments"] = {
+                "corrupted": corrupted, "refused": refused}
+            print(f"   (a) disagg, one byte flipped in the first 2 "
+                  f"deliveries to each decode worker: {refused} of "
+                  f"{corrupted} refused at the receivers "
+                  f"({TransferCorruptError.__name__}) and resent within "
+                  "xfer_retries, no failover; tokens == the fault-free "
+                  "run's", flush=True)
+            out, r, _, _, _, _ = route(mix, "planted", "fused", plant=True)
+            r.close()
+            if out == colo:
+                raise AssertionError("(a) disagg, planted fault (rows "
+                                     "shifted by one token row): the tokens "
+                                     "did not change")
+            diff = sum(out[i] != colo[i] for i in colo)
+            print(f"   (a) disagg, planted fault (rows admitted shifted by "
+                  f"one token row): {diff}/{len(colo)} requests' tokens "
+                  "differ, as they must", flush=True)
+        disagg_report["card"] = smi
+
+    tier_report = {}
+
+    def host_tier():
+        """The host KV tier at full width (see the module docstring,
+        "tier")."""
+        # (a)'s requests, every other one under a second seeded 64-token
+        # prefix: with one prefix on one slot the chain is leased by the
+        # retiring request at every insert, so no budget sweep could
+        # evict it
+        other = np.random.default_rng(2).integers(1, 1000, 64).tolist()
+        reqs = [(other + p[64:] if i % 2 else p, m)
+                for i, (p, m) in enumerate(mixes["a"][0])]
+        params, cfg = model(torch.float32)
+        rc = runtime_config()
+
+        def wave(kvd, on, plant=False, budget=2):
+            old = rc.get("hpx.cache.tier.enable")
+            rc.set("hpx.cache.tier.enable", "1" if on else "0")
+            try:
+                srv = serving.ContinuousServer(
+                    params, cfg, slots=1, smax=160, paged=True,
+                    block_size=16, paged_kernel="fused", kv_dtype=kvd,
+                    radix_budget_blocks=budget)
+            finally:
+                rc.set("hpx.cache.tier.enable", old)
+            real = srv._tier_restore_prog
+            restored = {"blocks": 0, "differ": 0, "check_s": 0.0}
+            if plant:
+                nb = srv._alloc.num_blocks
+
+                def shifted(pools, scales, bids, rows, scs):
+                    return real()(pools, scales,
+                                  [b + 1 if b + 1 < nb else b - 1
+                                   for b in bids], rows, scs)
+                srv._tier_restore_prog = lambda: shifted
+            elif on:
+                def checked(pools, scales, bids, rows, scs):
+                    """The restore, then its blocks read back: the
+                    pools' bytes (and scales) at the promoted ids must
+                    be the shipped rows'."""
+                    out = real()(pools, scales, bids, rows, scs)
+                    t0 = time.perf_counter()
+                    idx = torch.tensor(bids, device=srv.device)
+                    for li, pair in enumerate(srv._pools):
+                        for side, pool in enumerate(pair):
+                            got = quant.as_raw(pool)[idx].cpu()
+                            want = quant.as_raw(rows[li, side].reshape(
+                                got.shape[0], *pool.shape[1:]))
+                            same = torch.equal(got, want)
+                            if scs is not None:
+                                same &= torch.equal(
+                                    srv._scales[li][side][idx].cpu(),
+                                    scs[li, side])
+                            restored["differ"] += not same
+                    restored["blocks"] += len(bids)
+                    # the read-back falls inside the restore's clock
+                    # (_tier_hist): its seconds are kept to take out
+                    restored["check_s"] += time.perf_counter() - t0
+                    return out
+                srv._tier_restore_prog = lambda: checked
+            calls = {}
+            _counting(srv, calls)
+            free0 = srv._alloc.stats()["free"]
+            before = paged_launches()
+            for p, m in reqs:
+                srv.submit(p, max_new=m)
+            torch.cuda.synchronize()
+            t = HighResolutionTimer()
+            out = srv.run()
+            torch.cuda.synchronize()
+            secs = t.elapsed()
+            ran = {k: n - before[k] for k, n in paged_launches().items()}
+            steps = {0: sum(calls.values())}
+            st_ = srv.cache_stats()
+            pinned = srv._tier.pinned() if on else None
+            while sum(srv._radix.evict(1)):
+                pass
+            leak = (free0 - srv._alloc.stats()["free"],
+                    srv._tier.leaked_buffers() if on else 0)
+            return out, st_, leak, pinned, srv, steps, ran, secs, restored
+
+        for kvd in ("bf16", "fp8"):
+            off, st_off, leak_off = wave(kvd, False)[:3]
+            on, st_on, leak_on, pinned, srv, steps, ran, secs, restored = \
+                wave(kvd, True)
+            # and with the prefixes kept hot (no budget). In bf16 (pools
+            # in the compute dtype) tier-on tokens equal both. An fp8
+            # decode write requantizes its block under an absmax that
+            # takes in the rows a previous owner left past the frontier
+            # (the reference's write does the same), so fp8 tokens hang
+            # on which blocks were free: there the restores' bytes are
+            # held instead, and the equal requests are counted
+            hot = wave(kvd, False, budget=None)[0]
+            same = {"tier_off": sum(on[i] == off[i] for i in off),
+                    "hot": sum(on[i] == hot[i] for i in hot)}
+            what = f"(a) one slot, {kvd} pools, radix budget 2 blocks"
+            want = {k: (cfg.n_layers * steps[0]
+                        if k == "fused_paged_attention" else 0) for k in ran}
+            if (kvd == "bf16" and not on == off == hot) \
+                    or restored["differ"] or not restored["blocks"] \
+                    or not (st_on["tier_demoted"] > 0
+                                 and st_on["tier_promoted"] > 0
+                                 and st_on["prefill_tokens_saved"]
+                                 > st_off["prefill_tokens_saved"]) \
+                    or leak_on != (0, 0) or leak_off != (0, 0) \
+                    or not pinned or ran != want:
+                raise AssertionError(
+                    f"{what}: tier-on tokens == tier-off {on == off}, == the "
+                    f"hot server's {on == hot}; restores {restored}; stats "
+                    f"{ {k: st_on[k] for k in st_on if k.startswith('tier')} }"
+                    f", saved {st_on['prefill_tokens_saved']} vs "
+                    f"{st_off['prefill_tokens_saved']}; leaks {leak_on} "
+                    f"{leak_off}; pinned {pinned}; launches {ran}, want "
+                    f"{want}")
+            bw = srv._tier_gate.bandwidth()
+            h = srv._tier_hist
+            row = {k: st_on[k] for k in st_on if k.startswith("tier_")}
+            row.update(requests_equal=same, restored=restored,
+                       saved_on=st_on["prefill_tokens_saved"],
+                       saved_off=st_off["prefill_tokens_saved"],
+                       copy_probe_bytes_s=bw, restores=h.count,
+                       restore_ms_median=h.quantile(0.5) * 1e3,
+                       restore_ms_mean_unchecked=(
+                           (h.sum - restored["check_s"]) * 1e3 / h.count),
+                       seconds=secs, launches=ran)
+            tier_report[kvd] = row
+            print(f"   {what}: requests whose tier-on tokens equal "
+                  f"tier-off's and the hot server's {same} of {len(off)}; "
+                  f"{restored['blocks']} restored blocks read back equal to "
+                  f"the shipped bytes; demoted "
+                  f"{row['tier_demoted']}, promoted {row['tier_promoted']}, "
+                  f"prefill tokens saved {row['saved_on']} (tier off "
+                  f"{row['saved_off']}); no block or host buffer leaked; "
+                  f"buffers pinned; launches {ran} ({steps[0]} decode "
+                  f"steps); _copy_probe {bw / 1e9!r} GB/s pinned host to "
+                  f"the card; {h.count} restores of "
+                  f"{row['tier_hit_depth_blocks'] // max(1, h.count)} "
+                  f"blocks, median {row['restore_ms_median']!r} ms with the "
+                  f"read-back check, mean "
+                  f"{row['restore_ms_mean_unchecked']!r} ms without it; on "
+                  f"{smi}", flush=True)
+            if kvd == "bf16":
+                bad, st_bad = wave(kvd, True, plant=True)[:2]
+                if bad == hot or not st_bad["tier_promoted"]:
+                    raise AssertionError("planted fault (restore into the "
+                                         "neighbouring block): the tokens "
+                                         "did not change")
+                print(f"   {what}, planted fault (each restore written into "
+                      f"the neighbouring block): "
+                      f"{sum(bad[i] != hot[i] for i in hot)}/{len(hot)} "
+                      "requests' tokens differ, as they must", flush=True)
+        tier_report["card"] = smi
+
     for name_, fn in (("main path: fused", fused),
                       ("main path: unfused", unfused),
                       ("main path: dataflow", dataflow),
@@ -4383,6 +4820,8 @@ def main() -> int:
                       ("main path: serving bf16", serving_bf16),
                       ("main path: serving speculative", serving_spec),
                       ("main path: resilient serving", serving_resilient),
+                      ("main path: disaggregated serving", disagg_serving),
+                      ("main path: host KV tier", host_tier),
                       ("traced serving", traced_serving),
                       ("main path: decoders", decoders),
                       ("examples_cuda/serving_demo.py", serving_demo),
@@ -6984,6 +7423,10 @@ def main() -> int:
     print(f"config #3: {json.dumps(config3)}")
     print("resilience: " + json.dumps(
         {f"({m}) {k}": v for (m, k), v in resilience.items()}))
+    print("disagg: " + json.dumps({(k if isinstance(k, str)
+                                     else f"({k[0]}) {k[1]}"): v
+                                    for k, v in disagg_report.items()}))
+    print("tier: " + json.dumps(tier_report))
     print("moe: " + json.dumps({**moe, "card": smi}))
     print("multirank: " + json.dumps({**multi, "card": smi}))
     print("sharded: " + json.dumps(sharded))

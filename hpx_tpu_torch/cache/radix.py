@@ -20,11 +20,16 @@ when the allocator reports OOM (serving's OOM→evict→retry path). A
 logical clock orders recency — deterministic replay matters more here
 than wall time.
 
+Eviction is not unconditionally to oblivion: when a `demote_hook` is
+installed (the host tier of `cache/tier.py`), each victim block's raw
+rows are offered to the tier BEFORE the tree reference drops, and
+`evict` reports the `(demoted, dropped)` split. `match_tiered` is the
+two-tier read path: the hot walk of `match`, extended by consecutive
+host-tier probes keyed by the continuation chain hashes; the server
+decides per hit (crossover gate) whether to restore or re-prefill.
+
 Counterpart of ``hpx_tpu.cache.radix``, with its ``cache.match`` and
-``cache.evict`` tracing instants, without the host-tier hooks
-(``demote_hook``, ``match_tiered``), which come with a later slice:
-here an evicted block is dropped, so ``evict`` always reports
-``(0, dropped)``.
+``cache.evict`` tracing instants and its host-tier hooks.
 """
 
 from __future__ import annotations
@@ -96,6 +101,11 @@ class RadixCache:
         self.total_demoted = 0
         self.total_dropped = 0
         self.total_inserts = 0
+        # demotion tier hand-off: called as hook(chain_hash, parent_hash,
+        # token_chunk, block_id) BEFORE the tree reference drops; a True
+        # return counts the eviction as demoted rather than dropped. A
+        # failing hook never blocks eviction: the block is dropped.
+        self.demote_hook = None
 
     # -- helpers ----------------------------------------------------------
 
@@ -151,6 +161,53 @@ class RadixCache:
             tracing.instant("cache.match", "cache", matched=matched,
                             requested=len(tokens), blocks=len(bids))
         return matched, bids
+
+    def match_tiered(self, tokens: Sequence[int], tier
+                     ) -> Tuple[int, List[int],
+                                List[Tuple[int, Tuple[int, ...], int]]]:
+        """Two-tier match: the hot walk of :meth:`match`, then, where the
+        tree ran out, consecutive host-tier probes keyed by the
+        continuation chain hashes. Returns ``(matched_tokens, block_ids,
+        tier_ext)``, ``tier_ext`` listing ``(chain_hash, token_chunk,
+        nbytes)`` for the whole-block chunks the tier holds right past
+        the hot match (up to the first miss: tier chains restore only as
+        a consecutive run). The caller holds no tier reference; it
+        checks entries out once the crossover gate decides to
+        promote."""
+        with self._lock:
+            self.tokens_requested += len(tokens)
+            node = self._root
+            bids: List[int] = []
+            parent = b""
+            chunks = list(self._chunks(tokens))
+            depth = 0
+            for chunk in chunks:
+                child = node.children.get(chunk)
+                if child is None:
+                    break
+                parent = _chain(parent, chunk)
+                self.allocator.incref(child.bid)
+                bids.append(child.bid)
+                self._touch(child)
+                node = child
+                depth += 1
+            matched = len(bids) * self.block_size
+            self.tokens_matched += matched
+        # tier probes outside the tree lock: the tier has its own lock,
+        # and a racing demotion changes only what the probes hit
+        ext: List[Tuple[int, Tuple[int, ...], int]] = []
+        for chunk in chunks[depth:]:
+            parent = _chain(parent, chunk)
+            h = int.from_bytes(parent, "little")
+            nb = tier.probe(h, chunk)
+            if nb is None:
+                break
+            ext.append((h, chunk, int(nb)))
+        if tracing.active_tracer() is not None:
+            tracing.instant("cache.match", "cache", matched=matched,
+                            requested=len(tokens), blocks=len(bids),
+                            tier_blocks=len(ext))
+        return matched, bids, ext
 
     def peek(self, tokens: Sequence[int], k: int) -> List[int]:
         """Read-only continuation probe for prompt-lookup drafting:
@@ -255,15 +312,29 @@ class RadixCache:
         """Free up to `n` blocks by evicting idle leaf chains in LRU
         order. A leaf is evictable when the tree holds the ONLY
         reference (no live request reads it). Returns the
-        ``(demoted, dropped)`` split (no tier here: demoted is 0), so
+        ``(demoted, dropped)`` split: demoted blocks were accepted by the
+        `demote_hook` tier before their device block freed, dropped ones
+        are gone. Both free a device block, so
         ``sum(evict(n))`` is blocks freed — possibly 0 when everything
         retained is in use."""
         with self._lock:
             return self._evict_locked(n)
 
+    def _chain_of(self, node: _Node) -> Tuple[bytes, bytes]:
+        """(parent_hash, chain_hash) of `node`, folding root to node."""
+        keys: List[Tuple[int, ...]] = []
+        walk: Optional[_Node] = node
+        while walk is not None and walk is not self._root:
+            keys.append(walk.key)
+            walk = walk.parent
+        parent = b""
+        for k in reversed(keys[1:]):
+            parent = _chain(parent, k)
+        return parent, _chain(parent, node.key)
+
     def _evict_locked(self, n: int) -> Tuple[int, int]:
-        dropped = 0
-        while dropped < n:
+        demoted = dropped = 0
+        while demoted + dropped < n:
             victim: Optional[_Node] = None
             stack = [self._root]
             while stack:
@@ -277,17 +348,34 @@ class RadixCache:
                     victim = node
             if victim is None:
                 break
+            kept = False
+            hook = self.demote_hook
+            if hook is not None:
+                parent, chain = self._chain_of(victim)
+                try:
+                    # before the decref: the block is still tree-owned,
+                    # so its rows are stable while the tier copies them
+                    kept = bool(hook(int.from_bytes(chain, "little"),
+                                     int.from_bytes(parent, "little"),
+                                     victim.key, victim.bid))
+                except Exception:
+                    kept = False      # a failing tier never blocks OOM
             self.allocator.decref(victim.bid)
             assert victim.parent is not None
             del victim.parent.children[victim.key]
             self._blocks_held -= 1
             self.total_evictions += 1
-            self.total_dropped += 1
-            dropped += 1
-        if dropped and tracing.active_tracer() is not None:
-            tracing.instant("cache.evict", "cache", freed=dropped,
-                            demoted=0, requested=n, held=self._blocks_held)
-        return 0, dropped
+            if kept:
+                demoted += 1
+                self.total_demoted += 1
+            else:
+                dropped += 1
+                self.total_dropped += 1
+        if (demoted or dropped) and tracing.active_tracer() is not None:
+            tracing.instant("cache.evict", "cache", freed=demoted + dropped,
+                            demoted=demoted, requested=n,
+                            held=self._blocks_held)
+        return demoted, dropped
 
     def stats(self) -> Dict[str, float]:
         with self._lock:

@@ -119,6 +119,22 @@ declare("hpx.cache.kv_dtype", "str", "bf16",
         "paged pool storage: bf16 (compute dtype) | int8 (absmax-scaled "
         "integer blocks) | fp8 (e4m3 blocks, same f32 scale sidecars)",
         choices=("bf16", "int8", "fp8"))
+declare("hpx.cache.tier.enable", "bool", "0",
+        "host-RAM KV tier: radix evictions demote block rows (raw "
+        "quantized bytes + scale sidecars) to pooled host buffers, pinned "
+        "on a CUDA device, instead of dropping them")
+declare("hpx.cache.tier.host_budget_mb", "int", "256",
+        "host tier byte budget; LRU to oblivion past it (reloaded live)")
+declare("hpx.cache.tier.min_speedup", "float", "1.0",
+        "promote only when the estimated re-prefill time exceeds the "
+        "restore time by this factor")
+declare("hpx.cache.tier.probe_mb", "int", "4",
+        "host-to-device bandwidth probe transfer size")
+declare("hpx.cache.tier.prefill_cost_us", "float", "50.0",
+        "per-token prefill cost the restore gate weighs a restore against")
+declare("hpx.cache.tier.restore_overhead_us", "float", "200.0",
+        "fixed per-promotion overhead added to the copy-time estimate "
+        "(framing, checksum, splice)")
 
 # -- serving ----------------------------------------------------------------
 declare("hpx.serving.paged_kernel", "str", "auto",
@@ -155,8 +171,8 @@ declare("hpx.serving.spec.max_verify_faults", "int", "2",
 declare("hpx.serving.moe.capacity_factor", "int", "0",
         "MoE decode expert capacity factor as an integer PERCENT "
         "(100 = GShard cf 1.0; C = ceil(T*k*pct/100 / E)); 0 = auto = "
-        "drop-free (cf = n_experts), the token-identity default. Read "
-        "when a server is built")
+        "drop-free (cf = n_experts), the token-identity default. "
+        "Reloaded live at a server's flush boundaries")
 declare("hpx.serving.mesh.paged", "bool", "1",
         "sharded paged serving (0 restores the single-device refusal)")
 declare("hpx.serving.mesh.table_residency", "str", "sharded",
@@ -167,6 +183,26 @@ declare("hpx.serving.step_retries", "int", "4",
         "step attempts before shedding")
 declare("hpx.serving.retry_backoff_s", "float", "0.005",
         "base step-retry backoff")
+declare("hpx.serving.disagg.max_queue", "int", None,
+        "disaggregated router: bound on queued requests (64)")
+declare("hpx.serving.disagg.pump_steps", "int", None,
+        "decode steps a decode worker runs a router tick (4)")
+declare("hpx.serving.disagg.prefill_jobs", "int", None,
+        "concurrent prefill jobs a prefill worker (default: slots)")
+declare("hpx.serving.disagg.xfer_retries", "int", None,
+        "KV segment sends before a transfer fails over (4)")
+
+# -- flight recorder (svc/flight) -------------------------------------------
+declare("hpx.flight.enabled", "bool", "1",
+        "fault flight recorder master switch (allocates nothing until a "
+        "fault capture fires)")
+declare("hpx.flight.dir", "str", "auto",
+        "directory for flight bundles (auto = "
+        "<tmpdir>/hpx_tpu_torch_flight)")
+declare("hpx.flight.max_bundles", "int", "8",
+        "bundles kept on disk (oldest pruned first)")
+declare("hpx.flight.spans", "int", "256",
+        "last N trace spans captured into each bundle")
 
 # -- resiliency -------------------------------------------------------------
 declare("hpx.resiliency.replay_default_n", "int", "3",

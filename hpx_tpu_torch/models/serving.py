@@ -142,9 +142,33 @@ process a rank, SPMD, the reference's sharded decode plane.
   dp, heads by tp, n_experts by the expert axis, a bogus residency,
   ``hpx.serving.mesh.paged=0`` with ``paged=True``.
 
-Left for later slices (the constructor takes none of their arguments):
-the host KV tier, disaggregated prefill,
-the ``/serving{...}`` counters, the flight recorder and live tuning.
+DISAGGREGATED PREFILL (``models/disagg``): ``admit_prefilled`` queues a
+request whose prompt was prefilled elsewhere, with its compute-dtype K/V
+rows and seed token; admission splices the rows through the colocated
+paged splice, so decode reads what a colocated prefill would have
+written. The rows go through the server's b=1 scratch, taken as a dense
+restore takes it (a pending prefill's rows are set aside, not
+overwritten). ``export_prefix_rows`` is the other direction: the radix
+tree's longest whole-block prefix of a prompt as host rows.
+
+HOST KV TIER (``hpx.cache.tier.enable``, ``cache/tier.py``): radix
+evictions demote raw block rows (and scale sidecars) into host buffers,
+pinned on a CUDA device; an admission whose prefix continues into the
+tier restores it when the crossover gate says a restore beats
+re-prefill, through the KVSegment framing, at freshly allocated blocks.
+``cache_stats()`` carries the ``tier_*`` keys.
+
+LIVE KNOBS: at every flush the server re-reads ``_RELOADABLE_KNOBS``
+when the runtime config's generation moved, and applies the keys whose
+raw value changed. On a mesh rank 0 reads them and one small broadcast
+carries its values, so every rank applies a change at the same step.
+
+FLIGHT RECORDER: a shed records a ``svc.flight`` bundle; a bulk shed
+after retry exhaustion records one aggregate bundle (``sync_replay``'s
+``retry-exhausted``), not one a request.
+
+Left for later slices: the ``/serving{...}`` and ``/cache{...}``
+performance counters, the program profiler and the adaptive tuner.
 """
 
 from __future__ import annotations
@@ -158,7 +182,7 @@ import numpy as np
 import torch
 
 from ..cache.block_allocator import BlockAllocator, CacheOOM, block_bytes
-from ..collectives.device import all_reduce, broadcast, copy_to
+from ..collectives.device import all_gather, all_reduce, broadcast, copy_to
 from ..cache.ngram import propose as _ngram_propose
 from ..cache.page_table import PageTable, device_table, occupancy
 from ..cache.radix import RadixCache
@@ -168,7 +192,7 @@ from ..core.errors import (DeadlineExceededError, HpxError,
                            RequestShedError, ServerClosedError)
 from ..exec.cuda import resolve_device
 from ..models.quant import FP8_DTYPE, as_raw
-from ..svc import faultinject, tracing
+from ..svc import faultinject, flight, tracing
 from ..svc import metrics as _metrics
 from ..svc.resiliency import sync_replay
 from ..ops.attention_cuda import (SMEM_LIMIT, paged_plan,
@@ -186,6 +210,36 @@ from .transformer import (_PREFILL_CHUNK, _PROGRAMS, TransformerConfig,
 
 __all__ = ["ContinuousServer", "RequestShedError", "ServerClosedError",
            "DeadlineExceededError", "SlotCheckpoint"]
+
+# the knobs a live server re-reads from the runtime config at flush
+# boundaries (_reload_knobs). Only keys whose raw value changed since
+# construction apply, so a constructor argument (a DecodeWorker's
+# explicit prefill_chunk) survives an unrelated config write.
+_RELOADABLE_KNOBS = (
+    "hpx.serving.prefill_chunk",
+    "hpx.serving.max_async_steps",
+    "hpx.serving.ckpt_every",
+    "hpx.serving.spec.k",
+    "hpx.serving.moe.capacity_factor",
+    "hpx.cache.radix_budget_blocks",
+    "hpx.cache.tier.host_budget_mb",
+)
+
+
+def _knob_int(raw) -> int:
+    """A reloadable knob's raw config value as the integer a mesh
+    broadcast carries: -1 unset, -2 auto (or not an integer)."""
+    if raw is None:
+        return -1
+    try:
+        return int(raw)
+    except (TypeError, ValueError):
+        return -2
+
+
+def _knob_raw(v: int):
+    """The inverse of ``_knob_int``: None, "auto" or the value's text."""
+    return None if v == -1 else "auto" if v == -2 else str(v)
 
 
 def _resolve_buckets(spec, chunk: int) -> Tuple[int, ...]:
@@ -573,6 +627,8 @@ class _Request:
     t_submit: float = 0.0          # monotonic submit time (TTFT)
     deadline_s: Optional[float] = None   # submit()-time budget
     t_deadline: Optional[float] = None   # absolute monotonic deadline
+    xfer_rows: Any = None          # CPU [layers, 2, plen, n_kv, hd] rows
+    xfer_seed: Optional[int] = None   # the remote probe's seed token
 
 
 @dataclasses.dataclass
@@ -788,6 +844,12 @@ class ContinuousServer:
         self.timeline = _metrics.RequestTimeline()
         self._last_step_t: Optional[float] = None
         self._stall_live = False
+        # a bulk shed records one aggregate flight bundle, not one a
+        # request
+        self._flight_mute = False
+        # live knobs: the config generation and the raw values last seen
+        self._cfg_gen = rc.generation()
+        self._knob_raw = {k: rc.get(k) for k in _RELOADABLE_KNOBS}
 
     def _zeros(self, rows: int, cfg: Optional[TransformerConfig] = None
                ) -> torch.Tensor:
@@ -934,6 +996,28 @@ class ContinuousServer:
         # here, so masked decode lanes write into rows nothing reads
         self._trash = self._alloc.alloc()
         self._radix = RadixCache(self._alloc, radix_budget_blocks)
+        # the host-RAM demotion tier (cache/tier.py): radix evictions
+        # demote raw block rows and scale sidecars into host buffers
+        # (pinned on a CUDA device), and the two-tier match promotes
+        # them back through the KVSegment framing when the crossover
+        # gate says a restore beats re-prefill
+        self._tier = None
+        self._tier_gate = None
+        self._tier_rx = None
+        self._tier_hist = None
+        if rc.get_bool("hpx.cache.tier.enable", False):
+            from ..cache.tier import HostTier, RestoreGate
+            from ..cache.transfer import TransferReceiver
+            budget_mb = rc.get_int("hpx.cache.tier.host_budget_mb", 256)
+            self._tier = HostTier(budget_mb << 20, block_size=bs,
+                                  pin=self.device.type == "cuda")
+            self._tier_gate = RestoreGate(
+                device=self.device,
+                probe_fn=self._tier_probe if self._mesh_ranks() > 1
+                else None)
+            self._tier_rx = TransferReceiver()
+            self._tier_hist = _metrics.HistogramCounter()
+            self._radix.demote_hook = self._demote_block
         dt = {"int8": torch.int8,
               "fp8": FP8_DTYPE}.get(self._kv_dtype, cfg.dtype)
         # on a mesh the pools hold every block id (the block axis never
@@ -1397,6 +1481,150 @@ class ContinuousServer:
             self._alloc.decref(bid)
         self._tables[slot] = None
 
+    # -- host tier (cache/tier.py): demotion and gated promotion ------------
+
+    def _mesh_ranks(self) -> int:
+        """Ranks of the serving mesh (1 on one device)."""
+        if self.mesh is None:
+            return 1
+        return self.mesh.axis_size(self.mesh.axis_names)
+
+    def _tier_probe(self, nbytes: int) -> float:
+        """The restore gate's bandwidth on a mesh: rank 0's measurement,
+        broadcast, so that every rank's gate decides alike (ranks whose
+        host states part would pair the wrong tensors next)."""
+        from ..cache.tier import _copy_probe
+        t = torch.tensor([_copy_probe(nbytes, self.device)],
+                         dtype=torch.float64, device=self.device)
+        t = broadcast(t, self.mesh, self.mesh.axis_names, 0)
+        return float(t.item())
+
+    def _demote_block(self, chain: int, parent: int, key, bid: int) -> bool:
+        """RadixCache demote hook: hand one evicted block's RAW pool rows
+        (quantized bytes on int8/fp8 pools, plus the f32 scale sidecars)
+        to the host tier. Runs before the tree reference drops, so the
+        rows are stable; published blocks are immutable, so they are the
+        block's final bytes. The tier's verdict: False (the budget
+        refuses) counts the eviction as dropped."""
+        tier = self._tier
+        if tier is None:
+            return False
+        dt = self._pools[0][0].dtype
+        rows = torch.stack([torch.stack((as_raw(kp)[bid], as_raw(vp)[bid]))
+                            for kp, vp in self._pools]).view(dt)
+        scs = None                          # rows: [L, 2, bs, n_kv, hd]
+        if self._scales is not None:        # scales: [L, 2, n_kv]
+            scs = torch.stack([torch.stack((ks[bid], vs[bid]))
+                               for ks, vs in self._scales])
+        return tier.demote(chain, parent, key, rows, scs)
+
+    def _tier_restore_prog(self):
+        """Host-tier promotion splice: write restored blocks' RAW
+        pool-dtype rows ([L, 2, n * bs, n_kv, hd], host) and scale
+        sidecars ([L, 2, n, n_kv]) at their promoted block ids, one
+        host-to-device copy and then one block write a layer and side.
+        The bytes written are the bytes demoted, so a promoted block
+        dequantizes bit-identically to the block the radix tree
+        evicted."""
+        bs = self.block_size
+
+        def build():
+            def restore(pools, scales, bids, rows, scs):
+                dev = pools[0][0].device
+                cuda = dev.type == "cuda"
+                idx = torch.tensor(bids, dtype=torch.long).to(dev)
+                rows = rows.to(dev, non_blocking=cuda)
+                if scs is not None:
+                    scs = scs.to(dev, non_blocking=cuda)
+                for li, pair in enumerate(pools):
+                    for side, pool in enumerate(pair):
+                        blk = rows[li, side].reshape(len(bids), bs,
+                                                     *pool.shape[2:])
+                        as_raw(pool).index_copy_(0, idx, as_raw(blk))
+                        if scs is not None:
+                            scales[li][side].index_copy_(0, idx,
+                                                         scs[li, side])
+                return pools, scales
+            return restore
+        return self._program((*self._paged_key("pg_tier_restore"),
+                              self._tree), build)
+
+    def _promote_tier(self, req: _Request, matched: int, mbids: List[int],
+                      ext) -> int:
+        """Crossover-gated promotion of a host-tier hit: when a restore
+        beats re-prefill (RestoreGate), ship the entries' raw rows
+        through the KVSegment framing (checksums, idempotent seq
+        numbers), write them at freshly allocated blocks and republish
+        the chain in the radix tree. Appends the promoted ids to `mbids`
+        and returns the whole-block tokens restored (0: the gate declined
+        or nothing could be held; the caller re-prefills and the entries
+        stay in the tier)."""
+        from ..cache.transfer import make_segment
+        bs = self.block_size
+        promote, _est = self._tier_gate.should_promote(
+            len(ext) * bs, sum(nb for _, _, nb in ext))
+        if not promote:
+            self._tier.declined(len(ext))
+            return 0
+        t0 = time.perf_counter()
+        bids: List[int] = []
+        try:
+            for _ in ext:
+                bids.append(self._alloc_block())
+        except CacheOOM:
+            pass        # a partial chain prefix is still a win
+        if not bids:
+            self._tier.declined(len(ext))
+            return 0
+        entries = []
+        for h, _chunk, _nb in ext[:len(bids)]:
+            e = self._tier.checkout(h)
+            if e is None:
+                break   # raced out by a demotion
+            entries.append(e)
+        n = len(entries)
+        for bid in bids[n:]:
+            self._alloc.decref(bid)
+        bids = bids[:n]
+        if not n:
+            return 0
+        rid = f"tier:{req.rid}:{self._pf_seq}"
+        try:
+            for i, e in enumerate(entries):
+                self._tier_rx.ingest(make_segment(rid, i, i * bs, n * bs,
+                                                  e.rows))
+                if e.scales is not None:
+                    self._tier_rx.ingest(make_segment(
+                        "scale/" + rid, i, i, n, e.scales[:, :, None, :]))
+            pin = self.device.type == "cuda"
+            rows = self._tier_rx.assemble(rid, pin)
+            scs = (self._tier_rx.assemble("scale/" + rid, pin)
+                   if entries[0].scales is not None else None)
+        except HpxError:
+            # corrupt or incomplete frame: keep the data (putback), free
+            # the blocks, re-prefill: never a leak
+            self._tier_rx.abort(rid)
+            self._tier_rx.abort("scale/" + rid)
+            for e in entries:
+                self._tier.putback(e)
+            for bid in bids:
+                self._alloc.decref(bid)
+            return 0
+        with torch.no_grad():
+            self._pools, self._scales = self._tier_restore_prog()(
+                self._pools, self._scales, bids, rows, scs)
+        # republish: the tree takes its reference on the promoted blocks
+        # (refcount 2 = tree + our lease, as a hot match leaves it)
+        self._radix.insert(req.prompt[:matched + n * bs], list(mbids) + bids)
+        mbids.extend(bids)
+        for e in entries:
+            self._tier.checkin(e)
+        if self._tier_hist is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._tier_hist.record(time.perf_counter() - t0)
+        return n * bs
+
     @property
     def paged_kernel(self) -> Optional[str]:
         """The kernel a paged server's decode runs, as resolved at
@@ -1411,6 +1639,8 @@ class ContinuousServer:
             raise ValueError("cache_stats() requires paged=True")
         st: Dict[str, Any] = dict(self._alloc.stats())
         st.update(self._radix.stats())
+        if self._tier is not None:
+            st.update(self._tier.stats())
         st["prefill_tokens_saved"] = self._prefill_saved
         st["prefill_tokens_computed"] = self._prefill_computed
         st.update(self.hbm_read_stats())
@@ -1523,6 +1753,97 @@ class ContinuousServer:
         self.timeline.event(rid, "submit", t=now, plen=len(prompt))
         return rid
 
+    def admit_prefilled(self, prompt, kv_rows, seed_token: int,
+                        max_new: int, eos_id: Optional[int] = None,
+                        temperature: float = 0.0, key=None,
+                        deadline_s: Optional[float] = None) -> int:
+        """Queue a request whose prefill already ran elsewhere
+        (disaggregated serving, ``models/disagg``): ``kv_rows`` are the
+        prefill worker's raw compute-dtype scratch rows ``[n_layers, 2,
+        plen, n_kv, head_dim]`` (a CPU tensor or a numpy array) and
+        ``seed_token`` the token its probe seeded. Admission allocates
+        blocks and splices the rows through the paged splice a colocated
+        prefill uses, then decodes from pos = plen: the tokens are what a
+        colocated submit() emits. The rows stay on the host until a slot
+        admits, so shedding a queued transfer cannot leak pool blocks."""
+        if not self.paged:
+            raise ValueError(
+                "admit_prefilled() requires paged=True (the transfer "
+                "protocol ships block-granular KV)")
+        if self._closed:
+            raise ServerClosedError()
+        prompt = [int(t) for t in prompt]
+        if not prompt:
+            raise ValueError("admit_prefilled needs a non-empty prompt")
+        if len(prompt) + max_new > self.smax:
+            raise ValueError(
+                f"plen {len(prompt)} + max_new {max_new} exceeds "
+                f"smax {self.smax}")
+        if max_new < 1:
+            raise ValueError(f"max_new must be >= 1, got {max_new}")
+        if temperature > 0.0 and key is None:
+            raise ValueError("temperature > 0 needs a PRNG key")
+        if key is not None:
+            key = prng.as_key(key, "cpu")
+        rows = (torch.from_numpy(np.ascontiguousarray(kv_rows))
+                if isinstance(kv_rows, np.ndarray) else kv_rows.cpu())
+        want = (self.cfg.n_layers, 2, len(prompt), self.cfg.kv_heads,
+                self.cfg.head_dim)
+        if tuple(rows.shape) != want:
+            raise ValueError(
+                f"kv_rows shape {tuple(rows.shape)} != expected {want}")
+        if deadline_s is None:
+            deadline_s = self._default_deadline_s or None
+        rid = self._next_rid
+        self._next_rid += 1
+        now = time.monotonic()
+        self._queue.append(_Request(
+            rid, prompt, max_new, eos_id, temperature, key,
+            t_submit=now, deadline_s=deadline_s,
+            t_deadline=(now + deadline_s) if deadline_s else None,
+            xfer_rows=rows, xfer_seed=int(seed_token)))
+        return rid
+
+    def export_prefix_rows(self, tokens):
+        """The other direction of :meth:`admit_prefilled`: the longest
+        radix-cached whole-block prefix of `tokens` as raw compute-dtype
+        host rows ``[n_layers, 2, matched, n_kv, head_dim]`` (a CPU
+        tensor: the layout a prefill worker's scratch seeds from and a
+        KV segment frames). Returns ``(matched, rows)``, ``(0, None)``
+        on a cold tree. Quantized pools dequantize as the kernels do,
+        ``(q.float() * scale).to(dtype)``, so bf16 and f32 pools
+        round-trip bit for bit; int8/fp8 exports carry the pool's
+        quantization. On a mesh each rank's heads are gathered over
+        "tp". The match's block leases drop before returning: the caller
+        gets bytes, not references."""
+        if not self.paged:
+            raise ValueError("export_prefix_rows() requires paged=True")
+        matched, bids = self._radix.match(tokens)
+        if not matched:
+            return 0, None
+        try:
+            idx = torch.tensor(bids, dtype=torch.long).to(self.device)
+            layers = []
+            with torch.no_grad():
+                for li, pair in enumerate(self._pools):
+                    sides = []
+                    for side, pool in enumerate(pair):
+                        g = as_raw(pool)[idx].view(pool.dtype)
+                        if self._scales is not None:
+                            sc = self._scales[li][side][idx]
+                            g = g.float() * sc[:, None, :, None]
+                        g = g.to(self.cfg.dtype)
+                        sides.append(g.reshape(matched, *g.shape[2:]))
+                    layers.append(torch.stack(sides))
+                rows = torch.stack(layers)
+                if self._tp > 1:
+                    rows = all_gather(rows, self.mesh, "tp", dim=3)
+            rows = rows.cpu()
+        finally:
+            for bid in bids:
+                self._alloc.decref(bid)
+        return matched, rows
+
     def shutdown(self) -> None:
         """Close the intake: later submit() calls raise
         ServerClosedError; queued and in-flight work still drains."""
@@ -1584,11 +1905,20 @@ class ContinuousServer:
 
     def _start_paged(self, req: _Request, slot: int) -> _PendingPrefill:
         plen = len(req.prompt)
-        matched, mbids = 0, []
+        matched, mbids, tier_ext = 0, [], []
         if self._prefix_reuse:
             # always leave >= 1 suffix token: admission needs the LAST
             # prompt token's logits to seed generation
-            matched, mbids = self._radix.match(req.prompt[:-1])
+            if self._tier is not None:
+                matched, mbids, tier_ext = self._radix.match_tiered(
+                    req.prompt[:-1], self._tier)
+            else:
+                matched, mbids = self._radix.match(req.prompt[:-1])
+        if tier_ext:
+            # crossover-gated restore: a promoted chain extends the hot
+            # match (the write row below trash-redirects its blocks); a
+            # declined one re-prefills, its entries left in the tier
+            matched += self._promote_tier(req, matched, mbids, tier_ext)
         pt = PageTable(self.block_size)
         pt.extend_blocks(mbids)
         try:
@@ -1672,13 +2002,26 @@ class ContinuousServer:
                                    req.key.to(self.device), plen - 1, 0))
         else:
             tok0 = int(torch.argmax(logits[0]))
+        self._go_live(req, slot, tok0)
+        self.timeline.event(req.rid, "first_token", slot=slot)
+        # seed checkpoint: a fault before the first cadence capture
+        # restores to the freshly admitted state instead of losing the
+        # slot (the seed token is part of the checkpoint)
+        self._capture(slot)
+        self._maybe_retire(slot)
+
+    def _go_live(self, req: _Request, slot: int, tok0: int) -> None:
+        """A prefilled request takes its slot at pos = plen with its seed
+        token (a prefill's here, or a transfer's)."""
+        plen = len(req.prompt)
         req.tokens.append(tok0)
         req.sent = 1
         self._slot_req[slot] = req
         self._pos[slot] = plen
         self._cur[slot] = tok0
         if self._cur_dev is not None and self._owns(slot):
-            # a copy: the buffered steps still hold the old tensor
+            # a copy written on the device: the buffered steps still
+            # hold the old tensor, and no host sync is needed
             self._cur_dev = self._cur_dev.clone()
             self._cur_dev[slot - self._lo] = tok0
         self._temp[slot] = req.temperature
@@ -1691,11 +2034,51 @@ class ContinuousServer:
             if self._draft_params is not None:
                 self._draft_prefill(slot, req.prompt)
         self.hist["ttft"].record(time.monotonic() - req.t_submit)
-        self.timeline.event(req.rid, "first_token", slot=slot)
-        # seed checkpoint: a fault before the first cadence capture
-        # restores to the freshly-admitted state instead of losing the
-        # slot (the seed token is already part of the checkpoint)
-        self._capture(slot)
+
+    def _admit_transferred(self, req: _Request, slot: int) -> None:
+        """Admit a remotely prefilled request: allocate its blocks, splice
+        the shipped rows through the colocated splice program (the same
+        quantization and padding), seed the remote probe's token, go
+        live at pos = plen. The rows reach the pools through the b=1
+        scratch, taken as ``_scratch_for`` hands it over: a pending
+        prefill standing there is set aside, and comes back when it runs
+        next. Every later invariant (checkpoints, retire, copy-on-write)
+        sees a normal live slot."""
+        plen = len(req.prompt)
+        pt = PageTable(self.block_size)
+        try:
+            while pt.capacity < plen:
+                pt.append_block(self._alloc_block())
+        except CacheOOM:
+            for bid in pt.blocks:
+                self._alloc.decref(bid)
+            raise
+        pt.tokens = plen
+        self._admit_defers.pop(req.rid, None)
+        wrow = torch.from_numpy(pt.as_row(self._maxb, self._trash)).to(
+            self.device)
+        rows = req.xfer_rows
+        # this rank's kv heads of the shipped rows (all of them on one
+        # device)
+        nkv = self.cfg.kv_heads // self._tp
+        h0 = (self.mesh.axis_index("tp") * nkv) if self._tp > 1 else 0
+        holder = _PendingPrefill(req=req, slot=slot, done=plen, seq=-1)
+        with torch.no_grad():
+            scratch = self._scratch_for(holder)
+            for li, pair in enumerate(scratch):
+                for side, t in enumerate(pair):
+                    t.zero_()
+                    t[0, :plen].copy_(rows[li, side, :, h0:h0 + nkv])
+            self._pools, self._scales = self._paged_splice_prog()(
+                self._pools, self._scales, scratch, wrow)
+        self._resident = None
+        self._tables[slot] = pt
+        req.xfer_rows = None           # the host copy is no longer needed
+        self._go_live(req, slot, int(req.xfer_seed))
+        self.timeline.event(req.rid, "transfer_admit", slot=slot,
+                            plen=plen)
+        self._prefill_saved += plen    # the prefill ran remotely
+        self._capture(slot)            # the seed checkpoint
         self._maybe_retire(slot)
 
     def _admit(self) -> None:
@@ -1721,6 +2104,9 @@ class ContinuousServer:
                 try:
                     with tracing.span("serving.admit", "serving",
                                       rid=req.rid, slot=slot, plen=plen):
+                        if req.xfer_rows is not None:
+                            self._admit_transferred(req, slot)
+                            continue
                         p = self._start_prefill(req, slot)
                         if p.remaining <= self.prefill_chunk:
                             with tracing.span("serving.prefill", "serving",
@@ -2186,6 +2572,9 @@ class ContinuousServer:
             self.failed[req.rid] = err
             self._admit_defers.pop(req.rid, None)
             self._flt_shed += 1
+        if not self._flight_mute:
+            flight.record_fault("shed", site="serving", rid=req.rid,
+                                error=err)
 
     def _shed_expired(self) -> None:
         """Deadline policy: a queued or still-prefilling request whose
@@ -2223,8 +2612,7 @@ class ContinuousServer:
         tensors in the next collective, or hang it)."""
         now = time.monotonic()
         mine = [now >= r.t_deadline for r in reqs]
-        if self.mesh is None or self.mesh.axis_size(
-                self.mesh.axis_names) == 1:
+        if self._mesh_ranks() == 1:
             return mine
         t = torch.tensor(mine, dtype=torch.uint8, device=self.device)
         t = broadcast(t, self.mesh, self.mesh.axis_names, 0)
@@ -2239,21 +2627,28 @@ class ContinuousServer:
         not clear."""
         self._flush()
         reason = f"step retries exhausted ({exc})"
-        for s in range(self.slots):
-            req = self._slot_req[s]
-            if req is None:
-                continue
-            self._slot_req[s] = None
-            self._drop_ckpt(s)
-            if self.paged:
-                self._release_slot(s, req)
-            self._shed_req(req, RequestShedError(req.rid, reason))
-        for s in list(self._pending):
-            p = self._drop_pending(s)
-            self._shed_req(p.req, RequestShedError(p.req.rid, reason))
-        while self._queue:
-            q = self._queue.popleft()
-            self._shed_req(q, RequestShedError(q.rid, reason))
+        # sync_replay has recorded this exhaustion (one "retry-exhausted"
+        # flight bundle); the per-request sheds below record none, so a
+        # bulk shed stays one bundle
+        self._flight_mute = True
+        try:
+            for s in range(self.slots):
+                req = self._slot_req[s]
+                if req is None:
+                    continue
+                self._slot_req[s] = None
+                self._drop_ckpt(s)
+                if self.paged:
+                    self._release_slot(s, req)
+                self._shed_req(req, RequestShedError(req.rid, reason))
+            for s in list(self._pending):
+                p = self._drop_pending(s)
+                self._shed_req(p.req, RequestShedError(p.req.rid, reason))
+            while self._queue:
+                q = self._queue.popleft()
+                self._shed_req(q, RequestShedError(q.rid, reason))
+        finally:
+            self._flight_mute = False
         self._cur_dev = self._temp_dev = self._keys_dev = None
 
     def _maybe_retire(self, slot: int) -> None:
@@ -2314,6 +2709,78 @@ class ContinuousServer:
                 self._moe_dropped += float(ms[1])
                 self._moe_occ = [float(v) for v in ms[2:]]
         self._ckpt_sweep()
+        self._reload_knobs()
+
+    def _knob_changes(self) -> Dict[str, Any]:
+        """The reloadable knobs whose raw config value changed since the
+        last look, read only when the config's generation moved. On a
+        mesh rank 0 reads them, and one broadcast a flush carries its
+        values (as integers: -1 unset, -2 auto) to every rank, which
+        applies them at the same step."""
+        rc = runtime_config()
+        if self._mesh_ranks() == 1:
+            gen = rc.generation()
+            if gen == self._cfg_gen:
+                return {}
+            self._cfg_gen = gen
+            raws = {k: rc.get(k) for k in _RELOADABLE_KNOBS}
+        else:
+            vals = [0] * (1 + len(_RELOADABLE_KNOBS))
+            if self.mesh.rank == 0:
+                gen = rc.generation()
+                if gen != self._cfg_gen:
+                    self._cfg_gen = gen
+                    vals = [1] + [_knob_int(rc.get(k))
+                                  for k in _RELOADABLE_KNOBS]
+            t = broadcast(torch.tensor(vals, dtype=torch.int64,
+                                       device=self.device),
+                          self.mesh, self.mesh.axis_names, 0)
+            vals = t.tolist()
+            if not vals[0]:
+                return {}
+            raws = {k: _knob_raw(v)
+                    for k, v in zip(_RELOADABLE_KNOBS, vals[1:])}
+        out = {}
+        for key, raw in raws.items():
+            if _knob_int(raw) == _knob_int(self._knob_raw[key]):
+                continue
+            self._knob_raw[key] = raw
+            out[key] = raw
+        return out
+
+    def _reload_knobs(self) -> None:
+        """Apply runtime config writes to the live server at the flush
+        boundary (no step in flight). Values clamp to the ladders baked
+        in at construction: the bucket ladder and smax are shapes a live
+        write cannot change."""
+        for key, raw in self._knob_changes().items():
+            if raw is None or raw == "auto":
+                continue
+            v = int(raw)
+            if key == "hpx.serving.prefill_chunk":
+                self.prefill_chunk = min(max(1, v), self.prefill_buckets[-1])
+            elif key == "hpx.serving.max_async_steps":
+                self._max_async = max(1, v)
+                # the token ring holds one buffer per step the loop may
+                # keep unflushed; the flush left none buffered
+                self._ring, self._ring_i = [], 0
+            elif key == "hpx.serving.ckpt_every":
+                self._ckpt_every = max(1, v)
+            elif key == "hpx.serving.spec.k" and self._spec:
+                self._spec_k = min(max(1, v), self.prefill_buckets[-1] - 1)
+            elif key == "hpx.serving.moe.capacity_factor" \
+                    and self.cfg.n_experts > 0:
+                # 0 = drop-free; the step and verify programs re-key on
+                # the new percent (one build each per distinct value)
+                self._moe_capacity_pct = (self.cfg.n_experts * 100
+                                          if v <= 0 else max(1, v))
+                self._moe_key = (self._moe_capacity_pct,)
+            elif key == "hpx.cache.radix_budget_blocks" and self.paged:
+                self._radix.budget_blocks = max(1, v)
+            elif key == "hpx.cache.tier.host_budget_mb" and self.paged \
+                    and self._tier is not None:
+                # a shrink applies at the next demotion's LRU sweep
+                self._tier.budget_bytes = max(1, v) << 20
 
     # -- the step loop ----------------------------------------------------------
 

@@ -28,7 +28,8 @@ much"; a server also needs "how slow, at which percentile" — live
 
 Knobs (``hpx.metrics.*``, declared in core/config_schema.py): bucket
 range ``hist_lo``/``hist_hi``, resolution ``hist_subbuckets``, derived
-``quantiles``, and ``timeline_capacity``.
+``quantiles``, and ``timeline_capacity``. ``registry_snapshot`` dumps
+the counter registry for flight bundles (``svc/flight``).
 """
 
 from __future__ import annotations
@@ -50,10 +51,11 @@ __all__ = [
     "configured_quantiles",
     "timeline_dropped_entries",
     "reset_timeline_dropped",
+    "registry_snapshot",
 ]
 
 # the latency families of a ContinuousServer (one HistogramCounter
-# each; "transfer" is fed by disaggregated serving, which comes later)
+# each; "transfer" is fed by the disaggregated router, models/disagg)
 LATENCY_KEYS = ("ttft", "queue_wait", "transfer", "decode_stall", "e2e")
 
 
@@ -385,3 +387,20 @@ def timeline_dropped_entries() -> int:
 def reset_timeline_dropped() -> None:
     global _timeline_dropped
     _timeline_dropped = 0
+
+
+def registry_snapshot(pattern: str = "*") -> Dict[str, Dict[str, Any]]:
+    """JSON-safe dump of the counter registry: ``{"histograms": {name:
+    snapshot}, "counters": {name: value}}``; unreadable callbacks are
+    skipped."""
+    hists: Dict[str, Any] = {}
+    scalars: Dict[str, float] = {}
+    for name, c in pc.registered_counters(pattern).items():
+        try:
+            if isinstance(c, HistogramCounter):
+                hists[name] = c.snapshot()
+            else:
+                scalars[name] = float(c.get_value().value)
+        except Exception:
+            continue
+    return {"histograms": hists, "counters": scalars}

@@ -283,6 +283,16 @@ def discover_counters(pattern: str = "*") -> List[str]:
     return sorted(n for n in names if fnmatch.fnmatchcase(n, pattern))
 
 
+def registered_counters(pattern: str = "*") -> Dict[str, Counter]:
+    """The Counter objects behind :func:`discover_counters`, for
+    snapshots that must tell histograms from scalars."""
+    _refresh()
+    with _registry_lock:
+        snap = dict(_registry)
+    return {n: snap[n] for n in sorted(snap)
+            if fnmatch.fnmatchcase(n, pattern)}
+
+
 def query_counter(name: str, reset: bool = False,
                   _do_refresh: bool = True) -> CounterValue:
     """Query one counter of this locality."""

@@ -14,10 +14,10 @@ or a CUDA-graph replay; replay guards against transient HOST/runtime
 failures and validation guards against numerical corruption (the
 reference's use case is identical). Replicate+vote runs the copies
 concurrently through the task pool and elects by value equality
-(tensors compare by bytes). Distributed replay
-(``async_replay_distributed``, which retargets localities) comes with
-the distribution plane, and so does ``sync_replay``'s flight-recorder
-bundle at retry exhaustion (``svc/flight``).
+(tensors compare by bytes). ``sync_replay`` records a flight-recorder
+bundle (``svc/flight``) when its retries are exhausted. Distributed
+replay (``async_replay_distributed``, which retargets localities) comes
+with the distribution plane.
 """
 
 from __future__ import annotations
@@ -163,6 +163,11 @@ def sync_replay(n: Optional[int], fn: Callable[..., Any], *args: Any,
             raise
         except retry_on as e:
             last_exc = e
+    # the replay budget is spent: the caller's recovery could not clear
+    # the fault; record the moment before the raise unwinds state
+    from . import flight
+    flight.record_fault("retry-exhausted", site="sync_replay",
+                        error=last_exc)
     raise last_exc
 
 
