@@ -197,6 +197,42 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
                read-back check, and the mean without it). The numbers
                of both phases print as "disagg: {...}" and "tier:
                {...}" lines before the kernels line.
+     fleet     svc.fleet.FleetRouter(prefill_workers=2,
+               decode_workers=2) in float32 on (a) and a warm wave (12
+               more requests on (a)'s 64-token prefix, tails from seed
+               2), its digests read fresh at every placement: on fused
+               and on fused_online, tokens equal to the colocated paged
+               fused server's; the warm wave placed by prefix for at
+               least 9 of 12 requests, saving more prefill tokens than
+               the cold wave and at most 64 a request; load placement
+               saves none; the DisaggRouter on the same waves beside;
+               (b) with scale_high 4, decode_pool_max 4, idle_ticks 2:
+               workers minted and drained, tokens equal; in every run
+               kernel 3 (or 4) launched n_layers times a decode step of
+               every worker (minted and retired ones too), no block
+               leaked, every retired worker's server collected (and
+               every other one after the close),
+               and the fleet's counters read after every router step
+               under sync debug mode "error"; a planted fault (fetched
+               prefix rows shifted by one token row) must change the
+               warm wave's tokens. Prints the routers' tokens/s, the
+               placements, the tokens saved and the ms of a prefix
+               fetch as a "fleet: {...}" line.
+     progprof  (b) on a colocated paged fused f32 server with the
+               program profiler on (svc.progprof) against one without:
+               equal tokens and CUDA-graph captures; each program's
+               calls (the warm call and its graph's replays) equal the
+               server's calls of it and its timed calls; the width-128
+               chunk record's median within 0.5-2x of its graph's
+               replays timed by CUDA events; the chunk's device us a
+               token beside the gate's configured 50; host ms of a
+               decode-only step A B B A; the tier case (bf16) again
+               with the profiler on, its counts those of the tier phase;
+               a tuned run (hpx.tune.enable, interval_ticks 2) whose
+               tokens equal and whose chunk graphs stay on the ladder;
+               planted faults (replays unreported; a host clock around
+               the calls) must fail their checks. Prints a "progprof:
+               {...}" line.
      training  make_train_step at the full width of the repo's training
                model (bench.py:516-528: vocab 32768, d_model 512, 8 heads
                of 64, 4 layers, d_ff 2048, MHA, no rope; random weights
@@ -1701,6 +1737,34 @@ def _counting(srv, calls: dict) -> None:
                 return prog(*x, **y)
             return call
         setattr(srv, name, get)
+
+
+def _print_holders(obj, depth: int = 8) -> None:
+    """Print the chain of objects that keep ``obj`` alive (gc referrers,
+    one of each type a level; frames and this walk's own lists left
+    out), ``depth`` levels up."""
+    import gc
+    import types
+    seen = {id(obj)}
+    level = [obj]
+    for d in range(depth):
+        up, kinds = [], set()
+        for o in level:
+            for ref in gc.get_referrers(o):
+                if id(ref) in seen or ref is level or ref is up \
+                        or isinstance(ref, types.FrameType):
+                    continue
+                seen.add(id(ref))
+                if type(ref) in kinds:
+                    continue
+                kinds.add(type(ref))
+                what = (sorted(k for k in ref if isinstance(k, str))[:6]
+                        if isinstance(ref, dict) else
+                        getattr(ref, "__qualname__", ""))
+                print(f"   {'  ' * d}held by {type(ref).__name__} {what}",
+                      flush=True)
+                up.append(ref)
+        level = up
 
 
 def _sharded_serve_rank() -> dict:
@@ -4656,9 +4720,11 @@ def main() -> int:
 
     tier_report = {}
 
-    def host_tier():
-        """The host KV tier at full width (see the module docstring,
-        "tier")."""
+    def tier_wave(kvd, on, plant=False, budget=2):
+        """One wave of the host-tier case (see the module docstring,
+        "tier"): its tokens, cache stats, leaks, whether the tier's
+        buffers are pinned, the server, its decode steps, kernels 3-4's
+        launches, seconds and the restores read back."""
         # (a)'s requests, every other one under a second seeded 64-token
         # prefix: with one prefix on one slot the chain is leased by the
         # retiring request at every insert, so no budget sweep could
@@ -4668,73 +4734,76 @@ def main() -> int:
                 for i, (p, m) in enumerate(mixes["a"][0])]
         params, cfg = model(torch.float32)
         rc = runtime_config()
+        old = rc.get("hpx.cache.tier.enable")
+        rc.set("hpx.cache.tier.enable", "1" if on else "0")
+        try:
+            srv = serving.ContinuousServer(
+                params, cfg, slots=1, smax=160, paged=True,
+                block_size=16, paged_kernel="fused", kv_dtype=kvd,
+                radix_budget_blocks=budget)
+        finally:
+            rc.set("hpx.cache.tier.enable", old)
+        real = srv._tier_restore_prog
+        restored = {"blocks": 0, "differ": 0, "check_s": 0.0}
+        if plant:
+            nb = srv._alloc.num_blocks
 
-        def wave(kvd, on, plant=False, budget=2):
-            old = rc.get("hpx.cache.tier.enable")
-            rc.set("hpx.cache.tier.enable", "1" if on else "0")
-            try:
-                srv = serving.ContinuousServer(
-                    params, cfg, slots=1, smax=160, paged=True,
-                    block_size=16, paged_kernel="fused", kv_dtype=kvd,
-                    radix_budget_blocks=budget)
-            finally:
-                rc.set("hpx.cache.tier.enable", old)
-            real = srv._tier_restore_prog
-            restored = {"blocks": 0, "differ": 0, "check_s": 0.0}
-            if plant:
-                nb = srv._alloc.num_blocks
+            def shifted(pools, scales, bids, rows, scs):
+                return real()(pools, scales,
+                              [b + 1 if b + 1 < nb else b - 1
+                               for b in bids], rows, scs)
+            srv._tier_restore_prog = lambda: shifted
+        elif on:
+            def checked(pools, scales, bids, rows, scs):
+                """The restore, then its blocks read back: the
+                pools' bytes (and scales) at the promoted ids must
+                be the shipped rows'."""
+                out = real()(pools, scales, bids, rows, scs)
+                t0 = time.perf_counter()
+                idx = torch.tensor(bids, device=srv.device)
+                for li, pair in enumerate(srv._pools):
+                    for side, pool in enumerate(pair):
+                        got = quant.as_raw(pool)[idx].cpu()
+                        want = quant.as_raw(rows[li, side].reshape(
+                            got.shape[0], *pool.shape[1:]))
+                        same = torch.equal(got, want)
+                        if scs is not None:
+                            same &= torch.equal(
+                                srv._scales[li][side][idx].cpu(),
+                                scs[li, side])
+                        restored["differ"] += not same
+                restored["blocks"] += len(bids)
+                # the read-back falls inside the restore's clock
+                # (_tier_hist): its seconds are kept to take out
+                restored["check_s"] += time.perf_counter() - t0
+                return out
+            srv._tier_restore_prog = lambda: checked
+        calls = {}
+        _counting(srv, calls)
+        free0 = srv._alloc.stats()["free"]
+        before = paged_launches()
+        for p, m in reqs:
+            srv.submit(p, max_new=m)
+        torch.cuda.synchronize()
+        t = HighResolutionTimer()
+        out = srv.run()
+        torch.cuda.synchronize()
+        secs = t.elapsed()
+        ran = {k: n - before[k] for k, n in paged_launches().items()}
+        steps = {0: sum(calls.values())}
+        st_ = srv.cache_stats()
+        pinned = srv._tier.pinned() if on else None
+        while sum(srv._radix.evict(1)):
+            pass
+        leak = (free0 - srv._alloc.stats()["free"],
+                srv._tier.leaked_buffers() if on else 0)
+        return out, st_, leak, pinned, srv, steps, ran, secs, restored
 
-                def shifted(pools, scales, bids, rows, scs):
-                    return real()(pools, scales,
-                                  [b + 1 if b + 1 < nb else b - 1
-                                   for b in bids], rows, scs)
-                srv._tier_restore_prog = lambda: shifted
-            elif on:
-                def checked(pools, scales, bids, rows, scs):
-                    """The restore, then its blocks read back: the
-                    pools' bytes (and scales) at the promoted ids must
-                    be the shipped rows'."""
-                    out = real()(pools, scales, bids, rows, scs)
-                    t0 = time.perf_counter()
-                    idx = torch.tensor(bids, device=srv.device)
-                    for li, pair in enumerate(srv._pools):
-                        for side, pool in enumerate(pair):
-                            got = quant.as_raw(pool)[idx].cpu()
-                            want = quant.as_raw(rows[li, side].reshape(
-                                got.shape[0], *pool.shape[1:]))
-                            same = torch.equal(got, want)
-                            if scs is not None:
-                                same &= torch.equal(
-                                    srv._scales[li][side][idx].cpu(),
-                                    scs[li, side])
-                            restored["differ"] += not same
-                    restored["blocks"] += len(bids)
-                    # the read-back falls inside the restore's clock
-                    # (_tier_hist): its seconds are kept to take out
-                    restored["check_s"] += time.perf_counter() - t0
-                    return out
-                srv._tier_restore_prog = lambda: checked
-            calls = {}
-            _counting(srv, calls)
-            free0 = srv._alloc.stats()["free"]
-            before = paged_launches()
-            for p, m in reqs:
-                srv.submit(p, max_new=m)
-            torch.cuda.synchronize()
-            t = HighResolutionTimer()
-            out = srv.run()
-            torch.cuda.synchronize()
-            secs = t.elapsed()
-            ran = {k: n - before[k] for k, n in paged_launches().items()}
-            steps = {0: sum(calls.values())}
-            st_ = srv.cache_stats()
-            pinned = srv._tier.pinned() if on else None
-            while sum(srv._radix.evict(1)):
-                pass
-            leak = (free0 - srv._alloc.stats()["free"],
-                    srv._tier.leaked_buffers() if on else 0)
-            return out, st_, leak, pinned, srv, steps, ran, secs, restored
-
+    def host_tier():
+        """The host KV tier at full width (see the module docstring,
+        "tier")."""
+        _, cfg = model(torch.float32)
+        wave = tier_wave
         for kvd in ("bf16", "fp8"):
             off, st_off, leak_off = wave(kvd, False)[:3]
             on, st_on, leak_on, pinned, srv, steps, ran, secs, restored = \
@@ -4807,6 +4876,526 @@ def main() -> int:
                       "requests' tokens differ, as they must", flush=True)
         tier_report["card"] = smi
 
+    # -- the fleet router, the program profiler and the tuner ----------------
+    import gc
+    import weakref
+    from hpx_tpu_torch.svc import fleet as fleet_mod
+    from hpx_tpu_torch.svc import performance_counters as pcs
+    from hpx_tpu_torch.svc import progprof
+
+    fleet_report = {}
+
+    @contextlib.contextmanager
+    def knobs(**kv):
+        """Runtime config keys set for the block, then put back."""
+        rc = runtime_config()
+        old = {k: rc.get(k) for k in kv}
+        for k, v in kv.items():
+            rc.set(k, str(v))
+        try:
+            yield
+        finally:
+            for k, v in old.items():
+                rc.set(k, "" if v is None else v)
+
+    def warm_wave():
+        """12 more requests on (a)'s 64-token prefix, tails and lengths
+        from seed 2."""
+        rng = np.random.default_rng(2)
+        shared = mixes["a"][0][0][0][:64]
+        return [(shared + rng.integers(1, 1000, 8).tolist(),
+                 int(rng.integers(16, 33))) for _ in range(12)]
+
+    def colocated(waves, base):
+        """Each wave's tokens (in submission order) on one colocated paged
+        fused f32 server, wave after wave, and each wave's tokens/s."""
+        params, cfg = model(torch.float32)
+        srv = serving.ContinuousServer(params, cfg, **base, paged=True,
+                                       block_size=16, paged_kernel="fused")
+        outs, rates_ = [], []
+        for reqs in waves:
+            rids = [srv.submit(p, max_new=m) for p, m in reqs]
+            torch.cuda.synchronize()
+            t = HighResolutionTimer()
+            out = srv.run()
+            torch.cuda.synchronize()
+            outs.append([out[i] for i in rids])
+            rates_.append(sum(len(v) for v in outs[-1]) / t.elapsed())
+        return outs, rates_
+
+    def fleet_run(waves, base, kernel, router="fleet", plant=False,
+                  drain=0, **fleet_kw):
+        """One router (a FleetRouter, or the DisaggRouter beside it) over
+        ``waves`` in f32, stepped by hand: per wave its tokens, seconds,
+        stats and kernels 3-4's launches; the decode steps of every worker
+        it ever had (minted ones too), counted at the step program; the
+        ms of each prefix fetch; its counters queried after every step
+        under sync debug mode "error"; then ``drain`` idle steps, the
+        close and the leak."""
+        params, cfg = model(torch.float32)
+        kw = dict(paged_kernel=kernel, block_size=16)
+        with knobs(**{f"hpx.serving.fleet.{k}": v
+                      for k, v in dict(digest_refresh_s=0,
+                                       **fleet_kw).items()}):
+            if router == "fleet":
+                r = fleet_mod.FleetRouter(params, cfg, prefill_workers=2,
+                                          decode_workers=2, **base,
+                                          server_kwargs=kw)
+            else:
+                r = disagg.DisaggRouter(params, cfg, prefill_workers=2,
+                                        decode_workers=2, **base,
+                                        server_kwargs=kw)
+        steps, fetch_ms, servers = [], [], []
+
+        def watch(h):
+            w = h.worker
+            calls = {}
+            steps.append(calls)
+            _counting(w.srv, calls)
+            servers.append((weakref.ref(h), weakref.ref(w.srv)))
+            real = w.fetch_prefix
+
+            def fetch(prompt, real=real):
+                t0 = time.perf_counter()
+                out = real(prompt)
+                fetch_ms.append((time.perf_counter() - t0) * 1e3)
+                if plant and out["matched"]:
+                    # row i gets row i - 1, row 0 twice: not a permutation
+                    rows = out["rows"]
+                    out = dict(out, rows=torch.cat(
+                        [rows[:, :, :1], rows[:, :, :-1]], dim=2))
+                return out
+            w.fetch_prefix = fetch
+            return h
+        for h_ in r._decode:
+            watch(h_)
+        del h_      # a handle left here would keep its server alive
+        if router == "fleet":
+            r._new_decode_handle = functools.partial(
+                lambda mint: watch(mint()), r._new_decode_handle)
+        inst = getattr(r, "counter_instance", None)
+        pat = f"/serving{{locality#*/{inst}}}/fleet/*"
+        queried = 0
+        per_wave = []
+        for reqs in waves:
+            before = paged_launches()
+            rids = [r.submit(p, m) for p, m in reqs]
+            torch.cuda.synchronize()
+            t = HighResolutionTimer()
+            while r.step():
+                if inst is not None:
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        vals = pcs.query_counters(pat)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                    queried += len(vals)
+            torch.cuda.synchronize()
+            secs = t.elapsed()
+            out, r.results = r.results, {}
+            per_wave.append(dict(
+                out=[out[i] for i in rids], secs=secs, stats=r.stats(),
+                ran={k: n - before[k]
+                     for k, n in paged_launches().items()}))
+        for _ in range(drain):
+            r.step()
+        # a retired worker's server (its pools and graphs) is released
+        gc.collect()
+        retired = [srv for h, srv in servers if h() not in r._decode]
+        kept = sum(srv() is not None for srv in retired)
+        st_ = r.stats()
+        r.close()
+        leak = r.leaked_blocks()
+        del r
+        gc.collect()
+        alive = sum(srv() is not None for _, srv in servers)
+        if alive:
+            _print_holders(next(srv() for _, srv in servers
+                                if srv() is not None))
+        return dict(waves=per_wave, steps=[sum(c.values()) for c in steps],
+                    fetch_ms=fetch_ms, stats=st_, leak=leak,
+                    queried=queried, retired=len(retired),
+                    retired_alive=kept, live_after_close=alive,
+                    workers=len(servers))
+
+    def fleet_serving():
+        """The fleet router at full width (see the module docstring,
+        "fleet")."""
+        _, cfg = model(torch.float32)
+        base_a, base_b = mixes["a"][1], mixes["b"][1]
+        cold, warm = mixes["a"][0], warm_wave()
+        want_a, colo_a = colocated([cold, warm], base_a)
+        fleet_report["colocated"] = dict(tokens_per_s=colo_a)
+        wrapper = {"fused": "fused_paged_attention",
+                   "fused_online": "fused_paged_online_attention"}
+
+        def held(res, what, kernel, want):
+            """Tokens against the colocated server's, launches against
+            n_layers a decode step of every worker, no leak, every
+            retired worker's server released at its retire and every
+            other one after the router's close."""
+            ran = {k: sum(w["ran"][k] for w in res["waves"])
+                   for k in res["waves"][0]["ran"]}
+            exp = {k: cfg.n_layers * sum(res["steps"])
+                   if k == wrapper[kernel] else 0 for k in ran}
+            got = [w["out"] for w in res["waves"]]
+            if got != want:
+                bad = [(i, j) for i, (g, w) in enumerate(zip(got, want))
+                       for j in range(len(w)) if g[j] != w[j]]
+                raise AssertionError(f"{what}: tokens of (wave, request) "
+                                     f"{bad} differ from the colocated "
+                                     "server's")
+            if ran != exp or not sum(res["steps"]) or res["leak"] \
+                    or res["retired_alive"] or res["live_after_close"]:
+                raise AssertionError(
+                    f"{what}: launches {ran}, want {exp} (decode steps "
+                    f"{res['steps']}); leaked {res['leak']}; retired "
+                    f"workers' servers left alive {res['retired_alive']} "
+                    f"of {res['retired']}, servers alive after the close "
+                    f"{res['live_after_close']}")
+            return ran
+
+        for kernel in ("fused", "fused_online"):
+            res = fleet_run([cold, warm], base_a, kernel)
+            what = f"(a) fleet, prefix placement, decode on {kernel}"
+            ran = held(res, what, kernel, want_a)
+            (c, w) = res["waves"]
+            placed = (w["stats"]["placed_prefix"]
+                      - c["stats"]["placed_prefix"])
+            saved = (c["stats"]["prefill_tokens_saved"],
+                     w["stats"]["prefill_tokens_saved"]
+                     - c["stats"]["prefill_tokens_saved"])
+            if placed < 9 or not saved[1] > saved[0] \
+                    or saved[1] > 64 * len(warm) or not res["queried"]:
+                raise AssertionError(f"{what}: warm wave placed by prefix "
+                                     f"{placed} of 12, tokens saved "
+                                     f"(cold, warm) {saved}, counters "
+                                     f"read {res['queried']}")
+            ntok = [sum(len(t) for t in x["out"]) for x in (c, w)]
+            fleet_report[kernel] = dict(
+                tokens_per_s=[n / x["secs"] for n, x in zip(ntok, (c, w))],
+                placed_prefix_warm=placed, saved_cold_warm=saved,
+                decode_steps=res["steps"], launches=ran,
+                fetches=len(res["fetch_ms"]),
+                fetch_ms_median=(statistics.median(res["fetch_ms"])
+                                 if res["fetch_ms"] else None),
+                counters_read=res["queried"])
+            print(f"   {what}: both waves' tokens == the colocated paged "
+                  f"fused server's; warm wave placed by prefix {placed} "
+                  f"of 12, prefill tokens saved cold {saved[0]} / warm "
+                  f"{saved[1]}; tokens/s cold / warm "
+                  f"{fleet_report[kernel]['tokens_per_s']} against "
+                  f"{colo_a} colocated; decode steps "
+                  f"{res['steps']}, launches {ran} (= {cfg.n_layers} x "
+                  f"steps); {len(res['fetch_ms'])} prefix fetches, median "
+                  f"{fleet_report[kernel]['fetch_ms_median']!r} ms; "
+                  f"{res['queried']} counter reads under sync debug mode "
+                  f"\"error\"; no block leaked; {res['workers']} decode "
+                  f"workers, every server collected after the close; on "
+                  f"{smi}", flush=True)
+        # the same waves on load placement and on the DisaggRouter
+        for label, kw in (("load placement", dict(placement="load")),
+                          ("DisaggRouter", dict(router="disagg"))):
+            res = fleet_run([cold, warm], base_a, "fused", **kw)
+            what = f"(a) {label}, decode on fused"
+            held(res, what, "fused", want_a)
+            if "placement" in kw and (
+                    res["stats"]["prefill_tokens_saved"]
+                    or res["stats"]["placed_prefix"]):
+                raise AssertionError(f"{what}: saved "
+                                     f"{res['stats']['prefill_tokens_saved']}"
+                                     " prefill tokens")
+            ntok = [sum(len(t) for t in x["out"]) for x in res["waves"]]
+            fleet_report[label] = dict(tokens_per_s=[
+                n / x["secs"] for n, x in zip(ntok, res["waves"])])
+            print(f"   {what}: tokens == colocated; tokens/s cold / warm "
+                  f"{fleet_report[label]['tokens_per_s']}; nothing saved"
+                  if "placement" in kw else
+                  f"   {what}: tokens == colocated; tokens/s cold / warm "
+                  f"{fleet_report[label]['tokens_per_s']}", flush=True)
+        # autoscaling on (b)
+        want_b, colo_b = colocated([mixes["b"][0]], base_b)
+        res = fleet_run([mixes["b"][0]], base_b, "fused", drain=8,
+                        scale_high=4, decode_pool_max=4, idle_ticks=2)
+        what = "(b) fleet, autoscale (scale_high 4, pool max 4, idle 2)"
+        held(res, what, "fused", want_b)
+        st_ = res["stats"]
+        if st_["autoscale_up"] < 1 or st_["autoscale_down"] < 1:
+            raise AssertionError(f"{what}: up {st_['autoscale_up']}, down "
+                                 f"{st_['autoscale_down']}")
+        ntok = sum(len(t) for t in res["waves"][0]["out"])
+        fleet_report["autoscale"] = dict(
+            up=st_["autoscale_up"], down=st_["autoscale_down"],
+            workers=res["workers"], decode_steps=res["steps"],
+            retired_released=res["retired"] - res["retired_alive"],
+            tokens_per_s=ntok / res["waves"][0]["secs"],
+            colocated_tokens_per_s=colo_b[0],
+            retired_leaked=st_["retired_leaked"])
+        print(f"   {what}: tokens == colocated; autoscale up "
+              f"{st_['autoscale_up']}, down {st_['autoscale_down']}, "
+              f"{res['workers']} decode workers in all (decode steps "
+              f"{res['steps']}, each at {cfg.n_layers} launches); no "
+              f"block leaked, retired workers included; the "
+              f"{res['retired']} retired workers' servers released; "
+              f"{fleet_report['autoscale']['tokens_per_s']!r} tokens/s "
+              f"against {colo_b[0]!r} colocated; on {smi}", flush=True)
+        # the planted fault: fetched prefix rows shifted by one row
+        res = fleet_run([cold, warm], base_a, "fused", plant=True)
+        got = [w["out"] for w in res["waves"]]
+        diff = sum(g != w for g, w in zip(got[1], want_a[1]))
+        if not diff:
+            raise AssertionError("(a) fleet, planted fault (fetched prefix "
+                                 "rows shifted by one token row): the "
+                                 "warm wave's tokens did not change")
+        fleet_report["planted_requests_changed"] = diff
+        print(f"   (a) fleet, planted fault (fetched prefix rows shifted by "
+              f"one token row): {diff}/12 warm requests' tokens differ, as "
+              "they must", flush=True)
+        fleet_report["card"] = smi
+
+    progprof_report = {}
+
+    def progprof_tuner():
+        """The program profiler and the tuner on (b) (see the module
+        docstring, "progprof")."""
+        params, cfg = model(torch.float32)
+        reqs, base = mixes["b"]
+        kw = dict(paged=True, block_size=16, paged_kernel="fused")
+        rc = runtime_config()
+
+        def graphs(srv):
+            return sorted((ck[0], ck[2] if ck[0] == "cb_chunk" else None,
+                           len(g.graphs)) for ck, g in srv._graphs.items())
+
+        def counting(srv, calls):
+            """Count the server's calls of each program by key: captured
+            ones at their GraphProgram (warm call and replays), the
+            others at the memo lookup."""
+            real_prog, real_cap = srv._program, srv._captured
+
+            class Counted:
+                def __init__(self, prog, ck):
+                    self.inner, self.ck = prog, ck
+
+                def __call__(self, *a, **k):
+                    calls[self.ck] = calls.get(self.ck, 0) + 1
+                    return self.inner(*a, **k)
+
+            def cap(ck, prog, bound=()):
+                g = real_cap(ck, getattr(prog, "inner", prog), bound)
+
+                def call(*a):
+                    calls[ck] = calls.get(ck, 0) + 1
+                    return g(*a)
+                return call
+            srv._program = lambda ck, build: Counted(real_prog(ck, build),
+                                                     ck)
+            srv._captured = cap
+
+        def memo_of_model():
+            return {k: v for k, v in tf._PROGRAMS.items()
+                    if isinstance(k, tuple) and cfg in k}
+
+        def run(srv):
+            for p, m in reqs:
+                srv.submit(p, max_new=m)
+            with count_captures() as caps:
+                out = srv.run()
+            return out, caps.captures
+
+        def chunk_check(prof, srv):
+            """The width-128 chunk records' median ms a call against the
+            same graph's replays timed by events (median of 10)."""
+            ck = next(k for k in srv._graphs if k[0] == "cb_chunk"
+                      and k[2] == srv.prefill_buckets[-1])
+            rec = next(r for r in prof.records() if r.key == ck)
+            (g,) = srv._graphs[ck].graphs.values()
+            ms = []
+            for _ in range(10):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                g.replay_fn()
+                e1.record()
+                e1.synchronize()
+                ms.append(e0.elapsed_time(e1))
+            return rec.exec_hist.quantile(0.5) * 1e3, statistics.median(ms)
+
+        # A: unprofiled (the memo's programs as built before)
+        srv_a = serving.ContinuousServer(params, cfg, **base, **kw)
+        toks_a, caps_a = run(srv_a)
+        kept = memo_of_model()
+        for k in kept:
+            del tf._PROGRAMS[k]
+        prof = progprof.start_profiling()
+        try:
+            srv_b = serving.ContinuousServer(params, cfg, **base, **kw)
+            calls = {}
+            counting(srv_b, calls)
+            toks_b, caps_b = run(srv_b)
+            recs = {r.key: r for r in prof.records()}
+            bad = {k[0]: (recs[k].calls if k in recs else None,
+                          recs[k].exec_hist.count if k in recs else None, n)
+                   for k, n in calls.items()
+                   if k not in recs or not recs[k].calls
+                   == recs[k].exec_hist.count == n}
+            if toks_b != toks_a or caps_b != caps_a \
+                    or graphs(srv_b) != graphs(srv_a) or bad:
+                raise AssertionError(
+                    f"(b) profiled: tokens equal {toks_b == toks_a}, "
+                    f"captures {caps_b} against {caps_a}, graphs "
+                    f"{graphs(srv_b)} against {graphs(srv_a)}; programs "
+                    f"whose (calls, times, server calls) differ {bad}")
+            replays = sum(n for k, n in calls.items() if k in srv_b._graphs)
+            med, ev = chunk_check(prof, srv_b)
+            if not 0.5 <= med / ev <= 2.0:
+                raise AssertionError(f"the cb_chunk record's median {med} "
+                                     f"ms a call does not follow the "
+                                     f"graph's device time {ev} ms")
+            chunks = [r for r in prof.records() if r.label == "cb_chunk"]
+            per_tok = (sum(r.exec_hist.sum for r in chunks)
+                       / sum(r.exec_hist.count * r.key[2] for r in chunks))
+            steps = [r for r in prof.records() if r.label == "pg_step"]
+            step_ms = statistics.median(
+                r.exec_hist.quantile(0.5) for r in steps) * 1e3
+            # what the FLOP counter saw of a decode step (its torch
+            # operators; the paged kernel's custom call is not counted)
+            step_gflop = [r.flops / 1e9 if r.flops else None for r in steps]
+            step_roofline = [r.roofline_fraction(prof.peak_gflops)
+                             for r in steps]
+            table = prof.profile_table()
+            # host ms of a decode-only step, unprofiled and profiled,
+            # A B B A (both servers warm)
+            host = {"A": [], "B": []}
+            for tag in "ABBA":
+                srv_ = srv_a if tag == "A" else srv_b
+                host[tag].append(statistics.median(
+                    stepped(srv_, reqs, torch)[2]) * 1e3)
+            # the tier case once more, with the profiler on: the gate
+            # weighs a restore against the live chunk cost
+            t_out, t_st, t_leak, _, t_srv = tier_wave("bf16", True)[:5]
+            gate_us = t_srv._tier_gate.prefill_s_per_token() * 1e6
+            del t_srv
+            want_t = tier_report.get("bf16", {})
+            t_counts = tuple(t_st[k] for k in (
+                "tier_demoted", "tier_promoted", "prefill_tokens_saved"))
+            t_want = tuple(want_t.get(k) for k in (
+                "tier_demoted", "tier_promoted", "saved_on"))
+            if t_counts != t_want or t_leak != (0, 0):
+                raise AssertionError(f"tier with the profiler on: (demoted, "
+                                     f"promoted, saved) {t_counts} against "
+                                     f"{t_want} without it; leaks {t_leak}; "
+                                     f"the gate's live cost {gate_us} us a "
+                                     "token")
+            # the tuner, at interval_ticks 2 (the profiler on: the knobs
+            # that mint captures may move)
+            with knobs(**{"hpx.tune.enable": 1, "hpx.tune.interval_ticks": 2,
+                          "hpx.tune.hysteresis_pct": 1}):
+                srv_t = serving.ContinuousServer(params, cfg, **base, **kw)
+            toks_t, caps_t = run(srv_t)
+            tuner = srv_t._tuner
+            wide = [ck for ck in srv_t._graphs if ck[0] == "cb_chunk"
+                    and ck[2] not in srv_t.prefill_buckets]
+            if toks_t != toks_a or not tuner.decisions() or wide:
+                raise AssertionError(f"tuned: tokens equal {toks_t == toks_a}"
+                                     f", decisions {tuner.decisions()}, "
+                                     f"chunk graphs off the ladder {wide}")
+            names = [d["action"] for d in tuner.decisions()]
+            acts = {a: names.count(a) for a in sorted(set(names))}
+            moved = sorted({d["knob"] for d in tuner.decisions()
+                            if d["action"] in ("probe", "accept")})
+        finally:
+            progprof.stop_profiling()
+            for k in list(memo_of_model()):
+                del tf._PROGRAMS[k]
+            tf._PROGRAMS.update(kept)
+        progprof_report.update(
+            programs=len(table["programs"]), replays=replays,
+            captures=caps_b, chunk_ms_median=med, chunk_ms_events=ev,
+            chunk_us_a_token=per_tok * 1e6, configured_us_a_token=50.0,
+            step_ms=step_ms, step_gflop_counted=step_gflop,
+            step_roofline_fraction=step_roofline,
+            peak_gflops=prof.peak_gflops,
+            host_ms_ABBA=[host["A"][0], host["B"][0],
+                                           host["B"][1], host["A"][1]],
+            tier=dict(zip(("demoted", "promoted", "saved"), t_counts),
+                      gate_us_a_token=gate_us),
+            tuner=dict(evals=tuner.evals, actions=acts, knobs=moved,
+                       captures=caps_t),
+            memory=table["memory"], cost_failures=table["cost_failures"],
+            card=smi)
+        print(f"   (b) profiled f32 paged fused: tokens and CUDA graphs "
+              f"({caps_b} captures) == the unprofiled run's; every "
+              f"program's calls == the server's calls of it (warm call + "
+              f"replays; {replays} calls of captured programs) == its "
+              f"timed calls; cb_chunk (width "
+              f"{srv_b.prefill_buckets[-1]}) median {med!r} ms a call "
+              f"against {ev!r} ms by events around its graph; cb_chunk "
+              f"{per_tok * 1e6!r} us a token (configured 50); pg_step "
+              f"median {step_ms!r} ms (device), {step_gflop} GFLOP a call "
+              f"counted, roofline {step_roofline} of "
+              f"{prof.peak_gflops} GFLOP/s; host ms a decode-only "
+              f"step A B B A {progprof_report['host_ms_ABBA']}; on {smi}",
+              flush=True)
+        print(f"   tier (bf16, one slot) with the profiler on: (demoted, "
+              f"promoted, saved) {t_counts}, as without it; the gate's live "
+              f"cost {gate_us!r} us a token; no leak", flush=True)
+        print(f"   tuned (b), interval_ticks 2: tokens == untuned; "
+              f"{tuner.evals} evaluations, actions {acts}, knobs moved "
+              f"{moved}; {caps_t} captures, every chunk graph at a ladder "
+              "width", flush=True)
+        # planted faults, each on a fresh server with a fresh profiler
+        def untimed(self, *args):
+            """GraphProgram.__call__ with its replays left unreported."""
+            sig = self.signature(args)
+            g = self.graphs.get(sig)
+            if g is not None:
+                return g.replay(args)
+            g = programs._Graph(self, args)
+            out = programs._warm(self.eager, [
+                g.static[i] if i in g.inputs else a
+                for i, a in enumerate(args)], self.device)
+            g.capture(self)
+            self.graphs[sig] = g
+            return out
+
+        real_timed = progprof._ProfiledProgram.timed
+        real_call = programs.GraphProgram.__call__
+        for label in ("replays uncounted", "host clock"):
+            kept2 = memo_of_model()
+            for k in kept2:
+                del tf._PROGRAMS[k]
+            if label == "replays uncounted":
+                programs.GraphProgram.__call__ = untimed
+            else:
+                progprof._ProfiledProgram.timed = \
+                    lambda self, fn, dev=None: real_timed(self, fn, None)
+            prof = progprof.start_profiling(sample_memory=False)
+            try:
+                srv_p = serving.ContinuousServer(params, cfg, **base, **kw)
+                calls = {}
+                counting(srv_p, calls)
+                run(srv_p)
+                recs = {r.key: r for r in prof.records()}
+                if label == "replays uncounted":
+                    caught = any(recs[k].calls != n for k, n in calls.items()
+                                 if k in recs)
+                else:
+                    m_, e_ = chunk_check(prof, srv_p)
+                    caught = not 0.5 <= m_ / e_ <= 2.0
+                    progprof_report["host_clock_chunk_ms"] = m_
+            finally:
+                programs.GraphProgram.__call__ = real_call
+                progprof._ProfiledProgram.timed = real_timed
+                progprof.stop_profiling()
+                for k in list(memo_of_model()):
+                    del tf._PROGRAMS[k]
+                tf._PROGRAMS.update(kept2)
+            if not caught:
+                raise AssertionError(f"planted fault ({label}): the check "
+                                     "did not fail")
+            print(f"   planted fault ({label}): caught", flush=True)
+
     for name_, fn in (("main path: fused", fused),
                       ("main path: unfused", unfused),
                       ("main path: dataflow", dataflow),
@@ -4822,6 +5411,8 @@ def main() -> int:
                       ("main path: resilient serving", serving_resilient),
                       ("main path: disaggregated serving", disagg_serving),
                       ("main path: host KV tier", host_tier),
+                      ("main path: fleet serving", fleet_serving),
+                      ("program profiler and tuner", progprof_tuner),
                       ("traced serving", traced_serving),
                       ("main path: decoders", decoders),
                       ("examples_cuda/serving_demo.py", serving_demo),
@@ -7427,6 +8018,8 @@ def main() -> int:
                                      else f"({k[0]}) {k[1]}"): v
                                     for k, v in disagg_report.items()}))
     print("tier: " + json.dumps(tier_report))
+    print("fleet: " + json.dumps(fleet_report))
+    print("progprof: " + json.dumps(progprof_report))
     print("moe: " + json.dumps({**moe, "card": smi}))
     print("multirank: " + json.dumps({**multi, "card": smi}))
     print("sharded: " + json.dumps(sharded))

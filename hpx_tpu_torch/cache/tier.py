@@ -286,10 +286,12 @@ class RestoreGate:
     of ``hpx.cache.tier.probe_mb`` to ``device``, lazily, once:
     construction touches no device.
 
-    The per-token cost is ``hpx.cache.tier.prefill_cost_us``: the
-    reference reads a live cost from its program profiler's chunk
-    records when profiling is on, which it is not by default; the port
-    has no such profiler yet, so it always takes the configured cost."""
+    The per-token cost is live while the program profiler
+    (``svc/progprof``) runs: the ``cb_chunk`` records' execution seconds
+    (device time on a CUDA device) over their chunk-width tokens.
+    Before any chunk has run, or with profiling off, it is
+    ``hpx.cache.tier.prefill_cost_us``. A gate with no ``device`` probes
+    ``cuda:0`` and raises where there is no CUDA."""
 
     def __init__(self, min_speedup: Optional[float] = None,
                  probe_mb: Optional[int] = None,
@@ -323,8 +325,26 @@ class RestoreGate:
         return self._bandwidth
 
     def prefill_s_per_token(self) -> float:
-        """Per-token prefill seconds (the configured cost; see the class
-        docstring)."""
+        """Live per-token prefill cost from the profiler's cb_chunk
+        records (execution seconds over chunk-width tokens, all ladder
+        widths pooled), the configured cost before any chunk has run or
+        when profiling is off. The records are read without waiting for
+        chunks still in flight: the gate runs on the admission path."""
+        from ..svc import progprof
+        prof = progprof.active_profiler()
+        if prof is not None:
+            sec = tok = 0.0
+            for rec in prof.records(wait=False):
+                if rec.label != "cb_chunk":
+                    continue
+                key = rec.key
+                width = (key[2] if isinstance(key, tuple) and len(key) > 2
+                         and isinstance(key[2], int) else 0)
+                if width and rec.exec_hist.count:
+                    sec += rec.exec_hist.sum
+                    tok += rec.exec_hist.count * width
+            if tok:
+                return sec / tok
         return self.prefill_cost_us * 1e-6
 
     def should_promote(self, ntok: int,
@@ -342,12 +362,12 @@ class RestoreGate:
 def _copy_probe(nbytes: int, device=None) -> float:
     """Default bandwidth probe: bytes/s of one copy of `nbytes` from
     host memory of the kind the tier's restores read (pinned, on a CUDA
-    device) to ``device`` (None: ``cuda:0`` when there is one, else the
-    CPU), timed with the device synchronized inside the clock. One
-    untimed copy first takes the first transfer's set-up out."""
-    if device is None:
-        device = "cuda:0" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    device) to ``device`` (None: ``cuda:0``, which raises without CUDA;
+    the CPU only when asked for), timed with the device synchronized
+    inside the clock. One untimed copy first takes the first transfer's
+    set-up out."""
+    from ..exec.cuda import resolve_device
+    device = resolve_device(device)
     cuda = device.type == "cuda"
     src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=cuda)
     dst = torch.empty(nbytes, dtype=torch.uint8, device=device)

@@ -22,6 +22,27 @@ _VALID_TYPES = ("str", "int", "bool", "float")
 
 
 @dataclasses.dataclass(frozen=True)
+class Tunable:
+    """Live-tuning contract for one knob (the ``tunable=`` field).
+
+    Declaring a knob tunable asserts two things: moving it at a safe
+    boundary (a server's flush, never mid-step) cannot change emitted
+    tokens, and the adaptive tuner (``svc/autotune``) may move it inside
+    ``[lo, hi]`` one bounded ``step`` at a time. ``geometric=True`` steps
+    multiply or divide by ``step`` instead of adding or subtracting it.
+    ``compiles=True`` marks a knob whose move can mint new programs (on a
+    CUDA device, new CUDA-graph captures): the tuner charges such a move
+    the build and capture seconds the program profiler measured
+    (``svc/progprof``) and keeps it only when the win amortizes them."""
+
+    lo: int
+    hi: int
+    step: int = 1
+    geometric: bool = False
+    compiles: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class ConfigKey:
     """One declared configuration knob."""
 
@@ -33,6 +54,8 @@ class ConfigKey:
     # closed value set for enumerated str knobs (None = free-form);
     # ``Configuration(strict=True)`` rejects a set() outside it
     choices: Optional[Tuple[str, ...]] = None
+    # non-None marks the knob safe for the online tuner (svc/autotune)
+    tunable: Optional[Tunable] = None
 
 
 _SCHEMA: Dict[str, ConfigKey] = {}
@@ -40,10 +63,12 @@ _SCHEMA: Dict[str, ConfigKey] = {}
 
 def declare(key: str, type: str, default: Optional[str], doc: str,
             reserved: bool = False,
-            choices: Optional[Tuple[str, ...]] = None) -> ConfigKey:
+            choices: Optional[Tuple[str, ...]] = None,
+            tunable: Optional[Tunable] = None) -> ConfigKey:
     """Register one knob; duplicate keys and unknown types are errors.
     ``choices`` declares a closed value set for an enumerated str knob
-    (the declared default must be a member)."""
+    (the declared default must be a member); ``tunable`` declares the
+    knob safe for online tuning with its bounds and step."""
     if type not in _VALID_TYPES:
         raise ValueError(f"config key {key!r}: bad type {type!r} "
                          f"(expected one of {_VALID_TYPES})")
@@ -57,7 +82,19 @@ def declare(key: str, type: str, default: Optional[str], doc: str,
         if default is not None and default not in choices:
             raise ValueError(f"config key {key!r}: default {default!r} "
                              f"not in choices {choices}")
-    entry = ConfigKey(key, type, default, doc, reserved, choices)
+    if tunable is not None:
+        if type not in ("int", "str"):
+            # str covers "auto"-defaulted knobs whose live values are
+            # integers (the radix budget)
+            raise ValueError(f"config key {key!r}: tunable= needs an "
+                             "int-valued knob (type 'int' or 'str')")
+        if tunable.lo > tunable.hi:
+            raise ValueError(f"config key {key!r}: tunable lo "
+                             f"{tunable.lo} > hi {tunable.hi}")
+        if tunable.step < (2 if tunable.geometric else 1):
+            raise ValueError(f"config key {key!r}: tunable step "
+                             f"{tunable.step} too small")
+    entry = ConfigKey(key, type, default, doc, reserved, choices, tunable)
     _SCHEMA[key] = entry
     return entry
 
@@ -80,6 +117,12 @@ def defaults() -> Dict[str, str]:
     exactly the declared keys that carry a non-None default."""
     return {k: e.default for k, e in _SCHEMA.items()
             if e.default is not None}
+
+
+def tunable_keys() -> Dict[str, ConfigKey]:
+    """The declared tunable subset (key -> ConfigKey): the only knobs
+    the adaptive tuner may ever move."""
+    return {k: e for k, e in _SCHEMA.items() if e.tunable is not None}
 
 
 # -- core / scheduling ------------------------------------------------------
@@ -112,7 +155,8 @@ declare("hpx.cache.block_size", "str", "auto",
 declare("hpx.cache.num_blocks", "str", "auto",
         "pool size (auto: 2x worst case)")
 declare("hpx.cache.radix_budget_blocks", "str", "auto",
-        "prefix-tree block budget")
+        "prefix-tree block budget",
+        tunable=Tunable(lo=8, hi=1 << 20, step=2, geometric=True))
 declare("hpx.cache.prefix_reuse", "bool", "1",
         "radix prefix matching on admit")
 declare("hpx.cache.kv_dtype", "str", "bf16",
@@ -124,7 +168,8 @@ declare("hpx.cache.tier.enable", "bool", "0",
         "quantized bytes + scale sidecars) to pooled host buffers, pinned "
         "on a CUDA device, instead of dropping them")
 declare("hpx.cache.tier.host_budget_mb", "int", "256",
-        "host tier byte budget; LRU to oblivion past it (reloaded live)")
+        "host tier byte budget; LRU to oblivion past it (reloaded live)",
+        tunable=Tunable(lo=1, hi=1 << 20, step=2, geometric=True))
 declare("hpx.cache.tier.min_speedup", "float", "1.0",
         "promote only when the estimated re-prefill time exceeds the "
         "restore time by this factor")
@@ -144,20 +189,24 @@ declare("hpx.serving.paged_kernel", "str", "auto",
         "softmax, O(block) shared memory)",
         choices=("auto", "gather", "fused", "fused_online"))
 declare("hpx.serving.prefill_chunk", "int", "128",
-        "prompt tokens per prefill chunk")
+        "prompt tokens per prefill chunk",
+        tunable=Tunable(lo=16, hi=1024, step=2, geometric=True,
+                        compiles=True))
 declare("hpx.serving.prefill_buckets", "str", "auto",
         "chunk-width ladder (csv|auto)")
 declare("hpx.serving.async_dispatch", "bool", "1",
         "decode without per-step sync")
 declare("hpx.serving.max_async_steps", "int", "32",
-        "buffered steps before a sync")
+        "buffered steps before a sync",
+        tunable=Tunable(lo=1, hi=256, step=2, geometric=True))
 declare("hpx.serving.admit_retries", "int", "8",
         "admission OOM deferrals before a request is shed")
 declare("hpx.serving.default_deadline_s", "float", "0",
         "per-request deadline in seconds (0 = none)")
 declare("hpx.serving.spec.enable", "bool", "0",
         "speculative decode in serving")
-declare("hpx.serving.spec.k", "int", "4", "draft tokens per slot per step")
+declare("hpx.serving.spec.k", "int", "4", "draft tokens per slot per step",
+        tunable=Tunable(lo=1, hi=16, step=1))
 declare("hpx.serving.spec.draft", "str", "prompt",
         "draft source: prompt | model")
 declare("hpx.serving.spec.ngram", "int", "3",
@@ -172,25 +221,96 @@ declare("hpx.serving.moe.capacity_factor", "int", "0",
         "MoE decode expert capacity factor as an integer PERCENT "
         "(100 = GShard cf 1.0; C = ceil(T*k*pct/100 / E)); 0 = auto = "
         "drop-free (cf = n_experts), the token-identity default. "
-        "Reloaded live at a server's flush boundaries")
+        "Reloaded live at a server's flush boundaries",
+        tunable=Tunable(lo=100, hi=6400, step=2, geometric=True,
+                        compiles=True))
 declare("hpx.serving.mesh.paged", "bool", "1",
         "sharded paged serving (0 restores the single-device refusal)")
 declare("hpx.serving.mesh.table_residency", "str", "sharded",
         "device block-table placement on mesh: sharded | replicated")
 declare("hpx.serving.ckpt_every", "int", "16",
-        "tokens between slot checkpoints")
+        "tokens between slot checkpoints",
+        tunable=Tunable(lo=4, hi=256, step=2, geometric=True))
 declare("hpx.serving.step_retries", "int", "4",
         "step attempts before shedding")
 declare("hpx.serving.retry_backoff_s", "float", "0.005",
         "base step-retry backoff")
 declare("hpx.serving.disagg.max_queue", "int", None,
-        "disaggregated router: bound on queued requests (64)")
+        "disaggregated router: bound on queued requests (64)",
+        tunable=Tunable(lo=4, hi=1024, step=2, geometric=True))
 declare("hpx.serving.disagg.pump_steps", "int", None,
         "decode steps a decode worker runs a router tick (4)")
 declare("hpx.serving.disagg.prefill_jobs", "int", None,
         "concurrent prefill jobs a prefill worker (default: slots)")
 declare("hpx.serving.disagg.xfer_retries", "int", None,
         "KV segment sends before a transfer fails over (4)")
+declare("hpx.serving.fleet.prefill_workers", "int", "2",
+        "fleet: prefill workers stood up by default")
+declare("hpx.serving.fleet.decode_workers", "int", "2",
+        "fleet: decode workers stood up at construction")
+declare("hpx.serving.fleet.decode_pool_min", "int", "1",
+        "fleet: autoscale floor on decode workers")
+declare("hpx.serving.fleet.decode_pool_max", "int", "4",
+        "fleet: autoscale ceiling on decode workers")
+declare("hpx.serving.fleet.digest_entries", "int", "64",
+        "fleet: prefix-digest entries pulled per decode worker")
+declare("hpx.serving.fleet.digest_refresh_s", "float", "0.25",
+        "fleet: seconds a pulled prefix digest stays fresh")
+declare("hpx.serving.fleet.placement", "str", "prefix",
+        "fleet decode placement policy", choices=("prefix", "load"))
+declare("hpx.serving.fleet.w_prefix", "float", "1.0",
+        "fleet placement: score weight per digest-matched block")
+declare("hpx.serving.fleet.w_pressure", "float", "0.05",
+        "fleet placement: score penalty per eviction/s of pressure")
+declare("hpx.serving.fleet.w_tier", "float", "0.25",
+        "fleet placement: discount on w_prefix for blocks a worker "
+        "holds only in its host tier (cold but restorable)")
+declare("hpx.serving.fleet.scale_high", "int", "8",
+        "fleet autoscale: queue depth that spins a decode worker up")
+declare("hpx.serving.fleet.scale_low", "int", "0",
+        "fleet autoscale: queue depth that drains a decode worker")
+declare("hpx.serving.fleet.idle_ticks", "int", "16",
+        "fleet autoscale: consecutive idle router ticks before an "
+        "idle decode worker drains")
+
+# -- program profiler (svc/progprof) ----------------------------------------
+declare("hpx.prof.programs", "bool", "0",
+        "per-program continuous profiler: wrap every cached_program() "
+        "build in a timing and cost-accounting proxy")
+declare("hpx.prof.cost_analysis", "bool", "1",
+        "count each profiled program's FLOPs at its first eager call "
+        "(torch.utils.flop_counter)")
+declare("hpx.prof.peak_gflops", "float", "0",
+        "roofline denominator in GFLOP/s (0 = infer from the device's "
+        "name; unknown devices and the CPU report roofline fraction 0)")
+
+# -- adaptive tuner (svc/autotune) ------------------------------------------
+declare("hpx.tune.enable", "bool", "0",
+        "closed-loop auto-tuning of the tunable serving knobs (off by "
+        "default: enabling it is an operator decision)")
+declare("hpx.tune.interval_ticks", "int", "32",
+        "flush ticks between tuner evaluations (tick-counted, not "
+        "wall-clock, so decisions replay deterministically)")
+declare("hpx.tune.w_tokens", "float", "1.0",
+        "objective weight on decayed decode tokens/s")
+declare("hpx.tune.w_stall", "float", "100.0",
+        "objective weight on the decode-stall p99 (seconds) delta")
+declare("hpx.tune.w_queue", "float", "0.05",
+        "objective weight on admission queue depth")
+declare("hpx.tune.hysteresis_pct", "float", "5",
+        "relative objective improvement (percent) a probe must show "
+        "before its knob move is kept (anti-thrash band)")
+declare("hpx.tune.cooldown_ticks", "int", "2",
+        "evaluation intervals a knob is held after a reverted probe")
+declare("hpx.tune.freeze", "str", "",
+        "csv knob names the tuner must never move")
+declare("hpx.tune.compile_amortize_s", "float", "30",
+        "amortization horizon: a program-minting move is kept only if "
+        "its projected win over this many seconds covers the measured "
+        "build and capture cost")
+declare("hpx.tune.seed", "int", "0",
+        "deterministic probe-order seed (rotates the round-robin "
+        "starting knob)")
 
 # -- flight recorder (svc/flight) -------------------------------------------
 declare("hpx.flight.enabled", "bool", "1",

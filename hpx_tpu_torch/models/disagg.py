@@ -483,10 +483,12 @@ class DisaggRouter:
     ``run()`` returns ``{rid: tokens}`` as ``ContinuousServer.run`` does;
     shed and failed requests land typed in ``failed``.
 
-    The reference's router also joins its workers' adaptive tuners under
-    one arbiter and serves a ``/statusz`` section; the port has neither
-    the tuner nor the ops plane yet, and under the reference's defaults
-    both are off."""
+    Every in-process worker's server registers its counters and, with
+    ``hpx.tune.enable``, builds its own tuner; the router joins those
+    tuners under ONE ``TuneArbiter`` (``_tune_arbiter``), so the prefill
+    and decode sides never probe a shared-budget knob (the radix block
+    budget, the queue bound) at once. The ``/statusz`` section waits for
+    the ops-plane slice (off under the reference's defaults)."""
 
     def __init__(self, params, cfg: TransformerConfig,
                  prefill_workers: int = 1, decode_workers: int = 1, *,
@@ -535,6 +537,16 @@ class DisaggRouter:
                     device=self._srv_kwargs.get("device")), locality=0)
                 for _ in range(prefill_workers)]
         self._prefill = list(prefill_handles)
+        # closed-loop tuning under a router: each in-process worker's
+        # tuner joins one router-level arbiter, so two workers never
+        # probe a shared-budget knob together (they would double-spend
+        # it and spoil each other's measurements)
+        from ..svc.autotune import TuneArbiter, attach_arbiter
+        self._tune_arbiter = TuneArbiter()
+        for i, h in enumerate(self._decode):
+            attach_arbiter(h, self._tune_arbiter, f"decode#{i}")
+        for i, h in enumerate(self._prefill):
+            attach_arbiter(h, self._tune_arbiter, f"prefill#{i}")
         self._reqs: Dict[int, _RouterReq] = {}
         self._qi: deque = deque()      # interactive rids
         self._qb: deque = deque()      # batch rids

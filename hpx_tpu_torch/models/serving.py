@@ -167,8 +167,16 @@ FLIGHT RECORDER: a shed records a ``svc.flight`` bundle; a bulk shed
 after retry exhaustion records one aggregate bundle (``sync_replay``'s
 ``retry-exhausted``), not one a request.
 
-Left for later slices: the ``/serving{...}`` and ``/cache{...}``
-performance counters, the program profiler and the adaptive tuner.
+COUNTERS AND TUNING: the constructor registers the ``/serving{...}``
+and ``/cache{...}`` performance counters (``cache/counters``), whose
+callbacks read host state only. With ``hpx.tune.enable`` the server
+builds an adaptive tuner (``svc/autotune``) over its tunable knobs and
+ticks it at every flush after the live-knob reload; on a mesh rank 0's
+tuner decides and one broadcast carries its knob values (``_tune_tick``).
+The program profiler (``svc/progprof``) sees the server's programs
+through the program memo, and each CUDA-graph replay through
+``GraphProgram``. The ``/statusz`` provider, exemplars and SLO alerts
+wait for the ops-plane slice.
 """
 
 from __future__ import annotations
@@ -194,6 +202,7 @@ from ..exec.cuda import resolve_device
 from ..models.quant import FP8_DTYPE, as_raw
 from ..svc import faultinject, flight, tracing
 from ..svc import metrics as _metrics
+from ..svc import performance_counters as _pc
 from ..svc.resiliency import sync_replay
 from ..ops.attention_cuda import (SMEM_LIMIT, paged_plan,
                                   resolve_paged_block_src)
@@ -770,6 +779,7 @@ class ContinuousServer:
                         draft_cfg)
         self._prog_hits = 0             # program-cache hits
         self._prog_misses = 0           # program-cache misses (builds)
+        self._chunks = 0                # prefill chunk dispatches
         # CUDA graphs of this server's step programs, by program key,
         # in one memory pool; the ring its decode tokens are kept in.
         # Under gloo a mesh server whose programs hold a collective
@@ -850,6 +860,18 @@ class ContinuousServer:
         # live knobs: the config generation and the raw values last seen
         self._cfg_gen = rc.generation()
         self._knob_raw = {k: rc.get(k) for k in _RELOADABLE_KNOBS}
+        # windowed decode throughput, read by the serving counters and
+        # the tuner
+        self._rate = _pc.RateCounter(window_s=5.0)
+        # closed-loop tuning (svc/autotune), ticked at flush boundaries,
+        # the one point where no step is in flight (_tune_tick)
+        self._tune_stall_prev = None    # decode_stall snapshot at a tick
+        self._tuner = None
+        if rc.get_bool("hpx.tune.enable", False):
+            from ..svc.autotune import server_tuner
+            self._tuner = server_tuner(self)
+        from ..cache.counters import register_server
+        self.counter_instance = register_server(self)
 
     def _zeros(self, rows: int, cfg: Optional[TransformerConfig] = None
                ) -> torch.Tensor:
@@ -1970,6 +1992,7 @@ class ContinuousServer:
                     self._host(p.done, torch.int64))
             _check_in_place("a prefill chunk", caches, scratch)
             p.done += n
+            self._chunks += 1
             if p.done < plen:
                 p.flow = tracing.flow_begin("serving.prefill_chunks")
 
@@ -2352,6 +2375,7 @@ class ContinuousServer:
             self._maybe_retire(s)
         self._spec_steps += 1
         self._spec_emitted += emitted_total
+        self._rate.mark(float(emitted_total))
         self._cur_dev = None
         self._verify_faults = 0    # a committed verify resets the
                                    # degradation ladder
@@ -2710,6 +2734,8 @@ class ContinuousServer:
                 self._moe_occ = [float(v) for v in ms[2:]]
         self._ckpt_sweep()
         self._reload_knobs()
+        if self._tuner is not None:
+            self._tune_tick()
 
     def _knob_changes(self) -> Dict[str, Any]:
         """The reloadable knobs whose raw config value changed since the
@@ -2760,27 +2786,83 @@ class ContinuousServer:
             if key == "hpx.serving.prefill_chunk":
                 self.prefill_chunk = min(max(1, v), self.prefill_buckets[-1])
             elif key == "hpx.serving.max_async_steps":
-                self._max_async = max(1, v)
-                # the token ring holds one buffer per step the loop may
-                # keep unflushed; the flush left none buffered
-                self._ring, self._ring_i = [], 0
+                self._set_max_async(v)
             elif key == "hpx.serving.ckpt_every":
                 self._ckpt_every = max(1, v)
             elif key == "hpx.serving.spec.k" and self._spec:
                 self._spec_k = min(max(1, v), self.prefill_buckets[-1] - 1)
             elif key == "hpx.serving.moe.capacity_factor" \
                     and self.cfg.n_experts > 0:
-                # 0 = drop-free; the step and verify programs re-key on
-                # the new percent (one build each per distinct value)
-                self._moe_capacity_pct = (self.cfg.n_experts * 100
-                                          if v <= 0 else max(1, v))
-                self._moe_key = (self._moe_capacity_pct,)
+                # 0 = drop-free
+                self._set_moe_capacity(self.cfg.n_experts * 100 if v <= 0
+                                       else max(1, v))
             elif key == "hpx.cache.radix_budget_blocks" and self.paged:
                 self._radix.budget_blocks = max(1, v)
             elif key == "hpx.cache.tier.host_budget_mb" and self.paged \
                     and self._tier is not None:
                 # a shrink applies at the next demotion's LRU sweep
                 self._tier.budget_bytes = max(1, v) << 20
+
+    def _set_max_async(self, v: int) -> None:
+        """The async depth, at a flush: the token ring holds one buffer
+        per step the loop may keep unflushed, and the flush left none
+        buffered, so the ring is made again at the new depth."""
+        self._max_async = max(1, int(v))
+        self._ring, self._ring_i = [], 0
+
+    def _set_moe_capacity(self, pct: int) -> None:
+        """The MoE capacity percent; the step and verify programs re-key
+        on it (one build each per distinct value)."""
+        self._moe_capacity_pct = int(pct)
+        self._moe_key = (self._moe_capacity_pct,)
+
+    def _tune_signals(self):
+        """One TuneSignals sample for the tuner: decayed tokens/s, the
+        decode-stall p99 over the window since the last sample (a
+        histogram delta, not the lifetime), the queue depth, and the
+        program profiler's build and capture seconds (None freezes the
+        knobs that mint programs). Host reads only."""
+        from ..svc import progprof
+        from ..svc.autotune import TuneSignals
+        h = self.hist["decode_stall"]
+        prev, self._tune_stall_prev = self._tune_stall_prev, h.snapshot()
+        # quantile() on a detached window copy (first tick: the snapshot
+        # just taken is the window)
+        p99 = _metrics.HistogramCounter.from_snapshot(
+            h.delta(prev) if prev is not None
+            else self._tune_stall_prev).quantile(0.99)
+        comp = None
+        prof = progprof.active_profiler()
+        if prof is not None:
+            comp = sum(float(r.compile_s) for r in prof.records(wait=False))
+        return TuneSignals(tok_rate=self._rate.rate(), stall_p99=p99,
+                           queue_depth=float(len(self._queue)),
+                           compile_s_total=comp)
+
+    def _tune_tick(self) -> None:
+        """One flush tick of the tuner. On a mesh the signals are each
+        rank's own wall clock, so rank 0's tuner decides: the other ranks
+        count the tick, and at each evaluation one small broadcast
+        carries rank 0's knob values to every rank, which applies them
+        at this flush (the tick counts agree: every rank flushes at the
+        same steps)."""
+        t = self._tuner
+        if self._mesh_ranks() == 1:
+            t.maybe_tick(self._tune_signals)
+            return
+        if self.mesh.rank == 0:
+            t.maybe_tick(self._tune_signals)
+        else:
+            t.ticks += 1
+        if t.ticks % t.interval_ticks:
+            return
+        names = sorted(t.knobs)
+        vals = broadcast(torch.tensor([t.knobs[n].get() for n in names],
+                                      dtype=torch.int64, device=self.device),
+                         self.mesh, self.mesh.axis_names, 0).tolist()
+        for n, v in zip(names, vals):
+            if t.knobs[n].get() != v:
+                t.knobs[n].set(v)
 
     # -- the step loop ----------------------------------------------------------
 
@@ -2870,6 +2952,7 @@ class ContinuousServer:
             nxt = self._keep(nxt)
             self._keep_moe(ms)
         self._cur_dev = nxt
+        self._rate.mark(float(len(live)))
         # every slot's next token on every rank: one all_gather over dp
         nxt = _gather_rows(nxt, self.mesh)
         lanes = []

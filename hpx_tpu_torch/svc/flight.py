@@ -123,7 +123,7 @@ def build_bundle(kind: str, site: Optional[str] = None,
     """Assemble (but do not persist) one flight bundle. ``timeline`` is an
     optional :class:`metrics.RequestTimeline`; with a ``rid`` its events
     for that request are captured."""
-    from . import metrics
+    from . import autotune, metrics, progprof
     from ..cache import tier as _tier
     doc: Dict[str, Any] = {
         "schema": FLIGHT_SCHEMA,
@@ -140,16 +140,13 @@ def build_bundle(kind: str, site: Optional[str] = None,
         "spans": _trace_spans(_cfg().get_int("hpx.flight.spans", 256)),
         "counters": metrics.registry_snapshot("*"),
         "config": _config_dump(),
-        # the program profile table: the reference's is None whenever
-        # its program profiler is off (its default); the port has no
-        # such profiler yet
-        "programs": None,
+        # the program profile table (None while the profiler is off)
+        "programs": progprof.profile_table(),
         "timeline": (timeline.events(rid)
                      if timeline is not None and rid is not None else []),
-        # every live adaptive tuner's decision log: the reference's is {}
-        # whenever no tuner is live (its default); the port has no tuner
-        # yet
-        "tune": {},
+        # every live adaptive tuner's decision log and signal history,
+        # which autotune.replay reruns ({} when no tuner is live)
+        "tune": autotune.flight_snapshot(),
         # the host tiers' occupancy and demote/promote/drop totals ({}
         # when no tier is live)
         "tier": _tier.flight_snapshot(),

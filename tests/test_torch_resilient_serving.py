@@ -526,9 +526,10 @@ def test_serving_config_keys_match_the_reference():
             if k.split(".")[1] in ("serving", "fault", "trace", "metrics")]
     assert {k.split(".")[1] for k in keys} == {"serving", "fault", "trace",
                                                "metrics"}
-    assert "hpx.serving.ckpt_every" in keys and len(keys) == 39
+    assert "hpx.serving.ckpt_every" in keys and len(keys) == 52
     assert "hpx.serving.moe.capacity_factor" in keys
     assert "hpx.serving.disagg.xfer_retries" in keys
+    assert "hpx.serving.fleet.idle_ticks" in keys
     for k in keys:
         mine, theirs = config_schema.lookup(k), ref_schema.lookup(k)
         assert theirs is not None, k
