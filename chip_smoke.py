@@ -233,6 +233,51 @@ Float32 matrix products and convolutions run in full float32 (TF32 off).
                planted faults (replays unreported; a host clock around
                the calls) must fail their checks. Prints a "progprof:
                {...}" line.
+     obs       the live observability plane and the performance database
+               (svc/opsplane, svc/exemplars, svc/slo_alerts, svc/perfdb).
+               (b) on a colocated paged fused f32 server (blocks of 16)
+               with hpx.obs.port 0, exemplars (quantile 0.5) and alerts
+               on under a decode_stall rule (0.1 s, target 0.9; windows
+               0.5 s and 1.5 s, burns 3 and 1.5), two waves, the first
+               under a seeded decode-fault burst with a 0.3 s retry
+               backoff, while a thread GETs /varz (both formats),
+               /statusz and /healthz every 50 ms: tokens and CUDA-graph
+               captures equal to the same server's with observability
+               off (the same faults); kernel 3 launched n_layers times a
+               decode step; every scrape answered and parsed; exactly one
+               alert fired and cleared, one slo_alert flight bundle (in a
+               temporary hpx.flight.dir), /healthz 503 at the fire and
+               200 at the clear; every exemplar rid names a request
+               timeline with submit and retire; every histogram's bucket
+               rows cumulative, ending at _count and equal to the
+               histogram's own counts, and a rendering with one bucket
+               raised by one must fail that check; a /varz render, a
+               /statusz and an alert evaluation between steps under sync
+               debug mode "error"; the server's provider gone after it is
+               deleted. Then FleetRouter(2, 2) on (a) (scale_high 2):
+               tokens equal to the colocated server's, /statusz's fleet
+               section with every decode worker at the pool's peak
+               (minted ones) and after the drain (retired ones dropped)
+               and their sample counts, exemplars naming router rids, no
+               provider left after the close. Then the performance
+               database in a temporary directory: a profiled run of (b)
+               with hpx.perfdb.record banks rows under a key whose device
+               is the card's sanitized name, every one on-chip; a learned
+               block 32 (hd128xbf16) and ladder (chunk 256, buckets 64
+               and 256) with on-chip samples: servers booted with
+               hpx.perfdb.use_learned_ladders on fused and fused_online
+               resolve both "learned", capture their chunk graphs at the
+               learned widths, give tokens equal to servers given block
+               32 and the widths explicitly, launch kernel 3 (or 4)
+               n_layers times a decode step at block 32, and both kernels
+               hold within 1e-5 of their plain versions on their pools;
+               the same entries stamped session-only are refused (block
+               16, the /perfdb stale counter counts both). Prints an
+               "obs: {...}" line: host ms of a decode step with the plane
+               (idle), exemplars and alerts on against off (A B B A), the
+               median ms of a /varz and a /statusz render, us of an alert
+               evaluation, ms of the boot consult (cold and warm), and
+               tokens/s of block 16 against learned block 32 on (b).
      training  make_train_step at the full width of the repo's training
                model (bench.py:516-528: vocab 32768, d_model 512, 8 heads
                of 64, 4 layers, d_ff 2048, MHA, no rope; random weights
@@ -544,6 +589,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import gc
 import itertools
 import json
 import math
@@ -1743,7 +1789,6 @@ def _print_holders(obj, depth: int = 8) -> None:
     """Print the chain of objects that keep ``obj`` alive (gc referrers,
     one of each type a level; frames and this walk's own lists left
     out), ``depth`` levels up."""
-    import gc
     import types
     seen = {id(obj)}
     level = [obj]
@@ -1765,6 +1810,120 @@ def _print_holders(obj, depth: int = 8) -> None:
                       flush=True)
                 up.append(ref)
         level = up
+
+
+# a line of the v0.0.4 text format or of OpenMetrics (an exemplar after #)
+_PROM_LINE = re.compile(r'^[A-Za-z_:][A-Za-z0-9_:]*(\{[^}]*\})? \S+'
+                        r'( # \{[^}]*\} \S+ \S+)?$')
+
+
+def _histogram_rows(text: str):
+    """({(metric, labels): [(le, cumulative count), ...]}, {(metric,
+    labels): _count}) of the histograms in an exposition text."""
+    rows, counts = {}, {}
+    for ln in text.splitlines():
+        m = re.match(r'^(\w+)_bucket\{le="([^"]+)",([^}]*)\} (\d+)', ln)
+        if m:
+            rows.setdefault((m[1], m[3]), []).append((m[2], int(m[4])))
+            continue
+        m = re.match(r'^(\w+)_count\{([^}]*)\} (\d+)$', ln)
+        if m:
+            counts[(m[1], m[2])] = int(m[3])
+    return rows, counts
+
+
+def _cumulative_faults(text: str, hists: dict) -> list:
+    """The histograms of an exposition text whose _bucket rows are not
+    cumulative, do not end at their _count, or (for those in ``hists``,
+    {(metric, labels): HistogramCounter}) differ from the histogram's own
+    cumulative count at each bound."""
+    rows, counts = _histogram_rows(text)
+    bad = []
+    for key, rs in rows.items():
+        cums = [c for _, c in rs]
+        if cums != sorted(cums) or rs[-1][0] != "+Inf" \
+                or cums[-1] != counts.get(key):
+            bad.append(key)
+            continue
+        h = hists.get(key)
+        if h is not None:
+            want, cum = [], 0
+            for i, n in enumerate(h.counts):
+                if n:
+                    cum += n
+                    le = h.bucket_upper(i)
+                    want.append(("+Inf" if math.isinf(le) else f"{le:.9g}",
+                                 cum))
+            if rs != want + [("+Inf", h.count)]:
+                bad.append(key)
+    return bad
+
+
+class _Scraper:
+    """A thread that GETs the ops plane's /varz (both formats), /statusz
+    and /healthz every ``period`` seconds until stopped, keeping (time,
+    route, HTTP code, parsed, error) of each scrape."""
+
+    def __init__(self, url: str, period: float = 0.05) -> None:
+        import threading
+        self.url, self.period = url, period
+        self.log = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    @staticmethod
+    def _parse(route, om, body):
+        if route in ("/statusz", "/healthz"):
+            json.loads(body)
+            return True
+        lines = body.splitlines()
+        if om != (lines[-1:] == ["# EOF"]):
+            return False
+        return all(ln.startswith("# ") or _PROM_LINE.match(ln)
+                   for ln in lines)
+
+    def _run(self) -> None:
+        import urllib.error
+        import urllib.request
+        om_type = "application/openmetrics-text; version=1.0.0"
+        while not self._stop.is_set():
+            for route, om in (("/varz", False), ("/varz", True),
+                              ("/statusz", False), ("/healthz", False)):
+                req = urllib.request.Request(self.url + route)
+                if om:
+                    req.add_header("Accept", om_type)
+                t = time.monotonic()
+                try:
+                    try:
+                        with urllib.request.urlopen(req, timeout=10) as r:
+                            code, body = r.status, r.read().decode()
+                    except urllib.error.HTTPError as e:
+                        code, body = e.code, e.read().decode()
+                    self.log.append((t, route, code,
+                                     self._parse(route, om, body), None))
+                except Exception as e:  # noqa: BLE001 (kept as a failure)
+                    self.log.append((t, route, None, False, repr(e)))
+            self._stop.wait(self.period)
+
+    def stop(self) -> list:
+        self._stop.set()
+        self._thread.join(timeout=30)
+        return self.log
+
+
+def _get(url: str, accept: str = None):
+    """(HTTP code, body) of one GET; an error status is a result."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url)
+    if accept:
+        req.add_header("Accept", accept)
+    try:
+        with urllib.request.urlopen(req, timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
 
 
 def _sharded_serve_rank() -> dict:
@@ -2012,7 +2171,17 @@ class Smoke:
             return False
         finally:
             self.seconds[name] = time.perf_counter() - t0
-            print(f"   ({name}: {self.seconds[name]:.1f} s)", flush=True)
+            # what the phase left behind: its cyclic garbage (servers
+            # with their pools and graphs) collected and the allocator's
+            # free blocks returned, so the next phase starts with the
+            # card's memory, and the memory still held printed
+            import torch
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"   ({name}: {self.seconds[name]:.1f} s; after it "
+                  f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+                  f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} "
+                  "GiB reserved)", flush=True)
 
     def expect_equal(self, kernel: str, got, want, what: str,
                      quiet: bool = False) -> None:
@@ -4877,7 +5046,6 @@ def main() -> int:
         tier_report["card"] = smi
 
     # -- the fleet router, the program profiler and the tuner ----------------
-    import gc
     import weakref
     from hpx_tpu_torch.svc import fleet as fleet_mod
     from hpx_tpu_torch.svc import performance_counters as pcs
@@ -5153,7 +5321,40 @@ def main() -> int:
               "they must", flush=True)
         fleet_report["card"] = smi
 
+    def pool_check(srv, what):
+        """Kernels 3-4 against their plain versions on a paged server's
+        pools at its own decode shape (slots, W 1, its heads and
+        blocks), through random tables over its blocks; uncounted."""
+        cpu = torch.Generator().manual_seed(9)
+        slots, maxb = srv.slots, srv._maxb
+        with _uncounted(kernels):
+            for layer, (kp, vp) in enumerate(srv._pools):
+                nb, bs = kp.shape[0], kp.shape[1]
+                table = torch.randint(0, nb, (slots, maxb),
+                                      generator=cpu).int()
+                pos = torch.randint(0, maxb * bs, (slots,),
+                                    generator=cpu).int()
+                pos[0], pos[-1] = 0, maxb * bs - 1
+                q = torch.randn(slots, 1, srv.cfg.n_heads, srv.cfg.head_dim,
+                                generator=cpu).to(kp.dtype)
+                args = [q.cuda(), kp, vp, table.cuda(), pos.cuda()]
+                for k, (fn, plain) in paged.items():
+                    sm.expect_close(
+                        k, fn(*args), plain(*args),
+                        f"{k} on the {what} server's layer-{layer} "
+                        f"pools (B {slots}, W 1, {srv.cfg.n_heads} heads of "
+                        f"{srv.cfg.head_dim}, blocks of {bs}, {maxb} a "
+                        "slot)")
+
     progprof_report = {}
+
+    def memo_of_model():
+        """The f32 serving model's entries of the program memo (a program
+        built while a profiler runs stays wrapped there after it
+        stops)."""
+        cfg = model(torch.float32)[1]
+        return {k: v for k, v in tf._PROGRAMS.items()
+                if isinstance(k, tuple) and cfg in k}
 
     def progprof_tuner():
         """The program profiler and the tuner on (b) (see the module
@@ -5191,10 +5392,6 @@ def main() -> int:
             srv._program = lambda ck, build: Counted(real_prog(ck, build),
                                                      ck)
             srv._captured = cap
-
-        def memo_of_model():
-            return {k: v for k, v in tf._PROGRAMS.items()
-                    if isinstance(k, tuple) and cfg in k}
 
         def run(srv):
             for p, m in reqs:
@@ -5396,6 +5593,425 @@ def main() -> int:
                                      "did not fail")
             print(f"   planted fault ({label}): caught", flush=True)
 
+    # -- the live observability plane and the performance database ----------
+    from hpx_tpu_torch.svc import metrics as metrics_mod
+    from hpx_tpu_torch.svc import opsplane
+    from hpx_tpu_torch.svc import perfdb
+
+    obs_report = {}
+    obs_launches = {k: 0 for k in PAGED_KERNELS}
+
+    def obs_waves(srv, waves, injector=None, on_step=None):
+        """Each wave's tokens (submission order) on ``srv``, stepped by
+        hand; the first wave under ``injector``. Returns (outs, captures,
+        decode steps counted at the step program, kernels 3-4's
+        launches, tokens / second of the last wave)."""
+        calls = {}
+        _counting(srv, calls)
+        before = paged_launches()
+        outs, tps = [], None
+        with count_captures() as caps:
+            for i, reqs in enumerate(waves):
+                if i == 0 and injector is not None:
+                    faultinject.install(injector)
+                try:
+                    rids = [srv.submit(p, max_new=m) for p, m in reqs]
+                    torch.cuda.synchronize()
+                    t = HighResolutionTimer()
+                    while srv.step():
+                        if on_step is not None:
+                            on_step()
+                    torch.cuda.synchronize()
+                    secs = t.elapsed()
+                finally:
+                    faultinject.uninstall()
+                out = srv.run()
+                outs.append([out[r] for r in rids])
+                tps = sum(len(v) for v in outs[-1]) / secs
+        ran = {k: n - before[k] for k, n in paged_launches().items()}
+        return outs, caps.captures, calls.get("_paged_step_prog", 0), ran, tps
+
+    def obs_plane():
+        """The ops plane, exemplars and SLO alerts on a served run of (b),
+        the fleet's /statusz, and the performance database (see the
+        module docstring, "obs")."""
+        params, cfg = model(torch.float32)
+        reqs, base = mixes["b"]
+        kw = dict(paged=True, block_size=16, paged_kernel="fused")
+        tmp = tempfile.mkdtemp(prefix="obs_")
+        fault = dict(seed=0, schedule={"decode": set(range(2, 16, 2))})
+        alert_knobs = {
+            "hpx.obs.alerts": 1,
+            "hpx.obs.alert_rules": "decode_stall:0.1:0.9",
+            "hpx.obs.alert_fast_s": 0.5, "hpx.obs.alert_slow_s": 1.5,
+            "hpx.obs.alert_burn_fast": 3, "hpx.obs.alert_burn_slow": 1.5,
+            "hpx.obs.alert_interval_s": 0.02}
+        live = {"hpx.obs.port": 0, "hpx.obs.exemplars": 1,
+                "hpx.obs.exemplar_quantile": 0.5, **alert_knobs,
+                "hpx.flight.dir": os.path.join(tmp, "flight")}
+        # -- 1. the live plane on (b): a fault burst fires one alert --------
+        with knobs(**{"hpx.serving.retry_backoff_s": 0.3,
+                      "hpx.flight.dir": os.path.join(tmp, "flight")}):
+            off = serving.ContinuousServer(params, cfg, **base, **kw)
+            want, caps_off, _, _, _ = obs_waves(
+                off, [reqs, reqs], faultinject.FaultInjector(**fault))
+            with knobs(**live):
+                srv = serving.ContinuousServer(params, cfg, **base, **kw)
+                plane = opsplane.active_opsplane()
+                if plane is None or srv._alerts is None \
+                        or srv.hist["e2e"]._ex is None:
+                    raise AssertionError("the plane, the evaluator or the "
+                                         "exemplars are off")
+                scraper = _Scraper(plane.url)
+                health, state, synced = [], [0], {}
+
+                def on_step():
+                    # /healthz read in this thread at each transition of
+                    # the alert; once, mid-wave, a /varz render, a /statusz
+                    # and an evaluation under sync debug mode "error"
+                    act = srv._alerts.active()
+                    if act != state[0]:
+                        health.append((act, _get(plane.url + "/healthz")[0]))
+                        state[0] = act
+                    if not synced and srv._steps > 40:
+                        torch.cuda.set_sync_debug_mode("error")
+                        try:
+                            synced.update(
+                                varz=len(metrics_mod.render_prometheus()),
+                                statusz=len(plane.statusz()["providers"]),
+                                evaluated=len(srv._alerts.evaluate()) + 1)
+                        finally:
+                            torch.cuda.set_sync_debug_mode(0)
+                got, caps_on, steps, ran, _ = obs_waves(
+                    srv, [reqs, reqs], faultinject.FaultInjector(**fault),
+                    on_step)
+                log = scraper.stop()
+                # host ms of a decode-only step, the plane (idle), exemplars
+                # and alerts on (B) against off (A), A B B A
+                host = {"A": [], "B": []}
+                for tag in "ABBA":
+                    s_ = srv if tag == "B" else off
+                    host[tag].append(statistics.median(
+                        stepped(s_, reqs, torch)[2]) * 1e3)
+                # renders and evaluations timed in this thread, between
+                # runs, under sync debug mode "error"
+                ms = {"varz": [], "statusz": [], "alert_us": []}
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    for _ in range(10):
+                        t0 = time.perf_counter()
+                        final = metrics_mod.render_prometheus(
+                            openmetrics=True)
+                        t1 = time.perf_counter()
+                        plane.statusz()
+                        t2 = time.perf_counter()
+                        srv._alerts.evaluate()
+                        t3 = time.perf_counter()
+                        ms["varz"].append((t1 - t0) * 1e3)
+                        ms["statusz"].append((t2 - t1) * 1e3)
+                        ms["alert_us"].append((t3 - t2) * 1e6)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+        for k in ran:
+            obs_launches[k] += ran[k]
+        bad_scrapes = [e for e in log if not e[3] or e[2] not in (
+            (200, 503) if e[1] == "/healthz" else (200,))]
+        bundles = [n for n in os.listdir(os.path.join(tmp, "flight"))
+                   if n.endswith("-slo_alert.json")]
+        acts = [d["action"] for d in srv._alerts.decisions]
+        h503 = [e for e in log if e[1] == "/healthz" and e[2] == 503]
+        exp = {k: cfg.n_layers * steps if k == "fused_paged_attention" else 0
+               for k in ran}
+        if got != want or caps_on != caps_off or ran != exp or bad_scrapes \
+                or srv._alerts.fired != 1 or acts != ["fire", "clear"] \
+                or len(bundles) != 1 or health != [(1, 503), (0, 200)] \
+                or not synced:
+            raise AssertionError(
+                f"(b) observed: tokens equal {got == want}, captures "
+                f"{caps_on} against {caps_off}, launches {ran} want {exp}, "
+                f"scrapes failed {bad_scrapes[:5]} of {len(log)}, alerts "
+                f"{acts} (fired {srv._alerts.fired}), slo_alert bundles "
+                f"{bundles}, /healthz at the transitions {health}, sync-free "
+                f"reads {synced}")
+        # the exemplars: each rid names a request that was submitted and
+        # retired; every histogram's rows cumulative, ending at _count and
+        # equal to the histogram's own counts
+        inst = srv.counter_instance
+        mine = [ln for ln in final.splitlines()
+                if f'instance="{inst}"' in ln]
+        rids = {int(r) for ln in mine
+                for r in re.findall(r'# \{rid="(\d+)"\}', ln)}
+        unresolved = [r for r in rids if not {"submit", "retire"} <= {
+            e["name"] for e in srv.timeline.events(r)}]
+        lab = f'locality="0",instance="{inst}"'
+        hists = {(f"hpx_serving_latency_{k}_s", lab): h_
+                 for k, h_ in srv.hist.items()}
+        cum_bad = _cumulative_faults(final, hists)
+        planted = re.sub(
+            rf'^(hpx_serving_latency_e2e_s_bucket\{{le="[^"]+",{lab}\}} )'
+            r'(\d+)', lambda m: m[1] + str(int(m[2]) + 1), final, count=1,
+            flags=re.M)
+        if not rids or unresolved or cum_bad or planted == final \
+                or not _cumulative_faults(planted, hists):
+            raise AssertionError(
+                f"exemplar rids {sorted(rids)}, unresolved {unresolved}; "
+                f"histograms not cumulative {cum_bad}; planted fault (a "
+                "bucket raised by one) caught "
+                f"{bool(_cumulative_faults(planted, hists))}")
+        del srv, off, on_step
+        gc.collect()
+        left = [k for k in plane.statusz()["providers"]
+                if k == f"serving/{inst}"]
+        if left:
+            raise AssertionError(f"a deleted server's provider is left: "
+                                 f"{left}")
+        obs_report.update(
+            scrapes=len(log), scrapes_503=len(h503),
+            exemplar_rids=len(rids), captures=caps_on,
+            host_ms_ABBA=[host["A"][0], host["B"][0], host["B"][1],
+                          host["A"][1]],
+            varz_ms_median=statistics.median(ms["varz"]),
+            statusz_ms_median=statistics.median(ms["statusz"]),
+            alert_eval_us_median=statistics.median(ms["alert_us"]),
+            varz_bytes=len(final))
+        print(f"   (b) f32 paged fused, plane + exemplars + alerts, a decode "
+              f"fault burst (backoff 0.3 s): tokens and {caps_on} captures "
+              f"== the same server's with observability off; kernel 3 "
+              f"{ran['fused_paged_attention']} launches = {cfg.n_layers} x "
+              f"{steps} decode steps; {len(log)} scrapes of /varz (both "
+              f"formats), /statusz, /healthz all answered and parsed "
+              f"({len(h503)} /healthz 503); one alert fired and cleared, "
+              f"one slo_alert bundle; /healthz 503 at the fire, 200 at the "
+              f"clear; {len(rids)} exemplar rids resolve to timelines; "
+              f"bucket rows cumulative, a raised bucket caught; a /varz "
+              f"render, /statusz and an evaluation made no device sync; "
+              f"host ms a decode step A B B A {obs_report['host_ms_ABBA']}; "
+              f"/varz {obs_report['varz_ms_median']!r} ms, /statusz "
+              f"{obs_report['statusz_ms_median']!r} ms, an evaluation "
+              f"{obs_report['alert_eval_us_median']!r} us; on {smi}",
+              flush=True)
+
+        # -- 2. the fleet's /statusz on (a) ---------------------------------
+        base_a = mixes["a"][1]
+        cold = mixes["a"][0]
+        (want_a,), _ = colocated([cold], base_a)
+        def fleet_view(r):
+            """(the router's /statusz section, its decode workers' widx
+            now, the widx shown, each shown worker's samples against its
+            histograms' counts)."""
+            sect = json.loads(_get(plane.url + "/statusz")[1])[
+                "providers"][f"router/{id(r):x}"]
+            widx = sorted(r._widx(h) for h in r._decode)
+            shown = sorted(w["widx"] for w in sect["workers"]["decode"])
+            samples = {w["widx"]: w["samples"]
+                       for w in sect["workers"]["decode"]}
+            want_s = {i: {k: v.count for k, v in sorted(
+                r.whist.get(i, {}).items())} for i in widx}
+            return sect["kind"], widx, shown, samples == want_s
+
+        with knobs(**{"hpx.obs.exemplars": 1,
+                      "hpx.obs.exemplar_quantile": 0.0,
+                      **{f"hpx.serving.fleet.{k}": v for k, v in dict(
+                          digest_refresh_s=0, scale_high=2,
+                          decode_pool_max=4, idle_ticks=2).items()}}):
+            r = fleet_mod.FleetRouter(
+                params, cfg, prefill_workers=2, decode_workers=2, **base_a,
+                server_kwargs=dict(paged_kernel="fused", block_size=16))
+            before = paged_launches()
+            rids = [r.submit(p, m) for p, m in cold]
+            minted, peak = 2, None
+            while r.step():
+                if len(r._decode) > minted:
+                    minted, peak = len(r._decode), fleet_view(r)
+            for _ in range(8):       # idle ticks: the pool drains
+                r.step()
+            end = fleet_view(r)
+            out = r.results
+            ex_rids = {e["rid"] for per in r.whist.values()
+                       for e in per["e2e"]._ex.exemplars()}
+            ran_f = {k: n - before[k] for k, n in paged_launches().items()}
+        for k in ran_f:
+            obs_launches[k] += ran_f[k]
+        r.close()
+        rid_names = {f"r{i}" for i in rids}
+        del r
+        gc.collect()
+        left = [k for k in plane.statusz()["providers"]
+                if k.startswith(("router/", "serving/"))]
+        views = [v for v in (peak, end) if v is not None]
+        if [out[i] for i in rids] != want_a or peak is None \
+                or any(v[0] != "fleet" or v[1] != v[2] or not v[3]
+                       for v in views) \
+                or not ex_rids <= rid_names or left:
+            raise AssertionError(
+                f"(a) fleet with the plane: tokens equal "
+                f"{[out[i] for i in rids] == want_a}; /statusz (kind, widx, "
+                f"shown, samples equal) at the pool's peak {peak} and after "
+                f"the drain {end}; exemplar rids {sorted(ex_rids)}; "
+                f"providers left after the close {left}")
+        obs_report["fleet"] = dict(shown_at_peak=peak[2], shown_after=end[2],
+                                   launches=ran_f)
+        print(f"   (a) FleetRouter 2 x 2 (scale_high 2): tokens == the "
+              f"colocated server's; /statusz's fleet section shows decode "
+              f"workers {peak[2]} at the pool's peak (minted ones included) "
+              f"and {end[2]} after the drain (retired ones dropped), each "
+              f"with its sample counts; exemplars name router rids; no "
+              f"provider left after the close", flush=True)
+
+        # -- 3. the performance database -------------------------------------
+        dev = torch.device("cuda", 0)
+        kind = perfdb.device_kind(dev)
+        kvd = "bf16"      # the default pool label: pools in the model dtype
+        # (i) a profiled run of (b) with recording on banks on-chip rows
+        store1 = os.path.join(tmp, "perfdb_record.json")
+        kept = memo_of_model()
+        for k in kept:
+            del tf._PROGRAMS[k]
+        perfdb.reset_configured()
+        try:
+            with knobs(**{"hpx.perfdb.path": store1,
+                          "hpx.perfdb.record": 1}):
+                progprof.start_profiling(sample_memory=False)
+                try:
+                    s1 = serving.ContinuousServer(params, cfg, **base, **kw)
+                    obs_waves(s1, [reqs])
+                finally:
+                    progprof.stop_profiling()
+                key1 = s1.perf_key()
+                del s1
+        finally:
+            for k in list(memo_of_model()):
+                del tf._PROGRAMS[k]
+            tf._PROGRAMS.update(kept)
+            perfdb.reset_configured()
+        rows = perfdb.PerfDB(store1).observations
+        if not rows or {r_["key"] for r_ in rows} != {key1} \
+                or key1.split("|")[0] != kind \
+                or not kind.startswith("nvidia") \
+                or not all(r_["onchip"] and r_["provenance"] == "on-chip"
+                           for r_ in rows):
+            raise AssertionError(f"banked rows: keys "
+                                 f"{sorted({r_['key'] for r_ in rows})} "
+                                 f"(server key {key1}, device {kind!r}), "
+                                 f"stamps {[(r_['onchip'], r_['provenance']) for r_ in rows][:4]}")
+        print(f"   (b) profiled with hpx.perfdb.record: {len(rows)} rows "
+              f"banked under {key1}, every one on-chip", flush=True)
+
+        # (ii) a learned block 32 and ladder; (iii) the same stamped
+        # session-only
+        chunk, buckets = 256, [64, 256]
+
+        def bank(path, onchip):
+            db = perfdb.PerfDB(path)
+            stamp = dict(onchip=onchip, provenance="on-chip" if onchip
+                         else perfdb.OFF_CHIP)
+            db.record_block(f"hd{cfg.head_dim}x{kvd}",
+                            dict(block_size=32, samples=5, **stamp))
+            for kern in ("fused", "fused_online"):
+                db.record_ladder(perfdb.PerfKey(
+                    kind, perfdb.shape_str(cfg), kvd, kern, "1"),
+                    dict(prefill_chunk=chunk, prefill_buckets=buckets,
+                         samples=5, **stamp))
+            db.save()
+        store2 = os.path.join(tmp, "perfdb_learned.json")
+        bank(store2, True)
+
+        def widths(s_):
+            return sorted({ck[2] for ck in s_._graphs if ck[0] == "cb_chunk"})
+        learned = {}
+        with knobs(**{"hpx.perfdb.path": store2,
+                      "hpx.perfdb.use_learned_ladders": 1}):
+            perfdb.reset_configured()
+            t0 = time.perf_counter()
+            perfdb.learned_ladder_for(cfg, kvd, "fused", None, dev)
+            perfdb.learned_block(cfg.head_dim, kvd)
+            consult_cold = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            perfdb.learned_ladder_for(cfg, kvd, "fused", None, dev)
+            perfdb.learned_block(cfg.head_dim, kvd)
+            consult_warm = (time.perf_counter() - t0) * 1e3
+            for kern in ("fused", "fused_online"):
+                learned[kern] = serving.ContinuousServer(
+                    params, cfg, **base, paged=True, paged_kernel=kern)
+        perfdb.reset_configured()
+        res = {}
+        for kern, s_ in learned.items():
+            if (s_.block_size, s_._block_size_src, s_._ladder_source,
+                    s_.prefill_chunk, list(s_.prefill_buckets)) != \
+                    (32, "learned", "learned", chunk, buckets):
+                raise AssertionError(
+                    f"learned {kern}: block {s_.block_size} "
+                    f"({s_._block_size_src}), ladder "
+                    f"{s_._ladder_source}: chunk {s_.prefill_chunk}, "
+                    f"buckets {s_.prefill_buckets}")
+            explicit = serving.ContinuousServer(
+                params, cfg, **base, paged=True, paged_kernel=kern,
+                block_size=32, prefill_chunk=chunk,
+                prefill_buckets=",".join(map(str, buckets)))
+            res[kern] = (obs_waves(s_, [reqs, reqs]),
+                         obs_waves(explicit, [reqs]), widths(s_),
+                         widths(explicit))
+            pool_check(s_, f"learned block-32 {kern}")
+            del explicit
+        for kern, (lr, ex, w_l, w_e) in res.items():
+            wrap = {"fused": "fused_paged_attention",
+                    "fused_online": "fused_paged_online_attention"}[kern]
+            exp = {k: cfg.n_layers * lr[2] if k == wrap else 0
+                   for k in lr[3]}
+            for k in lr[3]:
+                obs_launches[k] += lr[3][k]
+            if lr[0][:1] != ex[0] or lr[0][0] != lr[0][1] or lr[3] != exp \
+                    or w_l != w_e or not w_l or not set(w_l) <= set(buckets):
+                raise AssertionError(
+                    f"learned {kern}: tokens equal the explicit block-32 "
+                    f"server's {lr[0][:1] == ex[0]}, launches {lr[3]} want "
+                    f"{exp}, chunk graphs at {w_l} (explicit {w_e}, ladder "
+                    f"{buckets})")
+        del learned, s_
+        # block 16 (the default ladder) beside the learned server, warm
+        b16 = serving.ContinuousServer(params, cfg, **base, **kw)
+        b16_tps = obs_waves(b16, [reqs, reqs])[4]
+        del b16
+        store3 = os.path.join(tmp, "perfdb_session.json")
+        bank(store3, False)
+        stale = "/perfdb{locality#0/total}/stale"
+        with knobs(**{"hpx.perfdb.path": store3,
+                      "hpx.perfdb.use_learned_ladders": 1}):
+            perfdb.reset_configured()
+            n0 = pcs.query_counter(stale).value
+            s3 = serving.ContinuousServer(params, cfg, **base, paged=True,
+                                          paged_kernel="fused")
+            n1 = pcs.query_counter(stale).value
+        perfdb.reset_configured()
+        if s3.block_size != 16 or s3._block_size_src not in ("seed",
+                                                             "default") \
+                or s3._ladder_source != "default" or n1 < n0 + 2:
+            raise AssertionError(
+                f"session-only entries: block {s3.block_size} "
+                f"({s3._block_size_src}), ladder {s3._ladder_source}, "
+                f"/perfdb/stale {n0} -> {n1}")
+        del s3
+        obs_report.update(
+            device_kind=kind, banked_rows=len(rows),
+            boot_consult_ms_cold=consult_cold,
+            boot_consult_ms_warm=consult_warm,
+            tokens_per_s_block16=b16_tps,
+            tokens_per_s_learned32=res["fused"][0][4],
+            tokens_per_s_learned32_online=res["fused_online"][0][4],
+            learned_chunk_widths=res["fused"][2], card=smi)
+        print(f"   learned block 32 (hd{cfg.head_dim}x{kvd}) and ladder "
+              f"(chunk {chunk}, buckets {buckets}): source learned; chunk "
+              f"graphs at {res['fused'][2]}; tokens == the explicit block-32 "
+              f"server's (fused and fused_online), kernels 3 and 4 launched "
+              f"n_layers a decode step at block 32 and within 1e-5 of their "
+              f"plain versions on its pools; session-only entries refused "
+              f"(block 16, /perfdb/stale {n0} -> {n1}); boot consult "
+              f"{consult_cold!r} ms cold, {consult_warm!r} ms warm; (b) "
+              f"tokens/s block 16 {b16_tps!r}, learned 32 fused "
+              f"{res['fused'][0][4]!r}, fused_online "
+              f"{res['fused_online'][0][4]!r}; on {smi}", flush=True)
+        opsplane.stop_opsplane()
+
     for name_, fn in (("main path: fused", fused),
                       ("main path: unfused", unfused),
                       ("main path: dataflow", dataflow),
@@ -5413,6 +6029,8 @@ def main() -> int:
                       ("main path: host KV tier", host_tier),
                       ("main path: fleet serving", fleet_serving),
                       ("program profiler and tuner", progprof_tuner),
+                      ("observability plane and performance database",
+                       obs_plane),
                       ("traced serving", traced_serving),
                       ("main path: decoders", decoders),
                       ("examples_cuda/serving_demo.py", serving_demo),
@@ -5422,31 +6040,6 @@ def main() -> int:
     # -- mixture-of-experts through the server and the training step --------
     moe = {}
     moe_knob = "hpx.serving.moe.capacity_factor"
-
-    def moe_paged_check(srv, what):
-        """Kernels 3-4 against their plain versions on a MoE server's
-        pools at its own decode shape (slots, W 1, its heads and
-        blocks), through random tables over its blocks; uncounted."""
-        cpu = torch.Generator().manual_seed(9)
-        slots, maxb = srv.slots, srv._maxb
-        with _uncounted(kernels):
-            for layer, (kp, vp) in enumerate(srv._pools):
-                nb, bs = kp.shape[0], kp.shape[1]
-                table = torch.randint(0, nb, (slots, maxb),
-                                      generator=cpu).int()
-                pos = torch.randint(0, maxb * bs, (slots,),
-                                    generator=cpu).int()
-                pos[0], pos[-1] = 0, maxb * bs - 1
-                q = torch.randn(slots, 1, srv.cfg.n_heads, srv.cfg.head_dim,
-                                generator=cpu).to(kp.dtype)
-                args = [q.cuda(), kp, vp, table.cuda(), pos.cuda()]
-                for k, (fn, plain) in paged.items():
-                    sm.expect_close(
-                        k, fn(*args), plain(*args),
-                        f"{k} on the MoE {what} server's layer-{layer} "
-                        f"pools (B {slots}, W 1, {srv.cfg.n_heads} heads of "
-                        f"{srv.cfg.head_dim}, blocks of {bs}, {maxb} a "
-                        "slot)")
 
     def moe_ffn_ms(cfg, params, t, cf):
         """(MoE FFN ms, dense MLP ms) a layer on t tokens in cfg.dtype:
@@ -5524,7 +6117,7 @@ def main() -> int:
                       "dense == generate() (the 8 prompts in one batch, and "
                       "requests 0 and 7 alone)", flush=True)
                 srv = runs["fused"][1]
-                moe_paged_check(srv, "f32")
+                pool_check(srv, "MoE f32")
                 # a captured decode step against its MoE FFNs alone
                 maxb = srv._maxb
                 args = (srv.params, srv._pools, srv._scales,
@@ -5580,7 +6173,7 @@ def main() -> int:
                 print(f"   bf16 fused tokens equal to the bf16 gather "
                       f"server's: {agree!r} (rounding; f32 is held equal)",
                       flush=True)
-                moe_paged_check(runs["fused"][1], "bf16")
+                pool_check(runs["fused"][1], "MoE bf16")
             del runs, params
             torch.cuda.empty_cache()
 
@@ -7997,6 +8590,7 @@ def main() -> int:
                               "shape": timing[f"{k} W=8 {dt}"]["shape"]}
                          for dt in ("bfloat16", "int8")},
                          "verify_launches": spec_launches[k],
+                         "obs_launches": obs_launches[k],
                          "sharded_launches": sharded_launches[k]}
                         if k in PAGED_KERNELS else {}),
                      **({"f32": f32_routes(row)} if row in F32_ROUTE
@@ -8020,6 +8614,7 @@ def main() -> int:
     print("tier: " + json.dumps(tier_report))
     print("fleet: " + json.dumps(fleet_report))
     print("progprof: " + json.dumps(progprof_report))
+    print("obs: " + json.dumps(obs_report))
     print("moe: " + json.dumps({**moe, "card": smi}))
     print("multirank: " + json.dumps({**multi, "card": smi}))
     print("sharded: " + json.dumps(sharded))

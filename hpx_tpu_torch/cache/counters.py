@@ -48,6 +48,13 @@ Tuned servers (``hpx.tune.enable``) add the closed-loop controller's
 accounting — ``/serving{...}/tune/ticks``, ``tune/evals``,
 ``tune/probes``, ``tune/accepts``, ``tune/reverts``, ``tune/holds``.
 
+Servers with SLO alerting (``hpx.obs.alerts``, ``svc/slo_alerts``) add
+its evaluation and transition totals — ``/serving{...}/alerts/evals``,
+``alerts/fired``, ``alerts/cleared``, ``alerts/active`` (the rules
+firing now). The performance database's ``/perfdb{locality#L/total}/
+{keys,observations,hits,misses,stale}`` are registered by
+``svc/perfdb.ensure_counters``.
+
 Paged servers additionally export the cache counters::
 
     /cache{locality#L/server#i}/hit-rate                radix prefix hit rate
@@ -215,6 +222,20 @@ def register_server(srv) -> str:
             pc.CallbackCounter(_read(ref, lambda s: s._tuner.reverts)))
         put("serving", "tune/holds",
             pc.CallbackCounter(_read(ref, lambda s: s._tuner.holds)))
+
+    if getattr(srv, "_alerts", None) is not None:
+        # SLO burn-rate alerting (svc/slo_alerts): evaluation and
+        # transition totals — /serving{...}/alerts/*. `active` is the
+        # number of rules currently in the alerting state, so a trace
+        # or /varz scrape shows incident windows as a step function.
+        put("serving", "alerts/evals",
+            pc.CallbackCounter(_read(ref, lambda s: s._alerts.evals)))
+        put("serving", "alerts/fired",
+            pc.CallbackCounter(_read(ref, lambda s: s._alerts.fired)))
+        put("serving", "alerts/cleared",
+            pc.CallbackCounter(_read(ref, lambda s: s._alerts.cleared)))
+        put("serving", "alerts/active",
+            pc.CallbackCounter(_read(ref, lambda s: s._alerts.active())))
 
     if getattr(srv, "paged", False):
         put("cache", "hit-rate",

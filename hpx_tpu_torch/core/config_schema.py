@@ -284,6 +284,25 @@ declare("hpx.prof.peak_gflops", "float", "0",
         "roofline denominator in GFLOP/s (0 = infer from the device's "
         "name; unknown devices and the CPU report roofline fraction 0)")
 
+# -- persistent perf database (svc/perfdb) ----------------------------------
+declare("hpx.perfdb.path", "str", "",
+        "versioned cross-run performance store (JSON); empty = no "
+        "store — producers no-op, consumers fall back to constants")
+declare("hpx.perfdb.use_learned_ladders", "bool", "0",
+        "boot-time consult of the perfdb ladders: on a key hit with "
+        "enough samples the server overrides the hand-picked serving "
+        "ladder defaults; off (or on a miss) it is byte-identical to "
+        "the constants")
+declare("hpx.perfdb.min_samples", "int", "3",
+        "samples a learned ladder/block entry needs before a cold "
+        "boot trusts it (below = counted stale, constants win)")
+declare("hpx.perfdb.record", "bool", "0",
+        "bank the live progprof table into the perfdb on "
+        "stop_profiling() (needs hpx.perfdb.path)")
+declare("hpx.perfdb.allow_session", "bool", "0",
+        "accept off-chip-provenance ladders at boot (default "
+        "off: only on-chip-derived ladders override constants)")
+
 # -- adaptive tuner (svc/autotune) ------------------------------------------
 declare("hpx.tune.enable", "bool", "0",
         "closed-loop auto-tuning of the tunable serving knobs (off by "
@@ -311,6 +330,48 @@ declare("hpx.tune.compile_amortize_s", "float", "30",
 declare("hpx.tune.seed", "int", "0",
         "deterministic probe-order seed (rotates the round-robin "
         "starting knob)")
+
+# -- live observability (svc/exemplars, svc/slo_alerts, svc/opsplane) ------
+declare("hpx.obs.port", "int", "-1",
+        "ops-plane HTTP port (/varz /statusz /tracez /flightz /healthz); "
+        "-1 = off, 0 = ephemeral OS-assigned, >0 = fixed")
+declare("hpx.obs.host", "str", "127.0.0.1",
+        "ops-plane bind address (loopback by default: the endpoint is "
+        "an operator surface, not a public one)")
+declare("hpx.obs.exemplars", "bool", "0",
+        "capture tail-bucket exemplars (rid, value, wall ts, span ref) "
+        "on the SLO latency histograms")
+declare("hpx.obs.exemplars_per_bucket", "int", "4",
+        "exemplar reservoir slots per histogram bucket (deterministic "
+        "ring replacement: slot = offers-to-bucket mod capacity)")
+declare("hpx.obs.exemplar_quantile", "float", "0.95",
+        "only records landing at/above this quantile's bucket capture "
+        "an exemplar (the tail is what needs attribution)")
+declare("hpx.obs.exemplar_refresh", "int", "64",
+        "offers between threshold-bucket recomputes (amortizes the "
+        "O(buckets) cumulative scan off the record path)")
+declare("hpx.obs.alerts", "bool", "0",
+        "SLO burn-rate alert evaluation at the serving flush boundary "
+        "(off by default: zero-overhead is-None fast path)")
+declare("hpx.obs.alert_rules", "str", "",
+        "csv 'hist:threshold_s:target' SLO rules ('' = built-in "
+        "defaults, see svc/slo_alerts.DEFAULT_RULES)")
+declare("hpx.obs.alert_fast_s", "float", "300",
+        "fast burn-rate window, seconds (SRE 5m page window)")
+declare("hpx.obs.alert_slow_s", "float", "3600",
+        "slow burn-rate window, seconds (gates flapping: both windows "
+        "must burn before an alert fires)")
+declare("hpx.obs.alert_burn_fast", "float", "14.4",
+        "burn-rate factor the fast window must exceed (14.4 = a 30d "
+        "budget gone in 2d)")
+declare("hpx.obs.alert_burn_slow", "float", "6",
+        "burn-rate factor the slow window must exceed")
+declare("hpx.obs.alert_interval_s", "float", "1.0",
+        "minimum wall seconds between alert evaluations (the flush "
+        "boundary can tick far faster than SLO state moves)")
+declare("hpx.obs.alert_trace_dump", "bool", "0",
+        "dump the live trace ring next to the flight bundle when an "
+        "alert fires")
 
 # -- flight recorder (svc/flight) -------------------------------------------
 declare("hpx.flight.enabled", "bool", "1",

@@ -16,6 +16,7 @@ server, a training step), and the programs behind them are shared.
 from __future__ import annotations
 
 import ctypes
+import gc
 import itertools
 import re
 import time
@@ -200,9 +201,16 @@ def _capture_graph(fn: Callable[..., Any], args: list, pool, device):
     """Capture fn(*args) into a CUDA graph in ``pool``; return (replay,
     out, kernels): a callable that replays the graph, the graph's
     outputs, which each replay rewrites, and the graph's kernel nodes by
-    function name (``graph_kernels``). A failed capture raises."""
+    function name (``graph_kernels``). A failed capture raises.
+
+    The cyclic garbage collector is off while the stream captures
+    (``torch.cuda.graph`` collects just before): a collection inside the
+    capture can free another program's graph, and destroying a graph
+    while a stream captures invalidates the capture."""
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     caller = torch.cuda.current_stream(device)
+    collecting = gc.isenabled()
+    gc.disable()
     try:
         with torch.cuda.device(device), \
                 torch.cuda.graph(graph, pool=pool,
@@ -215,6 +223,9 @@ def _capture_graph(fn: Callable[..., Any], args: list, pool, device):
         # on the capture stream, unordered with the default stream's
         torch.cuda.set_stream(caller)
         raise
+    finally:
+        if collecting:
+            gc.enable()
     kernels = graph_kernels(graph.raw_cuda_graph())
     graph.instantiate()
     return graph.replay, out, kernels

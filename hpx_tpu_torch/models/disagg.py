@@ -155,8 +155,9 @@ class PrefillWorker(_WorkerRing):
     def __init__(self, params, cfg: TransformerConfig, smax: int = 512,
                  block_size: Optional[int] = None, **server_kwargs) -> None:
         if block_size is None:
-            # the decode pool's geometry authority: emitted segments must
-            # match the pool the router splices them into
+            # the decode pool's geometry authority (env > the perfdb's
+            # learned tier > seed table > default): emitted segments
+            # must match the pool the router splices them into
             from ..core.config import runtime_config
             from ..ops.attention_cuda import resolve_paged_block_src
             kvd = server_kwargs.pop("kv_dtype", None) or \
@@ -487,8 +488,11 @@ class DisaggRouter:
     ``hpx.tune.enable``, builds its own tuner; the router joins those
     tuners under ONE ``TuneArbiter`` (``_tune_arbiter``), so the prefill
     and decode sides never probe a shared-budget knob (the radix block
-    budget, the queue bound) at once. The ``/statusz`` section waits for
-    the ops-plane slice (off under the reference's defaults)."""
+    budget, the queue bound) at once. With the ops plane on
+    (``hpx.obs.port``) the router registers a weakref ``/statusz``
+    provider (``_statusz``: host state only, no call into a worker), and
+    with ``hpx.obs.exemplars`` each decode worker's histograms carry
+    exemplar reservoirs naming the router rids behind tail samples."""
 
     def __init__(self, params, cfg: TransformerConfig,
                  prefill_workers: int = 1, decode_workers: int = 1, *,
@@ -570,6 +574,14 @@ class DisaggRouter:
         self._last_pump_t: Dict[int, float] = {}
         # the bytes of the segments delivered
         self.shipped_bytes = 0
+        # live ops plane: one weakref /statusz provider a router, so the
+        # router's port shows the merged fleet view (workers roll up
+        # through merged_hist and stats); nothing unless hpx.obs.port
+        # enables the plane
+        from ..svc import opsplane as _opsplane
+        if _opsplane.ensure_opsplane() is not None:
+            _opsplane.register_provider(
+                f"router/{id(self):x}", self, type(self)._statusz)
 
     # -- admission ------------------------------------------------------------
 
@@ -669,8 +681,8 @@ class DisaggRouter:
 
     def _decode_load(self) -> Dict[int, int]:
         """In-flight requests a decode handle (by id)."""
-        load = {id(h): 0 for h in self._decode}
-        for r in self._reqs.values():
+        load = {id(h): 0 for h in list(self._decode)}
+        for r in list(self._reqs.values()):
             if (r.state in ("prefill", "decode") and r.decode_h is not None
                     and id(r.decode_h) in load):
                 load[id(r.decode_h)] += 1
@@ -697,13 +709,15 @@ class DisaggRouter:
         hist = self.whist.get(idx)
         if hist is None:
             hist = self.whist[idx] = _metrics.latency_histograms()
+            from ..svc import exemplars as _exemplars
+            _exemplars.attach_from_config(hist)
         return hist
 
     def merged_hist(self) -> Dict[str, _metrics.HistogramCounter]:
         """The fleet-wide latency view: every per-worker histogram folded
         by :meth:`HistogramCounter.merge` at query time."""
         out = _metrics.latency_histograms()
-        for per in self.whist.values():
+        for per in list(self.whist.values()):
             for k in _metrics.LATENCY_KEYS:
                 out[k] = out[k].merge(per[k])
         return out
@@ -775,7 +789,7 @@ class DisaggRouter:
             jobs[id(h)] += 1
             now = time.monotonic()
             self._whist(req.decode_h)["queue_wait"].record(
-                now - self._t_submit[req.rid])
+                now - self._t_submit[req.rid], rid=req.grid)
             self.timeline.event(req.grid, "place", t=now,
                                 worker=self._widx(req.decode_h))
             self.timeline.event(req.grid, "prefill_start", t=now)
@@ -842,7 +856,14 @@ class DisaggRouter:
             now = time.monotonic()
             last = self._last_pump_t.get(widx)
             if last is not None:
-                self._whist(h)["decode_stall"].record(now - last)
+                # the exemplar (when a reservoir rides the histogram)
+                # names the worker's first live request
+                hist = self._whist(h)["decode_stall"]
+                stall_rid = None if hist._ex is None else next(
+                    (self._reqs[r].grid for r in sorted(self._reqs)
+                     if self._reqs[r].decode_h is h
+                     and self._reqs[r].state == "decode"), None)
+                hist.record(now - last, rid=stall_rid)
             out = self._call(h, "pump", self._pump_steps)
             self._last_pump_t[widx] = time.monotonic()
             for grid, toks in sorted(out["done"].items()):
@@ -858,7 +879,8 @@ class DisaggRouter:
                 if req.rid not in self.ttft and toks:
                     ttft = time.monotonic() - self._t_submit[req.rid]
                     self.ttft[req.rid] = ttft
-                    self._whist(req.decode_h)["ttft"].record(ttft)
+                    self._whist(req.decode_h)["ttft"].record(
+                        ttft, rid=req.grid)
                     self.timeline.event(req.grid, "first_token",
                                         worker=widx)
 
@@ -878,10 +900,11 @@ class DisaggRouter:
         if req.rid not in self.ttft:
             ttft = now - self._t_submit[req.rid]
             self.ttft[req.rid] = ttft
-            self._whist(req.decode_h)["ttft"].record(ttft)
+            self._whist(req.decode_h)["ttft"].record(ttft, rid=req.grid)
             self.timeline.event(req.grid, "first_token",
                                 worker=self._widx(req.decode_h))
-        self._whist(req.decode_h)["e2e"].record(now - self._t_submit[req.rid])
+        self._whist(req.decode_h)["e2e"].record(
+            now - self._t_submit[req.rid], rid=req.grid)
         self.timeline.event(req.grid, "retire", tokens=len(toks))
 
     # -- failover -------------------------------------------------------------
@@ -984,6 +1007,38 @@ class DisaggRouter:
         return busy or self._unfinished() > 0
 
     # -- lifecycle ------------------------------------------------------------
+
+    def _statusz(self) -> Dict[str, Any]:
+        """This router's /statusz section (svc/opsplane provider): queue
+        split, request-state census, per-worker liveness and per-worker
+        SLO sample counts, plus the stats() roll-up — ONE port answers
+        for the whole fleet. Host-only reads; no worker calls (a scrape
+        must not touch a dead worker)."""
+        states: Dict[str, int] = {}
+        # list() copies in one C call: the router thread may be adding
+        # requests while a scrape reads
+        for r in list(self._reqs.values()):
+            states[r.state] = states.get(r.state, 0) + 1
+        return {
+            "kind": "router",
+            "queue": {"interactive": len(self._qi),
+                      "batch": len(self._qb)},
+            "requests": states,
+            "workers": {
+                "prefill": [
+                    {"locality": getattr(h, "locality", 0),
+                     "alive": h.alive} for h in list(self._prefill)],
+                "decode": [
+                    {"widx": self._widx(h),
+                     "locality": getattr(h, "locality", 0),
+                     "alive": h.alive,
+                     "samples": {k: v.count for k, v in sorted(
+                         self.whist.get(self._widx(h), {}).items())}}
+                    for h in list(self._decode)],
+            },
+            "timeline_rids": len(self.timeline),
+            "stats": self.stats(),
+        }
 
     def stats(self) -> Dict[str, Any]:
         merged = self.merged_hist()

@@ -175,8 +175,28 @@ ticks it at every flush after the live-knob reload; on a mesh rank 0's
 tuner decides and one broadcast carries its knob values (``_tune_tick``).
 The program profiler (``svc/progprof``) sees the server's programs
 through the program memo, and each CUDA-graph replay through
-``GraphProgram``. The ``/statusz`` provider, exemplars and SLO alerts
-wait for the ops-plane slice.
+``GraphProgram``.
+
+LIVE OBSERVABILITY (``hpx.obs.*``; each piece None or empty unless its
+knob is on): exemplar reservoirs ride ``self.hist`` (``svc/exemplars``)
+and name the request behind a tail sample; an SLO burn-rate evaluator
+(``svc/slo_alerts``) ticks in ``_flush`` before the tuner and holds it
+while an alert fires (a firing alert records a ``slo_alert`` flight
+bundle); the ops plane (``svc/opsplane``, ``hpx.obs.port`` >= 0) gets a
+weakref ``/statusz`` provider (``_statusz``: host state only). On a mesh
+rank 0 builds the evaluator and starts the plane, and its hold rides the
+broadcast that carries its knob values.
+
+PERFORMANCE DATABASE (``svc/perfdb``): with
+``hpx.perfdb.use_learned_ladders`` the constructor consults the store
+under ``perf_key()`` (device, shape, kv dtype, kernel, mesh); a usable
+hit sets ``prefill_chunk``, the prefill buckets, ``spec_k`` and the
+block size where no argument or moved config value says otherwise
+(``_ladder_source`` / ``hbm_read_stats()['block_size_source']`` say
+"learned"); the block size also has the store's per-(head_dim, kv dtype)
+tier (``ops.attention_cuda.resolve_paged_block_src``). With
+``hpx.perfdb.record`` the server names the key the program profiler
+banks its costs under.
 """
 
 from __future__ import annotations
@@ -290,6 +310,16 @@ def _resolve_kv_dtype(kv_dtype, rc) -> str:
             "with absmax scale sidecars) or 'fp8' (e4m3 blocks "
             f"with the same sidecars), got {kv_dtype!r}")
     return kv_dtype
+
+
+def _rc_at_default(rc, key: str) -> bool:
+    """True when the effective config value for ``key`` is its DECLARED
+    default — the learned-ladder override policy: a value an operator
+    set explicitly always beats the performance database, even when the
+    store holds a hit for the shape."""
+    from ..core import config_schema
+    entry = config_schema.lookup(key)
+    return entry is not None and rc.get(key) == entry.default
 
 
 def _resolve_paged_kernel(paged_kernel, rc, device: torch.device,
@@ -732,12 +762,49 @@ class ContinuousServer:
             self._lo = mesh.axis_index("dp") * self._rows
             params = _decode_place(params, cfg, mesh)
         self.params = params.to(self.device)
+        # learned-ladder boot consult (svc/perfdb): with
+        # hpx.perfdb.use_learned_ladders=1 the store is keyed on this
+        # server's (device, shape, kv_dtype, kernel, mesh) and a usable
+        # hit overrides the ladder DEFAULTS below. Explicit settings —
+        # constructor args, or config values moved off their declared
+        # defaults — always win, and with the knob off (or on a miss or
+        # stale entry) every resolution below is byte-identical to the
+        # constants
+        self._learned_ladder = None
+        self._ladder_source = "default"
+        self._block_size_src = "n/a"
+        self._bs_consulted = None   # (block size, source) the key took
+        if rc.get_bool("hpx.perfdb.use_learned_ladders", False):
+            from ..svc import perfdb as _perfdb
+            _perfdb.ensure_counters()
+            if self.paged:
+                lk_kvd = _resolve_kv_dtype(kv_dtype, rc)
+                lk_kern = self._key_kernel(paged_kernel, block_size,
+                                           lk_kvd, rc)
+            else:
+                lk_kvd, lk_kern = "-", "dense"
+            self._learned_ladder = _perfdb.learned_ladder_for(
+                cfg, lk_kvd, lk_kern, mesh, self.device)
+        # "learned" only when a stored value actually lands
+        learned = self._learned_ladder or {}
         if prefill_chunk is None:
-            prefill_chunk = rc.get_int("hpx.serving.prefill_chunk",
-                                       _PREFILL_CHUNK)
+            if learned.get("prefill_chunk") and \
+                    _rc_at_default(rc, "hpx.serving.prefill_chunk"):
+                prefill_chunk = int(learned["prefill_chunk"])
+                self._ladder_source = "learned"
+            else:
+                prefill_chunk = rc.get_int("hpx.serving.prefill_chunk",
+                                           _PREFILL_CHUNK)
         self.prefill_chunk = max(1, int(prefill_chunk))
         if prefill_buckets is None:
-            prefill_buckets = rc.get("hpx.serving.prefill_buckets", "auto")
+            if learned.get("prefill_buckets") and \
+                    _rc_at_default(rc, "hpx.serving.prefill_buckets"):
+                prefill_buckets = ",".join(
+                    str(int(b)) for b in learned["prefill_buckets"])
+                self._ladder_source = "learned"
+            else:
+                prefill_buckets = rc.get("hpx.serving.prefill_buckets",
+                                         "auto")
         self.prefill_buckets = _resolve_buckets(prefill_buckets,
                                                 self.prefill_chunk)
         if async_dispatch is None:
@@ -809,6 +876,13 @@ class ContinuousServer:
             self._caches = [(self._zeros(self._rows),
                              self._zeros(self._rows))
                             for _ in range(cfg.n_layers)]
+        # live progprof producer attribution: while hpx.perfdb.record is
+        # on, this server's key names the cost-surface point the profiled
+        # programs belong to (svc/perfdb.bank_profile)
+        from ..svc import perfdb as _perfdb
+        if _perfdb.record_enabled():
+            _perfdb.ensure_counters()
+            _perfdb.note_live_key(self.perf_key())
         # host-side slot state
         self._slot_req: List[Optional[_Request]] = [None] * slots
         self._pos = [0] * slots         # next write position per slot
@@ -866,12 +940,62 @@ class ContinuousServer:
         # closed-loop tuning (svc/autotune), ticked at flush boundaries,
         # the one point where no step is in flight (_tune_tick)
         self._tune_stall_prev = None    # decode_stall snapshot at a tick
+        self._tune_held = 0             # evaluations held by an alert
         self._tuner = None
         if rc.get_bool("hpx.tune.enable", False):
             from ..svc.autotune import server_tuner
             self._tuner = server_tuner(self)
+        # live observability (svc/exemplars, svc/slo_alerts,
+        # svc/opsplane): every piece is None or empty unless its hpx.obs.*
+        # knob is on, so the record and flush paths keep their cost.
+        # Exemplar reservoirs ride the SLO histograms; the burn-rate
+        # evaluator ticks in _flush (built BEFORE register_server so the
+        # /serving{...}/alerts/* counters see it); the ops plane gets a
+        # weakref /statusz provider. On a mesh rank 0 alone evaluates and
+        # serves the plane (the one plane a server)
+        from ..svc import exemplars as _exemplars
+        _exemplars.attach_from_config(self.hist)
+        lead = mesh is None or mesh.rank == 0
+        self._alerts = None
+        if lead and rc.get_bool("hpx.obs.alerts", False):
+            from ..svc.slo_alerts import server_alerts
+            self._alerts = server_alerts(self)
         from ..cache.counters import register_server
         self.counter_instance = register_server(self)
+        if self._alerts is not None:
+            self._alerts.name = f"serving/{self.counter_instance}"
+        from ..svc import opsplane as _opsplane
+        if lead and _opsplane.ensure_opsplane() is not None:
+            _opsplane.register_provider(
+                f"serving/{self.counter_instance}", self,
+                ContinuousServer._statusz)
+
+    def _key_kernel(self, paged_kernel, block_size, kvd: str, rc) -> str:
+        """The paged kernel the boot consult's key names: the one
+        ``_init_paged`` resolves for a decode step at the block size the
+        server takes without the ladder (an argument, the config, the
+        store's block tier or the seed table; that resolution is kept for
+        ``_init_paged``, so the store is asked once)."""
+        name = paged_kernel or rc.get("hpx.serving.paged_kernel", "auto")
+        if name not in ("", "auto"):
+            return name     # validated where _init_paged resolves it
+        if self.device.type != "cuda":
+            return "gather"
+        cfg = self.cfg
+        bs = block_size
+        if bs is None:
+            v = rc.get("hpx.cache.block_size", "auto")
+            if v in (None, "", "auto"):
+                self._bs_consulted = resolve_paged_block_src(
+                    cfg.head_dim, kvd, 16)
+                bs = self._bs_consulted[0]
+            else:
+                bs = int(v)
+        dt = {"int8": torch.int8, "fp8": FP8_DTYPE}.get(kvd, cfg.dtype)
+        return _resolve_paged_kernel(
+            None, rc, self.device, self._rows, cfg.kv_heads // self._tp,
+            cfg.n_heads // cfg.kv_heads, self.smax // int(bs), int(bs),
+            cfg.head_dim, torch.empty((), dtype=dt).element_size())
 
     def _zeros(self, rows: int, cfg: Optional[TransformerConfig] = None
                ) -> torch.Tensor:
@@ -898,9 +1022,9 @@ class ContinuousServer:
         """Resolve the hpx.serving.spec.* knobs: draft k tokens a slot,
         verify the window in one forward. Spec steps read the device
         once a step (the packed targets and counts): they raise tokens
-        per host read instead of deferring the read. The reference's
-        learned k (its perf database's ``spec_k``) waits for that
-        database's port; k comes from the argument or the config."""
+        per host read instead of deferring the read. k comes from the
+        argument, a config value moved off its default, the learned
+        ladder's ``spec_k`` (svc/perfdb), or the default."""
         if spec is None:
             spec = rc.get_bool("hpx.serving.spec.enable", False)
         self._spec = bool(spec)
@@ -914,7 +1038,12 @@ class ContinuousServer:
                 f"got {spec_draft!r}")
         self._spec_source = spec_draft
         if spec_k is None:
-            spec_k = rc.get_int("hpx.serving.spec.k", 4)
+            sk = (self._learned_ladder or {}).get("spec_k") or {}
+            if sk.get("best") and _rc_at_default(rc, "hpx.serving.spec.k"):
+                spec_k = int(sk["best"])
+                self._ladder_source = "learned"
+            else:
+                spec_k = rc.get_int("hpx.serving.spec.k", 4)
         if spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         # the verify window (k drafts + the current token) rides the
@@ -973,11 +1102,24 @@ class ContinuousServer:
         cfg, slots, smax = self.cfg, self.slots, self.smax
         rc = runtime_config()
         self._kv_dtype = _resolve_kv_dtype(kv_dtype, rc)
+        learned = self._learned_ladder or {}
         if block_size is None:
             v = rc.get("hpx.cache.block_size", "auto")
             if v in (None, "", "auto"):
-                block_size, self._block_size_src = resolve_paged_block_src(
-                    cfg.head_dim, self._kv_dtype, 16)
+                if learned.get("block_size"):
+                    # this shape's learned ladder carries its own block
+                    # size — most specific tier, beats the (head_dim,
+                    # kv_dtype)-keyed tables below
+                    block_size = int(learned["block_size"])
+                    self._block_size_src = "learned"
+                elif self._bs_consulted is not None:
+                    block_size, self._block_size_src = self._bs_consulted
+                else:
+                    # the store's learned-blocks tier, then the seed
+                    # table, then 16
+                    block_size, self._block_size_src = \
+                        resolve_paged_block_src(cfg.head_dim,
+                                                self._kv_dtype, 16)
             else:
                 block_size = int(v)
                 self._block_size_src = "config"
@@ -1680,6 +1822,50 @@ class ContinuousServer:
             return self._kv_dtype
         return "f32" if self.cfg.dtype.itemsize == 4 else "bf16"
 
+    def perf_key(self) -> str:
+        """This server's point on the perfdb cost surface —
+        ``device|shape|kv_dtype|kernel|mesh`` (see svc/perfdb), its
+        device component the server's own device. The key the
+        learned-ladder boot consult resolves against, and the one
+        producers bank this server's costs under."""
+        from ..svc import perfdb as _perfdb
+        return str(_perfdb.PerfKey(
+            _perfdb.device_kind(self.device), _perfdb.shape_str(self.cfg),
+            self._kv_dtype if self.paged else "-",
+            self._paged_kernel if self.paged else "dense",
+            _perfdb.mesh_str(self.mesh)))
+
+    def _statusz(self) -> Dict[str, Any]:
+        """This server's /statusz section (svc/opsplane provider): live
+        queue and slot state, the SLO alert burn state, tuner flight
+        state, and tier occupancy — host-only reads, no device sync (an
+        ops scrape must never stall the decode loop)."""
+        doc: Dict[str, Any] = {
+            "kind": "server",
+            "instance": self.counter_instance,
+            "paged": self.paged,
+            "queue_depth": len(self._queue),
+            "pending_prefills": len(self._pending),
+            "live_slots": sum(1 for r in self._slot_req if r is not None),
+            "slots": self.slots,
+            "done": len(self._done),
+            "failed": len(self.failed),
+            "tok_rate": float(self._rate.rate()),
+            "timeline_rids": len(self.timeline),
+        }
+        if self._tuner is not None:
+            doc["tuner"] = self._tuner.flight_state()
+        if self._alerts is not None:
+            doc["alerts"] = self._alerts.state()
+        if self.paged:
+            doc["cache"] = {
+                "free_blocks": self._alloc.free_count,
+                "num_blocks": self._alloc.num_blocks,
+            }
+            if self._tier is not None:
+                doc["tier"] = self._tier.stats()
+        return doc
+
     def hbm_read_stats(self) -> Dict[str, Any]:
         """Modeled decode-attention device-memory read cost per generated
         token: every MAPPED block of a live slot, K and V, every layer."""
@@ -2056,7 +2242,8 @@ class ContinuousServer:
             self._slot_acc[slot] = 1.0
             if self._draft_params is not None:
                 self._draft_prefill(slot, req.prompt)
-        self.hist["ttft"].record(time.monotonic() - req.t_submit)
+        self.hist["ttft"].record(time.monotonic() - req.t_submit,
+                                 rid=req.rid)
 
     def _admit_transferred(self, req: _Request, slot: int) -> None:
         """Admit a remotely prefilled request: allocate its blocks, splice
@@ -2121,7 +2308,7 @@ class ContinuousServer:
                 # OOM-deferred request re-dequeues but records once)
                 if req.rid not in self._admit_defers:
                     self.hist["queue_wait"].record(
-                        time.monotonic() - req.t_submit)
+                        time.monotonic() - req.t_submit, rid=req.rid)
                     self.timeline.event(req.rid, "prefill_start",
                                         slot=slot)
                 try:
@@ -2695,7 +2882,8 @@ class ContinuousServer:
         with tracing.span("serving.retire", "serving", rid=req.rid,
                           slot=slot, tokens=len(req.tokens), eos=hit_eos):
             self._done[req.rid] = req.tokens
-            self.hist["e2e"].record(time.monotonic() - req.t_submit)
+            self.hist["e2e"].record(time.monotonic() - req.t_submit,
+                                    rid=req.rid)
             self.timeline.event(req.rid, "retire", tokens=len(req.tokens))
             if self._slot_req[slot] is req:
                 self._slot_req[slot] = None
@@ -2734,8 +2922,16 @@ class ContinuousServer:
                 self._moe_occ = [float(v) for v in ms[2:]]
         self._ckpt_sweep()
         self._reload_knobs()
+        # SLO burn evaluation shares the tuner's boundary: no step in
+        # flight, so a flight-bundle capture sees consistent state. A
+        # firing alert also holds the tuner — probing against regressed
+        # traffic tunes toward the incident
+        alerting = False
+        if self._alerts is not None:
+            self._alerts.maybe_tick()
+            alerting = self._alerts.active() > 0
         if self._tuner is not None:
-            self._tune_tick()
+            self._tune_tick(alerting)
 
     def _knob_changes(self) -> Dict[str, Any]:
         """The reloadable knobs whose raw config value changed since the
@@ -2839,28 +3035,34 @@ class ContinuousServer:
                            queue_depth=float(len(self._queue)),
                            compile_s_total=comp)
 
-    def _tune_tick(self) -> None:
-        """One flush tick of the tuner. On a mesh the signals are each
-        rank's own wall clock, so rank 0's tuner decides: the other ranks
-        count the tick, and at each evaluation one small broadcast
-        carries rank 0's knob values to every rank, which applies them
-        at this flush (the tick counts agree: every rank flushes at the
-        same steps)."""
+    def _tune_tick(self, hold: bool = False) -> None:
+        """One flush tick of the tuner; ``hold`` (an SLO alert firing)
+        blocks new probes at an evaluation. On a mesh the signals are
+        each rank's own wall clock, so rank 0's tuner decides (with rank
+        0's alert state, the one evaluator): the other ranks count the
+        tick, and at each evaluation one small broadcast carries rank
+        0's knob values and its hold to every rank, which applies them at
+        this flush (the tick counts agree: every rank flushes at the same
+        steps)."""
         t = self._tuner
         if self._mesh_ranks() == 1:
-            t.maybe_tick(self._tune_signals)
+            t.maybe_tick(self._tune_signals, hold=hold)
+            if t.ticks % t.interval_ticks == 0:
+                self._tune_held += int(hold)
             return
         if self.mesh.rank == 0:
-            t.maybe_tick(self._tune_signals)
+            t.maybe_tick(self._tune_signals, hold=hold)
         else:
             t.ticks += 1
         if t.ticks % t.interval_ticks:
             return
         names = sorted(t.knobs)
-        vals = broadcast(torch.tensor([t.knobs[n].get() for n in names],
-                                      dtype=torch.int64, device=self.device),
-                         self.mesh, self.mesh.axis_names, 0).tolist()
-        for n, v in zip(names, vals):
+        vals = broadcast(torch.tensor(
+            [t.knobs[n].get() for n in names] + [int(hold)],
+            dtype=torch.int64, device=self.device),
+            self.mesh, self.mesh.axis_names, 0).tolist()
+        self._tune_held += vals[-1]
+        for n, v in zip(names, vals[:-1]):
             if t.knobs[n].get() != v:
                 t.knobs[n].set(v)
 
@@ -2887,7 +3089,13 @@ class ContinuousServer:
         # latency a streaming client would observe
         now = time.monotonic()
         if self._stall_live and self._last_step_t is not None:
-            self.hist["decode_stall"].record(now - self._last_step_t)
+            # the stall is shared by every live slot; the exemplar names
+            # the first live rid (a deterministic pick — each of them
+            # saw this inter-token gap)
+            stall_rid = next((r.rid for r in self._slot_req
+                              if r is not None), None)
+            self.hist["decode_stall"].record(now - self._last_step_t,
+                                             rid=stall_rid)
         self._last_step_t = now
         try:
             return sync_replay(

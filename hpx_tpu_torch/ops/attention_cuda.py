@@ -125,10 +125,21 @@ def resolve_paged_block_src(head_dim: int, kv_dtype: str = "bf16",
                             default: int = 16) -> Tuple[int, str]:
     """The cache block_size ``hpx.cache.block_size=auto`` resolves to,
     with its source: the ``HPX_PAGED_BLOCK`` env var ('env'), then the
-    port's seed table ('seed'), then ``default`` ('default')."""
+    performance database's learned tier ('learned':
+    ``hpx.perfdb.use_learned_ladders=1`` and the configured store holds
+    a usable ``hd<head_dim>x<kv_dtype>`` entry, see ``svc/perfdb``),
+    then the port's seed table ('seed'), then ``default`` ('default').
+    The source lands in ``ContinuousServer.hbm_read_stats()
+    ['block_size_source']``; kernels 3-4 run at the block size."""
     env = os.environ.get("HPX_PAGED_BLOCK")
     if env:
         return int(env), "env"
+    # lazy import: svc.perfdb lives a layer up; importing at call time
+    # keeps ops import-light and cycle-free
+    from ..svc import perfdb as _perfdb
+    learned = _perfdb.learned_block(head_dim, kv_dtype)
+    if learned:
+        return int(learned), "learned"
     val = _PAGED_BLOCK_SEEDS.get(f"hd{head_dim}x{kv_dtype}")
     if val:
         return int(val), "seed"

@@ -497,12 +497,18 @@ def server_tuner(srv: Any, name: str = "serving",
     (spec-k needs speculation on, the radix budget needs paged mode
     with a finite budget); bounds are capped to the server's baked
     ladders so a probe can never ask for a width outside them (no graph
-    is captured at a width the ladder lacks). The reference's learned
-    ranges come from its performance database, which the port does not
-    have: the declared ranges are the ones walked."""
+    is captured at a width the ladder lacks)."""
     from ..core import config_schema
     tk = config_schema.tunable_keys()
     knobs: List[KnobBinding] = []
+    # learned Tunable ranges: a perfdb ladder hit at boot may carry
+    # per-knob {lo, hi, step} derived from the banked cost surface —
+    # the tuner then walks the learned range instead of the declared
+    # one.  geometric/compiles semantics always come from the
+    # declaration (they are contracts, not measurements), and the
+    # server's baked-ladder caps below still apply last.
+    learned_tun = (getattr(srv, "_learned_ladder", None)
+                   or {}).get("tunables", {})
 
     def bind(key: str, getf: Callable[[], int],
              setf: Callable[[int], None],
@@ -511,6 +517,16 @@ def server_tuner(srv: Any, name: str = "serving",
         if entry is None:       # not declared tunable: never bindable
             return
         spec = entry.tunable
+        lt = learned_tun.get(key)
+        if lt:
+            spec = dataclasses.replace(
+                spec,
+                lo=max(spec.lo, int(lt.get("lo", spec.lo))),
+                hi=min(spec.hi, int(lt.get("hi", spec.hi))),
+                step=max(int(lt.get("step", spec.step)),
+                         2 if spec.geometric else 1))
+            if spec.lo > spec.hi:   # degenerate learned range
+                spec = entry.tunable
         if hi_cap is not None:
             spec = dataclasses.replace(
                 spec, hi=min(spec.hi, hi_cap),

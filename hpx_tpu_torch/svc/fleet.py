@@ -58,8 +58,12 @@ Observability: ``/serving{locality#L/fleet#i}/fleet/*`` counters
 (placements by prefix and by load, digest staleness, autoscale up and
 down, per-worker queue depth; ``cache/counters.register_fleet``) and
 ``serving.fleet.place`` tracing spans whose flow arrows chain placement
-into the admit, prefill and decode DAG. The ``/statusz`` section waits
-for the ops-plane slice.
+into the admit, prefill and decode DAG. With the ops plane on
+(``hpx.obs.port``) the router's ``/statusz`` section (``_statusz``, the
+DisaggRouter's plus the autoscale pool and each decode worker's queue
+depth) lists every decode worker, minted ones included, and drops
+retired ones; minted workers' histograms carry exemplars as the first
+ones' do.
 """
 
 from __future__ import annotations
@@ -461,3 +465,21 @@ class FleetRouter(DisaggRouter):
         st["decode_pool"] = len(self._alive(self._decode))
         st["digest_staleness_s"] = self.digest_staleness_s()
         return st
+
+    def _statusz(self) -> Dict[str, Any]:
+        """Fleet view on the router's /statusz section: the base census
+        plus the autoscale pool bounds and per-worker queue depth — the
+        merged fleet picture one ops-plane port serves."""
+        doc = super()._statusz()
+        doc["kind"] = "fleet"
+        doc["pool"] = {
+            "min": self._pool_min, "max": self._pool_max,
+            "decode": len(self._decode),
+            "alive": len(self._alive(self._decode)),
+            "scale_high": self._scale_high,
+            "scale_low": self._scale_low,
+        }
+        doc["worker_queue_depth"] = {
+            str(k): self.worker_queue_depth(k)
+            for k in range(len(self._decode))}
+        return doc

@@ -1,11 +1,9 @@
-"""The metrics plane's one-process half: log-bucketed latency
-histograms and per-request lifecycle timelines.
+"""The fleet metrics plane: log-bucketed latency histograms,
+per-request lifecycle timelines, and Prometheus text exposition.
 
-Counterpart of ``hpx_tpu.svc.metrics`` without the Prometheus text
-exposition and the tail exemplars, which come with the serving system
-around the server. Scalars (``performance_counters``) answer "how
-much"; a server also needs "how slow, at which percentile" — live
-*distributions*. Two pieces:
+Counterpart of ``hpx_tpu.svc.metrics``. Scalars
+(``performance_counters``) answer "how much"; a server also needs "how
+slow, at which percentile" — live *distributions*. Three pieces:
 
 ``HistogramCounter``
     A log2-bucketed histogram (DDSketch/HdrHistogram family): bucket i
@@ -19,12 +17,22 @@ much"; a server also needs "how slow, at which percentile" — live
     ``performance_counters.Counter`` (value = running mean), and
     :func:`register_histogram` additionally derives ``.../p50|p95|p99``
     callback counters so quantiles are queryable through the ordinary
-    counter surface.
+    counter surface.  With ``hpx.obs.exemplars`` a tail-bucket exemplar
+    reservoir (``svc/exemplars``) rides it and names the request behind
+    a tail sample (``record(v, rid=...)``).
 
 ``RequestTimeline``
-    A bounded, rid-keyed event log (submit → prefill start → first
-    token → retire) with drop-oldest eviction — the per-request view
-    the aggregate histograms deliberately discard.
+    A bounded, rid-keyed event log (submit → place → prefill start →
+    KV transfer → first token → retire) with drop-oldest eviction —
+    the per-request view the aggregate histograms deliberately discard.
+
+``render_prometheus()``
+    Text exposition of the whole counter registry: histograms as
+    cumulative ``_bucket`` rows, ``_sum`` and ``_count``, scalars as
+    gauges; the v0.0.4 text format by default, OpenMetrics 1.0 (tail
+    exemplars on the bucket rows and a ``# EOF`` terminator) on request
+    (``negotiate_exposition``, the ops plane's ``/varz``). The text is
+    byte for byte the reference's for the same registry content.
 
 Knobs (``hpx.metrics.*``, declared in core/config_schema.py): bucket
 range ``hist_lo``/``hist_hi``, resolution ``hist_subbuckets``, derived
@@ -52,6 +60,10 @@ __all__ = [
     "timeline_dropped_entries",
     "reset_timeline_dropped",
     "registry_snapshot",
+    "render_prometheus",
+    "negotiate_exposition",
+    "PROM_CONTENT_TYPE",
+    "OPENMETRICS_CONTENT_TYPE",
 ]
 
 # the latency families of a ContinuousServer (one HistogramCounter
@@ -145,6 +157,10 @@ class HistogramCounter(pc.Counter):
         self.sum = 0.0
         self.vmin = math.inf
         self.vmax = -math.inf
+        # tail-bucket exemplar reservoir (svc/exemplars), attached only
+        # when hpx.obs.exemplars is on — None keeps record() at its
+        # pre-observability cost (one attr load + is-None test)
+        self._ex = None
 
     # -- recording ----------------------------------------------------
 
@@ -156,9 +172,14 @@ class HistogramCounter(pc.Counter):
         i = int(math.log(v / self.lo) / self._log_gamma) + 1
         return min(max(i, 1), self._nb)
 
-    def record(self, value: Optional[float] = None) -> Optional[_Timer]:
+    def record(self, value: Optional[float] = None,
+               rid: Any = None) -> Optional[_Timer]:
         """Record one sample; with no argument, return a context
-        manager that records its elapsed seconds on exit."""
+        manager that records its elapsed seconds on exit.  ``rid``
+        (optional) attributes the sample: when an exemplar reservoir
+        is attached and the sample lands in a tail bucket, the rid is
+        captured alongside value/wall-ts/span so the bucket resolves
+        back to a RequestTimeline entry."""
         if value is None:
             return _Timer(self)
         v = float(value)
@@ -170,6 +191,9 @@ class HistogramCounter(pc.Counter):
             self.vmin = v
         if v > self.vmax:
             self.vmax = v
+        ex = self._ex
+        if ex is not None:
+            ex.offer(i, v, rid)
         return None
 
     # -- reading ------------------------------------------------------
@@ -238,14 +262,20 @@ class HistogramCounter(pc.Counter):
 
     def snapshot(self) -> Dict[str, Any]:
         """JSON-safe point-in-time state (min/max become None when
-        empty — inf is not JSON)."""
-        return {
+        empty — inf is not JSON).  When an exemplar reservoir is
+        attached and holds captures, they embed under "exemplars", so
+        an artifact links a p99 cell to the offending rid."""
+        snap = {
             "lo": self.lo, "hi": self.hi, "subbuckets": self.subbuckets,
             "count": self.count, "sum": self.sum,
             "min": self.vmin if self.count else None,
             "max": self.vmax if self.count else None,
             "counts": list(self.counts),
         }
+        ex = self._ex
+        if ex is not None and ex.captured:
+            snap["exemplars"] = ex.exemplars()
+        return snap
 
     @classmethod
     def from_snapshot(cls, snap: Dict[str, Any]) -> "HistogramCounter":
@@ -387,6 +417,117 @@ def timeline_dropped_entries() -> int:
 def reset_timeline_dropped() -> None:
     global _timeline_dropped
     _timeline_dropped = 0
+
+
+# ---------------------------------------------------------------------------
+# Exposition
+# ---------------------------------------------------------------------------
+
+def _prom_name(path: pc.CounterPath) -> str:
+    raw = f"hpx_{path.object}_{path.counter}"
+    return "".join(ch if ch.isalnum() or ch == "_" else "_"
+                   for ch in raw)
+
+
+def _prom_escape(v: Any) -> str:
+    """Label-value escaping shared by both exposition formats:
+    backslash, double-quote, and newline must be escaped or a scraper
+    mis-parses the row (both the v0.0.4 text format and OpenMetrics
+    specify exactly these three)."""
+    return (str(v).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _prom_labels(path: pc.CounterPath) -> str:
+    return (f'{{locality="{_prom_escape(path.locality)}",'
+            f'instance="{_prom_escape(path.instance)}"}}')
+
+
+# content types for the two exposition formats /varz negotiates between
+PROM_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+OPENMETRICS_CONTENT_TYPE = \
+    "application/openmetrics-text; version=1.0.0; charset=utf-8"
+
+
+def negotiate_exposition(accept: Optional[str]) -> Tuple[bool, str]:
+    """Content-type negotiation for a scrape endpoint: an Accept
+    header naming ``application/openmetrics-text`` selects OpenMetrics
+    (exemplars + ``# EOF``); anything else gets the classic v0.0.4
+    text format.  Returns ``(openmetrics, content_type)``."""
+    if accept and "application/openmetrics-text" in accept:
+        return True, OPENMETRICS_CONTENT_TYPE
+    return False, PROM_CONTENT_TYPE
+
+
+def _exemplar_suffix(e: Dict[str, Any]) -> str:
+    """OpenMetrics exemplar clause appended to a ``_bucket`` row:
+    ``# {rid="..."} value ts``."""
+    rid = "" if e.get("rid") is None else e["rid"]
+    return (f' # {{rid="{_prom_escape(rid)}"}} '
+            f'{float(e["value"]):.9g} {float(e["ts"]):.3f}')
+
+
+def render_prometheus(pattern: str = "*",
+                      openmetrics: bool = False) -> str:
+    """Text exposition of every registered counter matching
+    ``pattern``.  HistogramCounters render as native histograms —
+    cumulative ``_bucket{le=...}`` rows for each occupied bucket plus
+    ``le="+Inf"``, ``_sum`` and ``_count``; scalar counters render as
+    gauges.  Counter callbacks that raise are skipped (a half-dead
+    worker must not take the scrape down with it).  Reads host state
+    only: a scrape never synchronizes the device.
+
+    The default is the Prometheus v0.0.4 text format.
+    ``openmetrics=True`` switches to OpenMetrics 1.0: each bucket row
+    carries its newest captured exemplar (``# {rid="..."} value ts``)
+    and the payload terminates with ``# EOF``."""
+    lines: List[str] = []
+    seen_types: Dict[str, str] = {}
+    for name, c in pc.registered_counters(pattern).items():
+        try:
+            path = pc.parse_counter_name(name)
+            metric = _prom_name(path)
+            labels = _prom_labels(path)
+            if isinstance(c, HistogramCounter):
+                if seen_types.setdefault(metric, "histogram") != \
+                        "histogram":
+                    continue
+                ex_by_bucket: Dict[int, Dict[str, Any]] = {}
+                if openmetrics and c._ex is not None:
+                    ex_by_bucket = c._ex.newest_per_bucket()
+                lines.append(f"# TYPE {metric} histogram")
+                cum = 0
+                for i, n in enumerate(c.counts):
+                    if not n:
+                        continue
+                    cum += n
+                    le = c.bucket_upper(i)
+                    le_s = "+Inf" if math.isinf(le) else f"{le:.9g}"
+                    ex = ex_by_bucket.get(i)
+                    lines.append(
+                        f'{metric}_bucket{{le="{le_s}",'
+                        f'locality="{_prom_escape(path.locality)}",'
+                        f'instance="{_prom_escape(path.instance)}"}} '
+                        f'{cum}'
+                        + (_exemplar_suffix(ex) if ex else ""))
+                lines.append(
+                    f'{metric}_bucket{{le="+Inf",'
+                    f'locality="{_prom_escape(path.locality)}",'
+                    f'instance="{_prom_escape(path.instance)}"}} '
+                    f'{c.count}')
+                lines.append(f"{metric}_sum{labels} {c.sum:.9g}")
+                lines.append(f"{metric}_count{labels} {c.count}")
+            else:
+                if seen_types.setdefault(metric, "gauge") != "gauge":
+                    continue
+                v = c.get_value().value
+                lines.append(f"# TYPE {metric} gauge")
+                lines.append(f"{metric}{labels} {float(v):.9g}")
+        except Exception:
+            continue
+    if openmetrics:
+        lines.append("# EOF")
+    return "\n".join(lines) + ("\n" if lines else "")
 
 
 def registry_snapshot(pattern: str = "*") -> Dict[str, Dict[str, Any]]:

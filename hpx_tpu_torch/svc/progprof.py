@@ -49,9 +49,12 @@ Exposure planes:
 
 Lifecycle mirrors tracing: :func:`start_profiling` /
 :func:`stop_profiling` / :func:`active_profiler`, with
-:func:`start_if_configured` gated on ``hpx.prof.programs``. The
-reference also banks the table into its performance database at stop;
-that database is not ported.
+:func:`start_if_configured` gated on ``hpx.prof.programs``. With
+``hpx.perfdb.record=1`` and a store at ``hpx.perfdb.path``,
+:func:`stop_profiling` banks the table into the performance database
+(``svc/perfdb.bank_profile``: per-program mean build seconds and
+median execute seconds) under the key of the last server booted while
+recording, stamped on-chip only where that key's device is a card.
 """
 
 from __future__ import annotations
@@ -505,13 +508,28 @@ def start_profiling(sample_memory: bool = True,
 
 def stop_profiling() -> Optional[ProgramProfiler]:
     """Stop and detach the active profiler (returned, so that callers
-    can still fold its table into artifacts)."""
+    can still fold its table into artifacts).  With
+    ``hpx.perfdb.record=1`` and a store configured, the table is also
+    banked into the perfdb observation log (per-program compile and
+    execute costs, provenance-stamped)."""
     global _active
     prof = _active
     _active = None
     if prof is not None:
         prof.close()
+        _bank_to_perfdb(prof)
     return prof
+
+
+def _bank_to_perfdb(prof: ProgramProfiler) -> None:
+    from . import perfdb
+    if not perfdb.record_enabled():
+        return
+    db = perfdb.configured_db()
+    if db is None:
+        return
+    if perfdb.bank_profile(db, prof.profile_table(), perfdb.live_key()):
+        db.save()
 
 
 def active_profiler() -> Optional[ProgramProfiler]:

@@ -262,3 +262,85 @@ def test_fleet_namespace_stable_across_autoscale(model, monkeypatch):
     assert up == st["autoscale_up"]
     r.close()
     assert r.leaked_blocks() == 0
+
+
+# -- SLO alerting and the performance database ---------------------------------
+
+def _both_rc():
+    from hpx_tpu.core.config import runtime_config as ref_rc
+    return (runtime_config(), ref_rc())
+
+
+@pytest.fixture()
+def both_knobs():
+    """Set a key in both packages' runtime configs; put it back after."""
+    saved = []
+
+    def set_(key, value):
+        for rc in _both_rc():
+            saved.append((rc, key, rc.get(key)))
+            rc.set(key, value)
+
+    yield set_
+    for rc, key, old in reversed(saved):
+        rc.set(key, "" if old is None else old)
+
+
+def test_alert_counters_equal_the_reference(model, both_knobs):
+    """An alerting server (one evaluation a flush) registers
+    /serving{...}/alerts/{evals,fired,cleared,active}; both packages
+    count the same evaluations and transitions for the same run."""
+    both_knobs("hpx.obs.alerts", "1")
+    both_knobs("hpx.obs.alert_interval_s", "0")
+    both_knobs("hpx.obs.alert_rules", "e2e:1000:0.5")
+    got = []
+    for ref in (False, True):
+        srv = _server(model, ref, slots=2, smax=64, paged=True)
+        for p, m in REQS:
+            srv.submit(p, max_new=m)
+        srv.run()
+        got.append({k: v for k, v in _read(ref, srv.counter_instance).items()
+                    if "/alerts/" in k})
+    assert got[0] == got[1]
+    assert set(got[0]) == {f"/serving{{locality#0/X}}/alerts/{k}"
+                           for k in ("evals", "fired", "cleared", "active")}
+    assert got[0]["/serving{locality#0/X}/alerts/evals"] > 0
+    assert got[0]["/serving{locality#0/X}/alerts/fired"] == 0
+
+
+def test_perfdb_counters_equal_the_reference(tmp_path, both_knobs):
+    """/perfdb{locality#0/total}/{keys,observations,hits,misses,stale}:
+    the same store and the same lookups read the same values in both
+    packages."""
+    from hpx_tpu.models import transformer as rt
+    from hpx_tpu.svc import perfdb as ref_pdb
+    from hpx_tpu.svc import performance_counters as ref_pc
+    from hpx_tpu_torch.svc import perfdb as pdb
+    path = str(tmp_path / "perfdb.json")
+    both_knobs("hpx.perfdb.path", path)
+    both_knobs("hpx.perfdb.use_learned_ladders", "1")
+    key = "cpu|d32.h4.hd8.f72.l2.v64|-|dense|1"
+    db = pdb.PerfDB(path)
+    db.observe(key, "compile_s", 0.5, n=3, source="t")
+    db.record_ladder(key, {"prefill_chunk": 32, "samples": 4,
+                           "onchip": True})
+    db.record_block("hd8xbf16", {"block_size": 8, "samples": 1,
+                                 "onchip": True})
+    db.save()
+    got = []
+    for mod, pcm, cfg in ((pdb, pc, pt.TransformerConfig(**CFG)),
+                          (ref_pdb, ref_pc, rt.TransformerConfig(**CFG))):
+        mod.reset_configured()
+        mod._hits = mod._misses = mod._stale = 0
+        mod.ensure_counters()
+        mod.learned_ladder_for(cfg)
+        mod.learned_ladder_for(cfg, "bf16", "gather")
+        mod.learned_block(8, "bf16")
+        got.append({n: pcm.query_counter(n).value for n in sorted(
+            pcm.discover_counters("/perfdb{locality#*/total}/*"))})
+        mod.reset_configured()
+        mod._hits = mod._misses = mod._stale = 0
+    assert got[0] == got[1]
+    assert got[0] == {f"/perfdb{{locality#0/total}}/{k}": v for k, v in (
+        ("hits", 1.0), ("keys", 1.0), ("misses", 1.0),
+        ("observations", 1.0), ("stale", 1.0))}

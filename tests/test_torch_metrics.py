@@ -1,10 +1,10 @@
 """The one-process half of the SLO metrics plane in hpx_tpu_torch
 (svc/metrics, and profiling's TaskTimer), against the reference's.
 
-The cases of tests/test_metrics.py up to its Prometheus and fleet cases
-(those, with ``render_prometheus`` and ``registry_snapshot``, come with
-the port's Prometheus half), each run through both packages on the same
-inputs: the quantiles, snapshots, merged bucket counts and deltas of the
+The cases of tests/test_metrics.py up to its fleet cases, its
+Prometheus exposition cases among them, each run through both packages
+on the same inputs (``render_prometheus`` byte-equal to the reference's
+text): the quantiles, snapshots, merged bucket counts and deltas of the
 port's ``HistogramCounter`` equal the reference's exactly, a snapshot of
 either package loads in the other, the counters ``register_histogram``
 derives read the same values, ``RequestTimeline`` keeps and drops the
@@ -239,12 +239,143 @@ def test_register_histogram_derives_quantile_counters():
                 == pytest.approx(h.quantile(0.99))
             assert pkg.pc.query_counter(base).value \
                 == pytest.approx(h.mean())
-            got.append({n: pkg.pc.query_counter(n).value
-                        for n in sorted(names)})
+            got.append(({n: pkg.pc.query_counter(n).value
+                         for n in sorted(names)},
+                        pkg.metrics.render_prometheus(
+                            "/serving{locality#0/t0}/*")))
+            text = got[-1][1]
+            assert "hpx_serving_latency_test_s_bucket" in text
+            assert 'le="+Inf"' in text
+            assert 'hpx_serving_latency_test_s_count' \
+                   '{locality="0",instance="t0"} 4' in text
         finally:
             for n in names:
                 pkg.pc.unregister_counter(n)
     assert got[1] == got[0]
+
+
+def test_registry_snapshot_shapes():
+    got = []
+    for pkg in BOTH:
+        h = _hist(pkg, (0.5,))
+        names = pkg.metrics.register_histogram("serving", "latency/snap-s",
+                                               h, instance="t1")
+        try:
+            snap = pkg.metrics.registry_snapshot("/serving{locality#0/t1}/*")
+            base = "/serving{locality#0/t1}/latency/snap-s"
+            assert snap["histograms"][base]["count"] == 1
+            assert f"{base}/p50" in snap["counters"]
+            json.dumps(snap)
+            got.append(snap)
+        finally:
+            for n in names:
+                pkg.pc.unregister_counter(n)
+    assert got[1] == got[0]
+
+
+# -- Prometheus exposition edge cases (exact text-format contract) -----------
+
+def _prom_render(pkg, samples, instance):
+    """Register a histogram of ``samples`` in ``pkg``'s registry, render
+    it, unregister it."""
+    h = _hist(pkg, samples)
+    name = pkg.pc.counter_name("test", "prom/edge-s", instance)
+    pkg.pc.register_counter(name, h)
+    try:
+        return h, pkg.metrics.render_prometheus(name)
+    finally:
+        pkg.pc.unregister_counter(name)
+
+
+def _both_render(samples, instance):
+    """(port histogram, port text); the text byte-equal to the
+    reference's for the same content."""
+    (_, ref), (h, port) = (_prom_render(pkg, samples, instance)
+                           for pkg in BOTH)
+    assert port == ref
+    return h, port
+
+
+def test_prometheus_empty_registry_renders_empty():
+    # no matches: empty string, no stray trailing newline
+    for pkg in BOTH:
+        assert pkg.metrics.render_prometheus(
+            "/no-such{locality#0/x}/*") == ""
+        assert pkg.metrics.render_prometheus(
+            "/no-such{locality#0/x}/*", openmetrics=True) == "# EOF\n"
+
+
+def test_prometheus_empty_histogram_exact_text():
+    # zero samples still expose the full histogram family — TYPE, the
+    # unconditional +Inf bucket, _sum and _count, all zero — so a
+    # scrape can tell "registered but idle" from "absent"
+    _, text = _both_render((), "pe0")
+    m = "hpx_test_prom_edge_s"
+    lab = '{locality="0",instance="pe0"}'
+    assert text == (
+        f"# TYPE {m} histogram\n"
+        f'{m}_bucket{{le="+Inf",locality="0",instance="pe0"}} 0\n'
+        f"{m}_sum{lab} 0\n"
+        f"{m}_count{lab} 0\n")
+
+
+def test_prometheus_single_sample_exact_text():
+    h, text = _both_render((0.25,), "pe1")
+    (idx,) = [i for i, n in enumerate(h.counts) if n]
+    le = h.bucket_upper(idx)
+    m = "hpx_test_prom_edge_s"
+    lab = '{locality="0",instance="pe1"}'
+    assert text == (
+        f"# TYPE {m} histogram\n"
+        f'{m}_bucket{{le="{le:.9g}",locality="0",instance="pe1"}} 1\n'
+        f'{m}_bucket{{le="+Inf",locality="0",instance="pe1"}} 1\n'
+        f"{m}_sum{lab} 0.25\n"
+        f"{m}_count{lab} 1\n")
+
+
+def test_prometheus_inf_bucket_cumulative():
+    # bucket rows are cumulative and the +Inf row always equals the
+    # total count — even though the overflow bucket itself is empty
+    _, text = _both_render((0.001, 0.001, 1.0, 100.0), "pe2")
+    rows = [ln for ln in text.splitlines() if "_bucket{" in ln]
+    cums = [int(ln.rsplit(" ", 1)[1]) for ln in rows]
+    assert cums == sorted(cums)                  # cumulative
+    assert cums == [2, 3, 4, 4]                  # 3 occupied + +Inf
+    assert rows[-1].startswith(
+        'hpx_test_prom_edge_s_bucket{le="+Inf"')
+    # exactly one TYPE line, declared before any sample row
+    assert text.splitlines()[0] == "# TYPE hpx_test_prom_edge_s " \
+                                   "histogram"
+    assert text.count("# TYPE") == 1
+    assert text.endswith("\n")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_prometheus_seeded_registry_byte_equal(seed):
+    """Seeded samples over the whole range (underflow and overflow
+    buckets too), a gauge beside, a metric name registered twice under
+    both kinds: byte-equal in both formats."""
+    xs = [float(x) for x in np.exp(
+        np.random.default_rng(seed).normal(-4.0, 6.0, 500))]
+    texts = []
+    for pkg in BOTH:
+        h = _hist(pkg, xs)
+        names = [pkg.pc.counter_name("promdiff", "lat/x-s", f"i{seed}"),
+                 pkg.pc.counter_name("promdiff", "lat/x-s", f"j{seed}"),
+                 pkg.pc.counter_name("promdiff", "lat_x-s", f"k{seed}")]
+        pkg.pc.register_counter(names[0], h)
+        pkg.pc.register_counter(names[1], pkg.pc.CallbackCounter(
+            lambda: 1.5))
+        pkg.pc.register_counter(names[2], pkg.pc.CallbackCounter(
+            lambda: float("nan")))
+        try:
+            texts.append(tuple(pkg.metrics.render_prometheus(
+                "/promdiff{locality#*/*}/*", openmetrics=om)
+                for om in (False, True)))
+        finally:
+            for n in names:
+                pkg.pc.unregister_counter(n)
+    assert texts[0] == texts[1]
 
 
 def test_dropped_spans_counter():

@@ -360,6 +360,58 @@ def test_a_failed_capture_raises():
     assert not prog.graphs
 
 
+@pytest.mark.parametrize("fails", [False, True])
+def test_capture_holds_the_garbage_collector_off(monkeypatch, fails):
+    """_capture_graph keeps the cyclic collector off while the stream
+    captures (a collection there can free another program's graph, and
+    destroying a graph while a stream captures invalidates the capture)
+    and turns it back on after, when the capture fails too. The CUDA
+    calls are stand-ins; the program records the collector's state."""
+    import contextlib
+    import gc
+    seen, restored = [], []
+
+    class Graph:
+        def __init__(self, keep_graph=False):
+            pass
+
+        def raw_cuda_graph(self):
+            return None
+
+        def instantiate(self):
+            pass
+
+        def replay(self):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: "main")
+    monkeypatch.setattr(torch.cuda, "set_stream", restored.append)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda g, **kw: contextlib.nullcontext())
+    monkeypatch.setattr(programs, "graph_kernels", lambda g: Counter())
+
+    def fn(x):
+        seen.append(gc.isenabled())
+        if fails:
+            raise RuntimeError("capture invalidated")
+        return x + 1
+
+    assert gc.isenabled()
+    if fails:
+        with pytest.raises(RuntimeError, match="invalidated"):
+            programs._capture_graph(fn, [torch.zeros(2)], None,
+                                    torch.device("cpu"))
+        assert restored == ["main"]
+    else:
+        _, out, kernels = programs._capture_graph(
+            fn, [torch.zeros(2)], None, torch.device("cpu"))
+        assert torch.equal(out, torch.ones(2)) and not kernels
+    assert seen == [False] and gc.isenabled()
+
+
 def test_count_captures_nests_and_counts_builds():
     with count_captures() as outer:
         programs.cached_program({}, "a", lambda: 1)
